@@ -1,0 +1,350 @@
+#!/usr/bin/env python3
+"""Smoke run of the PyTorch/CUDA port (roc_tpu_torch) on one NVIDIA card.
+
+    python3 chip_smoke.py
+
+Phases (any failure exits nonzero):
+
+1. card: needs CUDA; prints the card's name and power limit and sets
+   full-fp32 matmuls;
+2. build: compiles the kernels from roc_tpu_torch/kernels/csrc;
+3. kernels: builds the 602-256-41 GCN's serving graph (V = 232,965,
+   average degree ~493, Reddit's shape; synthetic, from a seed) and
+   holds each CUDA kernel against its plain PyTorch version on the card,
+   at the shapes the serving forward gives it and on a small ragged
+   case, and times kernel, plain version, one PyTorch library call and
+   the card's least time for the same work;
+4. slice: serves ~8 requests across the buckets 1, 8, 64 and 512
+   through Server on the kernel route, with the launch counters zeroed
+   just before, checks that every kernel ran and that the served rows
+   match the same forward on the plain route on the card.
+
+Prints one JSON line per phase, the kernel table line
+``{"kernels": [...]}``, the card line, and as the last line
+``{"ok": true, "device": {...}}``.  Imports no JAX.
+"""
+
+import dataclasses
+import json
+import subprocess
+import sys
+import time
+
+import numpy as np
+
+V = 232_965          # Reddit's vertex count
+AVG_DEGREE = 493     # Reddit's average degree (E ~ 114.6M with self edges)
+LAYERS = [602, 256, 41]
+SEED = 0
+HBM_BYTES_PER_S = 3.35e12    # H100 SXM
+FP32_FLOPS = 67e12           # H100 SXM, fp32 outside the tensor cores
+
+
+def log(obj):
+    print(json.dumps(obj), flush=True)
+
+
+def card_line() -> str:
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True, timeout=60).stdout.strip().splitlines()[0]
+
+
+def time_ms(torch, fn, n, warm=1):
+    """Mean ms per call over ``n`` calls (CUDA events, after warm-up)."""
+    for _ in range(warm):
+        fn()
+    torch.cuda.synchronize()
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    a.record()
+    for _ in range(n):
+        fn()
+    b.record()
+    torch.cuda.synchronize()
+    return a.elapsed_time(b) / n
+
+
+def bound_ms(nbytes, nops):
+    """The card's least time: the larger of bytes over the memory rate
+    and operations over the fp32 rate."""
+    tb = nbytes / HBM_BYTES_PER_S * 1e3
+    to = nops / FP32_FLOPS * 1e3
+    return max(tb, to), ("bytes" if tb >= to else "operations")
+
+
+def close_enough(torch, got, want, rtol, atol):
+    err = (got - want).abs()
+    ok = bool((err <= atol + rtol * want.abs()).all())
+    return ok, float(err.max()) if err.numel() else 0.0
+
+
+def ragged_checks(torch, dev):
+    """Small ragged case: unaligned V, a 2048-wide hub row, rows of
+    degree 0, F that is and is not a multiple of 4."""
+    from roc_tpu_torch.core.ell import ell_from_graph
+    from roc_tpu_torch.core.graph import from_edge_list
+    from roc_tpu_torch.kernels import ell_spmm, graphnorm
+    rng = np.random.RandomState(1)
+    n = 1003
+    src = np.concatenate([rng.randint(0, n, 9000), rng.randint(0, n, 1500)])
+    dst = np.concatenate([rng.randint(0, n, 9000), np.full(1500, 1)])
+    keep = dst != 2
+    g = from_edge_list(src[keep], dst[keep], n)
+    t = ell_from_graph(g.row_ptr, g.col_idx, n)
+    idx = tuple(torch.from_numpy(a[0]).to(dev) for a in t.idx)
+    rid = tuple(torch.from_numpy(a[0]).to(dev) for a in t.row_id)
+    deg = torch.from_numpy(g.in_degree).to(dev)
+    for F in (37, 36):
+        x = torch.from_numpy(rng.randn(n, F).astype(np.float32)).to(dev)
+        s = torch.from_numpy(rng.rand(n).astype(np.float32)).to(dev)
+        assert torch.equal(graphnorm.indegree_norm(x, deg),
+                           graphnorm.indegree_norm_plain(x, deg)), F
+        for act in ("none", "relu"):
+            assert torch.equal(graphnorm.scale_act(x, s, act),
+                               graphnorm.scale_act_plain(x, s, act)), F
+        got = ell_spmm.ell_aggregate(x, idx, rid, n)
+        want = ell_spmm.ell_aggregate_plain(x, idx, rid, n)
+        ok, err = close_enough(torch, got, want, 1e-5,
+                               1e-5 * float(want.abs().max()))
+        assert ok and not got[2].any(), (F, err)
+    torch.cuda.synchronize()
+    return {"V": n, "widths": list(t.widths), "F": [37, 36], "ok": True}
+
+
+def kernel_checks(torch, dev, gctx, adj, num_edges):
+    """Each kernel against its plain version at the serving forward's
+    shapes, with times.  ``adj`` is the graph as a sparse CSR tensor, the
+    input of K4's library yardstick ``torch.sparse.mm``.  Returns the
+    per-kernel table entries."""
+    from roc_tpu_torch.kernels import ell_spmm, graphnorm
+    gen = torch.Generator(device=dev).manual_seed(SEED + 1)
+    deg, d = gctx.in_degree, gctx.inv_sqrt_deg
+    idx, rid = gctx.ell_idx, gctx.ell_row_id
+    idx_entries = sum(int(a.numel()) for a in idx)
+    bucket_rows = sum(int(a.numel()) for a in rid)
+    entries = {
+        "indegree_norm": dict(source="roc_tpu_torch/kernels/csrc/graphnorm.cu",
+                              replaces="roc_tpu/kernels/graphnorm.py:60"),
+        "scale_act": dict(source="roc_tpu_torch/kernels/csrc/graphnorm.cu",
+                          replaces="roc_tpu/kernels/graphnorm.py:103"),
+        "ell_aggregate": dict(source="roc_tpu_torch/kernels/csrc/ell_spmm.cu",
+                              replaces="roc_tpu/kernels/ell_spmm.py:196"),
+    }
+    for e in entries.values():
+        e.update(shapes=[], ms=0.0, plain_ms=0.0, bound_ms=0.0,
+                 library_ms=0.0, max_abs_err=0.0, _tb=0.0, _to=0.0)
+
+    def add(name, shape, got, want, rtol, atol, fn, plain, lib, nbytes,
+            nops, n):
+        ok, err = close_enough(torch, got, want, rtol, atol)
+        ms = time_ms(torch, fn, n)
+        pms = time_ms(torch, plain, max(1, n // 4))
+        lms = time_ms(torch, lib, n)
+        b, by = bound_ms(nbytes, nops)
+        row = dict(kernel=name, shape=shape, max_abs_err=err, rtol=rtol,
+                   atol=atol, ms=ms, plain_ms=pms, library_ms=lms,
+                   bound_ms=b, bound_by=by, ok=ok)
+        log({"phase": "kernel", **row})
+        if not ok:
+            raise AssertionError(f"{name} {shape} disagrees with its plain "
+                                 f"version: max_abs_err {err}")
+        e = entries[name]
+        e["shapes"].append(row)
+        e["ms"] += ms
+        e["plain_ms"] += pms
+        e["library_ms"] += lms
+        e["bound_ms"] += b
+        e["max_abs_err"] = max(e["max_abs_err"], err)
+        e["_tb"] += nbytes
+        e["_to"] += nops
+
+    # the serving forward's shapes: K1 and K2 at F = 256 (layer 1, K2
+    # with the folded relu) and F = 41 (layer 2, no activation); K4 at
+    # both widths over the real buckets
+    for F, act in ((256, "relu"), (41, "none")):
+        x = torch.randn((V, F), generator=gen, device=dev)
+        vf = V * F
+        # K1: 0 ulp (same fp32 operations as the plain version)
+        add("indegree_norm", [V, F],
+            graphnorm.indegree_norm(x, deg),
+            graphnorm.indegree_norm_plain(x, deg), 0.0, 0.0,
+            lambda: graphnorm.indegree_norm(x, deg),
+            lambda: graphnorm.indegree_norm_plain(x, deg),
+            lambda: x * d[:, None],
+            8 * vf + 4 * V, vf, 50)
+        # K2: 0 ulp
+        lib = ((lambda: torch.relu(x * d[:, None])) if act == "relu"
+               else (lambda: x * d[:, None]))
+        add("scale_act", [V, F, act],
+            graphnorm.scale_act(x, d, act),
+            graphnorm.scale_act_plain(x, d, act), 0.0, 0.0,
+            lambda: graphnorm.scale_act(x, d, act),
+            lambda: graphnorm.scale_act_plain(x, d, act), lib,
+            8 * vf + 4 * V, vf * (2 if act == "relu" else 1), 50)
+        # K4: rtol 1e-5, atol 1e-5 * max|row| (another summation order)
+        want = ell_spmm.ell_aggregate_plain(x, idx, rid, V)
+        got = ell_spmm.ell_aggregate(x, idx, rid, V)
+        add("ell_aggregate", [V, F, list(a.shape[1] for a in idx)],
+            got, want, 1e-5, 1e-5 * float(want.abs().max()),
+            lambda: ell_spmm.ell_aggregate(x, idx, rid, V),
+            lambda: ell_spmm.ell_aggregate_plain(x, idx, rid, V),
+            lambda: torch.sparse.mm(adj, x),
+            8 * vf + 4 * idx_entries + 4 * bucket_rows, num_edges * F, 5)
+        del x, want, got
+    for e in entries.values():
+        e["bound_by"] = ("bytes" if e["_tb"] / HBM_BYTES_PER_S
+                         >= e["_to"] / FP32_FLOPS else "operations")
+        del e["_tb"], e["_to"]
+    return entries
+
+
+def slice_run(torch, pred, server_cls):
+    """~8 requests across the buckets through Server: four one after
+    another (1, 8, 64, 512 rows), then four submitted together."""
+    rng = np.random.RandomState(SEED + 2)
+    lat, results = [], []
+    with server_cls(pred, max_wait_ms=2.0, name="chip_smoke") as srv:
+        for n in (1, 8, 64, 512):
+            ids = rng.randint(0, V, size=n)
+            ids[0] = 0
+            t0 = time.perf_counter()
+            rows = srv.submit(ids).result(timeout=300)
+            lat.append({"rows": n, "ms": (time.perf_counter() - t0) * 1e3,
+                        "concurrent": False})
+            results.append((ids, rows))
+        batch = [rng.randint(0, V, size=n) for n in (1, 5, 30, 200)]
+        for ids in batch:
+            ids[0] = 0
+        t0 = time.perf_counter()
+        futs = [srv.submit(ids) for ids in batch]
+        for ids, f in zip(batch, futs):
+            rows = f.result(timeout=300)
+            lat.append({"rows": int(ids.size),
+                        "ms": (time.perf_counter() - t0) * 1e3,
+                        "concurrent": True})
+            results.append((ids, rows))
+    return lat, results
+
+
+def main() -> int:
+    import torch
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 1
+    t_start = time.perf_counter()
+    from roc_tpu_torch.core.graph import synthetic_dataset
+    from roc_tpu_torch.kernels import _build, ell_spmm, graphnorm
+    from roc_tpu_torch.models.gcn import build_gcn
+    from roc_tpu_torch.ops.dense import set_fp32_matmul_precision
+    from roc_tpu_torch.serve.export import build_predictor
+    from roc_tpu_torch.serve.server import Server
+    from roc_tpu_torch.train.trainer import TrainConfig
+
+    # 1. card
+    card = card_line()
+    set_fp32_matmul_precision()
+    dev = torch.device("cuda")
+    kind = torch.cuda.get_device_name(0)
+    log({"phase": "card", "card": card, "kind": kind,
+         "count": torch.cuda.device_count(), "torch": torch.__version__,
+         "cuda": torch.version.cuda})
+
+    # 2. build
+    _build.library()
+    ptxas = [ln.strip() for entry in _build.build_log
+             for ln in entry.splitlines() if "registers" in ln
+             or "spill" in ln]
+    log({"phase": "build", "seconds": _build.build_seconds,
+         "ptxas": ptxas})
+
+    # 3. kernels
+    log({"phase": "ragged", **ragged_checks(torch, dev)})
+    t0 = time.perf_counter()
+    ds = synthetic_dataset(num_nodes=V, avg_degree=AVG_DEGREE,
+                           in_dim=LAYERS[0], num_classes=LAYERS[-1],
+                           seed=SEED, name="reddit_shape")
+    t_data = time.perf_counter() - t0
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    model = build_gcn(LAYERS)
+    params = model.init_params(gen, device=dev)
+    t0 = time.perf_counter()
+    pred = build_predictor(model, ds,
+                           TrainConfig(aggr_impl="cuda", symmetric=True),
+                           params=params, backend="full")
+    torch.cuda.synchronize()
+    t_pred = time.perf_counter() - t0
+    gctx = pred.gctx
+    log({"phase": "data", "V": ds.graph.num_nodes,
+         "E": ds.graph.num_edges, "in_dim": ds.in_dim,
+         "classes": ds.num_classes, "dataset_s": t_data,
+         "predictor_s": t_pred,
+         "buckets": [list(a.shape) for a in gctx.ell_idx]})
+    g = ds.graph
+    adj = torch.sparse_csr_tensor(
+        torch.from_numpy(g.row_ptr).to(dev),
+        torch.from_numpy(g.col_idx.astype(np.int64)).to(dev),
+        torch.ones(g.num_edges, device=dev), size=(V, V),
+        check_invariants=False)
+    entries = kernel_checks(torch, dev, gctx, adj, g.num_edges)
+    del adj
+    torch.cuda.empty_cache()
+
+    # 4. slice: the main path, counts zeroed just before
+    kernels = (graphnorm.indegree_norm, graphnorm.scale_act,
+               ell_spmm.ell_aggregate)
+    for k in kernels:
+        k.launches = 0
+    lat, results = slice_run(torch, pred, Server)
+    torch.cuda.synchronize()
+    launches = {k.__name__: k.launches for k in kernels}
+    log({"phase": "slice", "requests": lat, "launches": launches})
+    if not all(launches.values()):
+        raise AssertionError(f"a kernel of the path never ran: {launches}")
+
+    with torch.inference_mode():
+        plain_ctx = dataclasses.replace(gctx, aggr_impl="ell")
+        ref = pred.model.apply(pred.params, pred.published().table,
+                               plain_ctx, train=False).cpu().numpy()
+    scale = float(np.abs(ref).max())
+    worst = 0.0
+    row0 = None
+    for ids, rows in results:
+        rows = np.asarray(rows)
+        assert rows.shape == (ids.size, LAYERS[-1]), rows.shape
+        assert np.isfinite(rows).all()
+        worst = max(worst, float(np.abs(rows - ref[ids]).max()))
+        # id 0 rides in every request: coalesced or not, the same bits
+        row0 = rows[0] if row0 is None else row0
+        assert np.array_equal(rows[0], row0)
+    # served logits vs the plain route on the card: fp32 sums in another
+    # order, two layers deep -> rtol-style bound 1e-4 of the logit scale
+    tol = 1e-4 * max(scale, 1.0)
+    log({"phase": "check", "max_abs_err": worst, "atol": tol,
+         "logit_scale": scale})
+    if not worst <= tol:
+        raise AssertionError(f"served logits differ from the plain route: "
+                             f"{worst} > {tol}")
+
+    table = []
+    for name, e in entries.items():
+        table.append({"name": name, "route": "cuda", "source": e["source"],
+                      "replaces": e["replaces"],
+                      "launches": launches[name],
+                      "max_abs_err": e["max_abs_err"], "ms": e["ms"],
+                      "plain_ms": e["plain_ms"], "bound_ms": e["bound_ms"],
+                      "bound_by": e["bound_by"],
+                      "library_ms": e["library_ms"],
+                      "shapes": e["shapes"]})
+    log({"total_s": time.perf_counter() - t_start,
+         "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9})
+    log({"kernels": table})
+    print(card, flush=True)
+    log({"ok": True, "device": {"platform": "gpu", "kind": kind,
+                                "count": torch.cuda.device_count()}})
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,148 @@
+"""Build and load the hand-written CUDA kernels.
+
+Every ``csrc/*.cu`` is compiled by its own ``nvcc`` process for
+``sm_90a`` (all started together), and the objects are linked into one
+shared library with a plain C interface, loaded with ``ctypes``.  The
+library goes to ``kernels/build/`` (listed in ``.gitignore``) under a
+name that carries a hash of the sources and flags, so an edited source
+is rebuilt and an unchanged one is loaded as it is.  Nothing is built
+when the package is imported: :func:`library` builds at first use.
+
+Each C entry point takes device pointers and the CUDA stream as
+``void*``, launches on that stream, does not synchronise, and returns
+``cudaGetLastError()``; :func:`check` turns a nonzero code into an
+exception.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import glob
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+import threading
+import time
+from typing import List, Optional
+
+import torch
+
+_HERE = os.path.dirname(os.path.abspath(__file__))
+CSRC = os.path.join(_HERE, "csrc")
+BUILD_DIR = os.path.join(_HERE, "build")
+
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_L = ctypes.c_longlong
+
+# C signatures: name -> argtypes (every entry point returns an int)
+SIGNATURES = {
+    # x, in_degree, out, rows, F, stream
+    "roc_indegree_norm_f32": (_P, _P, _P, _L, _I, _P),
+    # x, scale, out, rows, F, relu, stream
+    "roc_scale_act_f32": (_P, _P, _P, _L, _I, _I, _P),
+    # feats, idx, row_id, out, rows, width, dummy, num_rows, F, stream
+    "roc_ell_aggregate_f32": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
+}
+
+_lock = threading.Lock()
+_lib: Optional[ctypes.CDLL] = None
+build_log: List[str] = []
+build_seconds: Optional[float] = None
+
+
+def sources() -> List[str]:
+    return sorted(glob.glob(os.path.join(CSRC, "*.cu")))
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    default = "/usr/local/cuda/bin/nvcc"
+    if os.path.exists(default):
+        return default
+    raise RuntimeError("nvcc not found: the CUDA kernels are built from "
+                       "source on a machine with the CUDA toolkit")
+
+
+def _digest(srcs: List[str]) -> str:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for path in srcs + sorted(glob.glob(os.path.join(CSRC, "*.cuh"))):
+        with open(path, "rb") as f:
+            h.update(os.path.basename(path).encode())
+            h.update(f.read())
+    return h.hexdigest()[:16]
+
+
+def _build(srcs: List[str], target: str) -> None:
+    nvcc = _nvcc()
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+        procs = []
+        objs = []
+        for src in srcs:
+            obj = os.path.join(tmp, os.path.basename(src) + ".o")
+            objs.append(obj)
+            cmd = [nvcc, *NVCC_FLAGS, "-c", src, "-o", obj]
+            procs.append((cmd, subprocess.Popen(
+                cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                text=True)))
+        failed = []
+        for cmd, p in procs:
+            out, _ = p.communicate()
+            build_log.append(" ".join(cmd) + "\n" + out)
+            if p.returncode != 0:
+                failed.append(out)
+        if failed:
+            raise RuntimeError("nvcc failed:\n" + "\n".join(failed))
+        lib_tmp = os.path.join(tmp, "lib.so")
+        cmd = [nvcc, "-shared", "-gencode", "arch=compute_90a,code=sm_90a",
+               *objs, "-o", lib_tmp]
+        res = subprocess.run(cmd, stdout=subprocess.PIPE,
+                             stderr=subprocess.STDOUT, text=True)
+        build_log.append(" ".join(cmd) + "\n" + res.stdout)
+        if res.returncode != 0:
+            raise RuntimeError("nvcc link failed:\n" + res.stdout)
+        os.replace(lib_tmp, target)
+
+
+def library() -> ctypes.CDLL:
+    """The loaded kernel library, built first if its sources changed."""
+    global _lib, build_seconds
+    with _lock:
+        if _lib is not None:
+            return _lib
+        srcs = sources()
+        target = os.path.join(BUILD_DIR,
+                              f"libroc_kernels_{_digest(srcs)}.so")
+        t0 = time.perf_counter()
+        if not os.path.exists(target):
+            _build(srcs, target)
+        build_seconds = time.perf_counter() - t0
+        lib = ctypes.CDLL(target)
+        for name, argtypes in SIGNATURES.items():
+            fn = getattr(lib, name)
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_int
+        lib.roc_error_string.argtypes = (ctypes.c_int,)
+        lib.roc_error_string.restype = ctypes.c_char_p
+        _lib = lib
+        return lib
+
+
+def check(name: str, code: int) -> None:
+    """Raise if a launch reported a CUDA error."""
+    if code != 0:
+        what = library().roc_error_string(code).decode()
+        raise RuntimeError(f"{name}: CUDA error {code} at launch: {what}")
+
+
+def stream_ptr(device) -> int:
+    """PyTorch's current CUDA stream on ``device``, as an int."""
+    return torch.cuda.current_stream(device).cuda_stream

@@ -1,0 +1,101 @@
+"""Degree-bucketed ELL neighbour sum, K4 (``roc_tpu/kernels/ell_spmm.py
+ell_aggregate_pallas``).
+
+:func:`ell_aggregate` launches one CUDA kernel per bucket
+(csrc/ell_spmm.cu) for a tensor on the card, and runs
+:func:`ell_aggregate_plain` for a tensor on the CPU; there is no
+fallback from one to the other.  ``ell_aggregate.launches`` counts
+kernel launches.
+
+The contract differs from the JAX function's in one respect: ``feats``
+carries no appended zero row.  Ids equal to ``feats.shape[0]`` (the
+table's dummy) add nothing, and each bucket row is written to its
+output row ``row_id`` (core/ell.py ``EllTable.row_id``) instead of
+through a concatenate-and-permute, which saves one ``[V+1, F]`` copy
+per layer.  Rows of degree 0 come out 0, as before.
+
+The kernel sums a row's neighbours in table order in fp32 registers;
+the plain version sums the gathered block with ``torch.sum``, whose
+order differs, so the two agree to fp32 rounding
+(``rtol=1e-5, atol=1e-5 * max|row|``), not bit for bit.
+"""
+
+from __future__ import annotations
+
+from typing import Sequence
+
+import torch
+
+from ..ops.aggregate import DEFAULT_BUDGET_ELEMS, ell_bucket_sum
+from . import _build
+
+
+def _check(feats: torch.Tensor, ell_idx: Sequence[torch.Tensor],
+           ell_row_id: Sequence[torch.Tensor]) -> None:
+    if feats.dim() != 2:
+        raise ValueError(f"ell_aggregate: feats must be [R, F], got "
+                         f"{tuple(feats.shape)}")
+    if len(ell_idx) != len(ell_row_id):
+        raise ValueError("ell_aggregate: one row_id array per bucket")
+    for idx, rid in zip(ell_idx, ell_row_id):
+        if idx.dim() != 2 or rid.dim() != 1 or rid.shape[0] != idx.shape[0]:
+            raise ValueError(
+                f"ell_aggregate: bucket idx [rows, width] and row_id "
+                f"[rows] expected, got {tuple(idx.shape)} and "
+                f"{tuple(rid.shape)}")
+        if idx.device != feats.device or rid.device != feats.device:
+            raise ValueError("ell_aggregate: tables and feats on different "
+                             "devices")
+
+
+def ell_aggregate_plain(feats: torch.Tensor,
+                        ell_idx: Sequence[torch.Tensor],
+                        ell_row_id: Sequence[torch.Tensor], num_rows: int,
+                        budget_elems: int = DEFAULT_BUDGET_ELEMS
+                        ) -> torch.Tensor:
+    """K4's plain version: append the zero row the dummy id reads, sum
+    each bucket (ops/aggregate.py, row-segmented), scatter the bucket
+    rows to their output rows (padding rows land in a discarded slot)."""
+    F = feats.shape[1]
+    full = torch.cat([feats, feats.new_zeros((1, F))], dim=0)
+    out = feats.new_zeros((num_rows + 1, F))
+    for idx, rid in zip(ell_idx, ell_row_id):
+        sums = ell_bucket_sum(full, idx, budget_elems)
+        out.index_copy_(0, rid.clamp(max=num_rows).long(), sums)
+    return out[:num_rows]
+
+
+def ell_aggregate(feats: torch.Tensor, ell_idx: Sequence[torch.Tensor],
+                  ell_row_id: Sequence[torch.Tensor],
+                  num_rows: int) -> torch.Tensor:
+    """``out[v] = sum(feats[ids of v])`` over the ELL buckets.
+
+    feats: float [R, F], no zero row (the dummy id is R).
+    ell_idx: int32 ``[rows_b, width_b]`` per bucket.
+    ell_row_id: int32 ``[rows_b]`` per bucket, the output row of each
+    bucket row (padding rows carry ``num_rows``).
+    Returns [num_rows, F]."""
+    _check(feats, ell_idx, ell_row_id)
+    if feats.device.type == "cpu":
+        return ell_aggregate_plain(feats, ell_idx, ell_row_id, num_rows)
+    for t in (*ell_idx, *ell_row_id):
+        if t.dtype != torch.int32 or not t.is_contiguous():
+            raise TypeError("ell_aggregate: tables must be contiguous "
+                            "int32")
+    if feats.dtype != torch.float32 or not feats.is_contiguous():
+        raise TypeError(f"ell_aggregate: the CUDA kernel takes contiguous "
+                        f"float32 feats, got {feats.dtype}")
+    R, F = feats.shape
+    out = feats.new_zeros((num_rows, F))
+    lib = _build.library()
+    stream = _build.stream_ptr(feats.device)
+    for idx, rid in zip(ell_idx, ell_row_id):
+        rows, width = idx.shape
+        _build.check("ell_aggregate", lib.roc_ell_aggregate_f32(
+            feats.data_ptr(), idx.data_ptr(), rid.data_ptr(),
+            out.data_ptr(), rows, width, R, num_rows, F, stream))
+        ell_aggregate.launches += 1
+    return out
+
+
+ell_aggregate.launches = 0

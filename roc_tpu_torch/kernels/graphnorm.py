@@ -1,0 +1,125 @@
+"""Row-scale kernels of the GCN normalization chain and the fused
+aggregate-and-scale tail (``roc_tpu/kernels/graphnorm.py``).
+
+- :func:`indegree_norm` (K1): ``x * d[:, None]`` with
+  ``d = inv_sqrt_degree(in_degree)``, the pre-scale of the fused chain.
+- :func:`scale_act` (K2): ``act(x * scale[:, None])``, its epilogue.
+- :func:`fused_ell_aggregate`: the ELL sum (kernels/ell_spmm.py K4)
+  followed by K2.
+
+Each kernel wrapper takes its plain PyTorch version for a tensor on the
+CPU and launches the CUDA kernel (csrc/graphnorm.cu) for a tensor on the
+card; there is no fallback from one to the other.  ``launches`` on each
+wrapper counts kernel launches, so a run can show the path went through
+the kernel.  Both kernels compute what their plain versions compute, in
+the same fp32 operations: the results are bit-equal (0 ulp).
+"""
+
+from __future__ import annotations
+
+from typing import Sequence
+
+import torch
+
+from ..ops.norm import inv_sqrt_degree
+from . import _build
+from .ell_spmm import ell_aggregate
+
+ACTS = ("none", "relu")
+
+
+def _check_rows(x: torch.Tensor, vec: torch.Tensor, name: str) -> None:
+    if x.dim() != 2 or vec.dim() != 1 or vec.shape[0] != x.shape[0]:
+        raise ValueError(f"{name}: x must be [V, F] and the row vector "
+                         f"[V]; got {tuple(x.shape)} and "
+                         f"{tuple(vec.shape)}")
+    if vec.device != x.device:
+        raise ValueError(f"{name}: x on {x.device}, row vector on "
+                         f"{vec.device}")
+
+
+def _check_cuda(name: str, x: torch.Tensor, *ints: torch.Tensor,
+                floats: Sequence[torch.Tensor] = ()) -> None:
+    if x.dtype != torch.float32:
+        raise TypeError(f"{name}: the CUDA kernel takes float32, got "
+                        f"{x.dtype}")
+    for t in ints:
+        if t.dtype != torch.int32:
+            raise TypeError(f"{name}: index/degree tensors must be int32, "
+                            f"got {t.dtype}")
+    for t in floats:
+        if t.dtype != torch.float32:
+            raise TypeError(f"{name}: scale must be float32, got {t.dtype}")
+    for t in (x, *ints, *floats):
+        if not t.is_contiguous():
+            raise ValueError(f"{name}: inputs must be contiguous")
+
+
+def indegree_norm_plain(x: torch.Tensor,
+                        in_degree: torch.Tensor) -> torch.Tensor:
+    """K1's plain version: fp32 math, cast back to ``x.dtype``."""
+    d = inv_sqrt_degree(in_degree)
+    return (x.to(torch.float32) * d[:, None]).to(x.dtype)
+
+
+def indegree_norm(x: torch.Tensor, in_degree: torch.Tensor) -> torch.Tensor:
+    """K1: ``x * rsqrt(max(deg, 1))[:, None]``, 0 where ``deg == 0``.
+    x: float [V, F]; in_degree: int32 [V]."""
+    _check_rows(x, in_degree, "indegree_norm")
+    if x.device.type == "cpu":
+        return indegree_norm_plain(x, in_degree)
+    _check_cuda("indegree_norm", x, in_degree)
+    out = torch.empty_like(x)
+    lib = _build.library()
+    _build.check("indegree_norm", lib.roc_indegree_norm_f32(
+        x.data_ptr(), in_degree.data_ptr(), out.data_ptr(), x.shape[0],
+        x.shape[1], _build.stream_ptr(x.device)))
+    indegree_norm.launches += 1
+    return out
+
+
+indegree_norm.launches = 0
+
+
+def scale_act_plain(x: torch.Tensor, scale: torch.Tensor,
+                    act: str = "none") -> torch.Tensor:
+    """K2's plain version: ``act(x * scale[:, None])`` in fp32."""
+    y = x.to(torch.float32) * scale.to(torch.float32)[:, None]
+    if act == "relu":
+        y = torch.relu(y)
+    return y.to(x.dtype)
+
+
+def scale_act(x: torch.Tensor, scale: torch.Tensor,
+              act: str = "none") -> torch.Tensor:
+    """K2: ``act(x * scale[:, None])``; ``act`` is 'none' or 'relu'.
+    x: float [V, F]; scale: float32 [V]."""
+    if act not in ACTS:
+        raise ValueError(f"unknown act {act!r}; expected 'none'|'relu'")
+    _check_rows(x, scale, "scale_act")
+    if x.device.type == "cpu":
+        return scale_act_plain(x, scale, act)
+    _check_cuda("scale_act", x, floats=(scale,))
+    out = torch.empty_like(x)
+    lib = _build.library()
+    _build.check("scale_act", lib.roc_scale_act_f32(
+        x.data_ptr(), scale.data_ptr(), out.data_ptr(), x.shape[0],
+        x.shape[1], int(act == "relu"), _build.stream_ptr(x.device)))
+    scale_act.launches += 1
+    return out
+
+
+scale_act.launches = 0
+
+
+def fused_ell_aggregate(x: torch.Tensor, ell_idx: Sequence[torch.Tensor],
+                        ell_row_id: Sequence[torch.Tensor], num_rows: int,
+                        d_dst: torch.Tensor, act: str = "none"
+                        ) -> torch.Tensor:
+    """``act(d_dst * (A @ x))``: the ELL sum of the (already pre-scaled)
+    rows ``x`` followed by the K2 epilogue.  With ``act='none'`` this is
+    the linear operator ``D^-1/2 A D^-1/2`` once ``x`` carries the K1
+    pre-scale; ``act='relu'`` folds the following relu into the epilogue
+    (the same fp32 numbers as a separate relu)."""
+    y = ell_aggregate(x, ell_idx, ell_row_id, num_rows)
+    return scale_act(y, d_dst, act=act)

@@ -1,0 +1,351 @@
+"""Model builder and graph context (``roc_tpu/models/builder.py``), for
+the op kinds the GCN's inference forward uses.
+
+The builder API records a static op list, as the reference's ``Model``
+class does (``gnn.h:162-203``); :meth:`Model.apply` interprets it
+eagerly.  Graph access goes through :class:`GraphContext`, which holds
+the degree-bucketed ELL tables on the model's device and runs one of
+two routes:
+
+- ``aggr_impl='ell'``: the plain PyTorch ELL sum (ops/aggregate.py);
+- ``aggr_impl='cuda'``: the hand-written kernels — K4 for the sum, and
+  in the fused chain K1 (pre-scale) -> K4 -> K2 (scale and activation),
+  kernels/graphnorm.py.  It stands for the JAX package's 'pallas'.
+
+Both routes dispatch by the tensors' device inside the kernel wrappers:
+on the CPU the 'cuda' route runs the kernels' plain versions.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass, field
+from typing import Any, Dict, List, Optional, Tuple
+
+import numpy as np
+import torch
+from torch import nn
+
+from ..ops import dense
+from ..ops.aggregate import aggregate_ell
+from ..ops.dense import AC_MODE_NONE, AC_MODE_RELU
+from ..ops.norm import indegree_norm
+
+AGGR_SUM = "sum"
+
+AGGR_IMPLS = ("ell", "cuda")
+
+
+@dataclass
+class GraphContext:
+    """Single-device view of the graph for the forward.
+
+    in_degree: int32 [num_rows] in-degrees; inv_sqrt_deg: their fp32
+      ``deg^-1/2`` (ops/norm.py), computed once.
+    ell_idx: int32 ``[rows_b, width_b]`` per bucket, dummy == num_rows.
+    ell_row_pos: int32 [num_rows] slot of each row in the concatenated
+      bucket outputs (read by the 'ell' route).
+    ell_row_id: int32 [rows_b] per bucket, the output row of each
+      bucket row (read by the 'cuda' route).
+    """
+
+    in_degree: torch.Tensor
+    inv_sqrt_deg: torch.Tensor
+    num_rows: int
+    ell_idx: Tuple[torch.Tensor, ...]
+    ell_row_pos: torch.Tensor
+    ell_row_id: Tuple[torch.Tensor, ...]
+    aggr_impl: str = "cuda"
+    symmetric: bool = True
+
+    def __post_init__(self):
+        if self.aggr_impl not in AGGR_IMPLS:
+            raise ValueError(f"unknown aggr_impl {self.aggr_impl!r}; "
+                             f"expected one of {AGGR_IMPLS}")
+
+    def gather_features(self, x: torch.Tensor) -> torch.Tensor:
+        """The halo exchange: the identity on one device."""
+        return x
+
+    def _gathered_with_zero(self, x: torch.Tensor) -> torch.Tensor:
+        """Halo exchange + the appended zero row the dummy id reads."""
+        full = self.gather_features(x)
+        return torch.cat([full, full.new_zeros((1, full.shape[1]))], dim=0)
+
+    def _sum_fwd(self, x: torch.Tensor) -> torch.Tensor:
+        """``A @ gather(x)``."""
+        if self.aggr_impl == "cuda":
+            from ..kernels.ell_spmm import ell_aggregate
+            return ell_aggregate(self.gather_features(x), self.ell_idx,
+                                 self.ell_row_id, self.num_rows)
+        return aggregate_ell(self._gathered_with_zero(x), self.ell_idx,
+                             self.ell_row_pos, self.num_rows)
+
+    def _fused_sum_fwd(self, x: torch.Tensor,
+                       act: str = AC_MODE_NONE) -> torch.Tensor:
+        """``act(D^-1/2 A D^-1/2 x)``.  The 'cuda' route runs K1 on the
+        local rows, the halo gather, then K4 -> K2 with the activation
+        in K2's epilogue; the 'ell' route scales before and after the
+        plain sum and applies the activation after."""
+        d = self.inv_sqrt_deg
+        if self.aggr_impl == "cuda":
+            from ..kernels.graphnorm import (fused_ell_aggregate,
+                                             indegree_norm as norm_kernel)
+            full = self.gather_features(norm_kernel(x, self.in_degree))
+            return fused_ell_aggregate(full, self.ell_idx, self.ell_row_id,
+                                       self.num_rows, d, act=act)
+        d = d.to(x.dtype)[:, None]
+        return dense.activation(self._sum_fwd(x * d) * d, act)
+
+    def aggregate(self, x: torch.Tensor, aggr: str = AGGR_SUM
+                  ) -> torch.Tensor:
+        if aggr != AGGR_SUM:
+            raise NotImplementedError(
+                f"aggregation {aggr!r} is not ported; only {AGGR_SUM!r}")
+        return self._sum_fwd(x)
+
+    def aggregate_fused(self, x: torch.Tensor,
+                        act: str = AC_MODE_NONE) -> torch.Tensor:
+        """Fused ``act(S x)`` with ``S = D^-1/2 A D^-1/2``."""
+        if act not in (AC_MODE_NONE, AC_MODE_RELU):
+            raise ValueError(f"fused aggregation takes act none|relu, "
+                             f"got {act!r}")
+        return self._fused_sum_fwd(x, act)
+
+
+@dataclass(frozen=True)
+class TensorHandle:
+    """Symbolic tensor produced by builder calls."""
+    idx: int
+    dim: int
+
+
+@dataclass
+class _Op:
+    kind: str
+    inputs: Tuple[int, ...]
+    dim: int
+    param: Optional[str] = None        # param key for linear ops
+    attrs: Dict[str, Any] = field(default_factory=dict)
+
+
+class Model(nn.Module):
+    """Builder + interpreter (see module docstring).  ``params`` holds
+    the weights, one ``[in, out]`` matrix per linear op, named
+    ``linear_<n>`` as in the JAX package.
+
+    :meth:`apply` here is the JAX package's interpreter, ``apply(params,
+    feats, gctx, ...)``, not ``nn.Module.apply(fn)``."""
+
+    def __init__(self, in_dim: int):
+        super().__init__()
+        self._ops: List[_Op] = [_Op("input", (), in_dim)]
+        self._n_linear = 0
+        self._loss_op: Optional[int] = None
+        self.params = nn.ParameterDict()
+
+    def num_fused_aggregates(self) -> int:
+        return sum(op.kind == "fused_aggregate" for op in self._ops)
+
+    def fuse_norm_aggregate(self) -> "Model":
+        """Rewrite every ``indegree_norm -> scatter_gather(SUM) ->
+        indegree_norm [-> relu]`` chain whose intermediates have no other
+        consumer (and carry no loss marker) into ONE ``fused_aggregate``
+        op computing ``[relu](D^-1/2 A D^-1/2 x)``.  Returns a NEW model
+        that shares this one's parameters (the chain has none)."""
+        ops = self._ops
+        n = len(ops)
+        consumers = [0] * n
+        for op in ops:
+            for i in op.inputs:
+                consumers[i] += 1
+        loss = self._loss_op
+        chains: Dict[int, Tuple[int, str]] = {}
+        i = 1
+        while i + 2 < n:
+            o0, o1, o2 = ops[i], ops[i + 1], ops[i + 2]
+            ok = (o0.kind == "indegree_norm"
+                  and o1.kind == "scatter_gather"
+                  and o1.inputs == (i,)
+                  and o1.attrs.get("aggr", AGGR_SUM) == AGGR_SUM
+                  and o2.kind == "indegree_norm"
+                  and o2.inputs == (i + 1,)
+                  and consumers[i] == 1 and consumers[i + 1] == 1
+                  and loss not in (i, i + 1))
+            if not ok:
+                i += 1
+                continue
+            end, act = i + 2, AC_MODE_NONE
+            if (end + 1 < n and ops[end + 1].kind == "activation"
+                    and ops[end + 1].attrs.get("mode") == AC_MODE_RELU
+                    and ops[end + 1].inputs == (end,)
+                    and consumers[end] == 1 and loss != end):
+                end += 1
+                act = AC_MODE_RELU
+            chains[i] = (end, act)
+            i = end + 1
+        fused = Model(in_dim=ops[0].dim)
+        fused._n_linear = self._n_linear
+        for name, p in self.params.items():
+            fused.params[name] = p
+        new_ops = [ops[0]]
+        remap = {0: 0}
+        skip_until = 0
+        for i in range(1, n):
+            if i in chains:
+                end, act = chains[i]
+                new_ops.append(_Op(
+                    "fused_aggregate", (remap[ops[i].inputs[0]],),
+                    ops[i].dim,
+                    attrs={"aggr": AGGR_SUM, "activation": act}))
+                for k in range(i, end + 1):
+                    remap[k] = len(new_ops) - 1
+                skip_until = end
+                continue
+            if i <= skip_until:
+                continue
+            op = ops[i]
+            new_ops.append(_Op(op.kind, tuple(remap[k] for k in op.inputs),
+                               op.dim, op.param, dict(op.attrs)))
+            remap[i] = len(new_ops) - 1
+        fused._ops = new_ops
+        fused._loss_op = remap[loss] if loss is not None else None
+        return fused
+
+    # ---- builder API (names match the reference) ----
+
+    def input(self) -> TensorHandle:
+        return TensorHandle(0, self._ops[0].dim)
+
+    def dropout(self, t: TensorHandle, rate: float = 0.5) -> TensorHandle:
+        return self._append("dropout", (t.idx,), t.dim, attrs={"rate": rate})
+
+    def linear(self, t: TensorHandle, out_dim: int,
+               activation: str = AC_MODE_NONE) -> TensorHandle:
+        name = f"linear_{self._n_linear}"
+        self._n_linear += 1
+        return self._append("linear", (t.idx,), out_dim, param=name,
+                            attrs={"activation": activation,
+                                   "in_dim": t.dim})
+
+    def indegree_norm(self, t: TensorHandle) -> TensorHandle:
+        return self._append("indegree_norm", (t.idx,), t.dim)
+
+    def scatter_gather(self, t: TensorHandle,
+                       aggr: str = AGGR_SUM) -> TensorHandle:
+        return self._append("scatter_gather", (t.idx,), t.dim,
+                            attrs={"aggr": aggr})
+
+    def relu(self, t: TensorHandle) -> TensorHandle:
+        return self._append("activation", (t.idx,), t.dim,
+                            attrs={"mode": AC_MODE_RELU})
+
+    def add(self, a: TensorHandle, b: TensorHandle) -> TensorHandle:
+        if a.dim != b.dim:
+            raise ValueError(f"add: dims {a.dim} and {b.dim} differ")
+        return self._append("add", (a.idx, b.idx), a.dim)
+
+    def softmax_cross_entropy(self, t: TensorHandle) -> TensorHandle:
+        """Marks ``t`` as the logits (the loss itself is not ported)."""
+        self._loss_op = t.idx
+        return t
+
+    def _append(self, kind: str, inputs: Tuple[int, ...], dim: int,
+                param: Optional[str] = None,
+                attrs: Optional[Dict[str, Any]] = None) -> TensorHandle:
+        self._ops.append(_Op(kind, inputs, dim, param, attrs or {}))
+        return TensorHandle(len(self._ops) - 1, dim)
+
+    # ---- serving support ----
+
+    GRAPH_OP_KINDS = ("scatter_gather", "fused_aggregate", "indegree_norm")
+
+    def precompute_split(self):
+        """``(prefix_ops, head_model)`` when the op list is a
+        parameter-free propagation prefix followed by a purely dense
+        remainder (the SGC shape the precomputed serving backend
+        caches); None otherwise, as for the GCN."""
+        ops = self._ops
+        i = 1
+        while i < len(ops) and ops[i].inputs == (i - 1,) and (
+                ops[i].kind in ("indegree_norm", "fused_aggregate")
+                or (ops[i].kind == "scatter_gather"
+                    and ops[i].attrs.get("aggr", AGGR_SUM) == AGGR_SUM)):
+            i += 1
+        if i == 1 or not any(op.kind in ("scatter_gather", "fused_aggregate")
+                             for op in ops[1:i]):
+            return None
+        if i >= len(ops):
+            return None
+        for op in ops[i:]:
+            if op.kind in self.GRAPH_OP_KINDS or any(
+                    j < i - 1 for j in op.inputs):
+                return None
+        if self._loss_op is not None and self._loss_op < i - 1:
+            return None
+        head = Model(in_dim=ops[i - 1].dim)
+        for op in ops[i:]:
+            head._ops.append(_Op(op.kind, tuple(j - (i - 1)
+                                                for j in op.inputs),
+                                 op.dim, op.param, dict(op.attrs)))
+        head._loss_op = (self._loss_op - (i - 1)
+                         if self._loss_op is not None else None)
+        return list(ops[1:i]), head
+
+    # ---- params ----
+
+    def init_params(self, generator: torch.Generator,
+                    dtype: torch.dtype = torch.float32,
+                    device="cpu") -> Dict[str, torch.Tensor]:
+        """Glorot-uniform for every linear weight, ``U(-s, s)`` with
+        ``s = sqrt(6/(in+out))`` (``initializer_kernel.cu:38-48``), drawn
+        from ``generator`` (on ``device``).  Stores them in
+        :attr:`params` and returns them as a plain dict.  The numbers
+        differ from the JAX package's for the same seed; tests carry
+        weights across with roc_tpu_torch/convert.py."""
+        out: Dict[str, torch.Tensor] = {}
+        for op in self._ops:
+            if op.kind == "linear":
+                in_dim = op.attrs["in_dim"]
+                s = float(np.sqrt(6.0 / (in_dim + op.dim)))
+                w = torch.empty((in_dim, op.dim), dtype=dtype, device=device)
+                w.uniform_(-s, s, generator=generator)
+                self.params[op.param] = nn.Parameter(w, requires_grad=False)
+                out[op.param] = self.params[op.param]
+        return out
+
+    # ---- interpreter ----
+
+    def apply(self, params: Dict[str, torch.Tensor], feats: torch.Tensor,
+              gctx: GraphContext, generator: Optional[torch.Generator] = None,
+              train: bool = True) -> torch.Tensor:
+        """Run the recorded op list; returns the logits tensor."""
+        if (train and generator is None and
+                any(op.kind == "dropout" and op.attrs["rate"] > 0
+                    for op in self._ops)):
+            raise ValueError("a torch.Generator is required in train mode "
+                             "for models with dropout; pass generator= or "
+                             "use train=False")
+        vals: List[Optional[torch.Tensor]] = [None] * len(self._ops)
+        vals[0] = feats
+        for i, op in enumerate(self._ops[1:], start=1):
+            x = vals[op.inputs[0]] if op.inputs else None
+            if op.kind == "dropout":
+                vals[i] = dense.dropout(x, op.attrs["rate"], generator, train)
+            elif op.kind == "linear":
+                vals[i] = dense.linear(x, params[op.param],
+                                       op.attrs["activation"])
+            elif op.kind == "indegree_norm":
+                vals[i] = indegree_norm(x, gctx.in_degree)
+            elif op.kind == "scatter_gather":
+                vals[i] = gctx.aggregate(x, op.attrs["aggr"])
+            elif op.kind == "fused_aggregate":
+                vals[i] = gctx.aggregate_fused(
+                    x, op.attrs.get("activation", AC_MODE_NONE))
+            elif op.kind == "activation":
+                vals[i] = dense.activation(x, op.attrs["mode"])
+            elif op.kind == "add":
+                vals[i] = vals[op.inputs[0]] + vals[op.inputs[1]]
+            else:
+                raise ValueError(f"op kind {op.kind!r} is not ported")
+        out_idx = self._loss_op if self._loss_op is not None else -1
+        return vals[out_idx]

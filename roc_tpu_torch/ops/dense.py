@@ -1,0 +1,60 @@
+"""Dense ops: linear, activations, dropout (``roc_tpu/ops/dense.py``).
+
+- Linear is ``y = x @ W`` with no bias and ``W`` laid out ``[in, out]``
+  as in the JAX package (so weights cross between the packages
+  untransposed, roc_tpu_torch/convert.py).  fp32 products run in full
+  fp32: :func:`set_fp32_matmul_precision` switches TF32 off, the
+  counterpart of the JAX package's ``Precision.HIGHEST``.
+- Dropout is inverted dropout with scale ``1/(1-rate)`` in training and
+  the identity at inference; its mask is drawn from an explicit
+  ``torch.Generator``.
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+AC_MODE_NONE = "none"
+AC_MODE_RELU = "relu"
+AC_MODE_SIGMOID = "sigmoid"
+
+_ACTIVATIONS = {
+    AC_MODE_NONE: lambda x: x,
+    AC_MODE_RELU: torch.relu,
+    AC_MODE_SIGMOID: torch.sigmoid,
+}
+
+
+def set_fp32_matmul_precision() -> None:
+    """Full-fp32 matrix products on the card: no TF32 in matmuls or
+    convolutions.  PyTorch's defaults already say so for matmuls; the
+    port states them rather than relying on them."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.set_float32_matmul_precision("highest")
+
+
+def linear(x: torch.Tensor, w: torch.Tensor,
+           activation: str = AC_MODE_NONE) -> torch.Tensor:
+    """x: [V, in] @ w: [in, out], with an optional activation."""
+    return _ACTIVATIONS[activation](torch.matmul(x, w))
+
+
+def activation(x: torch.Tensor, mode: str) -> torch.Tensor:
+    return _ACTIVATIONS[mode](x)
+
+
+def dropout(x: torch.Tensor, rate: float,
+            generator: Optional[torch.Generator], train: bool
+            ) -> torch.Tensor:
+    """Inverted dropout; the identity when not training or rate == 0.
+    Training needs ``generator`` (on ``x``'s device)."""
+    if not train or rate <= 0.0:
+        return x
+    if generator is None:
+        raise ValueError("dropout in training needs a torch.Generator")
+    keep = 1.0 - rate
+    mask = torch.rand(x.shape, generator=generator, device=x.device) < keep
+    return torch.where(mask, x / keep, torch.zeros_like(x))

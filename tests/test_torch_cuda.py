@@ -1,0 +1,124 @@
+"""The port's CUDA kernels against their plain PyTorch versions, on the
+card.  Marked ``cuda``; each test skips where no card is present (the
+decision is made in a fixture, never at import).  This file imports
+neither JAX nor the JAX package, so it runs on a machine without them:
+
+    python -m pytest tests/test_torch_cuda.py -m cuda --noconftest
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from roc_tpu_torch.core.ell import ell_from_graph
+from roc_tpu_torch.core.graph import from_edge_list, synthetic_dataset
+from roc_tpu_torch.kernels.ell_spmm import ell_aggregate, ell_aggregate_plain
+from roc_tpu_torch.kernels.graphnorm import (indegree_norm,
+                                             indegree_norm_plain, scale_act,
+                                             scale_act_plain)
+
+pytestmark = pytest.mark.cuda
+
+
+@pytest.fixture
+def dev():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from roc_tpu_torch.ops.dense import set_fp32_matmul_precision
+    set_fp32_matmul_precision()
+    return torch.device("cuda")
+
+
+def _graph(V, avg, seed):
+    """Random symmetric-ish graph with a hub wider than 1024, a row of
+    degree 0 and an unaligned row count."""
+    rng = np.random.RandomState(seed)
+    E = V * avg
+    src = np.concatenate([rng.randint(0, V, E), rng.randint(0, V, 1500)])
+    dst = np.concatenate([rng.randint(0, V, E), np.full(1500, 1)])
+    keep = dst != 2
+    return from_edge_list(src[keep], dst[keep], V)
+
+
+@pytest.mark.parametrize("F", [256, 41, 3])
+def test_row_scale_kernels_match_plain(dev, F):
+    """K1 and K2 are bit-equal to their plain versions (same fp32 ops;
+    0 ulp)."""
+    V = 10_007
+    rng = np.random.RandomState(F)
+    x = torch.from_numpy(rng.randn(V, F).astype(np.float32)).to(dev)
+    deg = torch.from_numpy(rng.randint(0, 500, V).astype(np.int32)).to(dev)
+    s = torch.from_numpy(rng.rand(V).astype(np.float32)).to(dev)
+    n1, n2 = indegree_norm.launches, scale_act.launches
+    got = indegree_norm(x, deg)
+    torch.cuda.synchronize()
+    assert torch.equal(got, indegree_norm_plain(x, deg))
+    for act in ("none", "relu"):
+        assert torch.equal(scale_act(x, s, act), scale_act_plain(x, s, act))
+    # an unaligned view takes the scalar path and still agrees
+    xs = x.reshape(-1)[1:1 + (V - 1) * F].reshape(V - 1, F)
+    assert torch.equal(scale_act(xs, s[:-1]), scale_act_plain(xs, s[:-1]))
+    torch.cuda.synchronize()
+    assert indegree_norm.launches == n1 + 1
+    assert scale_act.launches == n2 + 3
+
+
+@pytest.mark.parametrize("F", [256, 41, 600])
+def test_ell_aggregate_kernel_matches_plain(dev, F):
+    """K4 against its plain version: rtol=1e-5, atol=1e-5 * max|row|
+    (another summation order); degree-0 rows exactly 0."""
+    g = _graph(5003, 12, seed=F)
+    V = g.num_nodes
+    t = ell_from_graph(g.row_ptr, g.col_idx, V)
+    assert max(t.widths) >= 2048
+    idx = tuple(torch.from_numpy(a[0]).to(dev) for a in t.idx)
+    rid = tuple(torch.from_numpy(a[0]).to(dev) for a in t.row_id)
+    x = torch.from_numpy(np.random.RandomState(0).randn(V, F)
+                         .astype(np.float32)).to(dev)
+    n = ell_aggregate.launches
+    got = ell_aggregate(x, idx, rid, V)
+    torch.cuda.synchronize()
+    assert ell_aggregate.launches == n + len(idx)
+    want = ell_aggregate_plain(x, idx, rid, V)
+    scale = float(want.abs().max())
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5 * scale)
+    assert not got[2].any()
+
+
+def test_kernels_reject_what_they_do_not_take(dev):
+    x = torch.ones(8, 4, device=dev, dtype=torch.float64)
+    with pytest.raises(TypeError):
+        indegree_norm(x, torch.ones(8, dtype=torch.int32, device=dev))
+    with pytest.raises(TypeError):
+        indegree_norm(x.float(), torch.ones(8, dtype=torch.int64,
+                                            device=dev))
+    with pytest.raises(ValueError):
+        scale_act(x.float().t(), torch.ones(4, device=dev))
+
+
+def test_served_logits_cuda_route_match_plain_route(dev):
+    """The 24-16-5 GCN served on the card: the kernel route equals the
+    plain 'ell' route on the card within 1e-4, and every kernel ran."""
+    from roc_tpu_torch.models.gcn import build_gcn
+    from roc_tpu_torch.serve.export import build_predictor
+    from roc_tpu_torch.serve.server import Server
+    from roc_tpu_torch.train.trainer import TrainConfig
+    ds = synthetic_dataset(3001, 20, in_dim=24, num_classes=5, seed=0)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    model = build_gcn([24, 16, 5])
+    params = model.init_params(gen, device=dev)
+    preds = {impl: build_predictor(model, ds, TrainConfig(aggr_impl=impl),
+                                   params=params, backend="full")
+             for impl in ("cuda", "ell")}
+    counts = (indegree_norm.launches, scale_act.launches,
+              ell_aggregate.launches)
+    ids = np.arange(ds.graph.num_nodes)
+    got = preds["cuda"].query(ids)
+    want = preds["ell"].query(ids)
+    np.testing.assert_allclose(got, want, rtol=0, atol=1e-4)
+    assert all(c1 > c0 for c0, c1 in zip(counts, (
+        indegree_norm.launches, scale_act.launches, ell_aggregate.launches)))
+    with Server(preds["cuda"], max_wait_ms=1.0) as srv:
+        futs = [srv.submit(ids[i:i + 7]) for i in range(0, 70, 7)]
+        for i, f in zip(range(0, 70, 7), futs):
+            assert np.array_equal(f.result(timeout=60), got[i:i + 7])
