@@ -8,19 +8,30 @@ Phases (any failure exits nonzero):
 1. card: needs CUDA; prints the card's name and power limit and sets
    full-fp32 matmuls;
 2. build: compiles the kernels from roc_tpu_torch/kernels/csrc;
-3. kernels: builds the 602-256-41 GCN's serving graph (V = 232,965,
-   average degree ~493, Reddit's shape; synthetic, from a seed) and
-   holds each CUDA kernel against its plain PyTorch version on the card,
-   at the shapes the serving forward gives it and on a small ragged
-   case, and times kernel, plain version, one PyTorch library call and
-   the card's least time for the same work;
-4. slice: serves ~8 requests across the buckets 1, 8, 64 and 512
-   through Server on the kernel route, with the launch counters zeroed
-   just before, checks that every kernel ran and that the served rows
-   match the same forward on the plain route on the card.
+3. kernels: builds the 602-256-41 GCN's graph (V = 232,965, average
+   degree ~493, Reddit's shape; synthetic, from a seed) and holds each
+   CUDA kernel (K1, K2, K3, K4) against its plain PyTorch version on the
+   card, at the shapes the forward and backward give it and on a small
+   ragged case, and times kernel, plain version, one PyTorch library
+   call and the card's least time for the same work;
+4. slice (serve): serves ~8 requests across the buckets 1, 8, 64 and
+   512 through Server on the kernel route, with the launch counters
+   zeroed just before, checks that K1, K2 and K4 ran and that the served
+   rows match the same forward on the plain route on the card;
+5. train parity: from the same Glorot weights, dropout 0, 3 steps
+   through Trainer on 'cuda', 'cuda_csr' and the plain 'ell' route;
+   every step's loss within rtol 1e-4 of the plain route's, and the
+   weights' max difference and share off by more than 1e-3 printed;
+6. train slice: with the counters zeroed just before, 10 epochs with
+   dropout 0.5 and an eval every 5 through Trainer on 'cuda' and on
+   'cuda_csr'; losses finite, the train loss falling from epoch 4 to
+   epoch 9, and all four kernels launched;
+7. train profile: 3 steady steps per kernel route under torch.profiler,
+   device time by kernel group and the device's idle share.
 
 Prints one JSON line per phase, the kernel table line
-``{"kernels": [...]}``, the card line, and as the last line
+``{"kernels": [...]}`` (launches counted over the serve and train
+slices), the card line, and as the last line
 ``{"ok": true, "device": {...}}``.  Imports no JAX.
 """
 
@@ -33,9 +44,13 @@ import time
 import numpy as np
 
 V = 232_965          # Reddit's vertex count
-AVG_DEGREE = 493     # Reddit's average degree (E ~ 114.6M with self edges)
+# Reddit's average degree; the synthetic graph has E = 111,689,429 after
+# dedupe, self edges included
+AVG_DEGREE = 493
 LAYERS = [602, 256, 41]
 SEED = 0
+# the reference's Reddit run (example_run.sh): lr, weight decay, lr decay
+TRAIN = dict(learning_rate=0.01, weight_decay=1e-4, decay_rate=0.97)
 HBM_BYTES_PER_S = 3.35e12    # H100 SXM
 FP32_FLOPS = 67e12           # H100 SXM, fp32 outside the tensor cores
 
@@ -81,11 +96,13 @@ def close_enough(torch, got, want, rtol, atol):
 
 
 def ragged_checks(torch, dev):
-    """Small ragged case: unaligned V, a 2048-wide hub row, rows of
-    degree 0, F that is and is not a multiple of 4."""
+    """Small ragged case: unaligned V, a 2048-wide hub row (1500 edges,
+    spanning several 512-edge chunks of the edge list), rows of degree 0,
+    F that is and is not a multiple of 4."""
     from roc_tpu_torch.core.ell import ell_from_graph
     from roc_tpu_torch.core.graph import from_edge_list
-    from roc_tpu_torch.kernels import ell_spmm, graphnorm
+    from roc_tpu_torch.core.partition import padded_edge_list
+    from roc_tpu_torch.kernels import ell_spmm, graphnorm, spmm
     rng = np.random.RandomState(1)
     n = 1003
     src = np.concatenate([rng.randint(0, n, 9000), rng.randint(0, n, 1500)])
@@ -96,6 +113,8 @@ def ragged_checks(torch, dev):
     idx = tuple(torch.from_numpy(a[0]).to(dev) for a in t.idx)
     rid = tuple(torch.from_numpy(a[0]).to(dev) for a in t.row_id)
     deg = torch.from_numpy(g.in_degree).to(dev)
+    esrc, edst = (torch.from_numpy(a).to(dev)
+                  for a in padded_edge_list(g, multiple=512))
     for F in (37, 36):
         x = torch.from_numpy(rng.randn(n, F).astype(np.float32)).to(dev)
         s = torch.from_numpy(rng.rand(n).astype(np.float32)).to(dev)
@@ -109,26 +128,39 @@ def ragged_checks(torch, dev):
         ok, err = close_enough(torch, got, want, 1e-5,
                                1e-5 * float(want.abs().max()))
         assert ok and not got[2].any(), (F, err)
+        # K3 over the same graph's padded edge list, the same tolerance;
+        # no atomics, so two launches give the same bits
+        got = spmm.csr_spmm(x, esrc, edst, n)
+        want = spmm.csr_spmm_plain(x, esrc, edst, n)
+        ok, err = close_enough(torch, got, want, 1e-5,
+                               1e-5 * float(want.abs().max()))
+        assert ok and not got[2].any(), ("csr_spmm", F, err)
+        assert torch.equal(got, spmm.csr_spmm(x, esrc, edst, n)), F
     torch.cuda.synchronize()
-    return {"V": n, "widths": list(t.widths), "F": [37, 36], "ok": True}
+    return {"V": n, "widths": list(t.widths), "edges_padded":
+            int(esrc.numel()), "F": [37, 36], "ok": True}
 
 
-def kernel_checks(torch, dev, gctx, adj, num_edges):
-    """Each kernel against its plain version at the serving forward's
-    shapes, with times.  ``adj`` is the graph as a sparse CSR tensor, the
-    input of K4's library yardstick ``torch.sparse.mm``.  Returns the
-    per-kernel table entries."""
-    from roc_tpu_torch.kernels import ell_spmm, graphnorm
+def kernel_checks(torch, dev, gctx, adj, num_edges, esrc, edst):
+    """Each kernel against its plain version at the shapes the forward
+    and backward give it, with times.  ``adj`` is the graph as a sparse
+    CSR tensor, the input of K3's and K4's library yardstick
+    ``torch.sparse.mm``; ``esrc``/``edst`` the padded edge list K3 reads.
+    Returns the per-kernel table entries."""
+    from roc_tpu_torch.kernels import ell_spmm, graphnorm, spmm
     gen = torch.Generator(device=dev).manual_seed(SEED + 1)
     deg, d = gctx.in_degree, gctx.inv_sqrt_deg
     idx, rid = gctx.ell_idx, gctx.ell_row_id
     idx_entries = sum(int(a.numel()) for a in idx)
     bucket_rows = sum(int(a.numel()) for a in rid)
+    padded_edges = int(esrc.numel())
     entries = {
         "indegree_norm": dict(source="roc_tpu_torch/kernels/csrc/graphnorm.cu",
                               replaces="roc_tpu/kernels/graphnorm.py:60"),
         "scale_act": dict(source="roc_tpu_torch/kernels/csrc/graphnorm.cu",
                           replaces="roc_tpu/kernels/graphnorm.py:103"),
+        "csr_spmm": dict(source="roc_tpu_torch/kernels/csrc/spmm.cu",
+                         replaces="roc_tpu/kernels/spmm.py:83"),
         "ell_aggregate": dict(source="roc_tpu_torch/kernels/csrc/ell_spmm.cu",
                               replaces="roc_tpu/kernels/ell_spmm.py:196"),
     }
@@ -160,9 +192,10 @@ def kernel_checks(torch, dev, gctx, adj, num_edges):
         e["_tb"] += nbytes
         e["_to"] += nops
 
-    # the serving forward's shapes: K1 and K2 at F = 256 (layer 1, K2
-    # with the folded relu) and F = 41 (layer 2, no activation); K4 at
-    # both widths over the real buckets
+    # the forward's shapes: K1 and K2 at F = 256 (layer 1, K2 with the
+    # folded relu) and F = 41 (layer 2, no activation); K3 and K4 at both
+    # widths over the real edge list and buckets.  The backward runs the
+    # same shapes (K2 with no activation).
     for F, act in ((256, "relu"), (41, "none")):
         x = torch.randn((V, F), generator=gen, device=dev)
         vf = V * F
@@ -192,6 +225,16 @@ def kernel_checks(torch, dev, gctx, adj, num_edges):
             lambda: ell_spmm.ell_aggregate_plain(x, idx, rid, V),
             lambda: torch.sparse.mm(adj, x),
             8 * vf + 4 * idx_entries + 4 * bucket_rows, num_edges * F, 5)
+        # K3 over the padded edge list: the same tolerance (another
+        # summation order); bytes: feats and out once, src and dst once
+        want = spmm.csr_spmm_plain(x, esrc, edst, V)
+        got = spmm.csr_spmm(x, esrc, edst, V)
+        add("csr_spmm", [V, F, padded_edges],
+            got, want, 1e-5, 1e-5 * float(want.abs().max()),
+            lambda: spmm.csr_spmm(x, esrc, edst, V),
+            lambda: spmm.csr_spmm_plain(x, esrc, edst, V),
+            lambda: torch.sparse.mm(adj, x),
+            8 * vf + 8 * padded_edges, num_edges * F, 5)
         del x, want, got
     for e in entries.values():
         e["bound_by"] = ("bytes" if e["_tb"] / HBM_BYTES_PER_S
@@ -228,6 +271,150 @@ def slice_run(torch, pred, server_cls):
     return lat, results
 
 
+def _trainer(ds, impl, dropout, params=None, **cfg):
+    from roc_tpu_torch.models.gcn import build_gcn
+    from roc_tpu_torch.train.trainer import TrainConfig, Trainer
+    return Trainer(build_gcn(LAYERS, dropout_rate=dropout), ds,
+                   TrainConfig(aggr_impl=impl, symmetric=True, seed=SEED,
+                               **TRAIN, **cfg),
+                   params=params)
+
+
+def train_parity(torch, ds, params, steps=3):
+    """From the same weights, dropout 0, ``steps`` steps through
+    Trainer.train on each kernel route and on the plain 'ell' route on
+    the card.  Each step's objective within rtol 1e-4 of the plain
+    route's (fp32 sums in another order, compounded over the steps);
+    the weights after the steps are reported, not gated: Adam moves a
+    weight by ~lr whatever its gradient's size, so a near-zero gradient
+    whose sign differs between two summation orders moves it 2 lr
+    apart."""
+    losses, weights, step_s = {}, {}, {}
+    for impl in ("ell", "cuda", "cuda_csr"):
+        tr = _trainer(ds, impl, 0.0, params=params,
+                      eval_every=10 ** 6, verbose=False)
+        t0 = time.perf_counter()
+        tr.train(steps)
+        tr.sync()
+        step_s[impl] = (time.perf_counter() - t0) / steps
+        losses[impl] = torch.stack(tr.losses).double().cpu().numpy()
+        weights[impl] = {k: v.detach().clone() for k, v in tr.params.items()}
+        del tr
+        torch.cuda.empty_cache()
+    out = {"steps": steps, "plain_losses": losses["ell"].tolist(),
+           "plain_step_s": step_s["ell"]}
+    for impl in ("cuda", "cuda_csr"):
+        rel = np.abs(losses[impl] - losses["ell"]) / np.abs(losses["ell"])
+        diffs = [(weights[impl][k] - weights["ell"][k]).abs()
+                 for k in weights["ell"]]
+        n = sum(int(t.numel()) for t in diffs)
+        out[impl] = {
+            "losses": losses[impl].tolist(), "max_rel_loss_err":
+            float(rel.max()), "step_s": step_s[impl],
+            "max_weight_diff": max(float(t.max()) for t in diffs),
+            "share_weights_off_1e-3":
+            sum(int((t > 1e-3).sum()) for t in diffs) / n}
+        if not (np.isfinite(losses[impl]).all() and rel.max() <= 1e-4):
+            raise AssertionError(f"{impl} losses {losses[impl]} differ from "
+                                 f"the plain route's {losses['ell']}")
+    return out
+
+
+def train_slice(torch, ds):
+    """10 epochs, dropout 0.5, an eval every 5, through Trainer on each
+    kernel route (fresh Glorot weights from SEED).  Returns the phase
+    record; raises on a non-finite loss or a train loss that did not
+    fall from epoch 4 to epoch 9."""
+    from roc_tpu_torch.train.trainer import format_metrics
+    out = {}
+    for impl in ("cuda", "cuda_csr"):
+        t0 = time.perf_counter()
+        tr = _trainer(ds, impl, 0.5, epochs=10, eval_every=5,
+                      verbose=False)
+        setup_s = time.perf_counter() - t0
+        hist = tr.train()
+        tr.sync()
+        losses = torch.stack(tr.losses).double().cpu().numpy()
+        lines = [format_metrics(m["epoch"], m) for m in hist]
+        for ln in lines:
+            print(ln, flush=True)
+        out[impl] = {
+            "setup_s": setup_s, "first_step_ms": hist[0]["first_step_ms"],
+            "epoch_ms": [m["epoch_ms"] for m in hist],
+            "eval_ms": [m["eval_ms"] for m in hist],
+            "train_loss": [m["train_loss"] for m in hist],
+            "objective": losses.tolist(), "infer": lines}
+        if not np.isfinite(losses).all() or not all(
+                np.isfinite(m["train_loss"]) for m in hist):
+            raise AssertionError(f"{impl}: non-finite loss {losses}")
+        if [m["epoch"] for m in hist] != [4, 9] or not (
+                hist[1]["train_loss"] < hist[0]["train_loss"]):
+            raise AssertionError(f"{impl}: train loss did not fall: "
+                                 f"{lines}")
+        del tr
+        torch.cuda.empty_cache()
+    return out
+
+
+def _kernel_group(name):
+    """The part of a training step a device kernel belongs to."""
+    for group, keys in (("K3 csr_spmm", ("csr_row_sum",)),
+                        ("K4 ell_aggregate", ("ell_bucket_sum",)),
+                        ("K1/K2 row scale", ("row_scale_",)),
+                        ("matmul", ("gemm", "Gemm", "cutlass", "xmma"))):
+        if any(k in name for k in keys):
+            return group
+    return "other (dropout, loss, Adam, copies)"
+
+
+def train_profile(torch, ds, steps=3):
+    """Where a steady training step's device time goes, per kernel
+    route: ``steps`` steps (after 2 warm ones) under torch.profiler,
+    kernel time summed by group, and the device's idle share of the
+    host wall clock (1 - kernel time / wall).  Dropout 0.5, as in the
+    train slice.  Reports "not measured" if the profiler sees no device
+    time."""
+    from torch.profiler import ProfilerActivity, profile
+    out = {}
+    for impl in ("cuda", "cuda_csr"):
+        tr = _trainer(ds, impl, 0.5, eval_every=10 ** 6,
+                      verbose=False)
+        tr.train(2)
+        tr.sync()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            tr.train(steps)
+            tr.sync()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+        groups, names = {}, {}
+        for e in prof.key_averages():
+            # the device's own kernel events only: a host op's device
+            # time repeats that of the kernels it launched
+            if e.device_type != torch.autograd.DeviceType.CUDA:
+                continue
+            us = e.device_time_total
+            if us > 0:
+                g = _kernel_group(e.key)
+                groups[g] = groups.get(g, 0.0) + us / 1e3 / steps
+                names[e.key] = names.get(e.key, 0.0) + us / 1e3 / steps
+        busy = sum(groups.values())
+        rec = {"wall_ms_per_step": wall_ms / steps}
+        if busy <= 0:
+            rec["device"] = "not measured"
+        else:
+            rec.update(
+                device_ms_per_step=busy, idle_share=1 - busy * steps / wall_ms,
+                groups_ms_per_step=groups,
+                group_share={g: v / busy for g, v in groups.items()},
+                top_kernels_ms_per_step=sorted(
+                    names.items(), key=lambda kv: -kv[1])[:8])
+        out[impl] = rec
+        del tr, prof
+        torch.cuda.empty_cache()
+    return out
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -235,7 +422,8 @@ def main() -> int:
         return 1
     t_start = time.perf_counter()
     from roc_tpu_torch.core.graph import synthetic_dataset
-    from roc_tpu_torch.kernels import _build, ell_spmm, graphnorm
+    from roc_tpu_torch.core.partition import padded_edge_list
+    from roc_tpu_torch.kernels import _build, ell_spmm, graphnorm, spmm
     from roc_tpu_torch.models.gcn import build_gcn
     from roc_tpu_torch.ops.dense import set_fp32_matmul_precision
     from roc_tpu_torch.serve.export import build_predictor
@@ -287,20 +475,23 @@ def main() -> int:
         torch.from_numpy(g.col_idx.astype(np.int64)).to(dev),
         torch.ones(g.num_edges, device=dev), size=(V, V),
         check_invariants=False)
-    entries = kernel_checks(torch, dev, gctx, adj, g.num_edges)
-    del adj
+    esrc, edst = (torch.from_numpy(a).to(dev)
+                  for a in padded_edge_list(g, multiple=512))
+    entries = kernel_checks(torch, dev, gctx, adj, g.num_edges, esrc, edst)
+    del adj, esrc, edst
     torch.cuda.empty_cache()
 
-    # 4. slice: the main path, counts zeroed just before
+    # 4. serve slice: the serving path, counts zeroed just before
     kernels = (graphnorm.indegree_norm, graphnorm.scale_act,
-               ell_spmm.ell_aggregate)
+               spmm.csr_spmm, ell_spmm.ell_aggregate)
     for k in kernels:
         k.launches = 0
     lat, results = slice_run(torch, pred, Server)
     torch.cuda.synchronize()
     launches = {k.__name__: k.launches for k in kernels}
     log({"phase": "slice", "requests": lat, "launches": launches})
-    if not all(launches.values()):
+    if not all(launches[k] for k in ("indegree_norm", "scale_act",
+                                     "ell_aggregate")):
         raise AssertionError(f"a kernel of the path never ran: {launches}")
 
     with torch.inference_mode():
@@ -326,12 +517,43 @@ def main() -> int:
     if not worst <= tol:
         raise AssertionError(f"served logits differ from the plain route: "
                              f"{worst} > {tol}")
+    del pred, gctx, plain_ctx, ref, results
+    torch.cuda.empty_cache()
+
+    # 5. train parity: kernel routes against the plain route on the card
+    log({"phase": "train_parity", **train_parity(torch, ds, params)})
+
+    # 6. train slice: the training path, counts zeroed just before
+    for k in kernels:
+        k.launches = 0
+    record = train_slice(torch, ds)
+    torch.cuda.synchronize()
+    train_launches = {k.__name__: k.launches for k in kernels}
+    # the kernels' share of a steady step, from the kernel phase's times:
+    # each of the two layers runs its chain once forward, once backward
+    chain = 2 * (entries["indegree_norm"]["ms"] + entries["scale_act"]["ms"])
+    for impl, agg in (("cuda", "ell_aggregate"), ("cuda_csr", "csr_spmm")):
+        steady = [ms for ms in record[impl]["epoch_ms"] if ms]
+        step_ms = sum(steady) / len(steady)
+        est = chain + 2 * entries[agg]["ms"]
+        record[impl].update(kernel_ms_per_step_est=est,
+                            kernel_share_est=est / step_ms,
+                            aggregate_share_est=2 * entries[agg]["ms"]
+                            / step_ms)
+    log({"phase": "train_slice", **record, "launches": train_launches})
+    if not all(train_launches.values()):
+        raise AssertionError(f"a kernel of the training path never ran: "
+                             f"{train_launches}")
+
+    # 7. where a steady step's device time goes (after the counts are
+    # read: these steps are not part of the counted run)
+    log({"phase": "train_profile", **train_profile(torch, ds)})
 
     table = []
     for name, e in entries.items():
         table.append({"name": name, "route": "cuda", "source": e["source"],
                       "replaces": e["replaces"],
-                      "launches": launches[name],
+                      "launches": launches[name] + train_launches[name],
                       "max_abs_err": e["max_abs_err"], "ms": e["ms"],
                       "plain_ms": e["plain_ms"], "bound_ms": e["bound_ms"],
                       "bound_by": e["bound_by"],

@@ -13,8 +13,10 @@ from typing import Dict
 import numpy as np
 import torch
 
-# The hand-written ELL route is 'pallas' in the JAX package, 'cuda' here.
-AGGR_IMPL_FROM_JAX = {"pallas": "cuda", "ell": "ell"}
+# The hand-written ELL route is 'pallas' in the JAX package, 'cuda' here;
+# the hand-written CSR route is 'pallas_csr' there, 'cuda_csr' here.
+AGGR_IMPL_FROM_JAX = {"pallas": "cuda", "ell": "ell",
+                      "pallas_csr": "cuda_csr", "segment": "segment"}
 AGGR_IMPL_TO_JAX = {v: k for k, v in AGGR_IMPL_FROM_JAX.items()}
 
 

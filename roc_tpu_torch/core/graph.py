@@ -1,10 +1,13 @@
-"""Host-side graph data: the CSR container, the dataset record and the
-synthetic generators the serving path and its tests are built from.
+"""Host-side graph data: the CSR container, the dataset record, the
+reference on-disk layout's loaders and the synthetic generators.
 
 A numpy copy of the subset of ``roc_tpu/core/graph.py`` this package
 needs.  The generators draw from ``np.random.RandomState`` in the same
 order as the JAX package's, so the same seed gives bit-equal arrays in
-both packages (tests/test_torch_data.py holds them to that).
+both packages (tests/test_torch_data.py holds them to that).  The
+loaders read whole files on numpy's paths only: neither the JAX
+package's native C++ parser nor its partition-local ``rows=`` reads are
+ported (tests/test_torch_train.py holds the loaded arrays bit-equal).
 
 ``Graph`` is destination-major CSR: ``row_ptr`` has length ``V+1`` with
 ``row_ptr[0] == 0``, and ``col_idx[row_ptr[v]:row_ptr[v+1]]`` are the
@@ -14,7 +17,10 @@ both packages (tests/test_torch_data.py holds them to that).
 
 from __future__ import annotations
 
+import os
+import struct
 from dataclasses import dataclass
+from typing import Optional
 
 import numpy as np
 
@@ -23,6 +29,9 @@ MASK_NONE = 0
 MASK_TRAIN = 1
 MASK_VAL = 2
 MASK_TEST = 3
+
+_MASK_NAMES = {"Train": MASK_TRAIN, "Val": MASK_VAL, "Test": MASK_TEST,
+               "None": MASK_NONE}
 
 
 @dataclass
@@ -128,6 +137,117 @@ class Dataset:
     @property
     def in_dim(self) -> int:
         return int(self.features.shape[1])
+
+
+# ---------------------------------------------------------------------------
+# The reference on-disk layout (gnn.cc:756-801, load_task.cu:25-199)
+# ---------------------------------------------------------------------------
+
+def _read_slice(f, offset: int, count: int, dtype: str) -> np.ndarray:
+    """Seek + read ``count`` items of ``dtype``; raises on a short read."""
+    f.seek(offset)
+    out = np.fromfile(f, dtype=dtype, count=count)
+    if out.size != count:
+        raise IOError(f"truncated read at {offset} (+{count}): "
+                      f"got {out.size} items")
+    return out
+
+
+def load_lux_header(path: str) -> tuple:
+    """(num_nodes, num_edges) from a `.lux` header without reading the
+    body."""
+    with open(path, "rb") as f:
+        return struct.unpack("<IQ", f.read(12))
+
+
+def load_lux(path: str) -> Graph:
+    """Read a `.lux` binary graph: u32 num_nodes, u64 num_edges,
+    num_nodes x u64 inclusive-end row offsets, num_edges x u32 source
+    ids."""
+    num_nodes, num_edges = load_lux_header(path)
+    with open(path, "rb") as f:
+        raw_rows = _read_slice(f, 12, num_nodes, "<u8")
+        col_idx = _read_slice(f, 12 + 8 * num_nodes, num_edges, "<u4")
+    # monotonicity checks mirror gnn.cc:798-800 (ValueError, not assert)
+    if not (np.diff(raw_rows.astype(np.int64)) >= 0).all():
+        raise ValueError(f"{path}: non-monotone row offsets")
+    if num_nodes and raw_rows[-1] != num_edges:
+        raise ValueError(f"{path}: row offsets end at {raw_rows[-1]}, "
+                         f"expected {num_edges}")
+    row_ptr = np.zeros(num_nodes + 1, dtype=np.int64)
+    row_ptr[1:] = raw_rows.astype(np.int64)
+    return Graph(row_ptr=row_ptr, col_idx=col_idx.astype(np.int32))
+
+
+def load_features(prefix: str, num_nodes: int, in_dim: int) -> np.ndarray:
+    """``<prefix>.feats.bin`` (float32) when present, else
+    ``<prefix>.feats.csv`` (one comma-separated row per vertex), caching
+    the ``.feats.bin`` beside it as ``load_task.cu:41-73`` does.  Returns
+    float32 ``[num_nodes, in_dim]``."""
+    bin_path = prefix + ".feats.bin"
+    if os.path.exists(bin_path):
+        data = np.fromfile(bin_path, dtype=np.float32,
+                           count=num_nodes * in_dim)
+        if data.size != num_nodes * in_dim:
+            raise IOError(f"{bin_path}: truncated .feats.bin "
+                          f"({data.size} of {num_nodes * in_dim} floats)")
+        return data.reshape(num_nodes, in_dim)
+    data = np.loadtxt(prefix + ".feats.csv", delimiter=",",
+                      dtype=np.float32).reshape(num_nodes, in_dim)
+    data.tofile(bin_path)
+    return data
+
+
+def load_labels(prefix: str, num_nodes: int, num_classes: int) -> np.ndarray:
+    """``<prefix>.label``, one class index per line (``load_task.cu:118-
+    123``).  Returns int32 ``[num_nodes]``."""
+    labels = np.loadtxt(prefix + ".label", dtype=np.int64,
+                        ndmin=1)[:num_nodes]
+    if labels.shape[0] != num_nodes:
+        raise ValueError(f"{prefix}.label: got {labels.shape[0]} rows, "
+                         f"expected {num_nodes}")
+    if not ((labels >= 0) & (labels < num_classes)).all():
+        raise ValueError(f"{prefix}.label: class index outside "
+                         f"[0, {num_classes})")
+    return labels.astype(np.int32)
+
+
+def load_mask(prefix: str, num_nodes: int) -> np.ndarray:
+    """``<prefix>.mask``, "Train"/"Val"/"Test"/"None" per line
+    (``load_task.cu:169-183``).  Returns int32 ``[num_nodes]`` of MASK_*
+    values."""
+    out = np.empty(num_nodes, dtype=np.int32)
+    count = 0
+    with open(prefix + ".mask") as f:
+        for line in f:
+            if count == num_nodes:
+                break
+            line = line.strip()
+            if line not in _MASK_NAMES:
+                raise ValueError(f"Unrecognized mask: {line!r}")
+            out[count] = _MASK_NAMES[line]
+            count += 1
+    if count != num_nodes:
+        raise ValueError(f"truncated .mask: wanted {num_nodes} rows, "
+                         f"got {count}")
+    return out
+
+
+def load_dataset(prefix: str, in_dim: int, num_classes: int,
+                 name: Optional[str] = None) -> Dataset:
+    """A reference-layout dataset: ``<prefix>.add_self_edge.lux``
+    (falling back to ``<prefix>.lux`` plus self-edge insertion),
+    ``.feats.bin``/``.feats.csv``, ``.label``, ``.mask``."""
+    lux = prefix + ".add_self_edge.lux"
+    if os.path.exists(lux):
+        graph = load_lux(lux)
+    else:
+        graph = add_self_edges(load_lux(prefix + ".lux"))
+    V = graph.num_nodes
+    return Dataset(graph=graph, features=load_features(prefix, V, in_dim),
+                   labels=load_labels(prefix, V, num_classes),
+                   mask=load_mask(prefix, V), num_classes=num_classes,
+                   name=name or os.path.basename(prefix))
 
 
 def random_csr(num_nodes: int, num_edges: int, seed: int = 0,

@@ -48,6 +48,8 @@ SIGNATURES = {
     "roc_scale_act_f32": (_P, _P, _P, _L, _I, _I, _P),
     # feats, idx, row_id, out, rows, width, dummy, num_rows, F, stream
     "roc_ell_aggregate_f32": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
+    # feats, edge_src, edge_dst, out, num_edges, dummy, num_rows, F, stream
+    "roc_csr_spmm_f32": (_P, _P, _P, _P, _L, _I, _I, _I, _P),
 }
 
 _lock = threading.Lock()

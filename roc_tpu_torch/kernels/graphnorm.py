@@ -1,11 +1,11 @@
-"""Row-scale kernels of the GCN normalization chain and the fused
-aggregate-and-scale tail (``roc_tpu/kernels/graphnorm.py``).
+"""Row-scale kernels of the GCN normalization chain
+(``roc_tpu/kernels/graphnorm.py``).  The fused chain
+(models/builder.py ``GraphContext._fused_sum_fwd``) is K1 -> the
+neighbour sum (K4, kernels/ell_spmm.py, or K3, kernels/spmm.py) -> K2.
 
 - :func:`indegree_norm` (K1): ``x * d[:, None]`` with
   ``d = inv_sqrt_degree(in_degree)``, the pre-scale of the fused chain.
 - :func:`scale_act` (K2): ``act(x * scale[:, None])``, its epilogue.
-- :func:`fused_ell_aggregate`: the ELL sum (kernels/ell_spmm.py K4)
-  followed by K2.
 
 Each kernel wrapper takes its plain PyTorch version for a tensor on the
 CPU and launches the CUDA kernel (csrc/graphnorm.cu) for a tensor on the
@@ -23,7 +23,6 @@ import torch
 
 from ..ops.norm import inv_sqrt_degree
 from . import _build
-from .ell_spmm import ell_aggregate
 
 ACTS = ("none", "relu")
 
@@ -110,16 +109,3 @@ def scale_act(x: torch.Tensor, scale: torch.Tensor,
 
 
 scale_act.launches = 0
-
-
-def fused_ell_aggregate(x: torch.Tensor, ell_idx: Sequence[torch.Tensor],
-                        ell_row_id: Sequence[torch.Tensor], num_rows: int,
-                        d_dst: torch.Tensor, act: str = "none"
-                        ) -> torch.Tensor:
-    """``act(d_dst * (A @ x))``: the ELL sum of the (already pre-scaled)
-    rows ``x`` followed by the K2 epilogue.  With ``act='none'`` this is
-    the linear operator ``D^-1/2 A D^-1/2`` once ``x`` carries the K1
-    pre-scale; ``act='relu'`` folds the following relu into the epilogue
-    (the same fp32 numbers as a separate relu)."""
-    y = ell_aggregate(x, ell_idx, ell_row_id, num_rows)
-    return scale_act(y, d_dst, act=act)

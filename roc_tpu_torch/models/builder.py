@@ -1,19 +1,30 @@
 """Model builder and graph context (``roc_tpu/models/builder.py``), for
-the op kinds the GCN's inference forward uses.
+the op kinds the GCN uses, forward and backward.
 
 The builder API records a static op list, as the reference's ``Model``
 class does (``gnn.h:162-203``); :meth:`Model.apply` interprets it
-eagerly.  Graph access goes through :class:`GraphContext`, which holds
-the degree-bucketed ELL tables on the model's device and runs one of
-two routes:
+eagerly and autograd differentiates it.  Graph access goes through
+:class:`GraphContext`, which holds the graph on the model's device and
+runs one of four routes, two layouts times plain or hand-written:
 
 - ``aggr_impl='ell'``: the plain PyTorch ELL sum (ops/aggregate.py);
-- ``aggr_impl='cuda'``: the hand-written kernels — K4 for the sum, and
-  in the fused chain K1 (pre-scale) -> K4 -> K2 (scale and activation),
-  kernels/graphnorm.py.  It stands for the JAX package's 'pallas'.
+- ``aggr_impl='cuda'``: the hand-written ELL kernels — K4 for the sum,
+  and in the fused chain K1 (pre-scale) -> K4 -> K2 (scale and
+  activation), kernels/graphnorm.py.  The JAX package's 'pallas';
+- ``aggr_impl='segment'``: the plain edge-list sum (ops/aggregate.py);
+- ``aggr_impl='cuda_csr'``: the hand-written CSR kernel K3
+  (kernels/spmm.py), fused as K1 -> K3 -> K2.  The JAX package's
+  'pallas_csr'.
 
-Both routes dispatch by the tensors' device inside the kernel wrappers:
-on the CPU the 'cuda' route runs the kernels' plain versions.
+The kernel wrappers dispatch by the tensors' device: on the CPU the
+kernel routes run the kernels' plain versions.
+
+The backward of both aggregations is the reference's symmetric trick
+(``scattergather_kernel.cu:160-170``, ``roc_tpu/models/builder.py:221-
+244, 327-347``): for a symmetric graph ``A^T = A`` and ``S^T = S``, so
+the gradient is the forward rerun on the cotangent, through the same
+kernels.  ``symmetric=False`` differentiates the plain routes by
+autograd (exact for any graph) and raises on the kernel routes.
 """
 
 from __future__ import annotations
@@ -26,36 +37,85 @@ import torch
 from torch import nn
 
 from ..ops import dense
-from ..ops.aggregate import aggregate_ell
+from ..ops.aggregate import aggregate_ell, aggregate_segment
 from ..ops.dense import AC_MODE_NONE, AC_MODE_RELU
+from ..ops.loss import masked_softmax_cross_entropy
 from ..ops.norm import indegree_norm
 
 AGGR_SUM = "sum"
 
-AGGR_IMPLS = ("ell", "cuda")
+ELL_IMPLS = ("ell", "cuda")
+EDGE_IMPLS = ("segment", "cuda_csr")
+KERNEL_IMPLS = ("cuda", "cuda_csr")
+AGGR_IMPLS = ELL_IMPLS + EDGE_IMPLS
+
+
+class _SymmetricSum(torch.autograd.Function):
+    """``A @ x`` whose backward is ``A @ g`` (the forward on the
+    cotangent)."""
+
+    @staticmethod
+    def forward(ctx, x, gctx):
+        ctx.gctx = gctx
+        return gctx._sum_fwd(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return ctx.gctx._sum_fwd(g.contiguous()), None
+
+
+class _SymmetricFused(torch.autograd.Function):
+    """``act(S x)``, ``S = D^-1/2 A D^-1/2``.  The relu is nonlinear, so
+    it is not part of the symmetric operator: the backward masks the
+    cotangent by ``y > 0`` (relu's gradient, 0 at 0 as in JAX) and then
+    runs ``S`` with no activation, K1 -> K3/K4 -> K2('none') on the
+    kernel routes."""
+
+    @staticmethod
+    def forward(ctx, x, gctx, act):
+        ctx.gctx = gctx
+        y = gctx._fused_sum_fwd(x, act)
+        if act == AC_MODE_RELU:
+            ctx.save_for_backward(y)
+        return y
+
+    @staticmethod
+    def backward(ctx, g):
+        if ctx.saved_tensors:
+            (y,) = ctx.saved_tensors
+            g = g * (y > 0).to(g.dtype)
+        return ctx.gctx._fused_sum_fwd(g.contiguous()), None, None
 
 
 @dataclass
 class GraphContext:
-    """Single-device view of the graph for the forward.
+    """Single-device view of the graph for the forward and backward.
 
     in_degree: int32 [num_rows] in-degrees; inv_sqrt_deg: their fp32
       ``deg^-1/2`` (ops/norm.py), computed once.
+    ELL routes ('ell', 'cuda'; empty otherwise):
     ell_idx: int32 ``[rows_b, width_b]`` per bucket, dummy == num_rows.
     ell_row_pos: int32 [num_rows] slot of each row in the concatenated
       bucket outputs (read by the 'ell' route).
     ell_row_id: int32 [rows_b] per bucket, the output row of each
       bucket row (read by the 'cuda' route).
+    Edge routes ('segment', 'cuda_csr'; None otherwise):
+    edge_src/edge_dst: int32 [Ep] padded edge list sorted by destination
+      (core/partition.py), ``Ep`` a multiple of ``chunk``, dummy source
+      == num_rows.
     """
 
     in_degree: torch.Tensor
     inv_sqrt_deg: torch.Tensor
     num_rows: int
-    ell_idx: Tuple[torch.Tensor, ...]
-    ell_row_pos: torch.Tensor
-    ell_row_id: Tuple[torch.Tensor, ...]
+    ell_idx: Tuple[torch.Tensor, ...] = ()
+    ell_row_pos: Optional[torch.Tensor] = None
+    ell_row_id: Tuple[torch.Tensor, ...] = ()
     aggr_impl: str = "cuda"
     symmetric: bool = True
+    edge_src: Optional[torch.Tensor] = None
+    edge_dst: Optional[torch.Tensor] = None
+    chunk: int = 512
 
     def __post_init__(self):
         if self.aggr_impl not in AGGR_IMPLS:
@@ -77,39 +137,64 @@ class GraphContext:
             from ..kernels.ell_spmm import ell_aggregate
             return ell_aggregate(self.gather_features(x), self.ell_idx,
                                  self.ell_row_id, self.num_rows)
+        if self.aggr_impl == "cuda_csr":
+            from ..kernels.spmm import csr_spmm
+            return csr_spmm(self.gather_features(x), self.edge_src,
+                            self.edge_dst, self.num_rows, chunk=self.chunk)
+        if self.aggr_impl == "segment":
+            return aggregate_segment(self._gathered_with_zero(x),
+                                     self.edge_src, self.edge_dst,
+                                     self.num_rows)
         return aggregate_ell(self._gathered_with_zero(x), self.ell_idx,
                              self.ell_row_pos, self.num_rows)
 
     def _fused_sum_fwd(self, x: torch.Tensor,
                        act: str = AC_MODE_NONE) -> torch.Tensor:
-        """``act(D^-1/2 A D^-1/2 x)``.  The 'cuda' route runs K1 on the
-        local rows, the halo gather, then K4 -> K2 with the activation
-        in K2's epilogue; the 'ell' route scales before and after the
-        plain sum and applies the activation after."""
+        """``act(D^-1/2 A D^-1/2 x)``.  The kernel routes run K1 on the
+        local rows, the halo gather, then K4 (or K3) -> K2 with the
+        activation in K2's epilogue; the plain routes scale before and
+        after the plain sum and apply the activation after."""
         d = self.inv_sqrt_deg
-        if self.aggr_impl == "cuda":
-            from ..kernels.graphnorm import (fused_ell_aggregate,
-                                             indegree_norm as norm_kernel)
-            full = self.gather_features(norm_kernel(x, self.in_degree))
-            return fused_ell_aggregate(full, self.ell_idx, self.ell_row_id,
-                                       self.num_rows, d, act=act)
+        if self.aggr_impl in KERNEL_IMPLS:
+            from ..kernels.graphnorm import (indegree_norm as norm_kernel,
+                                             scale_act)
+            return scale_act(self._sum_fwd(norm_kernel(x, self.in_degree)),
+                             d, act=act)
         d = d.to(x.dtype)[:, None]
         return dense.activation(self._sum_fwd(x * d) * d, act)
 
+    def _check_differentiable(self, x: torch.Tensor) -> None:
+        if (not self.symmetric and self.aggr_impl in KERNEL_IMPLS
+                and torch.is_grad_enabled() and x.requires_grad):
+            raise NotImplementedError(
+                f"aggr_impl={self.aggr_impl!r} differentiates by the "
+                "symmetric trick only; a graph that is not symmetric "
+                "trains on a plain route ('ell' or 'segment')")
+
     def aggregate(self, x: torch.Tensor, aggr: str = AGGR_SUM
                   ) -> torch.Tensor:
+        """``A @ x``; the backward reruns it on the cotangent when the
+        graph is symmetric."""
         if aggr != AGGR_SUM:
             raise NotImplementedError(
                 f"aggregation {aggr!r} is not ported; only {AGGR_SUM!r}")
-        return self._sum_fwd(x)
+        self._check_differentiable(x)
+        if not self.symmetric:
+            return self._sum_fwd(x)
+        return _SymmetricSum.apply(x, self)
 
     def aggregate_fused(self, x: torch.Tensor,
                         act: str = AC_MODE_NONE) -> torch.Tensor:
-        """Fused ``act(S x)`` with ``S = D^-1/2 A D^-1/2``."""
+        """Fused ``act(S x)`` with ``S = D^-1/2 A D^-1/2``; ``S`` is
+        symmetric whenever ``A`` is, so the backward reruns it on the
+        (relu-masked) cotangent."""
         if act not in (AC_MODE_NONE, AC_MODE_RELU):
             raise ValueError(f"fused aggregation takes act none|relu, "
                              f"got {act!r}")
-        return self._fused_sum_fwd(x, act)
+        self._check_differentiable(x)
+        if not self.symmetric:
+            return self._fused_sum_fwd(x, act)
+        return _SymmetricFused.apply(x, self, act)
 
 
 @dataclass(frozen=True)
@@ -245,7 +330,7 @@ class Model(nn.Module):
         return self._append("add", (a.idx, b.idx), a.dim)
 
     def softmax_cross_entropy(self, t: TensorHandle) -> TensorHandle:
-        """Marks ``t`` as the logits (the loss itself is not ported)."""
+        """Marks ``t`` as the logits :meth:`loss_fn` takes the loss of."""
         self._loss_op = t.idx
         return t
 
@@ -299,9 +384,9 @@ class Model(nn.Module):
         """Glorot-uniform for every linear weight, ``U(-s, s)`` with
         ``s = sqrt(6/(in+out))`` (``initializer_kernel.cu:38-48``), drawn
         from ``generator`` (on ``device``).  Stores them in
-        :attr:`params` and returns them as a plain dict.  The numbers
-        differ from the JAX package's for the same seed; tests carry
-        weights across with roc_tpu_torch/convert.py."""
+        :attr:`params` as trainable leaves and returns them as a plain
+        dict.  The numbers differ from the JAX package's for the same
+        seed; tests carry weights across with roc_tpu_torch/convert.py."""
         out: Dict[str, torch.Tensor] = {}
         for op in self._ops:
             if op.kind == "linear":
@@ -309,7 +394,7 @@ class Model(nn.Module):
                 s = float(np.sqrt(6.0 / (in_dim + op.dim)))
                 w = torch.empty((in_dim, op.dim), dtype=dtype, device=device)
                 w.uniform_(-s, s, generator=generator)
-                self.params[op.param] = nn.Parameter(w, requires_grad=False)
+                self.params[op.param] = nn.Parameter(w)
                 out[op.param] = self.params[op.param]
         return out
 
@@ -318,7 +403,9 @@ class Model(nn.Module):
     def apply(self, params: Dict[str, torch.Tensor], feats: torch.Tensor,
               gctx: GraphContext, generator: Optional[torch.Generator] = None,
               train: bool = True) -> torch.Tensor:
-        """Run the recorded op list; returns the logits tensor."""
+        """Run the recorded op list; returns the logits tensor.  In
+        training each dropout op draws its own mask from ``generator``,
+        in op order, once per call."""
         if (train and generator is None and
                 any(op.kind == "dropout" and op.attrs["rate"] > 0
                     for op in self._ops)):
@@ -349,3 +436,14 @@ class Model(nn.Module):
                 raise ValueError(f"op kind {op.kind!r} is not ported")
         out_idx = self._loss_op if self._loss_op is not None else -1
         return vals[out_idx]
+
+    def loss_fn(self, params: Dict[str, torch.Tensor], feats: torch.Tensor,
+                labels: torch.Tensor, mask: torch.Tensor, gctx: GraphContext,
+                generator: Optional[torch.Generator] = None,
+                train: bool = True) -> Tuple[torch.Tensor, torch.Tensor]:
+        """(summed masked CE, logits): the objective whose gradient is the
+        reference's ``softmax - onehot`` on train rows
+        (``softmax_kernel.cu:19-33``)."""
+        logits = self.apply(params, feats, gctx, generator=generator,
+                            train=train)
+        return masked_softmax_cross_entropy(logits, labels, mask), logits

@@ -1,13 +1,17 @@
-"""Plain degree-bucketed ELL neighbour sum (``roc_tpu/ops/aggregate.py
-aggregate_ell``): per width bucket, gather ``feats[idx]`` and sum the
-width axis; then inverse-permute the concatenated bucket outputs back
-to row order.  This is the route ``aggr_impl='ell'`` runs, and the
-reference the CUDA kernel of kernels/ell_spmm.py is held to.
+"""Plain neighbour sums (``roc_tpu/ops/aggregate.py``), the routes the
+hand-written kernels are held to:
 
-A bucket whose gathered block would exceed ``budget_elems`` scalars is
-summed in row segments.  Without them the transient is the whole
-``[rows, width, F]`` gather: at Reddit scale (E ~ 115M, F = 256) that is
-over 100 GB.
+- :func:`aggregate_ell`, the degree-bucketed ELL sum (route 'ell',
+  kernel K4 in kernels/ell_spmm.py): per width bucket, gather
+  ``feats[idx]`` and sum the width axis; then inverse-permute the
+  concatenated bucket outputs back to row order.
+- :func:`aggregate_segment`, the edge-list sum (route 'segment', kernel
+  K3 in kernels/spmm.py): gather ``feats[src]`` and ``index_add_`` it
+  into the destination rows.
+
+Both work in pieces of at most ``budget_elems`` gathered scalars (row
+segments of a bucket, chunks of edges).  Without them the transient is
+the whole gather: at Reddit scale (E ~ 112M, F = 256) over 100 GB.
 """
 
 from __future__ import annotations
@@ -50,3 +54,45 @@ def aggregate_ell(feats: torch.Tensor, ell_idx: Sequence[torch.Tensor],
     outs.append(torch.zeros((1, F), dtype=feats.dtype, device=feats.device))
     cat = torch.cat(outs, dim=0)
     return cat.index_select(0, ell_row_pos)[:num_rows]
+
+
+def aggregate_segment(feats: torch.Tensor, edge_src: torch.Tensor,
+                      edge_dst: torch.Tensor, num_rows: int,
+                      budget_elems: int = DEFAULT_BUDGET_ELEMS
+                      ) -> torch.Tensor:
+    """``out[d] = sum over edges (s, d) of feats[s]``.
+
+    feats: [R(+1), F] (a trailing zero row for padding edges to read).
+    edge_src/edge_dst: int [E], any order.  Returns [num_rows, F].
+    Edges go in chunks of at most ``budget_elems // F`` gathered rows,
+    each added into the output in place (differentiable by autograd)."""
+    F = feats.shape[1]
+    out = feats.new_zeros((num_rows, F))
+    step = max(1, budget_elems // max(F, 1))
+    for e0 in range(0, edge_src.shape[0], step):
+        out.index_add_(0, edge_dst[e0:e0 + step].long(),
+                       feats[edge_src[e0:e0 + step].long()])
+    return out
+
+
+IMPLS = ("segment", "cuda_csr")
+
+
+def aggregate(feats: torch.Tensor, edge_src: torch.Tensor,
+              edge_dst: torch.Tensor, num_rows: int,
+              impl: str = "segment", chunk: int = 512) -> torch.Tensor:
+    """The edge-list dispatcher (``roc_tpu/ops/aggregate.py aggregate``)
+    over the ported impls: 'segment' (plain) or 'cuda_csr' (kernel K3,
+    the JAX package's 'pallas_csr').  ``feats`` is ``[R+1, F]`` with a
+    trailing zero row, as there; edges are sorted by destination and
+    padded to a ``chunk`` multiple for 'cuda_csr'.  The sums agree to
+    fp32 rounding (another summation order)."""
+    if impl == "segment":
+        return aggregate_segment(feats, edge_src, edge_dst, num_rows)
+    if impl == "cuda_csr":
+        from ..kernels.spmm import csr_spmm
+        # K3 skips the dummy id instead of reading the zero row
+        return csr_spmm(feats[:-1], edge_src, edge_dst, num_rows,
+                        chunk=chunk)
+    raise ValueError(f"aggregate impl {impl!r} is not ported; expected "
+                     f"one of {IMPLS}")

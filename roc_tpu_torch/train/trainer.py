@@ -1,32 +1,59 @@
-"""The part of ``roc_tpu/train/trainer.py`` that serving reads: the config,
-the fuse rule, the graph context and the dtype helpers.  The epoch loop
-is not ported yet.
+"""Single-device training (``roc_tpu/train/trainer.py``): the config, the
+fuse rule, the graph context, :class:`Trainer` and the reference's epoch
+loop (``gnn.cc:99-111``): per epoch staircase lr decay, forward,
+backward, Adam update; every ``eval_every`` epochs an inference pass
+printing train loss and train/val/test accuracy in the reference's
+format (``softmax_kernel.cu:141-152``).
+
+The subset ported is one device, features resident on the device, no
+rematerialisation, no mesh, no streamed head; fault injection, the
+heartbeat, the metrics registry and the timeline are not ported.
 """
 
 from __future__ import annotations
 
+import time
 from dataclasses import dataclass
-from typing import Dict, Optional
+from typing import Dict, List, Optional
 
 import torch
 
 from ..core.ell import ell_from_graph
 from ..core.graph import Dataset, check_symmetric
-from ..models.builder import AGGR_IMPLS, GraphContext, Model
+from ..core.partition import padded_edge_list
+from ..models.builder import (AGGR_IMPLS, EDGE_IMPLS, KERNEL_IMPLS,
+                              GraphContext, Model)
+from ..ops.loss import perf_metrics, summarize_metrics
 from ..ops.norm import inv_sqrt_degree
+from .optimizer import AdamConfig, adam_init, adam_update, decayed_lr
 
 
 @dataclass
 class TrainConfig:
-    """The serving subset of the JAX package's ``TrainConfig``.
+    """The ported subset of the JAX package's ``TrainConfig`` (the
+    reference's ``Config`` struct and CLI defaults, ``gnn.h:105-113``,
+    ``gnn.cc:30-41``).
 
-    aggr_impl: 'cuda' (the hand-written kernels, the JAX package's
-      'pallas') or 'ell' (the plain PyTorch ELL sum).
+    aggr_impl: 'cuda' (the hand-written ELL kernels, the JAX package's
+      'pallas'), 'cuda_csr' (the hand-written CSR kernel K3, its
+      'pallas_csr'), or the plain 'ell' / 'segment'.
+    chunk: edge-list padding multiple of the edge routes.
     aggr_fuse: 'auto' | 'on' | 'off', see :func:`resolve_fuse`.
-    symmetric: None = check the graph; recorded on the graph context.
+    symmetric: None = check the graph; False differentiates the plain
+      routes exactly and is refused by the kernel routes.
+    dropout_rate: recorded for the CLI; the model carries its own rate.
     """
+    learning_rate: float = 0.01
+    weight_decay: float = 0.05
+    dropout_rate: float = 0.5
+    decay_rate: float = 1.0
+    decay_steps: int = 100
+    epochs: int = 200
     seed: int = 1
+    eval_every: int = 5
+    verbose: bool = True
     aggr_impl: str = "cuda"
+    chunk: int = 512
     aggr_fuse: str = "auto"
     symmetric: Optional[bool] = None
     dtype: torch.dtype = torch.float32
@@ -60,6 +87,12 @@ def resolve_fuse(model: Model, config: TrainConfig) -> Model:
     return fused
 
 
+def resolve_symmetric(dataset: Dataset, symmetric: Optional[bool]) -> bool:
+    if symmetric is None:
+        return check_symmetric(dataset.graph)
+    return bool(symmetric)
+
+
 def compute_dtype_of(config: TrainConfig) -> torch.dtype:
     """``compute_dtype`` when set (mixed precision), else ``dtype``."""
     return (config.compute_dtype if config.compute_dtype is not None
@@ -75,27 +108,192 @@ def cast_floats(params: Dict[str, torch.Tensor],
 
 def make_graph_context(dataset: Dataset, aggr_impl: str = "cuda",
                        symmetric: Optional[bool] = None,
-                       device=None) -> GraphContext:
-    """Single-device GraphContext with the ELL tables (core/ell.py) on
-    ``device`` (the card unless ``device`` says otherwise)."""
+                       device=None, chunk: int = 512) -> GraphContext:
+    """Single-device GraphContext on ``device`` (the card unless
+    ``device`` says otherwise).  The ELL routes get the degree-bucketed
+    tables (core/ell.py), the edge routes the edge list padded to a
+    ``chunk`` multiple (core/partition.py); neither builds the other's
+    (at Reddit scale the edge list alone is ~0.9 GB of int32)."""
     if aggr_impl not in AGGR_IMPLS:
         raise ValueError(f"aggr_impl {aggr_impl!r} is not ported; "
                          f"expected one of {AGGR_IMPLS}")
     device = resolve_device(device)
     g = dataset.graph
-    table = ell_from_graph(g.row_ptr, g.col_idx, g.num_nodes)
 
     def dev(a):
         return torch.from_numpy(a).to(device)
 
     in_degree = dev(g.in_degree)
+    if aggr_impl in EDGE_IMPLS:
+        src, dst = padded_edge_list(g, multiple=chunk)
+        tables = dict(edge_src=dev(src), edge_dst=dev(dst), chunk=chunk)
+    else:
+        table = ell_from_graph(g.row_ptr, g.col_idx, g.num_nodes)
+        tables = dict(ell_idx=tuple(dev(a[0]) for a in table.idx),
+                      ell_row_pos=dev(table.row_pos[0]),
+                      ell_row_id=tuple(dev(a[0]) for a in table.row_id))
     return GraphContext(
-        in_degree=in_degree,
-        inv_sqrt_deg=inv_sqrt_degree(in_degree),
-        num_rows=g.num_nodes,
-        ell_idx=tuple(dev(a[0]) for a in table.idx),
-        ell_row_pos=dev(table.row_pos[0]),
-        ell_row_id=tuple(dev(a[0]) for a in table.row_id),
-        aggr_impl=aggr_impl,
-        symmetric=(check_symmetric(g) if symmetric is None
-                   else bool(symmetric)))
+        in_degree=in_degree, inv_sqrt_deg=inv_sqrt_degree(in_degree),
+        num_rows=g.num_nodes, aggr_impl=aggr_impl,
+        symmetric=resolve_symmetric(dataset, symmetric), **tables)
+
+
+class Trainer:
+    """Owns the parameters, the optimizer state and the step.
+
+    ``params`` (optional) are the starting weights, copied onto the
+    device (e.g. carried from the JAX package with convert.py); without
+    them Glorot weights are drawn from a generator seeded with
+    ``config.seed``, which also draws every dropout mask.  ``device``
+    is the card unless the caller passes another (``'cpu'``)."""
+
+    def __init__(self, model: Model, dataset: Dataset,
+                 config: TrainConfig = TrainConfig(),
+                 params: Optional[Dict[str, torch.Tensor]] = None,
+                 device=None):
+        self.device = resolve_device(device)
+        model = resolve_fuse(model, config)
+        self.model = model
+        self.config = config
+        self.compute = compute_dtype_of(config)
+        self.epoch = 0
+        self.generator = torch.Generator(device=self.device).manual_seed(
+            config.seed)
+        if params is None:
+            params = model.init_params(self.generator, dtype=config.dtype,
+                                       device=self.device)
+        else:
+            params = {k: v.detach().to(self.device, config.dtype).clone()
+                      .requires_grad_(True) for k, v in params.items()}
+        self.params: Dict[str, torch.Tensor] = dict(params)
+        self.opt_state = adam_init(self.params)
+        self.adam_cfg = AdamConfig(weight_decay=config.weight_decay)
+        self.feats = torch.as_tensor(dataset.features,
+                                     dtype=self.compute).to(self.device)
+        self.labels = torch.from_numpy(dataset.labels).to(self.device)
+        self.mask = torch.from_numpy(dataset.mask).to(self.device)
+        self.num_edges = int(dataset.graph.num_edges)
+        self.gctx = make_graph_context(dataset, config.aggr_impl,
+                                       symmetric=config.symmetric,
+                                       device=self.device,
+                                       chunk=config.chunk)
+        if not self.gctx.symmetric and config.aggr_impl in KERNEL_IMPLS:
+            raise NotImplementedError(
+                f"aggr_impl={config.aggr_impl!r} trains by the symmetric "
+                "trick only and this graph is not symmetric; use 'ell' "
+                "or 'segment'")
+        # the objective of every step, as 0-d device tensors (no sync)
+        self.losses: List[torch.Tensor] = []
+        self._stepped = False
+
+    def step(self, lr: float) -> torch.Tensor:
+        """One training step at learning rate ``lr``: forward, backward,
+        Adam update.  Returns the objective (summed masked CE) before the
+        update, on the device."""
+        names = list(self.params)
+        loss, _ = self.model.loss_fn(cast_floats(self.params, self.compute),
+                                     self.feats, self.labels, self.mask,
+                                     self.gctx, generator=self.generator,
+                                     train=True)
+        grads = torch.autograd.grad(loss, [self.params[k] for k in names])
+        self.params, self.opt_state = adam_update(
+            self.params, dict(zip(names, grads)), self.opt_state, lr,
+            self.adam_cfg)
+        loss = loss.detach()
+        self.losses.append(loss)
+        return loss
+
+    def train(self, epochs: Optional[int] = None) -> List[Dict[str, float]]:
+        """Run ``epochs`` more epochs (``config.epochs`` by default); the
+        epoch counter persists across calls, so lr decay and the eval
+        cadence continue."""
+        return run_epoch_loop(self, epochs, self.step, self.evaluate)
+
+    def sync(self) -> None:
+        """Block until every launched step has finished."""
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+
+    @torch.no_grad()
+    def predict(self, node_ids=None) -> torch.Tensor:
+        """Inference-mode logits ``[V, C]`` on the device, or the rows
+        ``node_ids`` of them."""
+        logits = self.model.apply(cast_floats(self.params, self.compute),
+                                  self.feats, self.gctx, train=False)
+        if node_ids is None:
+            return logits
+        ids = torch.as_tensor(node_ids, dtype=torch.long).reshape(-1)
+        V = logits.shape[0]
+        if ids.numel() and (int(ids.min()) < 0 or int(ids.max()) >= V):
+            raise ValueError(f"node ids out of range [0, {V})")
+        return logits.index_select(0, ids.to(logits.device))
+
+    def evaluate(self) -> Dict[str, float]:
+        """The reference's inference pass: the metrics of
+        :func:`summarize_metrics`, fetched in one device sync."""
+        return summarize_metrics(perf_metrics(self.predict(), self.labels,
+                                              self.mask))
+
+
+def run_epoch_loop(tr: Trainer, epochs: Optional[int], do_step,
+                   do_eval) -> List[Dict[str, float]]:
+    """The reference epoch loop (``gnn.cc:99-111``): staircase lr decay,
+    one step per epoch, an eval every ``eval_every`` epochs (on
+    ``epoch % eval_every == eval_every - 1``, so each eval closes a full
+    burst of steps), each printed with :func:`format_metrics` when
+    ``config.verbose``.
+
+    Timing: steps are launched without waiting; the loop synchronises
+    before each eval, so ``epoch_ms`` is the steps' wall clock over the
+    steps since the last eval, and ``eval_ms`` is the eval pass on its
+    own.  The first step of a trainer (cold kernels, allocator and
+    library handles) is synchronised and reported apart, as
+    ``first_step_ms`` on the first eval's record; ``epoch_ms`` counts
+    steady steps only, and is None when an eval follows the first step
+    with no steady step between."""
+    cfg = tr.config
+    epochs = cfg.epochs if epochs is None else epochs
+    history: List[Dict[str, float]] = []
+    t_last = time.perf_counter()
+    e_last = tr.epoch
+    first_ms: Optional[float] = None
+    for _ in range(epochs):
+        epoch = tr.epoch
+        do_step(float(decayed_lr(cfg.learning_rate, epoch, cfg.decay_rate,
+                                 cfg.decay_steps)))
+        if not tr._stepped:
+            tr.sync()
+            now = time.perf_counter()
+            first_ms = (now - t_last) * 1e3
+            t_last, e_last = now, epoch + 1
+            tr._stepped = True
+        if epoch % cfg.eval_every == cfg.eval_every - 1:
+            tr.sync()
+            now = time.perf_counter()
+            m = do_eval()
+            t_eval_end = time.perf_counter()
+            span = epoch + 1 - e_last
+            m["epoch"] = epoch
+            m["epoch_ms"] = (now - t_last) * 1e3 / span if span > 0 else None
+            m["eval_ms"] = (t_eval_end - now) * 1e3
+            if first_ms is not None:
+                m["first_step_ms"] = first_ms
+                first_ms = None
+            if span > 0:
+                m["edges_per_s"] = tr.num_edges / (m["epoch_ms"] / 1e3)
+            t_last, e_last = t_eval_end, epoch + 1
+            history.append(m)
+            if cfg.verbose:
+                print(format_metrics(epoch, m), flush=True)
+        tr.epoch += 1
+    return history
+
+
+def format_metrics(epoch: int, m: Dict[str, float]) -> str:
+    """The reference's infer-mode print line (``softmax_kernel.cu:146``)."""
+    return ("[INFER][%d] train_loss: %.4f  train_accuracy: %.2f%%(%d/%d)  "
+            "val_accuracy: %.2f%%(%d/%d)  test_accuracy: %.2f%%(%d/%d)"
+            % (epoch, m["train_loss"],
+               m["train_acc"] * 100.0, m["train_correct"], m["train_cnt"],
+               m["val_acc"] * 100.0, m["val_correct"], m["val_cnt"],
+               m["test_acc"] * 100.0, m["test_correct"], m["test_cnt"]))

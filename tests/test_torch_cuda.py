@@ -85,6 +85,74 @@ def test_ell_aggregate_kernel_matches_plain(dev, F):
     assert not got[2].any()
 
 
+@pytest.mark.parametrize("F", [256, 41, 3])
+def test_csr_spmm_kernel_matches_plain(dev, F):
+    """K3 against its plain version over the padded edge list: rtol=1e-5,
+    atol=1e-5 * max|row| (another summation order); a hub row of 1500
+    edges spans several 512-edge chunks, and the degree-0 row is 0."""
+    from roc_tpu_torch.core.partition import padded_edge_list
+    from roc_tpu_torch.kernels.spmm import csr_spmm, csr_spmm_plain
+    g = _graph(5003, 12, seed=F)
+    V = g.num_nodes
+    src, dst = (torch.from_numpy(a).to(dev)
+                for a in padded_edge_list(g, multiple=512))
+    x = torch.from_numpy(np.random.RandomState(1).randn(V, F)
+                         .astype(np.float32)).to(dev)
+    n = csr_spmm.launches
+    got = csr_spmm(x, src, dst, V)
+    torch.cuda.synchronize()
+    assert csr_spmm.launches == n + 1
+    want = csr_spmm_plain(x, src, dst, V)
+    scale = float(want.abs().max())
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5 * scale)
+    assert not got[2].any()
+    # deterministic: no atomics, the same bits every launch
+    assert torch.equal(got, csr_spmm(x, src, dst, V))
+
+
+@pytest.mark.parametrize("impl,plain", [("cuda", "ell"),
+                                        ("cuda_csr", "segment")])
+def test_training_step_kernel_route_matches_plain(dev, impl, plain):
+    """One training step of the 24-16-5 GCN (dropout 0) on a kernel route
+    against the plain route on the card: the objective within rtol 1e-5,
+    every gradient within rtol 1e-4 / atol 1e-6 * max|grad| (fp32 sums in
+    another order, through forward and backward); the step launches the
+    route's kernels in the backward too."""
+    from roc_tpu_torch.kernels.spmm import csr_spmm
+    from roc_tpu_torch.models.gcn import build_gcn
+    from roc_tpu_torch.train.trainer import TrainConfig, Trainer
+    ds = synthetic_dataset(3001, 20, in_dim=24, num_classes=5, seed=0)
+    params = build_gcn([24, 16, 5]).init_params(
+        torch.Generator(device=dev).manual_seed(0), device=dev)
+    out = {}
+    for route in (impl, plain):
+        tr = Trainer(build_gcn([24, 16, 5], dropout_rate=0.0), ds,
+                     TrainConfig(aggr_impl=route, symmetric=True),
+                     params=params)
+        loss, _ = tr.model.loss_fn(tr.params, tr.feats, tr.labels,
+                                   tr.mask, tr.gctx)
+        names = sorted(tr.params)
+        grads = torch.autograd.grad(loss, [tr.params[k] for k in names])
+        out[route] = (loss, dict(zip(names, grads)))
+        if route == impl:
+            agg = ell_aggregate if impl == "cuda" else csr_spmm
+            counts = (indegree_norm.launches, scale_act.launches,
+                      agg.launches)
+            tr.step(0.01)
+            torch.cuda.synchronize()
+            # two fused layers, each run once forward and once backward
+            # (on the cotangent)
+            assert indegree_norm.launches - counts[0] == 4
+            assert scale_act.launches - counts[1] == 4
+            assert agg.launches > counts[2]
+    (lk, gk), (lp, gp) = out[impl], out[plain]
+    torch.testing.assert_close(lk, lp, rtol=1e-5, atol=0)
+    for k in gp:
+        scale = float(gp[k].abs().max())
+        torch.testing.assert_close(gk[k], gp[k], rtol=1e-4,
+                                   atol=1e-6 * scale)
+
+
 def test_kernels_reject_what_they_do_not_take(dev):
     x = torch.ones(8, 4, device=dev, dtype=torch.float64)
     with pytest.raises(TypeError):

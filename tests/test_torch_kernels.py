@@ -25,8 +25,7 @@ from roc_tpu_torch.core.ell import ell_from_graph
 from roc_tpu_torch.kernels import _build
 from roc_tpu_torch.kernels.ell_spmm import (ell_aggregate,
                                             ell_aggregate_plain)
-from roc_tpu_torch.kernels.graphnorm import (fused_ell_aggregate,
-                                             indegree_norm, scale_act)
+from roc_tpu_torch.kernels.graphnorm import indegree_norm, scale_act
 from roc_tpu_torch.ops.aggregate import aggregate_ell
 
 
@@ -159,8 +158,9 @@ def test_fused_chain_matches_pallas_chain():
     idx, _, rid = _torch_tables(tt)
     tdeg = torch.from_numpy(deg)
     from roc_tpu_torch.ops.norm import inv_sqrt_degree
-    got = fused_ell_aggregate(indegree_norm(torch.from_numpy(x), tdeg),
-                              idx, rid, V, inv_sqrt_degree(tdeg), act="relu")
+    got = scale_act(ell_aggregate(indegree_norm(torch.from_numpy(x), tdeg),
+                                  idx, rid, V),
+                    inv_sqrt_degree(tdeg), act="relu")
     np.testing.assert_allclose(got.numpy(), want, **_tol(want))
 
 
@@ -193,7 +193,7 @@ def test_build_compiles_every_source_for_sm90a(monkeypatch):
     """The loader builds every csrc/*.cu for sm_90a, binds every C entry
     point, and raises a clear error where there is no nvcc."""
     names = sorted(p.rsplit("/", 1)[-1] for p in _build.sources())
-    assert names == ["ell_spmm.cu", "graphnorm.cu"]
+    assert names == ["ell_spmm.cu", "graphnorm.cu", "spmm.cu"]
     assert "arch=compute_90a,code=sm_90a" in _build.NVCC_FLAGS
     for name in _build.SIGNATURES:
         assert any(name in pathlib.Path(p).read_text()
