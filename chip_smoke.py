@@ -10,10 +10,16 @@ Phases (any failure exits nonzero):
 2. build: compiles the kernels from roc_tpu_torch/kernels/csrc;
 3. kernels: builds the 602-256-41 GCN's graph (V = 232,965, average
    degree ~493, Reddit's shape; synthetic, from a seed) and holds each
-   CUDA kernel (K1, K2, K3, K4) against its plain PyTorch version on the
-   card, at the shapes the forward and backward give it and on a small
-   ragged case, and times kernel, plain version, one PyTorch library
-   call and the card's least time for the same work;
+   CUDA kernel (K1, K2, K3 with its row_ptr pre-pass, K4) against its
+   plain PyTorch version on the card, at the shapes the forward and
+   backward give it (K3 and K4 at their default slice width) and on a
+   small ragged case (K3 and K4 at every slice width), and times kernel,
+   plain version, one PyTorch library call and the card's least time for
+   the same work;
+   race: every slice width of K3 and K4 (16, 32, 64 and unsliced) at
+   F = 256 and F = 41 over the full graph, timed in turns, with its
+   gather rate and HBM rate, and the fastest and the ties beside the
+   default;
 4. slice (serve): serves ~8 requests across the buckets 1, 8, 64 and
    512 through Server on the kernel route, with the launch counters
    zeroed just before, checks that K1, K2 and K4 ran and that the served
@@ -98,11 +104,13 @@ def close_enough(torch, got, want, rtol, atol):
 def ragged_checks(torch, dev):
     """Small ragged case: unaligned V, a 2048-wide hub row (1500 edges,
     spanning several 512-edge chunks of the edge list), rows of degree 0,
-    F that is and is not a multiple of 4."""
+    F that is and is not a multiple of 4; K3 and K4 at every slice
+    width, each launched twice for equal bits, and K3's row_ptr pre-pass
+    against the graph's own row_ptr."""
     from roc_tpu_torch.core.ell import ell_from_graph
     from roc_tpu_torch.core.graph import from_edge_list
     from roc_tpu_torch.core.partition import padded_edge_list
-    from roc_tpu_torch.kernels import ell_spmm, graphnorm, spmm
+    from roc_tpu_torch.kernels import ell_spmm, graphnorm, slicing, spmm
     rng = np.random.RandomState(1)
     n = 1003
     src = np.concatenate([rng.randint(0, n, 9000), rng.randint(0, n, 1500)])
@@ -115,6 +123,11 @@ def ragged_checks(torch, dev):
     deg = torch.from_numpy(g.in_degree).to(dev)
     esrc, edst = (torch.from_numpy(a).to(dev)
                   for a in padded_edge_list(g, multiple=512))
+    # the pre-pass: the graph's row_ptr, the padding edges (on the last
+    # row) ending that row's range at Ep
+    want_ptr = g.row_ptr.copy()
+    want_ptr[-1] = esrc.numel()
+    assert np.array_equal(spmm.csr_row_ptr(edst, n).cpu().numpy(), want_ptr)
     for F in (37, 36):
         x = torch.from_numpy(rng.randn(n, F).astype(np.float32)).to(dev)
         s = torch.from_numpy(rng.rand(n).astype(np.float32)).to(dev)
@@ -123,22 +136,27 @@ def ragged_checks(torch, dev):
         for act in ("none", "relu"):
             assert torch.equal(graphnorm.scale_act(x, s, act),
                                graphnorm.scale_act_plain(x, s, act)), F
-        got = ell_spmm.ell_aggregate(x, idx, rid, n)
-        want = ell_spmm.ell_aggregate_plain(x, idx, rid, n)
-        ok, err = close_enough(torch, got, want, 1e-5,
-                               1e-5 * float(want.abs().max()))
-        assert ok and not got[2].any(), (F, err)
-        # K3 over the same graph's padded edge list, the same tolerance;
-        # no atomics, so two launches give the same bits
-        got = spmm.csr_spmm(x, esrc, edst, n)
-        want = spmm.csr_spmm_plain(x, esrc, edst, n)
-        ok, err = close_enough(torch, got, want, 1e-5,
-                               1e-5 * float(want.abs().max()))
-        assert ok and not got[2].any(), ("csr_spmm", F, err)
-        assert torch.equal(got, spmm.csr_spmm(x, esrc, edst, n)), F
+        # K4 and K3 at every slice width: rtol 1e-5, atol 1e-5 * max|row|
+        # (another summation order); the degree-0 row is 0; no atomics,
+        # so two launches give the same bits
+        for name, kern, want in (
+                ("ell_aggregate",
+                 lambda S: ell_spmm.ell_aggregate(x, idx, rid, n,
+                                                  slice_cols=S),
+                 ell_spmm.ell_aggregate_plain(x, idx, rid, n)),
+                ("csr_spmm",
+                 lambda S: spmm.csr_spmm(x, esrc, edst, n, slice_cols=S),
+                 spmm.csr_spmm_plain(x, esrc, edst, n))):
+            for S in slicing.SLICE_COLS:
+                got = kern(S)
+                ok, err = close_enough(torch, got, want, 1e-5,
+                                       1e-5 * float(want.abs().max()))
+                assert ok and not got[2].any(), (name, F, S, err)
+                assert torch.equal(got, kern(S)), (name, F, S)
     torch.cuda.synchronize()
     return {"V": n, "widths": list(t.widths), "edges_padded":
-            int(esrc.numel()), "F": [37, 36], "ok": True}
+            int(esrc.numel()), "F": [37, 36],
+            "slice_cols": list(slicing.SLICE_COLS), "ok": True}
 
 
 def kernel_checks(torch, dev, gctx, adj, num_edges, esrc, edst):
@@ -192,6 +210,15 @@ def kernel_checks(torch, dev, gctx, adj, num_edges, esrc, edst):
         e["_tb"] += nbytes
         e["_to"] += nops
 
+    # K3's row_ptr pre-pass against its plain version (torch.searchsorted
+    # on the card): exact; timed alone here, inside K3's time below
+    got = spmm.csr_row_ptr(edst, V)
+    if not torch.equal(got, spmm.csr_row_ptr_plain(edst, V)):
+        raise AssertionError("csr_row_ptr disagrees with searchsorted")
+    entries["csr_spmm"]["row_ptr_ms"] = time_ms(
+        torch, lambda: spmm.csr_row_ptr(edst, V), 20)
+    del got
+
     # the forward's shapes: K1 and K2 at F = 256 (layer 1, K2 with the
     # folded relu) and F = 41 (layer 2, no activation); K3 and K4 at both
     # widths over the real edge list and buckets.  The backward runs the
@@ -219,7 +246,8 @@ def kernel_checks(torch, dev, gctx, adj, num_edges, esrc, edst):
         # K4: rtol 1e-5, atol 1e-5 * max|row| (another summation order)
         want = ell_spmm.ell_aggregate_plain(x, idx, rid, V)
         got = ell_spmm.ell_aggregate(x, idx, rid, V)
-        add("ell_aggregate", [V, F, list(a.shape[1] for a in idx)],
+        add("ell_aggregate", [V, F, list(a.shape[1] for a in idx),
+                              f"slice_cols={ell_spmm.default_slice_cols(F)}"],
             got, want, 1e-5, 1e-5 * float(want.abs().max()),
             lambda: ell_spmm.ell_aggregate(x, idx, rid, V),
             lambda: ell_spmm.ell_aggregate_plain(x, idx, rid, V),
@@ -229,7 +257,8 @@ def kernel_checks(torch, dev, gctx, adj, num_edges, esrc, edst):
         # summation order); bytes: feats and out once, src and dst once
         want = spmm.csr_spmm_plain(x, esrc, edst, V)
         got = spmm.csr_spmm(x, esrc, edst, V)
-        add("csr_spmm", [V, F, padded_edges],
+        add("csr_spmm", [V, F, padded_edges,
+                         f"slice_cols={spmm.default_slice_cols(F)}"],
             got, want, 1e-5, 1e-5 * float(want.abs().max()),
             lambda: spmm.csr_spmm(x, esrc, edst, V),
             lambda: spmm.csr_spmm_plain(x, esrc, edst, V),
@@ -241,6 +270,83 @@ def kernel_checks(torch, dev, gctx, adj, num_edges, esrc, edst):
                          >= e["_to"] / FP32_FLOPS else "operations")
         del e["_tb"], e["_to"]
     return entries
+
+
+def race(torch, dev, gctx, num_edges, esrc, edst):
+    """Every slice width of K4 and K3 at the layer widths F = 256 and
+    F = 41 over the full graph, in turns in one process: the plain
+    version, each instance, each instance again in reverse order, the
+    plain version again (``ms`` is the mean of an instance's two
+    readings).  Each instance is first held to the plain version (rtol
+    1e-5, atol 1e-5 * max|row|) and launched twice for equal bits.
+    Prints, per instance, the effective gather rate E * F * 4 / ms and
+    the HBM bytes the schedule needs over ms: feats once per launch (K4:
+    once per bucket), out once, the ids once per slice (K4: the bucket
+    tables; K3: edge_src and row_ptr; the pre-pass's searches are not
+    counted); and the fastest instance, the wrappers' default, and the
+    ties: the instances whose gap to the fastest is no more than the
+    spread of their own or the fastest's two readings.  Returns the
+    records."""
+    from roc_tpu_torch.kernels import ell_spmm, slicing, spmm
+    gen = torch.Generator(device=dev).manual_seed(SEED + 3)
+    idx, rid = gctx.ell_idx, gctx.ell_row_id
+    ell_ids = 4 * sum(int(a.numel()) for a in (*idx, *rid))
+    csr_ids = 4 * int(esrc.numel()) + 8 * (V + 1)
+    records = []
+    for F in (256, 41):
+        x = torch.randn((V, F), generator=gen, device=dev)
+        fb = 4 * V * F
+        n = 5 if F > slicing.NARROW_F else 10
+        for name, mod, kern, plain, feats_reads, ids_bytes in (
+                ("ell_aggregate", ell_spmm,
+                 lambda S: ell_spmm.ell_aggregate(x, idx, rid, V,
+                                                  slice_cols=S),
+                 lambda: ell_spmm.ell_aggregate_plain(x, idx, rid, V),
+                 len(idx), ell_ids),
+                ("csr_spmm", spmm,
+                 lambda S: spmm.csr_spmm(x, esrc, edst, V, slice_cols=S),
+                 lambda: spmm.csr_spmm_plain(x, esrc, edst, V),
+                 1, csr_ids)):
+            want = plain()
+            atol = 1e-5 * float(want.abs().max())
+            inst = {}
+            for S in slicing.SLICE_COLS:
+                got = kern(S)
+                ok, err = close_enough(torch, got, want, 1e-5, atol)
+                if not (ok and torch.equal(got, kern(S))):
+                    raise AssertionError(f"{name} F={F} slice_cols={S}: "
+                                         f"max_abs_err {err}, or two "
+                                         f"launches differ")
+                slices = -(-F // S) if S else 1
+                inst[S] = {"slice_cols": S, "max_abs_err": err,
+                           "hbm_bytes": fb * feats_reads + fb
+                           + ids_bytes * slices, "readings": []}
+                del got
+            del want
+            plain_ms = [time_ms(torch, plain, 1)]
+            for S in (*slicing.SLICE_COLS, *reversed(slicing.SLICE_COLS)):
+                inst[S]["readings"].append(
+                    time_ms(torch, lambda: kern(S), n))
+            plain_ms.append(time_ms(torch, plain, 1))
+            for r in inst.values():
+                r["ms"] = sum(r["readings"]) / len(r["readings"])
+                r["gather_tb_s"] = num_edges * F * 4 / r["ms"] / 1e9
+                r["hbm_tb_s"] = r["hbm_bytes"] / r["ms"] / 1e9
+            fastest = min(inst, key=lambda S: inst[S]["ms"])
+
+            def spread(S):
+                return abs(inst[S]["readings"][0] - inst[S]["readings"][1])
+            rec = {"phase": "race", "kernel": name, "F": F,
+                   "plain_ms": plain_ms, "instances": list(inst.values()),
+                   "fastest": fastest, "default": mod.default_slice_cols(F),
+                   "ties": [S for S in inst if inst[S]["ms"]
+                            - inst[fastest]["ms"]
+                            <= max(spread(S), spread(fastest))]}
+            log(rec)
+            records.append(rec)
+        del x
+    torch.cuda.synchronize()
+    return records
 
 
 def slice_run(torch, pred, server_cls):
@@ -358,7 +464,7 @@ def train_slice(torch, ds):
 
 def _kernel_group(name):
     """The part of a training step a device kernel belongs to."""
-    for group, keys in (("K3 csr_spmm", ("csr_row_sum",)),
+    for group, keys in (("K3 csr_spmm", ("csr_row_sum", "csr_row_ptr")),
                         ("K4 ell_aggregate", ("ell_bucket_sum",)),
                         ("K1/K2 row scale", ("row_scale_",)),
                         ("matmul", ("gemm", "Gemm", "cutlass", "xmma"))):
@@ -478,7 +584,10 @@ def main() -> int:
     esrc, edst = (torch.from_numpy(a).to(dev)
                   for a in padded_edge_list(g, multiple=512))
     entries = kernel_checks(torch, dev, gctx, adj, g.num_edges, esrc, edst)
-    del adj, esrc, edst
+    del adj
+    torch.cuda.empty_cache()
+    race(torch, dev, gctx, g.num_edges, esrc, edst)
+    del esrc, edst
     torch.cuda.empty_cache()
 
     # 4. serve slice: the serving path, counts zeroed just before
@@ -524,11 +633,13 @@ def main() -> int:
     log({"phase": "train_parity", **train_parity(torch, ds, params)})
 
     # 6. train slice: the training path, counts zeroed just before
-    for k in kernels:
+    for k in (*kernels, spmm.csr_row_ptr):
         k.launches = 0
     record = train_slice(torch, ds)
     torch.cuda.synchronize()
     train_launches = {k.__name__: k.launches for k in kernels}
+    # K3's pre-pass runs once per main pass
+    train_launches["csr_row_ptr"] = spmm.csr_row_ptr.launches
     # the kernels' share of a steady step, from the kernel phase's times:
     # each of the two layers runs its chain once forward, once backward
     chain = 2 * (entries["indegree_norm"]["ms"] + entries["scale_act"]["ms"])
@@ -541,7 +652,8 @@ def main() -> int:
                             aggregate_share_est=2 * entries[agg]["ms"]
                             / step_ms)
     log({"phase": "train_slice", **record, "launches": train_launches})
-    if not all(train_launches.values()):
+    if not all(train_launches.values()) or (
+            train_launches["csr_row_ptr"] != train_launches["csr_spmm"]):
         raise AssertionError(f"a kernel of the training path never ran: "
                              f"{train_launches}")
 
@@ -558,6 +670,8 @@ def main() -> int:
                       "plain_ms": e["plain_ms"], "bound_ms": e["bound_ms"],
                       "bound_by": e["bound_by"],
                       "library_ms": e["library_ms"],
+                      **({"row_ptr_ms": e["row_ptr_ms"]}
+                         if "row_ptr_ms" in e else {}),
                       "shapes": e["shapes"]})
     log({"total_s": time.perf_counter() - t_start,
          "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9})

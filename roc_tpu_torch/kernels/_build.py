@@ -46,10 +46,13 @@ SIGNATURES = {
     "roc_indegree_norm_f32": (_P, _P, _P, _L, _I, _P),
     # x, scale, out, rows, F, relu, stream
     "roc_scale_act_f32": (_P, _P, _P, _L, _I, _I, _P),
-    # feats, idx, row_id, out, rows, width, dummy, num_rows, F, stream
-    "roc_ell_aggregate_f32": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
-    # feats, edge_src, edge_dst, out, num_edges, dummy, num_rows, F, stream
-    "roc_csr_spmm_f32": (_P, _P, _P, _P, _L, _I, _I, _I, _P),
+    # feats, idx, row_id, out, rows, width, dummy, num_rows, F,
+    # slice_cols, stream
+    "roc_ell_aggregate_f32": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
+    # edge_dst, row_ptr, num_edges, num_rows, stream
+    "roc_csr_row_ptr": (_P, _P, _L, _I, _P),
+    # feats, edge_src, row_ptr, out, dummy, num_rows, F, slice_cols, stream
+    "roc_csr_spmm_f32": (_P, _P, _P, _P, _I, _I, _I, _I, _P),
 }
 
 _lock = threading.Lock()

@@ -1,4 +1,4 @@
-// Degree-bucketed ELL neighbour sum, fp32.
+// Degree-bucketed ELL neighbour sum, fp32 (K4).
 //
 // Replaces roc_tpu/kernels/ell_spmm.py ell_aggregate_pallas
 // (_bucket_kernel): for one degree bucket idx [rows, width] of source ids,
@@ -7,16 +7,23 @@
 // bucket padding holds dummy == the gathered row count) add nothing, so no
 // zero row has to be appended to feats.  Bucket rows whose row_id is not a
 // real output row are skipped.  Rows in no bucket (degree 0) keep the zeros
-// the caller allocated out with.
+// the caller allocated out with.  One launch per bucket, each bucket row
+// written straight to its output row: no [rows, F] bucket output to
+// concatenate and permute afterwards.
 //
-// Bound on the H100: bytes, and really latency.  The work is a gather of
-// E source rows of F floats each, one add per gathered element.  Each
-// gathered row is read where it lies, so the kernel needs many row loads in
-// flight at once to reach the memory rate.  Design: one warp per bucket
-// row, running the shared warp gather-sum of row_gather.cuh (ids broadcast
-// by __shfl_sync, float4 loads along F, fp32 register sums written once,
-// no atomics), each sum written straight to its output row: no [rows, F]
-// bucket output to concatenate and permute afterwards.
+// Bound on the H100: the bytes of gathered rows and where they come from
+// (see row_gather.cuh). The unsliced warp-per-row schedule gathers at F =
+// 256 mostly from HBM (~3.8 TB/s of gathered bytes, 29.5 ms). Design: the
+// column-sliced, slice-major gather-sum of row_gather.cuh, one warp per
+// (bucket row, slice), the slice on blockIdx.y so that all blocks of one
+// slice run before the next and its V * S * 4 bytes of feats stay in L2; the
+// gathers then come from L2 at ~7.8 TB/s (14.6 ms). HBM carries feats once
+// per bucket launch, out once, and the bucket's ids once per slice (ceil(F /
+// S) passes). Lane groups fill the warp on narrow slices and combine in a
+// fixed tree: no atomics, the same bits on every launch. The slice width S
+// is a template parameter, one instance each for 16, 32, 64 and 0 (unsliced,
+// which stays the faster one at F = 41); the wrapper picks it per F from a
+// race on the card (kernels/ell_spmm.py).
 // The TPU kernel's 8-row DMA groups and SMEM index staging answer the
 // TPU's (8, 128) HBM tiling and scalar-core DMA issue; neither exists here.
 
@@ -26,7 +33,7 @@ using roc_gather::kWarpsPerBlock;
 
 namespace {
 
-template <bool VEC>
+template <int S, bool VEC>
 __global__ void __launch_bounds__(kWarpsPerBlock * 32)
     ell_bucket_sum(const float* __restrict__ feats, const int* __restrict__ idx,
                    const int* __restrict__ row_id, float* __restrict__ out,
@@ -36,8 +43,23 @@ __global__ void __launch_bounds__(kWarpsPerBlock * 32)
   if (r >= rows) return;  // uniform across the warp
   const int dst = row_id[r];
   if (dst < 0 || dst >= num_rows) return;
-  roc_gather::warp_row_sum<VEC>(feats, idx + (long long)r * width, width,
-                                dummy, F, out + (long long)dst * F, lane);
+  roc_gather::warp_gather_sum<S, VEC>(feats, idx + (long long)r * width, width,
+                                      dummy, F, out + (long long)dst * F,
+                                      lane);
+}
+
+template <int S>
+void launch(const float* feats, const int* idx, const int* row_id, float* out,
+            int rows, int width, int dummy, int num_rows, int F,
+            cudaStream_t stream) {
+  const dim3 grid((unsigned)((rows + kWarpsPerBlock - 1) / kWarpsPerBlock),
+                  roc_gather::num_slices(S, F));
+  if (roc_gather::use_vec4(feats, out, F))
+    ell_bucket_sum<S, true><<<grid, kWarpsPerBlock * 32, 0, stream>>>(
+        feats, idx, row_id, out, rows, width, dummy, num_rows, F);
+  else
+    ell_bucket_sum<S, false><<<grid, kWarpsPerBlock * 32, 0, stream>>>(
+        feats, idx, row_id, out, rows, width, dummy, num_rows, F);
 }
 
 }  // namespace
@@ -45,14 +67,12 @@ __global__ void __launch_bounds__(kWarpsPerBlock * 32)
 extern "C" int roc_ell_aggregate_f32(const float* feats, const int* idx,
                                      const int* row_id, float* out, int rows,
                                      int width, int dummy, int num_rows, int F,
-                                     void* stream) {
+                                     int slice_cols, void* stream) {
+  if (!roc_gather::valid_slice(slice_cols)) return (int)cudaErrorInvalidValue;
   if (rows == 0 || F == 0) return (int)cudaGetLastError();
-  const unsigned blocks = (unsigned)((rows + kWarpsPerBlock - 1) / kWarpsPerBlock);
-  if (roc_gather::use_vec4(feats, out, F))
-    ell_bucket_sum<true><<<blocks, kWarpsPerBlock * 32, 0, (cudaStream_t)stream>>>(
-        feats, idx, row_id, out, rows, width, dummy, num_rows, F);
-  else
-    ell_bucket_sum<false><<<blocks, kWarpsPerBlock * 32, 0, (cudaStream_t)stream>>>(
-        feats, idx, row_id, out, rows, width, dummy, num_rows, F);
+  roc_gather::with_slice(slice_cols, [&](auto S) {
+    launch<decltype(S)::value>(feats, idx, row_id, out, rows, width, dummy,
+                               num_rows, F, (cudaStream_t)stream);
+  });
   return (int)cudaGetLastError();
 }

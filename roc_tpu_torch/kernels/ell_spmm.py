@@ -14,20 +14,23 @@ output row ``row_id`` (core/ell.py ``EllTable.row_id``) instead of
 through a concatenate-and-permute, which saves one ``[V+1, F]`` copy
 per layer.  Rows of degree 0 come out 0, as before.
 
-The kernel sums a row's neighbours in table order in fp32 registers;
-the plain version sums the gathered block with ``torch.sum``, whose
-order differs, so the two agree to fp32 rounding
+The kernel walks the columns in slices of ``slice_cols`` (slicing.py:
+16, 32, 64, or 0 for unsliced; by default the race's choice for F, see
+:func:`default_slice_cols`).  It sums a row's neighbours in a fixed
+order in fp32 registers, so each instance gives the same bits on every
+launch; the instances' orders differ from each other and from the plain
+version's ``torch.sum``, so they agree to fp32 rounding
 (``rtol=1e-5, atol=1e-5 * max|row|``), not bit for bit.
 """
 
 from __future__ import annotations
 
-from typing import Sequence
+from typing import Optional, Sequence
 
 import torch
 
 from ..ops.aggregate import DEFAULT_BUDGET_ELEMS, ell_bucket_sum
-from . import _build
+from . import _build, slicing
 
 
 def _check(feats: torch.Tensor, ell_idx: Sequence[torch.Tensor],
@@ -48,6 +51,15 @@ def _check(feats: torch.Tensor, ell_idx: Sequence[torch.Tensor],
                              "devices")
 
 
+def default_slice_cols(F: int) -> int:
+    """K4's slice width for F columns (slicing.py): unsliced up to
+    ``slicing.NARROW_F``, 32 above.  At F = 256 the race in
+    chip_smoke.py (PERF.md) puts 32 and 64 level, both 2x the unsliced
+    schedule, except that 64, whose slice (V * 256 bytes) is larger than
+    the 50 MB L2, sometimes runs ~8 % slower; 32 does not."""
+    return slicing.default_slice_cols(F, wide=32)
+
+
 def ell_aggregate_plain(feats: torch.Tensor,
                         ell_idx: Sequence[torch.Tensor],
                         ell_row_id: Sequence[torch.Tensor], num_rows: int,
@@ -66,16 +78,21 @@ def ell_aggregate_plain(feats: torch.Tensor,
 
 
 def ell_aggregate(feats: torch.Tensor, ell_idx: Sequence[torch.Tensor],
-                  ell_row_id: Sequence[torch.Tensor],
-                  num_rows: int) -> torch.Tensor:
+                  ell_row_id: Sequence[torch.Tensor], num_rows: int,
+                  slice_cols: Optional[int] = None) -> torch.Tensor:
     """``out[v] = sum(feats[ids of v])`` over the ELL buckets.
 
     feats: float [R, F], no zero row (the dummy id is R).
     ell_idx: int32 ``[rows_b, width_b]`` per bucket.
     ell_row_id: int32 ``[rows_b]`` per bucket, the output row of each
     bucket row (padding rows carry ``num_rows``).
+    slice_cols: the kernel's column slice width, one of
+    ``slicing.SLICE_COLS``; None takes :func:`default_slice_cols`.  The
+    plain version on the CPU has no slices and ignores it.
     Returns [num_rows, F]."""
     _check(feats, ell_idx, ell_row_id)
+    S = slicing.resolve("ell_aggregate", slice_cols,
+                        default_slice_cols(feats.shape[1]))
     if feats.device.type == "cpu":
         return ell_aggregate_plain(feats, ell_idx, ell_row_id, num_rows)
     for t in (*ell_idx, *ell_row_id):
@@ -93,7 +110,7 @@ def ell_aggregate(feats: torch.Tensor, ell_idx: Sequence[torch.Tensor],
         rows, width = idx.shape
         _build.check("ell_aggregate", lib.roc_ell_aggregate_f32(
             feats.data_ptr(), idx.data_ptr(), rid.data_ptr(),
-            out.data_ptr(), rows, width, R, num_rows, F, stream))
+            out.data_ptr(), rows, width, R, num_rows, F, S, stream))
         ell_aggregate.launches += 1
     return out
 

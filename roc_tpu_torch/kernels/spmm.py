@@ -1,11 +1,14 @@
 """CSR neighbour sum over a destination-sorted edge list, K3
 (``roc_tpu/kernels/spmm.py csr_spmm_pallas``).
 
-:func:`csr_spmm` launches one CUDA kernel (csrc/spmm.cu: a warp per
-destination row, its edge range found by binary search in ``edge_dst``)
-for a tensor on the card, and runs :func:`csr_spmm_plain` for a tensor
-on the CPU; there is no fallback from one to the other.
-``csr_spmm.launches`` counts kernel launches.
+:func:`csr_spmm` runs two CUDA kernels (csrc/spmm.cu) for a tensor on
+the card: the pre-pass :func:`csr_row_ptr`, which finds each row's edge
+range once per call (``row_ptr[v]``, the first edge whose ``edge_dst``
+is at least v, one thread per row), and the main pass, a warp per
+(destination row, column slice) summing that range.  For a tensor on the
+CPU it runs :func:`csr_spmm_plain`; there is no fallback from one to the
+other.  ``csr_spmm.launches`` counts main-pass launches, one per call;
+the pre-pass counts its own in ``csr_row_ptr.launches``.
 
 The arguments are the JAX function's ``(feats, edge_src, edge_dst,
 num_rows, chunk)`` with one difference, as for K4: ``feats`` carries no
@@ -14,18 +17,23 @@ edges' dummy) add nothing, and rows with no edges come out 0.  The edge
 count must be a ``chunk`` multiple, the JAX contract; the kernel itself
 does not need it.
 
-The kernel sums a row's edges in edge order in fp32 registers; the plain
-version adds chunks with ``index_add_``, whose order differs, so the two
-agree to fp32 rounding (``rtol=1e-5, atol=1e-5 * max|row|``), not bit
-for bit.
+The main pass walks the columns in slices of ``slice_cols`` (slicing.py:
+16, 32, 64, or 0 for unsliced; by default the race's choice for F, see
+:func:`default_slice_cols`).  It sums a row's edges in a fixed order in
+fp32 registers, so each instance gives the same bits on every launch;
+the instances' orders differ from each other and from the plain
+version's ``index_add_``, so they agree to fp32 rounding
+(``rtol=1e-5, atol=1e-5 * max|row|``), not bit for bit.
 """
 
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
 
 from ..ops.aggregate import DEFAULT_BUDGET_ELEMS, aggregate_segment
-from . import _build
+from . import _build, slicing
 
 
 def _check(feats: torch.Tensor, edge_src: torch.Tensor,
@@ -55,16 +63,62 @@ def csr_spmm_plain(feats: torch.Tensor, edge_src: torch.Tensor,
                              budget_elems)
 
 
+def default_slice_cols(F: int) -> int:
+    """K3's slice width for F columns (slicing.py): unsliced up to
+    ``slicing.NARROW_F``, 64 above, the fastest instance of the race in
+    chip_smoke.py at F = 256 (PERF.md), 2x the unsliced schedule."""
+    return slicing.default_slice_cols(F, wide=64)
+
+
+def csr_row_ptr_plain(edge_dst: torch.Tensor, num_rows: int
+                      ) -> torch.Tensor:
+    """The pre-pass's plain version: ``row_ptr[v]``, the first edge with
+    ``edge_dst >= v``, for v in [0, num_rows], int64."""
+    keys = torch.arange(num_rows + 1, dtype=edge_dst.dtype,
+                        device=edge_dst.device)
+    return torch.searchsorted(edge_dst, keys)
+
+
+def csr_row_ptr(edge_dst: torch.Tensor, num_rows: int) -> torch.Tensor:
+    """Each row's edge range in the dst-sorted ``edge_dst`` (int32 [Ep]):
+    int64 ``[num_rows + 1]``, ``row_ptr[v]`` the first edge with
+    ``edge_dst >= v`` (so padding edges on the last row end that row's
+    range at ``Ep``).  One CUDA launch, a thread per row, for a tensor on
+    the card; the plain version for one on the CPU."""
+    if edge_dst.dim() != 1:
+        raise ValueError(f"csr_row_ptr: edge_dst must be [E], got "
+                         f"{tuple(edge_dst.shape)}")
+    if edge_dst.device.type == "cpu":
+        return csr_row_ptr_plain(edge_dst, num_rows)
+    if edge_dst.dtype != torch.int32 or not edge_dst.is_contiguous():
+        raise TypeError("csr_row_ptr: edge_dst must be contiguous int32")
+    row_ptr = torch.empty(num_rows + 1, dtype=torch.int64,
+                          device=edge_dst.device)
+    _build.check("csr_row_ptr", _build.library().roc_csr_row_ptr(
+        edge_dst.data_ptr(), row_ptr.data_ptr(), edge_dst.shape[0],
+        num_rows, _build.stream_ptr(edge_dst.device)))
+    csr_row_ptr.launches += 1
+    return row_ptr
+
+
+csr_row_ptr.launches = 0
+
+
 def csr_spmm(feats: torch.Tensor, edge_src: torch.Tensor,
-             edge_dst: torch.Tensor, num_rows: int,
-             chunk: int = 512) -> torch.Tensor:
+             edge_dst: torch.Tensor, num_rows: int, chunk: int = 512,
+             slice_cols: Optional[int] = None) -> torch.Tensor:
     """``out[v] = sum(feats[src] for edges (src, v))``.
 
     feats: float [R, F], no zero row (the dummy id is R).
     edge_src/edge_dst: int32 [Ep], sorted by ``edge_dst``, ``Ep`` a
     multiple of ``chunk``.
+    slice_cols: the main pass's column slice width, one of
+    ``slicing.SLICE_COLS``; None takes :func:`default_slice_cols`.  The
+    plain version on the CPU has no slices and ignores it.
     Returns [num_rows, F]."""
     _check(feats, edge_src, edge_dst, chunk)
+    S = slicing.resolve("csr_spmm", slice_cols,
+                        default_slice_cols(feats.shape[1]))
     if feats.device.type == "cpu":
         return csr_spmm_plain(feats, edge_src, edge_dst, num_rows)
     for t in (edge_src, edge_dst):
@@ -74,12 +128,11 @@ def csr_spmm(feats: torch.Tensor, edge_src: torch.Tensor,
         raise TypeError(f"csr_spmm: the CUDA kernel takes contiguous "
                         f"float32 feats, got {feats.dtype}")
     R, F = feats.shape
+    row_ptr = csr_row_ptr(edge_dst, num_rows)
     out = torch.empty((num_rows, F), dtype=feats.dtype, device=feats.device)
-    lib = _build.library()
-    _build.check("csr_spmm", lib.roc_csr_spmm_f32(
-        feats.data_ptr(), edge_src.data_ptr(), edge_dst.data_ptr(),
-        out.data_ptr(), edge_src.shape[0], R, num_rows, F,
-        _build.stream_ptr(feats.device)))
+    _build.check("csr_spmm", _build.library().roc_csr_spmm_f32(
+        feats.data_ptr(), edge_src.data_ptr(), row_ptr.data_ptr(),
+        out.data_ptr(), R, num_rows, F, S, _build.stream_ptr(feats.device)))
     csr_spmm.launches += 1
     return out
 

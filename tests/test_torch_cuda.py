@@ -110,6 +110,138 @@ def test_csr_spmm_kernel_matches_plain(dev, F):
     assert torch.equal(got, csr_spmm(x, src, dst, V))
 
 
+SLICE_COLS = (0, 16, 32, 64)
+SLICE_FS = (1, 3, 4, 36, 37, 41, 64, 256, 600)
+
+
+@pytest.fixture(scope="module")
+def sliced_graph():
+    """The ragged graph of the slice tests, on the host: ELL tables and
+    the edge list padded to 512 (built once; moved to the card by each
+    test)."""
+    from roc_tpu_torch.core.partition import padded_edge_list
+    g = _graph(3001, 10, seed=11)
+    t = ell_from_graph(g.row_ptr, g.col_idx, g.num_nodes)
+    return g, t, padded_edge_list(g, multiple=512)
+
+
+def _check_sliced(got, again, want, x, g):
+    """Each slice instance against the plain version (rtol 1e-5, atol
+    1e-5 * max|row|), the same bits on a second launch, the degree-0 row
+    0 and the 1500-edge hub row against a float64 sum."""
+    scale = float(want.abs().max())
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5 * scale)
+    assert torch.equal(got, again)
+    assert not got[2].any()
+    hub = g.col_idx[g.row_ptr[1]:g.row_ptr[2]]
+    assert hub.size >= 1500
+    ref = x.double().cpu().numpy()[hub].sum(0)
+    np.testing.assert_allclose(got[1].cpu().numpy(), ref, rtol=1e-5,
+                               atol=1e-5 * scale)
+
+
+@pytest.mark.parametrize("S", SLICE_COLS)
+@pytest.mark.parametrize("F", SLICE_FS)
+def test_ell_aggregate_every_slice_width(dev, sliced_graph, F, S):
+    """K4 at every slice width and F, aligned (float4) and not."""
+    g, t, _ = sliced_graph
+    V = g.num_nodes
+    idx = tuple(torch.from_numpy(a[0]).to(dev) for a in t.idx)
+    rid = tuple(torch.from_numpy(a[0]).to(dev) for a in t.row_id)
+    x = torch.from_numpy(np.random.RandomState(F).randn(V, F)
+                         .astype(np.float32)).to(dev)
+    n = ell_aggregate.launches
+    got = ell_aggregate(x, idx, rid, V, slice_cols=S)
+    again = ell_aggregate(x, idx, rid, V, slice_cols=S)
+    torch.cuda.synchronize()
+    assert ell_aggregate.launches == n + 2 * len(idx)
+    _check_sliced(got, again, ell_aggregate_plain(x, idx, rid, V), x, g)
+
+
+@pytest.mark.parametrize("S", SLICE_COLS)
+@pytest.mark.parametrize("F", SLICE_FS)
+def test_csr_spmm_every_slice_width(dev, sliced_graph, F, S):
+    """K3 at every slice width and F, one main pass and one pre-pass a
+    call."""
+    from roc_tpu_torch.kernels.spmm import (csr_row_ptr, csr_spmm,
+                                            csr_spmm_plain)
+    g, _, edges = sliced_graph
+    V = g.num_nodes
+    src, dst = (torch.from_numpy(a).to(dev) for a in edges)
+    x = torch.from_numpy(np.random.RandomState(F + 1).randn(V, F)
+                         .astype(np.float32)).to(dev)
+    n, p = csr_spmm.launches, csr_row_ptr.launches
+    got = csr_spmm(x, src, dst, V, slice_cols=S)
+    again = csr_spmm(x, src, dst, V, slice_cols=S)
+    torch.cuda.synchronize()
+    assert (csr_spmm.launches, csr_row_ptr.launches) == (n + 2, p + 2)
+    _check_sliced(got, again, csr_spmm_plain(x, src, dst, V), x, g)
+
+
+@pytest.mark.parametrize("S", SLICE_COLS)
+def test_unaligned_feats_take_the_scalar_path(dev, sliced_graph, S):
+    """A feats view that starts 4 bytes off a 16-byte boundary at F = 256
+    runs the float (not float4) path of both kernels, and agrees."""
+    from roc_tpu_torch.kernels.spmm import csr_spmm, csr_spmm_plain
+    g, t, edges = sliced_graph
+    V, F = g.num_nodes, 256
+    base = torch.from_numpy(np.random.RandomState(5).randn(V * F + 1)
+                            .astype(np.float32)).to(dev)
+    x = base[1:].view(V, F)
+    assert x.data_ptr() % 16 and x.is_contiguous()
+    idx = tuple(torch.from_numpy(a[0]).to(dev) for a in t.idx)
+    rid = tuple(torch.from_numpy(a[0]).to(dev) for a in t.row_id)
+    _check_sliced(ell_aggregate(x, idx, rid, V, slice_cols=S),
+                  ell_aggregate(x, idx, rid, V, slice_cols=S),
+                  ell_aggregate_plain(x, idx, rid, V), x, g)
+    src, dst = (torch.from_numpy(a).to(dev) for a in edges)
+    _check_sliced(csr_spmm(x, src, dst, V, slice_cols=S),
+                  csr_spmm(x, src, dst, V, slice_cols=S),
+                  csr_spmm_plain(x, src, dst, V), x, g)
+
+
+def test_csr_row_ptr_prepass(dev, sliced_graph):
+    """K3's pre-pass equals the graph's row_ptr, except the padded tail:
+    the padding edges sit on the last row, whose range ends at Ep; and
+    it equals its plain version (torch.searchsorted) on the card."""
+    from roc_tpu_torch.kernels.spmm import csr_row_ptr, csr_row_ptr_plain
+    g, _, (_, dst_np) = sliced_graph
+    V = g.num_nodes
+    dst = torch.from_numpy(dst_np).to(dev)
+    assert dst.numel() > g.num_edges
+    n = csr_row_ptr.launches
+    got = csr_row_ptr(dst, V)
+    torch.cuda.synchronize()
+    assert csr_row_ptr.launches == n + 1
+    want = g.row_ptr.copy()
+    want[-1] = dst.numel()
+    np.testing.assert_array_equal(got.cpu().numpy(), want)
+    assert torch.equal(got, csr_row_ptr_plain(dst, V))
+
+
+def test_default_slice_width_runs_on_the_card(dev, sliced_graph):
+    """The wrappers' default is one of the compiled instances, and a
+    call without the keyword equals a call with it, bit for bit."""
+    from roc_tpu_torch.kernels import ell_spmm, spmm
+    g, t, edges = sliced_graph
+    V = g.num_nodes
+    idx = tuple(torch.from_numpy(a[0]).to(dev) for a in t.idx)
+    rid = tuple(torch.from_numpy(a[0]).to(dev) for a in t.row_id)
+    src, dst = (torch.from_numpy(a).to(dev) for a in edges)
+    for F in (41, 256):
+        x = torch.randn((V, F), device=dev)
+        assert torch.equal(
+            ell_aggregate(x, idx, rid, V),
+            ell_aggregate(x, idx, rid, V,
+                          slice_cols=ell_spmm.default_slice_cols(F)))
+        assert torch.equal(
+            spmm.csr_spmm(x, src, dst, V),
+            spmm.csr_spmm(x, src, dst, V,
+                          slice_cols=spmm.default_slice_cols(F)))
+    with pytest.raises(ValueError):
+        ell_aggregate(x, idx, rid, V, slice_cols=8)
+
+
 @pytest.mark.parametrize("impl,plain", [("cuda", "ell"),
                                         ("cuda_csr", "segment")])
 def test_training_step_kernel_route_matches_plain(dev, impl, plain):
