@@ -16,10 +16,12 @@ Phases (any failure exits nonzero):
    small ragged case (K3 and K4 at every slice width), and times kernel,
    plain version, one PyTorch library call and the card's least time for
    the same work;
-   race: every slice width of K3 and K4 (16, 32, 64 and unsliced) at
-   F = 256 and F = 41 over the full graph, timed in turns, with its
+   race: every slice width of K3 and K4 (16, 32, 64, 128 and unsliced)
+   at F = 256 and F = 41 over the full graph, timed in turns, with its
    gather rate and HBM rate, and the fastest and the ties beside the
-   default;
+   default; all of it again in bf16 (K1 and K2 bit for bit, K3 and K4
+   within one bf16 ulp of each row's magnitude, every instance launched
+   twice for equal bits);
 4. slice (serve): serves ~8 requests across the buckets 1, 8, 64 and
    512 through Server on the kernel route, with the launch counters
    zeroed just before, checks that K1, K2 and K4 ran and that the served
@@ -33,11 +35,18 @@ Phases (any failure exits nonzero):
    'cuda_csr'; losses finite, the train loss falling from epoch 4 to
    epoch 9, and all four kernels launched;
 7. train profile: 3 steady steps per kernel route under torch.profiler,
-   device time by kernel group and the device's idle share.
+   device time by kernel group and the device's idle share;
+8. mixed precision, each path with the counters zeroed just before:
+   ~8 requests through Server in 'mixed' (K1, K2 and K4 ran in bf16
+   only; rows against the plain route in 'mixed' and the fp32 route),
+   3 parity steps in 'mixed' on 'cuda', 'cuda_csr' and 'ell', 10 epochs
+   in 'mixed' on 'cuda' and 'cuda_csr' and in 'bfloat16' on 'cuda'
+   (every bf16 kernel ran, the train loss falls), and a 'mixed' profile.
 
 Prints one JSON line per phase, the kernel table line
-``{"kernels": [...]}`` (launches counted over the serve and train
-slices), the card line, and as the last line
+``{"kernels": [...]}`` (one row per kernel and dtype, e.g.
+``ell_aggregate[bf16]``; launches counted over the serve and train
+slices of that dtype), the card line, and as the last line
 ``{"ok": true, "device": {...}}``.  Imports no JAX.
 """
 
@@ -59,6 +68,19 @@ SEED = 0
 TRAIN = dict(learning_rate=0.01, weight_decay=1e-4, decay_rate=0.97)
 HBM_BYTES_PER_S = 3.35e12    # H100 SXM
 FP32_FLOPS = 67e12           # H100 SXM, fp32 outside the tensor cores
+# the kernels of the path, their sources and the TPU kernels they replace
+KERNELS = {
+    "indegree_norm": ("roc_tpu_torch/kernels/csrc/graphnorm.cu",
+                      "roc_tpu/kernels/graphnorm.py:60"),
+    "scale_act": ("roc_tpu_torch/kernels/csrc/graphnorm.cu",
+                  "roc_tpu/kernels/graphnorm.py:103"),
+    "csr_spmm": ("roc_tpu_torch/kernels/csrc/spmm.cu",
+                 "roc_tpu/kernels/spmm.py:83"),
+    "ell_aggregate": ("roc_tpu_torch/kernels/csrc/ell_spmm.cu",
+                      "roc_tpu/kernels/ell_spmm.py:196"),
+}
+# the launch counters' dtype keys (kernels/_build.py DTYPE_SUFFIX)
+F32, BF16 = "f32", "bf16"
 
 
 def log(obj):
@@ -101,6 +123,35 @@ def close_enough(torch, got, want, rtol, atol):
     return ok, float(err.max()) if err.numel() else 0.0
 
 
+def bf16_row_ulp(torch, want):
+    """One bf16 ulp of each row's magnitude max|row| (0 for a zero row),
+    [rows, 1]: a bf16 sum is its fp32 sum rounded once, and two fp32
+    sums a few fp32 ulps apart (another order) round to the same bf16
+    value or to neighbours."""
+    m = want.float().abs().amax(dim=1, keepdim=True)
+    _, e = torch.frexp(m)
+    return torch.where(m > 0, torch.ldexp(torch.ones_like(m), e - 8),
+                       torch.zeros_like(m))
+
+
+def within_row_ulp(torch, got, want):
+    """``(ok, max_abs_err)``: every element within one bf16 ulp of its
+    row's magnitude."""
+    err = (got.float() - want.float()).abs()
+    ok = bool((err <= bf16_row_ulp(torch, want)).all())
+    return ok, float(err.max()) if err.numel() else 0.0
+
+
+def sum_check(torch, got, want):
+    """A neighbour sum against its plain version: fp32 within rtol 1e-5,
+    atol 1e-5 * max|row| (another summation order); bf16 within one bf16
+    ulp of the row's magnitude."""
+    if want.dtype == torch.bfloat16:
+        return within_row_ulp(torch, got, want)
+    return close_enough(torch, got, want, 1e-5,
+                        1e-5 * float(want.abs().max()))
+
+
 def ragged_checks(torch, dev):
     """Small ragged case: unaligned V, a 2048-wide hub row (1500 edges,
     spanning several 512-edge chunks of the edge list), rows of degree 0,
@@ -128,17 +179,19 @@ def ragged_checks(torch, dev):
     want_ptr = g.row_ptr.copy()
     want_ptr[-1] = esrc.numel()
     assert np.array_equal(spmm.csr_row_ptr(edst, n).cpu().numpy(), want_ptr)
-    for F in (37, 36):
-        x = torch.from_numpy(rng.randn(n, F).astype(np.float32)).to(dev)
+    cases = ((37, torch.float32), (36, torch.float32),
+             (37, torch.bfloat16), (40, torch.bfloat16))
+    for F, dt in cases:
+        x = torch.from_numpy(rng.randn(n, F).astype(np.float32)).to(dev, dt)
         s = torch.from_numpy(rng.rand(n).astype(np.float32)).to(dev)
         assert torch.equal(graphnorm.indegree_norm(x, deg),
                            graphnorm.indegree_norm_plain(x, deg)), F
         for act in ("none", "relu"):
             assert torch.equal(graphnorm.scale_act(x, s, act),
                                graphnorm.scale_act_plain(x, s, act)), F
-        # K4 and K3 at every slice width: rtol 1e-5, atol 1e-5 * max|row|
-        # (another summation order); the degree-0 row is 0; no atomics,
-        # so two launches give the same bits
+        # K4 and K3 at every slice width (sum_check: another summation
+        # order); the degree-0 row is 0; no atomics, so two launches give
+        # the same bits
         for name, kern, want in (
                 ("ell_aggregate",
                  lambda S: ell_spmm.ell_aggregate(x, idx, rid, n,
@@ -149,121 +202,146 @@ def ragged_checks(torch, dev):
                  spmm.csr_spmm_plain(x, esrc, edst, n))):
             for S in slicing.SLICE_COLS:
                 got = kern(S)
-                ok, err = close_enough(torch, got, want, 1e-5,
-                                       1e-5 * float(want.abs().max()))
-                assert ok and not got[2].any(), (name, F, S, err)
-                assert torch.equal(got, kern(S)), (name, F, S)
+                ok, err = sum_check(torch, got, want)
+                assert ok and not got[2].any(), (name, F, dt, S, err)
+                assert torch.equal(got, kern(S)), (name, F, dt, S)
     torch.cuda.synchronize()
     return {"V": n, "widths": list(t.widths), "edges_padded":
-            int(esrc.numel()), "F": [37, 36],
+            int(esrc.numel()),
+            "cases": [[F, str(dt).split(".")[-1]] for F, dt in cases],
             "slice_cols": list(slicing.SLICE_COLS), "ok": True}
 
 
-def kernel_checks(torch, dev, gctx, adj, num_edges, esrc, edst):
-    """Each kernel against its plain version at the shapes the forward
-    and backward give it, with times.  ``adj`` is the graph as a sparse
-    CSR tensor, the input of K3's and K4's library yardstick
+def kernel_checks(torch, dev, gctx, adj, num_edges, esrc, edst, dtype):
+    """Each kernel in ``dtype`` against its plain version at the shapes
+    the forward and backward give it, with times.  ``adj`` is the graph
+    as a sparse CSR tensor, the input of K3's and K4's library yardstick
     ``torch.sparse.mm``; ``esrc``/``edst`` the padded edge list K3 reads.
-    Returns the per-kernel table entries."""
+    K1 and K2 must be bit-equal; K3 and K4 pass :func:`sum_check`; every
+    kernel gives the same bits on a second launch.  Returns the
+    per-kernel table entries."""
     from roc_tpu_torch.kernels import ell_spmm, graphnorm, spmm
     gen = torch.Generator(device=dev).manual_seed(SEED + 1)
+    bf16 = dtype == torch.bfloat16
+    esize = 2 if bf16 else 4
     deg, d = gctx.in_degree, gctx.inv_sqrt_deg
+    d_lib = d.to(dtype)   # the library call's scale, in x's dtype
     idx, rid = gctx.ell_idx, gctx.ell_row_id
     idx_entries = sum(int(a.numel()) for a in idx)
     bucket_rows = sum(int(a.numel()) for a in rid)
     padded_edges = int(esrc.numel())
-    entries = {
-        "indegree_norm": dict(source="roc_tpu_torch/kernels/csrc/graphnorm.cu",
-                              replaces="roc_tpu/kernels/graphnorm.py:60"),
-        "scale_act": dict(source="roc_tpu_torch/kernels/csrc/graphnorm.cu",
-                          replaces="roc_tpu/kernels/graphnorm.py:103"),
-        "csr_spmm": dict(source="roc_tpu_torch/kernels/csrc/spmm.cu",
-                         replaces="roc_tpu/kernels/spmm.py:83"),
-        "ell_aggregate": dict(source="roc_tpu_torch/kernels/csrc/ell_spmm.cu",
-                              replaces="roc_tpu/kernels/ell_spmm.py:196"),
-    }
+    entries = {name: dict(source=src, replaces=rep)
+               for name, (src, rep) in KERNELS.items()}
     for e in entries.values():
         e.update(shapes=[], ms=0.0, plain_ms=0.0, bound_ms=0.0,
                  library_ms=0.0, max_abs_err=0.0, _tb=0.0, _to=0.0)
 
-    def add(name, shape, got, want, rtol, atol, fn, plain, lib, nbytes,
-            nops, n):
-        ok, err = close_enough(torch, got, want, rtol, atol)
+    def library_call(fn):
+        """``fn`` if PyTorch on this card runs it, else None (then the
+        kernel's library_ms is null and the reason is logged)."""
+        try:
+            fn()
+            torch.cuda.synchronize()
+            return fn
+        except RuntimeError as err:
+            log({"phase": "kernel", "library_unsupported": str(err)[:300],
+                 "dtype": str(dtype)})
+            return None
+
+    def add(name, shape, check, fn, plain, lib, nbytes, nops, n):
+        ok, err = check
         ms = time_ms(torch, fn, n)
         pms = time_ms(torch, plain, max(1, n // 4))
-        lms = time_ms(torch, lib, n)
+        lms = time_ms(torch, lib, n) if lib is not None else None
         b, by = bound_ms(nbytes, nops)
-        row = dict(kernel=name, shape=shape, max_abs_err=err, rtol=rtol,
-                   atol=atol, ms=ms, plain_ms=pms, library_ms=lms,
+        row = dict(kernel=name, dtype=str(dtype), shape=shape,
+                   max_abs_err=err, ms=ms, plain_ms=pms, library_ms=lms,
                    bound_ms=b, bound_by=by, ok=ok)
         log({"phase": "kernel", **row})
         if not ok:
-            raise AssertionError(f"{name} {shape} disagrees with its plain "
-                                 f"version: max_abs_err {err}")
+            raise AssertionError(f"{name} {dtype} {shape} disagrees with "
+                                 f"its plain version: max_abs_err {err}")
         e = entries[name]
         e["shapes"].append(row)
         e["ms"] += ms
         e["plain_ms"] += pms
-        e["library_ms"] += lms
+        e["library_ms"] = (None if lms is None or e["library_ms"] is None
+                           else e["library_ms"] + lms)
         e["bound_ms"] += b
         e["max_abs_err"] = max(e["max_abs_err"], err)
         e["_tb"] += nbytes
         e["_to"] += nops
 
+    def exact(got, want):
+        return bool(torch.equal(got, want)), float(
+            (got.float() - want.float()).abs().max())
+
+    def twice(kern):
+        """The kernel's result, held to the same bits on a second
+        launch."""
+        got = kern()
+        if not torch.equal(got, kern()):
+            raise AssertionError(f"two launches differ in {dtype}")
+        return got
+
     # K3's row_ptr pre-pass against its plain version (torch.searchsorted
     # on the card): exact; timed alone here, inside K3's time below
-    got = spmm.csr_row_ptr(edst, V)
-    if not torch.equal(got, spmm.csr_row_ptr_plain(edst, V)):
-        raise AssertionError("csr_row_ptr disagrees with searchsorted")
-    entries["csr_spmm"]["row_ptr_ms"] = time_ms(
-        torch, lambda: spmm.csr_row_ptr(edst, V), 20)
-    del got
+    if not bf16:
+        got = spmm.csr_row_ptr(edst, V)
+        if not torch.equal(got, spmm.csr_row_ptr_plain(edst, V)):
+            raise AssertionError("csr_row_ptr disagrees with searchsorted")
+        entries["csr_spmm"]["row_ptr_ms"] = time_ms(
+            torch, lambda: spmm.csr_row_ptr(edst, V), 20)
+        del got
 
     # the forward's shapes: K1 and K2 at F = 256 (layer 1, K2 with the
     # folded relu) and F = 41 (layer 2, no activation); K3 and K4 at both
     # widths over the real edge list and buckets.  The backward runs the
     # same shapes (K2 with no activation).
     for F, act in ((256, "relu"), (41, "none")):
-        x = torch.randn((V, F), generator=gen, device=dev)
+        x = torch.randn((V, F), generator=gen, device=dev).to(dtype)
         vf = V * F
-        # K1: 0 ulp (same fp32 operations as the plain version)
+        # K1: 0 ulp (same fp32 operations and rounding as the plain
+        # version)
         add("indegree_norm", [V, F],
-            graphnorm.indegree_norm(x, deg),
-            graphnorm.indegree_norm_plain(x, deg), 0.0, 0.0,
+            exact(twice(lambda: graphnorm.indegree_norm(x, deg)),
+                  graphnorm.indegree_norm_plain(x, deg)),
             lambda: graphnorm.indegree_norm(x, deg),
             lambda: graphnorm.indegree_norm_plain(x, deg),
-            lambda: x * d[:, None],
-            8 * vf + 4 * V, vf, 50)
+            lambda: x * d_lib[:, None],
+            2 * esize * vf + 4 * V, vf, 50)
         # K2: 0 ulp
-        lib = ((lambda: torch.relu(x * d[:, None])) if act == "relu"
-               else (lambda: x * d[:, None]))
+        lib = ((lambda: torch.relu(x * d_lib[:, None])) if act == "relu"
+               else (lambda: x * d_lib[:, None]))
         add("scale_act", [V, F, act],
-            graphnorm.scale_act(x, d, act),
-            graphnorm.scale_act_plain(x, d, act), 0.0, 0.0,
+            exact(twice(lambda: graphnorm.scale_act(x, d, act)),
+                  graphnorm.scale_act_plain(x, d, act)),
             lambda: graphnorm.scale_act(x, d, act),
             lambda: graphnorm.scale_act_plain(x, d, act), lib,
-            8 * vf + 4 * V, vf * (2 if act == "relu" else 1), 50)
-        # K4: rtol 1e-5, atol 1e-5 * max|row| (another summation order)
+            2 * esize * vf + 4 * V, vf * (2 if act == "relu" else 1), 50)
+        # K4: sum_check (another summation order)
         want = ell_spmm.ell_aggregate_plain(x, idx, rid, V)
-        got = ell_spmm.ell_aggregate(x, idx, rid, V)
+        got = twice(lambda: ell_spmm.ell_aggregate(x, idx, rid, V))
         add("ell_aggregate", [V, F, list(a.shape[1] for a in idx),
-                              f"slice_cols={ell_spmm.default_slice_cols(F)}"],
-            got, want, 1e-5, 1e-5 * float(want.abs().max()),
+                              "slice_cols="
+                              f"{ell_spmm.default_slice_cols(F, dtype)}"],
+            sum_check(torch, got, want),
             lambda: ell_spmm.ell_aggregate(x, idx, rid, V),
             lambda: ell_spmm.ell_aggregate_plain(x, idx, rid, V),
-            lambda: torch.sparse.mm(adj, x),
-            8 * vf + 4 * idx_entries + 4 * bucket_rows, num_edges * F, 5)
-        # K3 over the padded edge list: the same tolerance (another
-        # summation order); bytes: feats and out once, src and dst once
+            library_call(lambda: torch.sparse.mm(adj, x)),
+            2 * esize * vf + 4 * idx_entries + 4 * bucket_rows,
+            num_edges * F, 5)
+        # K3 over the padded edge list: the same check; bytes: feats and
+        # out once, src and dst once
         want = spmm.csr_spmm_plain(x, esrc, edst, V)
-        got = spmm.csr_spmm(x, esrc, edst, V)
+        got = twice(lambda: spmm.csr_spmm(x, esrc, edst, V))
         add("csr_spmm", [V, F, padded_edges,
-                         f"slice_cols={spmm.default_slice_cols(F)}"],
-            got, want, 1e-5, 1e-5 * float(want.abs().max()),
+                         f"slice_cols={spmm.default_slice_cols(F, dtype)}"],
+            sum_check(torch, got, want),
             lambda: spmm.csr_spmm(x, esrc, edst, V),
             lambda: spmm.csr_spmm_plain(x, esrc, edst, V),
-            lambda: torch.sparse.mm(adj, x),
-            8 * vf + 8 * padded_edges, num_edges * F, 5)
+            library_call(lambda: torch.sparse.mm(adj, x)),
+            2 * esize * vf + 8 * padded_edges, num_edges * F, 5)
         del x, want, got
     for e in entries.values():
         e["bound_by"] = ("bytes" if e["_tb"] / HBM_BYTES_PER_S
@@ -272,15 +350,15 @@ def kernel_checks(torch, dev, gctx, adj, num_edges, esrc, edst):
     return entries
 
 
-def race(torch, dev, gctx, num_edges, esrc, edst):
-    """Every slice width of K4 and K3 at the layer widths F = 256 and
-    F = 41 over the full graph, in turns in one process: the plain
-    version, each instance, each instance again in reverse order, the
-    plain version again (``ms`` is the mean of an instance's two
-    readings).  Each instance is first held to the plain version (rtol
-    1e-5, atol 1e-5 * max|row|) and launched twice for equal bits.
-    Prints, per instance, the effective gather rate E * F * 4 / ms and
-    the HBM bytes the schedule needs over ms: feats once per launch (K4:
+def race(torch, dev, gctx, num_edges, esrc, edst, dtype):
+    """Every slice width of K4 and K3 in ``dtype`` at the layer widths
+    F = 256 and F = 41 over the full graph, in turns in one process: the
+    plain version, each instance, each instance again in reverse order,
+    the plain version again (``ms`` is the mean of an instance's two
+    readings).  Each instance is first held to the plain version
+    (:func:`sum_check`) and launched twice for equal bits.  Prints, per
+    instance, the effective gather rate E * F * itemsize / ms and the
+    HBM bytes the schedule needs over ms: feats once per launch (K4:
     once per bucket), out once, the ids once per slice (K4: the bucket
     tables; K3: edge_src and row_ptr; the pre-pass's searches are not
     counted); and the fastest instance, the wrappers' default, and the
@@ -289,13 +367,14 @@ def race(torch, dev, gctx, num_edges, esrc, edst):
     records."""
     from roc_tpu_torch.kernels import ell_spmm, slicing, spmm
     gen = torch.Generator(device=dev).manual_seed(SEED + 3)
+    esize = 2 if dtype == torch.bfloat16 else 4
     idx, rid = gctx.ell_idx, gctx.ell_row_id
     ell_ids = 4 * sum(int(a.numel()) for a in (*idx, *rid))
     csr_ids = 4 * int(esrc.numel()) + 8 * (V + 1)
     records = []
     for F in (256, 41):
-        x = torch.randn((V, F), generator=gen, device=dev)
-        fb = 4 * V * F
+        x = torch.randn((V, F), generator=gen, device=dev).to(dtype)
+        fb = esize * V * F
         n = 5 if F > slicing.NARROW_F else 10
         for name, mod, kern, plain, feats_reads, ids_bytes in (
                 ("ell_aggregate", ell_spmm,
@@ -308,15 +387,14 @@ def race(torch, dev, gctx, num_edges, esrc, edst):
                  lambda: spmm.csr_spmm_plain(x, esrc, edst, V),
                  1, csr_ids)):
             want = plain()
-            atol = 1e-5 * float(want.abs().max())
             inst = {}
             for S in slicing.SLICE_COLS:
                 got = kern(S)
-                ok, err = close_enough(torch, got, want, 1e-5, atol)
+                ok, err = sum_check(torch, got, want)
                 if not (ok and torch.equal(got, kern(S))):
-                    raise AssertionError(f"{name} F={F} slice_cols={S}: "
-                                         f"max_abs_err {err}, or two "
-                                         f"launches differ")
+                    raise AssertionError(f"{name} {dtype} F={F} "
+                                         f"slice_cols={S}: max_abs_err "
+                                         f"{err}, or two launches differ")
                 slices = -(-F // S) if S else 1
                 inst[S] = {"slice_cols": S, "max_abs_err": err,
                            "hbm_bytes": fb * feats_reads + fb
@@ -330,15 +408,16 @@ def race(torch, dev, gctx, num_edges, esrc, edst):
             plain_ms.append(time_ms(torch, plain, 1))
             for r in inst.values():
                 r["ms"] = sum(r["readings"]) / len(r["readings"])
-                r["gather_tb_s"] = num_edges * F * 4 / r["ms"] / 1e9
+                r["gather_tb_s"] = num_edges * F * esize / r["ms"] / 1e9
                 r["hbm_tb_s"] = r["hbm_bytes"] / r["ms"] / 1e9
             fastest = min(inst, key=lambda S: inst[S]["ms"])
 
             def spread(S):
                 return abs(inst[S]["readings"][0] - inst[S]["readings"][1])
-            rec = {"phase": "race", "kernel": name, "F": F,
-                   "plain_ms": plain_ms, "instances": list(inst.values()),
-                   "fastest": fastest, "default": mod.default_slice_cols(F),
+            rec = {"phase": "race", "kernel": name, "dtype": str(dtype),
+                   "F": F, "plain_ms": plain_ms,
+                   "instances": list(inst.values()), "fastest": fastest,
+                   "default": mod.default_slice_cols(F, dtype),
                    "ties": [S for S in inst if inst[S]["ms"]
                             - inst[fastest]["ms"]
                             <= max(spread(S), spread(fastest))]}
@@ -377,28 +456,46 @@ def slice_run(torch, pred, server_cls):
     return lat, results
 
 
-def _trainer(ds, impl, dropout, params=None, **cfg):
+def _trainer(ds, impl, dropout, params=None, mode="float32", **cfg):
     from roc_tpu_torch.models.gcn import build_gcn
-    from roc_tpu_torch.train.trainer import TrainConfig, Trainer
+    from roc_tpu_torch.train.trainer import (TrainConfig, Trainer,
+                                             resolve_dtypes)
+    dtype, compute_dtype = resolve_dtypes(mode)
     return Trainer(build_gcn(LAYERS, dropout_rate=dropout), ds,
                    TrainConfig(aggr_impl=impl, symmetric=True, seed=SEED,
+                               dtype=dtype, compute_dtype=compute_dtype,
                                **TRAIN, **cfg),
                    params=params)
 
 
-def train_parity(torch, ds, params, steps=3):
+# Each parity step's objective against the plain route's, per dtype mode:
+# fp32 sums in another order, compounded over the steps (float32); bf16
+# activations rounded at other places (K1 scales by the fp32 d, the plain
+# route by d rounded to bf16; rel. 2^-9 a rounding) through two layers,
+# and after the first step weights up to ~2 lr apart where a near-zero
+# gradient's sign differs between the routes (mixed).
+PARITY_RTOL = {"float32": 1e-4, "mixed": 2e-2}
+
+
+def train_parity(torch, ds, params, mode="float32", steps=3):
     """From the same weights, dropout 0, ``steps`` steps through
-    Trainer.train on each kernel route and on the plain 'ell' route on
-    the card.  Each step's objective within rtol 1e-4 of the plain
-    route's (fp32 sums in another order, compounded over the steps);
-    the weights after the steps are reported, not gated: Adam moves a
-    weight by ~lr whatever its gradient's size, so a near-zero gradient
-    whose sign differs between two summation orders moves it 2 lr
-    apart."""
+    Trainer.train in dtype ``mode`` on each kernel route and on the
+    plain 'ell' route on the card.  Each step's objective within
+    ``PARITY_RTOL[mode]`` of the plain route's; the weights after the
+    steps are reported, not gated: Adam moves a weight by ~lr whatever
+    its gradient's size, so a near-zero gradient whose sign differs
+    between two summation orders moves it 2 lr apart.  The weights stay
+    fp32 in both modes, and in 'mixed' ``feats`` is bf16."""
+    rtol = PARITY_RTOL[mode]
     losses, weights, step_s = {}, {}, {}
     for impl in ("ell", "cuda", "cuda_csr"):
-        tr = _trainer(ds, impl, 0.0, params=params,
+        tr = _trainer(ds, impl, 0.0, params=params, mode=mode,
                       eval_every=10 ** 6, verbose=False)
+        if any(p.dtype != torch.float32 for p in tr.params.values()) or (
+                mode == "mixed" and tr.feats.dtype != torch.bfloat16):
+            raise AssertionError(f"{impl} {mode}: params "
+                                 f"{[p.dtype for p in tr.params.values()]}"
+                                 f", feats {tr.feats.dtype}")
         t0 = time.perf_counter()
         tr.train(steps)
         tr.sync()
@@ -407,7 +504,8 @@ def train_parity(torch, ds, params, steps=3):
         weights[impl] = {k: v.detach().clone() for k, v in tr.params.items()}
         del tr
         torch.cuda.empty_cache()
-    out = {"steps": steps, "plain_losses": losses["ell"].tolist(),
+    out = {"mode": mode, "steps": steps, "rtol": rtol,
+           "plain_losses": losses["ell"].tolist(),
            "plain_step_s": step_s["ell"]}
     for impl in ("cuda", "cuda_csr"):
         rel = np.abs(losses[impl] - losses["ell"]) / np.abs(losses["ell"])
@@ -420,22 +518,24 @@ def train_parity(torch, ds, params, steps=3):
             "max_weight_diff": max(float(t.max()) for t in diffs),
             "share_weights_off_1e-3":
             sum(int((t > 1e-3).sum()) for t in diffs) / n}
-        if not (np.isfinite(losses[impl]).all() and rel.max() <= 1e-4):
+        if not (np.isfinite(losses[impl]).all() and rel.max() <= rtol):
             raise AssertionError(f"{impl} losses {losses[impl]} differ from "
                                  f"the plain route's {losses['ell']}")
     return out
 
 
-def train_slice(torch, ds):
-    """10 epochs, dropout 0.5, an eval every 5, through Trainer on each
-    kernel route (fresh Glorot weights from SEED).  Returns the phase
-    record; raises on a non-finite loss or a train loss that did not
+def train_slice(torch, ds, runs):
+    """10 epochs, dropout 0.5, an eval every 5, through Trainer for each
+    ``(kernel route, dtype mode)`` of ``runs`` (fresh Glorot weights from
+    SEED).  Returns the phase record, keyed by route (float32) or
+    route/mode; raises on a non-finite loss or a train loss that did not
     fall from epoch 4 to epoch 9."""
     from roc_tpu_torch.train.trainer import format_metrics
     out = {}
-    for impl in ("cuda", "cuda_csr"):
+    for impl, mode in runs:
+        key = impl if mode == "float32" else f"{impl}/{mode}"
         t0 = time.perf_counter()
-        tr = _trainer(ds, impl, 0.5, epochs=10, eval_every=5,
+        tr = _trainer(ds, impl, 0.5, mode=mode, epochs=10, eval_every=5,
                       verbose=False)
         setup_s = time.perf_counter() - t0
         hist = tr.train()
@@ -444,7 +544,7 @@ def train_slice(torch, ds):
         lines = [format_metrics(m["epoch"], m) for m in hist]
         for ln in lines:
             print(ln, flush=True)
-        out[impl] = {
+        out[key] = {
             "setup_s": setup_s, "first_step_ms": hist[0]["first_step_ms"],
             "epoch_ms": [m["epoch_ms"] for m in hist],
             "eval_ms": [m["eval_ms"] for m in hist],
@@ -452,10 +552,10 @@ def train_slice(torch, ds):
             "objective": losses.tolist(), "infer": lines}
         if not np.isfinite(losses).all() or not all(
                 np.isfinite(m["train_loss"]) for m in hist):
-            raise AssertionError(f"{impl}: non-finite loss {losses}")
+            raise AssertionError(f"{key}: non-finite loss {losses}")
         if [m["epoch"] for m in hist] != [4, 9] or not (
                 hist[1]["train_loss"] < hist[0]["train_loss"]):
-            raise AssertionError(f"{impl}: train loss did not fall: "
+            raise AssertionError(f"{key}: train loss did not fall: "
                                  f"{lines}")
         del tr
         torch.cuda.empty_cache()
@@ -473,17 +573,17 @@ def _kernel_group(name):
     return "other (dropout, loss, Adam, copies)"
 
 
-def train_profile(torch, ds, steps=3):
+def train_profile(torch, ds, mode="float32", steps=3):
     """Where a steady training step's device time goes, per kernel
-    route: ``steps`` steps (after 2 warm ones) under torch.profiler,
-    kernel time summed by group, and the device's idle share of the
-    host wall clock (1 - kernel time / wall).  Dropout 0.5, as in the
-    train slice.  Reports "not measured" if the profiler sees no device
-    time."""
+    route, in dtype ``mode``: ``steps`` steps (after 2 warm ones) under
+    torch.profiler, kernel time summed by group, and the device's idle
+    share of the host wall clock (1 - kernel time / wall).  Dropout 0.5,
+    as in the train slice.  Reports "not measured" if the profiler sees
+    no device time."""
     from torch.profiler import ProfilerActivity, profile
-    out = {}
+    out = {"mode": mode}
     for impl in ("cuda", "cuda_csr"):
-        tr = _trainer(ds, impl, 0.5, eval_every=10 ** 6,
+        tr = _trainer(ds, impl, 0.5, mode=mode, eval_every=10 ** 6,
                       verbose=False)
         tr.train(2)
         tr.sync()
@@ -521,6 +621,81 @@ def train_profile(torch, ds, steps=3):
     return out
 
 
+# Served logits against the plain 'ell' route in the same mode on the
+# card, as a share of the logit scale: fp32 sums in another order, two
+# layers deep (float32); bf16 activations rounded at other places (K1
+# scales by the fp32 d, the plain route by d rounded to bf16; rel. 2^-9 a
+# rounding) through two layers and two bf16 products (mixed).  And in
+# mixed against the fp32 route: bf16 features, weights and activations.
+SERVE_TOL = {"float32": 1e-4, "mixed": 3e-2}
+SERVE_TOL_VS_FP32 = 5e-2
+
+
+def serve_check(torch, pred, results, mode, fp32_ref=None):
+    """The served rows against the plain 'ell' route in ``mode`` on the
+    card (and, given ``fp32_ref``, the fp32 route's logits), finite, of
+    the right shape, and the id-0 row the same bits in every request,
+    coalesced or not.  Returns the plain route's logits (fp32 numpy)."""
+    with torch.inference_mode():
+        plain_ctx = dataclasses.replace(pred.gctx, aggr_impl="ell")
+        ref = pred.model.apply(pred.params, pred.published().table,
+                               plain_ctx, train=False).float().cpu().numpy()
+    scale = float(np.abs(ref).max())
+    worst = worst32 = 0.0
+    row0 = None
+    for ids, rows in results:
+        rows = np.asarray(rows)
+        assert rows.shape == (ids.size, LAYERS[-1]), rows.shape
+        assert rows.dtype == np.float32 and np.isfinite(rows).all()
+        worst = max(worst, float(np.abs(rows - ref[ids]).max()))
+        if fp32_ref is not None:
+            worst32 = max(worst32, float(np.abs(rows - fp32_ref[ids]).max()))
+        # id 0 rides in every request: coalesced or not, the same bits
+        row0 = rows[0] if row0 is None else row0
+        assert np.array_equal(rows[0], row0)
+    tol = SERVE_TOL[mode] * max(scale, 1.0)
+    rec = {"phase": "check", "mode": mode, "max_abs_err": worst,
+           "atol": tol, "logit_scale": scale}
+    tol32 = None
+    if fp32_ref is not None:
+        tol32 = SERVE_TOL_VS_FP32 * max(float(np.abs(fp32_ref).max()), 1.0)
+        rec.update(max_abs_err_vs_fp32=worst32, atol_vs_fp32=tol32)
+    log(rec)
+    if not worst <= tol:
+        raise AssertionError(f"{mode} served logits differ from the plain "
+                             f"route: {worst} > {tol}")
+    if tol32 is not None and not worst32 <= tol32:
+        raise AssertionError(f"{mode} served logits differ from the fp32 "
+                             f"route: {worst32} > {tol32}")
+    return ref
+
+
+def kernel_share(record, entries):
+    """The kernels' share of a steady step, from the kernel phase's times
+    of the run's dtype: each of the two layers runs its chain once
+    forward, once backward."""
+    chain = 2 * (entries["indegree_norm"]["ms"] + entries["scale_act"]["ms"])
+    for key, rec in record.items():
+        agg = "csr_spmm" if key.startswith("cuda_csr") else "ell_aggregate"
+        steady = [ms for ms in rec["epoch_ms"] if ms]
+        step_ms = sum(steady) / len(steady)
+        est = chain + 2 * entries[agg]["ms"]
+        rec.update(kernel_ms_per_step_est=est, kernel_share_est=est / step_ms,
+                   aggregate_share_est=2 * entries[agg]["ms"] / step_ms)
+
+
+def check_train_launches(launches, key):
+    """Every kernel of the training path ran in dtype ``key`` and none in
+    the other; K3's pre-pass once per main pass."""
+    other = BF16 if key == F32 else F32
+    by = {k: v for k, v in launches.items() if k != "csr_row_ptr"}
+    if not all(v[key] for v in by.values()) or any(
+            v[other] for v in by.values()) or (
+            launches["csr_row_ptr"] != by["csr_spmm"][key]):
+        raise AssertionError(f"a {key} kernel of the training path never "
+                             f"ran, or another dtype did: {launches}")
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -553,7 +728,7 @@ def main() -> int:
     log({"phase": "build", "seconds": _build.build_seconds,
          "ptxas": ptxas})
 
-    # 3. kernels
+    # 3. kernels, in fp32 and in bf16
     log({"phase": "ragged", **ragged_checks(torch, dev)})
     t0 = time.perf_counter()
     ds = synthetic_dataset(num_nodes=V, avg_degree=AVG_DEGREE,
@@ -576,103 +751,121 @@ def main() -> int:
          "predictor_s": t_pred,
          "buckets": [list(a.shape) for a in gctx.ell_idx]})
     g = ds.graph
-    adj = torch.sparse_csr_tensor(
-        torch.from_numpy(g.row_ptr).to(dev),
-        torch.from_numpy(g.col_idx.astype(np.int64)).to(dev),
-        torch.ones(g.num_edges, device=dev), size=(V, V),
-        check_invariants=False)
+
+    def csr_adj(dtype):
+        return torch.sparse_csr_tensor(
+            torch.from_numpy(g.row_ptr).to(dev),
+            torch.from_numpy(g.col_idx.astype(np.int64)).to(dev),
+            torch.ones(g.num_edges, device=dev, dtype=dtype), size=(V, V),
+            check_invariants=False)
+
     esrc, edst = (torch.from_numpy(a).to(dev)
                   for a in padded_edge_list(g, multiple=512))
-    entries = kernel_checks(torch, dev, gctx, adj, g.num_edges, esrc, edst)
-    del adj
-    torch.cuda.empty_cache()
-    race(torch, dev, gctx, g.num_edges, esrc, edst)
+    entries = {}
+    for key, dtype in ((F32, torch.float32), (BF16, torch.bfloat16)):
+        adj = csr_adj(dtype)
+        entries[key] = kernel_checks(torch, dev, gctx, adj, g.num_edges,
+                                     esrc, edst, dtype)
+        del adj
+        torch.cuda.empty_cache()
+        race(torch, dev, gctx, g.num_edges, esrc, edst, dtype)
+        torch.cuda.empty_cache()
     del esrc, edst
     torch.cuda.empty_cache()
 
-    # 4. serve slice: the serving path, counts zeroed just before
+    # every main path below is driven with the counts zeroed just before
+    # and read just after; counted[dtype][kernel] sums the serve and
+    # train slices' launches of that dtype
     kernels = (graphnorm.indegree_norm, graphnorm.scale_act,
                spmm.csr_spmm, ell_spmm.ell_aggregate)
-    for k in kernels:
-        k.launches = 0
-    lat, results = slice_run(torch, pred, Server)
-    torch.cuda.synchronize()
-    launches = {k.__name__: k.launches for k in kernels}
-    log({"phase": "slice", "requests": lat, "launches": launches})
-    if not all(launches[k] for k in ("indegree_norm", "scale_act",
-                                     "ell_aggregate")):
-        raise AssertionError(f"a kernel of the path never ran: {launches}")
+    counted = {key: {k.__name__: 0 for k in kernels} for key in (F32, BF16)}
 
-    with torch.inference_mode():
-        plain_ctx = dataclasses.replace(gctx, aggr_impl="ell")
-        ref = pred.model.apply(pred.params, pred.published().table,
-                               plain_ctx, train=False).cpu().numpy()
-    scale = float(np.abs(ref).max())
-    worst = 0.0
-    row0 = None
-    for ids, rows in results:
-        rows = np.asarray(rows)
-        assert rows.shape == (ids.size, LAYERS[-1]), rows.shape
-        assert np.isfinite(rows).all()
-        worst = max(worst, float(np.abs(rows - ref[ids]).max()))
-        # id 0 rides in every request: coalesced or not, the same bits
-        row0 = rows[0] if row0 is None else row0
-        assert np.array_equal(rows[0], row0)
-    # served logits vs the plain route on the card: fp32 sums in another
-    # order, two layers deep -> rtol-style bound 1e-4 of the logit scale
-    tol = 1e-4 * max(scale, 1.0)
-    log({"phase": "check", "max_abs_err": worst, "atol": tol,
-         "logit_scale": scale})
-    if not worst <= tol:
-        raise AssertionError(f"served logits differ from the plain route: "
-                             f"{worst} > {tol}")
-    del pred, gctx, plain_ctx, ref, results
+    def zero_counts():
+        _build.zero_launches(*kernels)
+        spmm.csr_row_ptr.launches = 0
+
+    def read_counts():
+        torch.cuda.synchronize()
+        got = {k.__name__: dict(k.launches_by_dtype) for k in kernels}
+        for name, by in got.items():
+            for key in (F32, BF16):
+                counted[key][name] += by[key]
+        got["csr_row_ptr"] = spmm.csr_row_ptr.launches
+        return got
+
+    # 4. serve slice: the serving path, fp32
+    zero_counts()
+    lat, results = slice_run(torch, pred, Server)
+    launches = read_counts()
+    log({"phase": "slice", "requests": lat, "launches": launches})
+    if not all(launches[k][F32] for k in ("indegree_norm", "scale_act",
+                                          "ell_aggregate")):
+        raise AssertionError(f"a kernel of the path never ran: {launches}")
+    ref = serve_check(torch, pred, results, "float32")
+    del pred, gctx, results
     torch.cuda.empty_cache()
 
     # 5. train parity: kernel routes against the plain route on the card
     log({"phase": "train_parity", **train_parity(torch, ds, params)})
 
-    # 6. train slice: the training path, counts zeroed just before
-    for k in (*kernels, spmm.csr_row_ptr):
-        k.launches = 0
-    record = train_slice(torch, ds)
-    torch.cuda.synchronize()
-    train_launches = {k.__name__: k.launches for k in kernels}
-    # K3's pre-pass runs once per main pass
-    train_launches["csr_row_ptr"] = spmm.csr_row_ptr.launches
-    # the kernels' share of a steady step, from the kernel phase's times:
-    # each of the two layers runs its chain once forward, once backward
-    chain = 2 * (entries["indegree_norm"]["ms"] + entries["scale_act"]["ms"])
-    for impl, agg in (("cuda", "ell_aggregate"), ("cuda_csr", "csr_spmm")):
-        steady = [ms for ms in record[impl]["epoch_ms"] if ms]
-        step_ms = sum(steady) / len(steady)
-        est = chain + 2 * entries[agg]["ms"]
-        record[impl].update(kernel_ms_per_step_est=est,
-                            kernel_share_est=est / step_ms,
-                            aggregate_share_est=2 * entries[agg]["ms"]
-                            / step_ms)
+    # 6. train slice: the training path, fp32
+    zero_counts()
+    record = train_slice(torch, ds, (("cuda", "float32"),
+                                     ("cuda_csr", "float32")))
+    train_launches = read_counts()
+    kernel_share(record, entries[F32])
     log({"phase": "train_slice", **record, "launches": train_launches})
-    if not all(train_launches.values()) or (
-            train_launches["csr_row_ptr"] != train_launches["csr_spmm"]):
-        raise AssertionError(f"a kernel of the training path never ran: "
-                             f"{train_launches}")
+    check_train_launches(train_launches, F32)
 
     # 7. where a steady step's device time goes (after the counts are
     # read: these steps are not part of the counted run)
     log({"phase": "train_profile", **train_profile(torch, ds)})
 
+    # 8. mixed precision: serve, parity, train slices, profile
+    pred = build_predictor(model, ds,
+                           TrainConfig(aggr_impl="cuda", symmetric=True,
+                                       dtype=torch.float32,
+                                       compute_dtype=torch.bfloat16),
+                           params=params, backend="full")
+    zero_counts()
+    lat, results = slice_run(torch, pred, Server)
+    launches = read_counts()
+    log({"phase": "slice_mixed", "requests": lat, "launches": launches})
+    if not all(launches[k][BF16] for k in ("indegree_norm", "scale_act",
+                                           "ell_aggregate")) or any(
+            by[F32] for k, by in launches.items() if k != "csr_row_ptr"):
+        raise AssertionError(f"the mixed serving path did not run the "
+                             f"bf16 kernels alone: {launches}")
+    serve_check(torch, pred, results, "mixed", fp32_ref=ref)
+    del pred, results, ref
+    torch.cuda.empty_cache()
+    log({"phase": "train_parity_mixed",
+         **train_parity(torch, ds, params, mode="mixed")})
+    zero_counts()
+    record = train_slice(torch, ds, (("cuda", "mixed"),
+                                     ("cuda", "bfloat16"),
+                                     ("cuda_csr", "mixed")))
+    train_launches_bf16 = read_counts()
+    kernel_share(record, entries[BF16])
+    log({"phase": "train_slice_bf16", **record,
+         "launches": train_launches_bf16})
+    check_train_launches(train_launches_bf16, BF16)
+    log({"phase": "train_profile_mixed",
+         **train_profile(torch, ds, mode="mixed")})
+
     table = []
-    for name, e in entries.items():
-        table.append({"name": name, "route": "cuda", "source": e["source"],
-                      "replaces": e["replaces"],
-                      "launches": launches[name] + train_launches[name],
-                      "max_abs_err": e["max_abs_err"], "ms": e["ms"],
-                      "plain_ms": e["plain_ms"], "bound_ms": e["bound_ms"],
-                      "bound_by": e["bound_by"],
-                      "library_ms": e["library_ms"],
-                      **({"row_ptr_ms": e["row_ptr_ms"]}
-                         if "row_ptr_ms" in e else {}),
-                      "shapes": e["shapes"]})
+    for key, tag in ((F32, "fp32"), (BF16, "bf16")):
+        for name, e in entries[key].items():
+            table.append({
+                "name": f"{name}[{tag}]", "route": "cuda",
+                "source": e["source"], "replaces": e["replaces"],
+                "launches": counted[key][name],
+                "max_abs_err": e["max_abs_err"], "ms": e["ms"],
+                "plain_ms": e["plain_ms"], "bound_ms": e["bound_ms"],
+                "bound_by": e["bound_by"], "library_ms": e["library_ms"],
+                **({"row_ptr_ms": e["row_ptr_ms"]}
+                   if "row_ptr_ms" in e else {}),
+                "shapes": e["shapes"]})
     log({"total_s": time.perf_counter() - t_start,
          "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9})
     log({"kernels": table})

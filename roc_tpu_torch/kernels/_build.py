@@ -11,7 +11,10 @@ when the package is imported: :func:`library` builds at first use.
 Each C entry point takes device pointers and the CUDA stream as
 ``void*``, launches on that stream, does not synchronise, and returns
 ``cudaGetLastError()``; :func:`check` turns a nonzero code into an
-exception.
+exception.  A kernel that takes features has one entry point per element
+type, ``<name>_f32`` and ``<name>_bf16``: :func:`entry` picks it by the
+tensor's dtype and refuses any other, and :func:`launched` counts a
+launch in the wrapper's ``launches`` and ``launches_by_dtype``.
 """
 
 from __future__ import annotations
@@ -40,20 +43,29 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _L = ctypes.c_longlong
 
+# The element types of the feature kernels, by the suffix of their entry
+# points
+DTYPE_SUFFIX = {torch.float32: "f32", torch.bfloat16: "bf16"}
+
 # C signatures: name -> argtypes (every entry point returns an int)
 SIGNATURES = {
-    # x, in_degree, out, rows, F, stream
-    "roc_indegree_norm_f32": (_P, _P, _P, _L, _I, _P),
-    # x, scale, out, rows, F, relu, stream
-    "roc_scale_act_f32": (_P, _P, _P, _L, _I, _I, _P),
-    # feats, idx, row_id, out, rows, width, dummy, num_rows, F,
-    # slice_cols, stream
-    "roc_ell_aggregate_f32": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
     # edge_dst, row_ptr, num_edges, num_rows, stream
     "roc_csr_row_ptr": (_P, _P, _L, _I, _P),
-    # feats, edge_src, row_ptr, out, dummy, num_rows, F, slice_cols, stream
-    "roc_csr_spmm_f32": (_P, _P, _P, _P, _I, _I, _I, _I, _P),
 }
+for _sfx in DTYPE_SUFFIX.values():
+    SIGNATURES.update({
+        # x, in_degree, out, rows, F, stream
+        f"roc_indegree_norm_{_sfx}": (_P, _P, _P, _L, _I, _P),
+        # x, scale, out, rows, F, relu, stream
+        f"roc_scale_act_{_sfx}": (_P, _P, _P, _L, _I, _I, _P),
+        # feats, idx, row_id, out, rows, width, dummy, num_rows, F,
+        # slice_cols, stream
+        f"roc_ell_aggregate_{_sfx}": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                                      _P),
+        # feats, edge_src, row_ptr, out, dummy, num_rows, F, slice_cols,
+        # stream
+        f"roc_csr_spmm_{_sfx}": (_P, _P, _P, _P, _I, _I, _I, _I, _P),
+    })
 
 _lock = threading.Lock()
 _lib: Optional[ctypes.CDLL] = None
@@ -151,3 +163,26 @@ def check(name: str, code: int) -> None:
 def stream_ptr(device) -> int:
     """PyTorch's current CUDA stream on ``device``, as an int."""
     return torch.cuda.current_stream(device).cuda_stream
+
+
+def entry(name: str, dtype: torch.dtype):
+    """The C entry point ``roc_<name>_<f32|bf16>`` for features of
+    ``dtype``; raises TypeError for any other dtype."""
+    if dtype not in DTYPE_SUFFIX:
+        raise TypeError(f"{name}: the CUDA kernel takes float32 or "
+                        f"bfloat16, got {dtype}")
+    return getattr(library(), f"roc_{name}_{DTYPE_SUFFIX[dtype]}")
+
+
+def zero_launches(*wrappers) -> None:
+    """Set each wrapper's launch counts to 0: ``launches`` (all dtypes)
+    and ``launches_by_dtype`` (``{'f32': n, 'bf16': n}``)."""
+    for fn in wrappers:
+        fn.launches = 0
+        fn.launches_by_dtype = {s: 0 for s in DTYPE_SUFFIX.values()}
+
+
+def launched(wrapper, dtype: torch.dtype) -> None:
+    """Count one kernel launch of ``wrapper`` on features of ``dtype``."""
+    wrapper.launches += 1
+    wrapper.launches_by_dtype[DTYPE_SUFFIX[dtype]] += 1

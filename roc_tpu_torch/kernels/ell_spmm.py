@@ -5,7 +5,7 @@ ell_aggregate_pallas``).
 (csrc/ell_spmm.cu) for a tensor on the card, and runs
 :func:`ell_aggregate_plain` for a tensor on the CPU; there is no
 fallback from one to the other.  ``ell_aggregate.launches`` counts
-kernel launches.
+kernel launches (``launches_by_dtype`` by dtype).
 
 The contract differs from the JAX function's in one respect: ``feats``
 carries no appended zero row.  Ids equal to ``feats.shape[0]`` (the
@@ -14,13 +14,17 @@ output row ``row_id`` (core/ell.py ``EllTable.row_id``) instead of
 through a concatenate-and-permute, which saves one ``[V+1, F]`` copy
 per layer.  Rows of degree 0 come out 0, as before.
 
-The kernel walks the columns in slices of ``slice_cols`` (slicing.py:
-16, 32, 64, or 0 for unsliced; by default the race's choice for F, see
+``feats`` is float32 or bfloat16 (the kernel's ``_f32`` or ``_bf16``
+instance; any other dtype is refused on the card).  The kernel walks
+the columns in slices of ``slice_cols`` (slicing.py: 16, 32, 64, 128, or
+0 for unsliced; by default the race's choice for F and the dtype, see
 :func:`default_slice_cols`).  It sums a row's neighbours in a fixed
-order in fp32 registers, so each instance gives the same bits on every
-launch; the instances' orders differ from each other and from the plain
-version's ``torch.sum``, so they agree to fp32 rounding
-(``rtol=1e-5, atol=1e-5 * max|row|``), not bit for bit.
+order in fp32 registers and rounds once to ``feats.dtype``, so each
+instance gives the same bits on every launch; the instances' orders
+differ from each other and from the plain version's fp32 ``torch.sum``,
+so they agree to fp32 rounding (``rtol=1e-5, atol=1e-5 * max|row|``) in
+fp32, and in bf16 to one bf16 ulp of the row's magnitude (two fp32 sums
+a few fp32 ulps apart round to the same bf16 value or to neighbours).
 """
 
 from __future__ import annotations
@@ -51,13 +55,19 @@ def _check(feats: torch.Tensor, ell_idx: Sequence[torch.Tensor],
                              "devices")
 
 
-def default_slice_cols(F: int) -> int:
-    """K4's slice width for F columns (slicing.py): unsliced up to
-    ``slicing.NARROW_F``, 32 above.  At F = 256 the race in
-    chip_smoke.py (PERF.md) puts 32 and 64 level, both 2x the unsliced
-    schedule, except that 64, whose slice (V * 256 bytes) is larger than
-    the 50 MB L2, sometimes runs ~8 % slower; 32 does not."""
-    return slicing.default_slice_cols(F, wide=32)
+# K4's F = 256 winner per dtype (slicing.py)
+_WIDE = {torch.float32: 32, torch.bfloat16: 64}
+
+
+def default_slice_cols(F: int, dtype: torch.dtype = torch.float32) -> int:
+    """K4's slice width for F columns of ``dtype`` (slicing.py):
+    unsliced up to ``slicing.NARROW_F``, the dtype's F = 256 winner
+    above.  In fp32 the race in chip_smoke.py (PERF.md) puts 32 and 64
+    level at F = 256, both 2x the unsliced schedule, except that 64,
+    whose slice (V * 256 bytes) is larger than the 50 MB L2, sometimes
+    runs ~8 % slower; 32 does not.  In bf16 the race's winner is 64,
+    the bytes of fp32's 32, tied with 128 (PERF.md)."""
+    return slicing.default_slice_cols(F, wide=_WIDE.get(dtype, 32))
 
 
 def ell_aggregate_plain(feats: torch.Tensor,
@@ -82,37 +92,37 @@ def ell_aggregate(feats: torch.Tensor, ell_idx: Sequence[torch.Tensor],
                   slice_cols: Optional[int] = None) -> torch.Tensor:
     """``out[v] = sum(feats[ids of v])`` over the ELL buckets.
 
-    feats: float [R, F], no zero row (the dummy id is R).
+    feats: float32 or bfloat16 [R, F], no zero row (the dummy id is R).
     ell_idx: int32 ``[rows_b, width_b]`` per bucket.
     ell_row_id: int32 ``[rows_b]`` per bucket, the output row of each
     bucket row (padding rows carry ``num_rows``).
     slice_cols: the kernel's column slice width, one of
     ``slicing.SLICE_COLS``; None takes :func:`default_slice_cols`.  The
     plain version on the CPU has no slices and ignores it.
-    Returns [num_rows, F]."""
+    Returns [num_rows, F] in ``feats.dtype``."""
     _check(feats, ell_idx, ell_row_id)
     S = slicing.resolve("ell_aggregate", slice_cols,
-                        default_slice_cols(feats.shape[1]))
+                        default_slice_cols(feats.shape[1], feats.dtype))
     if feats.device.type == "cpu":
         return ell_aggregate_plain(feats, ell_idx, ell_row_id, num_rows)
     for t in (*ell_idx, *ell_row_id):
         if t.dtype != torch.int32 or not t.is_contiguous():
             raise TypeError("ell_aggregate: tables must be contiguous "
                             "int32")
-    if feats.dtype != torch.float32 or not feats.is_contiguous():
-        raise TypeError(f"ell_aggregate: the CUDA kernel takes contiguous "
-                        f"float32 feats, got {feats.dtype}")
+    if not feats.is_contiguous():
+        raise TypeError("ell_aggregate: the CUDA kernel takes contiguous "
+                        "feats")
+    fn = _build.entry("ell_aggregate", feats.dtype)
     R, F = feats.shape
     out = feats.new_zeros((num_rows, F))
-    lib = _build.library()
     stream = _build.stream_ptr(feats.device)
     for idx, rid in zip(ell_idx, ell_row_id):
         rows, width = idx.shape
-        _build.check("ell_aggregate", lib.roc_ell_aggregate_f32(
+        _build.check("ell_aggregate", fn(
             feats.data_ptr(), idx.data_ptr(), rid.data_ptr(),
             out.data_ptr(), rows, width, R, num_rows, F, S, stream))
-        ell_aggregate.launches += 1
+        _build.launched(ell_aggregate, feats.dtype)
     return out
 
 
-ell_aggregate.launches = 0
+_build.zero_launches(ell_aggregate)

@@ -9,10 +9,14 @@ neighbour sum (K4, kernels/ell_spmm.py, or K3, kernels/spmm.py) -> K2.
 
 Each kernel wrapper takes its plain PyTorch version for a tensor on the
 CPU and launches the CUDA kernel (csrc/graphnorm.cu) for a tensor on the
-card; there is no fallback from one to the other.  ``launches`` on each
-wrapper counts kernel launches, so a run can show the path went through
-the kernel.  Both kernels compute what their plain versions compute, in
-the same fp32 operations: the results are bit-equal (0 ulp).
+card; there is no fallback from one to the other.  ``x`` is float32 or
+bfloat16 (the kernel's ``_f32`` or ``_bf16`` instance; any other dtype
+is refused on the card); the math is fp32 in both, rounded once to
+``x.dtype``.  ``launches`` on each wrapper counts kernel launches and
+``launches_by_dtype`` splits them by dtype, so a run can show the path
+went through the kernel of its dtype.  Both kernels compute what their
+plain versions compute, in the same fp32 operations and the same one
+rounding: the results are bit-equal (0 ulp) in either dtype.
 """
 
 from __future__ import annotations
@@ -38,10 +42,9 @@ def _check_rows(x: torch.Tensor, vec: torch.Tensor, name: str) -> None:
 
 
 def _check_cuda(name: str, x: torch.Tensor, *ints: torch.Tensor,
-                floats: Sequence[torch.Tensor] = ()) -> None:
-    if x.dtype != torch.float32:
-        raise TypeError(f"{name}: the CUDA kernel takes float32, got "
-                        f"{x.dtype}")
+                floats: Sequence[torch.Tensor] = ()):
+    """Checks the card's inputs; returns the entry point for ``x.dtype``
+    (TypeError for a dtype with no instance)."""
     for t in ints:
         if t.dtype != torch.int32:
             raise TypeError(f"{name}: index/degree tensors must be int32, "
@@ -52,6 +55,7 @@ def _check_cuda(name: str, x: torch.Tensor, *ints: torch.Tensor,
     for t in (x, *ints, *floats):
         if not t.is_contiguous():
             raise ValueError(f"{name}: inputs must be contiguous")
+    return _build.entry(name, x.dtype)
 
 
 def indegree_norm_plain(x: torch.Tensor,
@@ -63,26 +67,23 @@ def indegree_norm_plain(x: torch.Tensor,
 
 def indegree_norm(x: torch.Tensor, in_degree: torch.Tensor) -> torch.Tensor:
     """K1: ``x * rsqrt(max(deg, 1))[:, None]``, 0 where ``deg == 0``.
-    x: float [V, F]; in_degree: int32 [V]."""
+    x: float32 or bfloat16 [V, F]; in_degree: int32 [V]."""
     _check_rows(x, in_degree, "indegree_norm")
     if x.device.type == "cpu":
         return indegree_norm_plain(x, in_degree)
-    _check_cuda("indegree_norm", x, in_degree)
+    fn = _check_cuda("indegree_norm", x, in_degree)
     out = torch.empty_like(x)
-    lib = _build.library()
-    _build.check("indegree_norm", lib.roc_indegree_norm_f32(
+    _build.check("indegree_norm", fn(
         x.data_ptr(), in_degree.data_ptr(), out.data_ptr(), x.shape[0],
         x.shape[1], _build.stream_ptr(x.device)))
-    indegree_norm.launches += 1
+    _build.launched(indegree_norm, x.dtype)
     return out
-
-
-indegree_norm.launches = 0
 
 
 def scale_act_plain(x: torch.Tensor, scale: torch.Tensor,
                     act: str = "none") -> torch.Tensor:
-    """K2's plain version: ``act(x * scale[:, None])`` in fp32."""
+    """K2's plain version: ``act(x * scale[:, None])`` in fp32, cast
+    back to ``x.dtype``."""
     y = x.to(torch.float32) * scale.to(torch.float32)[:, None]
     if act == "relu":
         y = torch.relu(y)
@@ -92,20 +93,19 @@ def scale_act_plain(x: torch.Tensor, scale: torch.Tensor,
 def scale_act(x: torch.Tensor, scale: torch.Tensor,
               act: str = "none") -> torch.Tensor:
     """K2: ``act(x * scale[:, None])``; ``act`` is 'none' or 'relu'.
-    x: float [V, F]; scale: float32 [V]."""
+    x: float32 or bfloat16 [V, F]; scale: float32 [V]."""
     if act not in ACTS:
         raise ValueError(f"unknown act {act!r}; expected 'none'|'relu'")
     _check_rows(x, scale, "scale_act")
     if x.device.type == "cpu":
         return scale_act_plain(x, scale, act)
-    _check_cuda("scale_act", x, floats=(scale,))
+    fn = _check_cuda("scale_act", x, floats=(scale,))
     out = torch.empty_like(x)
-    lib = _build.library()
-    _build.check("scale_act", lib.roc_scale_act_f32(
+    _build.check("scale_act", fn(
         x.data_ptr(), scale.data_ptr(), out.data_ptr(), x.shape[0],
         x.shape[1], int(act == "relu"), _build.stream_ptr(x.device)))
-    scale_act.launches += 1
+    _build.launched(scale_act, x.dtype)
     return out
 
 
-scale_act.launches = 0
+_build.zero_launches(indegree_norm, scale_act)

@@ -4,8 +4,11 @@ Both kernels (csrc/row_gather.cuh) split the F columns of ``feats`` into
 slices of ``slice_cols`` columns and walk them slice-major, so that the
 slice being gathered from stays in the card's L2; ``slice_cols=0`` is
 one slice of all F, the unsliced schedule.  Each width in
-:data:`SLICE_COLS` is one compiled instance.  Which one is fastest
-depends on F: each wrapper's ``default_slice_cols`` is the choice of the
+:data:`SLICE_COLS` is one compiled instance, in fp32 and in bf16.  What
+L2 holds is bytes, ``V * slice_cols * itemsize``: a bf16 slice of 64
+columns is the size of an fp32 slice of 32, so the widths run to 128 for
+bf16 to reach the fp32 widths' bytes.  Which one is fastest depends on F
+and the dtype: each wrapper's ``default_slice_cols`` is the choice of the
 race of all instances in ``chip_smoke.py`` on an H100 at the two layer
 widths of the 602-256-41 GCN (``PERF.md``), applied to every F by
 :func:`default_slice_cols`.
@@ -15,7 +18,7 @@ from __future__ import annotations
 
 from typing import Optional
 
-SLICE_COLS = (0, 16, 32, 64)
+SLICE_COLS = (0, 16, 32, 64, 128)
 
 # The widest F that takes the narrow layer's choice: up to 64 columns a
 # 64-column slice is the whole row, so slicing has nothing to split.

@@ -17,13 +17,17 @@ edges' dummy) add nothing, and rows with no edges come out 0.  The edge
 count must be a ``chunk`` multiple, the JAX contract; the kernel itself
 does not need it.
 
-The main pass walks the columns in slices of ``slice_cols`` (slicing.py:
-16, 32, 64, or 0 for unsliced; by default the race's choice for F, see
+``feats`` is float32 or bfloat16 (the main pass's ``_f32`` or ``_bf16``
+instance; any other dtype is refused on the card; the pre-pass does not
+depend on it).  The main pass walks the columns in slices of
+``slice_cols`` (slicing.py: 16, 32, 64, 128, or 0 for unsliced; by
+default the race's choice for F and the dtype, see
 :func:`default_slice_cols`).  It sums a row's edges in a fixed order in
-fp32 registers, so each instance gives the same bits on every launch;
-the instances' orders differ from each other and from the plain
-version's ``index_add_``, so they agree to fp32 rounding
-(``rtol=1e-5, atol=1e-5 * max|row|``), not bit for bit.
+fp32 registers and rounds once to ``feats.dtype``, so each instance
+gives the same bits on every launch; the instances' orders differ from
+each other and from the plain version's fp32 ``index_add_``, so they
+agree to fp32 rounding (``rtol=1e-5, atol=1e-5 * max|row|``) in fp32,
+and in bf16 to one bf16 ulp of the row's magnitude.
 """
 
 from __future__ import annotations
@@ -63,11 +67,17 @@ def csr_spmm_plain(feats: torch.Tensor, edge_src: torch.Tensor,
                              budget_elems)
 
 
-def default_slice_cols(F: int) -> int:
-    """K3's slice width for F columns (slicing.py): unsliced up to
-    ``slicing.NARROW_F``, 64 above, the fastest instance of the race in
-    chip_smoke.py at F = 256 (PERF.md), 2x the unsliced schedule."""
-    return slicing.default_slice_cols(F, wide=64)
+# K3's F = 256 winner per dtype (slicing.py)
+_WIDE = {torch.float32: 64, torch.bfloat16: 128}
+
+
+def default_slice_cols(F: int, dtype: torch.dtype = torch.float32) -> int:
+    """K3's slice width for F columns of ``dtype`` (slicing.py):
+    unsliced up to ``slicing.NARROW_F``, the dtype's F = 256 winner
+    above: in fp32 64, the fastest instance of the race in chip_smoke.py
+    at F = 256 (PERF.md), 2x the unsliced schedule; in bf16 128, the
+    bytes of fp32's 64 and the bf16 race's winner (PERF.md)."""
+    return slicing.default_slice_cols(F, wide=_WIDE.get(dtype, 64))
 
 
 def csr_row_ptr_plain(edge_dst: torch.Tensor, num_rows: int
@@ -109,32 +119,32 @@ def csr_spmm(feats: torch.Tensor, edge_src: torch.Tensor,
              slice_cols: Optional[int] = None) -> torch.Tensor:
     """``out[v] = sum(feats[src] for edges (src, v))``.
 
-    feats: float [R, F], no zero row (the dummy id is R).
+    feats: float32 or bfloat16 [R, F], no zero row (the dummy id is R).
     edge_src/edge_dst: int32 [Ep], sorted by ``edge_dst``, ``Ep`` a
     multiple of ``chunk``.
     slice_cols: the main pass's column slice width, one of
     ``slicing.SLICE_COLS``; None takes :func:`default_slice_cols`.  The
     plain version on the CPU has no slices and ignores it.
-    Returns [num_rows, F]."""
+    Returns [num_rows, F] in ``feats.dtype``."""
     _check(feats, edge_src, edge_dst, chunk)
     S = slicing.resolve("csr_spmm", slice_cols,
-                        default_slice_cols(feats.shape[1]))
+                        default_slice_cols(feats.shape[1], feats.dtype))
     if feats.device.type == "cpu":
         return csr_spmm_plain(feats, edge_src, edge_dst, num_rows)
     for t in (edge_src, edge_dst):
         if t.dtype != torch.int32 or not t.is_contiguous():
             raise TypeError("csr_spmm: edge arrays must be contiguous int32")
-    if feats.dtype != torch.float32 or not feats.is_contiguous():
-        raise TypeError(f"csr_spmm: the CUDA kernel takes contiguous "
-                        f"float32 feats, got {feats.dtype}")
+    if not feats.is_contiguous():
+        raise TypeError("csr_spmm: the CUDA kernel takes contiguous feats")
+    fn = _build.entry("csr_spmm", feats.dtype)
     R, F = feats.shape
     row_ptr = csr_row_ptr(edge_dst, num_rows)
     out = torch.empty((num_rows, F), dtype=feats.dtype, device=feats.device)
-    _build.check("csr_spmm", _build.library().roc_csr_spmm_f32(
+    _build.check("csr_spmm", fn(
         feats.data_ptr(), edge_src.data_ptr(), row_ptr.data_ptr(),
         out.data_ptr(), R, num_rows, F, S, _build.stream_ptr(feats.device)))
-    csr_spmm.launches += 1
+    _build.launched(csr_spmm, feats.dtype)
     return out
 
 
-csr_spmm.launches = 0
+_build.zero_launches(csr_spmm)

@@ -17,7 +17,11 @@ runs one of four routes, two layouts times plain or hand-written:
   'pallas_csr'.
 
 The kernel wrappers dispatch by the tensors' device: on the CPU the
-kernel routes run the kernels' plain versions.
+kernel routes run the kernels' plain versions.  Every route runs in the
+activations' dtype (fp32, or bf16 in the mixed and bfloat16 modes): the
+kernel routes launch the kernels' bf16 instances on bf16 activations,
+forward and backward alike (the cotangent of a bf16 activation is bf16),
+with no fp32 copy of ``[V, F]``.
 
 The backward of both aggregations is the reference's symmetric trick
 (``scattergather_kernel.cu:160-170``, ``roc_tpu/models/builder.py:221-

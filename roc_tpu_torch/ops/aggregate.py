@@ -12,6 +12,11 @@ hand-written kernels are held to:
 Both work in pieces of at most ``budget_elems`` gathered scalars (row
 segments of a bucket, chunks of edges).  Without them the transient is
 the whole gather: at Reddit scale (E ~ 112M, F = 256) over 100 GB.
+
+Both sum in fp32: a reduced-precision input (bf16) is widened, summed in
+fp32 and rounded once to its dtype, as the JAX package's ``aggregate_ell``
+and the hand-written kernels do (a bf16 ``sum`` or ``index_add_`` would
+round while it accumulates).  fp32 inputs are summed as they are.
 """
 
 from __future__ import annotations
@@ -25,19 +30,30 @@ import torch
 DEFAULT_BUDGET_ELEMS = 1 << 24
 
 
+def _acc_dtype(dtype: torch.dtype) -> torch.dtype:
+    """The accumulator of a sum over ``dtype``: fp32 for bf16."""
+    return torch.float32 if dtype == torch.bfloat16 else dtype
+
+
 def ell_bucket_sum(feats: torch.Tensor, idx: torch.Tensor,
                    budget_elems: int = DEFAULT_BUDGET_ELEMS
                    ) -> torch.Tensor:
     """``feats[idx].sum(1)`` for one bucket ``idx [rows, width]``, in row
-    segments of at most ``budget_elems`` gathered scalars."""
+    segments of at most ``budget_elems`` gathered scalars; a bf16 sum is
+    taken in fp32 and rounded once."""
     R, W = idx.shape
     F = feats.shape[1]
+    acc = _acc_dtype(feats.dtype)
+
+    def rowsum(i):
+        return feats[i].sum(dim=1, dtype=acc).to(feats.dtype)
+
     seg_rows = max(1, budget_elems // max(W * F, 1))
     if seg_rows >= R:
-        return feats[idx].sum(dim=1)
+        return rowsum(idx)
     out = torch.empty((R, F), dtype=feats.dtype, device=feats.device)
     for r0 in range(0, R, seg_rows):
-        out[r0:r0 + seg_rows] = feats[idx[r0:r0 + seg_rows]].sum(dim=1)
+        out[r0:r0 + seg_rows] = rowsum(idx[r0:r0 + seg_rows])
     return out
 
 
@@ -65,14 +81,16 @@ def aggregate_segment(feats: torch.Tensor, edge_src: torch.Tensor,
     feats: [R(+1), F] (a trailing zero row for padding edges to read).
     edge_src/edge_dst: int [E], any order.  Returns [num_rows, F].
     Edges go in chunks of at most ``budget_elems // F`` gathered rows,
-    each added into the output in place (differentiable by autograd)."""
+    each added into the output in place (differentiable by autograd);
+    a bf16 input is added into an fp32 output, rounded once at the end."""
     F = feats.shape[1]
-    out = feats.new_zeros((num_rows, F))
+    acc = _acc_dtype(feats.dtype)
+    out = feats.new_zeros((num_rows, F), dtype=acc)
     step = max(1, budget_elems // max(F, 1))
     for e0 in range(0, edge_src.shape[0], step):
         out.index_add_(0, edge_dst[e0:e0 + step].long(),
-                       feats[edge_src[e0:e0 + step].long()])
-    return out
+                       feats[edge_src[e0:e0 + step].long()].to(acc))
+    return out.to(feats.dtype)
 
 
 IMPLS = ("segment", "cuda_csr")

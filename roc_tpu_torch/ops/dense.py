@@ -4,10 +4,14 @@
   as in the JAX package (so weights cross between the packages
   untransposed, roc_tpu_torch/convert.py).  fp32 products run in full
   fp32: :func:`set_fp32_matmul_precision` switches TF32 off, the
-  counterpart of the JAX package's ``Precision.HIGHEST``.
+  counterpart of the JAX package's ``Precision.HIGHEST``.  bf16 products
+  (``x`` and ``W`` in bf16, the mixed and bfloat16 modes) accumulate in
+  fp32 and round once to bf16, the counterpart of its
+  ``preferred_element_type=float32`` then ``astype(x.dtype)``: the same
+  function switches off cuBLAS's reduced-precision bf16 reduction.
 - Dropout is inverted dropout with scale ``1/(1-rate)`` in training and
-  the identity at inference; its mask is drawn from an explicit
-  ``torch.Generator``.
+  the identity at inference, in ``x.dtype``; its mask is drawn from an
+  explicit ``torch.Generator``.
 """
 
 from __future__ import annotations
@@ -29,16 +33,20 @@ _ACTIVATIONS = {
 
 def set_fp32_matmul_precision() -> None:
     """Full-fp32 matrix products on the card: no TF32 in matmuls or
-    convolutions.  PyTorch's defaults already say so for matmuls; the
-    port states them rather than relying on them."""
+    convolutions, and bf16 products reduced in fp32 (cuBLAS may
+    otherwise reduce split-K partial sums in bf16).  PyTorch's defaults
+    already say so for fp32 matmuls; the port states them rather than
+    relying on them."""
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     torch.set_float32_matmul_precision("highest")
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
 
 
 def linear(x: torch.Tensor, w: torch.Tensor,
            activation: str = AC_MODE_NONE) -> torch.Tensor:
-    """x: [V, in] @ w: [in, out], with an optional activation."""
+    """x: [V, in] @ w: [in, out], with an optional activation, in the
+    inputs' dtype (fp32 accumulation in bf16, see the module doc)."""
     return _ACTIVATIONS[activation](torch.matmul(x, w))
 
 

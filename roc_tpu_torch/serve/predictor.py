@@ -5,7 +5,12 @@ with) and gathers the queried rows there.
 
 Request batch sizes pad to :data:`SERVE_BUCKETS`, so a dispatch always
 has one of a few shapes; padded slots query row 0 and their logits are
-dropped.  The forward runs under ``torch.inference_mode``.
+dropped.  The forward runs under ``torch.inference_mode``, in the
+config's compute dtype (bf16 in the 'mixed' and 'bfloat16' modes: a bf16
+table and the kernels' bf16 instances); :meth:`Predictor.query` returns
+fp32 numpy logits in every mode.  The forward is deterministic in every
+dtype, so a row served in a coalesced dispatch has the bits it has
+served alone.
 """
 
 from __future__ import annotations

@@ -3,10 +3,11 @@ that the port covers: the reference's flags (``gnn.cc:114-179``) —
 ``-lr``, ``-e/-epoch``, ``-dropout/-dr``, ``-decay/-wd``, ``-decay-rate``,
 ``-decay-step/-ds``, ``-file``, ``-layers`` (dash-separated, e.g.
 ``602-256-41``: input width, hidden widths, classes), ``-seed``,
-``-verbose/-v`` — and ``--impl``, ``--fuse``, ``--eval-every``,
-``--cpu``.  ``--impl`` takes the ported counterparts of the JAX CLI's
-choices: ``cuda`` (its ``pallas``, the default), ``ell`` and
-``segment``.
+``-verbose/-v`` — and ``--impl``, ``--fuse``, ``--dtype``,
+``--eval-every``, ``--cpu``.  ``--impl`` takes the ported counterparts
+of the JAX CLI's choices: ``cuda`` (its ``pallas``, the default), ``ell``
+and ``segment``; ``--dtype`` its ``float32``, ``bfloat16`` and
+``mixed`` (train/trainer.py ``resolve_dtypes``).
 
 Runs on the card unless ``--cpu`` is given; without a card and without
 ``--cpu`` it exits with an error.  Without ``-file`` it trains on a
@@ -15,6 +16,7 @@ synthetic dataset (512 vertices, degree 8).  Prints the reference's
 
     python -m roc_tpu_torch.train.cli -layers 16-16-4 -e 50 -v
     python -m roc_tpu_torch.train.cli --cpu -layers 16-16-4 -e 20 -v
+    python -m roc_tpu_torch.train.cli -layers 16-16-4 -e 50 --dtype mixed
 """
 
 from __future__ import annotations
@@ -23,6 +25,8 @@ import argparse
 import sys
 import time
 from typing import List, Optional
+
+from .trainer import DTYPE_MODES
 
 # the JAX CLI's --impl choices that have a ported route, by port name
 IMPLS = ("cuda", "ell", "segment")
@@ -58,6 +62,12 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
     ap.add_argument("--fuse", default="auto", choices=["auto", "on", "off"],
                     help="fold norm -> aggregate -> norm [-> relu] chains "
                          "into one fused aggregation op")
+    ap.add_argument("--dtype", default="float32", choices=DTYPE_MODES,
+                    help="float32 = the reference's pure-fp32 "
+                         "semantics; bfloat16 = everything (incl. "
+                         "params) in bf16; mixed = fp32 master params "
+                         "+ bf16 features/activations/aggregation (the "
+                         "kernels' bf16 instances)")
     ap.add_argument("--eval-every", type=int, default=5)
     ap.add_argument("--cpu", action="store_true",
                     help="run on the CPU (the kernel route then runs the "
@@ -78,7 +88,8 @@ def main(argv: Optional[List[str]] = None) -> int:
     from ..core.graph import load_dataset, synthetic_dataset
     from ..models.gcn import build_gcn
     from ..ops.dense import set_fp32_matmul_precision
-    from .trainer import TrainConfig, Trainer, resolve_device
+    from .trainer import (TrainConfig, Trainer, resolve_device,
+                          resolve_dtypes)
     try:
         device = resolve_device("cpu" if args.cpu else None)
     except RuntimeError as e:
@@ -96,14 +107,16 @@ def main(argv: Optional[List[str]] = None) -> int:
               f"E={ds.graph.num_edges} layers={layers} lr={args.lr} "
               f"wd={args.weight_decay} dropout={args.dropout} "
               f"decay={args.decay_rate}/{args.decay_steps} "
-              f"impl={args.impl} fuse={args.fuse} device={device}",
+              f"impl={args.impl} fuse={args.fuse} dtype={args.dtype} "
+              f"device={device}",
               file=sys.stderr)
+    dtype, compute_dtype = resolve_dtypes(args.dtype)
     cfg = TrainConfig(
         learning_rate=args.lr, weight_decay=args.weight_decay,
         dropout_rate=args.dropout, decay_rate=args.decay_rate,
         decay_steps=args.decay_steps, epochs=args.epochs, seed=args.seed,
         eval_every=args.eval_every, verbose=True, aggr_impl=args.impl,
-        aggr_fuse=args.fuse)
+        aggr_fuse=args.fuse, dtype=dtype, compute_dtype=compute_dtype)
     trainer = Trainer(build_gcn(layers, dropout_rate=args.dropout), ds, cfg,
                       device=device)
     t0 = time.perf_counter()

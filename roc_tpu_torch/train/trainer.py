@@ -42,6 +42,13 @@ class TrainConfig:
     symmetric: None = check the graph; False differentiates the plain
       routes exactly and is refused by the kernel routes.
     dropout_rate: recorded for the CLI; the model carries its own rate.
+    dtype: the params' and Adam state's dtype (fp32 master weights in
+      the mixed mode); compute_dtype: when set (bf16, the mixed mode),
+      features, activations and the aggregation run in it while params
+      stay in ``dtype`` and are cast inside the step (gradients flow
+      back through the cast as fp32; the loss is reduced in fp32,
+      ops/loss.py; no loss scaling).  :func:`resolve_dtypes` maps the
+      mode names to the two fields.
     """
     learning_rate: float = 0.01
     weight_decay: float = 0.05
@@ -91,6 +98,24 @@ def resolve_symmetric(dataset: Dataset, symmetric: Optional[bool]) -> bool:
     if symmetric is None:
         return check_symmetric(dataset.graph)
     return bool(symmetric)
+
+
+DTYPE_MODES = ("float32", "bfloat16", "mixed")
+
+
+def resolve_dtypes(name: str):
+    """Dtype-mode name (the CLI's ``--dtype``) -> ``(dtype,
+    compute_dtype)``, the JAX package's mapping: 'float32' is fp32
+    throughout, 'bfloat16' bf16 throughout (params too; the Adam moments
+    stay fp32), 'mixed' fp32 params with bf16 compute."""
+    if name == "float32":
+        return torch.float32, None
+    if name == "bfloat16":
+        return torch.bfloat16, None
+    if name == "mixed":
+        return torch.float32, torch.bfloat16
+    raise ValueError(f"unknown dtype mode {name!r}; expected "
+                     "'float32', 'bfloat16', or 'mixed'")
 
 
 def compute_dtype_of(config: TrainConfig) -> torch.dtype:

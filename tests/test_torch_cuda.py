@@ -12,6 +12,7 @@ import torch
 
 from roc_tpu_torch.core.ell import ell_from_graph
 from roc_tpu_torch.core.graph import from_edge_list, synthetic_dataset
+from roc_tpu_torch.kernels import slicing
 from roc_tpu_torch.kernels.ell_spmm import ell_aggregate, ell_aggregate_plain
 from roc_tpu_torch.kernels.graphnorm import (indegree_norm,
                                              indegree_norm_plain, scale_act,
@@ -110,7 +111,7 @@ def test_csr_spmm_kernel_matches_plain(dev, F):
     assert torch.equal(got, csr_spmm(x, src, dst, V))
 
 
-SLICE_COLS = (0, 16, 32, 64)
+SLICE_COLS = slicing.SLICE_COLS
 SLICE_FS = (1, 3, 4, 36, 37, 41, 64, 256, 600)
 
 
@@ -318,6 +319,196 @@ def test_served_logits_cuda_route_match_plain_route(dev):
     np.testing.assert_allclose(got, want, rtol=0, atol=1e-4)
     assert all(c1 > c0 for c0, c1 in zip(counts, (
         indegree_norm.launches, scale_act.launches, ell_aggregate.launches)))
+    with Server(preds["cuda"], max_wait_ms=1.0) as srv:
+        futs = [srv.submit(ids[i:i + 7]) for i in range(0, 70, 7)]
+        for i, f in zip(range(0, 70, 7), futs):
+            assert np.array_equal(f.result(timeout=60), got[i:i + 7])
+
+
+# ------------------------------------------------------------------ bf16
+
+
+def bf16_row_ulp(want):
+    """One bf16 ulp of each row's magnitude max|row| (0 for a zero row),
+    as a [rows, 1] fp32 tolerance: a bf16 sum is its fp32 sum rounded
+    once, and two fp32 sums a few fp32 ulps apart (another order) round
+    to the same bf16 value or to neighbours."""
+    m = want.float().abs().amax(dim=1, keepdim=True)
+    _, e = torch.frexp(m)
+    return torch.where(m > 0, torch.ldexp(torch.ones_like(m), e - 8),
+                       torch.zeros_like(m))
+
+
+def _check_bf16_sum(got, again, want):
+    assert got.dtype == want.dtype == torch.bfloat16
+    assert torch.equal(got, again)
+    err = (got.float() - want.float()).abs()
+    assert bool((err <= bf16_row_ulp(want)).all()), float(err.max())
+
+
+@pytest.mark.parametrize("F", [256, 41, 8, 3])
+def test_row_scale_kernels_bf16_bit_equal(dev, F):
+    """K1 and K2 in bf16 are bit-equal to their plain versions (fp32 math,
+    one rounding to bf16, 0 ulp), through the 16-byte path (F % 8 == 0)
+    and the element path; the launches count as bf16."""
+    V = 10_007
+    rng = np.random.RandomState(F)
+    x = torch.from_numpy(rng.randn(V, F).astype(np.float32)).to(
+        dev, torch.bfloat16)
+    deg = torch.from_numpy(rng.randint(0, 500, V).astype(np.int32)).to(dev)
+    s = torch.from_numpy(rng.rand(V).astype(np.float32)).to(dev)
+    n1 = dict(indegree_norm.launches_by_dtype)
+    got = indegree_norm(x, deg)
+    assert got.dtype == torch.bfloat16
+    assert torch.equal(got, indegree_norm_plain(x, deg))
+    for act in ("none", "relu"):
+        assert torch.equal(scale_act(x, s, act), scale_act_plain(x, s, act))
+    xs = x.reshape(-1)[1:1 + (V - 1) * F].reshape(V - 1, F)
+    assert torch.equal(scale_act(xs, s[:-1]), scale_act_plain(xs, s[:-1]))
+    torch.cuda.synchronize()
+    assert indegree_norm.launches_by_dtype == {
+        "f32": n1["f32"], "bf16": n1["bf16"] + 1}
+
+
+@pytest.mark.parametrize("S", SLICE_COLS)
+@pytest.mark.parametrize("F", [1, 8, 36, 41, 256, 600])
+def test_bf16_neighbour_sums_every_slice_width(dev, sliced_graph, F, S):
+    """K4 and K3 in bf16 at every slice width: within one bf16 ulp of the
+    row's magnitude of their plain versions (fp32 sums rounded once), the
+    same bits on two launches, the degree-0 row 0."""
+    from roc_tpu_torch.kernels.spmm import csr_spmm, csr_spmm_plain
+    g, t, edges = sliced_graph
+    V = g.num_nodes
+    idx = tuple(torch.from_numpy(a[0]).to(dev) for a in t.idx)
+    rid = tuple(torch.from_numpy(a[0]).to(dev) for a in t.row_id)
+    src, dst = (torch.from_numpy(a).to(dev) for a in edges)
+    x = torch.from_numpy(np.random.RandomState(F + 2).randn(V, F)
+                         .astype(np.float32)).to(dev, torch.bfloat16)
+    n4 = ell_aggregate.launches_by_dtype["bf16"]
+    n3 = csr_spmm.launches_by_dtype["bf16"]
+    _check_bf16_sum(ell_aggregate(x, idx, rid, V, slice_cols=S),
+                    ell_aggregate(x, idx, rid, V, slice_cols=S),
+                    ell_aggregate_plain(x, idx, rid, V))
+    _check_bf16_sum(csr_spmm(x, src, dst, V, slice_cols=S),
+                    csr_spmm(x, src, dst, V, slice_cols=S),
+                    csr_spmm_plain(x, src, dst, V))
+    torch.cuda.synchronize()
+    assert ell_aggregate.launches_by_dtype["bf16"] == n4 + 2 * len(idx)
+    assert csr_spmm.launches_by_dtype["bf16"] == n3 + 2
+    assert not ell_aggregate(x, idx, rid, V, slice_cols=S)[2].any()
+
+
+@pytest.mark.parametrize("S", SLICE_COLS)
+def test_bf16_unaligned_feats_take_the_element_path(dev, sliced_graph, S):
+    """A bf16 feats view 2 bytes off a 16-byte boundary at F = 256 runs
+    the element (not 16-byte) path of K3 and K4, and agrees."""
+    from roc_tpu_torch.kernels.spmm import csr_spmm, csr_spmm_plain
+    g, t, edges = sliced_graph
+    V, F = g.num_nodes, 256
+    base = torch.from_numpy(np.random.RandomState(6).randn(V * F + 1)
+                            .astype(np.float32)).to(dev, torch.bfloat16)
+    x = base[1:].view(V, F)
+    assert x.data_ptr() % 16 and x.is_contiguous()
+    idx = tuple(torch.from_numpy(a[0]).to(dev) for a in t.idx)
+    rid = tuple(torch.from_numpy(a[0]).to(dev) for a in t.row_id)
+    src, dst = (torch.from_numpy(a).to(dev) for a in edges)
+    _check_bf16_sum(ell_aggregate(x, idx, rid, V, slice_cols=S),
+                    ell_aggregate(x, idx, rid, V, slice_cols=S),
+                    ell_aggregate_plain(x, idx, rid, V))
+    _check_bf16_sum(csr_spmm(x, src, dst, V, slice_cols=S),
+                    csr_spmm(x, src, dst, V, slice_cols=S),
+                    csr_spmm_plain(x, src, dst, V))
+
+
+def test_kernels_refuse_other_float_types(dev, sliced_graph):
+    """Only float32 and bfloat16 have instances: float16 and float64 are
+    refused on the card, before anything launches."""
+    from roc_tpu_torch.kernels.spmm import csr_spmm
+    g, t, edges = sliced_graph
+    V = g.num_nodes
+    idx = tuple(torch.from_numpy(a[0]).to(dev) for a in t.idx)
+    rid = tuple(torch.from_numpy(a[0]).to(dev) for a in t.row_id)
+    src, dst = (torch.from_numpy(a).to(dev) for a in edges)
+    deg = torch.ones(V, dtype=torch.int32, device=dev)
+    for dt in (torch.float16, torch.float64):
+        x = torch.ones(V, 8, device=dev, dtype=dt)
+        n = (indegree_norm.launches, scale_act.launches,
+             ell_aggregate.launches, csr_spmm.launches)
+        for call in (lambda: indegree_norm(x, deg),
+                     lambda: scale_act(x, torch.ones(V, device=dev)),
+                     lambda: ell_aggregate(x, idx, rid, V),
+                     lambda: csr_spmm(x, src, dst, V)):
+            with pytest.raises(TypeError, match="float32 or bfloat16"):
+                call()
+        assert n == (indegree_norm.launches, scale_act.launches,
+                     ell_aggregate.launches, csr_spmm.launches)
+
+
+@pytest.mark.parametrize("impl", ["cuda", "cuda_csr"])
+def test_mixed_training_step_on_the_card(dev, impl):
+    """One mixed-precision step of the 24-16-5 GCN (dropout 0) on a kernel
+    route: the objective within rtol 1e-2 of the same route on the CPU
+    (the kernels' plain versions; bf16 activations round at other places
+    in cuBLAS's and the CPU's bf16 products, rel. 2^-9 each, through two
+    layers); the bf16 kernels ran forward and backward, and the master
+    weights and the Adam moments stay fp32."""
+    from roc_tpu_torch.kernels.spmm import csr_spmm
+    from roc_tpu_torch.models.gcn import build_gcn
+    from roc_tpu_torch.train.trainer import (TrainConfig, Trainer,
+                                             resolve_dtypes)
+    ds = synthetic_dataset(3001, 20, in_dim=24, num_classes=5, seed=0)
+    params = build_gcn([24, 16, 5]).init_params(
+        torch.Generator().manual_seed(0))
+    dtype, compute = resolve_dtypes("mixed")
+    losses = {}
+    for device in ("cpu", dev):
+        tr = Trainer(build_gcn([24, 16, 5], dropout_rate=0.0), ds,
+                     TrainConfig(aggr_impl=impl, symmetric=True, dtype=dtype,
+                                 compute_dtype=compute),
+                     params=params, device=device)
+        assert tr.feats.dtype == torch.bfloat16
+        agg = ell_aggregate if impl == "cuda" else csr_spmm
+        n = (indegree_norm.launches_by_dtype["bf16"],
+             scale_act.launches_by_dtype["bf16"],
+             agg.launches_by_dtype["bf16"])
+        losses[str(device)] = float(tr.step(0.01))
+        if device != "cpu":
+            torch.cuda.synchronize()
+            assert indegree_norm.launches_by_dtype["bf16"] - n[0] == 4
+            assert scale_act.launches_by_dtype["bf16"] - n[1] == 4
+            assert agg.launches_by_dtype["bf16"] > n[2]
+        assert all(p.dtype == torch.float32 for p in tr.params.values())
+        assert all(m.dtype == torch.float32 for m in tr.opt_state.m.values())
+    assert losses["cuda"] == pytest.approx(losses["cpu"], rel=1e-2)
+
+
+def test_served_logits_mixed_cuda_route(dev):
+    """The 24-16-5 GCN served in mixed on the card: the kernel route
+    within 3e-2 * max|logit| of the plain 'ell' route in mixed (bf16
+    activations rounded at other places: K1 scales by the fp32 d, the
+    plain route by d rounded to bf16), fp32 logits out, and coalesced
+    rows the same bits as rows served alone."""
+    from roc_tpu_torch.models.gcn import build_gcn
+    from roc_tpu_torch.serve.export import build_predictor
+    from roc_tpu_torch.serve.server import Server
+    from roc_tpu_torch.train.trainer import TrainConfig, resolve_dtypes
+    ds = synthetic_dataset(3001, 20, in_dim=24, num_classes=5, seed=0)
+    model = build_gcn([24, 16, 5])
+    params = model.init_params(torch.Generator(device=dev).manual_seed(0),
+                               device=dev)
+    dtype, compute = resolve_dtypes("mixed")
+    preds = {impl: build_predictor(
+        model, ds, TrainConfig(aggr_impl=impl, dtype=dtype,
+                               compute_dtype=compute),
+        params=params, backend="full") for impl in ("cuda", "ell")}
+    n = ell_aggregate.launches_by_dtype["bf16"]
+    ids = np.arange(ds.graph.num_nodes)
+    got = preds["cuda"].query(ids)
+    want = preds["ell"].query(ids)
+    assert got.dtype == np.float32
+    assert ell_aggregate.launches_by_dtype["bf16"] > n
+    np.testing.assert_allclose(got, want, rtol=0,
+                               atol=3e-2 * float(np.abs(want).max()))
     with Server(preds["cuda"], max_wait_ms=1.0) as srv:
         futs = [srv.submit(ids[i:i + 7]) for i in range(0, 70, 7)]
         for i, f in zip(range(0, 70, 7), futs):

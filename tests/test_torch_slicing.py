@@ -55,13 +55,28 @@ def test_default_slice_cols_is_the_race_choice(name, wide, F):
     assert got == slicing.default_slice_cols(F, wide)
 
 
+@pytest.mark.parametrize("name,wide", [("ell_aggregate", 64),
+                                       ("csr_spmm", 128)])
+@pytest.mark.parametrize("F", [41, 64, 65, 256])
+def test_bf16_default_slice_cols_is_the_bf16_race_choice(name, wide, F):
+    """In bf16 a slice of S columns holds the bytes of an fp32 slice of
+    S / 2: the bf16 race's winners at F = 256 are 64 (K4) and 128 (K3),
+    unsliced up to NARROW_F as in fp32; fp32 keeps its own."""
+    mod = WRAPPERS[name]
+    got = mod.default_slice_cols(F, torch.bfloat16)
+    assert got in slicing.SLICE_COLS
+    assert got == (0 if F <= slicing.NARROW_F else wide)
+    assert mod.default_slice_cols(F, torch.float32) == \
+        mod.default_slice_cols(F)
+
+
 def test_resolve_takes_the_default_only_for_none():
     assert slicing.resolve("k", None, 64) == 64
     assert [slicing.resolve("k", S, 64) for S in slicing.SLICE_COLS] == list(
         slicing.SLICE_COLS)
 
 
-@pytest.mark.parametrize("bad", [8, 5, -16, 128, True, 32.0, "32"])
+@pytest.mark.parametrize("bad", [8, 5, -16, 256, True, 32.0, "32"])
 @pytest.mark.parametrize("name", sorted(WRAPPERS))
 def test_wrappers_reject_slice_widths_with_no_instance(name, bad):
     """A width with no compiled instance raises, on the CPU as on the
