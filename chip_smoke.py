@@ -10,12 +10,16 @@ Phases (any failure exits nonzero):
 2. build: compiles the kernels from roc_tpu_torch/kernels/csrc;
 3. kernels: builds the 602-256-41 GCN's graph (V = 232,965, average
    degree ~493, Reddit's shape; synthetic, from a seed) and holds each
-   CUDA kernel (K1, K2, K3 with its row_ptr pre-pass, K4) against its
-   plain PyTorch version on the card, at the shapes the forward and
-   backward give it (K3 and K4 at their default slice width) and on a
-   small ragged case (K3 and K4 at every slice width), and times kernel,
-   plain version, one PyTorch library call and the card's least time for
-   the same work;
+   CUDA kernel (K1, its relu-masked form, K2, K3 with its row_ptr
+   pre-pass, K4) against its plain PyTorch version on the card, at the
+   shapes the forward and backward give it (K3 and K4 at their default
+   slice width) and on a small ragged case (K3 and K4 at every slice
+   width), and times kernel, plain version, one PyTorch library call (for
+   the masked K1, the chain of calls the backward ran before it) and the
+   card's least time for the same work: kernel and library call by CUDA
+   events over back-to-back calls (``ms``, host cost included where it
+   exceeds the device's) and by torch.profiler's device time
+   (``device_ms``);
    race: every slice width of K3 and K4 (16, 32, 64, 128 and unsliced)
    at F = 256 and F = 41 over the full graph, timed in turns, with its
    gather rate and HBM rate, and the fastest and the ties beside the
@@ -33,9 +37,10 @@ Phases (any failure exits nonzero):
 6. train slice: with the counters zeroed just before, 10 epochs with
    dropout 0.5 and an eval every 5 through Trainer on 'cuda' and on
    'cuda_csr'; losses finite, the train loss falling from epoch 4 to
-   epoch 9, and all four kernels launched;
+   epoch 9, all four kernels launched, and the masked K1 in every run;
 7. train profile: 3 steady steps per kernel route under torch.profiler,
-   device time by kernel group and the device's idle share;
+   device time by kernel group, the device's idle share, and every
+   kernel of the "other" group with its launches a step;
 8. mixed precision, each path with the counters zeroed just before:
    ~8 requests through Server in 'mixed' (K1, K2 and K4 ran in bf16
    only; rows against the plain route in 'mixed' and the fp32 route),
@@ -45,8 +50,9 @@ Phases (any failure exits nonzero):
 
 Prints one JSON line per phase, the kernel table line
 ``{"kernels": [...]}`` (one row per kernel and dtype, e.g.
-``ell_aggregate[bf16]``; launches counted over the serve and train
-slices of that dtype), the card line, and as the last line
+``ell_aggregate[bf16]``, K1's masked form as ``indegree_norm_masked``;
+launches counted over the serve and train slices of that dtype), the
+card line, and as the last line
 ``{"ok": true, "device": {...}}``.  Imports no JAX.
 """
 
@@ -72,6 +78,9 @@ FP32_FLOPS = 67e12           # H100 SXM, fp32 outside the tensor cores
 KERNELS = {
     "indegree_norm": ("roc_tpu_torch/kernels/csrc/graphnorm.cu",
                       "roc_tpu/kernels/graphnorm.py:60"),
+    # K1's relu-masked form, the fused backward's pre-scale
+    "indegree_norm_masked": ("roc_tpu_torch/kernels/csrc/graphnorm.cu",
+                             "roc_tpu/kernels/graphnorm.py:60"),
     "scale_act": ("roc_tpu_torch/kernels/csrc/graphnorm.cu",
                   "roc_tpu/kernels/graphnorm.py:103"),
     "csr_spmm": ("roc_tpu_torch/kernels/csrc/spmm.cu",
@@ -107,6 +116,23 @@ def time_ms(torch, fn, n, warm=1):
     b.record()
     torch.cuda.synchronize()
     return a.elapsed_time(b) / n
+
+
+def device_ms(torch, fn, n):
+    """Device ms per call: the time of every kernel that ``n`` calls of
+    ``fn`` launch (after a warm call), summed by torch.profiler, over
+    ``n``; None where the profiler sees no device time."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+    us = sum(e.device_time_total for e in prof.key_averages()
+             if e.device_type == torch.autograd.DeviceType.CUDA)
+    return us / 1e3 / n if us > 0 else None
 
 
 def bound_ms(nbytes, nops):
@@ -233,8 +259,9 @@ def kernel_checks(torch, dev, gctx, adj, num_edges, esrc, edst, dtype):
     entries = {name: dict(source=src, replaces=rep)
                for name, (src, rep) in KERNELS.items()}
     for e in entries.values():
-        e.update(shapes=[], ms=0.0, plain_ms=0.0, bound_ms=0.0,
-                 library_ms=0.0, max_abs_err=0.0, _tb=0.0, _to=0.0)
+        e.update(shapes=[], ms=0.0, device_ms=0.0, plain_ms=0.0,
+                 bound_ms=0.0, library_ms=0.0, max_abs_err=0.0, _tb=0.0,
+                 _to=0.0)
 
     def library_call(fn):
         """``fn`` if PyTorch on this card runs it, else None (then the
@@ -248,15 +275,23 @@ def kernel_checks(torch, dev, gctx, adj, num_edges, esrc, edst, dtype):
                  "dtype": str(dtype)})
             return None
 
-    def add(name, shape, check, fn, plain, lib, nbytes, nops, n):
+    def add(name, shape, check, fn, plain, lib, nbytes, nops, n,
+            lib_call="torch.sparse.mm(adj, x)", copy=None):
+        """``copy``: a copy of the same bytes (``out.copy_(x)``), whose
+        device time is the streaming rate PyTorch itself reaches."""
         ok, err = check
         ms = time_ms(torch, fn, n)
+        dms = device_ms(torch, fn, n)
         pms = time_ms(torch, plain, max(1, n // 4))
         lms = time_ms(torch, lib, n) if lib is not None else None
+        ldms = device_ms(torch, lib, n) if lib is not None else None
         b, by = bound_ms(nbytes, nops)
         row = dict(kernel=name, dtype=str(dtype), shape=shape,
-                   max_abs_err=err, ms=ms, plain_ms=pms, library_ms=lms,
-                   bound_ms=b, bound_by=by, ok=ok)
+                   max_abs_err=err, ms=ms, device_ms=dms, plain_ms=pms,
+                   library_ms=lms, library_device_ms=ldms,
+                   library_call=lib_call, bound_ms=b, bound_by=by, ok=ok)
+        if copy is not None:
+            row["copy_device_ms"] = device_ms(torch, copy, n)
         log({"phase": "kernel", **row})
         if not ok:
             raise AssertionError(f"{name} {dtype} {shape} disagrees with "
@@ -264,6 +299,8 @@ def kernel_checks(torch, dev, gctx, adj, num_edges, esrc, edst, dtype):
         e = entries[name]
         e["shapes"].append(row)
         e["ms"] += ms
+        e["device_ms"] = (None if dms is None or e["device_ms"] is None
+                          else e["device_ms"] + dms)
         e["plain_ms"] += pms
         e["library_ms"] = (None if lms is None or e["library_ms"] is None
                            else e["library_ms"] + lms)
@@ -297,10 +334,12 @@ def kernel_checks(torch, dev, gctx, adj, num_edges, esrc, edst, dtype):
     # the forward's shapes: K1 and K2 at F = 256 (layer 1, K2 with the
     # folded relu) and F = 41 (layer 2, no activation); K3 and K4 at both
     # widths over the real edge list and buckets.  The backward runs the
-    # same shapes (K2 with no activation).
+    # same shapes (K2 with no activation), and at F = 256 the masked K1
+    # on the cotangent and the relu output.
     for F, act in ((256, "relu"), (41, "none")):
         x = torch.randn((V, F), generator=gen, device=dev).to(dtype)
         vf = V * F
+        buf = torch.empty_like(x)
         # K1: 0 ulp (same fp32 operations and rounding as the plain
         # version)
         add("indegree_norm", [V, F],
@@ -309,7 +348,8 @@ def kernel_checks(torch, dev, gctx, adj, num_edges, esrc, edst, dtype):
             lambda: graphnorm.indegree_norm(x, deg),
             lambda: graphnorm.indegree_norm_plain(x, deg),
             lambda: x * d_lib[:, None],
-            2 * esize * vf + 4 * V, vf, 50)
+            2 * esize * vf + 4 * V, vf, 50, lib_call="x * d[:, None]",
+            copy=lambda: buf.copy_(x))
         # K2: 0 ulp
         lib = ((lambda: torch.relu(x * d_lib[:, None])) if act == "relu"
                else (lambda: x * d_lib[:, None]))
@@ -318,7 +358,28 @@ def kernel_checks(torch, dev, gctx, adj, num_edges, esrc, edst, dtype):
                   graphnorm.scale_act_plain(x, d, act)),
             lambda: graphnorm.scale_act(x, d, act),
             lambda: graphnorm.scale_act_plain(x, d, act), lib,
-            2 * esize * vf + 4 * V, vf * (2 if act == "relu" else 1), 50)
+            2 * esize * vf + 4 * V, vf * (2 if act == "relu" else 1), 50,
+            lib_call=("relu(x * d[:, None])" if act == "relu"
+                      else "x * d[:, None]"), copy=lambda: buf.copy_(x))
+        if act == "relu":
+            # the masked K1 on a cotangent g and the relu output y: 0 ulp;
+            # its yardstick is the chain of calls the backward ran before
+            # it: mask, cast, multiply, then the scale
+            g = torch.randn((V, F), generator=gen, device=dev).to(dtype)
+            y = torch.relu(torch.randn((V, F), generator=gen,
+                                       device=dev)).to(dtype)
+            add("indegree_norm_masked", [V, F],
+                exact(twice(lambda: graphnorm.indegree_norm(
+                    g, deg, relu_out=y)),
+                    graphnorm.indegree_norm_plain(g, deg, relu_out=y)),
+                lambda: graphnorm.indegree_norm(g, deg, relu_out=y),
+                lambda: graphnorm.indegree_norm_plain(g, deg, relu_out=y),
+                lambda: (g * (y > 0).to(dtype)) * d_lib[:, None],
+                3 * esize * vf + 4 * V, 2 * vf, 50,
+                lib_call="chain of calls: (g * (y > 0).to(dtype)) * "
+                         "d[:, None]")
+            del g, y
+        del buf
         # K4: sum_check (another summation order)
         want = ell_spmm.ell_aggregate_plain(x, idx, rid, V)
         got = twice(lambda: ell_spmm.ell_aggregate(x, idx, rid, V))
@@ -530,6 +591,7 @@ def train_slice(torch, ds, runs):
     SEED).  Returns the phase record, keyed by route (float32) or
     route/mode; raises on a non-finite loss or a train loss that did not
     fall from epoch 4 to epoch 9."""
+    from roc_tpu_torch.kernels.graphnorm import indegree_norm
     from roc_tpu_torch.train.trainer import format_metrics
     out = {}
     for impl, mode in runs:
@@ -538,8 +600,10 @@ def train_slice(torch, ds, runs):
         tr = _trainer(ds, impl, 0.5, mode=mode, epochs=10, eval_every=5,
                       verbose=False)
         setup_s = time.perf_counter() - t0
+        masked = indegree_norm.masked_launches
         hist = tr.train()
         tr.sync()
+        masked = indegree_norm.masked_launches - masked
         losses = torch.stack(tr.losses).double().cpu().numpy()
         lines = [format_metrics(m["epoch"], m) for m in hist]
         for ln in lines:
@@ -549,7 +613,11 @@ def train_slice(torch, ds, runs):
             "epoch_ms": [m["epoch_ms"] for m in hist],
             "eval_ms": [m["eval_ms"] for m in hist],
             "train_loss": [m["train_loss"] for m in hist],
-            "objective": losses.tolist(), "infer": lines}
+            "objective": losses.tolist(), "infer": lines,
+            "masked_k1_launches": masked}
+        if not masked:
+            raise AssertionError(f"{key}: the relu backward never ran the "
+                                 f"masked K1")
         if not np.isfinite(losses).all() or not all(
                 np.isfinite(m["train_loss"]) for m in hist):
             raise AssertionError(f"{key}: non-finite loss {losses}")
@@ -593,7 +661,7 @@ def train_profile(torch, ds, mode="float32", steps=3):
             tr.train(steps)
             tr.sync()
             wall_ms = (time.perf_counter() - t0) * 1e3
-        groups, names = {}, {}
+        groups, names, other = {}, {}, {}
         for e in prof.key_averages():
             # the device's own kernel events only: a host op's device
             # time repeats that of the kernels it launched
@@ -604,6 +672,10 @@ def train_profile(torch, ds, mode="float32", steps=3):
                 g = _kernel_group(e.key)
                 groups[g] = groups.get(g, 0.0) + us / 1e3 / steps
                 names[e.key] = names.get(e.key, 0.0) + us / 1e3 / steps
+                if g.startswith("other"):
+                    # every kernel of the group, with its launches a step
+                    other[e.key[:160]] = [us / 1e3 / steps,
+                                          e.count / steps]
         busy = sum(groups.values())
         rec = {"wall_ms_per_step": wall_ms / steps}
         if busy <= 0:
@@ -614,7 +686,9 @@ def train_profile(torch, ds, mode="float32", steps=3):
                 groups_ms_per_step=groups,
                 group_share={g: v / busy for g, v in groups.items()},
                 top_kernels_ms_per_step=sorted(
-                    names.items(), key=lambda kv: -kv[1])[:8])
+                    names.items(), key=lambda kv: -kv[1])[:8],
+                other_kernels_ms_calls_per_step=sorted(
+                    other.items(), key=lambda kv: -kv[1][0]))
         out[impl] = rec
         del tr, prof
         torch.cuda.empty_cache()
@@ -673,8 +747,12 @@ def serve_check(torch, pred, results, mode, fp32_ref=None):
 def kernel_share(record, entries):
     """The kernels' share of a steady step, from the kernel phase's times
     of the run's dtype: each of the two layers runs its chain once
-    forward, once backward."""
-    chain = 2 * (entries["indegree_norm"]["ms"] + entries["scale_act"]["ms"])
+    forward, once backward, the relu layer's (F = 256) backward with the
+    masked K1."""
+    k1 = entries["indegree_norm"]
+    k1_256 = sum(r["ms"] for r in k1["shapes"] if r["shape"][1] == 256)
+    chain = (2 * k1["ms"] - k1_256 + entries["indegree_norm_masked"]["ms"]
+             + 2 * entries["scale_act"]["ms"])
     for key, rec in record.items():
         agg = "csr_spmm" if key.startswith("cuda_csr") else "ell_aggregate"
         steady = [ms for ms in rec["epoch_ms"] if ms]
@@ -686,11 +764,14 @@ def kernel_share(record, entries):
 
 def check_train_launches(launches, key):
     """Every kernel of the training path ran in dtype ``key`` and none in
-    the other; K3's pre-pass once per main pass."""
+    the other, the masked K1 included; K3's pre-pass once per main
+    pass."""
     other = BF16 if key == F32 else F32
-    by = {k: v for k, v in launches.items() if k != "csr_row_ptr"}
+    by = {k: v for k, v in launches.items()
+          if k not in ("csr_row_ptr", "indegree_norm_masked")}
     if not all(v[key] for v in by.values()) or any(
             v[other] for v in by.values()) or (
+            not launches["indegree_norm_masked"]) or (
             launches["csr_row_ptr"] != by["csr_spmm"][key]):
         raise AssertionError(f"a {key} kernel of the training path never "
                              f"ran, or another dtype did: {launches}")
@@ -775,28 +856,37 @@ def main() -> int:
 
     # every main path below is driven with the counts zeroed just before
     # and read just after; counted[dtype][kernel] sums the serve and
-    # train slices' launches of that dtype
+    # train slices' launches of that dtype.  The masked K1's launches
+    # count in indegree_norm's and apart in masked_launches; the table
+    # gives each form its own row, so a path of dtype ``key`` adds its
+    # masked launches to "indegree_norm_masked", the rest to
+    # "indegree_norm".
     kernels = (graphnorm.indegree_norm, graphnorm.scale_act,
                spmm.csr_spmm, ell_spmm.ell_aggregate)
-    counted = {key: {k.__name__: 0 for k in kernels} for key in (F32, BF16)}
+    counted = {key: {name: 0 for name in KERNELS} for key in (F32, BF16)}
 
     def zero_counts():
         _build.zero_launches(*kernels)
+        graphnorm.indegree_norm.masked_launches = 0
         spmm.csr_row_ptr.launches = 0
 
-    def read_counts():
+    def read_counts(key):
         torch.cuda.synchronize()
         got = {k.__name__: dict(k.launches_by_dtype) for k in kernels}
+        masked = graphnorm.indegree_norm.masked_launches
         for name, by in got.items():
-            for key in (F32, BF16):
-                counted[key][name] += by[key]
+            for k in (F32, BF16):
+                counted[k][name] += by[k]
+        counted[key]["indegree_norm"] -= masked
+        counted[key]["indegree_norm_masked"] += masked
+        got["indegree_norm_masked"] = masked
         got["csr_row_ptr"] = spmm.csr_row_ptr.launches
         return got
 
     # 4. serve slice: the serving path, fp32
     zero_counts()
     lat, results = slice_run(torch, pred, Server)
-    launches = read_counts()
+    launches = read_counts(F32)
     log({"phase": "slice", "requests": lat, "launches": launches})
     if not all(launches[k][F32] for k in ("indegree_norm", "scale_act",
                                           "ell_aggregate")):
@@ -812,7 +902,7 @@ def main() -> int:
     zero_counts()
     record = train_slice(torch, ds, (("cuda", "float32"),
                                      ("cuda_csr", "float32")))
-    train_launches = read_counts()
+    train_launches = read_counts(F32)
     kernel_share(record, entries[F32])
     log({"phase": "train_slice", **record, "launches": train_launches})
     check_train_launches(train_launches, F32)
@@ -829,11 +919,12 @@ def main() -> int:
                            params=params, backend="full")
     zero_counts()
     lat, results = slice_run(torch, pred, Server)
-    launches = read_counts()
+    launches = read_counts(BF16)
     log({"phase": "slice_mixed", "requests": lat, "launches": launches})
     if not all(launches[k][BF16] for k in ("indegree_norm", "scale_act",
                                            "ell_aggregate")) or any(
-            by[F32] for k, by in launches.items() if k != "csr_row_ptr"):
+            by[F32] for k, by in launches.items()
+            if k not in ("csr_row_ptr", "indegree_norm_masked")):
         raise AssertionError(f"the mixed serving path did not run the "
                              f"bf16 kernels alone: {launches}")
     serve_check(torch, pred, results, "mixed", fp32_ref=ref)
@@ -845,7 +936,7 @@ def main() -> int:
     record = train_slice(torch, ds, (("cuda", "mixed"),
                                      ("cuda", "bfloat16"),
                                      ("cuda_csr", "mixed")))
-    train_launches_bf16 = read_counts()
+    train_launches_bf16 = read_counts(BF16)
     kernel_share(record, entries[BF16])
     log({"phase": "train_slice_bf16", **record,
          "launches": train_launches_bf16})
@@ -861,6 +952,7 @@ def main() -> int:
                 "source": e["source"], "replaces": e["replaces"],
                 "launches": counted[key][name],
                 "max_abs_err": e["max_abs_err"], "ms": e["ms"],
+                "device_ms": e["device_ms"],
                 "plain_ms": e["plain_ms"], "bound_ms": e["bound_ms"],
                 "bound_by": e["bound_by"], "library_ms": e["library_ms"],
                 **({"row_ptr_ms": e["row_ptr_ms"]}

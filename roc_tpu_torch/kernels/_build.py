@@ -28,7 +28,7 @@ import subprocess
 import tempfile
 import threading
 import time
-from typing import List, Optional
+from typing import Callable, Dict, List, Optional, Tuple
 
 import torch
 
@@ -56,6 +56,8 @@ for _sfx in DTYPE_SUFFIX.values():
     SIGNATURES.update({
         # x, in_degree, out, rows, F, stream
         f"roc_indegree_norm_{_sfx}": (_P, _P, _P, _L, _I, _P),
+        # g, relu_out, in_degree, out, rows, F, stream
+        f"roc_indegree_norm_masked_{_sfx}": (_P, _P, _P, _P, _L, _I, _P),
         # x, scale, out, rows, F, relu, stream
         f"roc_scale_act_{_sfx}": (_P, _P, _P, _L, _I, _I, _P),
         # feats, idx, row_id, out, rows, width, dummy, num_rows, F,
@@ -69,6 +71,7 @@ for _sfx in DTYPE_SUFFIX.values():
 
 _lock = threading.Lock()
 _lib: Optional[ctypes.CDLL] = None
+_entries: Dict[Tuple[str, torch.dtype], Callable[..., int]] = {}
 build_log: List[str] = []
 build_seconds: Optional[float] = None
 
@@ -160,18 +163,29 @@ def check(name: str, code: int) -> None:
         raise RuntimeError(f"{name}: CUDA error {code} at launch: {what}")
 
 
-def stream_ptr(device) -> int:
-    """PyTorch's current CUDA stream on ``device``, as an int."""
-    return torch.cuda.current_stream(device).cuda_stream
+def stream_ptr(device: torch.device) -> int:
+    """PyTorch's current CUDA stream on ``device``, as an int: the raw
+    handle (the call PyTorch's own generated code makes), without
+    building a ``torch.cuda.Stream`` object, whose host cost is several
+    times this lookup's and, for a small row-scale call, comparable to
+    the kernel's device time."""
+    index = device.index
+    if index is None:
+        index = torch.cuda.current_device()
+    return torch._C._cuda_getCurrentRawStream(index)
 
 
 def entry(name: str, dtype: torch.dtype):
     """The C entry point ``roc_<name>_<f32|bf16>`` for features of
-    ``dtype``; raises TypeError for any other dtype."""
-    if dtype not in DTYPE_SUFFIX:
-        raise TypeError(f"{name}: the CUDA kernel takes float32 or "
-                        f"bfloat16, got {dtype}")
-    return getattr(library(), f"roc_{name}_{DTYPE_SUFFIX[dtype]}")
+    ``dtype``, looked up once; raises TypeError for any other dtype."""
+    fn = _entries.get((name, dtype))
+    if fn is None:
+        if dtype not in DTYPE_SUFFIX:
+            raise TypeError(f"{name}: the CUDA kernel takes float32 or "
+                            f"bfloat16, got {dtype}")
+        fn = getattr(library(), f"roc_{name}_{DTYPE_SUFFIX[dtype]}")
+        _entries[(name, dtype)] = fn
+    return fn
 
 
 def zero_launches(*wrappers) -> None:

@@ -4,7 +4,11 @@
 neighbour sum (K4, kernels/ell_spmm.py, or K3, kernels/spmm.py) -> K2.
 
 - :func:`indegree_norm` (K1): ``x * d[:, None]`` with
-  ``d = inv_sqrt_degree(in_degree)``, the pre-scale of the fused chain.
+  ``d = inv_sqrt_degree(in_degree)``, the pre-scale of the fused chain;
+  given ``relu_out=y``, its masked form ``where(y > 0, x, 0) * d[:, None]``
+  (one kernel, the relu backward's pre-scale of the cotangent; a select,
+  as ``jax.nn.relu``'s VJP is, so a NaN or inf in ``x`` where ``y <= 0``
+  gives 0).
 - :func:`scale_act` (K2): ``act(x * scale[:, None])``, its epilogue.
 
 Each kernel wrapper takes its plain PyTorch version for a tensor on the
@@ -14,14 +18,16 @@ bfloat16 (the kernel's ``_f32`` or ``_bf16`` instance; any other dtype
 is refused on the card); the math is fp32 in both, rounded once to
 ``x.dtype``.  ``launches`` on each wrapper counts kernel launches and
 ``launches_by_dtype`` splits them by dtype, so a run can show the path
-went through the kernel of its dtype.  Both kernels compute what their
-plain versions compute, in the same fp32 operations and the same one
-rounding: the results are bit-equal (0 ulp) in either dtype.
+went through the kernel of its dtype; ``indegree_norm.masked_launches``
+counts the masked form's launches apart (they are in the other two
+counts too).  Both kernels compute what their plain versions compute,
+in the same fp32 operations and the same one rounding: the results are
+bit-equal (0 ulp) in either dtype, at every F and alignment.
 """
 
 from __future__ import annotations
 
-from typing import Sequence
+from typing import Optional, Sequence
 
 import torch
 
@@ -42,9 +48,11 @@ def _check_rows(x: torch.Tensor, vec: torch.Tensor, name: str) -> None:
 
 
 def _check_cuda(name: str, x: torch.Tensor, *ints: torch.Tensor,
-                floats: Sequence[torch.Tensor] = ()):
-    """Checks the card's inputs; returns the entry point for ``x.dtype``
-    (TypeError for a dtype with no instance)."""
+                floats: Sequence[torch.Tensor] = (),
+                same: Sequence[torch.Tensor] = ()):
+    """Checks the card's inputs (``same``: tensors like ``x``, checked by
+    the caller); returns the entry point for ``x.dtype`` (TypeError for a
+    dtype with no instance)."""
     for t in ints:
         if t.dtype != torch.int32:
             raise TypeError(f"{name}: index/degree tensors must be int32, "
@@ -52,31 +60,53 @@ def _check_cuda(name: str, x: torch.Tensor, *ints: torch.Tensor,
     for t in floats:
         if t.dtype != torch.float32:
             raise TypeError(f"{name}: scale must be float32, got {t.dtype}")
-    for t in (x, *ints, *floats):
+    for t in (x, *ints, *floats, *same):
         if not t.is_contiguous():
             raise ValueError(f"{name}: inputs must be contiguous")
     return _build.entry(name, x.dtype)
 
 
-def indegree_norm_plain(x: torch.Tensor,
-                        in_degree: torch.Tensor) -> torch.Tensor:
-    """K1's plain version: fp32 math, cast back to ``x.dtype``."""
+def indegree_norm_plain(x: torch.Tensor, in_degree: torch.Tensor,
+                        relu_out: Optional[torch.Tensor] = None
+                        ) -> torch.Tensor:
+    """K1's plain version: fp32 math, cast back to ``x.dtype``; with
+    ``relu_out``, of ``torch.where(relu_out > 0, x, 0)``."""
+    if relu_out is not None:
+        x = torch.where(relu_out > 0, x, 0)
     d = inv_sqrt_degree(in_degree)
     return (x.to(torch.float32) * d[:, None]).to(x.dtype)
 
 
-def indegree_norm(x: torch.Tensor, in_degree: torch.Tensor) -> torch.Tensor:
+def indegree_norm(x: torch.Tensor, in_degree: torch.Tensor,
+                  relu_out: Optional[torch.Tensor] = None) -> torch.Tensor:
     """K1: ``x * rsqrt(max(deg, 1))[:, None]``, 0 where ``deg == 0``.
-    x: float32 or bfloat16 [V, F]; in_degree: int32 [V]."""
+    x: float32 or bfloat16 [V, F]; in_degree: int32 [V].  ``relu_out``:
+    a relu's output ``y`` like ``x`` (shape, dtype, device); then K1 of
+    ``where(y > 0, x, 0)`` (the masked kernel)."""
     _check_rows(x, in_degree, "indegree_norm")
+    if relu_out is not None and (relu_out.shape != x.shape
+                                 or relu_out.dtype != x.dtype
+                                 or relu_out.device != x.device):
+        raise ValueError(f"indegree_norm: relu_out must be like x "
+                         f"{tuple(x.shape)} {x.dtype} on {x.device}; got "
+                         f"{tuple(relu_out.shape)} {relu_out.dtype} on "
+                         f"{relu_out.device}")
     if x.device.type == "cpu":
-        return indegree_norm_plain(x, in_degree)
-    fn = _check_cuda("indegree_norm", x, in_degree)
+        return indegree_norm_plain(x, in_degree, relu_out)
+    if relu_out is None:
+        fn = _check_cuda("indegree_norm", x, in_degree)
+        inputs = (x.data_ptr(), in_degree.data_ptr())
+    else:
+        fn = _check_cuda("indegree_norm_masked", x, in_degree,
+                         same=(relu_out,))
+        inputs = (x.data_ptr(), relu_out.data_ptr(), in_degree.data_ptr())
     out = torch.empty_like(x)
     _build.check("indegree_norm", fn(
-        x.data_ptr(), in_degree.data_ptr(), out.data_ptr(), x.shape[0],
-        x.shape[1], _build.stream_ptr(x.device)))
+        *inputs, out.data_ptr(), x.shape[0], x.shape[1],
+        _build.stream_ptr(x.device)))
     _build.launched(indegree_norm, x.dtype)
+    if relu_out is not None:
+        indegree_norm.masked_launches += 1
     return out
 
 
@@ -109,3 +139,4 @@ def scale_act(x: torch.Tensor, scale: torch.Tensor,
 
 
 _build.zero_launches(indegree_norm, scale_act)
+indegree_norm.masked_launches = 0

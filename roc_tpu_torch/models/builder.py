@@ -70,10 +70,11 @@ class _SymmetricSum(torch.autograd.Function):
 
 class _SymmetricFused(torch.autograd.Function):
     """``act(S x)``, ``S = D^-1/2 A D^-1/2``.  The relu is nonlinear, so
-    it is not part of the symmetric operator: the backward masks the
-    cotangent by ``y > 0`` (relu's gradient, 0 at 0 as in JAX) and then
-    runs ``S`` with no activation, K1 -> K3/K4 -> K2('none') on the
-    kernel routes."""
+    it is not part of the symmetric operator: the backward runs ``S`` with
+    no activation on the cotangent selected by ``y > 0`` (relu's gradient,
+    a select as in JAX: 0 at 0, and 0 where ``y <= 0`` whatever the
+    cotangent holds there, NaN and inf included); on the kernel routes
+    the select is part of K1, masked K1 -> K3/K4 -> K2('none')."""
 
     @staticmethod
     def forward(ctx, x, gctx, act):
@@ -85,10 +86,9 @@ class _SymmetricFused(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g):
-        if ctx.saved_tensors:
-            (y,) = ctx.saved_tensors
-            g = g * (y > 0).to(g.dtype)
-        return ctx.gctx._fused_sum_fwd(g.contiguous()), None, None
+        y = ctx.saved_tensors[0] if ctx.saved_tensors else None
+        return ctx.gctx._fused_sum_fwd(g.contiguous(), relu_out=y), None, \
+            None
 
 
 @dataclass
@@ -152,18 +152,23 @@ class GraphContext:
         return aggregate_ell(self._gathered_with_zero(x), self.ell_idx,
                              self.ell_row_pos, self.num_rows)
 
-    def _fused_sum_fwd(self, x: torch.Tensor,
-                       act: str = AC_MODE_NONE) -> torch.Tensor:
-        """``act(D^-1/2 A D^-1/2 x)``.  The kernel routes run K1 on the
-        local rows, the halo gather, then K4 (or K3) -> K2 with the
-        activation in K2's epilogue; the plain routes scale before and
-        after the plain sum and apply the activation after."""
+    def _fused_sum_fwd(self, x: torch.Tensor, act: str = AC_MODE_NONE,
+                       relu_out: Optional[torch.Tensor] = None
+                       ) -> torch.Tensor:
+        """``act(D^-1/2 A D^-1/2 x')``, ``x' = where(relu_out > 0, x, 0)``
+        given ``relu_out`` (a relu's output, like ``x``), else ``x``.  The
+        kernel routes run K1 (masked given ``relu_out``) on the local
+        rows, the halo gather, then K4 (or K3) -> K2 with the activation
+        in K2's epilogue; the plain routes select, scale before and after
+        the plain sum and apply the activation after."""
         d = self.inv_sqrt_deg
         if self.aggr_impl in KERNEL_IMPLS:
             from ..kernels.graphnorm import (indegree_norm as norm_kernel,
                                              scale_act)
-            return scale_act(self._sum_fwd(norm_kernel(x, self.in_degree)),
-                             d, act=act)
+            return scale_act(self._sum_fwd(norm_kernel(
+                x, self.in_degree, relu_out=relu_out)), d, act=act)
+        if relu_out is not None:
+            x = torch.where(relu_out > 0, x, 0)
         d = d.to(x.dtype)[:, None]
         return dense.activation(self._sum_fwd(x * d) * d, act)
 

@@ -41,27 +41,108 @@ def _graph(V, avg, seed):
     return from_edge_list(src[keep], dst[keep], V)
 
 
-@pytest.mark.parametrize("F", [256, 41, 3])
-def test_row_scale_kernels_match_plain(dev, F):
-    """K1 and K2 are bit-equal to their plain versions (same fp32 ops;
-    0 ulp)."""
-    V = 10_007
+ROW_SCALE_FS = [1, 3, 7, 8, 9, 41, 256, 600]
+
+
+def _same_bits(got, want):
+    """Equal bits (a -0.0 is not a 0.0), as integers of the dtype's
+    width."""
+    as_int = torch.int32 if got.dtype == torch.float32 else torch.int16
+    return got.dtype == want.dtype and torch.equal(got.view(as_int),
+                                                   want.view(as_int))
+
+
+def _row_scale_cases(dev, F, dtype):
+    """K1, K2 ('none' and 'relu') and the masked K1 against their plain
+    versions on the card, bit for bit, and each launched twice for the
+    same bits: V = 1,003 rows (V * F a whole number of 16-byte units or
+    not, as F gives), degree-0 rows; the masked K1 with NaN/inf in g
+    where y <= 0, y == 0 and -0.0 exactly, NaN in y; then V = 0, inputs
+    offset by 1 element and by 8 bytes from out's 16-byte phase (loads
+    of one element), and K1's entry point on x and out offset alike (a
+    scalar head before out's first 16-byte unit).  Returns the wrapper
+    launches made, by wrapper."""
+    from roc_tpu_torch.kernels import _build
+    V = 1_003
     rng = np.random.RandomState(F)
-    x = torch.from_numpy(rng.randn(V, F).astype(np.float32)).to(dev)
-    deg = torch.from_numpy(rng.randint(0, 500, V).astype(np.int32)).to(dev)
+    x = torch.from_numpy(rng.randn(V, F).astype(np.float32)).to(dev, dtype)
+    deg = torch.from_numpy(rng.randint(0, 500, V).astype(np.int32))
+    deg[:3] = 0
+    deg = deg.to(dev)
     s = torch.from_numpy(rng.rand(V).astype(np.float32)).to(dev)
-    n1, n2 = indegree_norm.launches, scale_act.launches
-    got = indegree_norm(x, deg)
-    torch.cuda.synchronize()
-    assert torch.equal(got, indegree_norm_plain(x, deg))
+    y = np.maximum(rng.randn(V, F), 0).astype(np.float32).reshape(-1)
+    y[0::7] = 0.0
+    y[1::7] = -0.0
+    y[2::11] = np.nan
+    g = rng.randn(V * F).astype(np.float32)
+    off = ~(y > 0)
+    g[off] = np.array([np.nan, np.inf, -np.inf],
+                      np.float32)[np.arange(int(off.sum())) % 3]
+    y = torch.from_numpy(y.reshape(V, F)).to(dev, dtype)
+    g = torch.from_numpy(g.reshape(V, F)).to(dev, dtype)
+
+    def rows(v, a):
+        return v[:a[0].shape[0]]
+
+    cases = [(indegree_norm, lambda a: indegree_norm(a[0], rows(deg, a)),
+              lambda a: indegree_norm_plain(a[0], rows(deg, a)), (x,)),
+             (indegree_norm,
+              lambda a: indegree_norm(a[0], rows(deg, a), relu_out=a[1]),
+              lambda a: indegree_norm_plain(a[0], rows(deg, a),
+                                            relu_out=a[1]),
+              (g, y))]
     for act in ("none", "relu"):
-        assert torch.equal(scale_act(x, s, act), scale_act_plain(x, s, act))
-    # an unaligned view takes the scalar path and still agrees
-    xs = x.reshape(-1)[1:1 + (V - 1) * F].reshape(V - 1, F)
-    assert torch.equal(scale_act(xs, s[:-1]), scale_act_plain(xs, s[:-1]))
+        cases.append((scale_act,
+                      lambda a, act=act: scale_act(a[0], rows(s, a), act),
+                      lambda a, act=act: scale_act_plain(a[0], rows(s, a),
+                                                         act),
+                      (x,)))
+    n = {indegree_norm: 0, scale_act: 0}
+    for wrapper, kern, plain, args in cases:
+        got = kern(args)
+        assert got.dtype == dtype and got.is_contiguous()
+        assert _same_bits(got, plain(args)), (wrapper.__name__, F)
+        assert _same_bits(got, kern(args)), (wrapper.__name__, F)
+        n[wrapper] += 2
+        if len(args) == 2:
+            assert bool(got.float().isfinite().all())
+        # V = 0
+        assert kern(tuple(a[:0] for a in args)).shape == (0, F)
+        n[wrapper] += 1
+        # inputs off out's 16-byte phase by 1 element and by 8 bytes
+        for shift in (1, 8 // x.element_size()):
+            view = tuple(a.reshape(-1)[shift:shift + (V - 4) * F]
+                         .view(V - 4, F) for a in args)
+            assert _same_bits(kern(view), plain(view)), (
+                wrapper.__name__, F, shift)
+            n[wrapper] += 1
+    # the entry point on x and out offset alike: a scalar head
+    fn = _build.entry("indegree_norm", dtype)
+    for shift in (1, 8 // x.element_size()):
+        buf = torch.empty(V * F, device=dev, dtype=dtype)
+        out = buf[shift:shift + (V - 4) * F].view(V - 4, F)
+        xs = x.reshape(-1)[shift:shift + (V - 4) * F].view(V - 4, F)
+        _build.check("indegree_norm", fn(
+            xs.data_ptr(), deg.data_ptr(), out.data_ptr(), V - 4, F,
+            _build.stream_ptr(dev)))
+        assert _same_bits(out, indegree_norm_plain(xs, deg[:V - 4])), (
+            F, shift)
+    return n
+
+
+@pytest.mark.parametrize("F", ROW_SCALE_FS)
+def test_row_scale_kernels_match_plain(dev, F):
+    """K1, K2 and the masked K1 in fp32 are bit-equal to their plain
+    versions (same fp32 ops; 0 ulp) at every width, alignment and edge
+    case of :func:`_row_scale_cases`; the launches count as fp32, the
+    masked ones apart too."""
+    n1, n2 = indegree_norm.launches, scale_act.launches
+    m = indegree_norm.masked_launches
+    n = _row_scale_cases(dev, F, torch.float32)
     torch.cuda.synchronize()
-    assert indegree_norm.launches == n1 + 1
-    assert scale_act.launches == n2 + 3
+    assert indegree_norm.launches == n1 + n[indegree_norm]
+    assert scale_act.launches == n2 + n[scale_act]
+    assert indegree_norm.masked_launches == m + 5
 
 
 @pytest.mark.parametrize("F", [256, 41, 600])
@@ -295,6 +376,13 @@ def test_kernels_reject_what_they_do_not_take(dev):
                                             device=dev))
     with pytest.raises(ValueError):
         scale_act(x.float().t(), torch.ones(4, device=dev))
+    # the masked K1's relu_out: like x, and contiguous
+    g = torch.ones(8, 4, device=dev)
+    deg = torch.ones(8, dtype=torch.int32, device=dev)
+    with pytest.raises(ValueError):
+        indegree_norm(g, deg, relu_out=g.to(torch.bfloat16))
+    with pytest.raises(ValueError):
+        indegree_norm(g, deg, relu_out=torch.ones(8, 8, device=dev)[:, :4])
 
 
 def test_served_logits_cuda_route_match_plain_route(dev):
@@ -346,28 +434,20 @@ def _check_bf16_sum(got, again, want):
     assert bool((err <= bf16_row_ulp(want)).all()), float(err.max())
 
 
-@pytest.mark.parametrize("F", [256, 41, 8, 3])
+@pytest.mark.parametrize("F", ROW_SCALE_FS)
 def test_row_scale_kernels_bf16_bit_equal(dev, F):
-    """K1 and K2 in bf16 are bit-equal to their plain versions (fp32 math,
-    one rounding to bf16, 0 ulp), through the 16-byte path (F % 8 == 0)
-    and the element path; the launches count as bf16."""
-    V = 10_007
-    rng = np.random.RandomState(F)
-    x = torch.from_numpy(rng.randn(V, F).astype(np.float32)).to(
-        dev, torch.bfloat16)
-    deg = torch.from_numpy(rng.randint(0, 500, V).astype(np.int32)).to(dev)
-    s = torch.from_numpy(rng.rand(V).astype(np.float32)).to(dev)
+    """K1, K2 and the masked K1 in bf16 are bit-equal to their plain
+    versions (fp32 math, one rounding to bf16, 0 ulp) at every width,
+    alignment and edge case of :func:`_row_scale_cases`; the launches
+    count as bf16."""
     n1 = dict(indegree_norm.launches_by_dtype)
-    got = indegree_norm(x, deg)
-    assert got.dtype == torch.bfloat16
-    assert torch.equal(got, indegree_norm_plain(x, deg))
-    for act in ("none", "relu"):
-        assert torch.equal(scale_act(x, s, act), scale_act_plain(x, s, act))
-    xs = x.reshape(-1)[1:1 + (V - 1) * F].reshape(V - 1, F)
-    assert torch.equal(scale_act(xs, s[:-1]), scale_act_plain(xs, s[:-1]))
+    n2 = dict(scale_act.launches_by_dtype)
+    n = _row_scale_cases(dev, F, torch.bfloat16)
     torch.cuda.synchronize()
     assert indegree_norm.launches_by_dtype == {
-        "f32": n1["f32"], "bf16": n1["bf16"] + 1}
+        "f32": n1["f32"], "bf16": n1["bf16"] + n[indegree_norm]}
+    assert scale_act.launches_by_dtype == {
+        "f32": n2["f32"], "bf16": n2["bf16"] + n[scale_act]}
 
 
 @pytest.mark.parametrize("S", SLICE_COLS)
