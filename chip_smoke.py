@@ -46,12 +46,31 @@ Phases (any failure exits nonzero):
    only; rows against the plain route in 'mixed' and the fp32 route),
    3 parity steps in 'mixed' on 'cuda', 'cuda_csr' and 'ell', 10 epochs
    in 'mixed' on 'cuda' and 'cuda_csr' and in 'bfloat16' on 'cuda'
-   (every bf16 kernel ran, the train loss falls), and a 'mixed' profile.
+   (every bf16 kernel ran, the train loss falls), and a 'mixed' profile;
+9. dist_p1, the partitioned trainer (parallel/distributed.py) at world
+   size 1 over NCCL in this process, in fp32 and in 'mixed': 3 parity
+   steps from the same weights, dropout 0, on 'cuda' and 'cuda_csr', each
+   objective within the parity tolerance of Trainer's on the same route;
+   then, with the counters zeroed just before, 10 epochs with dropout 0.5
+   on both routes (the train loss falls, every kernel of the dtype ran,
+   the masked K1 too), ``epoch_ms`` beside Trainer's, and in fp32 the
+   step profile of phase 7 (the collectives' device time in its own
+   group);
+10. dist_p2, two fresh rank processes on this one card over gloo (NCCL
+   takes one rank per card), each holding one part of the edge-balanced
+   split: K1/K2 on part_nodes rows, K3/K4 reading 2 * part_nodes gathered
+   rows, checked against their plain versions at those shapes; 3 steps
+   on 'cuda' in fp32 from the same weights, each objective within the
+   fp32 parity tolerance of Trainer's, the logits after them within
+   1e-4 * max|logit| of Trainer's; the bounds, part shapes, step wall ms
+   and the share of it the step's collectives take when timed alone (two
+   contexts time-slicing one card and gloo's host staging set that time:
+   a layout check, not a speed number).
 
 Prints one JSON line per phase, the kernel table line
 ``{"kernels": [...]}`` (one row per kernel and dtype, e.g.
 ``ell_aggregate[bf16]``, K1's masked form as ``indegree_norm_masked``;
-launches counted over the serve and train slices of that dtype), the
+launches counted over the serve, train and dist slices of that dtype), the
 card line, and as the last line
 ``{"ok": true, "device": {...}}``.  Imports no JAX.
 """
@@ -546,9 +565,12 @@ def train_parity(torch, ds, params, mode="float32", steps=3):
     steps are reported, not gated: Adam moves a weight by ~lr whatever
     its gradient's size, so a near-zero gradient whose sign differs
     between two summation orders moves it 2 lr apart.  The weights stay
-    fp32 in both modes, and in 'mixed' ``feats`` is bf16."""
+    fp32 in both modes, and in 'mixed' ``feats`` is bf16.  Returns the
+    record and the 'cuda' route's logits after the steps (fp32 numpy),
+    the yardsticks of the partitioned runs."""
     rtol = PARITY_RTOL[mode]
     losses, weights, step_s = {}, {}, {}
+    logits = None
     for impl in ("ell", "cuda", "cuda_csr"):
         tr = _trainer(ds, impl, 0.0, params=params, mode=mode,
                       eval_every=10 ** 6, verbose=False)
@@ -563,6 +585,8 @@ def train_parity(torch, ds, params, mode="float32", steps=3):
         step_s[impl] = (time.perf_counter() - t0) / steps
         losses[impl] = torch.stack(tr.losses).double().cpu().numpy()
         weights[impl] = {k: v.detach().clone() for k, v in tr.params.items()}
+        if impl == "cuda":
+            logits = tr.predict().float().cpu().numpy()
         del tr
         torch.cuda.empty_cache()
     out = {"mode": mode, "steps": steps, "rtol": rtol,
@@ -582,23 +606,24 @@ def train_parity(torch, ds, params, mode="float32", steps=3):
         if not (np.isfinite(losses[impl]).all() and rel.max() <= rtol):
             raise AssertionError(f"{impl} losses {losses[impl]} differ from "
                                  f"the plain route's {losses['ell']}")
-    return out
+    return out, logits
 
 
-def train_slice(torch, ds, runs):
-    """10 epochs, dropout 0.5, an eval every 5, through Trainer for each
-    ``(kernel route, dtype mode)`` of ``runs`` (fresh Glorot weights from
-    SEED).  Returns the phase record, keyed by route (float32) or
-    route/mode; raises on a non-finite loss or a train loss that did not
-    fall from epoch 4 to epoch 9."""
+def train_slice(torch, ds, runs, make=None):
+    """10 epochs, dropout 0.5, an eval every 5, through Trainer (or the
+    trainer ``make`` builds, :func:`_dist_trainer`) for each ``(kernel
+    route, dtype mode)`` of ``runs`` (fresh Glorot weights from SEED).
+    Returns the phase record, keyed by route (float32) or route/mode;
+    raises on a non-finite loss or a train loss that did not fall from
+    epoch 4 to epoch 9."""
     from roc_tpu_torch.kernels.graphnorm import indegree_norm
     from roc_tpu_torch.train.trainer import format_metrics
     out = {}
     for impl, mode in runs:
         key = impl if mode == "float32" else f"{impl}/{mode}"
         t0 = time.perf_counter()
-        tr = _trainer(ds, impl, 0.5, mode=mode, epochs=10, eval_every=5,
-                      verbose=False)
+        tr = (make or _trainer)(ds, impl, 0.5, mode=mode, epochs=10,
+                                eval_every=5, verbose=False)
         setup_s = time.perf_counter() - t0
         masked = indegree_norm.masked_launches
         hist = tr.train()
@@ -635,28 +660,36 @@ def _kernel_group(name):
     for group, keys in (("K3 csr_spmm", ("csr_row_sum", "csr_row_ptr")),
                         ("K4 ell_aggregate", ("ell_bucket_sum",)),
                         ("K1/K2 row scale", ("row_scale_",)),
-                        ("matmul", ("gemm", "Gemm", "cutlass", "xmma"))):
+                        ("matmul", ("gemm", "Gemm", "cutlass", "xmma")),
+                        ("collectives, device copies", ("nccl", "Memcpy"))):
         if any(k in name for k in keys):
             return group
     return "other (dropout, loss, Adam, copies)"
 
 
-def train_profile(torch, ds, mode="float32", steps=3):
+def train_profile(torch, ds, mode="float32", steps=3, make=None):
     """Where a steady training step's device time goes, per kernel
-    route, in dtype ``mode``: ``steps`` steps (after 2 warm ones) under
-    torch.profiler, kernel time summed by group, and the device's idle
-    share of the host wall clock (1 - kernel time / wall).  Dropout 0.5,
-    as in the train slice.  Reports "not measured" if the profiler sees
-    no device time."""
+    route, in dtype ``mode``: ``steps`` steps (after 2 warm ones, and
+    one more under a first profiler session whose trace is discarded and
+    whose wall clock is reported as ``warm_profiled_step_ms``) of
+    Trainer (or the trainer ``make`` builds) under torch.profiler, kernel
+    time summed by group, and the device's idle share of the host wall
+    clock (1 - kernel time / wall).  Dropout 0.5, as in the train slice.
+    Reports "not measured" if the profiler sees no device time."""
     from torch.profiler import ProfilerActivity, profile
+    activities = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
     out = {"mode": mode}
     for impl in ("cuda", "cuda_csr"):
-        tr = _trainer(ds, impl, 0.5, mode=mode, eval_every=10 ** 6,
-                      verbose=False)
+        tr = (make or _trainer)(ds, impl, 0.5, mode=mode,
+                                eval_every=10 ** 6, verbose=False)
         tr.train(2)
         tr.sync()
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
+        with profile(activities=activities):
+            t0 = time.perf_counter()
+            tr.train(1)
+            tr.sync()
+            warm_ms = (time.perf_counter() - t0) * 1e3
+        with profile(activities=activities) as prof:
             t0 = time.perf_counter()
             tr.train(steps)
             tr.sync()
@@ -664,8 +697,11 @@ def train_profile(torch, ds, mode="float32", steps=3):
         groups, names, other = {}, {}, {}
         for e in prof.key_averages():
             # the device's own kernel events only: a host op's device
-            # time repeats that of the kernels it launched
-            if e.device_type != torch.autograd.DeviceType.CUDA:
+            # time repeats that of the kernels it launched, and so does
+            # the device-side range of an NCCL call ("nccl:...") that of
+            # the copies or kernels it issued
+            if e.device_type != torch.autograd.DeviceType.CUDA or \
+                    e.key.startswith("nccl:"):
                 continue
             us = e.device_time_total
             if us > 0:
@@ -677,7 +713,8 @@ def train_profile(torch, ds, mode="float32", steps=3):
                     other[e.key[:160]] = [us / 1e3 / steps,
                                           e.count / steps]
         busy = sum(groups.values())
-        rec = {"wall_ms_per_step": wall_ms / steps}
+        rec = {"wall_ms_per_step": wall_ms / steps,
+               "warm_profiled_step_ms": warm_ms}
         if busy <= 0:
             rec["device"] = "not measured"
         else:
@@ -775,6 +812,258 @@ def check_train_launches(launches, key):
             launches["csr_row_ptr"] != by["csr_spmm"][key]):
         raise AssertionError(f"a {key} kernel of the training path never "
                              f"ran, or another dtype did: {launches}")
+
+
+def _dist_trainer(ds, impl, dropout, params=None, mode="float32",
+                  num_parts=1, device=None, **cfg):
+    """:func:`_trainer`'s partitioned twin: DistributedTrainer over the
+    default process group, whose world size is ``num_parts``."""
+    from roc_tpu_torch.models.gcn import build_gcn
+    from roc_tpu_torch.parallel.distributed import DistributedTrainer
+    from roc_tpu_torch.train.trainer import TrainConfig, resolve_dtypes
+    dtype, compute_dtype = resolve_dtypes(mode)
+    return DistributedTrainer(
+        build_gcn(LAYERS, dropout_rate=dropout), ds, num_parts,
+        TrainConfig(aggr_impl=impl, symmetric=True, seed=SEED, dtype=dtype,
+                    compute_dtype=compute_dtype, **TRAIN, **cfg),
+        params=params, device=device)
+
+
+def dist_parity(torch, ds, params, parity, mode, steps=3):
+    """From the same weights, dropout 0, ``steps`` steps of
+    DistributedTrainer (world size 1) on each kernel route in dtype
+    ``mode``; each step's objective within ``PARITY_RTOL[mode]`` of
+    Trainer's on the same route (``parity``, train_parity's record)."""
+    rtol = PARITY_RTOL[mode]
+    out = {"mode": mode, "steps": steps, "rtol": rtol}
+    for impl in ("cuda", "cuda_csr"):
+        t0 = time.perf_counter()
+        tr = _dist_trainer(ds, impl, 0.0, params=params, mode=mode,
+                           eval_every=10 ** 6, verbose=False)
+        setup_s = time.perf_counter() - t0
+        tr.train(steps)
+        tr.sync()
+        got = torch.stack(tr.losses).double().cpu().numpy()
+        want = np.asarray(parity[impl]["losses"])
+        rel = np.abs(got - want) / np.abs(want)
+        out[impl] = {"setup_s": setup_s, "part_nodes": tr.plan.part_nodes,
+                     "part_edges": tr.plan.part_edges,
+                     "losses": got.tolist(), "trainer_losses": want.tolist(),
+                     "max_rel_loss_err": float(rel.max())}
+        if not (np.isfinite(got).all() and rel.max() <= rtol):
+            raise AssertionError(f"partitioned {impl} {mode} losses {got} "
+                                 f"differ from Trainer's {want}")
+        del tr
+        torch.cuda.empty_cache()
+    return out
+
+
+def _save_dataset(ds, path):
+    """The dataset's arrays as .npy files under ``path``, for the rank
+    processes of dist_p2 to map."""
+    for name, arr in (("row_ptr", ds.graph.row_ptr),
+                      ("col_idx", ds.graph.col_idx),
+                      ("features", ds.features), ("labels", ds.labels),
+                      ("mask", ds.mask)):
+        np.save(f"{path}/{name}.npy", arr)
+
+
+def _map_dataset(path, num_classes):
+    from roc_tpu_torch.core.graph import Dataset, Graph
+
+    def load(name):
+        return np.load(f"{path}/{name}.npy", mmap_mode="r")
+    return Dataset(Graph(load("row_ptr"), load("col_idx")), load("features"),
+                   load("labels"), load("mask"), num_classes,
+                   name="reddit_shape")
+
+
+def rank_kernel_checks(torch, tr, ds):
+    """This rank's kernels at the shapes of its part against their plain
+    versions (the counts are zeroed after): K4, and K3 over the part's
+    edge list, reading R = P * part_nodes gathered rows and writing
+    part_nodes rows (:func:`sum_check`); K1, the masked K1 and K2 on
+    part_nodes rows, bit for bit."""
+    from roc_tpu_torch.kernels import ell_spmm, graphnorm, spmm
+    from roc_tpu_torch.parallel.distributed import shard_dataset
+    d, pn, R = tr.data, tr.plan.part_nodes, tr.plan.padded_num_nodes
+    edges = shard_dataset(ds, tr.plan, tr.rank, tr.device,
+                          aggr_impl="cuda_csr")
+    gen = torch.Generator(device=tr.device).manual_seed(SEED + 7 + tr.rank)
+    deg, scale = d.in_degree, tr.gctx.inv_sqrt_deg
+    rows = []
+    for F, act in ((256, "relu"), (41, "none")):
+        x = torch.randn((R, F), generator=gen, device=tr.device)
+        xl = x[:pn]
+        y = torch.relu(torch.randn((pn, F), generator=gen,
+                                   device=tr.device))
+        for name, got, want, exact in (
+                ("ell_aggregate",
+                 ell_spmm.ell_aggregate(x, d.ell_idx, d.ell_row_id, pn),
+                 ell_spmm.ell_aggregate_plain(x, d.ell_idx, d.ell_row_id,
+                                              pn), False),
+                ("csr_spmm",
+                 spmm.csr_spmm(x, edges.edge_src, edges.edge_dst, pn),
+                 spmm.csr_spmm_plain(x, edges.edge_src, edges.edge_dst, pn),
+                 False),
+                ("indegree_norm", graphnorm.indegree_norm(xl, deg),
+                 graphnorm.indegree_norm_plain(xl, deg), True),
+                ("indegree_norm_masked",
+                 graphnorm.indegree_norm(xl, deg, relu_out=y),
+                 graphnorm.indegree_norm_plain(xl, deg, relu_out=y), True),
+                ("scale_act", graphnorm.scale_act(xl, scale, act),
+                 graphnorm.scale_act_plain(xl, scale, act), True)):
+            if exact:
+                ok = bool(torch.equal(got, want))
+                err = float((got - want).abs().max())
+            else:
+                ok, err = sum_check(torch, got, want)
+            rows.append({"kernel": name, "F": F, "R": R, "rows": pn,
+                         "max_abs_err": err, "ok": ok})
+            if not ok:
+                raise AssertionError(f"rank {tr.rank}: {name} at F={F}, "
+                                     f"R={R}, {pn} rows: max_abs_err {err}")
+        del x, xl, y
+    del edges
+    torch.cuda.synchronize()
+    return rows
+
+
+def time_collectives(torch, tr, n=3):
+    """The collectives of one step timed alone, at the step's shapes and
+    count (each synchronised, mean of ``n``): two all-gathers of
+    ``[part_nodes, 256]`` and two of ``[part_nodes, 41]`` (forward and
+    the backward's rerun) and one all-reduce of the gradients and the
+    objective."""
+    comm, pn = tr.comm, tr.plan.part_nodes
+    x256 = torch.zeros((pn, 256), device=tr.device)
+    x41 = torch.zeros((pn, 41), device=tr.device)
+    flat = torch.zeros(sum(p.numel() for p in tr.params.values()) + 1,
+                       device=tr.device)
+    ms = {}
+    for name, fn in (("all_gather_256", lambda: comm.all_gather(x256)),
+                     ("all_gather_41", lambda: comm.all_gather(x41)),
+                     ("all_reduce", lambda: comm.all_reduce(flat))):
+        fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(n):
+            fn()
+            torch.cuda.synchronize()
+        ms[name] = (time.perf_counter() - t0) * 1e3 / n
+    ms["per_step"] = (2 * ms["all_gather_256"] + 2 * ms["all_gather_41"]
+                      + ms["all_reduce"])
+    return ms
+
+
+def dist_rank_job(data_dir, num_classes, params, steps):
+    """One rank of dist_p2, in a spawned process on card 0: map the
+    dataset, build its part (the 'cuda' route, fp32), check its kernels
+    at the part's shapes, then, with the counts zeroed, ``steps`` steps
+    from ``params`` (dropout 0), each synchronised; time the step's
+    collectives alone; predict.  Returns its record (rank 0 with the
+    logits)."""
+    import torch
+    from roc_tpu_torch.kernels import _build, ell_spmm, graphnorm, spmm
+    from roc_tpu_torch.ops.dense import set_fp32_matmul_precision
+    dev = torch.device("cuda", 0)
+    torch.cuda.set_device(dev)
+    set_fp32_matmul_precision()
+    t0 = time.perf_counter()
+    ds = _map_dataset(data_dir, num_classes)
+    tr = _dist_trainer(ds, "cuda", 0.0, num_parts=2, device=dev,
+                       params={k: torch.from_numpy(v)
+                               for k, v in params.items()},
+                       eval_every=10 ** 6, verbose=False)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    checks = rank_kernel_checks(torch, tr, ds)
+    kernels = (graphnorm.indegree_norm, graphnorm.scale_act, spmm.csr_spmm,
+               ell_spmm.ell_aggregate)
+    _build.zero_launches(*kernels)
+    graphnorm.indegree_norm.masked_launches = 0
+    step_ms = []
+    for _ in range(steps):
+        t = time.perf_counter()
+        tr.train(1)
+        tr.sync()
+        step_ms.append((time.perf_counter() - t) * 1e3)
+    launches = {k.__name__: dict(k.launches_by_dtype) for k in kernels}
+    launches["indegree_norm_masked"] = graphnorm.indegree_norm.masked_launches
+    coll = time_collectives(torch, tr)
+    logits = tr.predict().float().cpu().numpy()
+    plan = tr.plan
+    return {"rank": tr.rank, "backend": tr.comm.backend,
+            "bounds": [list(b) for b in plan.bounds],
+            "part_nodes": plan.part_nodes, "part_edges": plan.part_edges,
+            "real_nodes": plan.real_nodes.tolist(),
+            "real_edges": plan.real_edges.tolist(), "setup_s": setup_s,
+            "step_ms": step_ms,
+            "losses": torch.stack(tr.losses).double().cpu().tolist(),
+            "launches": launches, "collectives_ms": coll,
+            "kernel_checks": checks,
+            "logits": logits if tr.rank == 0 else None}
+
+
+# dist_p2's logits against Trainer's on the card, as a share of the logit
+# scale: fp32 sums in another order, two layers deep, after 3 steps
+PREDICT_TOL = 1e-4
+
+
+def dist_p2(torch, ds, params, parity, trainer_logits, steps=3):
+    """Two fresh rank processes on card 0 over gloo (NCCL takes one rank
+    per card), each holding one part of the edge-balanced split, the
+    'cuda' route in fp32: ``steps`` steps from ``params`` with dropout 0,
+    each step's objective within ``PARITY_RTOL['float32']`` of Trainer's
+    (``parity``) and the logits after them within ``PREDICT_TOL`` of
+    max|logit| of Trainer's (``trainer_logits``).  Returns the record and
+    the ranks' launch counts."""
+    import tempfile
+    from roc_tpu_torch.parallel.distributed import run_ranks
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        _save_dataset(ds, tmp)
+        save_s = time.perf_counter() - t0
+        ranks = run_ranks(dist_rank_job, 2, backend="gloo", timeout_s=900,
+                          data_dir=tmp, num_classes=ds.num_classes,
+                          params={k: v.detach().cpu().numpy()
+                                  for k, v in params.items()},
+                          steps=steps)
+    wall_s = time.perf_counter() - t0
+    rtol = PARITY_RTOL["float32"]
+    want = np.asarray(parity["cuda"]["losses"])
+    logits = ranks[0].pop("logits")
+    ranks[1].pop("logits")
+    scale = float(np.abs(trainer_logits).max())
+    err = float(np.abs(logits - trainer_logits).max())
+    out = {"save_s": save_s, "wall_s": wall_s, "ranks": ranks,
+           "trainer_losses": want.tolist(), "rtol": rtol,
+           "predict_max_abs_err": err,
+           "predict_atol": PREDICT_TOL * max(scale, 1.0),
+           "note": "two CUDA contexts time-slice one card and gloo stages "
+                   "the collectives through the host: a layout check, "
+                   "not a speed number"}
+    for r in ranks:
+        got = np.asarray(r["losses"])
+        rel = np.abs(got - want) / np.abs(want)
+        r["max_rel_loss_err"] = float(rel.max())
+        steady = r["step_ms"][1:]
+        r["steady_step_ms"] = sum(steady) / len(steady)
+        r["collective_share"] = (r["collectives_ms"]["per_step"]
+                                 / r["steady_step_ms"])
+        if not (np.isfinite(got).all() and rel.max() <= rtol):
+            raise AssertionError(f"rank {r['rank']}: partitioned losses "
+                                 f"{got} differ from Trainer's {want}")
+        by = r["launches"]
+        if not (by["indegree_norm"][F32] and by["scale_act"][F32]
+                and by["ell_aggregate"][F32] and by["indegree_norm_masked"]):
+            raise AssertionError(f"rank {r['rank']}: a kernel of the path "
+                                 f"never ran: {by}")
+    if not (logits.shape == trainer_logits.shape and np.isfinite(
+            logits).all() and err <= out["predict_atol"]):
+        raise AssertionError(f"partitioned logits differ from Trainer's: "
+                             f"{err} > {out['predict_atol']}")
+    return out, [r["launches"] for r in ranks]
 
 
 def main() -> int:
@@ -896,12 +1185,13 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     # 5. train parity: kernel routes against the plain route on the card
-    log({"phase": "train_parity", **train_parity(torch, ds, params)})
+    parity, logits32 = train_parity(torch, ds, params)
+    log({"phase": "train_parity", **parity})
 
     # 6. train slice: the training path, fp32
     zero_counts()
-    record = train_slice(torch, ds, (("cuda", "float32"),
-                                     ("cuda_csr", "float32")))
+    record32 = record = train_slice(torch, ds, (("cuda", "float32"),
+                                                ("cuda_csr", "float32")))
     train_launches = read_counts(F32)
     kernel_share(record, entries[F32])
     log({"phase": "train_slice", **record, "launches": train_launches})
@@ -930,8 +1220,8 @@ def main() -> int:
     serve_check(torch, pred, results, "mixed", fp32_ref=ref)
     del pred, results, ref
     torch.cuda.empty_cache()
-    log({"phase": "train_parity_mixed",
-         **train_parity(torch, ds, params, mode="mixed")})
+    parity_mixed, _ = train_parity(torch, ds, params, mode="mixed")
+    log({"phase": "train_parity_mixed", **parity_mixed})
     zero_counts()
     record = train_slice(torch, ds, (("cuda", "mixed"),
                                      ("cuda", "bfloat16"),
@@ -943,6 +1233,46 @@ def main() -> int:
     check_train_launches(train_launches_bf16, BF16)
     log({"phase": "train_profile_mixed",
          **train_profile(torch, ds, mode="mixed")})
+
+    # 9. dist_p1: the partitioned trainer at world size 1 over NCCL, in
+    # this process, each dtype's slice with the counts zeroed just before
+    import tempfile
+    import torch.distributed as dist
+    with tempfile.TemporaryDirectory() as tmp:
+        dist.init_process_group("nccl", init_method=f"file://{tmp}/store",
+                                world_size=1, rank=0)
+        try:
+            for mode, key, par, ref in (
+                    ("float32", F32, parity, record32),
+                    ("mixed", BF16, parity_mixed, record)):
+                rec = {"mode": mode,
+                       "parity": dist_parity(torch, ds, params, par, mode)}
+                zero_counts()
+                rec["slice"] = train_slice(
+                    torch, ds, (("cuda", mode), ("cuda_csr", mode)),
+                    make=_dist_trainer)
+                rec["launches"] = read_counts(key)
+                check_train_launches(rec["launches"], key)
+                if mode == "float32":
+                    # where the partitioned step's extra time goes
+                    rec["profile"] = train_profile(torch, ds,
+                                                   make=_dist_trainer)
+                for k, r in rec["slice"].items():
+                    r["trainer_epoch_ms"] = ref[k]["epoch_ms"]
+                log({"phase": "dist_p1", **rec})
+        finally:
+            dist.destroy_process_group()
+
+    # 10. dist_p2: two ranks on this card over gloo; their launches count
+    # with the fp32 paths'
+    rec, rank_launches = dist_p2(torch, ds, params, parity, logits32)
+    for by in rank_launches:
+        for name in ("indegree_norm", "scale_act", "ell_aggregate",
+                     "csr_spmm"):
+            counted[F32][name] += by[name][F32]
+        counted[F32]["indegree_norm"] -= by["indegree_norm_masked"]
+        counted[F32]["indegree_norm_masked"] += by["indegree_norm_masked"]
+    log({"phase": "dist_p2", **rec})
 
     table = []
     for key, tag in ((F32, "fp32"), (BF16, "bf16")):

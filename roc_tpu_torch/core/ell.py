@@ -132,6 +132,24 @@ def stack_ell(per_part_buckets: Sequence[dict], part_nodes: int,
                     row_id=row_id)
 
 
+def ell_from_padded_parts(part_row_ptr: np.ndarray,
+                          part_col_idx: np.ndarray,
+                          real_nodes: np.ndarray,
+                          part_nodes: int, dummy: int,
+                          min_width: int = 8) -> EllTable:
+    """EllTable of a partitioned graph's local CSRs (core/partition.py),
+    column ids already in gathered-row coordinates; padding rows and
+    edges are left out by cutting each local CSR at its real row count.
+    ``row_id`` is per part, ``[P, rows_b]``: a rank takes its own row."""
+    per_part = []
+    for p in range(part_row_ptr.shape[0]):
+        n = int(real_nodes[p])
+        ptr = part_row_ptr[p, :n + 1].astype(np.int64)
+        per_part.append(build_ell(ptr, part_col_idx[p],
+                                  min_width=min_width))
+    return stack_ell(per_part, part_nodes, dummy)
+
+
 def ell_from_graph(row_ptr: np.ndarray, col_idx: np.ndarray,
                    num_nodes: int, min_width: int = 8) -> EllTable:
     """Single-device EllTable (P == 1); dummy == ``num_nodes``."""

@@ -29,12 +29,19 @@ The backward of both aggregations is the reference's symmetric trick
 the gradient is the forward rerun on the cotangent, through the same
 kernels.  ``symmetric=False`` differentiates the plain routes by
 autograd (exact for any graph) and raises on the kernel routes.
+
+On a rank of a partitioned run (parallel/distributed.py) the context
+holds the rank's own rows: ``num_rows`` output rows, tables indexing the
+``gathered_rows`` rows of the halo gather.  The rerun on the cotangent
+gathers the cotangent, which is the shard-level form of the same
+identity: rank p's rows of ``S^T g`` are ``S_p gather(g)`` when
+``S^T = S``.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass, field
-from typing import Any, Dict, List, Optional, Tuple
+from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -52,6 +59,10 @@ ELL_IMPLS = ("ell", "cuda")
 EDGE_IMPLS = ("segment", "cuda_csr")
 KERNEL_IMPLS = ("cuda", "cuda_csr")
 AGGR_IMPLS = ELL_IMPLS + EDGE_IMPLS
+
+
+def _identity(x: torch.Tensor) -> torch.Tensor:
+    return x
 
 
 class _SymmetricSum(torch.autograd.Function):
@@ -93,12 +104,13 @@ class _SymmetricFused(torch.autograd.Function):
 
 @dataclass
 class GraphContext:
-    """Single-device view of the graph for the forward and backward.
+    """The graph as one device, or one rank, sees it, for the forward
+    and backward.
 
     in_degree: int32 [num_rows] in-degrees; inv_sqrt_deg: their fp32
       ``deg^-1/2`` (ops/norm.py), computed once.
     ELL routes ('ell', 'cuda'; empty otherwise):
-    ell_idx: int32 ``[rows_b, width_b]`` per bucket, dummy == num_rows.
+    ell_idx: int32 ``[rows_b, width_b]`` per bucket, dummy == gathered_rows.
     ell_row_pos: int32 [num_rows] slot of each row in the concatenated
       bucket outputs (read by the 'ell' route).
     ell_row_id: int32 [rows_b] per bucket, the output row of each
@@ -106,7 +118,15 @@ class GraphContext:
     Edge routes ('segment', 'cuda_csr'; None otherwise):
     edge_src/edge_dst: int32 [Ep] padded edge list sorted by destination
       (core/partition.py), ``Ep`` a multiple of ``chunk``, dummy source
-      == num_rows.
+      == gathered_rows.
+    The halo (parallel/distributed.py):
+    gather_features: ``[num_rows, F]`` -> ``[gathered_rows, F]``, the
+      rows every table indexes: the identity on one device, the process
+      group's all-gather in padded part order on a rank of a partitioned
+      run (differentiable there, for ``symmetric=False``).
+    gathered_rows: the gathered row count R, the id of the dummy source
+      the kernels skip and the plain routes' appended zero row; None
+      means ``num_rows`` (one device).
     """
 
     in_degree: torch.Tensor
@@ -120,30 +140,38 @@ class GraphContext:
     edge_src: Optional[torch.Tensor] = None
     edge_dst: Optional[torch.Tensor] = None
     chunk: int = 512
+    gather_features: Callable[[torch.Tensor], torch.Tensor] = _identity
+    gathered_rows: Optional[int] = None
 
     def __post_init__(self):
         if self.aggr_impl not in AGGR_IMPLS:
             raise ValueError(f"unknown aggr_impl {self.aggr_impl!r}; "
                              f"expected one of {AGGR_IMPLS}")
+        if self.gathered_rows is None:
+            self.gathered_rows = self.num_rows
 
-    def gather_features(self, x: torch.Tensor) -> torch.Tensor:
-        """The halo exchange: the identity on one device."""
-        return x
+    def _gathered(self, x: torch.Tensor) -> torch.Tensor:
+        """The halo exchange: ``[gathered_rows, F]``."""
+        full = self.gather_features(x)
+        if full.shape[0] != self.gathered_rows:
+            raise ValueError(f"the halo gave {full.shape[0]} rows, the "
+                             f"tables index {self.gathered_rows}")
+        return full
 
     def _gathered_with_zero(self, x: torch.Tensor) -> torch.Tensor:
         """Halo exchange + the appended zero row the dummy id reads."""
-        full = self.gather_features(x)
+        full = self._gathered(x)
         return torch.cat([full, full.new_zeros((1, full.shape[1]))], dim=0)
 
     def _sum_fwd(self, x: torch.Tensor) -> torch.Tensor:
         """``A @ gather(x)``."""
         if self.aggr_impl == "cuda":
             from ..kernels.ell_spmm import ell_aggregate
-            return ell_aggregate(self.gather_features(x), self.ell_idx,
+            return ell_aggregate(self._gathered(x), self.ell_idx,
                                  self.ell_row_id, self.num_rows)
         if self.aggr_impl == "cuda_csr":
             from ..kernels.spmm import csr_spmm
-            return csr_spmm(self.gather_features(x), self.edge_src,
+            return csr_spmm(self._gathered(x), self.edge_src,
                             self.edge_dst, self.num_rows, chunk=self.chunk)
         if self.aggr_impl == "segment":
             return aggregate_segment(self._gathered_with_zero(x),

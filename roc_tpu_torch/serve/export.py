@@ -53,7 +53,8 @@ def build_predictor(model, dataset, config, params=None,
         gen = torch.Generator(device=device).manual_seed(config.seed)
         params = model.init_params(gen, dtype=config.dtype, device=device)
     gctx = make_graph_context(dataset, config.aggr_impl,
-                              symmetric=config.symmetric, device=device)
+                              symmetric=config.symmetric, device=device,
+                              chunk=config.chunk)
     return Predictor(model, config, params, backend, buckets,
                      dataset=dataset, gctx=gctx,
                      num_classes=_num_classes(model), device=device)

@@ -14,7 +14,7 @@ from __future__ import annotations
 
 import time
 from dataclasses import dataclass
-from typing import Dict, List, Optional
+from typing import Dict, List, Optional, Tuple
 
 import torch
 
@@ -170,7 +170,11 @@ class Trainer:
     device (e.g. carried from the JAX package with convert.py); without
     them Glorot weights are drawn from a generator seeded with
     ``config.seed``, which also draws every dropout mask.  ``device``
-    is the card unless the caller passes another (``'cpu'``)."""
+    is the card unless the caller passes another (``'cpu'``).
+
+    A subclass that holds one part of the graph (parallel/distributed.py
+    ``DistributedTrainer``) overrides :meth:`_place`, :meth:`_reduce` and
+    :meth:`predict`; the step, the epoch loop and the eval are shared."""
 
     def __init__(self, model: Model, dataset: Dataset,
                  config: TrainConfig = TrainConfig(),
@@ -182,6 +186,13 @@ class Trainer:
         self.config = config
         self.compute = compute_dtype_of(config)
         self.epoch = 0
+        symmetric = resolve_symmetric(dataset, config.symmetric)
+        if not symmetric and config.aggr_impl in KERNEL_IMPLS:
+            raise NotImplementedError(
+                f"aggr_impl={config.aggr_impl!r} trains by the symmetric "
+                "trick only and this graph is not symmetric; use 'ell' "
+                "or 'segment'")
+        self._place(dataset, symmetric)
         self.generator = torch.Generator(device=self.device).manual_seed(
             config.seed)
         if params is None:
@@ -193,38 +204,51 @@ class Trainer:
         self.params: Dict[str, torch.Tensor] = dict(params)
         self.opt_state = adam_init(self.params)
         self.adam_cfg = AdamConfig(weight_decay=config.weight_decay)
-        self.feats = torch.as_tensor(dataset.features,
-                                     dtype=self.compute).to(self.device)
-        self.labels = torch.from_numpy(dataset.labels).to(self.device)
-        self.mask = torch.from_numpy(dataset.mask).to(self.device)
         self.num_edges = int(dataset.graph.num_edges)
-        self.gctx = make_graph_context(dataset, config.aggr_impl,
-                                       symmetric=config.symmetric,
-                                       device=self.device,
-                                       chunk=config.chunk)
-        if not self.gctx.symmetric and config.aggr_impl in KERNEL_IMPLS:
-            raise NotImplementedError(
-                f"aggr_impl={config.aggr_impl!r} trains by the symmetric "
-                "trick only and this graph is not symmetric; use 'ell' "
-                "or 'segment'")
         # the objective of every step, as 0-d device tensors (no sync)
         self.losses: List[torch.Tensor] = []
         self._stepped = False
 
-    def step(self, lr: float) -> torch.Tensor:
-        """One training step at learning rate ``lr``: forward, backward,
-        Adam update.  Returns the objective (summed masked CE) before the
-        update, on the device."""
+    def _place(self, dataset: Dataset, symmetric: bool) -> None:
+        """Put the rows this trainer computes on the device: ``feats``
+        (in the compute dtype), ``labels``, ``mask`` and the graph
+        context ``gctx``; here the whole graph."""
+        self.feats = torch.as_tensor(dataset.features,
+                                     dtype=self.compute).to(self.device)
+        self.labels = torch.from_numpy(dataset.labels).to(self.device)
+        self.mask = torch.from_numpy(dataset.mask).to(self.device)
+        self.gctx = make_graph_context(dataset, self.config.aggr_impl,
+                                       symmetric=symmetric,
+                                       device=self.device,
+                                       chunk=self.config.chunk)
+
+    def _reduce(self, tensors: List[torch.Tensor]) -> List[torch.Tensor]:
+        """The sums over every trainer of a run: ``tensors`` themselves
+        on one device."""
+        return tensors
+
+    def loss_and_grads(self) -> Tuple[torch.Tensor,
+                                      Dict[str, torch.Tensor]]:
+        """The objective (summed masked CE) and its gradients at the
+        current weights, summed by :meth:`_reduce`: one forward and
+        backward through the model (dropout draws from
+        ``generator``)."""
         names = list(self.params)
         loss, _ = self.model.loss_fn(cast_floats(self.params, self.compute),
                                      self.feats, self.labels, self.mask,
                                      self.gctx, generator=self.generator,
                                      train=True)
         grads = torch.autograd.grad(loss, [self.params[k] for k in names])
+        *grads, loss = self._reduce([*grads, loss.detach()])
+        return loss, dict(zip(names, grads))
+
+    def step(self, lr: float) -> torch.Tensor:
+        """One training step at learning rate ``lr``: forward, backward,
+        Adam update.  Returns the objective (summed masked CE) before the
+        update, on the device."""
+        loss, grads = self.loss_and_grads()
         self.params, self.opt_state = adam_update(
-            self.params, dict(zip(names, grads)), self.opt_state, lr,
-            self.adam_cfg)
-        loss = loss.detach()
+            self.params, grads, self.opt_state, lr, self.adam_cfg)
         self.losses.append(loss)
         return loss
 
@@ -240,11 +264,15 @@ class Trainer:
             torch.cuda.synchronize(self.device)
 
     @torch.no_grad()
+    def _logits(self) -> torch.Tensor:
+        """Inference-mode logits of this trainer's rows."""
+        return self.model.apply(cast_floats(self.params, self.compute),
+                                self.feats, self.gctx, train=False)
+
     def predict(self, node_ids=None) -> torch.Tensor:
         """Inference-mode logits ``[V, C]`` on the device, or the rows
         ``node_ids`` of them."""
-        logits = self.model.apply(cast_floats(self.params, self.compute),
-                                  self.feats, self.gctx, train=False)
+        logits = self._logits()
         if node_ids is None:
             return logits
         ids = torch.as_tensor(node_ids, dtype=torch.long).reshape(-1)
@@ -254,10 +282,14 @@ class Trainer:
         return logits.index_select(0, ids.to(logits.device))
 
     def evaluate(self) -> Dict[str, float]:
-        """The reference's inference pass: the metrics of
-        :func:`summarize_metrics`, fetched in one device sync."""
-        return summarize_metrics(perf_metrics(self.predict(), self.labels,
-                                              self.mask))
+        """The reference's inference pass: the metric sums, summed by
+        :meth:`_reduce`, as :func:`summarize_metrics` gives them, fetched
+        in one device sync."""
+        m = perf_metrics(self._logits(), self.labels, self.mask)
+        keys = list(m)
+        return summarize_metrics(dict(zip(keys,
+                                          self._reduce([m[k]
+                                                        for k in keys]))))
 
 
 def run_epoch_loop(tr: Trainer, epochs: Optional[int], do_step,

@@ -593,3 +593,96 @@ def test_served_logits_mixed_cuda_route(dev):
         futs = [srv.submit(ids[i:i + 7]) for i in range(0, 70, 7)]
         for i, f in zip(range(0, 70, 7), futs):
             assert np.array_equal(f.result(timeout=60), got[i:i + 7])
+
+
+# ------------------------------------------------ the padded-part layout
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("F", [256, 41])
+def test_neighbour_sums_on_gathered_parts(dev, F, dtype):
+    """K4 and K3 as a rank of a partitioned run calls them: R = P *
+    part_nodes gathered source rows, part_nodes output rows, the dummy id
+    R skipped, part-local tables (parallel/distributed.py shard_dataset).
+    P = 8 on a graph whose hub takes most edges, so the sweep leaves
+    empty tail parts: a part with no real row gets only padding edges and
+    must come out 0.  Against the plain versions, in both dtypes (fp32
+    rtol 1e-5, atol 1e-5 * max|row|; bf16 one bf16 ulp of the row's
+    magnitude), each launched twice for the same bits."""
+    from roc_tpu_torch.core.graph import Dataset
+    from roc_tpu_torch.core.partition import partition_plan
+    from roc_tpu_torch.kernels.spmm import csr_spmm, csr_spmm_plain
+    from roc_tpu_torch.parallel.distributed import shard_dataset
+    V, P = 2001, 8
+    rng = np.random.RandomState(13)
+    # self edges, every vertex into the hub 0, one random edge each
+    src = np.concatenate([np.arange(V), np.arange(V), rng.randint(0, V, V)])
+    dst = np.concatenate([np.arange(V), np.zeros(V, np.int64),
+                          rng.randint(0, V, V)])
+    g = from_edge_list(src, dst, V)
+    plan = partition_plan(g.row_ptr, P, edge_multiple=512)
+    assert plan.real_nodes[0] == 1 and plan.real_nodes[-1] == 0
+    ds = Dataset(g, np.zeros((V, 1), np.float32), np.zeros(V, np.int32),
+                 np.zeros(V, np.int32), 2)
+    R, pn = P * plan.part_nodes, plan.part_nodes
+    x = torch.from_numpy(np.random.RandomState(F).randn(R, F).astype(
+        np.float32)).to(dev, dtype)
+    for p in range(P):
+        ell = shard_dataset(ds, plan, p, dev, aggr_impl="cuda")
+        edges = shard_dataset(ds, plan, p, dev, aggr_impl="cuda_csr")
+        for kern, plain in (
+                (lambda: ell_aggregate(x, ell.ell_idx, ell.ell_row_id, pn),
+                 ell_aggregate_plain(x, ell.ell_idx, ell.ell_row_id, pn)),
+                (lambda: csr_spmm(x, edges.edge_src, edges.edge_dst, pn),
+                 csr_spmm_plain(x, edges.edge_src, edges.edge_dst, pn))):
+            got = kern()
+            assert got.shape == (pn, F)
+            if dtype == torch.bfloat16:
+                _check_bf16_sum(got, kern(), plain)
+            else:
+                torch.testing.assert_close(
+                    got, plain, rtol=1e-5,
+                    atol=1e-5 * float(plain.abs().max()))
+                assert torch.equal(got, kern())
+            if plan.real_nodes[p] == 0:
+                assert not got.any()
+
+
+def test_world_of_one_nccl_trainer_matches_trainer(dev, tmp_path):
+    """DistributedTrainer over NCCL at world size 1 (the all-gathers and
+    the all-reduce still run) against Trainer on the small fixture of the
+    CPU tests, on 'cuda' and 'cuda_csr': dropout 0.5 and no weights
+    given, so both draw the same weights and masks (chunk 2 divides
+    E = 614: no padding row, the part is the graph), 8 epochs; the
+    objectives within rtol 1e-5 (the all-reduce may sum in another
+    order than none) and the weights within the CPU tests' 2e-4 / 2e-5."""
+    import torch.distributed as dist
+    from roc_tpu_torch.models.gcn import build_gcn
+    from roc_tpu_torch.parallel.distributed import DistributedTrainer
+    from roc_tpu_torch.train.trainer import TrainConfig, Trainer
+    ds = synthetic_dataset(96, 7, in_dim=12, num_classes=3, seed=11)
+    dist.init_process_group("nccl", init_method=f"file://{tmp_path}/store",
+                            world_size=1, rank=0)
+    try:
+        for impl in ("cuda", "cuda_csr"):
+            cfg = TrainConfig(aggr_impl=impl, dropout_rate=0.5, epochs=8,
+                              eval_every=4, verbose=False, chunk=2,
+                              weight_decay=1e-3, symmetric=True)
+            a = Trainer(build_gcn([12, 16, 3], dropout_rate=0.5), ds, cfg)
+            b = DistributedTrainer(build_gcn([12, 16, 3], dropout_rate=0.5),
+                                   ds, 1, cfg)
+            assert b.comm.backend == "nccl"
+            ha, hb = a.train(), b.train()
+            torch.testing.assert_close(torch.stack(b.losses),
+                                       torch.stack(a.losses), rtol=1e-5,
+                                       atol=0)
+            assert [m["train_cnt"] for m in ha] == \
+                [m["train_cnt"] for m in hb]
+            for k in a.params:
+                torch.testing.assert_close(b.params[k], a.params[k],
+                                           rtol=2e-4, atol=2e-5)
+            torch.testing.assert_close(b.predict(), a.predict(), rtol=0,
+                                       atol=1e-4 * float(
+                                           a.predict().abs().max()))
+    finally:
+        dist.destroy_process_group()
