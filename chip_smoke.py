@@ -65,7 +65,25 @@ Phases (any failure exits nonzero):
    1e-4 * max|logit| of Trainer's; the bounds, part shapes, step wall ms
    and the share of it the step's collectives take when timed alone (two
    contexts time-slicing one card and gloo's host staging set that time:
-   a layout check, not a speed number).
+   a layout check, not a speed number);
+11. recovery, the checkpoint path (utils/checkpoint.py, resilience/):
+   10 epochs with dropout 0.5 through Trainer.train, then from the same
+   seed through train_with_recovery with an async keep-3 rotation
+   saving every 2 epochs, on 'cuda' in fp32 and on 'cuda_csr' in
+   'mixed': params, Adam state and every objective equal bit for bit;
+   the kill drill in two fresh processes mapping the dataset from .npy
+   (one killed by kill_in_async_save at epoch 4, leaving ck.4 a shard
+   without a manifest; the identical job resumes from ck.2 with no
+   corrupt_fallback and ends on the uninterrupted fp32 run's bits); the
+   nan_grads drill on 'cuda_csr' (one retry, a finite loss); the final
+   checkpoint's params (restore_params_only) served through Server,
+   each row equal to Trainer.predict's bit for bit; per save block,
+   write and commit ms and bytes, async and sync, the finite guard's
+   ms, the checkpointed run's wall per steady epoch beside the plain
+   run's (run first and again last) and beside rounds ending in the
+   guard alone and in guard + snapshot, and the children's set-up;
+   every kernel launched, with the counts zeroed before the fp32 path
+   and again before the mixed one.
 
 Prints one JSON line per phase, the kernel table line
 ``{"kernels": [...]}`` (one row per kernel and dtype, e.g.
@@ -1066,6 +1084,379 @@ def dist_p2(torch, ds, params, parity, trainer_logits, steps=3):
     return out, [r["launches"] for r in ranks]
 
 
+# ------------------------------------------------------------ 11. recovery
+
+# the recovery runs: 10 epochs, dropout 0.5, an eval every 5, a
+# checkpoint every 2 under a keep-3 rotation
+RECOVERY_EPOCHS, CKPT_EVERY = 10, 2
+
+
+def _state_diff(torch, a, b):
+    """The names of the state leaves (params, Adam m and v, the step
+    scalars, every step's objective) where trainers ``a`` and ``b``
+    differ in a single bit."""
+    bad = [f"{tree}[{k}]" for tree, x, y in (
+        ("params", a.params, b.params), ("m", a.opt_state.m, b.opt_state.m),
+        ("v", a.opt_state.v, b.opt_state.v))
+        for k in x if not torch.equal(x[k], y[k])]
+    for k in ("step", "beta1_t", "beta2_t"):
+        if getattr(a.opt_state, k) != getattr(b.opt_state, k):
+            bad.append(k)
+    if not torch.equal(torch.stack(a.losses), torch.stack(b.losses)):
+        bad.append("losses")
+    return bad
+
+
+def _steady_ms(wall_ms, tr):
+    """Wall ms per epoch after the first step."""
+    return (wall_ms - tr.first_step_ms) / (RECOVERY_EPOCHS - 1)
+
+
+def _rounds(tr, at_boundary):
+    """RECOVERY_EPOCHS epochs in rounds of CKPT_EVERY, ``at_boundary(tr)``
+    after each round (train_with_recovery's structure, without it)."""
+    hist = []
+    while tr.epoch < RECOVERY_EPOCHS:
+        hist += tr.train(CKPT_EVERY)
+        at_boundary(tr)
+    return hist
+
+
+def recovery_pair(torch, ds, impl, mode, root):
+    """``RECOVERY_EPOCHS`` epochs through Trainer.train, then from the
+    same seed through train_with_recovery with an async rotation: the
+    final params, Adam state and every objective must be equal bit for
+    bit (saving must not perturb training).  To split what a save costs
+    the step path, the same rounds run twice more without a rotation:
+    ending in the finite guard alone (the drain of the launched steps)
+    and in the guard and the host snapshot (the step path's whole share
+    of an async save, the saver thread's writes left out), each held to
+    the same bits.  The variants run in turns, the plain one first and
+    again last; each overhead is against the mean of the two plain
+    readings.  Returns the record, the first plain trainer and the
+    rotation."""
+    from roc_tpu_torch.resilience.recovery import (CheckpointRotation,
+                                                   check_params_finite,
+                                                   train_with_recovery)
+    from roc_tpu_torch.utils.checkpoint import snapshot_trainer
+
+    def guard(tr):
+        check_params_finite(tr.params, tr.opt_state)
+
+    def snapshot(tr):
+        guard(tr)
+        snapshot_trainer(tr).wait()
+
+    rot = CheckpointRotation(f"{root}/{impl}_{mode}/ck", keep=3,
+                             async_save=True)
+    variants = {
+        "plain": lambda tr: tr.train(),
+        "guard_only": lambda tr: _rounds(tr, guard),
+        "snapshot_only": lambda tr: _rounds(tr, snapshot),
+        "recovered": lambda tr: train_with_recovery(
+            tr, RECOVERY_EPOCHS, rot, checkpoint_every=CKPT_EVERY),
+        "plain_again": lambda tr: tr.train()}
+    out = {"route": impl, "mode": mode}
+    plain, bad = None, {}
+    for name, run in variants.items():
+        tr = _trainer(ds, impl, 0.5, mode=mode, epochs=RECOVERY_EPOCHS,
+                      eval_every=5, verbose=False)
+        tr.sync()
+        t0 = time.perf_counter()
+        hist = run(tr)
+        tr.sync()
+        wall = (time.perf_counter() - t0) * 1e3
+        out[name] = {"wall_ms": wall, "steady_epoch_ms": _steady_ms(wall, tr),
+                     "epoch_ms": [m["epoch_ms"] for m in hist],
+                     "first_step_ms": tr.first_step_ms,
+                     "train_loss": [m["train_loss"] for m in hist]}
+        if plain is None:
+            plain = tr
+        else:
+            bad[name] = _state_diff(torch, plain, tr)
+            del tr
+            torch.cuda.empty_cache()
+    base = (out["plain"]["steady_epoch_ms"]
+            + out["plain_again"]["steady_epoch_ms"]) / 2
+    for name in ("guard_only", "snapshot_only", "recovered"):
+        out[name]["overhead_share"] = out[name]["steady_epoch_ms"] / base - 1
+    st = rot.save_stats()
+    out["saves"] = [{k: s[k] for k in ("epoch", "block_ms", "write_ms",
+                                        "commit_ms", "queued_ms", "bytes")}
+                    for s in st["saves"]]
+    out["superseded"] = st["superseded"]
+    out["checkpoints"] = rot.existing()
+    out["overhead_share"] = out["recovered"]["overhead_share"]
+    out["bit_equal"] = not any(bad.values())
+    # every save either committed or was superseded by a newer one while
+    # the saver was busy (queue depth 1); the last one committed, and the
+    # keep window holds
+    ck = rot.existing()
+    n_saves = RECOVERY_EPOCHS // CKPT_EVERY
+    if any(bad.values()) or not ck or ck[-1] != RECOVERY_EPOCHS or \
+            len(ck) > 3 or st["saved"] + st["superseded"] != n_saves:
+        raise AssertionError(f"{impl} {mode}: a checkpointed run differs from "
+                             f"the uninterrupted one at {bad}, or its "
+                             f"checkpoints are {ck} after {st['saved']} saves "
+                             f"and {st['superseded']} superseded")
+    return out, plain, rot
+
+
+def save_timings(torch, tr, root, n=3):
+    """``n`` sync saves and ``n`` async saves of a trained trainer (each
+    async one flushed), and the finite guard timed alone: after a sync,
+    and right after a step was launched (then it waits for the step)."""
+    from roc_tpu_torch.resilience.recovery import (CheckpointRotation,
+                                                   check_params_finite)
+    keys = ("block_ms", "write_ms", "commit_ms", "save_ms", "bytes")
+    out = {}
+    for mode in ("sync", "async"):
+        rot = CheckpointRotation(f"{root}/timing_{mode}/ck", keep=n + 1,
+                                 async_save=mode == "async")
+        calls = []
+        for _ in range(n):
+            tr.epoch += 1
+            t0 = time.perf_counter()
+            rot.save(tr)
+            calls.append((time.perf_counter() - t0) * 1e3)
+            rot.flush()
+        rot.drain()
+        out[mode] = {"call_ms": calls,
+                     "saves": [{k: s[k] for k in keys}
+                               for s in rot.save_stats()["saves"]]}
+    guard = {"idle_ms": [], "after_step_ms": []}
+    for _ in range(n):
+        tr.sync()
+        t0 = time.perf_counter()
+        check_params_finite(tr.params, tr.opt_state)
+        guard["idle_ms"].append((time.perf_counter() - t0) * 1e3)
+        tr.train(1)
+        t0 = time.perf_counter()
+        check_params_finite(tr.params, tr.opt_state)
+        guard["after_step_ms"].append((time.perf_counter() - t0) * 1e3)
+    out["finite_guard"] = guard
+    return out
+
+
+def recovery_child(data_dir, num_classes, prefix, fault, out_path):
+    """One recovery run in a fresh process on card 0 (phase 11's kill
+    drill): map the dataset, build the 'cuda' fp32 trainer (dropout 0.5,
+    ``fault`` armed), resume from the rotation at ``prefix`` and train
+    to RECOVERY_EPOCHS; prints ``{"setup_s": ...}`` once set up, and
+    saves the final state, the objectives, the epoch resumed from and
+    the launch counts to ``out_path``."""
+    import torch
+    from roc_tpu_torch.kernels import _build, ell_spmm, graphnorm, spmm
+    from roc_tpu_torch.obs import events
+    from roc_tpu_torch.ops.dense import set_fp32_matmul_precision
+    from roc_tpu_torch.resilience.recovery import (CheckpointRotation,
+                                                   train_with_recovery)
+    torch.cuda.set_device(0)
+    set_fp32_matmul_precision()
+    events.configure(jsonl_path=f"{out_path}.events.jsonl")
+    t0 = time.perf_counter()
+    ds = _map_dataset(data_dir, num_classes)
+    tr = _trainer(ds, "cuda", 0.5, epochs=RECOVERY_EPOCHS, eval_every=5,
+                  verbose=False, fault=fault or None)
+    tr.sync()
+    print(json.dumps({"setup_s": time.perf_counter() - t0}), flush=True)
+    kernels = (graphnorm.indegree_norm, graphnorm.scale_act, spmm.csr_spmm,
+               ell_spmm.ell_aggregate)
+    _build.zero_launches(*kernels)
+    graphnorm.indegree_norm.masked_launches = 0
+    rot = CheckpointRotation(prefix, keep=3, async_save=True)
+    resumed = rot.restore_latest(tr, only_if_ahead=True)
+    train_with_recovery(tr, RECOVERY_EPOCHS, rot, checkpoint_every=CKPT_EVERY)
+    tr.sync()
+    launches = {k.__name__: dict(k.launches_by_dtype) for k in kernels}
+    launches["indegree_norm_masked"] = graphnorm.indegree_norm.masked_launches
+    np.savez(out_path, losses=torch.stack(tr.losses).double().cpu().numpy(),
+             **{f"{t}.{k}": v.detach().cpu().numpy() for t, tree in (
+                 ("params", tr.params), ("m", tr.opt_state.m),
+                 ("v", tr.opt_state.v)) for k, v in tree.items()},
+             scalars=np.asarray([tr.opt_state.step, tr.opt_state.beta1_t,
+                                 tr.opt_state.beta2_t], np.float64),
+             meta=np.frombuffer(json.dumps(
+                 {"resumed_from": resumed, "launches": launches,
+                  "epoch": tr.epoch}).encode(), np.uint8))
+
+
+def _run_child(root, prefix, fault, tag):
+    """:func:`recovery_child` in a fresh Python process; returns its exit
+    code, its setup_s and its output file."""
+    import os
+    out = f"{root}/{tag}.npz"
+    here = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ, PYTHONPATH=here + os.pathsep
+               + os.environ.get("PYTHONPATH", ""))
+    env.pop("ROC_TPU_FAULT", None)
+    code = (f"import chip_smoke as s; s.recovery_child({root + '/data'!r}, "
+            f"{LAYERS[-1]}, {prefix!r}, {fault!r}, {out!r})")
+    r = subprocess.run([sys.executable, "-c", code], cwd=here, env=env,
+                       capture_output=True, text=True, timeout=600)
+    setup = [json.loads(ln)["setup_s"] for ln in r.stdout.splitlines()
+             if ln.startswith('{"setup_s"')]
+    return r, (setup[0] if setup else None), out
+
+
+def kill_drill(torch, ds, root, want):
+    """Child 1 runs the fp32 'cuda' recovery run with kill_in_async_save
+    at epoch 4 and must die by SIGKILL, leaving ck.4 with a shard and no
+    manifest and ck.2 committed; child 2 runs the identical job, resumes
+    from ck.2 with no corrupt_fallback event, and must end on ``want``
+    (the uninterrupted run's trainer) bit for bit.  Returns the record
+    and child 2's launch counts."""
+    import os
+    import signal
+    from roc_tpu_torch.utils.checkpoint import is_committed
+    t0 = time.perf_counter()
+    os.makedirs(f"{root}/data")
+    _save_dataset(ds, f"{root}/data")
+    out = {"save_s": time.perf_counter() - t0}
+    prefix = f"{root}/drill/ck"
+    os.makedirs(f"{root}/drill")
+    r1, out["child1_setup_s"], _ = _run_child(root, prefix,
+                                              "kill_in_async_save:4", "child1")
+    out["child1_rc"] = r1.returncode
+    ck4 = sorted(os.listdir(f"{prefix}.4")) if os.path.isdir(
+        f"{prefix}.4") else None
+    out["ck4_after_kill"] = ck4
+    if r1.returncode != -signal.SIGKILL or ck4 != ["shard_00000.npz"] or \
+            not is_committed(f"{prefix}.2"):
+        raise AssertionError(f"kill drill: child 1 rc {r1.returncode}, ck.4 "
+                             f"holds {ck4}, ck.2 committed "
+                             f"{is_committed(prefix + '.2')}: "
+                             f"{r1.stderr[-3000:]}")
+    r2, out["child2_setup_s"], path = _run_child(root, prefix, "", "child2")
+    out["child2_rc"] = r2.returncode
+    if r2.returncode != 0:
+        raise AssertionError(f"kill drill: child 2 failed: "
+                             f"{r2.stderr[-3000:]}")
+    got = np.load(path)
+    meta = json.loads(bytes(got["meta"]))
+    evs = [json.loads(ln) for ln in open(f"{path}.events.jsonl")]
+    out.update(resumed_from=meta["resumed_from"], epoch=meta["epoch"],
+               corrupt_fallbacks=sum(e.get("kind") == "corrupt_fallback"
+                                     for e in evs))
+    bad = [f"{t}.{k}" for t, tree in (("params", want.params),
+                                      ("m", want.opt_state.m),
+                                      ("v", want.opt_state.v))
+           for k, v in tree.items()
+           if not np.array_equal(got[f"{t}.{k}"], v.detach().cpu().numpy())]
+    want_losses = torch.stack(want.losses).double().cpu().numpy()
+    if not np.array_equal(got["losses"], want_losses[2:]):
+        bad.append("losses")
+    st = want.opt_state
+    if not np.array_equal(got["scalars"], np.asarray(
+            [st.step, st.beta1_t, st.beta2_t], np.float64)):
+        bad.append("step scalars")
+    out["bit_equal"] = not bad
+    if bad or meta["resumed_from"] != 2 or out["corrupt_fallbacks"] or \
+            meta["epoch"] != RECOVERY_EPOCHS:
+        raise AssertionError(f"kill drill: child 2 resumed from "
+                             f"{meta['resumed_from']}, "
+                             f"{out['corrupt_fallbacks']} fallbacks, differs "
+                             f"from the uninterrupted run at {bad}")
+    return out, meta["launches"]
+
+
+def nan_drill(torch, ds, root):
+    """nan_grads:3 on 'cuda_csr' fp32 under a sync rotation: the save
+    after epoch 3 refuses the poisoned state, the run restores epoch 2,
+    retries once and ends with a finite loss."""
+    from roc_tpu_torch.obs.events import get_bus
+    from roc_tpu_torch.resilience import inject
+    from roc_tpu_torch.resilience.recovery import (CheckpointRotation,
+                                                   train_with_recovery)
+    tr = _trainer(ds, "cuda_csr", 0.5, epochs=6, eval_every=5, verbose=False,
+                  fault="nan_grads:3")
+    rot = CheckpointRotation(f"{root}/nan/ck", keep=3)
+    bus = get_bus()
+    n = len(bus.ring)
+    try:
+        hist = train_with_recovery(tr, 6, rot, checkpoint_every=CKPT_EVERY)
+    finally:
+        inject.disarm()
+    recs = list(bus.ring)[n:]
+    retries = [r["epoch"] for r in recs if r.get("kind") == "recovery"]
+    faults = [r["site"] for r in recs if r.get("kind") == "fault"]
+    final = float(tr.evaluate()["train_loss"])
+    out = {"route": "cuda_csr", "retries_at_epoch": retries,
+           "faults": faults, "final_train_loss": final,
+           "evals": [[m["epoch"], m["train_loss"]] for m in hist],
+           "checkpoints": rot.existing()}
+    if retries != [4] or faults != ["nan_grads"] or not np.isfinite(final) \
+            or tr.epoch != 6:
+        raise AssertionError(f"nan_grads drill: {out}")
+    del tr
+    torch.cuda.empty_cache()
+    return out
+
+
+def serve_from_checkpoint(torch, ds, path, trainer):
+    """The checkpoint's params (``restore_params_only``) served through
+    build_predictor and Server on the trainer's route and dtype: ~8 ids
+    in two requests, each row equal bit for bit to ``trainer.predict``'s
+    row."""
+    from roc_tpu_torch.models.gcn import build_gcn
+    from roc_tpu_torch.serve.export import build_predictor
+    from roc_tpu_torch.serve.server import Server
+    from roc_tpu_torch.train.trainer import TrainConfig
+    from roc_tpu_torch.utils.checkpoint import restore_params_only
+    params, fp, epoch = restore_params_only(path)
+    pred = build_predictor(build_gcn(LAYERS), ds,
+                           TrainConfig(aggr_impl=trainer.config.aggr_impl,
+                                       symmetric=True, seed=SEED, **TRAIN),
+                           params=params, backend="full")
+    rng = np.random.RandomState(SEED + 11)
+    reqs = [rng.randint(0, V, size=6), rng.randint(0, V, size=2)]
+    with Server(pred, max_wait_ms=2.0, name="chip_smoke_ckpt") as srv:
+        futs = [srv.submit(ids) for ids in reqs]
+        rows = [f.result(timeout=300) for f in futs]
+    equal = [bool(np.array_equal(r, trainer.predict(ids).float().cpu()
+                                 .numpy())) for ids, r in zip(reqs, rows)]
+    out = {"epoch": epoch, "ids": sum(int(ids.size) for ids in reqs),
+           "rows_bit_equal": equal, "fingerprint": fp.get("strict")}
+    del pred
+    torch.cuda.empty_cache()
+    if not all(equal) or epoch != RECOVERY_EPOCHS:
+        raise AssertionError(f"served rows from the checkpoint differ from "
+                             f"Trainer.predict's: {out}")
+    return out
+
+
+def recovery(torch, ds, zero_counts, read_counts):
+    """Phase 11: the fp32 path (the 'cuda' pair, its save timings, the
+    kill drill's children, the nan_grads drill on 'cuda_csr', serving
+    from the checkpoint) with the counts zeroed before and read after,
+    then the 'mixed' pair on 'cuda_csr' the same way.  Returns the
+    record, the two reads and child 2's launches."""
+    import os
+    import tempfile
+    rec = {}
+    with tempfile.TemporaryDirectory() as root:
+        # the fault sites' flight records go with the checkpoints
+        os.environ["ROC_TPU_FLIGHT_DIR"] = root
+        zero_counts()
+        rec["cuda_fp32"], plain, rot = recovery_pair(torch, ds, "cuda",
+                                                     "float32", root)
+        rec["kill_drill"], child = kill_drill(torch, ds, root, plain)
+        rec["nan_drill"] = nan_drill(torch, ds, root)
+        rec["serve"] = serve_from_checkpoint(torch, ds, rot.path(10), plain)
+        f32 = read_counts(F32)
+        rec["save_timings"] = save_timings(torch, plain, root)
+        del plain
+        torch.cuda.empty_cache()
+        zero_counts()
+        rec["cuda_csr_mixed"], plain, _ = recovery_pair(torch, ds, "cuda_csr",
+                                                        "mixed", root)
+        bf16 = read_counts(BF16)
+        del plain
+        torch.cuda.empty_cache()
+        os.environ.pop("ROC_TPU_FLIGHT_DIR")
+    return rec, f32, bf16, child
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1273,6 +1664,37 @@ def main() -> int:
         counted[F32]["indegree_norm"] -= by["indegree_norm_masked"]
         counted[F32]["indegree_norm_masked"] += by["indegree_norm_masked"]
     log({"phase": "dist_p2", **rec})
+
+    # 11. recovery: checkpointed, killed and resumed runs; the fp32 path's
+    # and the mixed path's launches each read just after the path, the
+    # resumed child's count with the fp32 paths'
+    rec, f32, bf16, child = recovery(torch, ds, zero_counts, read_counts)
+    for name in ("indegree_norm", "scale_act", "ell_aggregate", "csr_spmm"):
+        counted[F32][name] += child[name][F32]
+    counted[F32]["indegree_norm"] -= child["indegree_norm_masked"]
+    counted[F32]["indegree_norm_masked"] += child["indegree_norm_masked"]
+    for key, got in ((F32, f32), (BF16, bf16)):
+        if not (all(got[k][key] for k in ("indegree_norm", "scale_act",
+                                           "csr_spmm")) and
+                got["indegree_norm_masked"]) or (
+                key == F32 and not got["ell_aggregate"][F32]):
+            raise AssertionError(f"recovery: a {key} kernel of the path never "
+                                 f"ran: {got}")
+    rec["launches"] = {"float32": f32, "mixed": bf16, "child2": child}
+    for tag in ("cuda_fp32", "cuda_csr_mixed"):
+        r = rec[tag]
+        log({"phase": "recovery_epoch_ms", "run": tag,
+             **{f"{v}_steady_epoch_ms": r[v]["steady_epoch_ms"]
+                for v in ("plain", "guard_only", "snapshot_only",
+                          "recovered", "plain_again")},
+             "overhead_share": r["overhead_share"],
+             "plain_epoch_ms": r["plain"]["epoch_ms"],
+             "recovered_epoch_ms": r["recovered"]["epoch_ms"],
+             "async_saves": r["saves"]})
+    log({"phase": "recovery_saves", **rec["save_timings"],
+         "children_setup_s": [rec["kill_drill"]["child1_setup_s"],
+                              rec["kill_drill"]["child2_setup_s"]]})
+    log({"phase": "recovery", **rec})
 
     table = []
     for key, tag in ((F32, "fp32"), (BF16, "bf16")):

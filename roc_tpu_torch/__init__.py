@@ -5,3 +5,6 @@ Module names follow the JAX package's (``core/graph.py``,
 CUDA kernels (``kernels/``) are built from source at first use, never on
 import.  This package imports neither JAX nor ``roc_tpu``.
 """
+
+from .utils.checkpoint import (checkpoint_trainer, load_checkpoint,  # noqa: F401
+                               restore_trainer)

@@ -337,6 +337,13 @@ class DistributedTrainer(Trainer):
     - ``evaluate`` all-reduces the ``perf_metrics`` sums in one
       collective; the ``[INFER]`` line prints on rank 0 only.
     - ``predict`` all-gathers the logits into original vertex order.
+    - Checkpoints (utils/checkpoint.py): every rank calls the save and
+      rank 0 writes (the weights and Adam state are replicated); the
+      generators' states are all-gathered so each rank's row is saved;
+      the fingerprint's elastic half records ``num_parts`` and the
+      plan's part shapes, so a checkpoint written at P parts restores at
+      any P.  The recovery rotation's ``restore_latest`` picks the epoch
+      on rank 0 and broadcasts it (:meth:`agree`).
 
     ``device`` is the card unless the caller passes another (``'cpu'``);
     on the card it is this rank's card (``cuda:<local rank>``, chosen by
@@ -391,6 +398,20 @@ class DistributedTrainer(Trainer):
         """Every rank's ``tensors`` summed, in one all-reduce of one fp32
         buffer."""
         return _unflat(self.comm.all_reduce(_flat(tensors)), tensors)
+
+    def rng_states(self) -> np.ndarray:
+        """Every rank's dropout generator state, ``[P, n]`` uint8, in rank
+        order (one all-gather; every rank calls it)."""
+        mine = self.generator.get_state().to(self.device)
+        return self.comm.all_gather(mine[None]).cpu().numpy()
+
+    def agree(self, value: Optional[int]) -> Optional[int]:
+        """Rank 0's ``value`` (an epoch, or None) on every rank: one
+        broadcast."""
+        t = torch.tensor([-1 if value is None else int(value)],
+                         dtype=torch.int64, device=self.device)
+        v = int(self.comm.broadcast(t).item())
+        return None if v < 0 else v
 
     @torch.no_grad()
     def predict(self, node_ids=None) -> torch.Tensor:
@@ -466,7 +487,8 @@ def run_ranks(job: Callable, world_size: int, backend: str = "gloo",
 def train_job(runs: Sequence[dict], device=None) -> List[dict]:
     """One rank's part of partitioned training runs, for
     :func:`run_ranks`: for each run ``dict(model=, dataset=, config=,
-    params=None, epochs=None, node_ids=None, grads=False)`` a
+    params=None, epochs=None, node_ids=None, grads=False,
+    checkpoint=None)`` a
     :class:`DistributedTrainer` over the default group (world size ==
     parts) on ``device``, the card unless the caller passes another
     (``'cpu'``).  Returns,
@@ -475,7 +497,8 @@ def train_job(runs: Sequence[dict], device=None) -> List[dict]:
     (:meth:`~DistributedTrainer.predict`), ``rows`` (``predict(node_ids)``,
     given ``node_ids``), the plan's ``bounds`` and, given ``grads``,
     ``grads``: the all-reduced gradients before the first step (dropout
-    0 draws nothing)."""
+    0 draws nothing).  Given ``checkpoint``, the state after training is
+    saved there (utils/checkpoint.py ``checkpoint_trainer``)."""
     out = []
     for run in runs:
         tr = DistributedTrainer(run["model"], run["dataset"],
@@ -487,6 +510,9 @@ def train_job(runs: Sequence[dict], device=None) -> List[dict]:
             rec["grads"] = {k: v.float().cpu().numpy()
                             for k, v in grads.items()}
         rec["history"] = tr.train(run.get("epochs"))
+        if run.get("checkpoint"):
+            from ..utils.checkpoint import checkpoint_trainer
+            checkpoint_trainer(tr, run["checkpoint"])
         rec["losses"] = torch.stack(tr.losses).double().cpu().numpy()
         rec["params"] = {k: v.detach().float().cpu().numpy()
                          for k, v in tr.params.items()}

@@ -6,16 +6,21 @@ printing train loss and train/val/test accuracy in the reference's
 format (``softmax_kernel.cu:141-152``).
 
 The subset ported is one device, features resident on the device, no
-rematerialisation, no mesh, no streamed head; fault injection, the
-heartbeat, the metrics registry and the timeline are not ported.
+rematerialisation, no mesh, no streamed head; the metrics registry and
+the timeline are not ported.  The epoch loop carries the resilience
+hooks (resilience/inject.py drill sites, the preemption check), and the
+trainer the state a checkpoint needs besides weights and Adam state
+(utils/checkpoint.py): the dataset's identity and the dropout
+generator's state.
 """
 
 from __future__ import annotations
 
 import time
 from dataclasses import dataclass
-from typing import Dict, List, Optional, Tuple
+from typing import Any, Dict, List, Optional, Tuple
 
+import numpy as np
 import torch
 
 from ..core.ell import ell_from_graph
@@ -23,6 +28,7 @@ from ..core.graph import Dataset, check_symmetric
 from ..core.partition import padded_edge_list
 from ..models.builder import (AGGR_IMPLS, EDGE_IMPLS, KERNEL_IMPLS,
                               GraphContext, Model)
+from ..obs.events import emit
 from ..ops.loss import perf_metrics, summarize_metrics
 from ..ops.norm import inv_sqrt_degree
 from .optimizer import AdamConfig, adam_init, adam_update, decayed_lr
@@ -49,6 +55,11 @@ class TrainConfig:
       back through the cast as fp32; the loss is reduced in fp32,
       ops/loss.py; no loss scaling).  :func:`resolve_dtypes` maps the
       mode names to the two fields.
+    async_save: 'auto' | 'on' | 'off' (or a bool), the recovery
+      rotation's saver mode, see :func:`resolve_async_save`.
+    fault: one drill fault to arm, ``site:epoch[:proc]``
+      (resilience/inject.py); None arms none (``ROC_TPU_FAULT`` is the
+      out-of-band switch).
     """
     learning_rate: float = 0.01
     weight_decay: float = 0.05
@@ -65,6 +76,36 @@ class TrainConfig:
     symmetric: Optional[bool] = None
     dtype: torch.dtype = torch.float32
     compute_dtype: Optional[torch.dtype] = None
+    async_save: Any = "auto"
+    fault: Optional[str] = None
+
+
+def resolve_async_save(config: TrainConfig) -> bool:
+    """``TrainConfig.async_save`` -> the saver mode of the recovery
+    rotation (the CLI's ``--async-save`` goes through this too).  'auto'
+    is on for a world of one and off otherwise, as in the JAX package
+    (rank 0 alone writes, so async would be safe with more ranks, but the
+    choice follows the reference); 'on'/'off' and bools are literal."""
+    v = config.async_save
+    if isinstance(v, bool):
+        return v
+    if v == "on":
+        return True
+    if v == "off":
+        return False
+    if v == "auto":
+        import torch.distributed as dist
+        return not (dist.is_available() and dist.is_initialized()
+                    and dist.get_world_size() > 1)
+    raise ValueError(f"unknown async_save {v!r}; expected 'auto', "
+                     "'on', or 'off'")
+
+
+def derived_seed(*words: int) -> int:
+    """A 63-bit seed drawn from ``SeedSequence(words)``: the same words
+    give the same seed in every process."""
+    return int(np.random.SeedSequence(tuple(int(w) for w in words))
+               .generate_state(1, np.uint64)[0] >> 1)
 
 
 def resolve_device(device=None) -> torch.device:
@@ -186,6 +227,10 @@ class Trainer:
         self.config = config
         self.compute = compute_dtype_of(config)
         self.epoch = 0
+        # the dataset's identity, in the checkpoint's strict fingerprint
+        # (utils/checkpoint.trainer_fingerprint)
+        self._fp_dataset = {"V": int(dataset.graph.num_nodes),
+                            "E": int(dataset.graph.num_edges)}
         symmetric = resolve_symmetric(dataset, config.symmetric)
         if not symmetric and config.aggr_impl in KERNEL_IMPLS:
             raise NotImplementedError(
@@ -208,6 +253,9 @@ class Trainer:
         # the objective of every step, as 0-d device tensors (no sync)
         self.losses: List[torch.Tensor] = []
         self._stepped = False
+        # the first step's ms (run_epoch_loop), kept for a caller whose
+        # first train() call ends before an eval
+        self.first_step_ms: Optional[float] = None
 
     def _place(self, dataset: Dataset, symmetric: bool) -> None:
         """Put the rows this trainer computes on the device: ``feats``
@@ -263,6 +311,46 @@ class Trainer:
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
 
+    # -- the checkpoint's view of the trainer (utils/checkpoint.py)
+
+    def rng_states(self) -> np.ndarray:
+        """The dropout generators' states, one uint8 row per rank
+        (``torch.Generator.get_state()``); here one row."""
+        return self.generator.get_state().numpy()[None].copy()
+
+    def restore_rng(self, states: Optional[np.ndarray]) -> None:
+        """Set this rank's dropout generator from a checkpoint's states
+        (:meth:`rng_states`).  Where they hold no row for this rank, or a
+        row of another generator (a JAX checkpoint, whose PRNG key cannot
+        drive torch's dropout; one saved on another device type), the
+        generator is reseeded from the seed and the restored epoch
+        (:meth:`reseed`) and a ``resilience`` event says so."""
+        rank = getattr(self, "rank", 0)
+        n = self.generator.get_state().numel()
+        if states is not None and states.ndim == 2 and \
+                rank < states.shape[0] and states.shape[1] == n:
+            self.generator.set_state(torch.from_numpy(
+                np.ascontiguousarray(states[rank], dtype=np.uint8)))
+            return
+        self.reseed(self.epoch)
+        emit("resilience",
+             f"checkpoint holds no dropout generator state for rank "
+             f"{rank} (a JAX checkpoint, or one saved on another device "
+             f"or rank count): reseeded from seed {self.config.seed} and "
+             f"epoch {self.epoch}", kind="rng_reseed", epoch=self.epoch,
+             rank=rank)
+
+    def reseed(self, *words: int) -> None:
+        """Seed the dropout generator with :func:`derived_seed`
+        ``(config.seed, rank, *words)``."""
+        self.generator.manual_seed(derived_seed(
+            self.config.seed, getattr(self, "rank", 0), *words))
+
+    def agree(self, value: Optional[int]) -> Optional[int]:
+        """Rank 0's ``value`` on every rank of the run: ``value`` itself
+        on one device."""
+        return value
+
     @torch.no_grad()
     def _logits(self) -> torch.Tensor:
         """Inference-mode logits of this trainer's rows."""
@@ -307,8 +395,18 @@ def run_epoch_loop(tr: Trainer, epochs: Optional[int], do_step,
     library handles) is synchronised and reported apart, as
     ``first_step_ms`` on the first eval's record; ``epoch_ms`` counts
     steady steps only, and is None when an eval follows the first step
-    with no steady step between."""
+    with no steady step between.  Each eval record is also emitted as an
+    ``epoch`` event (off the console).
+
+    Resilience hooks, where the JAX loop has them: the loop notes each
+    epoch for the fault sites (``inject.note_epoch``), and after each
+    epoch's step has been launched runs the epoch-boundary drill sites
+    (``inject.epoch_hooks``) and the preemption check
+    (``preempt.raise_if_preempted``)."""
+    from ..resilience import inject, preempt
     cfg = tr.config
+    if cfg.fault:
+        inject.arm(cfg.fault)
     epochs = cfg.epochs if epochs is None else epochs
     history: List[Dict[str, float]] = []
     t_last = time.perf_counter()
@@ -316,12 +414,13 @@ def run_epoch_loop(tr: Trainer, epochs: Optional[int], do_step,
     first_ms: Optional[float] = None
     for _ in range(epochs):
         epoch = tr.epoch
+        inject.note_epoch(epoch)
         do_step(float(decayed_lr(cfg.learning_rate, epoch, cfg.decay_rate,
                                  cfg.decay_steps)))
         if not tr._stepped:
             tr.sync()
             now = time.perf_counter()
-            first_ms = (now - t_last) * 1e3
+            first_ms = tr.first_step_ms = (now - t_last) * 1e3
             t_last, e_last = now, epoch + 1
             tr._stepped = True
         if epoch % cfg.eval_every == cfg.eval_every - 1:
@@ -340,9 +439,13 @@ def run_epoch_loop(tr: Trainer, epochs: Optional[int], do_step,
                 m["edges_per_s"] = tr.num_edges / (m["epoch_ms"] / 1e3)
             t_last, e_last = t_eval_end, epoch + 1
             history.append(m)
+            emit("epoch", f"epoch {epoch}: train_loss {m['train_loss']}",
+                 console=False, **m)
             if cfg.verbose:
                 print(format_metrics(epoch, m), flush=True)
         tr.epoch += 1
+        inject.epoch_hooks(tr, epoch)
+        preempt.raise_if_preempted(epoch)
     return history
 
 
