@@ -19,7 +19,8 @@ Phases (any failure exits nonzero):
    card's least time for the same work: kernel and library call by CUDA
    events over back-to-back calls (``ms``, host cost included where it
    exceeds the device's) and by torch.profiler's device time
-   (``device_ms``);
+   (``device_ms``; null where it reads below the bound, the reading kept
+   as ``device_ms_below_bound``);
    race: every slice width of K3 and K4 (16, 32, 64, 128 and unsliced)
    at F = 256 and F = 41 over the full graph, timed in turns, with its
    gather rate and HBM rate, and the fastest and the ties beside the
@@ -83,17 +84,40 @@ Phases (any failure exits nonzero):
    run's (run first and again last) and beside rounds ending in the
    guard alone and in guard + snapshot, and the children's set-up;
    every kernel launched, with the counts zeroed before the fp32 path
-   and again before the mixed one.
+   and again before the mixed one;
+12. zoo, the model zoo (roc_tpu_torch/models/) at ogbn-arxiv's shape
+   (V = 169,343, ~4.7 M directed edges, synthetic from a seed; 128 input
+   features, 40 classes): K1-K4 against their plain versions at F = 128
+   in fp32 and bf16; then SAGE-mean (AVG), SAGE with GraphNorm, SAGE-pool
+   (MAX), GIN with learnable eps, SGC (k = 2), APPNP (k = 10), GCNII (8
+   layers of 256) and GAT (1 head; 8 heads in 'mixed' only), in fp32 and
+   'mixed': a family with a sum takes phase 5's parity steps on 'cuda'
+   and 'cuda_csr' against 'ell', one without (MAX, attention: no kernel
+   of its own) holds its fp32 forward to float64 on the card within
+   1e-4 * max|logit| and its gradients within 1e-3 of each weight's
+   largest (MAX outputs whose maxima differ between the precisions have
+   their cotangent cut, and the uncut error is printed); then phase 6's
+   10 epochs at lr 0.01 (SAGE-pool at 0.003, beside its lr-0.01 runs on
+   the ELL max, the edge-list max and in float64, ungated), sum families
+   on 'cuda' and 'cuda_csr', the others on 'cuda', with the counts
+   zeroed just before each run: the train loss falls from epoch 4 to 9,
+   each expected kernel ran (K4 on 'cuda', K3 on 'cuda_csr', K1 and K2
+   for the fused chains of SGC, APPNP, GCNII and SAGE with GraphNorm) and
+   no other; ``epoch_ms``, ``first_step_ms``, the launches a step, and
+   phase 7's profile on 'cuda'.
 
 Prints one JSON line per phase, the kernel table line
 ``{"kernels": [...]}`` (one row per kernel and dtype, e.g.
 ``ell_aggregate[bf16]``, K1's masked form as ``indegree_norm_masked``;
-launches counted over the serve, train and dist slices of that dtype), the
+launches counted over the serve, train, dist, recovery and zoo slices of
+that dtype; the F = 128 checks as each row's ``zoo_shapes``), the
 card line, and as the last line
 ``{"ok": true, "device": {...}}``.  Imports no JAX.
 """
 
+import contextlib
 import dataclasses
+import functools
 import json
 import subprocess
 import sys
@@ -275,18 +299,22 @@ def ragged_checks(torch, dev):
             "slice_cols": list(slicing.SLICE_COLS), "ok": True}
 
 
-def kernel_checks(torch, dev, gctx, adj, num_edges, esrc, edst, dtype):
+def kernel_checks(torch, dev, gctx, adj, num_edges, esrc, edst, dtype,
+                  widths=((256, "relu"), (41, "none"))):
     """Each kernel in ``dtype`` against its plain version at the shapes
-    the forward and backward give it, with times.  ``adj`` is the graph
-    as a sparse CSR tensor, the input of K3's and K4's library yardstick
-    ``torch.sparse.mm``; ``esrc``/``edst`` the padded edge list K3 reads.
-    K1 and K2 must be bit-equal; K3 and K4 pass :func:`sum_check`; every
-    kernel gives the same bits on a second launch.  Returns the
-    per-kernel table entries."""
+    the forward and backward give it, with times: per ``(F, act)`` of
+    ``widths``, K1, K2 with ``act`` (and the masked K1 where ``act`` is
+    relu), K4 and K3 on ``gctx.num_rows`` rows of width F.  ``adj`` is
+    the graph as a sparse CSR tensor, the input of K3's and K4's library
+    yardstick ``torch.sparse.mm``; ``esrc``/``edst`` the padded edge list
+    K3 reads.  K1 and K2 must be bit-equal; K3 and K4 pass
+    :func:`sum_check`; every kernel gives the same bits on a second
+    launch.  Returns the per-kernel table entries."""
     from roc_tpu_torch.kernels import ell_spmm, graphnorm, spmm
     gen = torch.Generator(device=dev).manual_seed(SEED + 1)
     bf16 = dtype == torch.bfloat16
     esize = 2 if bf16 else 4
+    V = gctx.num_rows      # the graph's rows (the module's V by default)
     deg, d = gctx.in_degree, gctx.inv_sqrt_deg
     d_lib = d.to(dtype)   # the library call's scale, in x's dtype
     idx, rid = gctx.ell_idx, gctx.ell_row_id
@@ -323,10 +351,17 @@ def kernel_checks(torch, dev, gctx, adj, num_edges, esrc, edst, dtype):
         lms = time_ms(torch, lib, n) if lib is not None else None
         ldms = device_ms(torch, lib, n) if lib is not None else None
         b, by = bound_ms(nbytes, nops)
+        below = {}
+        if dms is not None and dms < b:
+            # faster than the card can move the bytes from HBM: the
+            # repeats found the working set in L2, or the profiler lost
+            # records; not a device time of this work
+            below, dms = {"device_ms_below_bound": dms}, None
         row = dict(kernel=name, dtype=str(dtype), shape=shape,
                    max_abs_err=err, ms=ms, device_ms=dms, plain_ms=pms,
                    library_ms=lms, library_device_ms=ldms,
-                   library_call=lib_call, bound_ms=b, bound_by=by, ok=ok)
+                   library_call=lib_call, bound_ms=b, bound_by=by, ok=ok,
+                   **below)
         if copy is not None:
             row["copy_device_ms"] = device_ms(torch, copy, n)
         log({"phase": "kernel", **row})
@@ -373,7 +408,7 @@ def kernel_checks(torch, dev, gctx, adj, num_edges, esrc, edst, dtype):
     # widths over the real edge list and buckets.  The backward runs the
     # same shapes (K2 with no activation), and at F = 256 the masked K1
     # on the cotangent and the relu output.
-    for F, act in ((256, "relu"), (41, "none")):
+    for F, act in widths:
         x = torch.randn((V, F), generator=gen, device=dev).to(dtype)
         vf = V * F
         buf = torch.empty_like(x)
@@ -575,10 +610,10 @@ def _trainer(ds, impl, dropout, params=None, mode="float32", **cfg):
 PARITY_RTOL = {"float32": 1e-4, "mixed": 2e-2}
 
 
-def train_parity(torch, ds, params, mode="float32", steps=3):
+def train_parity(torch, ds, params, mode="float32", steps=3, make=None):
     """From the same weights, dropout 0, ``steps`` steps through
-    Trainer.train in dtype ``mode`` on each kernel route and on the
-    plain 'ell' route on the card.  Each step's objective within
+    Trainer.train (or the trainer ``make`` builds) in dtype ``mode`` on
+    each kernel route and on the plain 'ell' route on the card.  Each step's objective within
     ``PARITY_RTOL[mode]`` of the plain route's; the weights after the
     steps are reported, not gated: Adam moves a weight by ~lr whatever
     its gradient's size, so a near-zero gradient whose sign differs
@@ -590,8 +625,8 @@ def train_parity(torch, ds, params, mode="float32", steps=3):
     losses, weights, step_s = {}, {}, {}
     logits = None
     for impl in ("ell", "cuda", "cuda_csr"):
-        tr = _trainer(ds, impl, 0.0, params=params, mode=mode,
-                      eval_every=10 ** 6, verbose=False)
+        tr = (make or _trainer)(ds, impl, 0.0, params=params, mode=mode,
+                                eval_every=10 ** 6, verbose=False)
         if any(p.dtype != torch.float32 for p in tr.params.values()) or (
                 mode == "mixed" and tr.feats.dtype != torch.bfloat16):
             raise AssertionError(f"{impl} {mode}: params "
@@ -627,14 +662,29 @@ def train_parity(torch, ds, params, mode="float32", steps=3):
     return out, logits
 
 
-def train_slice(torch, ds, runs, make=None):
+@contextlib.contextmanager
+def masked_k1_ran(impl, mode, tr, rec):
+    """:func:`train_slice`'s check of a GCN run: its relu backward ran
+    the masked K1."""
+    from roc_tpu_torch.kernels.graphnorm import indegree_norm
+    before = indegree_norm.masked_launches
+    yield
+    rec["masked_k1_launches"] = indegree_norm.masked_launches - before
+    if not rec["masked_k1_launches"]:
+        raise AssertionError(f"{impl} {mode}: the relu backward never ran "
+                             f"the masked K1")
+
+
+def train_slice(torch, ds, runs, make=None, check=masked_k1_ran):
     """10 epochs, dropout 0.5, an eval every 5, through Trainer (or the
     trainer ``make`` builds, :func:`_dist_trainer`) for each ``(kernel
     route, dtype mode)`` of ``runs`` (fresh Glorot weights from SEED).
-    Returns the phase record, keyed by route (float32) or route/mode;
-    raises on a non-finite loss or a train loss that did not fall from
-    epoch 4 to epoch 9."""
-    from roc_tpu_torch.kernels.graphnorm import indegree_norm
+    ``check(impl, mode, tr, rec)`` is a context manager around each
+    run's training: it adds to the run's record ``rec`` and raises on
+    what the run must show (by default :func:`masked_k1_ran`).  Returns
+    the phase record, keyed by route (float32) or route/mode; raises on
+    a non-finite loss or a train loss that did not fall from epoch 4 to
+    epoch 9."""
     from roc_tpu_torch.train.trainer import format_metrics
     out = {}
     for impl, mode in runs:
@@ -642,25 +692,20 @@ def train_slice(torch, ds, runs, make=None):
         t0 = time.perf_counter()
         tr = (make or _trainer)(ds, impl, 0.5, mode=mode, epochs=10,
                                 eval_every=5, verbose=False)
-        setup_s = time.perf_counter() - t0
-        masked = indegree_norm.masked_launches
-        hist = tr.train()
-        tr.sync()
-        masked = indegree_norm.masked_launches - masked
+        rec = out[key] = {"route": tr.config.aggr_impl,
+                          "setup_s": time.perf_counter() - t0}
+        with check(impl, mode, tr, rec):
+            hist = tr.train()
+            tr.sync()
         losses = torch.stack(tr.losses).double().cpu().numpy()
         lines = [format_metrics(m["epoch"], m) for m in hist]
         for ln in lines:
             print(ln, flush=True)
-        out[key] = {
-            "setup_s": setup_s, "first_step_ms": hist[0]["first_step_ms"],
-            "epoch_ms": [m["epoch_ms"] for m in hist],
-            "eval_ms": [m["eval_ms"] for m in hist],
-            "train_loss": [m["train_loss"] for m in hist],
-            "objective": losses.tolist(), "infer": lines,
-            "masked_k1_launches": masked}
-        if not masked:
-            raise AssertionError(f"{key}: the relu backward never ran the "
-                                 f"masked K1")
+        rec.update(first_step_ms=hist[0]["first_step_ms"],
+                   epoch_ms=[m["epoch_ms"] for m in hist],
+                   eval_ms=[m["eval_ms"] for m in hist],
+                   train_loss=[m["train_loss"] for m in hist],
+                   objective=losses.tolist(), infer=lines)
         if not np.isfinite(losses).all() or not all(
                 np.isfinite(m["train_loss"]) for m in hist):
             raise AssertionError(f"{key}: non-finite loss {losses}")
@@ -685,19 +730,21 @@ def _kernel_group(name):
     return "other (dropout, loss, Adam, copies)"
 
 
-def train_profile(torch, ds, mode="float32", steps=3, make=None):
+def train_profile(torch, ds, mode="float32", steps=3, make=None,
+                  impls=("cuda", "cuda_csr")):
     """Where a steady training step's device time goes, per kernel
     route, in dtype ``mode``: ``steps`` steps (after 2 warm ones, and
     one more under a first profiler session whose trace is discarded and
     whose wall clock is reported as ``warm_profiled_step_ms``) of
     Trainer (or the trainer ``make`` builds) under torch.profiler, kernel
     time summed by group, and the device's idle share of the host wall
-    clock (1 - kernel time / wall).  Dropout 0.5, as in the train slice.
-    Reports "not measured" if the profiler sees no device time."""
+    clock (1 - kernel time / wall), for each route of ``impls``, with
+    the shares outside K1-K4 and in GEMMs.  Dropout 0.5, as in the train
+    slice.  Reports "not measured" if the profiler sees no device time."""
     from torch.profiler import ProfilerActivity, profile
     activities = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
     out = {"mode": mode}
-    for impl in ("cuda", "cuda_csr"):
+    for impl in impls:
         tr = (make or _trainer)(ds, impl, 0.5, mode=mode,
                                 eval_every=10 ** 6, verbose=False)
         tr.train(2)
@@ -740,6 +787,8 @@ def train_profile(torch, ds, mode="float32", steps=3, make=None):
                 device_ms_per_step=busy, idle_share=1 - busy * steps / wall_ms,
                 groups_ms_per_step=groups,
                 group_share={g: v / busy for g, v in groups.items()},
+                share_outside_k1_k4=1 - sum(
+                    v for g, v in groups.items() if g.startswith("K")) / busy,
                 top_kernels_ms_per_step=sorted(
                     names.items(), key=lambda kv: -kv[1])[:8],
                 other_kernels_ms_calls_per_step=sorted(
@@ -1457,6 +1506,402 @@ def recovery(torch, ds, zero_counts, read_counts):
     return rec, f32, bf16, child
 
 
+# Phase 12, the model zoo at ogbn-arxiv's shape: its V, about its 4.6 M
+# directed edges (synthetic, symmetric, self edges in, from a seed) and
+# the widths of benchmarks/model_zoo.py's configs 3, 6, 8 and 9: 128
+# input features, 256 hidden, 40 classes.
+ZOO_V = 169_343
+ZOO_DEGREE = 28
+ZOO_LAYERS = [128, 256, 40]
+MODES = ("float32", "mixed")
+_SUM = ("ell_aggregate",)
+_CHAIN = ("indegree_norm", "ell_aggregate", "scale_act")
+# family -> (registry name, builder kwargs, layers, dtype modes, the
+# kernels a run on 'cuda' launches; on 'cuda_csr' K3 stands for K4)
+ZOO = {
+    "sage_mean": ("sage", {}, ZOO_LAYERS, MODES, _SUM),
+    "sage_norm": ("sage", {"use_norm": True}, ZOO_LAYERS, MODES, _CHAIN),
+    "sage_pool": ("sage", {"aggregator": "pool"}, ZOO_LAYERS, MODES, ()),
+    "gin_eps": ("gin", {"learn_eps": True}, ZOO_LAYERS, MODES, _SUM),
+    "sgc": ("sgc", {"k": 2}, [128, 40], MODES, _CHAIN),
+    "appnp": ("appnp", {"k": 10}, ZOO_LAYERS, MODES, _CHAIN),
+    "gcn2": ("gcn2", {}, [128] + [256] * 8 + [40], MODES, _CHAIN),
+    "gat1": ("gat", {"heads": 1}, ZOO_LAYERS, MODES, ()),
+    "gat8": ("gat", {"heads": 8}, ZOO_LAYERS, ("mixed",), ()),
+}
+# the fp32 forward of a family with no kernel of its own against the
+# same functions in float64, as a share of the logits' scale: fp32
+# rounding through two layers of GEMMs, max or softmax-weighted sums.
+# Its gradients, per weight as a share of the weight's largest: those
+# sums again, then the weight gradients' sums over 169,343 rows, where
+# entries far below the largest carry its rounding.  Where a piecewise
+# op takes another branch in the two precisions (a ReLU input within
+# rounding of 0; two neighbours' values within rounding of each other
+# under MAX) the cotangent goes elsewhere, and under a random cotangent
+# one such entry moves a weight's gradient by ~1/sqrt(V) of its largest;
+# those entries of each ReLU's and MAX's output have their cotangent cut
+# in both precisions before the gradients are compared (the uncut error
+# is reported beside it).
+FP64_TOL = 1e-4
+FP64_GRAD_TOL = 1e-3
+# The reference's Reddit settings (TRAIN) for every family but SAGE-pool,
+# which takes lr 0.003: at 0.01 its train loss rose from epoch 4 to 9
+# under dropout 0.5 on this graph while its train accuracy rose (the
+# phase's lr_witness: on the ELL max, the edge-list max and in float64).
+ZOO_LR = {"sage_pool": 0.003}
+
+
+def _zoo_trainer(ds, impl, dropout, params=None, mode="float32", *, fam,
+                 **cfg):
+    """:func:`_trainer` for zoo family ``fam`` at its ``ZOO_LR``; mode
+    'float64' is float64 throughout."""
+    import torch
+    from roc_tpu_torch.models import model_builders
+    from roc_tpu_torch.train.trainer import (TrainConfig, Trainer,
+                                             resolve_dtypes)
+    name, kw, layers, _, _ = ZOO[fam]
+    dtype, compute_dtype = ((torch.float64, None) if mode == "float64"
+                            else resolve_dtypes(mode))
+    train = dict(TRAIN, learning_rate=ZOO_LR.get(fam,
+                                                 TRAIN["learning_rate"]))
+    return Trainer(model_builders()[name](layers, dropout_rate=dropout,
+                                          **kw), ds,
+                   TrainConfig(aggr_impl=impl, symmetric=True, seed=SEED,
+                               dtype=dtype, compute_dtype=compute_dtype,
+                               **{**train, **cfg}),
+                   params=params)
+
+
+def _expected(fam, impl):
+    """The kernels a run of ``fam`` on ``impl`` must launch."""
+    return tuple("csr_spmm" if impl == "cuda_csr" and k == "ell_aggregate"
+                 else k for k in ZOO[fam][4])
+
+
+def zoo_launches(fam, counts):
+    """:func:`train_slice`'s check of a run of zoo family ``fam``: the
+    counts (:class:`Launches`) zeroed just before the run and read just
+    after, then one eval alone, for the launches a step (the run's less
+    its two evals', over its 10 steps).  Raises if a kernel the run must
+    launch never ran, or another one did."""
+    names = ("indegree_norm", "scale_act", "ell_aggregate", "csr_spmm")
+
+    @contextlib.contextmanager
+    def check(impl, mode, tr, rec):
+        key = F32 if mode == "float32" else BF16
+        counts.zero()
+        yield
+        launches = counts.read(key)
+        counts.zero()
+        tr.evaluate()
+        evals = counts.peek()
+        counts.zero()
+        rec["launches"] = {k: launches[k][key] for k in names}
+        rec["launches_per_step"] = {
+            k: (launches[k][key] - 2 * evals[k][key]) / 10 for k in names}
+        want = _expected(fam, impl)
+        if [k for k in want if not launches[k][key]] or [
+                k for k in names if k not in want
+                and (launches[k][F32] or launches[k][BF16])] or any(
+                launches[k][F32 if key == BF16 else BF16] for k in names):
+            raise AssertionError(f"zoo {fam} {impl} {mode}: launches "
+                                 f"{launches}, expected {want or 'none'}")
+    return check
+
+
+def _max_flips(torch, g, x32, out32, x64, out64, chunk=1 << 20):
+    """The (row, feature) entries of a MAX's output whose maxima are
+    different neighbours in fp32 (``x32``, ``out32``) and in float64:
+    the set of neighbours equal to the row's maximum differs.  Over the
+    graph's CSR edges in chunks."""
+    dev = x32.device
+    src = torch.from_numpy(g.col_idx.astype(np.int64)).to(dev)
+    dst = torch.repeat_interleave(
+        torch.arange(g.num_nodes, device=dev),
+        torch.from_numpy(np.diff(g.row_ptr)).to(dev))
+    flips = torch.zeros(out32.shape, dtype=torch.int32, device=dev)
+    for e0 in range(0, src.numel(), chunk):
+        s, d = src[e0:e0 + chunk], dst[e0:e0 + chunk]
+        flips.index_add_(0, d, ((x32[s] == out32[d])
+                                != (x64[s] == out64[d])).to(torch.int32))
+    return flips > 0
+
+
+def zoo_fp64(torch, ds, fam, params):
+    """A family with no kernel of its own (MAX, attention): its fp32
+    inference logits on 'cuda' against the same model in float64 on the
+    plain 'ell' route, on the card, within ``FP64_TOL`` of max|logit|;
+    and the gradients of the logits' product with a fixed random
+    cotangent, fp32 against float64, each weight's within
+    ``FP64_GRAD_TOL`` of its largest entry, with the cotangent cut in
+    both precisions at each ReLU or MAX output entry that takes another
+    branch in the two (a ReLU input's sign; :func:`_max_flips`); the
+    uncut error and the share of each op's entries cut are reported."""
+    from roc_tpu_torch.ops import dense
+    from roc_tpu_torch.train.trainer import make_graph_context
+    tr = _zoo_trainer(ds, "cuda", 0.0, params=params, fam=fam,
+                      verbose=False)
+    gctx64 = make_graph_context(ds, "ell", symmetric=True,
+                                device=tr.device)
+    gen = torch.Generator(device=tr.device).manual_seed(SEED + 5)
+    ct = None
+    relu = dense._ACTIVATIONS[dense.AC_MODE_RELU]
+
+    def forward(dtype, gctx):
+        """Logits, weights and each ReLU's and MAX's (kind, input,
+        output) in op order."""
+        nonlocal ct
+        ops, inner = [], gctx._max_fwd
+
+        def tap(kind, fn):
+            def run(x):
+                out = fn(x)
+                ops.append((kind, x.detach(), out))
+                return out
+            return run
+        gctx._max_fwd = tap("max", inner)
+        dense._ACTIVATIONS[dense.AC_MODE_RELU] = tap("relu", relu)
+        try:
+            p = {k: v.detach().to(dtype).requires_grad_(True)
+                 for k, v in tr.params.items()}
+            logits = tr.model.apply(p, tr.feats.to(dtype), gctx,
+                                    train=False)
+        finally:
+            del gctx._max_fwd
+            dense._ACTIVATIONS[dense.AC_MODE_RELU] = relu
+        if ct is None:
+            ct = torch.randn(logits.shape, generator=gen, device=tr.device,
+                             dtype=torch.float64)
+        return logits, p, ops
+
+    def grads(logits, p, ops, cut):
+        hooks = [out.register_hook(lambda g, k=k: g.masked_fill(k, 0))
+                 for (_, _, out), k in zip(ops, cut)]
+        got = torch.autograd.grad((logits.double() * ct).sum(),
+                                  list(p.values()), retain_graph=True)
+        for h in hooks:
+            h.remove()
+        return dict(zip(p, got))
+
+    def rel(a, b):
+        return {k: float((a[k].double() - b[k]).abs().max())
+                / float(b[k].abs().max()) for k in b}
+
+    l32, p32, ops32 = forward(torch.float32, tr.gctx)
+    l64, p64, ops64 = forward(torch.float64, gctx64)
+    if [k for k, _, _ in ops32] != [k for k, _, _ in ops64]:
+        raise AssertionError(f"zoo {fam}: the precisions ran other ops")
+    got, want = l32.detach().double(), l64.detach()
+    err = float((got - want).abs().max())
+    scale = float(want.abs().max())
+    cut = [((x32 > 0) != (x64 > 0)) if kind == "relu" else
+           _max_flips(torch, ds.graph, x32, o32.detach(), x64, o64.detach())
+           for (kind, x32, o32), (_, x64, o64) in zip(ops32, ops64)]
+    grad_err = rel(grads(l32, p32, ops32, cut), grads(l64, p64, ops64, cut))
+    rec = {"max_abs_err": err, "logit_scale": scale, "tol": FP64_TOL,
+           "grad_rel_err": grad_err, "grad_tol": FP64_GRAD_TOL}
+    if cut:
+        none = [torch.zeros_like(k) for k in cut]
+        rec.update(
+            entries_cut=[[kind, int(k.sum()), float(k.float().mean())]
+                         for (kind, _, _), k in zip(ops32, cut)],
+            grad_rel_err_uncut=rel(grads(l32, p32, ops32, none),
+                                   grads(l64, p64, ops64, none)))
+    if not (torch.isfinite(got).all() and err <= FP64_TOL * scale) or any(
+            not e <= FP64_GRAD_TOL for e in grad_err.values()):
+        raise AssertionError(f"zoo {fam}: fp32 against float64: {rec}")
+    return rec
+
+
+def lr_witness(torch, ds, fam):
+    """Why ``fam`` trains below the reference's lr (``ZOO_LR``): 10
+    epochs at lr 0.01, dropout 0.5, from SEED, on 'cuda' (the ELL max)
+    and 'segment' (the edge-list max) in fp32 and on 'ell' in float64,
+    all three from the first run's Glorot weights and dropout generator
+    state; each run's eval lines at epochs 4 and 9, recorded and not
+    gated."""
+    from roc_tpu_torch.train.trainer import format_metrics
+    out, start = {}, None
+    for impl, mode in (("cuda", "float32"), ("segment", "float32"),
+                       ("ell", "float64")):
+        tr = _zoo_trainer(ds, impl, 0.5, mode=mode, fam=fam, epochs=10,
+                          eval_every=5, verbose=False, params=start,
+                          learning_rate=TRAIN["learning_rate"])
+        if start is None:
+            start = {k: v.detach().clone() for k, v in tr.params.items()}
+            state = tr.generator.get_state()
+        else:
+            tr.generator.set_state(state)
+        hist = tr.train()
+        out[f"{impl}/{mode}"] = {
+            "train_loss": [m["train_loss"] for m in hist],
+            "infer": [format_metrics(m["epoch"], m) for m in hist]}
+        del tr
+        torch.cuda.empty_cache()
+    return out
+
+
+def zoo(torch, dev, entries, counts):
+    """Phase 12: K1-K4 held to their plain versions at the zoo's input
+    width F = 128 on the arxiv-shape graph (fp32 and bf16; the rows join
+    each kernel's table entry as ``zoo_shapes``), then per family:
+    parity (:func:`train_parity`, a family with a sum) or the float64
+    forward and gradients (one without), the lr witness where the family
+    trains below the reference's lr, the training runs
+    (:func:`train_slice`; sum families on 'cuda' and 'cuda_csr', the
+    others on 'cuda'; each mode of the family; the launches checked by
+    :func:`zoo_launches` on ``counts``) and a profile per mode
+    (:func:`train_profile` on 'cuda')."""
+    from roc_tpu_torch.core.graph import synthetic_dataset
+    from roc_tpu_torch.core.partition import padded_edge_list
+    from roc_tpu_torch.models import model_builders
+    from roc_tpu_torch.train.trainer import make_graph_context
+    t0 = time.perf_counter()
+    ds = synthetic_dataset(ZOO_V, ZOO_DEGREE, in_dim=ZOO_LAYERS[0],
+                           num_classes=ZOO_LAYERS[-1], seed=SEED,
+                           name="arxiv_shape")
+    g = ds.graph
+    gctx = make_graph_context(ds, "cuda", symmetric=True)
+    esrc, edst = (torch.from_numpy(a).to(dev)
+                  for a in padded_edge_list(g, multiple=512))
+    out = {"V": g.num_nodes, "E": g.num_edges, "dataset_s":
+           time.perf_counter() - t0,
+           "buckets": [list(a.shape) for a in gctx.ell_idx]}
+    log({"phase": "zoo_data", **out})
+    for key, dtype in ((F32, torch.float32), (BF16, torch.bfloat16)):
+        adj = torch.sparse_csr_tensor(
+            torch.from_numpy(g.row_ptr).to(dev),
+            torch.from_numpy(g.col_idx.astype(np.int64)).to(dev),
+            torch.ones(g.num_edges, device=dev, dtype=dtype),
+            size=(g.num_nodes, g.num_nodes), check_invariants=False)
+        got = kernel_checks(torch, dev, gctx, adj, g.num_edges, esrc, edst,
+                            dtype, widths=((128, "none"),))
+        for name, e in got.items():
+            entries[key][name].setdefault("zoo_shapes", []).extend(
+                e["shapes"])
+        del adj
+    del gctx, esrc, edst
+    torch.cuda.empty_cache()
+    out["families"] = {}
+    for fam, (name, kw, layers, modes, kernels) in ZOO.items():
+        t1 = time.perf_counter()
+        make = functools.partial(_zoo_trainer, fam=fam)
+        gen = torch.Generator(device=dev).manual_seed(SEED)
+        params = model_builders()[name](layers, **kw).init_params(
+            gen, device=dev)
+        params = {k: v.detach() for k, v in params.items()}
+        rec = {"family": fam, "layers": layers, "kwargs": kw,
+               "lr": ZOO_LR.get(fam, TRAIN["learning_rate"])}
+        if kernels:
+            rec["parity"] = [train_parity(torch, ds, params, m,
+                                          make=make)[0] for m in modes]
+        else:
+            rec["fp64"] = zoo_fp64(torch, ds, fam, params)
+        del params
+        if fam in ZOO_LR:
+            rec["lr_witness"] = lr_witness(torch, ds, fam)
+        routes = ("cuda", "cuda_csr") if kernels else ("cuda",)
+        rec["train"] = train_slice(
+            torch, ds, [(impl, mode) for mode in modes for impl in routes],
+            make=make, check=zoo_launches(fam, counts))
+        rec["profile"] = {mode: train_profile(torch, ds, mode, steps=2,
+                                              make=make, impls=("cuda",))
+                          for mode in modes}
+        torch.cuda.empty_cache()
+        rec["seconds"] = time.perf_counter() - t1
+        log({"phase": "zoo", **rec})
+        out["families"][fam] = rec
+    out["seconds"] = time.perf_counter() - t0
+    out["peak_mem_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    return out
+
+
+class Launches:
+    """The kernel wrappers' launch counts: :meth:`zero` sets them to 0,
+    :meth:`read` returns them and adds them to ``counted[dtype][kernel]``,
+    the table's sums, and :meth:`peek` returns them alone.  The masked
+    K1's launches count in indegree_norm's and apart in masked_launches;
+    the table gives each form its own row, so a path of dtype ``key``
+    adds its masked launches to "indegree_norm_masked", the rest to
+    "indegree_norm"."""
+
+    def __init__(self, torch):
+        from roc_tpu_torch.kernels import ell_spmm, graphnorm, spmm
+        self.torch, self.graphnorm, self.spmm = torch, graphnorm, spmm
+        self.kernels = (graphnorm.indegree_norm, graphnorm.scale_act,
+                        spmm.csr_spmm, ell_spmm.ell_aggregate)
+        self.counted = {key: {name: 0 for name in KERNELS}
+                        for key in (F32, BF16)}
+
+    def zero(self):
+        from roc_tpu_torch.kernels import _build
+        _build.zero_launches(*self.kernels)
+        self.graphnorm.indegree_norm.masked_launches = 0
+        self.spmm.csr_row_ptr.launches = 0
+
+    def peek(self):
+        self.torch.cuda.synchronize()
+        return {k.__name__: dict(k.launches_by_dtype) for k in self.kernels}
+
+    def read(self, key):
+        got = self.peek()
+        masked = self.graphnorm.indegree_norm.masked_launches
+        for name, by in got.items():
+            for k in (F32, BF16):
+                self.counted[k][name] += by[k]
+        self.counted[key]["indegree_norm"] -= masked
+        self.counted[key]["indegree_norm_masked"] += masked
+        got["indegree_norm_masked"] = masked
+        got["csr_row_ptr"] = self.spmm.csr_row_ptr.launches
+        return got
+
+
+def zoo_child(out_path):
+    """Phase 12 in a fresh process on card 0: builds (or loads) the
+    kernels, runs :func:`zoo` with its own launch counts and writes the
+    record, the counts and the F = 128 kernel rows to ``out_path``.  In
+    the smoke's own process, after some 60 profiler runs, the later
+    runs lost kernel records (a step's K4 time read half its launches'
+    sum; a kernel's device time read below its bound), so the zoo's
+    profiles run in a process of their own."""
+    import torch
+    from roc_tpu_torch.kernels import _build
+    from roc_tpu_torch.ops.dense import set_fp32_matmul_precision
+    torch.cuda.set_device(0)
+    set_fp32_matmul_precision()
+    _build.library()
+    counts = Launches(torch)
+    entries = {key: {name: {} for name in KERNELS} for key in (F32, BF16)}
+    rec = zoo(torch, torch.device("cuda"), entries, counts)
+    with open(out_path, "w") as f:
+        json.dump({"record": rec, "counted": counts.counted,
+                   "zoo_shapes": {key: {name: e.get("zoo_shapes", [])
+                                        for name, e in by.items()}
+                                  for key, by in entries.items()}}, f)
+
+
+def run_zoo_child():
+    """:func:`zoo_child` in a fresh Python process, its phase lines on
+    this process's output; returns what it wrote, and raises if it
+    failed."""
+    import os
+    import tempfile
+    here = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ, PYTHONPATH=here + os.pathsep
+               + os.environ.get("PYTHONPATH", ""))
+    with tempfile.TemporaryDirectory() as tmp:
+        out = os.path.join(tmp, "zoo.json")
+        r = subprocess.run(
+            [sys.executable, "-c",
+             f"import chip_smoke as s; s.zoo_child({out!r})"],
+            cwd=here, env=env, timeout=600)
+        if r.returncode != 0:
+            raise AssertionError(f"phase 12 (zoo) failed: exit "
+                                 f"{r.returncode}")
+        with open(out) as f:
+            return json.load(f)
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1465,7 +1910,7 @@ def main() -> int:
     t_start = time.perf_counter()
     from roc_tpu_torch.core.graph import synthetic_dataset
     from roc_tpu_torch.core.partition import padded_edge_list
-    from roc_tpu_torch.kernels import _build, ell_spmm, graphnorm, spmm
+    from roc_tpu_torch.kernels import _build
     from roc_tpu_torch.models.gcn import build_gcn
     from roc_tpu_torch.ops.dense import set_fp32_matmul_precision
     from roc_tpu_torch.serve.export import build_predictor
@@ -1535,33 +1980,10 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     # every main path below is driven with the counts zeroed just before
-    # and read just after; counted[dtype][kernel] sums the serve and
-    # train slices' launches of that dtype.  The masked K1's launches
-    # count in indegree_norm's and apart in masked_launches; the table
-    # gives each form its own row, so a path of dtype ``key`` adds its
-    # masked launches to "indegree_norm_masked", the rest to
-    # "indegree_norm".
-    kernels = (graphnorm.indegree_norm, graphnorm.scale_act,
-               spmm.csr_spmm, ell_spmm.ell_aggregate)
-    counted = {key: {name: 0 for name in KERNELS} for key in (F32, BF16)}
-
-    def zero_counts():
-        _build.zero_launches(*kernels)
-        graphnorm.indegree_norm.masked_launches = 0
-        spmm.csr_row_ptr.launches = 0
-
-    def read_counts(key):
-        torch.cuda.synchronize()
-        got = {k.__name__: dict(k.launches_by_dtype) for k in kernels}
-        masked = graphnorm.indegree_norm.masked_launches
-        for name, by in got.items():
-            for k in (F32, BF16):
-                counted[k][name] += by[k]
-        counted[key]["indegree_norm"] -= masked
-        counted[key]["indegree_norm_masked"] += masked
-        got["indegree_norm_masked"] = masked
-        got["csr_row_ptr"] = spmm.csr_row_ptr.launches
-        return got
+    # and read just after (Launches)
+    counts = Launches(torch)
+    zero_counts, read_counts, counted = counts.zero, counts.read, \
+        counts.counted
 
     # 4. serve slice: the serving path, fp32
     zero_counts()
@@ -1696,6 +2118,22 @@ def main() -> int:
                               rec["kill_drill"]["child2_setup_s"]]})
     log({"phase": "recovery", **rec})
 
+    # 12. the model zoo at ogbn-arxiv's shape, in a fresh process: K1-K4
+    # at F = 128, then every family's parity (or float64) check, training
+    # runs (each with the counts zeroed just before and read just after,
+    # added to the table's) and step profiles
+    sys.stdout.flush()
+    child = run_zoo_child()
+    zrec = child["record"]
+    for key in (F32, BF16):
+        for name in KERNELS:
+            counted[key][name] += child["counted"][key][name]
+            entries[key][name]["zoo_shapes"] = child["zoo_shapes"][key][name]
+    log({"phase": "zoo_summary", "V": zrec["V"], "E": zrec["E"],
+         "seconds": zrec["seconds"], "peak_mem_gb": zrec["peak_mem_gb"],
+         "epoch_ms": {f: {k: r["epoch_ms"] for k, r in rec["train"].items()}
+                      for f, rec in zrec["families"].items()}})
+
     table = []
     for key, tag in ((F32, "fp32"), (BF16, "bf16")):
         for name, e in entries[key].items():
@@ -1709,7 +2147,9 @@ def main() -> int:
                 "bound_by": e["bound_by"], "library_ms": e["library_ms"],
                 **({"row_ptr_ms": e["row_ptr_ms"]}
                    if "row_ptr_ms" in e else {}),
-                "shapes": e["shapes"]})
+                "shapes": e["shapes"],
+                **({"zoo_shapes": e["zoo_shapes"]}
+                   if "zoo_shapes" in e else {})})
     log({"total_s": time.perf_counter() - t_start,
          "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9})
     log({"kernels": table})

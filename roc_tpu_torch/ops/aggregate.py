@@ -1,5 +1,5 @@
-"""Plain neighbour sums (``roc_tpu/ops/aggregate.py``), the routes the
-hand-written kernels are held to:
+"""Plain neighbour sums and maxima (``roc_tpu/ops/aggregate.py``).  The
+sums are the routes the hand-written kernels are held to:
 
 - :func:`aggregate_ell`, the degree-bucketed ELL sum (route 'ell',
   kernel K4 in kernels/ell_spmm.py): per width bucket, gather
@@ -17,6 +17,15 @@ Both sum in fp32: a reduced-precision input (bf16) is widened, summed in
 fp32 and rounded once to its dtype, as the JAX package's ``aggregate_ell``
 and the hand-written kernels do (a bf16 ``sum`` or ``index_add_`` would
 round while it accumulates).  fp32 inputs are summed as they are.
+
+The neighbour maxima (:func:`aggregate_ell_max`, :func:`aggregate_segment_max`;
+MIN is ``-max(-x)`` at the call site) are plain ops on every route: the
+JAX package computes them with XLA ops outside any Pallas kernel.  They
+mask the padding/dummy sources to ``-inf`` and differentiate by autograd
+with the JAX package's tie rule, the gradient split evenly among the
+tied maxima (``amax`` and ``scatter_reduce('amax')`` do so; ``max(dim)``
+would route it all to one index).  Rows with no real neighbour come out
+``-inf`` here; the caller maps them to 0.
 """
 
 from __future__ import annotations
@@ -91,6 +100,66 @@ def aggregate_segment(feats: torch.Tensor, edge_src: torch.Tensor,
         out.index_add_(0, edge_dst[e0:e0 + step].long(),
                        feats[edge_src[e0:e0 + step].long()].to(acc))
     return out.to(feats.dtype)
+
+
+def rows(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """``x[idx]`` for an index table ``idx [r, w]``, as ``index_select``:
+    its backward is an ``index_add_`` (atomic adds on the card), where
+    advanced indexing's backward sorts the ids and accumulates each
+    repeated one serially (seconds a step at ogbn-arxiv's shape on the
+    H100, where a source repeats ~28 times)."""
+    return x.index_select(0, idx.reshape(-1)).reshape(*idx.shape,
+                                                      *x.shape[1:])
+
+
+def aggregate_ell_max(feats: torch.Tensor, ell_idx: Sequence[torch.Tensor],
+                      ell_row_pos: torch.Tensor, num_rows: int,
+                      budget_elems: int = DEFAULT_BUDGET_ELEMS
+                      ) -> torch.Tensor:
+    """ELL neighbour MAX, the JAX function's contract: ``feats [R+1, F]``
+    with the dummy id ``R`` masked to ``-inf`` (not read as its zero
+    row), per bucket a masked ``amax`` over the width axis in row
+    segments of at most ``budget_elems`` gathered scalars (a row's whole
+    neighbourhood stays in one segment, so ties split as in one max),
+    then ``ell_row_pos`` back to row order; degree-0 rows read a
+    trailing ``-inf`` slot."""
+    F = feats.shape[1]
+    dummy = feats.shape[0] - 1
+    neg = torch.tensor(float("-inf"), dtype=feats.dtype,
+                       device=feats.device)
+
+    def seg_max(i):
+        g = rows(feats, i)                             # [r, W, F]
+        return torch.where((i != dummy)[:, :, None], g, neg).amax(dim=1)
+
+    outs = []
+    for idx in ell_idx:
+        R, W = idx.shape
+        seg_rows = max(1, budget_elems // max(W * F, 1))
+        outs.extend(seg_max(idx[r0:r0 + seg_rows])
+                    for r0 in range(0, R, seg_rows))
+    outs.append(feats.new_full((1, F), float("-inf")))
+    return torch.cat(outs, dim=0).index_select(0, ell_row_pos)[:num_rows]
+
+
+def aggregate_segment_max(feats: torch.Tensor, edge_src: torch.Tensor,
+                          edge_dst: torch.Tensor, num_rows: int
+                          ) -> torch.Tensor:
+    """Edge-list neighbour MAX (the JAX ``segment`` branch of
+    ``_max_fwd``): gather ``feats[src]``, mask the dummy id ``R`` to
+    ``-inf`` and scatter-max into a ``-inf`` output (an output holding 0
+    would count as a tie of a zero maximum).  Like the JAX route it
+    materialises the ``[E, F]`` gather in one piece: splitting it would
+    change how a tie across two pieces shares the gradient."""
+    F = feats.shape[1]
+    dummy = feats.shape[0] - 1
+    src = edge_src.long()
+    g = torch.where((src != dummy)[:, None], feats.index_select(0, src),
+                    torch.tensor(float("-inf"), dtype=feats.dtype,
+                                 device=feats.device))
+    out = feats.new_full((num_rows, F), float("-inf"))
+    return out.scatter_reduce(0, edge_dst.long()[:, None].expand(-1, F), g,
+                              "amax", include_self=False)
 
 
 IMPLS = ("segment", "cuda_csr")

@@ -1,5 +1,8 @@
 """Dense ops: linear, activations, dropout (``roc_tpu/ops/dense.py``).
 
+- Activations: none, relu, sigmoid and elu (alpha 1, as ``jax.nn.elu``;
+  both take slope 1 at 0 in the backward, the negative branch's).
+
 - Linear is ``y = x @ W`` with no bias and ``W`` laid out ``[in, out]``
   as in the JAX package (so weights cross between the packages
   untransposed, roc_tpu_torch/convert.py).  fp32 products run in full
@@ -23,11 +26,14 @@ import torch
 AC_MODE_NONE = "none"
 AC_MODE_RELU = "relu"
 AC_MODE_SIGMOID = "sigmoid"
+# beyond the reference's ActiMode set, for the GAT family (models/gat.py)
+AC_MODE_ELU = "elu"
 
 _ACTIVATIONS = {
     AC_MODE_NONE: lambda x: x,
     AC_MODE_RELU: torch.relu,
     AC_MODE_SIGMOID: torch.sigmoid,
+    AC_MODE_ELU: torch.nn.functional.elu,
 }
 
 

@@ -236,8 +236,10 @@ class ShardedData:
       degree 0).
     ELL routes: ``ell_idx`` int32 ``[rows_b, width_b]`` per bucket in
       gathered coordinates (dummy ``P * part_nodes``), ``ell_row_id``
-      ``[rows_b]`` (read by 'cuda'), ``ell_row_pos`` ``[part_nodes]``
-      (read by 'ell').
+      ``[rows_b]`` (read by K4 on 'cuda', padding rows ``part_nodes``)
+      and ``ell_row_pos`` ``[part_nodes]`` (read by the plain sum); both
+      routes carry both, since the MAX and the attention of either read
+      ``row_pos`` and attention reads ``row_id``.
     Edge routes: ``edge_src`` int32 ``[part_edges]`` in gathered
       coordinates (dummy ``P * part_nodes``), ``edge_dst`` the local
       destination rows, sorted (padding edges on the first padded row).

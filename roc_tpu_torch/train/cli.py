@@ -3,7 +3,10 @@ that the port covers: the reference's flags (``gnn.cc:114-179``) —
 ``-lr``, ``-e/-epoch``, ``-dropout/-dr``, ``-decay/-wd``, ``-decay-rate``,
 ``-decay-step/-ds``, ``-file``, ``-layers`` (dash-separated, e.g.
 ``602-256-41``: input width, hidden widths, classes), ``-seed``,
-``-verbose/-v`` — and ``--impl``, ``--fuse``, ``--dtype``,
+``-verbose/-v`` — and ``--model`` (every family of
+``models.model_builders()``: gcn, sage, gin, gat, sgc, appnp, gcn2) with
+its knobs ``--heads``, ``--hops``, ``--alpha``, ``--lam`` and
+``--learn-eps``, ``--impl``, ``--fuse``, ``--dtype``,
 ``--eval-every``, ``--parts``, ``--dist-backend``, ``--cpu``, and the
 checkpoint and recovery flags ``--checkpoint``, ``--checkpoint-every``,
 ``--resume``, ``--recovery``, ``--max-retries``, ``--preempt-grace``,
@@ -41,6 +44,8 @@ failures, stalls and I/O errors from the last good one.  A preemption
 
     python -m roc_tpu_torch.train.cli -layers 16-16-4 -e 50 -v
     python -m roc_tpu_torch.train.cli --cpu -layers 16-16-4 -e 20 -v
+    python -m roc_tpu_torch.train.cli --cpu --model gat --heads 2 \
+        -layers 16-16-4 -e 20
     python -m roc_tpu_torch.train.cli -layers 16-16-4 -e 50 --dtype mixed
     torchrun --standalone --nproc-per-node 2 -m roc_tpu_torch.train.cli \
         --parts 2 --cpu -layers 16-16-4 -e 20
@@ -57,6 +62,7 @@ import sys
 import time
 from typing import List, Optional
 
+from ..models import model_builders
 from .trainer import DTYPE_MODES
 
 # the JAX CLI's --impl choices that have a ported route, by port name
@@ -87,6 +93,27 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
     ap.add_argument("-seed", type=int, default=1)
     ap.add_argument("-verbose", "-v", action="store_true",
                     help="echo the run's configuration to stderr")
+    ap.add_argument("--model", choices=sorted(model_builders()),
+                    default="gcn")
+    ap.add_argument("--heads", type=int, default=None,
+                    help="attention heads for --model gat (hidden "
+                         "dims must divide by it; output layer stays "
+                         "single-head)")
+    ap.add_argument("--hops", type=int, default=None,
+                    help="for --model sgc/appnp: propagation depth k "
+                         "(sgc: logits = softmax(S^k X W), default 2; "
+                         "appnp: k teleport-anchored hops after the "
+                         "MLP, default 10)")
+    ap.add_argument("--alpha", type=float, default=None,
+                    help="for --model appnp/gcn2: teleport / initial-"
+                         "residual strength (default 0.1)")
+    ap.add_argument("--lam", type=float, default=None,
+                    help="for --model gcn2: identity-mapping decay "
+                         "(beta_l = log(lam/l + 1); default 0.5)")
+    ap.add_argument("--learn-eps", action="store_true", default=None,
+                    help="for --model gin: learnable per-layer "
+                         "epsilon self-weight (zero-init GIN-0) "
+                         "instead of the fixed self-add")
     ap.add_argument("--impl", default="cuda", choices=IMPLS,
                     help="aggregation route: cuda = the hand-written "
                          "kernels (K1 -> K4 -> K2), ell / segment = the "
@@ -181,6 +208,11 @@ def main(argv: Optional[List[str]] = None) -> int:
         except ValueError as e:
             print(f"error: --fault: {e}", file=sys.stderr)
             return 2
+    try:
+        model = _build_model(args, layers)
+    except ValueError as e:
+        print(f"error: {e}", file=sys.stderr)
+        return 2
     world = int(os.environ.get("WORLD_SIZE", "1"))
     if world != args.parts:
         print(f"error: --parts {args.parts} but the launcher started "
@@ -209,15 +241,41 @@ def main(argv: Optional[List[str]] = None) -> int:
     elif args.events:
         events.configure(jsonl_path=args.events)
     try:
-        return _train(args, layers, device, rank)
+        return _train(args, layers, model, device, rank)
     finally:
         if args.parts > 1:
             dist.destroy_process_group()
 
 
-def _train(args, layers, device, rank) -> int:
+# each model knob: its attribute, flag, builder keyword and the models
+# whose builder takes it
+_KNOBS = (("heads", "--heads", "heads", ("gat",)),
+          ("learn_eps", "--learn-eps", "learn_eps", ("gin",)),
+          ("hops", "--hops", "k", ("sgc", "appnp")),
+          ("alpha", "--alpha", "alpha", ("appnp", "gcn2")),
+          ("lam", "--lam", "lam", ("gcn2",)))
+
+
+def _build_model(args, layers):
+    """The model of ``--model`` through the registry, given only the
+    knobs that were on the command line (the builder's defaults fill in
+    the rest).  Raises ValueError on a knob given to a model without it
+    (the JAX CLI's check) or a value its builder refuses."""
+    kwargs = {}
+    for attr, flag, kw, models in _KNOBS:
+        value = getattr(args, attr)
+        if value is None:
+            continue
+        if args.model not in models:
+            raise ValueError(f"{flag} applies to --model "
+                             f"{'/'.join(models)} only")
+        kwargs[kw] = value
+    return model_builders()[args.model](layers, dropout_rate=args.dropout,
+                                        **kwargs)
+
+
+def _train(args, layers, model, device, rank) -> int:
     from ..core.graph import load_dataset, synthetic_dataset
-    from ..models.gcn import build_gcn
     from ..obs.events import emit
     from ..obs.heartbeat import StallFailure
     from ..ops.dense import set_fp32_matmul_precision
@@ -235,7 +293,8 @@ def _train(args, layers, device, rank) -> int:
     verbose = args.verbose and rank == 0
     if verbose:
         print(f"# dataset={ds.name} V={ds.graph.num_nodes} "
-              f"E={ds.graph.num_edges} layers={layers} lr={args.lr} "
+              f"E={ds.graph.num_edges} layers={layers} "
+              f"model={args.model} lr={args.lr} "
               f"wd={args.weight_decay} dropout={args.dropout} "
               f"decay={args.decay_rate}/{args.decay_steps} "
               f"impl={args.impl} fuse={args.fuse} dtype={args.dtype} "
@@ -252,7 +311,6 @@ def _train(args, layers, device, rank) -> int:
     if args.recovery or args.preempt_grace is not None:
         preempt.install(args.preempt_grace if args.preempt_grace is not None
                         else preempt.DEFAULT_GRACE_S)
-    model = build_gcn(layers, dropout_rate=args.dropout)
     if args.parts > 1:
         from ..parallel.distributed import DistributedTrainer
         trainer = DistributedTrainer(model, ds, args.parts, cfg,

@@ -16,6 +16,7 @@ generator's state.
 
 from __future__ import annotations
 
+import dataclasses
 import time
 from dataclasses import dataclass
 from typing import Any, Dict, List, Optional, Tuple
@@ -135,6 +136,45 @@ def resolve_fuse(model: Model, config: TrainConfig) -> Model:
     return fused
 
 
+# Past these edge counts the JAX package moves a request to a flat
+# layout that is not ported (roc_tpu/train/trainer.py, roc_tpu/core/ell.py):
+# an attention model to 'attn_flat8', a MAX/MIN model to 'flat_sum'.
+ATTN_FLAT8_MIN_EDGES = 20_000_000
+FLAT_SUM_MIN_EDGES = 20_000_000
+
+
+def resolve_attention_impl(model: Model, config: TrainConfig,
+                           dataset: Optional[Dataset] = None
+                           ) -> TrainConfig:
+    """The JAX package's model-driven route rule, on the port's routes
+    ('cuda' plays its 'pallas', 'cuda_csr' its 'pallas_csr').  A model
+    with attention needs the ELL tables, and one with MAX/MIN
+    aggregation has no form on the chunked-sum route: such a model
+    requested on another route is moved to 'ell', with a ``resolve``
+    event.  'ell' and 'cuda' are never moved, at any size; 'segment'
+    stays for MAX/MIN (it has an edge-list max).  Where the JAX package
+    takes a flat layout instead (``dataset`` past the thresholds above),
+    the port, which has neither, still goes to 'ell' and the event names
+    the JAX layout as ``jax_resolves``.  Other models come back
+    unchanged."""
+    why = ("attention" if model.uses_attention()
+           else "MAX/MIN aggregation" if model.uses_max_aggregation()
+           else None)
+    if why is None or config.aggr_impl in ("ell", "cuda") or (
+            why != "attention" and config.aggr_impl == "segment"):
+        return config
+    flat, limit = (("attn_flat8", ATTN_FLAT8_MIN_EDGES) if why == "attention"
+                   else ("flat_sum", FLAT_SUM_MIN_EDGES))
+    E = None if dataset is None else int(dataset.graph.num_edges)
+    jax = {"jax_resolves": flat} if E is not None and E >= limit else {}
+    emit("resolve", f"aggr_impl={config.aggr_impl!r} -> 'ell' ({why} model "
+         "needs the ELL tables" + (f"; at E={E:,} the JAX package takes its "
+                                   f"'{flat}' layout, which is not ported"
+                                   if jax else "") + ")",
+         requested=config.aggr_impl, resolved="ell", why=why, **jax)
+    return dataclasses.replace(config, aggr_impl="ell")
+
+
 def resolve_symmetric(dataset: Dataset, symmetric: Optional[bool]) -> bool:
     if symmetric is None:
         return check_symmetric(dataset.graph)
@@ -223,6 +263,7 @@ class Trainer:
                  device=None):
         self.device = resolve_device(device)
         model = resolve_fuse(model, config)
+        config = resolve_attention_impl(model, config, dataset)
         self.model = model
         self.config = config
         self.compute = compute_dtype_of(config)
