@@ -27,9 +27,15 @@ Phases (any failure exits nonzero):
    default; all of it again in bf16 (K1 and K2 bit for bit, K3 and K4
    within one bf16 ulp of each row's magnitude, every instance launched
    twice for equal bits);
-4. slice (serve): serves ~8 requests across the buckets 1, 8, 64 and
-   512 through Server on the kernel route, with the launch counters
-   zeroed just before, checks that K1, K2 and K4 ran and that the served
+   the SGC prefix's shape too: K1, K2 and K4 at F = 602 in fp32 (the
+   kernel table's ``akx_shapes``);
+4. slice (serve): requests through Server on the kernel route, each of
+   1, 8, 64 and 512 rows 20 times one after another (per size the
+   median, p90, max, every time and its dispatch ms) and four together,
+   with the launch counters zeroed just before; in fp32 the first 8- and
+   64-row requests go straight to Predictor.query under torch.profiler
+   (their device ms and host ops by self time: the first 64-row request
+   was the slow one); checks that K1, K2 and K4 ran and that the served
    rows match the same forward on the plain route on the card;
 5. train parity: from the same Glorot weights, dropout 0, 3 steps
    through Trainer on 'cuda', 'cuda_csr' and the plain 'ell' route;
@@ -105,12 +111,33 @@ Phases (any failure exits nonzero):
    for the fused chains of SGC, APPNP, GCNII and SAGE with GraphNorm) and
    no other; ``epoch_ms``, ``first_step_ms``, the launches a step, and
    phase 7's profile on 'cuda'.
+13. the precomputed serving backend (roc_tpu_torch/serve/), each
+   precompute with the counts zeroed just before and read just after:
+   ``serve_akx``, an SGC 602-41 (k = 2, trained 20 epochs) at Reddit's
+   shape on its 'akx' table: the precompute's wall, device ms (kernels
+   and copies) and launches (K4, and K1/K2 for the fused chains), the
+   table bytes per mode, a 4,096-id sample against the same SGC on the
+   full backend (fp32 within 1e-4, 'mixed' within 3e-2 of the logit
+   scale), int8 exported through the default drift gate and fp8 behind
+   the relaxed one, and each request size 20 times through
+   Predictor.query and Server beside the full backend's;
+   ``serve_table``, the GCN with phase 4's weights on the 'table'
+   flavor in fp32 and 'mixed' (rows bit-equal to the full backend's,
+   the same request times); ``serve_artifact``, the int8 akx and the
+   fp32 table artifacts cold-loaded with load_predictor, rows bit-equal
+   to the exporting predictor's; ``serve_invalidate`` at phase 12's
+   arxiv shape (SGC 128-40): 8 undirected edges appended, rows
+   recomputed, host and publish ms, the table against a rebuild on the
+   mutated graph (1e-5), a batch pinned to the old version bit for bit,
+   and int8 published while a thread serves batches pinned to the fp32
+   version, each bit-exact.
 
 Prints one JSON line per phase, the kernel table line
 ``{"kernels": [...]}`` (one row per kernel and dtype, e.g.
 ``ell_aggregate[bf16]``, K1's masked form as ``indegree_norm_masked``;
-launches counted over the serve, train, dist, recovery and zoo slices of
-that dtype; the F = 128 checks as each row's ``zoo_shapes``), the
+launches counted over the serve, train, dist, recovery, zoo and
+precompute slices of that dtype; the F = 128 checks as each row's
+``zoo_shapes``, the F = 602 ones as ``akx_shapes``), the
 card line, and as the last line
 ``{"ok": true, "device": {...}}``.  Imports no JAX.
 """
@@ -300,11 +327,12 @@ def ragged_checks(torch, dev):
 
 
 def kernel_checks(torch, dev, gctx, adj, num_edges, esrc, edst, dtype,
-                  widths=((256, "relu"), (41, "none"))):
+                  widths=((256, "relu"), (41, "none")), with_csr=True):
     """Each kernel in ``dtype`` against its plain version at the shapes
     the forward and backward give it, with times: per ``(F, act)`` of
     ``widths``, K1, K2 with ``act`` (and the masked K1 where ``act`` is
-    relu), K4 and K3 on ``gctx.num_rows`` rows of width F.  ``adj`` is
+    relu), K4 and (``with_csr``) K3 on ``gctx.num_rows`` rows of width
+    F.  ``adj`` is
     the graph as a sparse CSR tensor, the input of K3's and K4's library
     yardstick ``torch.sparse.mm``; ``esrc``/``edst`` the padded edge list
     K3 reads.  K1 and K2 must be bit-equal; K3 and K4 pass
@@ -464,6 +492,9 @@ def kernel_checks(torch, dev, gctx, adj, num_edges, esrc, edst, dtype,
             library_call(lambda: torch.sparse.mm(adj, x)),
             2 * esize * vf + 4 * idx_entries + 4 * bucket_rows,
             num_edges * F, 5)
+        if not with_csr:
+            del x, want, got
+            continue
         # K3 over the padded edge list: the same check; bytes: feats and
         # out once, src and dst once
         want = spmm.csr_spmm_plain(x, esrc, edst, V)
@@ -561,20 +592,97 @@ def race(torch, dev, gctx, num_edges, esrc, edst, dtype):
     return records
 
 
-def slice_run(torch, pred, server_cls):
-    """~8 requests across the buckets through Server: four one after
-    another (1, 8, 64, 512 rows), then four submitted together."""
-    rng = np.random.RandomState(SEED + 2)
-    lat, results = [], []
-    with server_cls(pred, max_wait_ms=2.0, name="chip_smoke") as srv:
-        for n in (1, 8, 64, 512):
-            ids = rng.randint(0, V, size=n)
+REQUEST_SIZES = (1, 8, 64, 512)
+REPEATS = 20
+
+
+def lat_stats(ms):
+    """Median, p90 and max of a list of request times (ms)."""
+    a = np.asarray(ms, dtype=np.float64)
+    return {"n": int(a.size), "median_ms": float(np.median(a)),
+            "p90_ms": float(np.percentile(a, 90)), "max_ms": float(a.max())}
+
+
+def request_times(call, num_nodes, seed, sizes=REQUEST_SIZES,
+                  reps=REPEATS, keep=None, first=None):
+    """Each request size ``reps`` times through ``call(ids)`` (random
+    ids, id 0 first), one after another: per size the stats of
+    :func:`lat_stats`, every time in order (``all_ms``) and, for a
+    Server, each request's dispatch wall (``dispatch_ms``).  ``keep`` (a
+    list) receives each ``(ids, rows)``.  ``first(n, ids)``, where given,
+    may take one more request of size ``n`` before the ``reps`` timed
+    ones, on its own path: it returns ``(rows, record)`` (kept under
+    ``first``, its wall under ``first_ms``, outside the stats) or None
+    to take none."""
+    rng = np.random.RandomState(seed)
+    out = []
+    for n in sizes:
+        ms, dispatch, rec = [], [], {"rows": n}
+        if first is not None:
+            ids = rng.randint(0, num_nodes, size=n)
             ids[0] = 0
             t0 = time.perf_counter()
-            rows = srv.submit(ids).result(timeout=300)
-            lat.append({"rows": n, "ms": (time.perf_counter() - t0) * 1e3,
-                        "concurrent": False})
-            results.append((ids, rows))
+            got = first(n, ids)
+            if got is not None:
+                rec["first_ms"] = (time.perf_counter() - t0) * 1e3
+                rows, rec["first"] = got
+                if keep is not None:
+                    keep.append((ids, rows))
+        for _ in range(reps):
+            ids = rng.randint(0, num_nodes, size=n)
+            ids[0] = 0
+            t0 = time.perf_counter()
+            rows = call(ids)
+            ms.append((time.perf_counter() - t0) * 1e3)
+            dispatch.append(getattr(rows, "device_ms", None))
+            if keep is not None:
+                keep.append((ids, rows))
+        rec.update(lat_stats(ms), all_ms=ms)
+        if any(d is not None for d in dispatch):
+            rec["dispatch_ms"] = dispatch
+        out.append(rec)
+    return out
+
+
+def profiled(torch, pred, sizes):
+    """A ``first`` hook for :func:`request_times`: for each size in
+    ``sizes``, one request before the timed ones, straight to
+    ``pred.query`` on this thread (the profiler records the thread that
+    starts it, not the Server's dispatcher) under torch.profiler: its
+    device ms, the host ops with the most self time and the names of the
+    device items it ran.  Being the first of its size in the process, it
+    is the one that loads that size's kernels."""
+    from torch.profiler import ProfilerActivity, profile
+
+    def first(n, ids):
+        if n not in sizes:
+            return None
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            rows = pred.query(ids)
+        ev = prof.key_averages()
+        host = sorted(ev, key=lambda e: -e.self_cpu_time_total)[:8]
+        dev = [e for e in ev
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+        return rows, {
+            "device_ms": sum(e.device_time_total for e in dev) / 1e3,
+            "host_self_ms": [{"name": e.key[:80],
+                              "ms": e.self_cpu_time_total / 1e3,
+                              "calls": e.count} for e in host],
+            "device_items": sorted(e.key[:90] for e in dev)}
+    return first
+
+
+def slice_run(torch, pred, server_cls, first=None):
+    """Requests through Server: each size of 1, 8, 64 and 512 rows
+    REPEATS times one after another (per size the median, p90, max and
+    every time; ``first`` as in :func:`request_times`), then four
+    submitted together."""
+    results = []
+    with server_cls(pred, max_wait_ms=2.0, name="chip_smoke") as srv:
+        lat = request_times(lambda ids: srv.submit(ids).result(timeout=300),
+                            V, SEED + 2, keep=results, first=first)
+        rng = np.random.RandomState(SEED + 3)
         batch = [rng.randint(0, V, size=n) for n in (1, 5, 30, 200)]
         for ids in batch:
             ids[0] = 0
@@ -1816,6 +1924,376 @@ def zoo(torch, dev, entries, counts):
     return out
 
 
+# Phase 13, the precomputed serving backend (roc_tpu_torch/serve/): the
+# SGC 602-41 (k = 2) at Reddit's shape on its 'akx' table, the GCN on
+# its 'table' flavor, both exported and cold-loaded, and the edge-append
+# invalidation at the zoo's arxiv shape, where a 2-hop neighbourhood is
+# small (at Reddit's degree it is most of the graph).
+AKX_LAYERS = [602, 41]
+AKX_HOPS = 2
+AKX_EPOCHS = 20
+SAMPLE = 4096
+INVALIDATE_PAIRS = 8
+# fp8-e4m3 keeps 3 mantissa bits: its export takes the relaxed gate the
+# JAX package's tests give it (tests/test_serve_quant.py)
+FP8_GATE = dict(drift_argmax_min=0.90, drift_dlogit_max=0.20)
+
+
+def _rows_check(name, got, want, rtol):
+    """``got`` within ``rtol * max(|want|, 1)`` of ``want`` (rtol 0:
+    the same bits); logs and raises past it."""
+    scale = float(np.abs(want).max())
+    err = float(np.abs(got - want).max())
+    ok = (bool(np.array_equal(got, want)) if rtol == 0
+          else err <= rtol * max(scale, 1.0))
+    rec = {"check": name, "max_abs_err": err, "rtol": rtol,
+           "logit_scale": scale, "ok": ok}
+    if not (ok and got.shape == want.shape and np.isfinite(got).all()):
+        raise AssertionError(f"{name}: {rec}")
+    return rec
+
+
+def precompute_profile(torch, graph, ops, feats, gctx):
+    """One more prefix walk (after the counted one) between two CUDA
+    events (``event_span_ms``: its kernels, its copies and the host's
+    gaps between them; ``wall_ms`` around it), then its copies alone,
+    each between CUDA events: the upload of X and one ``[V, F]`` stage's
+    download, counted once per stage (``copy_ms``).  ``rest_ms`` is the
+    span less the copies: the kernels and the gaps.  No torch.profiler
+    session: after the earlier sessions of this process one lost every
+    record."""
+    from roc_tpu_torch.core.streaming import stream_prefix_to_host
+
+    def span(fn):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        a.record()
+        out = fn()
+        b.record()
+        torch.cuda.synchronize()
+        return out, a.elapsed_time(b), (time.perf_counter() - t0) * 1e3
+
+    _, walk, wall = span(lambda: stream_prefix_to_host(graph, ops, feats,
+                                                       gctx=gctx))
+    x, up, _ = span(lambda: torch.from_numpy(
+        np.asarray(feats, dtype=np.float32)).cuda())
+    _, down, _ = span(lambda: x.cpu())
+    del x
+    copy = up + len(ops) * down
+    return {"event_span_ms": walk, "wall_ms": wall, "upload_ms": up,
+            "download_ms": down, "copy_ms": copy, "rest_ms": walk - copy}
+
+
+def _sample(num_nodes, seed):
+    rng = np.random.RandomState(seed)
+    return np.sort(rng.choice(num_nodes, size=min(SAMPLE, num_nodes),
+                              replace=False))
+
+
+def _timed(torch, fn):
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def serve_akx(torch, ds, counts, root):
+    """The SGC's 'akx' predictor at Reddit's shape: the precompute with
+    the counts zeroed just before and read just after (K4 and, for the
+    fused chains, K1 and K2 must run), its wall and device ms, the table
+    bytes per mode, the logits of a sample against the same SGC on the
+    full backend (fp32 within 1e-4, 'mixed' within 3e-2 of the scale),
+    int8 through the export drift gate (defaults) and fp8 behind the
+    relaxed one, and every request size through Predictor.query and
+    Server beside the full backend's.  Returns the record and the int8
+    predictor (exported to ``root``/akx_int8)."""
+    import os
+    import shutil
+    from roc_tpu_torch.models.sgc import build_sgc
+    from roc_tpu_torch.serve import quant
+    from roc_tpu_torch.serve.export import build_predictor, export_predictor
+    from roc_tpu_torch.serve.propagation import prefix_descriptors
+    from roc_tpu_torch.serve.server import Server
+    from roc_tpu_torch.train.trainer import (TrainConfig, Trainer,
+                                             graph_context)
+    cfg = TrainConfig(aggr_impl="cuda", symmetric=True, seed=SEED)
+    model = build_sgc(AKX_LAYERS, k=AKX_HOPS)
+    # served weights are trained ones: on Glorot weights the 41 logits
+    # sit within int8's noise of each other and argmaxes flip
+    tr = Trainer(build_sgc(AKX_LAYERS, k=AKX_HOPS, dropout_rate=0.5), ds,
+                 TrainConfig(aggr_impl="cuda", symmetric=True, seed=SEED,
+                             epochs=AKX_EPOCHS, eval_every=AKX_EPOCHS,
+                             verbose=False, **TRAIN))
+    hist = tr.train()
+    params = {k: v.detach().clone() for k, v in tr.params.items()}
+    del tr
+    torch.cuda.empty_cache()
+    counts.zero()
+    pred, wall = _timed(torch, lambda: build_predictor(model, ds, cfg,
+                                                       params=params))
+    launches = counts.read(F32)
+    rec = {"V": ds.graph.num_nodes, "F": AKX_LAYERS[0], "hops": AKX_HOPS,
+           "trained_epochs": AKX_EPOCHS,
+           "train_acc": hist[-1]["train_acc"],
+           "backend": pred.backend, "flavor": pred.flavor,
+           "precompute_wall_s": wall, "launches": launches,
+           "ops": pred.cache.ops}
+    if pred.flavor != "akx" or not all(launches[k][F32] for k in _CHAIN):
+        raise AssertionError(f"serve_akx: the precompute did not run "
+                             f"K1, K4 and K2: {rec}")
+    gctx = graph_context(ds.graph, "cuda", symmetric=True)
+    rec.update(precompute_profile(
+        torch, ds.graph, prefix_descriptors(pred.model.precompute_split()[0]),
+        ds.features, gctx))
+    del gctx
+    torch.cuda.empty_cache()
+    shape = pred.cache.table.shape
+    rec["table_bytes"] = {m: quant.table_bytes(shape, m)
+                          for m in quant.QMODES}
+    rec["device_table_bytes"] = {"off": pred.table_bytes()}
+    ids = _sample(pred.num_nodes, SEED + 21)
+    full = build_predictor(model, ds, cfg, params=params, backend="full")
+    want = full.query(ids)
+    checks = [_rows_check("akx_fp32_vs_full", pred.query(ids), want,
+                          SERVE_TOL["float32"])]
+    mixed = build_predictor(model, ds, dataclasses.replace(
+        cfg, compute_dtype=torch.bfloat16), params=params, cache=pred.cache)
+    checks.append(_rows_check("akx_mixed_vs_full_fp32", mixed.query(ids),
+                              want, SERVE_TOL["mixed"]))
+    lat = {"akx_query": request_times(pred.query, pred.num_nodes, SEED + 22),
+           "akx_mixed_query": request_times(mixed.query, pred.num_nodes,
+                                            SEED + 23),
+           "full_query": request_times(full.query, pred.num_nodes,
+                                       SEED + 24)}
+    with Server(pred, max_wait_ms=2.0, name="chip_smoke_akx") as srv:
+        lat["akx_server"] = request_times(
+            lambda i: srv.submit(i).result(timeout=300), pred.num_nodes,
+            SEED + 25)
+    del full, mixed
+    torch.cuda.empty_cache()
+    quantized = {}
+    for mode, gate in (("int8", {}), ("fp8", FP8_GATE)):
+        q = build_predictor(model, ds, cfg, params=params, cache=pred.cache,
+                            quant=mode)
+        out = os.path.join(root, f"akx_{mode}")
+        man, export_s = _timed(torch, lambda: export_predictor(q, out,
+                                                               **gate))
+        rec[mode] = {"drift": man["quant"]["drift"],
+                     "table": man["quant"]["table"], "export_s": export_s,
+                     "gate": gate or "default"}
+        rec["device_table_bytes"][mode] = q.table_bytes()
+        # the gate's sample is 512 rows; this sample's drift, reported
+        got = q.query(ids)
+        rec[mode]["sample_drift"] = quant.drift_report(want, got)
+        lat[f"akx_{mode}_query"] = request_times(q.query, pred.num_nodes,
+                                                 SEED + 26)
+        if not man["quant"]["drift"]["ok"]:
+            raise AssertionError(f"serve_akx: {mode} failed its gate: "
+                                 f"{man['quant']['drift']}")
+        quantized[mode] = q
+    shutil.rmtree(os.path.join(root, "akx_fp8"))
+    rec["checks"] = checks
+    del pred, quantized["fp8"]
+    torch.cuda.empty_cache()
+    return rec, lat, quantized["int8"]
+
+
+def serve_table(torch, ds, params, counts, root):
+    """The 602-256-41 GCN (phase 4's weights) on the 'table' flavor in
+    fp32 and 'mixed': the precompute (one forward: K1, K4, K2) with the
+    counts zeroed just before and read just after, the served rows of a
+    sample bit-equal to the full backend's, and each request size
+    through Predictor.query and Server beside the full backend's through
+    Predictor.query.  The fp32 predictor is exported to ``root``/table
+    and returned."""
+    import os
+    from roc_tpu_torch.models.gcn import build_gcn
+    from roc_tpu_torch.serve.export import build_predictor, export_predictor
+    from roc_tpu_torch.serve.server import Server
+    from roc_tpu_torch.train.trainer import TrainConfig
+    rec, lat, keep = {}, {}, None
+    for mode, key, compute in (("float32", F32, None),
+                               ("mixed", BF16, torch.bfloat16)):
+        cfg = TrainConfig(aggr_impl="cuda", symmetric=True, seed=SEED,
+                          compute_dtype=compute)
+        counts.zero()
+        tab, wall = _timed(torch, lambda: build_predictor(
+            build_gcn(LAYERS), ds, cfg, params=params,
+            backend="precomputed"))
+        launches = counts.read(key)
+        r = {"flavor": tab.flavor, "precompute_wall_s": wall,
+             "launches": launches, "device_table_bytes": tab.table_bytes()}
+        if tab.flavor != "table" or not all(launches[k][key]
+                                            for k in _CHAIN):
+            raise AssertionError(f"serve_table {mode}: the forward did not "
+                                 f"run K1, K4 and K2: {r}")
+        full = build_predictor(build_gcn(LAYERS), ds, cfg, params=params,
+                               backend="full")
+        ids = _sample(tab.num_nodes, SEED + 31)
+        r["checks"] = [_rows_check(f"table_{mode}_vs_full",
+                                   tab.query(ids), full.query(ids), 0.0)]
+        lat[f"table_{mode}_query"] = request_times(tab.query, tab.num_nodes,
+                                                   SEED + 32)
+        lat[f"full_{mode}_query"] = request_times(full.query, tab.num_nodes,
+                                                  SEED + 33)
+        with Server(tab, max_wait_ms=2.0, name="chip_smoke_table") as srv:
+            lat[f"table_{mode}_server"] = request_times(
+                lambda i: srv.submit(i).result(timeout=300), tab.num_nodes,
+                SEED + 34)
+        del full
+        torch.cuda.empty_cache()
+        if mode == "float32":
+            _, r["export_s"] = _timed(torch, lambda: export_predictor(
+                tab, os.path.join(root, "table")))
+            keep = tab
+        del tab
+        rec[mode] = r
+    return rec, lat, keep
+
+
+def serve_artifact(torch, root, exported):
+    """Each exported predictor (``exported``: artifact name -> the live
+    predictor that wrote it) cold-loaded with load_predictor in this
+    process: its load seconds, bytes on disk, and its served rows of a
+    sample bit-equal to the exporting predictor's."""
+    import os
+    from roc_tpu_torch.serve.export import load_predictor
+    rec = {}
+    for name, pred in exported.items():
+        path = os.path.join(root, name)
+        cold, load_s = _timed(torch, lambda: load_predictor(path))
+        ids = _sample(pred.num_nodes, SEED + 41)
+        rec[name] = {
+            "load_s": load_s, "qmode": cold.quant, "flavor": cold.flavor,
+            "bytes_on_disk": sum(os.path.getsize(os.path.join(path, f))
+                                 for f in os.listdir(path)),
+            "check": _rows_check(f"{name}_cold_vs_export", cold.query(ids),
+                                 pred.query(ids), 0.0)}
+        del cold
+    return rec
+
+
+def serve_invalidate(torch, counts):
+    """Edge appends at the zoo's arxiv shape (SGC 128-40, k = 2, phase
+    12's data): INVALIDATE_PAIRS undirected edges appended on the host,
+    the rows recomputed, host and publish ms; the new version's table
+    against a rebuild on the mutated graph (within 1e-5 of the scale);
+    a batch pinned to the old version served bit for bit; and int8
+    published while a thread serves batches pinned to the fp32 version,
+    each of them bit-exact."""
+    import threading
+    from roc_tpu_torch.core.graph import Graph, synthetic_dataset
+    from roc_tpu_torch.models.sgc import build_sgc
+    from roc_tpu_torch.serve.export import build_predictor
+    from roc_tpu_torch.serve.propagation import PropagationCache
+    from roc_tpu_torch.serve.server import Server
+    from roc_tpu_torch.train.trainer import TrainConfig
+    ds, data_s = _timed(torch, lambda: synthetic_dataset(
+        ZOO_V, ZOO_DEGREE, in_dim=ZOO_LAYERS[0], num_classes=ZOO_LAYERS[-1],
+        seed=SEED, name="arxiv_shape"))
+    cfg = TrainConfig(aggr_impl="cuda", symmetric=True, seed=SEED)
+    model = build_sgc([ZOO_LAYERS[0], ZOO_LAYERS[-1]], k=2)
+    params = model.init_params(
+        torch.Generator(device="cuda").manual_seed(SEED + 50), device="cuda")
+    counts.zero()
+    pred = build_predictor(model, ds, cfg, params=params)
+    launches = counts.read(F32)
+    V = pred.num_nodes
+    rng = np.random.RandomState(SEED + 51)
+    u = rng.randint(0, V, size=INVALIDATE_PAIRS)
+    v = (u + 1 + rng.randint(0, V - 1, size=INVALIDATE_PAIRS)) % V
+    src, dst = np.concatenate([u, v]), np.concatenate([v, u])
+    ids = np.union1d(_sample(V, SEED + 52), src)
+    pub0 = pred.published()
+    want0 = pred.query(ids, pub=pub0)
+    t0 = time.perf_counter()
+    rows = pred.cache.add_edges(src, dst)
+    host_ms = (time.perf_counter() - t0) * 1e3
+    _, publish_s = _timed(torch, lambda: pred.refresh_rows(rows))
+    pub1 = pred.published()
+    g2 = Graph(row_ptr=pred.cache.row_ptr.copy(),
+               col_idx=pred.cache.col_idx.copy())
+    rebuilt = PropagationCache.build(g2, pred.cache.ops, ds.features,
+                                     aggr_impl="cuda")
+    rec = {"V": V, "E": ds.graph.num_edges, "dataset_s": data_s,
+           "launches": launches, "edges_appended": int(src.size),
+           "rows_recomputed": int(rows.size), "host_ms": host_ms,
+           "publish_ms": publish_s * 1e3,
+           "versions": [pub0.version, pub1.version]}
+    checks = [
+        _rows_check("host_table_vs_rebuild", pred.cache.table,
+                    rebuilt.table, 1e-5),
+        _rows_check("device_table_vs_rebuild",
+                    pub1.table[:V].float().cpu().numpy(), rebuilt.table,
+                    1e-5),
+        _rows_check("pinned_v0_after_invalidate",
+                    pred.query(ids, pub=pub0), want0, 0.0)]
+    want1 = pred.query(ids, pub=pub1)
+    moved = int((np.abs(want1 - want0).max(axis=1) > 0).sum())
+    if not moved or pub1.table is pub0.table:
+        raise AssertionError(f"serve_invalidate: no served row moved: {rec}")
+    pinned, errors = [], []
+    started = threading.Event()
+
+    def pinned_batches():
+        try:
+            for i in range(10):
+                pinned.append(pred.query(ids, pub=pub1))
+                started.set()
+        except Exception as e:  # noqa: BLE001 - raised below
+            errors.append(e)
+            started.set()
+
+    th = threading.Thread(target=pinned_batches)
+    th.start()
+    started.wait(timeout=60)
+    v2 = pred.publish_quant("int8")
+    th.join(timeout=120)
+    if errors or th.is_alive():
+        raise AssertionError(f"serve_invalidate: pinned batches failed: "
+                             f"{errors}")
+    with Server(pred, max_wait_ms=2.0, name="chip_smoke_inval") as srv:
+        res = srv.submit(ids).result(timeout=300)
+    checks.append({"check": "pinned_fp32_during_int8_publish",
+                   "batches": len(pinned),
+                   "ok": all(np.array_equal(p, want1) for p in pinned)})
+    if not checks[-1]["ok"]:
+        raise AssertionError(f"serve_invalidate: {checks[-1]}")
+    checks.append(_rows_check("int8_after_publish_vs_fp32", np.asarray(res),
+                              want1, 0.02))
+    rec.update(rows_moved_in_sample=moved, quant_version=v2,
+               server_version=res.version, server_qmode=res.qmode,
+               checks=checks)
+    if (res.version, res.qmode) != (v2, "int8"):
+        raise AssertionError(f"serve_invalidate: the Server answered "
+                             f"v{res.version}:{res.qmode}")
+    return rec
+
+
+def serve_precomputed(torch, ds, gcn_params, counts):
+    """Phase 13: :func:`serve_akx`, :func:`serve_table`,
+    :func:`serve_artifact` and :func:`serve_invalidate`, each logged as
+    its phase line (request times in a line of their own)."""
+    import tempfile
+    with tempfile.TemporaryDirectory() as root:
+        rec, lat, akx8 = serve_akx(torch, ds, counts, root)
+        log({"phase": "serve_akx", **rec})
+        log({"phase": "serve_akx_requests", **lat})
+        rec, lat, tab = serve_table(torch, ds, gcn_params, counts, root)
+        log({"phase": "serve_table", **rec})
+        log({"phase": "serve_table_requests", **lat})
+        log({"phase": "serve_artifact",
+             **serve_artifact(torch, root, {"akx_int8": akx8,
+                                            "table": tab})})
+        del akx8, tab
+        torch.cuda.empty_cache()
+    log({"phase": "serve_invalidate", **serve_invalidate(torch, counts)})
+    torch.cuda.empty_cache()
+
+
 class Launches:
     """The kernel wrappers' launch counts: :meth:`zero` sets them to 0,
     :meth:`read` returns them and adds them to ``counted[dtype][kernel]``,
@@ -1972,6 +2450,13 @@ def main() -> int:
         adj = csr_adj(dtype)
         entries[key] = kernel_checks(torch, dev, gctx, adj, g.num_edges,
                                      esrc, edst, dtype)
+        if key == F32:
+            # the SGC prefix of phase 13 runs K1 -> K4 -> K2 on the raw
+            # features, F = 602
+            akx_rows = kernel_checks(torch, dev, gctx, adj, g.num_edges,
+                                     esrc, edst, dtype,
+                                     widths=((LAYERS[0], "none"),),
+                                     with_csr=False)
         del adj
         torch.cuda.empty_cache()
         race(torch, dev, gctx, g.num_edges, esrc, edst, dtype)
@@ -1985,9 +2470,11 @@ def main() -> int:
     zero_counts, read_counts, counted = counts.zero, counts.read, \
         counts.counted
 
-    # 4. serve slice: the serving path, fp32
+    # 4. serve slice: the serving path, fp32; the first 8-row and 64-row
+    # requests profiled (the 64-row one was the slow one before)
     zero_counts()
-    lat, results = slice_run(torch, pred, Server)
+    lat, results = slice_run(torch, pred, Server,
+                             first=profiled(torch, pred, (8, 64)))
     launches = read_counts(F32)
     log({"phase": "slice", "requests": lat, "launches": launches})
     if not all(launches[k][F32] for k in ("indegree_norm", "scale_act",
@@ -2134,6 +2621,11 @@ def main() -> int:
          "epoch_ms": {f: {k: r["epoch_ms"] for k, r in rec["train"].items()}
                       for f, rec in zrec["families"].items()}})
 
+    # 13. the precomputed serving backend: akx, table, the artifacts and
+    # the invalidation, each precompute with the counts zeroed just
+    # before and read just after
+    serve_precomputed(torch, ds, params, counts)
+
     table = []
     for key, tag in ((F32, "fp32"), (BF16, "bf16")):
         for name, e in entries[key].items():
@@ -2149,7 +2641,9 @@ def main() -> int:
                    if "row_ptr_ms" in e else {}),
                 "shapes": e["shapes"],
                 **({"zoo_shapes": e["zoo_shapes"]}
-                   if "zoo_shapes" in e else {})})
+                   if "zoo_shapes" in e else {}),
+                **({"akx_shapes": akx_rows[name]["shapes"]}
+                   if key == F32 and akx_rows[name]["shapes"] else {})})
     log({"total_s": time.perf_counter() - t_start,
          "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9})
     log({"kernels": table})

@@ -524,15 +524,19 @@ class Model(nn.Module):
 
     def precompute_split(self):
         """``(prefix_ops, head_model)`` when the op list is a
-        parameter-free propagation prefix followed by a purely dense
-        remainder (the SGC shape the precomputed serving backend
-        caches); None otherwise, as for the GCN."""
+        parameter-free propagation prefix (``indegree_norm``,
+        ``scatter_gather`` SUM/AVG, ``fused_aggregate``: the vocabulary
+        core/streaming.py ``stream_prefix_to_host`` runs) followed by a
+        purely dense remainder (the SGC shape the precomputed serving
+        backend caches); None otherwise, as for the GCN.  The head
+        shares this model's param names."""
         ops = self._ops
         i = 1
         while i < len(ops) and ops[i].inputs == (i - 1,) and (
                 ops[i].kind in ("indegree_norm", "fused_aggregate")
                 or (ops[i].kind == "scatter_gather"
-                    and ops[i].attrs.get("aggr", AGGR_SUM) == AGGR_SUM)):
+                    and ops[i].attrs.get("aggr", AGGR_SUM)
+                    in (AGGR_SUM, AGGR_AVG))):
             i += 1
         if i == 1 or not any(op.kind in ("scatter_gather", "fused_aggregate")
                              for op in ops[1:i]):
@@ -553,6 +557,36 @@ class Model(nn.Module):
         head._loss_op = (self._loss_op - (i - 1)
                          if self._loss_op is not None else None)
         return list(ops[1:i]), head
+
+    def to_spec(self) -> Dict[str, Any]:
+        """JSON-serialisable description of the built op list, the JAX
+        package's format (``in_dim``, ``ops``, ``loss_op``,
+        ``counters``): the serving manifest carries it, and a spec
+        written by either package builds the same op list in the other
+        (:meth:`from_spec`)."""
+        return {
+            "in_dim": self._ops[0].dim,
+            "ops": [{"kind": op.kind, "inputs": list(op.inputs),
+                     "dim": op.dim, "param": op.param,
+                     "attrs": dict(op.attrs)}
+                    for op in self._ops[1:]],
+            "loss_op": self._loss_op,
+            "counters": [self._n_linear, self._n_gat, self._n_eps],
+        }
+
+    @classmethod
+    def from_spec(cls, spec: Dict[str, Any]) -> "Model":
+        """Inverse of :meth:`to_spec`."""
+        model = cls(in_dim=int(spec["in_dim"]))
+        for op in spec["ops"]:
+            model._ops.append(_Op(op["kind"], tuple(op["inputs"]),
+                                  int(op["dim"]), op.get("param"),
+                                  dict(op.get("attrs") or {})))
+        model._loss_op = spec.get("loss_op")
+        c = spec.get("counters") or [0, 0, 0]
+        model._n_linear, model._n_gat, model._n_eps = (
+            int(c[0]), int(c[1]), int(c[2]))
+        return model
 
     # ---- params ----
 

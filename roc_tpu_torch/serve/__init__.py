@@ -1,1 +1,3 @@
-"""Serving tier: full-graph Predictor, microbatch Server, typed errors."""
+"""Serving tier: the Predictor (full-graph and precomputed backends),
+propagation tables, quantized tables, the export artifact, the
+microbatch Server and typed errors."""

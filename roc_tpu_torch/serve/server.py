@@ -5,10 +5,13 @@ a clean shutdown.
 ``Server.submit(node_ids, deadline_ms=...) -> Future``: a dispatcher
 thread takes whatever requests are queued, packs them into ONE padded,
 bucketed dispatch (``Predictor.query``) and completes each caller's
-future with its slice of the result.  Coalescing is bit-exact: every row
-of the full-graph forward is computed the same way whichever rows a
-dispatch asks for, and the kernels use no atomics, so a row's logits are
-identical alone or inside a 512-row microbatch.
+future with its slice of the result.  On the full backend coalescing is
+bit-exact: every row of the full-graph forward is computed the same way
+whichever rows a dispatch asks for, and the kernels use no atomics, so a
+row's logits are identical alone or inside a 512-row microbatch.  On the
+precomputed backend's 'akx' flavor the head's matmul runs on the
+bucket's rows, and a GEMM may pick another algorithm for another row
+count, so a row is bit-exact within a bucket size.
 
 An accepted request completes with its answer or fails with a typed
 error of serve/errors.py:
@@ -43,18 +46,22 @@ DEFAULT_MAX_QUEUE = 1024
 class ServeResult(np.ndarray):
     """The fp32 ``[n, C]`` logits plus the table ``version`` the
     request's microbatch was served under, ``queue_ms`` (admission to
-    dispatch start) and ``device_ms`` (the microbatch's dispatch wall)."""
+    dispatch start), ``device_ms`` (the microbatch's dispatch wall) and
+    ``qmode``, the captured version's quantization mode (during a quant
+    swap, the encoding that answered)."""
     version: int = 0
     queue_ms: Optional[float] = None
     device_ms: Optional[float] = None
+    qmode: str = "off"
 
 
 def _result(rows: np.ndarray, version: int, queue_ms: float,
-            device_ms: float) -> ServeResult:
+            device_ms: float, qmode: str = "off") -> ServeResult:
     out = rows.view(ServeResult)
     out.version = int(version)
     out.queue_ms = queue_ms
     out.device_ms = device_ms
+    out.qmode = qmode
     return out
 
 
@@ -262,5 +269,5 @@ class Server:
                 r.fut.set_result(_result(
                     rows[lo:lo + r.ids.size], pub.version,
                     queue_ms=round(max(0.0, (t0 - r.t_admit) * 1e3), 3),
-                    device_ms=round(ms, 3)))
+                    device_ms=round(ms, 3), qmode=pub.qmode))
             lo += r.ids.size

@@ -175,6 +175,18 @@ def resolve_attention_impl(model: Model, config: TrainConfig,
     return dataclasses.replace(config, aggr_impl="ell")
 
 
+def resolve_config(model: Model, dataset: Optional[Dataset],
+                   config: TrainConfig) -> Tuple[Model, TrainConfig]:
+    """THE resolve pass (the JAX package's ``resolve_config``, over the
+    ported rules): the fuse rewrite (:func:`resolve_fuse`), then the
+    model-driven route (:func:`resolve_attention_impl`).  ``Trainer``
+    and ``serve/export.build_predictor`` both run it, so a predictor
+    serves the model and route a trainer would train.  Idempotent: a
+    resolved pair comes back unchanged.  Returns ``(model, config)``."""
+    model = resolve_fuse(model, config)
+    return model, resolve_attention_impl(model, config, dataset)
+
+
 def resolve_symmetric(dataset: Dataset, symmetric: Optional[bool]) -> bool:
     if symmetric is None:
         return check_symmetric(dataset.graph)
@@ -220,11 +232,20 @@ def make_graph_context(dataset: Dataset, aggr_impl: str = "cuda",
     tables (core/ell.py), the edge routes the edge list padded to a
     ``chunk`` multiple (core/partition.py); neither builds the other's
     (at Reddit scale the edge list alone is ~0.9 GB of int32)."""
+    return graph_context(dataset.graph, aggr_impl,
+                         resolve_symmetric(dataset, symmetric),
+                         device=device, chunk=chunk)
+
+
+def graph_context(g, aggr_impl: str = "cuda", symmetric: bool = True,
+                  device=None, chunk: int = 512) -> GraphContext:
+    """:func:`make_graph_context` of a bare ``core/graph.Graph`` whose
+    symmetry the caller states (the serving precompute's walk,
+    core/streaming.py, has a graph and no dataset)."""
     if aggr_impl not in AGGR_IMPLS:
         raise ValueError(f"aggr_impl {aggr_impl!r} is not ported; "
                          f"expected one of {AGGR_IMPLS}")
     device = resolve_device(device)
-    g = dataset.graph
 
     def dev(a):
         return torch.from_numpy(a).to(device)
@@ -241,7 +262,7 @@ def make_graph_context(dataset: Dataset, aggr_impl: str = "cuda",
     return GraphContext(
         in_degree=in_degree, inv_sqrt_deg=inv_sqrt_degree(in_degree),
         num_rows=g.num_nodes, aggr_impl=aggr_impl,
-        symmetric=resolve_symmetric(dataset, symmetric), **tables)
+        symmetric=bool(symmetric), **tables)
 
 
 class Trainer:
@@ -262,8 +283,7 @@ class Trainer:
                  params: Optional[Dict[str, torch.Tensor]] = None,
                  device=None):
         self.device = resolve_device(device)
-        model = resolve_fuse(model, config)
-        config = resolve_attention_impl(model, config, dataset)
+        model, config = resolve_config(model, dataset, config)
         self.model = model
         self.config = config
         self.compute = compute_dtype_of(config)

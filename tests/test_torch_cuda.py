@@ -686,3 +686,40 @@ def test_world_of_one_nccl_trainer_matches_trainer(dev, tmp_path):
                                            a.predict().abs().max()))
     finally:
         dist.destroy_process_group()
+
+
+def test_precomputed_akx_on_the_card_matches_the_cpu(dev):
+    """The 'akx' predictor of an SGC (k = 2) built on the card (its
+    prefix through K1 -> K4 -> K2) serves within 1e-4 * max|logit| of the
+    same predictor built on the CPU (the kernels' plain versions) from
+    the same weights; an int8 table (the card's host table, quantized
+    once: a table an ulp apart could round a code the other way) gathers
+    and dequantizes on the card to the CPU's values within the same
+    tolerance, and the pad row of a padded bucket stays out of the
+    result."""
+    from roc_tpu_torch.kernels import ell_spmm
+    from roc_tpu_torch.models.sgc import build_sgc
+    from roc_tpu_torch.serve.export import build_predictor
+    from roc_tpu_torch.train.trainer import TrainConfig
+    ds = synthetic_dataset(300, 6, in_dim=24, num_classes=5, seed=0)
+    params = build_sgc([24, 5], k=2).init_params(
+        torch.Generator().manual_seed(1))
+    ids = np.arange(300)
+    cache = None
+    for quant in ("off", "int8"):
+        before = ell_spmm.ell_aggregate.launches
+        got = build_predictor(build_sgc([24, 5], k=2), ds, TrainConfig(),
+                              params=params, quant=quant, cache=cache)
+        assert got.flavor == "akx" and got.device.type == "cuda"
+        assert (ell_spmm.ell_aggregate.launches > before) == (cache is None)
+        want = build_predictor(build_sgc([24, 5], k=2), ds, TrainConfig(),
+                               params=params, quant=quant, device="cpu",
+                               cache=cache)
+        cache = got.cache
+        assert got.published().table.dtype == want.published().table.dtype
+        a, b = got.query(ids), want.query(ids)
+        assert np.abs(a - b).max() <= 1e-4 * max(1.0, np.abs(b).max())
+        sub = got.query([7, 123, 250])
+        assert sub.shape == (3, 5)
+        assert np.abs(sub - b[[7, 123, 250]]).max() <= \
+            1e-4 * max(1.0, np.abs(b).max())

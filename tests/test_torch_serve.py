@@ -2,6 +2,7 @@
 across with roc_tpu_torch/convert.py, the same 24-16-5 GCN and dataset
 in both, logits compared on the CPU."""
 
+import contextlib
 import os
 import subprocess
 import sys
@@ -21,6 +22,7 @@ from roc_tpu.train.trainer import TrainConfig as JTrainConfig
 from roc_tpu_torch import convert
 from roc_tpu_torch.core.graph import synthetic_dataset
 from roc_tpu_torch.models.gcn import build_gcn
+from roc_tpu_torch.obs.events import get_bus
 from roc_tpu_torch.serve.errors import (ServeClosed, ServeOverload,
                                         ServeTimeout)
 from roc_tpu_torch.serve.export import build_predictor
@@ -259,11 +261,98 @@ def test_edge_route_predictor_pads_to_the_configured_chunk(rig, impl):
                                atol=LOGIT_ATOL)
 
 
-def test_precomputed_backend_is_refused(rig):
-    _, ds, _ = rig
-    with pytest.raises(NotImplementedError):
-        build_predictor(build_gcn(LAYERS), ds, TrainConfig(),
-                        backend="precomputed", device="cpu")
+@contextlib.contextmanager
+def _events():
+    """The port bus's records emitted inside the block, through a sink of
+    its own (the flight ring is bounded, so it may already be full)."""
+    class Sink(list):
+        write = list.append
+
+    bus, sink = get_bus(), Sink()
+    bus.add_sink(sink)
+    try:
+        yield sink
+    finally:
+        bus.sinks.remove(sink)
+
+
+# family -> (registry name, builder kwargs); widths 24-16-5, dropout 0
+RESOLVED = {"gat": ("gat", {"heads": 1}),
+            "sage_pool": ("sage", {"aggregator": "pool"})}
+
+
+@pytest.mark.parametrize("impl", ["cuda_csr", "segment"])
+@pytest.mark.parametrize("fam", sorted(RESOLVED))
+def test_predictor_runs_the_trainers_resolve_pass(rig, fam, impl):
+    """build_predictor resolves as Trainer does (fuse, then the attention
+    route): a GAT (no edge-list form) or SAGE-pool (no 'cuda_csr' max)
+    predictor asked for on an edge route serves the JAX predictor's
+    logits for the same weights, and emits the ``resolve`` event where
+    the route moved."""
+    from roc_tpu.models import model_builders as j_model_builders
+    from roc_tpu_torch.models import model_builders
+    jds, ds, _ = rig
+    name, kw = RESOLVED[fam]
+    jmodel = j_model_builders()[name](LAYERS, dropout_rate=0.0, **kw)
+    jparams = jmodel.init_params(jax.random.PRNGKey(5))
+    jpred = j_build_predictor(
+        jmodel, jds, JTrainConfig(aggr_impl=convert.aggr_impl_to_jax(impl),
+                                  verbose=False, symmetric=True),
+        params=jparams, backend="full")
+    with _events() as recs:
+        pred = build_predictor(
+            model_builders()[name](LAYERS, dropout_rate=0.0, **kw), ds,
+            TrainConfig(aggr_impl=impl),
+            params=convert.params_from_jax(
+                {k: np.asarray(v) for k, v in jparams.items()}),
+            backend="full", device="cpu")
+    moved = pred.config.aggr_impl != impl
+    assert moved == (fam == "gat" or impl == "cuda_csr")
+    assert pred.gctx.aggr_impl == pred.config.aggr_impl
+    ev = [r for r in recs if r.get("cat") == "resolve"]
+    assert len(ev) == int(moved)
+    V = ds.graph.num_nodes
+    np.testing.assert_allclose(pred.query(np.arange(V)),
+                               jpred.query(np.arange(V)), rtol=1e-5,
+                               atol=LOGIT_ATOL)
+
+
+def _avg_prefix_model(builder_mod):
+    """norm -> AVG scatter_gather -> linear, built by hand."""
+    m = builder_mod.Model(in_dim=24)
+    t = m.input()
+    t = m.indegree_norm(t)
+    t = m.scatter_gather(t, aggr=builder_mod.AGGR_AVG)
+    t = m.linear(t, 5)
+    m.softmax_cross_entropy(t)
+    return m
+
+
+def test_avg_prefix_serves_precomputed_akx_in_both_packages(rig):
+    """A propagation prefix with AVG is parameter-free: 'auto' resolves
+    it to precomputed/akx in both packages, and the two serve the same
+    logits."""
+    from roc_tpu.models import builder as jbuilder
+    from roc_tpu_torch.models import builder
+    from roc_tpu_torch.serve.export import resolve_backend
+    from roc_tpu.serve.export import resolve_backend as j_resolve_backend
+    jds, ds, _ = rig
+    jm, m = _avg_prefix_model(jbuilder), _avg_prefix_model(builder)
+    assert j_resolve_backend(jm, "auto") == ("precomputed", "akx")
+    assert resolve_backend(m, "auto") == ("precomputed", "akx")
+    jparams = jm.init_params(jax.random.PRNGKey(2))
+    jpred = j_build_predictor(jm, jds, JTrainConfig(
+        aggr_impl="segment", verbose=False, symmetric=True),
+        params=jparams)
+    pred = build_predictor(m, ds, TrainConfig(), device="cpu",
+                           params=convert.params_from_jax(
+                               {k: np.asarray(v)
+                                for k, v in jparams.items()}))
+    assert (pred.backend, pred.flavor) == ("precomputed", "akx")
+    assert pred.cache.ops[1] == {"kind": "scatter_gather", "aggr": "avg"}
+    ids = np.arange(ds.graph.num_nodes)
+    np.testing.assert_allclose(pred.query(ids), jpred.query(ids),
+                               rtol=1e-5, atol=1e-5)
 
 
 def test_port_imports_no_jax():
