@@ -131,12 +131,34 @@ Phases (any failure exits nonzero):
    mutated graph (1e-5), a batch pinned to the old version bit for bit,
    and int8 published while a thread serves batches pinned to the fp32
    version, each bit-exact.
+14. the large-graph layouts (``layouts``, in a fresh process, as phase
+   12): races at Reddit's shape, the forward sum at F = 256 and 41 in
+   fp32 and bf16 on K4 ('cuda'), K3 ('cuda_csr'), 'sectioned' (sub_w 8,
+   int32 and uint16 ids) and 'flat_sum', each held to K4 (rtol 1e-5 in
+   fp32, one bf16 ulp of the row's magnitude in bf16) with its host
+   build seconds, event and device ms and K3/K4 launches a call (K4 on
+   'cuda' alone, K3 on 'cuda_csr' alone, none on a layout); 'bdense' on
+   planted communities in their own order (E cut to 23 M; min_fill 32,
+   a 6 GiB A budget): the probe's dense share, the plans at group 1 and
+   16, u4 packed and not, each held to K4 and timed beside it and
+   'sectioned'; a shuffled planted graph at the arxiv shape relabeled by
+   lpa and bfs (seconds, dense shares; lpa must recover the oracle's);
+   the 602-256-41 GCN on 'sectioned', 'flat_sum' and 'bdense' (3 parity
+   steps against 'cuda', then 5 epochs, fp32 and 'mixed') and what
+   'auto' resolves to on this card (its row); ogbn-products' shape
+   (symmetric, V = 2,449,029, E ~ 126 M): GIN 100-256-47 through 'auto',
+   'flat_sum' and 'cuda' (parity, 5 epochs, fp32 and 'mixed'), GAT
+   ('mixed', 'attn_flat8': 3 steps against 3 on 'ell'), SAGE-pool (fp32,
+   'flat_sum''s max: its logits against 'ell''s, whose max cannot train
+   at this shape in 80 GB, then 3 steps), and the peak memory.  The native host
+   planners must have run for every layout built.  Its 'cuda' baselines
+   are counted runs of the table.
 
 Prints one JSON line per phase, the kernel table line
 ``{"kernels": [...]}`` (one row per kernel and dtype, e.g.
 ``ell_aggregate[bf16]``, K1's masked form as ``indegree_norm_masked``;
-launches counted over the serve, train, dist, recovery, zoo and
-precompute slices of that dtype; the F = 128 checks as each row's
+launches counted over the serve, train, dist, recovery, zoo, precompute
+and layouts slices of that dtype; the F = 128 checks as each row's
 ``zoo_shapes``, the F = 602 ones as ``akx_shapes``), the
 card line, and as the last line
 ``{"ok": true, "device": {...}}``.  Imports no JAX.
@@ -2294,6 +2316,562 @@ def serve_precomputed(torch, ds, gcn_params, counts):
     torch.cuda.empty_cache()
 
 
+# ---------------------------------------------------------------------------
+# 14. The large-graph layouts (sectioned, flat_sum, bdense, attn_flat8),
+# the native host planners, vertex reordering and aggr_impl='auto'
+# ---------------------------------------------------------------------------
+
+# the races' routes: (name, aggr_impl, graph_context keywords)
+RACE_ROUTES = (("cuda", "cuda", {}), ("cuda_csr", "cuda_csr", {}),
+               ("sectioned", "sectioned", {}),
+               ("sectioned_u16", "sectioned", {"sect_u16": True}),
+               ("flat_sum", "flat_sum", {}))
+# the block-dense substrate: planted communities of 16,384 rows in their
+# own order at Reddit's V, its edge count cut from 114,848,857 for the
+# phase's time; a tile of a community holds ~80 edges at this E
+PLANTED_ROWS = 16_384
+PLANTED_E = 23_000_000
+BD = dict(bdense_min_fill=32, bdense_a_budget=6 << 30)
+# the GCN's block-dense plan at Reddit's shape: min_fill 32 (a uniform
+# graph's tile holds ~34 edges, none reaches the default 64) and the
+# default 2 GiB budget
+BD_TRAIN = dict(bdense_min_fill=32)
+# the reorder check: the arxiv shape's V and E, communities of 4,096 rows
+REORDER_ROWS = 4_096
+ZOO_E = 4_730_941
+# ogbn-products' shape: V, the degree that gives E ~ 126 M after the
+# reverse edges and self edges, the 100-256-47 widths
+PRODUCTS_V = 2_449_029
+PRODUCTS_DEGREE = 52
+PRODUCTS_LAYERS = [100, 256, 47]
+# 3 steps of GAT on 'attn_flat8' against the plain 'ell' route: its
+# softmax-weighted sums in another order and bf16 activations rounded at
+# other places, over two layers and 3 Adam steps
+LAYOUT_PLAIN_RTOL = {"mixed": 2e-2}
+
+
+def _native_calls():
+    from roc_tpu_torch import native
+    return dict(native.calls)
+
+
+def _native_ran(before, names):
+    """Raise unless each native entry point of ``names`` ran since
+    ``before`` (the card run must not drop to numpy unseen)."""
+    from roc_tpu_torch import native
+    if not native.available():
+        raise AssertionError("the native host planners did not build")
+    missing = [n for n in names
+               if native.calls.get(n, 0) <= before.get(n, 0)]
+    if missing:
+        raise AssertionError(f"the native planners never ran: {missing}")
+
+
+def _kernel_launches(counts, key, fn):
+    """K3's and K4's launches by one call of ``fn`` (not counted in the
+    table: a race's launches are comparisons)."""
+    counts.zero()
+    fn()
+    got = counts.peek()
+    counts.zero()
+    return {k: got[k][key] for k in ("ell_aggregate", "csr_spmm")}
+
+
+def _race_one(torch, counts, gctx, route, x, want, n):
+    """One route's forward sum of ``x``: held to K4's ``want``
+    (:func:`sum_check`), its launches of K3 and K4 a call, event ms and
+    device ms."""
+    key = BF16 if x.dtype == torch.bfloat16 else F32
+    with torch.inference_mode():
+        got = gctx._sum_fwd(x)
+        ok, err = sum_check(torch, got, want)
+        if not ok:
+            raise AssertionError(f"{route} {x.dtype} F={x.shape[1]}: "
+                                 f"max_abs_err {err} against K4")
+        del got
+        launches = _kernel_launches(counts, key, lambda: gctx._sum_fwd(x))
+        want_k = {"cuda": "ell_aggregate", "cuda_csr": "csr_spmm"}.get(route)
+        if any(launches[k] for k in launches if k != want_k) or (
+                want_k and not launches[want_k]):
+            raise AssertionError(f"{route}: K3/K4 launches {launches}")
+        return {"max_abs_err": err, "launches_per_call": launches,
+                "ms": time_ms(torch, lambda: gctx._sum_fwd(x), n),
+                "device_ms": device_ms(torch, lambda: gctx._sum_fwd(x), n)}
+
+
+def layout_race(torch, ds, counts):
+    """Races at Reddit's shape: the forward sum at F = 256 and F = 41, in
+    fp32 and bf16, on K4 ('cuda'), K3 ('cuda_csr'), the sectioned tables
+    (sub_w 8, int32 and uint16 ids) and the flat tables; each held to
+    K4 (:func:`sum_check`), with its host build seconds (the native
+    planners for the layouts), event and device ms and K3/K4 launches a
+    call (K4 on 'cuda' alone, K3 on 'cuda_csr' alone, none on the
+    layouts)."""
+    from roc_tpu_torch.train.trainer import graph_context
+    dev = torch.device("cuda")
+    t_start = time.perf_counter()
+    before = _native_calls()
+    ctxs, build_s = {}, {}
+    for name, impl, kw in RACE_ROUTES:
+        t0 = time.perf_counter()
+        ctxs[name] = graph_context(ds.graph, impl, symmetric=True,
+                                   device=dev, **kw)
+        torch.cuda.synchronize()
+        build_s[name] = time.perf_counter() - t0
+    _native_ran(before, ("sectioned_counts", "sectioned_fill"))
+    gen = torch.Generator(device=dev).manual_seed(SEED + 14)
+    rows = []
+    for F in (256, 41):
+        for dtype in (torch.float32, torch.bfloat16):
+            x = torch.randn((V, F), generator=gen, device=dev).to(dtype)
+            with torch.inference_mode():
+                want = ctxs["cuda"]._sum_fwd(x)
+            rec = {"F": F, "dtype": str(dtype)}
+            for name, _, _ in RACE_ROUTES:
+                n = 10 if name.startswith("cuda") else 3
+                rec[name] = _race_one(torch, counts, ctxs[name],
+                                      name.split("_u16")[0], x, want, n)
+            k4 = rec["cuda"]["ms"]
+            for name, _, _ in RACE_ROUTES:
+                rec[name]["over_k4"] = rec[name]["ms"] / k4
+            log({"phase": "layouts_race", **rec})
+            rows.append(rec)
+            del x, want
+    out = {"build_s": build_s, "rows": rows,
+           "seconds": time.perf_counter() - t_start,
+           "sect_shapes": [list(a.shape) for a in ctxs["sectioned"].sect_idx],
+           "flat_shape": list(ctxs["flat_sum"].flat8_idx.shape)}
+    del ctxs
+    torch.cuda.empty_cache()
+    return out
+
+
+def _unpacked(torch, gctx):
+    """The block-dense context with its u4 A-table unpacked to uint8
+    (the same multiplicities)."""
+    a = gctx.bd_a
+    a = torch.stack([a & 0xF, a >> 4], dim=-1).reshape(a.shape[0], 128, 128)
+    return dataclasses.replace(gctx, bd_a=a)
+
+
+def bdense_race(torch, counts):
+    """The block-dense route on planted communities in their own order
+    (V = Reddit's, E = PLANTED_E): the probe's dense share, each plan's
+    seconds, blocks and A bytes at group 1 and 16, u4 packed and not,
+    and its forward sum at F = 256 in fp32 and bf16 against K4 and the
+    sectioned tables, each held to K4."""
+    from roc_tpu_torch.core.graph import planted_community_csr
+    from roc_tpu_torch.ops.blockdense import probe_dense_frac
+    from roc_tpu_torch.train.trainer import graph_context
+    dev = torch.device("cuda")
+    t_start = t0 = time.perf_counter()
+    g = planted_community_csr(V, PLANTED_E, community_rows=PLANTED_ROWS,
+                              shuffle=False, seed=SEED)
+    out = {"V": g.num_nodes, "E": g.num_edges, "community_rows":
+           PLANTED_ROWS, "generate_s": time.perf_counter() - t0, **BD}
+    before = _native_calls()
+    t0 = time.perf_counter()
+    out["probe_dense_frac"] = probe_dense_frac(
+        g.row_ptr, g.col_idx, g.num_nodes, min_fill=BD["bdense_min_fill"],
+        a_budget_bytes=BD["bdense_a_budget"])
+    out["probe_s"] = time.perf_counter() - t0
+    ctxs = {}
+    for name, impl, kw in (("cuda", "cuda", {}), ("sectioned", "sectioned",
+                                                 {}),
+                           ("bdense_g1", "bdense", dict(BD, bdense_group=1)),
+                           ("bdense_g16", "bdense",
+                            dict(BD, bdense_group=16))):
+        t0 = time.perf_counter()
+        ctxs[name] = graph_context(g, impl, symmetric=True, device=dev, **kw)
+        torch.cuda.synchronize()
+        out[f"{name}_build_s"] = time.perf_counter() - t0
+        if impl == "bdense":
+            c = ctxs[name]
+            if c.bd_a is None:
+                raise AssertionError(f"{name}: the plan has no block")
+            out[f"{name}_plan"] = {
+                "n_blocks": int(c.bd_a.shape[0]),
+                "a_bytes_u4": int(c.bd_a.numel()),
+                "a_bytes_u8": 2 * int(c.bd_a.numel()),
+                "residual_sections": len(c.sect_idx)}
+            ctxs[name + "_u8"] = _unpacked(torch, c)
+    _native_ran(before, ("block_counts", "block_fill", "sectioned_counts",
+                         "sectioned_fill"))
+    gen = torch.Generator(device=dev).manual_seed(SEED + 15)
+    out["rows"] = []
+    for dtype in (torch.float32, torch.bfloat16):
+        x = torch.randn((V, 256), generator=gen, device=dev).to(dtype)
+        with torch.inference_mode():
+            want = ctxs["cuda"]._sum_fwd(x)
+        rec = {"F": 256, "dtype": str(dtype)}
+        for name, c in ctxs.items():
+            route = name if name in ("cuda", "sectioned") else "bdense"
+            rec[name] = _race_one(torch, counts, c, route, x, want,
+                                  10 if name == "cuda" else 3)
+            rec[name]["over_k4"] = rec[name]["ms"] / rec["cuda"]["ms"]
+        log({"phase": "layouts_bdense", **rec})
+        out["rows"].append(rec)
+        del x, want
+    del ctxs, g
+    out["seconds"] = time.perf_counter() - t_start
+    torch.cuda.empty_cache()
+    return out
+
+
+def reorder_check():
+    """A shuffled planted-community graph at the arxiv shape relabeled
+    by lpa and by bfs: seconds and the dense share (the probe, bdense's
+    min_fill and budget) of the shuffled, reordered and oracle orders."""
+    from roc_tpu_torch.core.graph import planted_community_csr
+    from roc_tpu_torch.core.reorder import ORDERINGS, apply_graph_order
+    from roc_tpu_torch.ops.blockdense import probe_dense_frac
+
+    def frac(g):
+        return probe_dense_frac(g.row_ptr, g.col_idx, g.num_nodes,
+                                min_fill=BD["bdense_min_fill"],
+                                a_budget_bytes=BD["bdense_a_budget"])
+    t_start = time.perf_counter()
+    kw = dict(community_rows=REORDER_ROWS, seed=SEED)
+    shuffled = planted_community_csr(ZOO_V, ZOO_E, shuffle=True, **kw)
+    out = {"V": ZOO_V, "E": ZOO_E, "community_rows": REORDER_ROWS,
+           "dense_frac": {"shuffled": frac(shuffled), "oracle": frac(
+               planted_community_csr(ZOO_V, ZOO_E, shuffle=False, **kw))}}
+    before = _native_calls()
+    for name in ("lpa", "bfs"):
+        t0 = time.perf_counter()
+        perm = ORDERINGS[name](shuffled)
+        out[f"{name}_s"] = time.perf_counter() - t0
+        out["dense_frac"][name] = frac(apply_graph_order(shuffled, perm))
+    _native_ran(before, ("lpa_iterate",))
+    if not out["dense_frac"]["lpa"] >= 0.9 * out["dense_frac"]["oracle"]:
+        raise AssertionError(f"lpa did not recover the communities: {out}")
+    out["seconds"] = time.perf_counter() - t_start
+    log({"phase": "layouts_reorder", **out})
+    return out
+
+
+def _layout_trainer(ds, impl, dropout, params=None, mode="float32", *,
+                    fam=None, layers=LAYERS, **cfg):
+    """A Trainer of the GCN (``fam`` None) or of a model_builders family
+    ``(name, kwargs)`` on ``impl``, the reference's Reddit settings, the
+    block-dense route at ``BD``."""
+    from roc_tpu_torch.models import model_builders
+    from roc_tpu_torch.models.gcn import build_gcn
+    from roc_tpu_torch.train.trainer import (TrainConfig, Trainer,
+                                             resolve_dtypes)
+    dtype, compute_dtype = resolve_dtypes(mode)
+    if fam is None:
+        model = build_gcn(layers, dropout_rate=dropout)
+    else:
+        model = model_builders()[fam[0]](layers, dropout_rate=dropout,
+                                         **fam[1])
+    return Trainer(model, ds, TrainConfig(
+        aggr_impl=impl, symmetric=True, seed=SEED, dtype=dtype,
+        compute_dtype=compute_dtype, **TRAIN,
+        **(BD_TRAIN if impl == "bdense" else {}), **cfg), params=params)
+
+
+@contextlib.contextmanager
+def shared_contexts():
+    """Trainers built inside share one graph context per (dataset,
+    route, keywords), so a layout's host plan and upload happen once
+    for its parity and training runs (a context holds tables only)."""
+    from roc_tpu_torch.train import trainer as T
+    real, cache = T.make_graph_context, {}
+
+    def make(dataset, aggr_impl, **kw):
+        key = (id(dataset), aggr_impl, tuple(sorted(kw.items())))
+        if key not in cache:
+            cache[key] = real(dataset, aggr_impl, **kw)
+        return cache[key]
+    T.make_graph_context = make
+    try:
+        yield
+    finally:
+        T.make_graph_context = real
+        cache.clear()
+
+
+def _layout_steps(torch, make, ds, impl, mode, params, steps=3):
+    """``steps`` steps, dropout 0, from ``params``, one eval after them:
+    the objectives, the route the trainer resolved, the steady steps'
+    ``epoch_ms``, and for a block-dense context its blocks and dense
+    share."""
+    tr = make(ds, impl, 0.0, params=params, mode=mode, eval_every=steps,
+              verbose=False)
+    hist = tr.train(steps)
+    tr.sync()
+    info = {"route": tr.config.aggr_impl, "epoch_ms": hist[0]["epoch_ms"],
+            "first_step_ms": hist[0]["first_step_ms"]}
+    a = tr.gctx.bd_a
+    if tr.config.aggr_impl == "bdense":
+        if a is None:
+            raise AssertionError(f"{impl}: the block-dense plan has no block")
+        dense = int((a & 0xF).sum()) + int((a >> 4).sum())
+        info.update(n_blocks=int(a.shape[0]),
+                    dense_frac=dense / ds.graph.num_edges)
+    losses = torch.stack(tr.losses).double().cpu().numpy()
+    del tr, a
+    torch.cuda.empty_cache()
+    return losses, info
+
+
+def _layout_epochs(torch, make, ds, impl, mode, epochs=5):
+    """``epochs`` epochs, dropout 0.5, one eval at the end: its
+    ``epoch_ms`` (steady steps), ``first_step_ms``, and the device ms of
+    one more step under torch.profiler."""
+    from torch.profiler import ProfilerActivity, profile
+    tr = make(ds, impl, 0.5, mode=mode, epochs=epochs, eval_every=epochs,
+              verbose=False)
+    hist = tr.train()
+    tr.sync()
+    losses = torch.stack(tr.losses).double().cpu().numpy()
+    if not np.isfinite(losses).all():
+        raise AssertionError(f"{impl} {mode}: non-finite loss {losses}")
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        tr.train(1)
+        tr.sync()
+    us = sum(e.device_time_total for e in prof.key_averages()
+             if e.device_type == torch.autograd.DeviceType.CUDA)
+    rec = {"route": tr.config.aggr_impl, "epoch_ms": hist[0]["epoch_ms"],
+           "first_step_ms": hist[0]["first_step_ms"],
+           "device_ms_per_step": us / 1e3 if us > 0 else "not measured",
+           "train_loss": hist[0]["train_loss"]}
+    del tr, prof
+    torch.cuda.empty_cache()
+    return rec
+
+
+def _held(got, info, ref, base, rtol):
+    """A route's objectives ``got`` against ``base``'s ``ref``."""
+    rel = float((np.abs(got - ref) / np.abs(ref)).max())
+    if not (np.isfinite(got).all() and rel <= rtol):
+        raise AssertionError(f"{info['route']}: losses {got} against "
+                             f"{base}'s {ref} (rtol {rtol})")
+    return {**info, "losses": got.tolist(), f"{base}_losses": ref.tolist(),
+            "max_rel_err": rel, "rtol": rtol}
+
+
+def _counted(counts, key, fn):
+    """``fn()`` as a counted main-path run: the counts zeroed just
+    before and read (into the table) just after."""
+    counts.zero()
+    out = fn()
+    return out, counts.read(key)
+
+
+def reddit_train(torch, ds, counts):
+    """The 602-256-41 GCN at Reddit's shape on 'sectioned', 'flat_sum'
+    and 'bdense' (``BD``): 3 parity steps against 'cuda' (the smoke's
+    gates, PARITY_RTOL), then 5 epochs each in fp32 and mixed; and what
+    'auto' resolves to on this card (its row in core/ell.py)."""
+    from roc_tpu_torch.core.ell import jax_auto_impl, port_route
+    from roc_tpu_torch.models.gcn import build_gcn
+    from roc_tpu_torch.train.trainer import (TrainConfig, card_kind,
+                                             resolve_config)
+    dev = torch.device("cuda")
+    kind = card_kind(dev)
+    _, cfg = resolve_config(build_gcn(LAYERS), ds,
+                            TrainConfig(aggr_impl="auto", symmetric=True),
+                            device=dev)
+    rule = jax_auto_impl(V, None, ds.graph.num_edges)
+    auto = {"kind": kind, "resolved": cfg.aggr_impl, "jax_rule": rule,
+            "row_route": port_route(rule, kind)}
+    log({"phase": "layouts_auto", **auto})
+    if cfg.aggr_impl != auto["row_route"]:
+        raise AssertionError(f"'auto' resolved to {cfg.aggr_impl}; the "
+                             f"card's row names {auto['row_route']}")
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    params = {k: v.detach() for k, v in build_gcn(LAYERS).init_params(
+        gen, device=dev).items()}
+    out = {"auto": auto, "routes": {}}
+    t0 = time.perf_counter()
+    for mode, key in (("float32", F32), ("mixed", BF16)):
+        (ref, _), launches = _counted(counts, key, lambda: _layout_steps(
+            torch, _layout_trainer, ds, "cuda", mode, params))
+        if not (all(launches[k][key] for k in ("indegree_norm", "scale_act",
+                                                 "ell_aggregate"))
+                and launches["indegree_norm_masked"]):
+            raise AssertionError(f"cuda {mode}: a kernel of the fused chain "
+                                 f"never ran: {launches}")
+        for impl in ("sectioned", "flat_sum", "bdense"):
+            got, info = _layout_steps(torch, _layout_trainer, ds, impl, mode,
+                                      params)
+            rec = {"mode": mode, "route": impl,
+                   "parity": _held(got, info, ref, "cuda",
+                                   PARITY_RTOL[mode]),
+                   "train": _layout_epochs(torch, _layout_trainer, ds, impl,
+                                           mode)}
+            log({"phase": "layouts_train", **rec})
+            out["routes"][f"{impl}/{mode}"] = rec
+    out["seconds"] = time.perf_counter() - t0
+    return out
+
+
+def products(torch, counts):
+    """ogbn-products' shape (symmetric synthetic_graph, V = 2,449,029,
+    E ~ 126 M): GIN 100-256-47 through 'auto', 'flat_sum' and 'cuda', 3
+    parity steps against 'cuda' and 5 epochs each, in fp32 and mixed;
+    GAT (1 head, mixed) on 'attn_flat8', 3 steps against 3 on the plain
+    'ell' route (LAYOUT_PLAIN_RTOL); SAGE-pool (fp32) on 'flat_sum''s
+    max, its logits against 'ell''s, then 3 steps; each run's steady
+    steps' epoch_ms; the peak memory."""
+    from roc_tpu_torch.core.graph import Dataset, MASK_TRAIN, synthetic_graph
+    from roc_tpu_torch.models import model_builders
+    from roc_tpu_torch.ops.attention import resolve_dh_chunk
+    dev = torch.device("cuda")
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    g = synthetic_graph(PRODUCTS_V, PRODUCTS_DEGREE, seed=SEED)
+    rng = np.random.RandomState(SEED)
+    C = PRODUCTS_LAYERS[-1]
+    ds = Dataset(g, rng.randn(PRODUCTS_V, PRODUCTS_LAYERS[0]).astype(
+        np.float32), rng.randint(0, C, PRODUCTS_V).astype(np.int32),
+        np.where(rng.rand(PRODUCTS_V) < 0.5, MASK_TRAIN, 0).astype(np.int32),
+        C, name="products_shape")
+    out = {"V": g.num_nodes, "E": g.num_edges,
+           "dataset_s": time.perf_counter() - t0}
+    log({"phase": "layouts_products_data", **out})
+    fams = {"gin": ("gin", {}), "gat": ("gat", {"heads": 1}),
+            "sage_pool": ("sage", {"aggregator": "pool"})}
+
+    def make(fam):
+        return functools.partial(_layout_trainer, fam=fams[fam],
+                                 layers=PRODUCTS_LAYERS)
+
+    def init(fam):
+        name, kw = fams[fam]
+        gen = torch.Generator(device=dev).manual_seed(SEED)
+        return {k: v.detach() for k, v in model_builders()[name](
+            PRODUCTS_LAYERS, **kw).init_params(gen, device=dev).items()}
+
+    params = init("gin")
+    for mode, key in (("float32", F32), ("mixed", BF16)):
+        rec = out[f"gin/{mode}"] = {}
+        (ref, _), _ = _counted(counts, key, lambda: _layout_steps(
+            torch, make("gin"), ds, "cuda", mode, params))
+        for impl in ("auto", "flat_sum"):
+            got, info = _layout_steps(torch, make("gin"), ds, impl, mode,
+                                      params)
+            rec[impl] = {"parity": _held(got, info, ref, "cuda",
+                                         PARITY_RTOL[mode])}
+        for impl in ("auto", "flat_sum", "cuda"):
+            run, launches = _counted(counts, key, lambda: _layout_epochs(
+                torch, make("gin"), ds, impl, mode))
+            rec.setdefault(impl, {}).update(train=run, launches=launches)
+            k = {"cuda": "ell_aggregate"}.get(run["route"])
+            if any(launches[n][key] for n in ("ell_aggregate", "csr_spmm")
+                   if n != k) or (k and not launches[k][key]):
+                raise AssertionError(f"gin {impl} on {run['route']}: "
+                                     f"launches {launches}")
+        log({"phase": "layouts_products_gin", "mode": mode, **rec})
+    del params
+    # GAT: 3 steps on 'attn_flat8' held to 3 on 'ell' (each run's steady
+    # steps give its epoch_ms)
+    params = init("gat")
+    ref, ell = _layout_steps(torch, make("gat"), ds, "ell", "mixed", params)
+    got, info = _layout_steps(torch, make("gat"), ds, "attn_flat8", "mixed",
+                              params)
+    out["gat"] = {"mode": "mixed", "parity": _held(
+        got, info, ref, "ell", LAYOUT_PLAIN_RTOL["mixed"]), "ell": ell,
+        "dh_chunk": [resolve_dh_chunk(PRODUCTS_V, 1, d)
+                     for d in PRODUCTS_LAYERS[1:]]}
+    log({"phase": "layouts_products_gat", **out["gat"]})
+    del params
+    # SAGE-pool: the ELL max keeps every gathered segment for its backward
+    # (~E * F * 4 bytes, past the card's 80 GB here), so 'ell' is held to
+    # in the forward: the logits at the same weights (a max is exact, so
+    # the same bits up to the dense ops' order, 1e-5 of the logit scale);
+    # then 3 steps on 'flat_sum'
+    params = init("sage_pool")
+    tr = make("sage_pool")(ds, "ell", 0.0, params=params, verbose=False)
+    ref = tr.predict().float()
+    del tr
+    tr = make("sage_pool")(ds, "flat_sum", 0.0, params=params, verbose=False)
+    err = float((tr.predict().float() - ref).abs().max())
+    scale = float(ref.abs().max())
+    del tr, ref
+    torch.cuda.empty_cache()
+    if not err <= 1e-5 * max(scale, 1.0):
+        raise AssertionError(f"sage_pool flat_sum logits {err} off 'ell''s "
+                             f"(scale {scale})")
+    got, info = _layout_steps(torch, make("sage_pool"), ds, "flat_sum",
+                              "float32", params)
+    if not np.isfinite(got).all():
+        raise AssertionError(f"sage_pool flat_sum: losses {got}")
+    out["sage_pool"] = {"mode": "float32", "logits_max_abs_err_vs_ell": err,
+                        "logit_scale": scale, "losses": got.tolist(), **info,
+                        "ell_train": "not run: its backward needs ~E*F*4 "
+                                     "bytes of kept segments at this shape"}
+    log({"phase": "layouts_products_sage_pool", **out["sage_pool"]})
+    del params
+    out["peak_mem_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    out["seconds"] = time.perf_counter() - t0
+    return out
+
+
+def layouts_child(data_dir, num_classes, out_path):
+    """Phase 14 in a fresh process on card 0: the races at Reddit's
+    shape (the dataset the parent saved in ``data_dir``), the block-dense
+    race, the reorder check, the GCN on the layouts, the products shape;
+    writes the record and the counts to ``out_path``."""
+    import torch
+    from roc_tpu_torch.kernels import _build
+    from roc_tpu_torch.ops.dense import set_fp32_matmul_precision
+    torch.cuda.set_device(0)
+    set_fp32_matmul_precision()
+    _build.library()
+    counts = Launches(torch)
+    t0 = time.perf_counter()
+    ds = _map_dataset(data_dir, num_classes)
+    rec = {}
+
+    def section(name, fn, *args):
+        t1 = time.perf_counter()
+        rec[name] = fn(*args)
+        log({"phase": "layouts_section", "name": name,
+             "seconds": time.perf_counter() - t1})
+
+    section("race", layout_race, torch, ds, counts)
+    with shared_contexts():
+        section("train", reddit_train, torch, ds, counts)
+    del ds
+    section("bdense", bdense_race, torch, counts)
+    section("reorder", reorder_check)
+    with shared_contexts():
+        section("products", products, torch, counts)
+    rec["seconds"] = time.perf_counter() - t0
+    log({"phase": "layouts_seconds", **{k: v.get("seconds") for k, v in
+                                         rec.items() if isinstance(v, dict)},
+         "total": rec["seconds"]})
+    with open(out_path, "w") as f:
+        json.dump({"record": rec, "counted": counts.counted}, f)
+
+
+def run_layouts_child(ds):
+    """:func:`layouts_child` in a fresh Python process (the dataset saved
+    for it as .npy), its phase lines on this process's output; returns
+    what it wrote, and raises if it failed."""
+    import os
+    import tempfile
+    here = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ, PYTHONPATH=here + os.pathsep
+               + os.environ.get("PYTHONPATH", ""))
+    with tempfile.TemporaryDirectory() as tmp:
+        _save_dataset(ds, tmp)
+        out = os.path.join(tmp, "layouts.json")
+        r = subprocess.run(
+            [sys.executable, "-c", "import chip_smoke as s; "
+             f"s.layouts_child({tmp!r}, {ds.num_classes}, {out!r})"],
+            cwd=here, env=env, timeout=900)
+        if r.returncode != 0:
+            raise AssertionError(f"phase 14 (layouts) failed: exit "
+                                 f"{r.returncode}")
+        with open(out) as f:
+            return json.load(f)
+
+
 class Launches:
     """The kernel wrappers' launch counts: :meth:`zero` sets them to 0,
     :meth:`read` returns them and adds them to ``counted[dtype][kernel]``,
@@ -2625,6 +3203,23 @@ def main() -> int:
     # the invalidation, each precompute with the counts zeroed just
     # before and read just after
     serve_precomputed(torch, ds, params, counts)
+
+    # 14. the large-graph layouts, in a fresh process: races against K3
+    # and K4, the block-dense race, reordering, the GCN on the layouts,
+    # the products shape; its counted runs (the 'cuda' baselines) join
+    # the table
+    sys.stdout.flush()
+    child = run_layouts_child(ds)
+    for key in (F32, BF16):
+        for name in KERNELS:
+            counted[key][name] += child["counted"][key][name]
+    lrec = child["record"]
+    log({"phase": "layouts_summary", "seconds": lrec["seconds"],
+         "auto": lrec["train"]["auto"],
+         "peak_mem_gb_products": lrec["products"]["peak_mem_gb"],
+         "race_over_k4": {f"{r['F']}/{r['dtype']}": {
+             k: v["over_k4"] for k, v in r.items() if isinstance(v, dict)}
+             for r in lrec["race"]["rows"]}})
 
     table = []
     for key, tag in ((F32, "fp32"), (BF16, "bf16")):

@@ -1,8 +1,12 @@
-"""Degree-bucketed ELLPACK tables for the neighbour-sum aggregation.
+"""The host-built aggregation layouts: the degree-bucketed ELLPACK
+tables, the source-sectioned and flat sub-row tables, and the 'auto'
+route rule.
 
-A numpy copy of the subset of ``roc_tpu/core/ell.py`` this package
-needs; the tables are bit-equal to the JAX package's for the same graph
-(tests/test_torch_data.py).
+A numpy copy of ``roc_tpu/core/ell.py`` without its partitioned
+builders; the tables are bit-equal to the JAX package's for the same
+graph (tests/test_torch_data.py, tests/test_torch_layouts.py).  The
+sectioned builder runs the native host planners (roc_tpu_torch/native)
+when they are built.
 
 - every row is assigned to a power-of-two **width bucket** covering its
   in-degree (min width 8; a hub row of any degree gets its own wide
@@ -20,8 +24,8 @@ needs; the tables are bit-equal to the JAX package's for the same graph
 
 from __future__ import annotations
 
-from dataclasses import dataclass
-from typing import Sequence, Tuple
+from dataclasses import dataclass, replace
+from typing import Dict, Optional, Sequence, Tuple
 
 import numpy as np
 
@@ -156,3 +160,315 @@ def ell_from_graph(row_ptr: np.ndarray, col_idx: np.ndarray,
     b = build_ell(np.asarray(row_ptr), np.asarray(col_idx),
                   min_width=min_width)
     return stack_ell([b], num_nodes, dummy=num_nodes)
+
+
+# ---------------------------------------------------------------------------
+# The sectioned and flat layouts (``roc_tpu/core/ell.py`` SectionedEll)
+# ---------------------------------------------------------------------------
+
+
+@dataclass
+class SectionedEll:
+    """Source-sectioned width-``sub_w`` sub-row tables.  The source ids
+    are split into sections of at most ``section_rows`` rows; every
+    output row's neighbours in a section are laid out as consecutive
+    sub-rows of ``sub_w`` ids (padded with the section's dummy id, its
+    size), each sub-row tagged with its output row.  Per section:
+
+    - ``idx[s]``: ``[n_chunks, seg_rows, sub_w]`` section-local source
+      ids (int32, or uint16 after :meth:`with_idx_dtype`);
+    - ``sub_dst[s]``: int32 ``[n_chunks, seg_rows]`` the output row of
+      each sub-row, ascending; chunk padding points at ``num_rows``.
+
+    The flat layout (:func:`flat_sum_from_graph`) is the same tables
+    with one section spanning every source, so its ids are global.
+    ops/aggregate.py ``aggregate_ell_sect`` and ``aggregate_flat_sum``
+    sum them: gather, reduce the width, ``index_add_`` into the rows."""
+
+    num_rows: int
+    src_rows: int
+    section_rows: int
+    seg_rows: int
+    sec_starts: Tuple[int, ...]
+    sec_sizes: Tuple[int, ...]
+    idx: Tuple[np.ndarray, ...]
+    sub_dst: Tuple[np.ndarray, ...]
+    sub_w: int = 8
+
+    @property
+    def meta(self) -> Tuple[Tuple[int, int], ...]:
+        """``(start, size)`` of each section."""
+        return tuple(zip(self.sec_starts, self.sec_sizes))
+
+    def weight_tables(self, d_dst: np.ndarray,
+                      d_src: np.ndarray) -> Tuple[np.ndarray, ...]:
+        """Baked fused-normalization weights, one fp32 array per section
+        shaped like ``idx``: ``w = d_dst[sub_dst] * d_src[start + idx]``
+        (the entries of ``D^-1/2 A D^-1/2``).  Chunk-padding sub-rows and
+        dummy ids weigh 0.  ``d_dst`` may be stacked ``[P, num_rows]``."""
+        d_dst = np.asarray(d_dst, dtype=np.float32)
+        d_src = np.asarray(d_src, dtype=np.float32)
+        stacked = d_dst.ndim == 2
+        zpad = (np.zeros((d_dst.shape[0], 1), np.float32) if stacked
+                else np.zeros(1, np.float32))
+        dd = np.concatenate([d_dst, zpad], axis=-1)
+        out = []
+        for st, sz, idx, sdst in zip(self.sec_starts, self.sec_sizes,
+                                     self.idx, self.sub_dst):
+            ds = np.concatenate([d_src[st:st + sz], np.zeros(1, np.float32)])
+            if stacked:
+                wd = dd[np.arange(d_dst.shape[0])[:, None, None], sdst]
+            else:
+                wd = dd[sdst]
+            out.append((wd[..., None]
+                        * ds[idx.astype(np.int64)]).astype(np.float32))
+        return tuple(out)
+
+    def with_idx_dtype(self, dtype) -> "SectionedEll":
+        """The same tables with the ids narrowed to ``dtype`` (uint16
+        halves the index bytes); raises when a section's dummy id (its
+        size) does not fit."""
+        info = np.iinfo(dtype)
+        hi = max(self.sec_sizes)
+        if hi > info.max:
+            raise ValueError(
+                f"section dummy id {hi} does not fit {np.dtype(dtype)} "
+                f"(max {info.max}); build with section_rows <= {info.max}")
+        return replace(self, idx=tuple(a.astype(dtype) for a in self.idx))
+
+
+# Chunk granularity of the flat layout's one section: bounds a chunk's
+# gathered [seg, 8, F] transient at 64 MiB for F = 256 fp32.
+FLAT_SEG_ROWS = 8192
+
+# Edge count past which the JAX package's 'auto' rule takes the flat
+# layout outside the sectioned window (its compile-size rule; the same
+# threshold as the attention path's ATTN_FLAT8_MIN_EDGES).
+FLAT_SUM_MIN_EDGES = 20_000_000
+
+# The JAX package's sectioned window: its lower bound is the gathered
+# source-table size (num_nodes), its upper bound the output rows.
+SECTION_ROWS_DEFAULT = 65_536
+SECTIONED_MAX_ROWS = 600_000
+
+
+def default_section_rows(sect_u16: bool = False) -> int:
+    """Default section size; uint16 ids need the dummy id (the section
+    size) to fit, so 65,535 then."""
+    return min(SECTION_ROWS_DEFAULT, 65_535) if sect_u16 \
+        else SECTION_ROWS_DEFAULT
+
+
+def flat_sum_from_graph(row_ptr: np.ndarray, col_idx: np.ndarray,
+                        num_rows: int, src_rows: Optional[int] = None,
+                        seg_rows: int = FLAT_SEG_ROWS) -> SectionedEll:
+    """The flat layout: a :class:`SectionedEll` with one section over all
+    ``src_rows`` sources (global ids, dummy == ``src_rows``).  The
+    'flat_sum' sum and max and the 'attn_flat8' attention read it."""
+    if src_rows is None:
+        src_rows = num_rows
+    return sectioned_from_graph(row_ptr, col_idx, num_rows,
+                                src_rows=src_rows, section_rows=src_rows,
+                                seg_rows=seg_rows)
+
+
+def section_sub_counts(row_ptr: np.ndarray, col_idx: np.ndarray,
+                       num_rows: int, src_rows: int,
+                       section_rows: int = SECTION_ROWS_DEFAULT,
+                       sub_w: int = 8) -> np.ndarray:
+    """Per-section sub-row totals (native when the host planners are
+    built, numpy bincounts otherwise)."""
+    from .. import native
+    row_ptr = np.asarray(row_ptr)
+    col_idx = np.asarray(col_idx)
+    n_sec = max(1, -(-src_rows // section_rows))
+    if native.available():
+        return native.sectioned_counts(row_ptr, col_idx, num_rows,
+                                       section_rows, n_sec, sub_w)
+    dst_all = np.repeat(np.arange(num_rows, dtype=np.int64),
+                        np.diff(row_ptr))
+    sec_of = col_idx.astype(np.int64) // section_rows
+    out = np.zeros(n_sec, dtype=np.int64)
+    for s in range(n_sec):
+        cnt = np.bincount(dst_all[sec_of == s], minlength=num_rows)
+        out[s] = int((-(-cnt // sub_w)).sum())
+    return out
+
+
+def _resolve_chunks(counts, seg_rows: int, chunks_plan,
+                    first_section: int = 0) -> list:
+    """Per-section chunk counts from sub-row totals, held to a uniform
+    plan when one is given (a section needing more chunks raises)."""
+    out = []
+    for i, c in enumerate(counts):
+        s = first_section + i
+        n = max(1, -(-int(c) // seg_rows))
+        if chunks_plan is not None:
+            if n > chunks_plan[s]:
+                raise ValueError(
+                    f"section {s}: needs {n} chunks > planned "
+                    f"{chunks_plan[s]} — the plan must come from "
+                    f"section_sub_counts over the same edges")
+            n = int(chunks_plan[s])
+        out.append(n)
+    return out
+
+
+def sectioned_from_graph(row_ptr: np.ndarray, col_idx: np.ndarray,
+                         num_rows: int, src_rows: Optional[int] = None,
+                         section_rows: int = SECTION_ROWS_DEFAULT,
+                         seg_rows: int = 131_072,
+                         chunks_plan=None, counts=None,
+                         sub_w: int = 8) -> SectionedEll:
+    """The sectioned layout of a dst-major CSR, bit-equal to the JAX
+    package's.  ``src_rows`` is the source-id space (default
+    ``num_rows``); ``chunks_plan`` forces per-section chunk counts;
+    ``counts`` reuses a counts pass.  The native two-pass builder
+    (counts, then fill) runs when the host planners are built, the numpy
+    path otherwise; they give the same tables."""
+    row_ptr = np.asarray(row_ptr)
+    col_idx = np.asarray(col_idx)
+    if src_rows is None:
+        src_rows = num_rows
+    n_sec = max(1, -(-src_rows // section_rows))
+    all_sizes = [min(section_rows, src_rows - s * section_rows)
+                 for s in range(n_sec)]
+    starts = tuple(s * section_rows for s in range(n_sec))
+    from .. import native
+    if native.available():
+        if counts is None:
+            counts = native.sectioned_counts(row_ptr, col_idx, num_rows,
+                                             section_rows, n_sec, sub_w)
+        chunks = _resolve_chunks(counts, seg_rows, chunks_plan)
+        slots = np.asarray([n * seg_rows for n in chunks], dtype=np.int64)
+        idx_flat, sub_flat = native.sectioned_fill(
+            row_ptr, col_idx, num_rows, section_rows,
+            np.asarray(all_sizes, dtype=np.int64), slots, sub_w)
+        idxs, dsts, off = [], [], 0
+        for s in range(n_sec):
+            n = int(slots[s])
+            idxs.append(idx_flat[off:off + n].reshape(chunks[s], seg_rows,
+                                                      sub_w))
+            dsts.append(sub_flat[off:off + n].reshape(chunks[s], seg_rows))
+            off += n
+        return SectionedEll(
+            num_rows=num_rows, src_rows=src_rows, section_rows=section_rows,
+            seg_rows=seg_rows, sec_starts=starts, sec_sizes=tuple(all_sizes),
+            idx=tuple(idxs), sub_dst=tuple(dsts), sub_w=sub_w)
+    dst_all = np.repeat(np.arange(num_rows, dtype=np.int64),
+                        np.diff(row_ptr))
+    src_all = col_idx.astype(np.int64)
+    sec_of = (src_all // section_rows).astype(np.int8 if n_sec < 128
+                                              else np.int32)
+    idxs, dsts = [], []
+    for s in range(n_sec):
+        sel = sec_of == s
+        srcs = (src_all[sel] - s * section_rows).astype(np.int32)
+        dst = dst_all[sel]
+        cnt = np.bincount(dst, minlength=num_rows)
+        padded = -(-cnt // sub_w) * sub_w
+        nz = np.flatnonzero(padded)
+        sub_rows = padded[nz] // sub_w
+        total_sub = int(sub_rows.sum())
+        n_chunks = _resolve_chunks([total_sub], seg_rows, chunks_plan,
+                                   first_section=s)[0]
+        pad = n_chunks * seg_rows - total_sub
+        tbl = np.full((n_chunks * seg_rows, sub_w), all_sizes[s],
+                      dtype=np.int32)
+        start_sub = np.zeros(len(nz) + 1, dtype=np.int64)
+        np.cumsum(sub_rows, out=start_sub[1:])
+        grp_start = np.zeros(num_rows + 1, dtype=np.int64)
+        np.cumsum(cnt, out=grp_start[1:])
+        off = np.arange(dst.shape[0], dtype=np.int64) - grp_start[dst]
+        act_of = np.zeros(num_rows, dtype=np.int64)
+        act_of[nz] = np.arange(len(nz))
+        tbl.reshape(-1)[start_sub[act_of[dst]] * sub_w + off] = srcs
+        sub_dst = np.concatenate(
+            [np.repeat(nz, sub_rows),
+             np.full(pad, num_rows, np.int64)]).astype(np.int32)
+        idxs.append(tbl.reshape(n_chunks, seg_rows, sub_w))
+        dsts.append(sub_dst.reshape(n_chunks, seg_rows))
+    return SectionedEll(
+        num_rows=num_rows, src_rows=src_rows, section_rows=section_rows,
+        seg_rows=seg_rows, sec_starts=starts, sec_sizes=tuple(all_sizes),
+        idx=tuple(idxs), sub_dst=tuple(dsts), sub_w=sub_w)
+
+
+def sectioned_plan(counts_max: np.ndarray,
+                   seg_rows: int = 131_072) -> Tuple[int, list]:
+    """``(seg_rows, per-section chunk counts)`` from elementwise-maxed
+    per-part sub-row counts: the uniform shapes partitioned tables
+    agree on."""
+    max_sub = int(np.max(counts_max)) if np.size(counts_max) else 1
+    seg = max(8, min(seg_rows, -(-max_sub // 8) * 8))
+    plan = [max(1, -(-int(c) // seg)) for c in np.asarray(counts_max)]
+    return seg, plan
+
+
+# ---------------------------------------------------------------------------
+# The 'auto' rule
+# ---------------------------------------------------------------------------
+
+
+@dataclass(frozen=True)
+class CardRow:
+    """What the port runs on a card where the JAX rule names a layout:
+    ``routes`` maps each of the JAX rule's answers ('sectioned',
+    'flat_sum', 'bdense', 'ell') to the port's route that the races on
+    that card put first; ``source`` says which races, on which card."""
+    routes: Dict[str, str]
+    source: str
+
+
+# JAX's 'ell' is the port's kernel route 'cuda' (K4 is the port's ELL
+# sum, as 'pallas' is the JAX package's).
+JAX_ROUTE = {"ell": "cuda"}
+
+# One row per card kind (torch.cuda.get_device_name) with races; every
+# other kind, the CPU included, takes the JAX rule's answer.
+CARD_ROWS: Dict[str, CardRow] = {
+    "NVIDIA H100 80GB HBM3": CardRow(
+        routes={"sectioned": "cuda", "flat_sum": "cuda", "bdense": "cuda"},
+        source="chip_smoke.py phase 14 races on an NVIDIA H100 80GB HBM3 "
+               "at a 700.00 W limit: at Reddit's shape (E = 111,689,429) "
+               "the forward sum at F = 256 fp32 took 145.3 ms on "
+               "'sectioned', 146.6 on 'flat_sum', 14.6 on K4 (bf16: 128.1, "
+               "124.7, 7.5; F = 41: 7-8x K4); on planted communities "
+               "(E = 23 M, 81 % on dense tiles) 'bdense' took 84.1-139.3 ms "
+               "fp32 and 48.7-99.9 bf16 against K4's 5.6 and 3.3"),
+}
+
+
+def jax_auto_impl(num_nodes: int, out_rows: Optional[int] = None,
+                  num_edges: Optional[int] = None) -> str:
+    """The JAX package's ``resolve_auto_impl`` on a device with no
+    calibrated row (its defaults): 'sectioned' inside the window, else
+    'flat_sum' from :data:`FLAT_SUM_MIN_EDGES` edges (when ``num_edges``
+    is given), else 'ell'."""
+    if out_rows is None:
+        out_rows = num_nodes
+    if num_nodes > SECTION_ROWS_DEFAULT and out_rows <= SECTIONED_MAX_ROWS:
+        return "sectioned"
+    if num_edges is not None and num_edges >= FLAT_SUM_MIN_EDGES:
+        return "flat_sum"
+    return "ell"
+
+
+def port_route(jax_choice: str, device_kind: Optional[str] = None) -> str:
+    """The port's route for the JAX rule's answer ``jax_choice`` on a card
+    of ``device_kind``: its row's route where it has one, else the same
+    layout ('ell' as 'cuda')."""
+    row = CARD_ROWS.get(device_kind) if device_kind else None
+    if row is not None and jax_choice in row.routes:
+        return row.routes[jax_choice]
+    return JAX_ROUTE.get(jax_choice, jax_choice)
+
+
+def resolve_auto_impl(num_nodes: int, out_rows: Optional[int] = None,
+                      device_kind: Optional[str] = None,
+                      num_edges: Optional[int] = None) -> str:
+    """``aggr_impl='auto'`` without the block-dense probe: the JAX rule
+    (:func:`jax_auto_impl`) through the card's row (:func:`port_route`).
+    train/trainer.py ``resolve_auto_impl_probed`` adds the probe."""
+    return port_route(jax_auto_impl(num_nodes, out_rows, num_edges),
+                      device_kind)

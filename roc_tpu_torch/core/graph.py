@@ -259,18 +259,94 @@ def random_csr(num_nodes: int, num_edges: int, seed: int = 0,
         raise ValueError("need >= 1 edge per node (self edges)")
     rng = np.random.RandomState(seed)
     if power_law:
-        raw = rng.lognormal(mean=0.0, sigma=1.25, size=num_nodes)
+        deg = _lognormal_degree_sequence(num_nodes, num_edges, rng)
     else:
         raw = np.ones(num_nodes) + rng.rand(num_nodes) * 0.1
+        deg = _degree_sequence(raw, num_edges, rng)
+    row_ptr = np.zeros(num_nodes + 1, dtype=np.int64)
+    np.cumsum(deg, out=row_ptr[1:])
+    col_idx = rng.randint(0, num_nodes, size=num_edges, dtype=np.int64)
+    return Graph(row_ptr=row_ptr, col_idx=col_idx.astype(np.int32))
+
+
+def _degree_sequence(raw: np.ndarray, num_edges: int, rng) -> np.ndarray:
+    """Degrees proportional to ``raw`` summing to ``num_edges``, every one
+    >= 1; the rounding remainder goes to random vertices."""
+    num_nodes = raw.shape[0]
     extra = num_edges - num_nodes
     deg = 1 + np.floor(raw / raw.sum() * extra).astype(np.int64)
     short = num_edges - int(deg.sum())
     if short > 0:
         np.add.at(deg, rng.randint(0, num_nodes, size=short), 1)
+    return deg
+
+
+def _lognormal_degree_sequence(num_nodes: int, num_edges: int,
+                               rng) -> np.ndarray:
+    """Lognormal-skewed in-degrees (sigma 1.25), as social graphs have."""
+    raw = rng.lognormal(mean=0.0, sigma=1.25, size=num_nodes)
+    return _degree_sequence(raw, num_edges, rng)
+
+
+def zipf_csr(num_nodes: int, num_edges: int, a: float = 1.0,
+             seed: int = 0, shuffle: bool = True) -> Graph:
+    """Benchmark-scale CSR with Zipf in-degrees (the vertex ranked k gets
+    degree proportional to ``k^-a``); ``shuffle`` scatters the ranks over
+    random ids.  Uniform random sources; not symmetric."""
+    if num_edges < num_nodes:
+        raise ValueError("need >= 1 edge per node")
+    rng = np.random.RandomState(seed)
+    raw = np.arange(1, num_nodes + 1, dtype=np.float64) ** (-a)
+    if shuffle:
+        rng.shuffle(raw)
+    deg = _degree_sequence(raw, num_edges, rng)
     row_ptr = np.zeros(num_nodes + 1, dtype=np.int64)
     np.cumsum(deg, out=row_ptr[1:])
     col_idx = rng.randint(0, num_nodes, size=num_edges, dtype=np.int64)
     return Graph(row_ptr=row_ptr, col_idx=col_idx.astype(np.int32))
+
+
+def planted_community_csr(num_nodes: int, num_edges: int,
+                          community_rows: int = 65_536,
+                          intra_frac: float = 0.8, seed: int = 0,
+                          shuffle: bool = True,
+                          src_skew: float = 0.0) -> Graph:
+    """Benchmark-scale dst-major CSR with planted communities: an edge's
+    source lies in its destination's block of ``community_rows`` ids
+    with probability ``intra_frac``, anywhere otherwise.  ``shuffle``
+    relabels the vertices at random afterwards (the order a reordering
+    pass, core/reorder.py, has to recover; the same seed without it is
+    the oracle order); ``src_skew`` > 0 skews which member of the block
+    is picked (``u^(1+src_skew)``).  Lognormal in-degrees as
+    :func:`random_csr`'s; not symmetric."""
+    if num_edges < num_nodes:
+        raise ValueError("need >= 1 edge per node")
+    rng = np.random.RandomState(seed)
+    deg = _lognormal_degree_sequence(num_nodes, num_edges, rng)
+    row_ptr = np.zeros(num_nodes + 1, dtype=np.int64)
+    np.cumsum(deg, out=row_ptr[1:])
+    dst_all = np.repeat(np.arange(num_nodes, dtype=np.int64), deg)
+    com_lo = dst_all // community_rows * community_rows
+    com_hi = np.minimum(com_lo + community_rows, num_nodes)
+    u = rng.rand(num_edges)
+    if src_skew > 0.0:
+        u = u ** (1.0 + src_skew)
+    local = com_lo + np.floor(u * (com_hi - com_lo)).astype(np.int64)
+    del u, com_lo, com_hi
+    anywhere = rng.randint(0, num_nodes, size=num_edges)
+    intra = rng.rand(num_edges) < intra_frac
+    col = np.where(intra, local, anywhere)
+    del local, anywhere, intra
+    if shuffle:
+        relabel = rng.permutation(num_nodes).astype(np.int64)
+        col = relabel[col]
+        new_dst = relabel[dst_all]
+        order = np.argsort(new_dst, kind="stable")
+        col = col[order]
+        row_ptr = np.zeros(num_nodes + 1, dtype=np.int64)
+        np.cumsum(np.bincount(new_dst, minlength=num_nodes),
+                  out=row_ptr[1:])
+    return Graph(row_ptr=row_ptr, col_idx=col.astype(np.int32))
 
 
 def synthetic_graph(num_nodes: int, avg_degree: int, seed: int = 0,

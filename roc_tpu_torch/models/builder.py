@@ -5,7 +5,8 @@ The builder API records a static op list, as the reference's ``Model``
 class does (``gnn.h:162-203``); :meth:`Model.apply` interprets it
 eagerly and autograd differentiates it.  Graph access goes through
 :class:`GraphContext`, which holds the graph on the model's device and
-runs one of four routes, two layouts times plain or hand-written:
+runs one of eight routes.  Four are two layouts times plain or
+hand-written:
 
 - ``aggr_impl='ell'``: the plain PyTorch ELL sum (ops/aggregate.py);
 - ``aggr_impl='cuda'``: the hand-written ELL kernels — K4 for the sum,
@@ -15,6 +16,22 @@ runs one of four routes, two layouts times plain or hand-written:
 - ``aggr_impl='cuda_csr'``: the hand-written CSR kernel K3
   (kernels/spmm.py), fused as K1 -> K3 -> K2.  The JAX package's
   'pallas_csr'.
+
+Four are the large-graph layouts, plain PyTorch ops as in the JAX
+package (core/ell.py, ops/aggregate.py, ops/blockdense.py):
+
+- ``aggr_impl='sectioned'``: source-sectioned width-8 sub-rows;
+- ``aggr_impl='flat_sum'``: the same tables with one section, whose sum
+  and MAX (``aggregate_flat_max``) read global ids;
+- ``aggr_impl='bdense'``: dense ``[128, 128]`` adjacency tiles as batched
+  products, the residual edges through the sectioned sum;
+- ``aggr_impl='attn_flat8'``: the flat tables for attention alone
+  (ops/attention.py ``gat_aggregate_flat8``).
+
+Their fused form reads the normalization baked into the tables on the
+host (the sectioned and flat weight tables, the block-dense tile scales)
+when the context holds them, and scales before and after the sum
+otherwise.
 
 The kernel wrappers dispatch by the tensors' device: on the CPU the
 kernel routes run the kernels' plain versions.  Every route runs in the
@@ -34,9 +51,10 @@ AVG is the sum (the same symmetric backward) over ``max(deg, 1)`` cast to
 the activations' dtype, as in the JAX package (in bf16 a degree above
 256 rounds: 493 becomes 492).  MAX, MIN (``-max(-x)``) and GAT attention
 are plain PyTorch ops on every route (ops/aggregate.py, ops/attention.py),
-differentiated by autograd; MAX runs on the ELL tables ('ell', 'cuda') or
-the edge list ('segment'), attention on the ELL tables only, and the
-trainers' resolver (train/trainer.py ``resolve_attention_impl``) moves a
+differentiated by autograd; MAX runs on the ELL tables ('ell', 'cuda'),
+the edge list ('segment') or the flat tables ('flat_sum'), attention on
+the ELL tables or the flat tables ('attn_flat8'), and the trainers'
+resolver (train/trainer.py ``resolve_attention_impl``) moves a
 model that needs them off the other routes.
 
 On a rank of a partitioned run (parallel/distributed.py) the context
@@ -58,8 +76,12 @@ from torch import nn
 
 from ..ops import dense
 from ..ops.aggregate import (aggregate_ell, aggregate_ell_max,
-                             aggregate_segment, aggregate_segment_max)
-from ..ops.attention import gat_aggregate_ell
+                             aggregate_ell_sect, aggregate_flat_max,
+                             aggregate_flat_sum, aggregate_segment,
+                             aggregate_segment_max)
+from ..ops.attention import (gat_aggregate_ell, gat_aggregate_flat8,
+                             resolve_dh_chunk)
+from ..ops.blockdense import aggregate_block_dense
 from ..ops.dense import AC_MODE_ELU, AC_MODE_NONE, AC_MODE_RELU, \
     AC_MODE_SIGMOID
 from ..ops.loss import masked_softmax_cross_entropy
@@ -75,7 +97,8 @@ AGGR_MIN = "min"
 ELL_IMPLS = ("ell", "cuda")
 EDGE_IMPLS = ("segment", "cuda_csr")
 KERNEL_IMPLS = ("cuda", "cuda_csr")
-AGGR_IMPLS = ELL_IMPLS + EDGE_IMPLS
+LAYOUT_IMPLS = ("sectioned", "flat_sum", "bdense", "attn_flat8")
+AGGR_IMPLS = ELL_IMPLS + EDGE_IMPLS + LAYOUT_IMPLS
 
 
 def _identity(x: torch.Tensor) -> torch.Tensor:
@@ -144,6 +167,17 @@ class GraphContext:
     gathered_rows: the gathered row count R, the id of the dummy source
       the kernels skip and the plain routes' appended zero row; None
       means ``num_rows`` (one device).
+    The layouts (core/ell.py SectionedEll, ops/blockdense.py BlockPlan):
+    sect_idx / sect_sub_dst: per section ``[n_chunks, seg_rows, sub_w]``
+      ids (int32 or uint16) and ``[n_chunks, seg_rows]`` output rows,
+      ``sect_meta`` their ``(start, size)`` ('sectioned'; 'bdense''s
+      residual); ``sect_w`` the baked fused weights, shaped like the ids.
+    flat8_idx / flat8_dst: the flat tables ('flat_sum', 'attn_flat8'),
+      ``flat8_w`` their baked weights ('flat_sum').
+    bd_a / bd_src / bd_dst: the block-dense A-tables (uint8, or u4-packed
+      ``[..., 64]``) and tile ids, ``bd_vpad`` the padded rows, ``bd_group``
+      the blocks a product sums; ``bd_scale`` the fused normalization's
+      ``(d_dst [vpad], d_src [vpad])``.
     """
 
     in_degree: torch.Tensor
@@ -159,6 +193,19 @@ class GraphContext:
     chunk: int = 512
     gather_features: Callable[[torch.Tensor], torch.Tensor] = _identity
     gathered_rows: Optional[int] = None
+    sect_idx: Tuple[torch.Tensor, ...] = ()
+    sect_sub_dst: Tuple[torch.Tensor, ...] = ()
+    sect_meta: Tuple[Tuple[int, int], ...] = ()
+    sect_w: Tuple[torch.Tensor, ...] = ()
+    flat8_idx: Optional[torch.Tensor] = None
+    flat8_dst: Optional[torch.Tensor] = None
+    flat8_w: Optional[torch.Tensor] = None
+    bd_a: Optional[torch.Tensor] = None
+    bd_src: Optional[torch.Tensor] = None
+    bd_dst: Optional[torch.Tensor] = None
+    bd_vpad: int = 0
+    bd_group: int = 1
+    bd_scale: Tuple[torch.Tensor, ...] = ()
 
     def __post_init__(self):
         if self.aggr_impl not in AGGR_IMPLS:
@@ -194,8 +241,42 @@ class GraphContext:
             return aggregate_segment(self._gathered_with_zero(x),
                                      self.edge_src, self.edge_dst,
                                      self.num_rows)
+        if self.aggr_impl in LAYOUT_IMPLS:
+            return self._layout_sum(self._gathered_with_zero(x))
         return aggregate_ell(self._gathered_with_zero(x), self.ell_idx,
                              self.ell_row_pos, self.num_rows)
+
+    def _layout_sum(self, full: torch.Tensor,
+                    baked: bool = False) -> torch.Tensor:
+        """``A @ full`` on a layout route; ``baked`` reads the fused
+        normalization from the tables (``S @ full``)."""
+        if self.aggr_impl == "flat_sum":
+            return aggregate_flat_sum(full, self.flat8_idx, self.flat8_dst,
+                                      self.num_rows,
+                                      flat_w=self.flat8_w if baked else None)
+        if self.aggr_impl not in ("sectioned", "bdense"):
+            raise NotImplementedError(
+                f"aggr_impl={self.aggr_impl!r} is the attention-only "
+                "layout; it has no sum")
+        # the dense tiles' fp32 sums and the residual's are added before
+        # the one rounding to the activations' dtype
+        dense = None
+        if self.bd_a is not None:
+            scales = self.bd_scale if baked else (None, None)
+            dense = aggregate_block_dense(
+                full, self.bd_a, self.bd_src, self.bd_dst, self.num_rows,
+                self.bd_vpad, out_dtype=torch.promote_types(
+                    full.dtype, torch.float32),
+                group=self.bd_group, scale_dst=scales[0],
+                scale_src=scales[1])
+        if self.sect_idx:
+            return aggregate_ell_sect(full, self.sect_idx, self.sect_sub_dst,
+                                      self.sect_meta, self.num_rows,
+                                      sect_w=self.sect_w if baked else None,
+                                      partial=dense)
+        if dense is not None:
+            return dense.to(full.dtype)
+        return full.new_zeros((self.num_rows, full.shape[1]))
 
     def _fused_sum_fwd(self, x: torch.Tensor, act: str = AC_MODE_NONE,
                        relu_out: Optional[torch.Tensor] = None
@@ -214,8 +295,22 @@ class GraphContext:
                 x, self.in_degree, relu_out=relu_out)), d, act=act)
         if relu_out is not None:
             x = torch.where(relu_out > 0, x, 0)
+        if self._baked():
+            return dense.activation(
+                self._layout_sum(self._gathered_with_zero(x), baked=True),
+                act)
         d = d.to(x.dtype)[:, None]
         return dense.activation(self._sum_fwd(x * d) * d, act)
+
+    def _baked(self) -> bool:
+        """True when the tables carry the fused normalization."""
+        if self.aggr_impl == "flat_sum":
+            return self.flat8_w is not None
+        if self.aggr_impl == "sectioned":
+            return bool(self.sect_w)
+        if self.aggr_impl == "bdense":
+            return bool(self.bd_scale)
+        return False
 
     def _check_differentiable(self, x: torch.Tensor) -> None:
         if (not self.symmetric and self.aggr_impl in KERNEL_IMPLS
@@ -252,9 +347,9 @@ class GraphContext:
     def _max_fwd(self, x: torch.Tensor) -> torch.Tensor:
         """Neighbour max over the gathered rows; rows with no neighbour
         give 0.  The ELL routes ('ell', 'cuda') run the plain ELL max on
-        their tables, 'segment' the plain edge-list max; 'cuda_csr' has
-        no max form (the JAX package's chunked-sum routes have none
-        either) and raises."""
+        their tables, 'segment' the plain edge-list max, 'flat_sum' the
+        flat max; the other routes have no max form (as in the JAX
+        package) and raise."""
         full = self._gathered_with_zero(x)
         if self.aggr_impl in ELL_IMPLS:
             out = aggregate_ell_max(full, self.ell_idx, self.ell_row_pos,
@@ -262,10 +357,13 @@ class GraphContext:
         elif self.aggr_impl == "segment":
             out = aggregate_segment_max(full, self.edge_src, self.edge_dst,
                                         self.num_rows)
+        elif self.aggr_impl == "flat_sum":
+            out = aggregate_flat_max(full, self.flat8_idx, self.flat8_dst,
+                                     self.num_rows)
         else:
             raise NotImplementedError(
                 f"MAX/MIN aggregation has no {self.aggr_impl!r} form; use "
-                "an ELL route ('ell', 'cuda') or 'segment'")
+                "an ELL route ('ell', 'cuda'), 'segment' or 'flat_sum'")
         return torch.where(torch.isfinite(out), out, 0.0)
 
     def gat_attention(self, x: torch.Tensor, a_src: torch.Tensor,
@@ -273,12 +371,15 @@ class GraphContext:
                       ) -> torch.Tensor:
         """Additive attention over each row's neighbours
         (ops/attention.py), K heads for ``a_src``/``a_dst`` of shape
-        ``[K, dh]`` (``[dh]`` is one head).  Needs the ELL tables:
-        routes 'ell' and 'cuda'."""
-        if self.aggr_impl not in ELL_IMPLS or not self.ell_idx:
+        ``[K, dh]`` (``[dh]`` is one head).  Needs the ELL tables (routes
+        'ell' and 'cuda') or the flat tables ('attn_flat8')."""
+        flat8 = self.aggr_impl == "attn_flat8" and self.flat8_idx is not None
+        if not flat8 and (self.aggr_impl not in ELL_IMPLS
+                          or not self.ell_idx):
             raise NotImplementedError(
                 f"attention needs the ELL tables (aggr_impl 'ell' or "
-                f"'cuda'), got {self.aggr_impl!r}")
+                f"'cuda') or the flat8 layout ('attn_flat8'), got "
+                f"{self.aggr_impl!r}")
         if a_src.dim() == 1:
             a_src, a_dst = a_src[None, :], a_dst[None, :]
         K, dh = a_src.shape
@@ -288,6 +389,11 @@ class GraphContext:
         d = torch.einsum("vkd,kd->vk", x.reshape(x.shape[0], K, dh),
                          a_dst.to(x.dtype))
         d_local = torch.cat([d, d.new_zeros((1, K))], dim=0)
+        if flat8:
+            return gat_aggregate_flat8(
+                full, s_full, d_local, self.flat8_idx, self.flat8_dst,
+                self.num_rows, neg_slope=neg_slope,
+                dh_chunk=resolve_dh_chunk(self.num_rows, K, dh))
         return gat_aggregate_ell(full, s_full, d_local, self.ell_idx,
                                  self.ell_row_id, self.ell_row_pos,
                                  self.num_rows, neg_slope=neg_slope)

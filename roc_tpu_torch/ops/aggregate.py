@@ -8,18 +8,26 @@ sums are the routes the hand-written kernels are held to:
 - :func:`aggregate_segment`, the edge-list sum (route 'segment', kernel
   K3 in kernels/spmm.py): gather ``feats[src]`` and ``index_add_`` it
   into the destination rows.
+- :func:`aggregate_ell_sect` (route 'sectioned', and the residual of
+  'bdense') and :func:`aggregate_flat_sum` (route 'flat_sum'), the
+  large-graph layouts' sums over core/ell.py's sub-row tables: gather a
+  run of chunks' sub-rows, sum their width, ``index_add_`` the partials
+  into their rows.  No kernel; they are raced against K3 and K4.
 
-Both work in pieces of at most ``budget_elems`` gathered scalars (row
-segments of a bucket, chunks of edges).  Without them the transient is
-the whole gather: at Reddit scale (E ~ 112M, F = 256) over 100 GB.
+The first two work in pieces of at most ``budget_elems`` gathered
+scalars (row segments of a bucket, chunks of edges), the layouts in
+runs of their tables' chunks under ``LAYOUT_BUDGET_ELEMS``.  Without
+them the transient is the whole gather: at Reddit scale (E ~ 112M,
+F = 256) over 100 GB.
 
-Both sum in fp32: a reduced-precision input (bf16) is widened, summed in
+All sum in fp32: a reduced-precision input (bf16) is widened, summed in
 fp32 and rounded once to its dtype, as the JAX package's ``aggregate_ell``
 and the hand-written kernels do (a bf16 ``sum`` or ``index_add_`` would
 round while it accumulates).  fp32 inputs are summed as they are.
 
-The neighbour maxima (:func:`aggregate_ell_max`, :func:`aggregate_segment_max`;
-MIN is ``-max(-x)`` at the call site) are plain ops on every route: the
+The neighbour maxima (:func:`aggregate_ell_max`,
+:func:`aggregate_segment_max`, :func:`aggregate_flat_max`; MIN is
+``-max(-x)`` at the call site) are plain ops on every route: the
 JAX package computes them with XLA ops outside any Pallas kernel.  They
 mask the padding/dummy sources to ``-inf`` and differentiate by autograd
 with the JAX package's tie rule, the gradient split evenly among the
@@ -30,9 +38,10 @@ would route it all to one index).  Rows with no real neighbour come out
 
 from __future__ import annotations
 
-from typing import Sequence
+from typing import Optional, Sequence, Tuple
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 # 2**24 scalars = 64 MiB of fp32 per gathered segment, the JAX
 # package's default
@@ -160,6 +169,184 @@ def aggregate_segment_max(feats: torch.Tensor, edge_src: torch.Tensor,
     out = feats.new_full((num_rows, F), float("-inf"))
     return out.scatter_reduce(0, edge_dst.long()[:, None].expand(-1, F), g,
                               "amax", include_self=False)
+
+
+# 2^27 gathered elements (512 MiB of fp32) per step of the chunked
+# layouts below: a step takes as many consecutive chunks of the tables
+# as fit, so a layout with 8192-row chunks does not cost one round of
+# launches per chunk.
+LAYOUT_BUDGET_ELEMS = 1 << 27
+
+
+def _steps(n_chunks: int, chunk_elems: int, budget_elems: int):
+    """``(c0, c1)`` chunk ranges of at most ``budget_elems`` gathered
+    elements each (at least one chunk)."""
+    step = max(1, budget_elems // max(chunk_elems, 1))
+    return [(c0, min(c0 + step, n_chunks)) for c0 in range(0, n_chunks, step)]
+
+
+def _ids(idx: torch.Tensor) -> torch.Tensor:
+    """int32 ids of an int32 or uint16 table (uint16 widened through an
+    int16 view, whose casts every backend has)."""
+    if idx.dtype == torch.uint16:
+        return idx.view(torch.int16).to(torch.int32) & 0xFFFF
+    return idx.to(torch.int32)
+
+
+def _sum_chunks(out: torch.Tensor, src: torch.Tensor, idx: torch.Tensor,
+                dst: torch.Tensor, w: Optional[torch.Tensor],
+                budget_elems: int) -> None:
+    """``out[dst] += sum_j w * src[idx[:, j]]`` over the sub-rows of the
+    tables ``idx [n_chunks, seg, W]`` / ``dst [n_chunks, seg]``, in
+    ``out``'s dtype (fp32 for a bf16 ``src``: the products in ``src``'s
+    dtype, as the JAX function multiplies, the sums in fp32)."""
+    n, seg, W = idx.shape
+    for c0, c1 in _steps(n, seg * W * src.shape[1], budget_elems):
+        i = _ids(idx[c0:c1].reshape(-1, W))
+        g = rows(src, i)
+        if w is not None:
+            g = g * w[c0:c1].reshape(-1, W, 1).to(src.dtype)
+        out.index_add_(0, dst[c0:c1].reshape(-1).to(torch.int64),
+                       g.sum(dim=1, dtype=out.dtype))
+
+
+def aggregate_ell_sect(feats: torch.Tensor, sect_idx: Sequence[torch.Tensor],
+                       sect_sub_dst: Sequence[torch.Tensor],
+                       sect_meta: Sequence[Tuple[int, int]], num_rows: int,
+                       sect_w: Optional[Sequence[torch.Tensor]] = None,
+                       budget_elems: int = LAYOUT_BUDGET_ELEMS,
+                       partial: Optional[torch.Tensor] = None
+                       ) -> torch.Tensor:
+    """The sectioned sum (core/ell.py SectionedEll): per section, the
+    ``[start, start+size)`` rows of ``feats`` with a zero row appended
+    (the section's dummy id), gathered sub-row by sub-row, the width
+    summed and ``index_add_`` into the output rows.  ``sect_w``: the
+    baked fused-normalization weights, per section shaped like its ids.
+    ``partial``: ``[num_rows, F]`` sums (fp32 for bf16 ``feats``) the
+    sections' are added to, as the block-dense route's dense tiles are.
+    Sums in fp32 for bf16 ``feats``, rounded once."""
+    F = feats.shape[1]
+    out = feats.new_zeros((num_rows + 1, F), dtype=_acc_dtype(feats.dtype))
+    if partial is not None:
+        out[:num_rows] += partial
+    zero = feats.new_zeros((1, F))
+    for si, ((st, sz), tbl, sdst) in enumerate(zip(sect_meta, sect_idx,
+                                                   sect_sub_dst)):
+        xsec = torch.cat([feats[st:st + sz], zero], dim=0)
+        _sum_chunks(out, xsec, tbl, sdst, sect_w[si] if sect_w else None,
+                    budget_elems)
+    return out[:num_rows].to(feats.dtype)
+
+
+def aggregate_ell_sect_split(feats: torch.Tensor,
+                             sect_idx: Sequence[torch.Tensor],
+                             sect_sub_dst: Sequence[torch.Tensor],
+                             sect_meta: Sequence[Tuple[int, int]],
+                             num_rows: int,
+                             budget_elems: int = LAYOUT_BUDGET_ELEMS
+                             ) -> torch.Tensor:
+    """:func:`aggregate_ell_sect` with the ``[N, W]`` block gather
+    replaced by W ``[N]``-row gathers added as they go (one ``[N, F]``
+    accumulator, no ``[N, W, F]`` transient)."""
+    F = feats.shape[1]
+    acc = _acc_dtype(feats.dtype)
+    out = feats.new_zeros((num_rows + 1, F), dtype=acc)
+    zero = feats.new_zeros((1, F))
+    for (st, sz), tbl, sdst in zip(sect_meta, sect_idx, sect_sub_dst):
+        xsec = torch.cat([feats[st:st + sz], zero], dim=0)
+        n, seg, W = tbl.shape
+        for c0, c1 in _steps(n, seg * F, budget_elems):
+            i = _ids(tbl[c0:c1].reshape(-1, W))
+            part = xsec.index_select(0, i[:, 0]).to(acc)
+            for j in range(1, W):
+                part = part + xsec.index_select(0, i[:, j]).to(acc)
+            out.index_add_(0, sdst[c0:c1].reshape(-1).to(torch.int64), part)
+    return out[:num_rows].to(feats.dtype)
+
+
+def aggregate_flat_sum(feats: torch.Tensor, flat_idx: torch.Tensor,
+                       flat_dst: torch.Tensor, num_rows: int,
+                       flat_w: Optional[torch.Tensor] = None,
+                       budget_elems: int = LAYOUT_BUDGET_ELEMS
+                       ) -> torch.Tensor:
+    """The flat sum: the sectioned sum of the one section spanning every
+    source (core/ell.py ``flat_sum_from_graph``).  ``feats [G+1, F]``
+    with a trailing zero row (the dummy id G); ``flat_idx [n_chunks,
+    seg, 8]`` global ids, ``flat_dst [n_chunks, seg]`` ascending output
+    rows (padding at ``num_rows``); ``flat_w`` the baked weights."""
+    out = feats.new_zeros((num_rows + 1, feats.shape[1]),
+                          dtype=_acc_dtype(feats.dtype))
+    _sum_chunks(out, feats, flat_idx, flat_dst, flat_w, budget_elems)
+    return out[:num_rows].to(feats.dtype)
+
+
+def _flat_max_piece(feats: torch.Tensor, carry: Optional[torch.Tensor],
+                    idx: torch.Tensor, dst: torch.Tensor, lo: int,
+                    hi: int) -> torch.Tensor:
+    """Rows ``lo..hi`` after the chunks ``idx [c, seg, W]``: row ``lo``
+    starts from ``carry`` (its maximum over earlier chunks) when given,
+    every other row from ``-inf``; each chunk is combined by its own
+    scatter-max, as the JAX scan's steps are."""
+    c, seg, W = idx.shape
+    F = feats.shape[1]
+    dummy = feats.shape[0] - 1
+    i = idx.reshape(-1, W).to(torch.int32)
+    g = torch.where((i != dummy)[:, :, None], rows(feats, i),
+                    torch.tensor(float("-inf"), dtype=feats.dtype,
+                                 device=feats.device))
+    part = g.amax(dim=1)
+    local = feats.new_full((hi - lo + 1, F), float("-inf"))
+    if carry is not None:
+        local = torch.cat([carry, local[1:]], dim=0)
+    d = (dst.reshape(-1).to(torch.int64) - lo)[:, None].expand(-1, F)
+    for k in range(c):
+        s = slice(k * seg, (k + 1) * seg)
+        local = local.scatter_reduce(0, d[s], part[s], "amax",
+                                     include_self=True)
+    return local
+
+
+def aggregate_flat_max(feats: torch.Tensor, flat_idx: torch.Tensor,
+                       flat_dst: torch.Tensor, num_rows: int,
+                       budget_elems: int = LAYOUT_BUDGET_ELEMS
+                       ) -> torch.Tensor:
+    """Neighbour MAX over the flat layout (MIN as ``-max(-x)`` at the call
+    site): per sub-row a masked ``amax`` over the width (the dummy id
+    ``G`` masked to ``-inf``), combined per row by one scatter-max per
+    chunk with the running maximum (``include_self``), so the gradient
+    of a tie is shared as in the JAX scan: among the tied entries of a
+    chunk and the running maximum.  Rows with no neighbour give
+    ``-inf``.
+
+    The output rows of a run of chunks are a contiguous range (the
+    tables are sorted by row), so a run is computed as its own piece of
+    the output, starting from the previous piece's last row where the
+    row continues; under autograd each piece is recomputed in the
+    backward (``torch.utils.checkpoint``), which keeps no gathered
+    ``[rows, 8, F]`` block alive."""
+    n, seg, W = flat_idx.shape
+    F = feats.shape[1]
+    firsts = flat_dst[:, 0].tolist()
+    lasts = flat_dst[:, -1].tolist()
+    grad = torch.is_grad_enabled() and feats.requires_grad
+    pieces = []
+    prev, prev_hi = None, -1
+    for c0, c1 in _steps(n, seg * W * F, budget_elems):
+        lo, hi = int(firsts[c0]), int(lasts[c1 - 1])
+        carry = prev[-1:] if prev is not None and lo == prev_hi else None
+        if prev is not None:
+            pieces.append(prev[:-1] if carry is not None else prev)
+        if carry is None and lo > prev_hi + 1:
+            pieces.append(feats.new_full((lo - prev_hi - 1, F),
+                                         float("-inf")))
+        args = (feats, carry, flat_idx[c0:c1], flat_dst[c0:c1], lo, hi)
+        prev = (checkpoint(_flat_max_piece, *args, use_reentrant=False)
+                if grad else _flat_max_piece(*args))
+        prev_hi = hi
+    pieces.append(prev)
+    if prev_hi < num_rows:
+        pieces.append(feats.new_full((num_rows - prev_hi, F), float("-inf")))
+    return torch.cat(pieces, dim=0)[:num_rows]
 
 
 IMPLS = ("segment", "cuda_csr")

@@ -49,7 +49,9 @@ from ..core.ell import ell_from_padded_parts
 from ..core.graph import MASK_NONE, Dataset
 from ..core.partition import (PartitionedGraph, PartitionPlan,
                               partition_col, partition_plan)
-from ..models.builder import ELL_IMPLS, AGGR_IMPLS, GraphContext, Model
+from ..models.builder import (AGGR_IMPLS, EDGE_IMPLS, ELL_IMPLS,
+                              LAYOUT_IMPLS,
+                              GraphContext, Model)
 from ..ops.norm import inv_sqrt_degree
 from ..train.trainer import TrainConfig, Trainer
 
@@ -255,6 +257,17 @@ class ShardedData:
     edge_dst: Optional[torch.Tensor] = None
 
 
+def refuse_layout(aggr_impl: str) -> None:
+    """The partitioned trainer has no form of the large-graph layouts or
+    of 'auto' yet: raise rather than remap them."""
+    if aggr_impl in LAYOUT_IMPLS or aggr_impl == "auto":
+        raise NotImplementedError(
+            f"aggr_impl={aggr_impl!r} has no partitioned form in the port "
+            "yet (ROADMAP item 1: the partitioned sectioned, flat and "
+            "block-dense builders); the partitioned trainer runs "
+            f"{ELL_IMPLS + EDGE_IMPLS}")
+
+
 def shard_dataset(dataset: Dataset, plan: PartitionPlan, rank: int,
                   device, dtype: torch.dtype = torch.float32,
                   aggr_impl: str = "cuda",
@@ -267,6 +280,7 @@ def shard_dataset(dataset: Dataset, plan: PartitionPlan, rank: int,
     if halo not in HALOS:
         raise NotImplementedError(f"halo={halo!r} is not ported; the port "
                                   f"runs {HALOS}")
+    refuse_layout(aggr_impl)
     if aggr_impl not in AGGR_IMPLS:
         raise ValueError(f"aggr_impl {aggr_impl!r} is not ported; "
                          f"expected one of {AGGR_IMPLS}")
@@ -361,6 +375,7 @@ class DistributedTrainer(Trainer):
                              f"has {self.comm.world_size} ranks (one "
                              f"partition per rank)")
         self.rank = self.comm.rank
+        refuse_layout(config.aggr_impl)
         super().__init__(model, dataset, dataclasses.replace(
             config, verbose=config.verbose and self.rank == 0),
             params=params, device=device)

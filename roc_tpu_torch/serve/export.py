@@ -38,8 +38,10 @@ import numpy as np
 import torch
 
 from ..obs.events import emit
-from ..train.trainer import (make_graph_context, resolve_config,
-                             resolve_device, resolve_symmetric)
+from ..train.trainer import (LAYOUT_FIELDS, layout_options,
+                             make_graph_context,
+                             resolve_config, resolve_device,
+                             resolve_symmetric)
 from .predictor import SERVE_BUCKETS, Predictor
 from .propagation import (PropagationCache, logits_table_cache,
                           prefix_descriptors)
@@ -69,10 +71,14 @@ def _num_classes(model) -> Optional[int]:
     return dims[-1] if dims else None
 
 
-def _graph_context(dataset, config, device):
+def _graph_context(model, dataset, config, device):
+    """The trainer's graph context of a resolved ``(model, config)``: the
+    same route, tables and baked normalization (Trainer._place)."""
     return make_graph_context(dataset, config.aggr_impl,
                               symmetric=config.symmetric, device=device,
-                              chunk=config.chunk)
+                              chunk=config.chunk,
+                              fuse=model.num_fused_aggregates() > 0,
+                              **layout_options(config))
 
 
 def _full_logits_host(model, dataset, config, params,
@@ -82,7 +88,7 @@ def _full_logits_host(model, dataset, config, params,
     graph context is dropped on return."""
     from ..train.trainer import cast_floats, compute_dtype_of
     compute = compute_dtype_of(config)
-    gctx = _graph_context(dataset, config, device)
+    gctx = _graph_context(model, dataset, config, device)
     feats = torch.as_tensor(np.asarray(dataset.features),
                             dtype=compute).to(device)
     with torch.inference_mode():
@@ -106,7 +112,7 @@ def build_predictor(model, dataset, config, params=None,
     loader passes the stored one); ``quant`` picks the table encoding
     (serve/quant.py; the drift gate is :func:`export_predictor`'s)."""
     device = resolve_device(device)
-    model, config = resolve_config(model, dataset, config)
+    model, config = resolve_config(model, dataset, config, device=device)
     config = dataclasses.replace(
         config, symmetric=resolve_symmetric(dataset, config.symmetric))
     if params is None:
@@ -127,7 +133,7 @@ def build_predictor(model, dataset, config, params=None,
             cache = logits_table_cache(_full_logits_host(
                 model, dataset, config, params, device))
     else:
-        gctx = _graph_context(dataset, config, device)
+        gctx = _graph_context(model, dataset, config, device)
     emit("serve", f"predictor: backend={backend}"
          + (f"/{flavor}" if flavor else "")
          + f" buckets={tuple(sorted(buckets))} V={dataset.graph.num_nodes}",
@@ -185,7 +191,8 @@ def _config_block(cfg) -> Dict[str, Any]:
             "compute_dtype": (None if cfg.compute_dtype is None
                               else dtype_name(cfg.compute_dtype)),
             "aggr_impl": aggr_impl_to_jax(cfg.aggr_impl),
-            "chunk": cfg.chunk, "symmetric": bool(cfg.symmetric)}
+            "chunk": cfg.chunk, "symmetric": bool(cfg.symmetric),
+            **layout_options(cfg)}
 
 
 def export_predictor(pred: Predictor, out_dir: str,
@@ -325,7 +332,8 @@ def load_predictor(artifact_dir: str, dataset=None, device=None,
         compute_dtype=(None if mc.get("compute_dtype") is None
                        else getattr(torch, mc["compute_dtype"])),
         aggr_impl=_route_from_manifest(mc["aggr_impl"], backend),
-        chunk=int(mc.get("chunk", 512)), symmetric=mc.get("symmetric"))
+        chunk=int(mc.get("chunk", 512)), symmetric=mc.get("symmetric"),
+        **{k: mc[k] for k in LAYOUT_FIELDS if k in mc})
     qmode = ((manifest.get("quant") or {}).get("spec")
              or {}).get("mode", "off")
     with np.load(os.path.join(artifact_dir, "params.npz")) as z:
@@ -362,7 +370,7 @@ def load_predictor(artifact_dir: str, dataset=None, device=None,
                 f"E={dataset.graph.num_edges} != artifact "
                 f"V={want_v}/E={want_e} — full-graph serving on another "
                 f"graph than the export's would be silently wrong")
-        gctx = _graph_context(dataset, config, device)
+        gctx = _graph_context(model, dataset, config, device)
     return Predictor(model, config, params, backend, manifest["buckets"],
                      cache=cache, head_model=head_model, flavor=flavor,
                      dataset=dataset if backend == "full" else None,

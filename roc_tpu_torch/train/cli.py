@@ -13,9 +13,12 @@ checkpoint and recovery flags ``--checkpoint``, ``--checkpoint-every``,
 ``--async-save``, ``--fault`` and ``--events``, with the JAX CLI's
 meanings and exit codes.  ``--impl``
 takes the ported counterparts of the JAX CLI's choices: ``cuda`` (its
-``pallas``, the default), ``ell`` and ``segment``; ``--dtype`` its
-``float32``, ``bfloat16`` and ``mixed`` (train/trainer.py
-``resolve_dtypes``).
+``pallas``, the default), ``ell``, ``segment``, the large-graph layouts
+``sectioned``, ``flat_sum`` and ``bdense``, and ``auto`` (the JAX rule
+through this card's row, train/trainer.py ``resolve_auto_impl_probed``);
+``--dtype`` its ``float32``, ``bfloat16`` and ``mixed``
+(train/trainer.py ``resolve_dtypes``); ``--reorder bfs|lpa`` relabels
+the vertices before training (core/reorder.py), with a ``plan`` event.
 
 Runs on the card unless ``--cpu`` is given; without a card and without
 ``--cpu`` it exits with an error.  Without ``-file`` it trains on a
@@ -66,7 +69,8 @@ from ..models import model_builders
 from .trainer import DTYPE_MODES
 
 # the JAX CLI's --impl choices that have a ported route, by port name
-IMPLS = ("cuda", "ell", "segment")
+IMPLS = ("cuda", "ell", "segment", "auto", "sectioned", "flat_sum",
+         "bdense")
 DIST_BACKENDS = ("nccl", "gloo")
 
 
@@ -117,7 +121,15 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
     ap.add_argument("--impl", default="cuda", choices=IMPLS,
                     help="aggregation route: cuda = the hand-written "
                          "kernels (K1 -> K4 -> K2), ell / segment = the "
-                         "plain PyTorch sums")
+                         "plain PyTorch sums, sectioned / flat_sum / "
+                         "bdense = the large-graph layouts, auto = the "
+                         "measured rule")
+    ap.add_argument("--reorder", default="none",
+                    choices=["none", "bfs", "lpa"],
+                    help="vertex relabeling for gather locality "
+                         "(core/reorder.py; 'lpa' = label-propagation "
+                         "communities, the order bdense rides on); the "
+                         "metrics do not depend on it")
     ap.add_argument("--fuse", default="auto", choices=["auto", "on", "off"],
                     help="fold norm -> aggregate -> norm [-> relu] chains "
                          "into one fused aggregation op")
@@ -290,6 +302,14 @@ def _train(args, layers, model, device, rank) -> int:
     else:
         ds = synthetic_dataset(512, 8, in_dim=layers[0],
                                num_classes=layers[-1], seed=args.seed)
+    if args.reorder != "none":
+        from ..core.reorder import ORDERINGS, apply_vertex_order
+        t0 = time.time()
+        ds, _ = apply_vertex_order(ds, ORDERINGS[args.reorder](ds.graph),
+                                   order_name=args.reorder)
+        emit("plan", f"reorder={args.reorder} applied in "
+             f"{time.time() - t0:.1f}s", reorder=args.reorder,
+             reorder_s=round(time.time() - t0, 2))
     verbose = args.verbose and rank == 0
     if verbose:
         print(f"# dataset={ds.name} V={ds.graph.num_nodes} "
@@ -297,7 +317,8 @@ def _train(args, layers, model, device, rank) -> int:
               f"model={args.model} lr={args.lr} "
               f"wd={args.weight_decay} dropout={args.dropout} "
               f"decay={args.decay_rate}/{args.decay_steps} "
-              f"impl={args.impl} fuse={args.fuse} dtype={args.dtype} "
+              f"impl={args.impl} reorder={args.reorder} fuse={args.fuse} "
+              f"dtype={args.dtype} "
               f"parts={args.parts} device={device}",
               file=sys.stderr)
     dtype, compute_dtype = resolve_dtypes(args.dtype)

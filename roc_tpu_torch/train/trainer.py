@@ -6,12 +6,12 @@ printing train loss and train/val/test accuracy in the reference's
 format (``softmax_kernel.cu:141-152``).
 
 The subset ported is one device, features resident on the device, no
-rematerialisation, no mesh, no streamed head; the metrics registry and
-the timeline are not ported.  The epoch loop carries the resilience
-hooks (resilience/inject.py drill sites, the preemption check), and the
-trainer the state a checkpoint needs besides weights and Adam state
-(utils/checkpoint.py): the dataset's identity and the dropout
-generator's state.
+rematerialisation, no mesh, no streamed head, no memory autopilot; the
+metrics registry and the timeline are not ported.  The epoch loop
+carries the resilience hooks (resilience/inject.py drill sites, the
+preemption check), and the trainer the state a checkpoint needs besides
+weights and Adam state (utils/checkpoint.py): the dataset's identity
+and the dropout generator's state.
 """
 
 from __future__ import annotations
@@ -24,14 +24,17 @@ from typing import Any, Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
-from ..core.ell import ell_from_graph
+from ..core.ell import (CARD_ROWS, FLAT_SUM_MIN_EDGES, default_section_rows,
+                        ell_from_graph, flat_sum_from_graph, jax_auto_impl,
+                        port_route, sectioned_from_graph)
 from ..core.graph import Dataset, check_symmetric
 from ..core.partition import padded_edge_list
-from ..models.builder import (AGGR_IMPLS, EDGE_IMPLS, KERNEL_IMPLS,
-                              GraphContext, Model)
+from ..models.builder import (AGGR_IMPLS, EDGE_IMPLS, ELL_IMPLS,
+                              KERNEL_IMPLS, GraphContext, Model)
 from ..obs.events import emit
 from ..ops.loss import perf_metrics, summarize_metrics
-from ..ops.norm import inv_sqrt_degree
+from ..ops import blockdense as bd
+from ..ops.norm import inv_sqrt_degree, inv_sqrt_degree_np
 from .optimizer import AdamConfig, adam_init, adam_update, decayed_lr
 
 
@@ -43,7 +46,10 @@ class TrainConfig:
 
     aggr_impl: 'cuda' (the hand-written ELL kernels, the JAX package's
       'pallas'), 'cuda_csr' (the hand-written CSR kernel K3, its
-      'pallas_csr'), or the plain 'ell' / 'segment'.
+      'pallas_csr'), the plain 'ell' / 'segment', the large-graph
+      layouts 'sectioned' / 'flat_sum' / 'bdense' (and 'attn_flat8',
+      which the resolver gives attention models), or 'auto'
+      (:func:`resolve_auto_impl_probed`).
     chunk: edge-list padding multiple of the edge routes.
     aggr_fuse: 'auto' | 'on' | 'off', see :func:`resolve_fuse`.
     symmetric: None = check the graph; False differentiates the plain
@@ -61,6 +67,11 @@ class TrainConfig:
     fault: one drill fault to arm, ``site:epoch[:proc]``
       (resilience/inject.py); None arms none (``ROC_TPU_FAULT`` is the
       out-of-band switch).
+    sect_sub_w, sect_u16: the sectioned tables' sub-row width and uint16
+      ids (sections then hold 65,535 rows); bdense_min_fill,
+      bdense_a_budget, bdense_group: the block-dense plan's least edges
+      a dense tile, A-table byte cap (None: none) and blocks a product
+      (ops/blockdense.py).  The JAX package's fields and defaults.
     """
     learning_rate: float = 0.01
     weight_decay: float = 0.05
@@ -79,6 +90,23 @@ class TrainConfig:
     compute_dtype: Optional[torch.dtype] = None
     async_save: Any = "auto"
     fault: Optional[str] = None
+    sect_sub_w: int = 8
+    sect_u16: bool = False
+    bdense_min_fill: int = 64
+    bdense_a_budget: Optional[int] = 2 << 30
+    bdense_group: int = 1
+
+
+# the TrainConfig fields that shape the layouts' tables
+LAYOUT_FIELDS = ("sect_sub_w", "sect_u16", "bdense_min_fill",
+                 "bdense_a_budget", "bdense_group")
+
+
+def layout_options(config: TrainConfig) -> Dict[str, Any]:
+    """The layout fields of ``config``, as :func:`make_graph_context`
+    takes them: a trainer and a predictor of one config build the same
+    tables."""
+    return {k: getattr(config, k) for k in LAYOUT_FIELDS}
 
 
 def resolve_async_save(config: TrainConfig) -> bool:
@@ -136,54 +164,125 @@ def resolve_fuse(model: Model, config: TrainConfig) -> Model:
     return fused
 
 
-# Past these edge counts the JAX package moves a request to a flat
-# layout that is not ported (roc_tpu/train/trainer.py, roc_tpu/core/ell.py):
-# an attention model to 'attn_flat8', a MAX/MIN model to 'flat_sum'.
+# Past these edge counts an attention model goes to 'attn_flat8' and a
+# MAX/MIN model to 'flat_sum' (the JAX package's thresholds).
 ATTN_FLAT8_MIN_EDGES = 20_000_000
-FLAT_SUM_MIN_EDGES = 20_000_000
+
+
+def card_kind(device) -> Optional[str]:
+    """``torch.cuda.get_device_name`` of a CUDA ``device``; None for the
+    CPU (the 'auto' rule's card rows are keyed by it)."""
+    device = torch.device(device) if device is not None else None
+    if device is None or device.type != "cuda":
+        return None
+    return torch.cuda.get_device_name(device)
+
+
+def resolve_auto_impl_probed(graph, *, device_kind: Optional[str] = None,
+                             bdense_min_fill: int = 64,
+                             bdense_a_budget: Optional[int] = 2 << 30,
+                             bdense_group: int = 1) -> str:
+    """``aggr_impl='auto'``: the JAX package's rule (core/ell.py
+    ``jax_auto_impl``: the sectioned window, then 'flat_sum' past
+    ``FLAT_SUM_MIN_EDGES``) with its block-dense structure probe (inside
+    the window, from ``BDENSE_AUTO_MIN_EDGES`` edges: 'bdense' when the
+    census puts ``BDENSE_AUTO_MIN_FRAC`` of the edges on dense tiles;
+    native planners only), then the card's row (core/ell.py
+    ``port_route``).  Emits a ``resolve`` event with the JAX rule's
+    answer (``jax_resolves``) beside the port's."""
+    jax_impl = jax_auto_impl(graph.num_nodes, num_edges=graph.num_edges)
+    fields: Dict[str, Any] = {}
+    if jax_impl == "sectioned" and \
+            graph.num_edges >= bd.BDENSE_AUTO_MIN_EDGES:
+        frac = bd.probe_dense_frac(
+            graph.row_ptr, graph.col_idx, graph.num_nodes,
+            min_fill=bdense_min_fill, a_budget_bytes=bdense_a_budget,
+            group=bdense_group)
+        if frac is not None:
+            fields["dense_frac"] = round(frac, 4)
+            if frac >= bd.BDENSE_AUTO_MIN_FRAC:
+                jax_impl = "bdense"
+    impl = port_route(jax_impl, device_kind)
+    row = CARD_ROWS.get(device_kind) if device_kind else None
+    why = (f"; the JAX rule takes {jax_impl!r}, and on {device_kind} "
+           f"{impl!r} won the race ({row.source})"
+           if row is not None and impl != port_route(jax_impl) else "")
+    emit("resolve", f"aggr_impl='auto' -> {impl!r} (V={graph.num_nodes:,}, "
+         f"E={graph.num_edges:,}{why})", requested="auto", resolved=impl,
+         jax_resolves=jax_impl, device_kind=device_kind, **fields)
+    return impl
+
+
+def resolve_auto_impl_early(model: Model, config: TrainConfig, graph,
+                            device_kind: Optional[str] = None
+                            ) -> TrainConfig:
+    """'auto' resolved for a model of sums; attention and MAX/MIN models
+    are left to :func:`resolve_attention_impl`, as in the JAX package."""
+    if config.aggr_impl != "auto" or model.uses_attention() \
+            or model.uses_max_aggregation():
+        return config
+    if graph is None:
+        raise ValueError("aggr_impl='auto' needs the dataset")
+    return dataclasses.replace(config, aggr_impl=resolve_auto_impl_probed(
+        graph, device_kind=device_kind,
+        bdense_min_fill=config.bdense_min_fill,
+        bdense_a_budget=config.bdense_a_budget,
+        bdense_group=config.bdense_group))
 
 
 def resolve_attention_impl(model: Model, config: TrainConfig,
                            dataset: Optional[Dataset] = None
                            ) -> TrainConfig:
-    """The JAX package's model-driven route rule, on the port's routes
-    ('cuda' plays its 'pallas', 'cuda_csr' its 'pallas_csr').  A model
-    with attention needs the ELL tables, and one with MAX/MIN
-    aggregation has no form on the chunked-sum route: such a model
-    requested on another route is moved to 'ell', with a ``resolve``
-    event.  'ell' and 'cuda' are never moved, at any size; 'segment'
-    stays for MAX/MIN (it has an edge-list max).  Where the JAX package
-    takes a flat layout instead (``dataset`` past the thresholds above),
-    the port, which has neither, still goes to 'ell' and the event names
-    the JAX layout as ``jax_resolves``.  Other models come back
-    unchanged."""
+    """The JAX package's model-driven route rule on the port's routes
+    ('cuda' plays its 'pallas', 'cuda_csr' its 'pallas_csr').  An
+    attention model needs the ELL or the flat tables and a MAX/MIN model
+    a route with a max form; 'ell' and 'cuda' keep either at any size,
+    'segment' and 'flat_sum' keep a MAX/MIN model.  Otherwise, with
+    ``dataset`` past the edge thresholds an attention model goes to
+    'attn_flat8' and a MAX/MIN model to 'flat_sum', and below them to
+    'ell' ('cuda' for an 'auto' request: the JAX rule's 'ell'), each with
+    a ``resolve`` event.  'attn_flat8' on a model without attention
+    raises."""
     why = ("attention" if model.uses_attention()
            else "MAX/MIN aggregation" if model.uses_max_aggregation()
            else None)
-    if why is None or config.aggr_impl in ("ell", "cuda") or (
-            why != "attention" and config.aggr_impl == "segment"):
+    if config.aggr_impl == "attn_flat8" and why != "attention":
+        raise NotImplementedError(
+            "aggr_impl='attn_flat8' is the attention-only layout; this "
+            f"model uses {why or 'sum aggregation'}")
+    if why is None or config.aggr_impl in ("ell", "cuda", "attn_flat8"):
+        return config
+    if why != "attention" and config.aggr_impl in ("segment", "flat_sum"):
         return config
     flat, limit = (("attn_flat8", ATTN_FLAT8_MIN_EDGES) if why == "attention"
                    else ("flat_sum", FLAT_SUM_MIN_EDGES))
     E = None if dataset is None else int(dataset.graph.num_edges)
-    jax = {"jax_resolves": flat} if E is not None and E >= limit else {}
-    emit("resolve", f"aggr_impl={config.aggr_impl!r} -> 'ell' ({why} model "
-         "needs the ELL tables" + (f"; at E={E:,} the JAX package takes its "
-                                   f"'{flat}' layout, which is not ported"
-                                   if jax else "") + ")",
-         requested=config.aggr_impl, resolved="ell", why=why, **jax)
-    return dataclasses.replace(config, aggr_impl="ell")
+    if E is not None and E >= limit:
+        emit("resolve", f"aggr_impl={config.aggr_impl!r} -> {flat!r} "
+             f"({why} at E={E:,}: the flat layout)",
+             requested=config.aggr_impl, resolved=flat, why=why)
+        return dataclasses.replace(config, aggr_impl=flat)
+    to = port_route("ell") if config.aggr_impl == "auto" else "ell"
+    emit("resolve", f"aggr_impl={config.aggr_impl!r} -> {to!r} ({why} "
+         "model needs the ELL tables)", requested=config.aggr_impl,
+         resolved=to, why=why)
+    return dataclasses.replace(config, aggr_impl=to)
 
 
 def resolve_config(model: Model, dataset: Optional[Dataset],
-                   config: TrainConfig) -> Tuple[Model, TrainConfig]:
-    """THE resolve pass (the JAX package's ``resolve_config``, over the
-    ported rules): the fuse rewrite (:func:`resolve_fuse`), then the
-    model-driven route (:func:`resolve_attention_impl`).  ``Trainer``
-    and ``serve/export.build_predictor`` both run it, so a predictor
-    serves the model and route a trainer would train.  Idempotent: a
-    resolved pair comes back unchanged.  Returns ``(model, config)``."""
+                   config: TrainConfig, device=None
+                   ) -> Tuple[Model, TrainConfig]:
+    """THE resolve pass, in the JAX package's order: the fuse rewrite
+    (:func:`resolve_fuse`), 'auto' (:func:`resolve_auto_impl_early`, by
+    the card ``device`` is; None is the CPU), then the model-driven route
+    (:func:`resolve_attention_impl`).  ``Trainer`` and
+    ``serve/export.build_predictor`` both run it, so a predictor serves
+    the model and route a trainer would train.  Idempotent: a resolved
+    pair comes back unchanged.  Returns ``(model, config)``."""
     model = resolve_fuse(model, config)
+    config = resolve_auto_impl_early(
+        model, config, dataset.graph if dataset is not None else None,
+        device_kind=card_kind(device))
     return model, resolve_attention_impl(model, config, dataset)
 
 
@@ -226,43 +325,102 @@ def cast_floats(params: Dict[str, torch.Tensor],
 
 def make_graph_context(dataset: Dataset, aggr_impl: str = "cuda",
                        symmetric: Optional[bool] = None,
-                       device=None, chunk: int = 512) -> GraphContext:
+                       device=None, chunk: int = 512,
+                       **layout: Any) -> GraphContext:
     """Single-device GraphContext on ``device`` (the card unless
-    ``device`` says otherwise).  The ELL routes get the degree-bucketed
-    tables (core/ell.py), the edge routes the edge list padded to a
-    ``chunk`` multiple (core/partition.py); neither builds the other's
-    (at Reddit scale the edge list alone is ~0.9 GB of int32)."""
+    ``device`` says otherwise), with the tables of ``aggr_impl`` alone
+    (no route uploads another's: at Reddit scale the edge list alone is
+    ~0.9 GB of int32).  ``layout``: :func:`graph_context`'s keywords."""
     return graph_context(dataset.graph, aggr_impl,
                          resolve_symmetric(dataset, symmetric),
-                         device=device, chunk=chunk)
+                         device=device, chunk=chunk, **layout)
 
 
 def graph_context(g, aggr_impl: str = "cuda", symmetric: bool = True,
-                  device=None, chunk: int = 512) -> GraphContext:
+                  device=None, chunk: int = 512, fuse: bool = False,
+                  sect_sub_w: int = 8, sect_u16: bool = False,
+                  bdense_min_fill: int = 64,
+                  bdense_a_budget: Optional[int] = 2 << 30,
+                  bdense_group: int = 1) -> GraphContext:
     """:func:`make_graph_context` of a bare ``core/graph.Graph`` whose
     symmetry the caller states (the serving precompute's walk,
-    core/streaming.py, has a graph and no dataset)."""
+    core/streaming.py, has a graph and no dataset).
+
+    The ELL routes get the degree-bucketed tables, the edge routes the
+    edge list padded to a ``chunk`` multiple, 'sectioned' the sectioned
+    tables (``sect_sub_w``, ``sect_u16``), 'flat_sum' and 'attn_flat8'
+    the flat tables, 'bdense' a u4-packed block plan (``bdense_*``,
+    ops/blockdense.py ``plan_blocks_packed``; a ``plan`` event reports
+    it) with its residual in sectioned tables.  ``fuse`` bakes the fused
+    normalization into the layouts' tables (weight tables, tile
+    scales), for a model with fused aggregations."""
     if aggr_impl not in AGGR_IMPLS:
-        raise ValueError(f"aggr_impl {aggr_impl!r} is not ported; "
-                         f"expected one of {AGGR_IMPLS}")
+        raise ValueError(f"aggr_impl {aggr_impl!r} is not a route; "
+                         f"expected one of {AGGR_IMPLS} ('auto' is "
+                         "resolved by resolve_config)")
     device = resolve_device(device)
 
     def dev(a):
-        return torch.from_numpy(a).to(device)
+        return torch.from_numpy(np.ascontiguousarray(a)).to(device)
 
     in_degree = dev(g.in_degree)
+    V = g.num_nodes
+    d_np = inv_sqrt_degree_np(g.in_degree) if fuse else None
+
+    def sectioned(row_ptr, col_idx):
+        sect = sectioned_from_graph(
+            row_ptr, col_idx, V, section_rows=default_section_rows(sect_u16),
+            sub_w=sect_sub_w)
+        if sect_u16:
+            sect = sect.with_idx_dtype(np.uint16)
+        return dict(sect_idx=tuple(dev(a) for a in sect.idx),
+                    sect_sub_dst=tuple(dev(a) for a in sect.sub_dst),
+                    sect_meta=sect.meta,
+                    sect_w=tuple(dev(w) for w in sect.weight_tables(
+                        d_np, d_np)) if fuse else ())
+
+    tables: Dict[str, Any] = {}
     if aggr_impl in EDGE_IMPLS:
         src, dst = padded_edge_list(g, multiple=chunk)
         tables = dict(edge_src=dev(src), edge_dst=dev(dst), chunk=chunk)
-    else:
-        table = ell_from_graph(g.row_ptr, g.col_idx, g.num_nodes)
+    elif aggr_impl in ELL_IMPLS:
+        table = ell_from_graph(g.row_ptr, g.col_idx, V)
         tables = dict(ell_idx=tuple(dev(a[0]) for a in table.idx),
                       ell_row_pos=dev(table.row_pos[0]),
                       ell_row_id=tuple(dev(a[0]) for a in table.row_id))
+    elif aggr_impl == "sectioned":
+        tables = sectioned(g.row_ptr, g.col_idx)
+    elif aggr_impl in ("flat_sum", "attn_flat8"):
+        flat = flat_sum_from_graph(g.row_ptr, g.col_idx, V)
+        tables = dict(flat8_idx=dev(flat.idx[0]),
+                      flat8_dst=dev(flat.sub_dst[0]))
+        if fuse and aggr_impl == "flat_sum":
+            tables["flat8_w"] = dev(flat.weight_tables(d_np, d_np)[0])
+    else:
+        plan = bd.plan_blocks_packed(g.row_ptr, g.col_idx, V,
+                                     min_fill=bdense_min_fill,
+                                     a_budget_bytes=bdense_a_budget,
+                                     group=bdense_group)
+        occ = plan.occupancy()
+        packed = plan.a_blocks.shape[-1] == bd.BLOCK // 2
+        emit("plan", f"bdense plan: {occ['n_blocks']} blocks of min_fill "
+             f"{bdense_min_fill}, fill {occ['mean_fill']}, dense "
+             f"{occ['dense_frac']:.1%} (the residual via sectioned"
+             f"{', A u4-packed' if packed else ''})", packed=packed, **occ)
+        if plan.n_blocks:
+            tables = dict(bd_a=dev(plan.a_blocks), bd_src=dev(plan.src_blk),
+                          bd_dst=dev(plan.dst_blk), bd_vpad=plan.vpad,
+                          bd_group=bdense_group)
+        if fuse:
+            d_pad = np.zeros(plan.vpad, np.float32)
+            d_pad[:V] = d_np
+            tables["bd_scale"] = (dev(d_pad), dev(d_pad))
+        if plan.res_col.shape[0]:
+            tables.update(sectioned(plan.res_row_ptr, plan.res_col))
     return GraphContext(
         in_degree=in_degree, inv_sqrt_deg=inv_sqrt_degree(in_degree),
-        num_rows=g.num_nodes, aggr_impl=aggr_impl,
-        symmetric=bool(symmetric), **tables)
+        num_rows=V, aggr_impl=aggr_impl, symmetric=bool(symmetric),
+        **tables)
 
 
 class Trainer:
@@ -283,7 +441,8 @@ class Trainer:
                  params: Optional[Dict[str, torch.Tensor]] = None,
                  device=None):
         self.device = resolve_device(device)
-        model, config = resolve_config(model, dataset, config)
+        model, config = resolve_config(model, dataset, config,
+                                       device=self.device)
         self.model = model
         self.config = config
         self.compute = compute_dtype_of(config)
@@ -326,10 +485,11 @@ class Trainer:
                                      dtype=self.compute).to(self.device)
         self.labels = torch.from_numpy(dataset.labels).to(self.device)
         self.mask = torch.from_numpy(dataset.mask).to(self.device)
-        self.gctx = make_graph_context(dataset, self.config.aggr_impl,
-                                       symmetric=symmetric,
-                                       device=self.device,
-                                       chunk=self.config.chunk)
+        self.gctx = make_graph_context(
+            dataset, self.config.aggr_impl, symmetric=symmetric,
+            device=self.device, chunk=self.config.chunk,
+            fuse=self.model.num_fused_aggregates() > 0,
+            **layout_options(self.config))
 
     def _reduce(self, tensors: List[torch.Tensor]) -> List[torch.Tensor]:
         """The sums over every trainer of a run: ``tensors`` themselves

@@ -77,8 +77,9 @@ def test_convert_round_trip(rig):
         np.testing.assert_array_equal(back[k], v)
     assert convert.aggr_impl_from_jax("pallas") == "cuda"
     assert convert.aggr_impl_to_jax("cuda") == "pallas"
+    assert convert.aggr_impl_from_jax("sectioned") == "sectioned"
     with pytest.raises(ValueError):
-        convert.aggr_impl_from_jax("sectioned")
+        convert.aggr_impl_from_jax("blocked")
 
 
 @pytest.mark.parametrize("fuse", ["auto", "off"])

@@ -301,10 +301,10 @@ def test_full_artifact_on_an_unported_layout_is_refused(data, tmp_path):
     path = os.path.join(art, "serve_manifest.json")
     with open(path) as f:
         man = json.load(f)
-    man["config"]["aggr_impl"] = "sectioned"
+    man["config"]["aggr_impl"] = "blocked"
     with open(path, "w") as f:
         json.dump(man, f)
-    with pytest.raises(NotImplementedError, match="sectioned"):
+    with pytest.raises(NotImplementedError, match="blocked"):
         load_predictor(art, dataset=ds, device="cpu")
 
 

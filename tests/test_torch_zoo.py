@@ -264,13 +264,13 @@ RESOLVE_CASES = [
     ("gat1", "segment", None, "ell"),
     ("gat1", "cuda", ATTN_FLAT8_MIN_EDGES, "cuda"),
     ("gat1", "ell", ATTN_FLAT8_MIN_EDGES, "ell"),
-    ("gat1", "cuda_csr", ATTN_FLAT8_MIN_EDGES, "ell"),
-    ("gat1", "segment", ATTN_FLAT8_MIN_EDGES, "ell"),
+    ("gat1", "cuda_csr", ATTN_FLAT8_MIN_EDGES, "attn_flat8"),
+    ("gat1", "segment", ATTN_FLAT8_MIN_EDGES, "attn_flat8"),
     ("sage_pool", "cuda", None, "cuda"),
     ("sage_pool", "segment", None, "segment"),
     ("sage_pool", "cuda_csr", None, "ell"),
     ("sage_pool", "cuda_csr", FLAT_SUM_MIN_EDGES - 1, "ell"),
-    ("sage_pool", "cuda_csr", FLAT_SUM_MIN_EDGES, "ell"),
+    ("sage_pool", "cuda_csr", FLAT_SUM_MIN_EDGES, "flat_sum"),
     ("sage_pool", "segment", FLAT_SUM_MIN_EDGES, "segment"),
     ("sage_pool", "cuda", FLAT_SUM_MIN_EDGES, "cuda"),
     ("sage_mean", "cuda_csr", None, "cuda_csr"),
@@ -282,9 +282,8 @@ RESOLVE_CASES = [
 def test_resolver_follows_jax_and_says_so(fam, impl, E, want):
     """The port's resolve_attention_impl against the JAX package's on
     the same request: where JAX keeps a route the port keeps it; where
-    JAX moves it to 'ell' the port does too with the same event fields;
-    where JAX moves it to a flat layout (not ported) the port goes to
-    'ell' and its event names the JAX layout."""
+    JAX moves it to 'ell' or to a flat layout ('attn_flat8', 'flat_sum')
+    the port does too, with one resolve event."""
     ds = None if E is None else _Sized(E)
     with _events() as recs:
         got = resolve_attention_impl(_build(model_builders, fam),
@@ -299,11 +298,8 @@ def test_resolver_follows_jax_and_says_so(fam, impl, E, want):
         assert not ev
         return
     assert len(ev) == 1
-    assert ev[0]["requested"] == impl and ev[0]["resolved"] == "ell"
-    if jgot in ("attn_flat8", "flat_sum"):
-        assert ev[0]["jax_resolves"] == jgot and jgot in ev[0]["msg"]
-    else:
-        assert jgot == "ell" and "jax_resolves" not in ev[0]
+    assert ev[0]["requested"] == impl and ev[0]["resolved"] == want
+    assert convert.aggr_impl_from_jax(jgot) == want
 
 
 def test_trainer_applies_the_resolver():
