@@ -27,8 +27,9 @@ Phases (any failure exits nonzero):
    default; all of it again in bf16 (K1 and K2 bit for bit, K3 and K4
    within one bf16 ulp of each row's magnitude, every instance launched
    twice for equal bits);
-   the SGC prefix's shape too: K1, K2 and K4 at F = 602 in fp32 (the
-   kernel table's ``akx_shapes``);
+   the SGC's raw width too: K1, K2 and K4 at F = 602 in fp32 (the
+   kernel table's ``akx_shapes``: the SGC on 'cuda' with features on the
+   card runs them there; the host tier's walk runs K3, phase 15);
 4. slice (serve): requests through Server on the kernel route, each of
    1, 8, 64 and 512 rows 20 times one after another (per size the
    median, p90, max, every time and its dispatch ms) and four together,
@@ -114,11 +115,12 @@ Phases (any failure exits nonzero):
 13. the precomputed serving backend (roc_tpu_torch/serve/), each
    precompute with the counts zeroed just before and read just after:
    ``serve_akx``, an SGC 602-41 (k = 2, trained 20 epochs) at Reddit's
-   shape on its 'akx' table: the precompute's wall, device ms (kernels
-   and copies) and launches (K4, and K1/K2 for the fused chains), the
-   table bytes per mode, a 4,096-id sample against the same SGC on the
-   full backend (fp32 within 1e-4, 'mixed' within 3e-2 of the logit
-   scale), int8 exported through the default drift gate and fp8 behind
+   shape on its 'akx' table: the precompute (the blocked host walk of
+   core/streaming.py) with its wall and launches (K3 alone: the walk's
+   norms are host row scales), one more walk's event span and pinned
+   copies, the table bytes per mode, a 4,096-id sample against the same
+   SGC on the full backend (fp32 within 1e-4, 'mixed' within 3e-2 of the
+   logit scale), int8 exported through the default drift gate and fp8 behind
    the relaxed one, and each request size 20 times through
    Predictor.query and Server beside the full backend's;
    ``serve_table``, the GCN with phase 4's weights on the 'table'
@@ -144,22 +146,48 @@ Phases (any failure exits nonzero):
    'sectioned'; a shuffled planted graph at the arxiv shape relabeled by
    lpa and bfs (seconds, dense shares; lpa must recover the oracle's);
    the 602-256-41 GCN on 'sectioned', 'flat_sum' and 'bdense' (3 parity
-   steps against 'cuda', then 5 epochs, fp32 and 'mixed') and what
+   steps against 'cuda', then 3 epochs, fp32 and 'mixed') and what
    'auto' resolves to on this card (its row); ogbn-products' shape
-   (symmetric, V = 2,449,029, E ~ 126 M): GIN 100-256-47 through 'auto',
-   'flat_sum' and 'cuda' (parity, 5 epochs, fp32 and 'mixed'), GAT
+   (symmetric, V = 2,449,029, E ~ 126 M, saved for phase 15): GIN
+   100-256-47 through 'auto', 'flat_sum' and 'cuda' (parity, 3 epochs,
+   fp32 and 'mixed'), GAT
    ('mixed', 'attn_flat8': 3 steps against 3 on 'ell'), SAGE-pool (fp32,
    'flat_sum''s max: its logits against 'ell''s, whose max cannot train
    at this shape in 80 GB, then 3 steps), and the peak memory.  The native host
    planners must have run for every layout built.  Its 'cuda' baselines
    are counted runs of the table.
+15. the memory tier (``memory``, in a fresh process on the datasets of
+   phase 14): K3 at the blocked walk's shape (a tile's first edge chunk
+   over a 65,536-row source block, F = 602) against its plain version,
+   timed with its library call and bound (the kernel table's
+   ``walk_shapes``); the GCN with features='host' on 'cuda' in fp32 and
+   'mixed': 3 parity steps at dropout 0 against features='hbm', 3 steps
+   with prefetch 1 and 0 to the same bits, 10 epochs (K1, the masked K1,
+   K2 and K4 ran; the loss falls) beside 10 on 'hbm', with epoch_ms,
+   overlap_frac (the host's view), the staging waits, the pinned H2D
+   rate, the peak and the modeled bytes, and one profiled steady step's
+   device overlap (the share of H2D copy time under a kernel); the SGC 602-41 with features='host' (the trainer's
+   walk launches K3 alone; the walk profiled: wall, device ms, the
+   copies' share; 3 parity steps against 'hbm'); remat none, full and
+   save_aggregates on the GCN (fp32, 'mixed') and on GIN 100-256-47 at
+   the products shape (3 steps at dropout 0.5: weights within 1e-5 of
+   none's, epoch_ms and peak each; 'full' recomputes a layer at a time,
+   and GIN's peak under it must fall below none's); memory='auto' at Reddit's shape
+   with the detected budget (gather/hbm) and with the remat and host
+   plans' own estimates as budgets (those plans), 3 steps each, modeled
+   beside measured peak; and the drills at the arxiv shape
+   (features='host', dropout 0): staging_io:2 under train_with_recovery
+   (one retry, the uninterrupted run's bits), stall_compile:0 with
+   ROC_TPU_STALL_TIMEOUT_S (a StallFailure, then the restart finishes).
+   Every run counted.
 
 Prints one JSON line per phase, the kernel table line
 ``{"kernels": [...]}`` (one row per kernel and dtype, e.g.
 ``ell_aggregate[bf16]``, K1's masked form as ``indegree_norm_masked``;
-launches counted over the serve, train, dist, recovery, zoo, precompute
-and layouts slices of that dtype; the F = 128 checks as each row's
-``zoo_shapes``, the F = 602 ones as ``akx_shapes``), the
+launches counted over the serve, train, dist, recovery, zoo, precompute,
+layouts and memory slices of that dtype; the F = 128 checks as each
+row's ``zoo_shapes``, the F = 602 ones as ``akx_shapes`` (K1, K2 and K4
+at the SGC's raw width) and K3's walk check as ``walk_shapes``), the
 card line, and as the last line
 ``{"ok": true, "device": {...}}``.  Imports no JAX.
 """
@@ -170,6 +198,7 @@ import functools
 import json
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -1065,14 +1094,13 @@ def _save_dataset(ds, path):
         np.save(f"{path}/{name}.npy", arr)
 
 
-def _map_dataset(path, num_classes):
+def _map_dataset(path, num_classes, name="reddit_shape"):
     from roc_tpu_torch.core.graph import Dataset, Graph
 
     def load(name):
         return np.load(f"{path}/{name}.npy", mmap_mode="r")
     return Dataset(Graph(load("row_ptr"), load("col_idx")), load("features"),
-                   load("labels"), load("mask"), num_classes,
-                   name="reddit_shape")
+                   load("labels"), load("mask"), num_classes, name=name)
 
 
 def rank_kernel_checks(torch, tr, ds):
@@ -1975,37 +2003,30 @@ def _rows_check(name, got, want, rtol):
     return rec
 
 
-def precompute_profile(torch, graph, ops, feats, gctx):
-    """One more prefix walk (after the counted one) between two CUDA
-    events (``event_span_ms``: its kernels, its copies and the host's
-    gaps between them; ``wall_ms`` around it), then its copies alone,
-    each between CUDA events: the upload of X and one ``[V, F]`` stage's
-    download, counted once per stage (``copy_ms``).  ``rest_ms`` is the
-    span less the copies: the kernels and the gaps.  No torch.profiler
-    session: after the earlier sessions of this process one lost every
-    record."""
-    from roc_tpu_torch.core.streaming import stream_prefix_to_host
-
-    def span(fn):
-        a = torch.cuda.Event(enable_timing=True)
-        b = torch.cuda.Event(enable_timing=True)
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        a.record()
-        out = fn()
-        b.record()
-        torch.cuda.synchronize()
-        return out, a.elapsed_time(b), (time.perf_counter() - t0) * 1e3
-
-    _, walk, wall = span(lambda: stream_prefix_to_host(graph, ops, feats,
-                                                       gctx=gctx))
-    x, up, _ = span(lambda: torch.from_numpy(
-        np.asarray(feats, dtype=np.float32)).cuda())
-    _, down, _ = span(lambda: x.cpu())
-    del x
-    copy = up + len(ops) * down
-    return {"event_span_ms": walk, "wall_ms": wall, "upload_ms": up,
-            "download_ms": down, "copy_ms": copy, "rest_ms": walk - copy}
+def precompute_profile(torch, graph, ops, feats):
+    """One more prefix walk (after the counted one) through a staging
+    pool of its own, between two CUDA events (``event_span_ms``: its K3
+    launches, its copies and the host's gaps between them; ``wall_ms``
+    around it), with the pool's pinned H2D copies (bytes, device ms on
+    the copy stream, GB/s) and overlap.  No torch.profiler session: after
+    the earlier sessions of this process one lost every record (phase 15
+    profiles the walk in a fresh process)."""
+    from roc_tpu_torch.core.streaming import StagingPool, stream_prefix_to_host
+    pool = StagingPool(depth=1, device=torch.device("cuda"))
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    a.record()
+    stream_prefix_to_host(graph, ops, feats, pool=pool)
+    b.record()
+    torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) * 1e3
+    st = pool.take_stats()
+    return {"event_span_ms": a.elapsed_time(b), "wall_ms": wall,
+            "h2d_bytes": st["h2d_bytes"], "h2d_copy_ms": st["h2d_copy_ms"],
+            "h2d_gbps": st["h2d_gbps"], "overlap_frac": st["overlap_frac"],
+            "blocks": st["n"]}
 
 
 def _sample(num_nodes, seed):
@@ -2023,9 +2044,12 @@ def _timed(torch, fn):
 
 
 def serve_akx(torch, ds, counts, root):
-    """The SGC's 'akx' predictor at Reddit's shape: the precompute with
-    the counts zeroed just before and read just after (K4 and, for the
-    fused chains, K1 and K2 must run), its wall and device ms, the table
+    """The SGC's 'akx' predictor at Reddit's shape: the precompute (the
+    blocked host walk, core/streaming.py) with the counts zeroed just
+    before and read just after (K3 must run, and K1, K2 and K4 must not:
+    the walk's norms are host row scales and its sums K3 tiles), its
+    wall, event span and pinned copies (:func:`precompute_profile`), the
+    table
     bytes per mode, the logits of a sample against the same SGC on the
     full backend (fp32 within 1e-4, 'mixed' within 3e-2 of the scale),
     int8 through the export drift gate (defaults) and fp8 behind the
@@ -2039,8 +2063,7 @@ def serve_akx(torch, ds, counts, root):
     from roc_tpu_torch.serve.export import build_predictor, export_predictor
     from roc_tpu_torch.serve.propagation import prefix_descriptors
     from roc_tpu_torch.serve.server import Server
-    from roc_tpu_torch.train.trainer import (TrainConfig, Trainer,
-                                             graph_context)
+    from roc_tpu_torch.train.trainer import TrainConfig, Trainer
     cfg = TrainConfig(aggr_impl="cuda", symmetric=True, seed=SEED)
     model = build_sgc(AKX_LAYERS, k=AKX_HOPS)
     # served weights are trained ones: on Glorot weights the 41 logits
@@ -2063,14 +2086,13 @@ def serve_akx(torch, ds, counts, root):
            "backend": pred.backend, "flavor": pred.flavor,
            "precompute_wall_s": wall, "launches": launches,
            "ops": pred.cache.ops}
-    if pred.flavor != "akx" or not all(launches[k][F32] for k in _CHAIN):
-        raise AssertionError(f"serve_akx: the precompute did not run "
-                             f"K1, K4 and K2: {rec}")
-    gctx = graph_context(ds.graph, "cuda", symmetric=True)
+    if pred.flavor != "akx" or not launches["csr_spmm"][F32] or any(
+            launches[k][F32] for k in _CHAIN):
+        raise AssertionError(f"serve_akx: the precompute's walk did not "
+                             f"run K3 alone: {rec}")
     rec.update(precompute_profile(
         torch, ds.graph, prefix_descriptors(pred.model.precompute_split()[0]),
-        ds.features, gctx))
-    del gctx
+        ds.features))
     torch.cuda.empty_cache()
     shape = pred.cache.table.shape
     rec["table_bytes"] = {m: quant.table_bytes(shape, m)
@@ -2238,8 +2260,7 @@ def serve_invalidate(torch, counts):
     pub1 = pred.published()
     g2 = Graph(row_ptr=pred.cache.row_ptr.copy(),
                col_idx=pred.cache.col_idx.copy())
-    rebuilt = PropagationCache.build(g2, pred.cache.ops, ds.features,
-                                     aggr_impl="cuda")
+    rebuilt = PropagationCache.build(g2, pred.cache.ops, ds.features)
     rec = {"V": V, "E": ds.graph.num_edges, "dataset_s": data_s,
            "launches": launches, "edges_appended": int(src.size),
            "rows_recomputed": int(rows.size), "host_ms": host_ms,
@@ -2344,6 +2365,11 @@ ZOO_E = 4_730_941
 PRODUCTS_V = 2_449_029
 PRODUCTS_DEGREE = 52
 PRODUCTS_LAYERS = [100, 256, 47]
+# the layouts' training runs: epochs a run (2 steady steps after the
+# first), and the timed calls a route takes in the races (K3 and K4 take
+# RACE_KERNEL_N)
+LAYOUT_EPOCHS = 3
+RACE_N, RACE_KERNEL_N = 2, 10
 # 3 steps of GAT on 'attn_flat8' against the plain 'ell' route: its
 # softmax-weighted sums in another order and bf16 activations rounded at
 # other places, over two layers and 3 Adam steps
@@ -2428,7 +2454,7 @@ def layout_race(torch, ds, counts):
                 want = ctxs["cuda"]._sum_fwd(x)
             rec = {"F": F, "dtype": str(dtype)}
             for name, _, _ in RACE_ROUTES:
-                n = 10 if name.startswith("cuda") else 3
+                n = RACE_KERNEL_N if name.startswith("cuda") else RACE_N
                 rec[name] = _race_one(torch, counts, ctxs[name],
                                       name.split("_u16")[0], x, want, n)
             k4 = rec["cuda"]["ms"]
@@ -2507,7 +2533,7 @@ def bdense_race(torch, counts):
         for name, c in ctxs.items():
             route = name if name in ("cuda", "sectioned") else "bdense"
             rec[name] = _race_one(torch, counts, c, route, x, want,
-                                  10 if name == "cuda" else 3)
+                                  RACE_KERNEL_N if name == "cuda" else RACE_N)
             rec[name]["over_k4"] = rec[name]["ms"] / rec["cuda"]["ms"]
         log({"phase": "layouts_bdense", **rec})
         out["rows"].append(rec)
@@ -2616,7 +2642,7 @@ def _layout_steps(torch, make, ds, impl, mode, params, steps=3):
     return losses, info
 
 
-def _layout_epochs(torch, make, ds, impl, mode, epochs=5):
+def _layout_epochs(torch, make, ds, impl, mode, epochs=LAYOUT_EPOCHS):
     """``epochs`` epochs, dropout 0.5, one eval at the end: its
     ``epoch_ms`` (steady steps), ``first_step_ms``, and the device ms of
     one more step under torch.profiler."""
@@ -2664,7 +2690,8 @@ def _counted(counts, key, fn):
 def reddit_train(torch, ds, counts):
     """The 602-256-41 GCN at Reddit's shape on 'sectioned', 'flat_sum'
     and 'bdense' (``BD``): 3 parity steps against 'cuda' (the smoke's
-    gates, PARITY_RTOL), then 5 epochs each in fp32 and mixed; and what
+    gates, PARITY_RTOL), then LAYOUT_EPOCHS epochs each in fp32 and
+    mixed; and what
     'auto' resolves to on this card (its row in core/ell.py)."""
     from roc_tpu_torch.core.ell import jax_auto_impl, port_route
     from roc_tpu_torch.models.gcn import build_gcn
@@ -2709,10 +2736,11 @@ def reddit_train(torch, ds, counts):
     return out
 
 
-def products(torch, counts):
+def products(torch, counts, save_to=None):
     """ogbn-products' shape (symmetric synthetic_graph, V = 2,449,029,
-    E ~ 126 M): GIN 100-256-47 through 'auto', 'flat_sum' and 'cuda', 3
-    parity steps against 'cuda' and 5 epochs each, in fp32 and mixed;
+    E ~ 126 M; saved as .npy under ``save_to`` for phase 15): GIN
+    100-256-47 through 'auto', 'flat_sum' and 'cuda', 3 parity steps
+    against 'cuda' and LAYOUT_EPOCHS epochs each, in fp32 and mixed;
     GAT (1 head, mixed) on 'attn_flat8', 3 steps against 3 on the plain
     'ell' route (LAYOUT_PLAIN_RTOL); SAGE-pool (fp32) on 'flat_sum''s
     max, its logits against 'ell''s, then 3 steps; each run's steady
@@ -2732,6 +2760,10 @@ def products(torch, counts):
         C, name="products_shape")
     out = {"V": g.num_nodes, "E": g.num_edges,
            "dataset_s": time.perf_counter() - t0}
+    if save_to is not None:
+        t1 = time.perf_counter()
+        _save_dataset(ds, save_to)
+        out["save_s"] = time.perf_counter() - t1
     log({"phase": "layouts_products_data", **out})
     fams = {"gin": ("gin", {}), "gat": ("gat", {"heads": 1}),
             "sage_pool": ("sage", {"aggregator": "pool"})}
@@ -2811,11 +2843,12 @@ def products(torch, counts):
     return out
 
 
-def layouts_child(data_dir, num_classes, out_path):
+def layouts_child(data_dir, num_classes, out_path, products_dir=None):
     """Phase 14 in a fresh process on card 0: the races at Reddit's
     shape (the dataset the parent saved in ``data_dir``), the block-dense
-    race, the reorder check, the GCN on the layouts, the products shape;
-    writes the record and the counts to ``out_path``."""
+    race, the reorder check, the GCN on the layouts, the products shape
+    (saved under ``products_dir`` for phase 15); writes the record and
+    the counts to ``out_path``."""
     import torch
     from roc_tpu_torch.kernels import _build
     from roc_tpu_torch.ops.dense import set_fp32_matmul_precision
@@ -2840,7 +2873,7 @@ def layouts_child(data_dir, num_classes, out_path):
     section("bdense", bdense_race, torch, counts)
     section("reorder", reorder_check)
     with shared_contexts():
-        section("products", products, torch, counts)
+        section("products", products, torch, counts, products_dir)
     rec["seconds"] = time.perf_counter() - t0
     log({"phase": "layouts_seconds", **{k: v.get("seconds") for k, v in
                                          rec.items() if isinstance(v, dict)},
@@ -2849,27 +2882,590 @@ def layouts_child(data_dir, num_classes, out_path):
         json.dump({"record": rec, "counted": counts.counted}, f)
 
 
-def run_layouts_child(ds):
-    """:func:`layouts_child` in a fresh Python process (the dataset saved
-    for it as .npy), its phase lines on this process's output; returns
-    what it wrote, and raises if it failed."""
+# ---------------------------------------------------------------------------
+# 15. The memory tier (core/streaming.py, core/memory.py): host-resident
+# features through the pinned staging pool and the streamed head, the
+# blocked host walk on K3, rematerialisation and the memory autopilot
+# ---------------------------------------------------------------------------
+
+MEM_EPOCHS = 10
+MEM_MODES = (("float32", F32), ("mixed", BF16))
+# remat recomputes the same forward with the same masks: its weights
+# after 3 steps within this rtol of no remat's (the same bits expected)
+REMAT_RTOL = 1e-5
+REMAT_POLICIES = (("none", {}), ("full", dict(remat=True,
+                                              remat_policy="full")),
+                  ("save_aggregates", dict(remat=True,
+                                           remat_policy="save_aggregates")))
+# the edge chunk of the walk's tiles (core/streaming.py aggregate_to_host)
+WALK_EDGE_CHUNK = 1 << 20
+# the drills' stall deadline (ROC_TPU_STALL_TIMEOUT_S), seconds
+STALL_S = 5
+
+
+def _mem_run(torch, ds, mode, dropout, epochs, params, eval_every=None,
+             fam=None, layers=LAYERS, **cfg):
+    """``epochs`` epochs on 'cuda' from ``params`` (:func:`_layout_trainer`,
+    the reference's Reddit settings) with the card's peak memory read
+    around the run (the trainer's setup included): the objectives, the
+    eval records, the final weights, the resolved plan and its modeled
+    bytes."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    tr = _layout_trainer(ds, "cuda", dropout, params=params, mode=mode,
+                         fam=fam, layers=layers, epochs=epochs,
+                         eval_every=eval_every or epochs, verbose=False,
+                         **cfg)
+    hist = tr.train()
+    tr.sync()
+    out = {"losses": torch.stack(tr.losses).double().cpu().numpy(),
+           "hist": hist, "params": {k: v.detach().clone()
+                                    for k, v in tr.params.items()},
+           "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+           "modeled_gb": tr.modeled_bytes / 1e9,
+           "plan": {"features": tr.config.features,
+                    "remat": tr.config.remat,
+                    "remat_policy": tr.config.remat_policy}}
+    del tr
+    torch.cuda.empty_cache()
+    return out
+
+
+def _rel(got, ref):
+    return float((np.abs(got - ref) / np.abs(ref)).max())
+
+
+def _same(torch, a, b):
+    return all(bool(torch.equal(a[k], b[k])) for k in a)
+
+
+def _max_rel_w(a, b):
+    """The largest weight difference over its weight's largest entry."""
+    return max(float((a[k] - b[k]).abs().max() / b[k].abs().max())
+               for k in b)
+
+
+def _steady(run):
+    """The last eval record's timing and pipeline fields."""
+    m = run["hist"][-1]
+    return {k: m.get(k) for k in (
+        "epoch_ms", "first_step_ms", "overlap_frac", "h2d_wait_p50_ms",
+        "h2d_stage_p50_ms", "h2d_gbps", "prefetch_depth", "spans_p50_ms")
+        if k in m}
+
+
+def walk_k3_check(torch, ds):
+    """K3 at the blocked walk's shape: the first edge chunk of the first
+    tile (dst block 0, src block 0) over a 65,536-row source block at
+    F = 602 fp32, against its plain version (:func:`sum_check`), two
+    launches for equal bits; kernel, plain and torch.sparse.mm (the
+    chunk as a CSR) timed, and every slice width raced; the bound counts
+    the source rows the chunk reads, its ids and its output once."""
+    from roc_tpu_torch.core.streaming import BLOCK_ROWS, build_tile_plans
+    from roc_tpu_torch.kernels import slicing, spmm
+    dev = torch.device("cuda")
+    F = LAYERS[0]
+    t0 = time.perf_counter()
+    tiles = build_tile_plans(ds.graph, BLOCK_ROWS)
+    tile_s = time.perf_counter() - t0
+    t = tiles[0][0]
+    src, dst, _, rows = next(iter(t.dev_chunks(WALK_EDGE_CHUNK, dev,
+                                               cache=False)))
+    block = torch.from_numpy(np.ascontiguousarray(
+        ds.features[t.src_lo:t.src_lo + t.src_rows], dtype=np.float32)
+    ).to(dev)
+    real = src != t.src_rows
+    n_real = int(real.sum())
+    got = spmm.csr_spmm(block, src, dst, rows)
+    if not torch.equal(got, spmm.csr_spmm(block, src, dst, rows)):
+        raise AssertionError("walk K3: two launches differ")
+    want = spmm.csr_spmm_plain(block, src, dst, rows)
+    ok, err = sum_check(torch, got, want)
+    if not ok:
+        raise AssertionError(f"walk K3 F={F}: max_abs_err {err}")
+    row_ptr = torch.searchsorted(dst[real].contiguous(),
+                                 torch.arange(rows + 1, device=dev,
+                                              dtype=torch.int32))
+    adj = torch.sparse_csr_tensor(
+        row_ptr, src[real].long(), torch.ones(n_real, device=dev),
+        size=(rows, t.src_rows), check_invariants=False)
+    n_src = int(torch.unique(src[real]).numel())
+    nbytes = 4 * (n_src * F + rows * F) + 8 * int(src.numel())
+    b, by = bound_ms(nbytes, n_real * F)
+    row = {"kernel": "csr_spmm", "dtype": "torch.float32",
+           "shape": [t.src_rows, F, int(src.numel()), rows,
+                     f"slice_cols={spmm.default_slice_cols(F)}"],
+           "max_abs_err": err, "ok": ok,
+           "ms": time_ms(torch, lambda: spmm.csr_spmm(block, src, dst, rows),
+                         10),
+           "plain_ms": time_ms(torch, lambda: spmm.csr_spmm_plain(
+               block, src, dst, rows), 3),
+           "library_ms": time_ms(torch, lambda: torch.sparse.mm(adj, block),
+                                 10),
+           "library_call": "torch.sparse.mm(chunk_csr, block)",
+           "bound_ms": b, "bound_by": by, "tiles": sum(
+               len(v) for v in tiles.values()), "tile_plan_s": tile_s,
+           "chunk_edges": n_real, "source_rows_read": n_src}
+    # every slice width at this shape, each held to the plain version
+    # (a race, not a counted run)
+    race = {}
+    for S in slicing.SLICE_COLS:
+        ok, err = sum_check(torch, spmm.csr_spmm(block, src, dst, rows,
+                                                 slice_cols=S), want)
+        if not ok:
+            raise AssertionError(f"walk K3 slice_cols={S}: {err}")
+        race[str(S)] = time_ms(torch, lambda S=S: spmm.csr_spmm(
+            block, src, dst, rows, slice_cols=S), 10)
+    row["slice_race_ms"] = race
+    log({"phase": "memory_walk_k3", **row})
+    del tiles, block, got, want, adj
+    torch.cuda.empty_cache()
+    return row
+
+
+def walk_profile(torch, ds):
+    """The SGC prefix (k = 2) through the blocked walk once more under
+    torch.profiler: its wall, its device time by kind (K3 launches,
+    host-to-device and device-to-host copies, the rest) and the share of
+    copies, and its staging pool's pinned copies."""
+    from torch.profiler import ProfilerActivity, profile
+    from roc_tpu_torch.core.streaming import StagingPool, stream_prefix_to_host
+    from roc_tpu_torch.models.sgc import build_sgc
+    from roc_tpu_torch.serve.propagation import prefix_descriptors
+    ops = prefix_descriptors(build_sgc(AKX_LAYERS, k=AKX_HOPS)
+                             .precompute_split()[0])
+    pool = StagingPool(depth=1, device=torch.device("cuda"))
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        stream_prefix_to_host(ds.graph, ops, ds.features, pool=pool)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    by = {"k3_ms": 0.0, "h2d_ms": 0.0, "d2h_ms": 0.0, "other_ms": 0.0}
+    for e in prof.key_averages():
+        if e.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        ms = e.device_time_total / 1e3
+        name = e.key.lower()
+        key = ("h2d_ms" if "htod" in name else "d2h_ms" if "dtoh" in name
+               else "k3_ms" if "csr" in name else "other_ms")
+        by[key] += ms
+    dev_ms = sum(by.values())
+    st = pool.take_stats()
+    return {"wall_ms": wall, "device_ms": dev_ms if dev_ms > 0 else
+            "not measured", **by,
+            "copy_share": ((by["h2d_ms"] + by["d2h_ms"]) / dev_ms
+                           if dev_ms > 0 else None),
+            "pool_h2d_bytes": st["h2d_bytes"],
+            "pool_h2d_copy_ms": st["h2d_copy_ms"],
+            "pool_h2d_gbps": st["h2d_gbps"],
+            "overlap_frac": st["overlap_frac"], "blocks": st["n"]}
+
+
+def _union(intervals):
+    """Sorted, merged ``[start, end)`` intervals."""
+    out = []
+    for a, b in sorted(intervals):
+        if out and a <= out[-1][1]:
+            out[-1][1] = max(out[-1][1], b)
+        else:
+            out.append([a, b])
+    return out
+
+
+def copy_overlap(torch, ds, mode, params):
+    """The device's view of staging overlap (the trainer's overlap_frac
+    is the host's: on the card a stage only issues its copy): one
+    steady streamed step (features='host', dropout 0.5, after 2 warm
+    ones) under torch.profiler, and the share of the host-to-device
+    copies' device time during which a kernel ran on the card.  Reports
+    "not measured" if the profiler sees no copies or no kernels."""
+    from torch.profiler import ProfilerActivity, profile
+    tr = _layout_trainer(ds, "cuda", 0.5, params=params, mode=mode,
+                         eval_every=10 ** 6, verbose=False, features="host")
+    tr.train(2)
+    tr.sync()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        tr.train(1)
+        tr.sync()
+    copies, kernels = [], []
+    for e in prof.events():
+        if e.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        iv = (e.time_range.start, e.time_range.end)
+        name = e.name.lower()
+        if "memcpy" in name or "memset" in name:
+            if "htod" in name:
+                copies.append(iv)
+        elif not name.startswith("nccl:"):
+            kernels.append(iv)
+    del tr, prof
+    torch.cuda.empty_cache()
+    copy_us = sum(b - a for a, b in copies)
+    if copy_us <= 0 or not kernels:
+        return {"device_overlap_frac": "not measured",
+                "h2d_copies": len(copies), "kernels": len(kernels)}
+    busy = _union(kernels)
+    hidden = 0.0
+    for a, b in copies:
+        for c, d in busy:
+            if c >= b:
+                break
+            hidden += max(0.0, min(b, d) - max(a, c))
+    return {"device_overlap_frac": hidden / copy_us,
+            "h2d_copies": len(copies), "h2d_device_ms": copy_us / 1e3,
+            "h2d_hidden_ms": hidden / 1e3, "kernels": len(kernels)}
+
+
+def streamed_gcn(torch, ds, counts, params):
+    """The 602-256-41 GCN with features='host' on 'cuda', fp32 and mixed:
+    3 parity steps at dropout 0 against features='hbm' from the same
+    weights (PARITY_RTOL); 3 steps at dropout 0.5 with prefetch 1 and 0,
+    the same bits; then, with the counts zeroed just before and read just
+    after each, MEM_EPOCHS epochs at dropout 0.5 (the train loss falls
+    from epoch 4 to 9; K1, the masked K1, K2 and K4 ran) on the host tier
+    and on 'hbm': epoch_ms, the pipeline fields, peak and modeled
+    memory."""
+    out = {}
+    for mode, key in MEM_MODES:
+        rec = out[mode] = {}
+        hbm = _mem_run(torch, ds, mode, 0.0, 3, params)
+        host = _mem_run(torch, ds, mode, 0.0, 3, params, features="host")
+        rel = _rel(host["losses"], hbm["losses"])
+        rec["parity"] = {"losses": host["losses"].tolist(),
+                         "hbm_losses": hbm["losses"].tolist(),
+                         "max_rel_err": rel, "rtol": PARITY_RTOL[mode]}
+        if not (np.isfinite(host["losses"]).all()
+                and rel <= PARITY_RTOL[mode]):
+            raise AssertionError(f"streamed gcn {mode}: {rec['parity']}")
+        p = {d: _mem_run(torch, ds, mode, 0.5, 3, params, features="host",
+                         prefetch=d) for d in (1, 0)}
+        rec["prefetch_bitequal"] = _same(torch, p[0]["params"],
+                                         p[1]["params"]) \
+            and bool(np.array_equal(p[0]["losses"], p[1]["losses"]))
+        if not rec["prefetch_bitequal"]:
+            raise AssertionError(f"streamed gcn {mode}: prefetch 1 and 0 "
+                                 f"differ")
+        for tag, kw in (("host", dict(features="host")), ("hbm", {})):
+            counts.zero()
+            run = _mem_run(torch, ds, mode, 0.5, MEM_EPOCHS, params,
+                           eval_every=5, **kw)
+            launches = counts.read(key)
+            loss = [m["train_loss"] for m in run["hist"]]
+            if not (all(launches[k][key] for k in _CHAIN)
+                    and launches["indegree_norm_masked"]) or \
+                    not loss[-1] < loss[0]:
+                raise AssertionError(f"streamed gcn {mode} {tag}: train "
+                                     f"loss {loss}, launches {launches}")
+            rec[tag] = {"train_loss": loss, **_steady(run),
+                        "peak_gb": run["peak_gb"],
+                        "modeled_gb": run["modeled_gb"],
+                        "launches": launches}
+        rec["host"]["device_overlap"] = copy_overlap(torch, ds, mode, params)
+        log({"phase": "memory_streamed_gcn", "mode": mode, **rec})
+    return out
+
+
+def streamed_sgc(torch, ds, counts):
+    """The SGC 602-41 (k = 2) with features='host': the trainer's prefix
+    walk with the counts zeroed just before and read just after (K3 ran,
+    K1, K2 and K4 did not), its setup wall; the walk profiled
+    (:func:`walk_profile`); 3 parity steps at dropout 0 against
+    features='hbm' from the same weights (fp32, PARITY_RTOL)."""
+    from roc_tpu_torch.models.sgc import build_sgc
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 60)
+    params = {k: v.detach() for k, v in build_sgc(
+        AKX_LAYERS, k=AKX_HOPS).init_params(gen, device="cuda").items()}
+    fam = ("sgc", {"k": AKX_HOPS})
+    counts.zero()
+    t0 = time.perf_counter()
+    host = _mem_run(torch, ds, "float32", 0.0, 3, params, fam=fam,
+                    layers=AKX_LAYERS, features="host")
+    wall = time.perf_counter() - t0
+    launches = counts.read(F32)
+    if not launches["csr_spmm"][F32] or any(launches[k][F32]
+                                            for k in _CHAIN):
+        raise AssertionError(f"streamed sgc: the walk did not run K3 "
+                             f"alone: {launches}")
+    hbm = _mem_run(torch, ds, "float32", 0.0, 3, params, fam=fam,
+                   layers=AKX_LAYERS)
+    rel = _rel(host["losses"], hbm["losses"])
+    rec = {"setup_and_3_steps_s": wall, "launches": launches,
+           "parity": {"losses": host["losses"].tolist(),
+                      "hbm_losses": hbm["losses"].tolist(),
+                      "max_rel_err": rel, "rtol": PARITY_RTOL["float32"]},
+           "host": {**_steady(host), "peak_gb": host["peak_gb"],
+                    "modeled_gb": host["modeled_gb"]},
+           "hbm": {**_steady(hbm), "peak_gb": hbm["peak_gb"],
+                   "modeled_gb": hbm["modeled_gb"]}}
+    if not (np.isfinite(host["losses"]).all()
+            and rel <= PARITY_RTOL["float32"]):
+        raise AssertionError(f"streamed sgc: {rec['parity']}")
+    rec["walk"] = walk_profile(torch, ds)
+    log({"phase": "memory_streamed_sgc", **rec})
+    return rec
+
+
+def _remat_set(torch, ds, counts, key, mode, params, tag,
+               peak_must_fall=False, **kw):
+    """3 steps at dropout 0.5 from ``params`` per remat policy, the counts
+    zeroed just before and read just after the set: each run's weights
+    against no remat's (REMAT_RTOL; bit-equal reported), epoch_ms and
+    peak memory; with ``peak_must_fall`` each remat peak must be below
+    no remat's."""
+    counts.zero()
+    runs = {name: _mem_run(torch, ds, mode, 0.5, 3, params, **kw, **pk)
+            for name, pk in REMAT_POLICIES}
+    launches = counts.read(key)
+    rec = {"launches": launches}
+    ref = runs["none"]
+    for name, run in runs.items():
+        rel = _max_rel_w(run["params"], ref["params"])
+        rec[name] = {"epoch_ms": run["hist"][-1]["epoch_ms"],
+                     "first_step_ms": run["hist"][-1]["first_step_ms"],
+                     "peak_gb": run["peak_gb"],
+                     "modeled_gb": run["modeled_gb"],
+                     "weights_max_rel_err": rel,
+                     "bit_equal": _same(torch, run["params"],
+                                        ref["params"])}
+        if not rel <= REMAT_RTOL:
+            raise AssertionError(f"remat {tag} {mode} {name}: weights "
+                                 f"{rel} off no remat's")
+        if peak_must_fall and name != "none" and \
+                not run["peak_gb"] < ref["peak_gb"]:
+            raise AssertionError(f"remat {tag} {mode} {name}: peak "
+                                 f"{run['peak_gb']} GB not below no "
+                                 f"remat's {ref['peak_gb']}")
+    if not launches["ell_aggregate"][key]:
+        raise AssertionError(f"remat {tag} {mode}: K4 never ran: "
+                             f"{launches}")
+    log({"phase": "memory_remat", "model": tag, "mode": mode, **rec})
+    return rec
+
+
+def remat_gcn(torch, ds, counts, params):
+    """The GCN at Reddit's shape in fp32 and mixed, for remat none, full
+    and save_aggregates (:func:`_remat_set`)."""
+    return {mode: _remat_set(torch, ds, counts, key, mode, params, "gcn")
+            for mode, key in MEM_MODES}
+
+
+def remat_products(torch, counts, products_dir):
+    """GIN 100-256-47 at the products shape (phase 14's graph, from
+    ``products_dir``) on 'cuda' in fp32, for remat none, full and
+    save_aggregates (:func:`_remat_set`)."""
+    from roc_tpu_torch.models.gin import build_gin
+    pds = _map_dataset(products_dir, PRODUCTS_LAYERS[-1],
+                       name="products_shape")
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    params = {k: v.detach() for k, v in build_gin(
+        PRODUCTS_LAYERS).init_params(gen, device="cuda").items()}
+    return {"V": pds.graph.num_nodes, "E": pds.graph.num_edges,
+            "float32": _remat_set(torch, pds, counts, F32, "float32",
+                                  params, "gin_products", fam=("gin", {}),
+                                  layers=PRODUCTS_LAYERS,
+                                  peak_must_fall=True)}
+
+
+def autopilot(torch, ds, counts, params):
+    """memory='auto' at Reddit's shape: the detected budget picks
+    gather/hbm; budgets from the port's own estimate_plan_bytes pick
+    remat (the remat plan's bytes) and the host tier (the host plan's);
+    3 steps each with the counts zeroed just before and read just after,
+    the plan, its modeled bytes and the measured peak."""
+    from roc_tpu_torch.core.memory import detect_hbm_bytes, estimate_plan_bytes
+    V_, E = ds.graph.num_nodes, ds.graph.num_edges
+    budgets = {"detected": (None, ("hbm", False)),
+               "remat": (estimate_plan_bytes(V_, E, LAYERS, remat=True),
+                         ("hbm", True)),
+               "host": (estimate_plan_bytes(V_, E, LAYERS, features="host"),
+                        ("host", False))}
+    out = {"detected_budget_gb": detect_hbm_bytes("cuda") / 1e9}
+    for name, (budget, want) in budgets.items():
+        counts.zero()
+        run = _mem_run(torch, ds, "float32", 0.5, 3, params, memory="auto",
+                       hbm_bytes=budget)
+        launches = counts.read(F32)
+        got = (run["plan"]["features"], run["plan"]["remat"])
+        out[name] = {"budget_gb": None if budget is None else budget / 1e9,
+                     "plan": run["plan"], "modeled_gb": run["modeled_gb"],
+                     "peak_gb": run["peak_gb"],
+                     "epoch_ms": run["hist"][-1]["epoch_ms"],
+                     "losses": run["losses"].tolist(),
+                     "launches": launches}
+        if got != want or not np.isfinite(run["losses"]).all():
+            raise AssertionError(f"autopilot {name}: picked {got}, want "
+                                 f"{want}: {out[name]}")
+    log({"phase": "memory_autopilot", **out})
+    return out
+
+
+def drills(torch, counts):
+    """The streamed tier's drill sites at the arxiv shape (GCN 128-256-40,
+    features='host', dropout 0 as the JAX drills: a retry reseeds the
+    masks), the counts zeroed just before and read just after: the
+    uninterrupted run, then staging_io:2 under train_with_recovery (one
+    OSError, one restore-and-retry, the uninterrupted run's bits), then
+    stall_compile:0 with ROC_TPU_STALL_TIMEOUT_S (a StallFailure out of
+    train_with_recovery before its first checkpoint, then the restart
+    finishes)."""
     import os
     import tempfile
+    from roc_tpu_torch.core.graph import synthetic_dataset
+    from roc_tpu_torch.obs.events import get_bus
+    from roc_tpu_torch.obs.heartbeat import StallFailure
+    from roc_tpu_torch.resilience import inject
+    from roc_tpu_torch.resilience.recovery import (CheckpointRotation,
+                                                   train_with_recovery)
+    ds = synthetic_dataset(ZOO_V, ZOO_DEGREE, in_dim=ZOO_LAYERS[0],
+                           num_classes=ZOO_LAYERS[-1], seed=SEED,
+                           name="arxiv_shape")
+    bus = get_bus()
+
+    def make(**kw):
+        return _layout_trainer(ds, "cuda", 0.0, layers=ZOO_LAYERS,
+                               features="host", epochs=4, eval_every=2,
+                               verbose=False, **kw)
+
+    def recover(tr, root):
+        n = len(bus.ring)
+        err = None
+        try:
+            train_with_recovery(tr, 4, CheckpointRotation(root, keep=3),
+                                checkpoint_every=2)
+        except StallFailure as e:
+            err = e
+        recs = list(bus.ring)[n:]
+        return err, ([r["site"] for r in recs if r.get("kind") == "fault"],
+                     [r["error"] for r in recs if r.get("kind") == "recovery"])
+
+    inject.disarm()
+    counts.zero()
+    out = {"V": ds.graph.num_nodes, "E": ds.graph.num_edges}
+    clean = make()
+    clean.train()
+    with tempfile.TemporaryDirectory() as tmp:
+        tr = make(fault="staging_io:2")
+        err, (fired, retried) = recover(tr, os.path.join(tmp, "a"))
+        same = err is None and _same(torch, tr.params, clean.params)
+        out["staging_io"] = {"fired": fired, "retried": retried,
+                             "bit_equal": same}
+        if fired != ["staging_io"] or retried != ["OSError"] or not same:
+            raise AssertionError(f"staging_io drill: {out}")
+        inject.disarm()
+        os.environ["ROC_TPU_STALL_TIMEOUT_S"] = str(STALL_S)
+        try:
+            t0 = time.perf_counter()
+            err, (fired, retried) = recover(make(fault="stall_compile:0"),
+                                            os.path.join(tmp, "b"))
+            stall_s = time.perf_counter() - t0
+        finally:
+            del os.environ["ROC_TPU_STALL_TIMEOUT_S"]
+            inject.disarm()
+        again = make()
+        err2, (fired2, retried2) = recover(again, os.path.join(tmp, "b"))
+        out["stall_compile"] = {"error": repr(err), "fired": fired,
+                                "seconds_to_stall_failure": stall_s,
+                                "restart_epoch": again.epoch,
+                                "restart_retries": retried2}
+        if not isinstance(err, StallFailure) or fired != ["stall_compile"] \
+                or err2 is not None or again.epoch != 4:
+            raise AssertionError(f"stall_compile drill: {out}")
+    out["launches"] = counts.read(F32)
+    log({"phase": "memory_drills", **out})
+    return out
+
+
+def memory_child(data_dir, products_dir, num_classes, out_path):
+    """Phase 15 in a fresh process on card 0: K3 at the walk's shape,
+    the streamed GCN and SGC, remat, the autopilot and the drills (the
+    Reddit-shape dataset the parent saved in ``data_dir``, phase 14's
+    products shape in ``products_dir``); writes the record, the counts
+    and K3's walk row to ``out_path``."""
+    import torch
+    from roc_tpu_torch.kernels import _build
+    from roc_tpu_torch.models.gcn import build_gcn
+    from roc_tpu_torch.ops.dense import set_fp32_matmul_precision
+    torch.cuda.set_device(0)
+    set_fp32_matmul_precision()
+    _build.library()
+    counts = Launches(torch)
+    t0 = time.perf_counter()
+    ds = _map_dataset(data_dir, num_classes)
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    params = {k: v.detach() for k, v in build_gcn(LAYERS).init_params(
+        gen, device="cuda").items()}
+    rec = {}
+
+    def section(name, fn, *args):
+        t1 = time.perf_counter()
+        rec[name] = fn(*args)
+        log({"phase": "memory_section", "name": name,
+             "seconds": time.perf_counter() - t1})
+
+    section("walk_k3", walk_k3_check, torch, ds)
+    with shared_contexts():
+        section("streamed_gcn", streamed_gcn, torch, ds, counts, params)
+        section("streamed_sgc", streamed_sgc, torch, ds, counts)
+        section("autopilot", autopilot, torch, ds, counts, params)
+        section("remat_gcn", remat_gcn, torch, ds, counts, params)
+    del ds
+    torch.cuda.empty_cache()
+    with shared_contexts():
+        section("remat_products", remat_products, torch, counts,
+                products_dir)
+    torch.cuda.empty_cache()
+    section("drills", drills, torch, counts)
+    rec["seconds"] = time.perf_counter() - t0
+    with open(out_path, "w") as f:
+        json.dump({"record": rec, "counted": counts.counted}, f)
+
+
+def run_memory_child(tmp, num_classes):
+    """:func:`memory_child` in a fresh Python process on the datasets
+    phases 14's parent and child saved under ``tmp``; returns what it
+    wrote."""
+    import os
     here = os.path.dirname(os.path.abspath(__file__))
+    data, prod = os.path.join(tmp, "reddit"), os.path.join(tmp, "products")
+    out = os.path.join(tmp, "memory.json")
+    _child(here, f"memory_child({data!r}, {prod!r}, {num_classes}, "
+           f"{out!r})", 600, "phase 15 (memory)")
+    with open(out) as f:
+        return json.load(f)
+
+
+def _child(here, call, timeout, what):
+    """``python -c "import chip_smoke as s; s.<call>"`` in a fresh
+    process on this card, its output on this process's; raises if it
+    failed."""
+    import os
     env = dict(os.environ, PYTHONPATH=here + os.pathsep
                + os.environ.get("PYTHONPATH", ""))
-    with tempfile.TemporaryDirectory() as tmp:
-        _save_dataset(ds, tmp)
-        out = os.path.join(tmp, "layouts.json")
-        r = subprocess.run(
-            [sys.executable, "-c", "import chip_smoke as s; "
-             f"s.layouts_child({tmp!r}, {ds.num_classes}, {out!r})"],
-            cwd=here, env=env, timeout=900)
-        if r.returncode != 0:
-            raise AssertionError(f"phase 14 (layouts) failed: exit "
-                                 f"{r.returncode}")
-        with open(out) as f:
-            return json.load(f)
+    r = subprocess.run([sys.executable, "-c",
+                        f"import chip_smoke as s; s.{call}"],
+                       cwd=here, env=env, timeout=timeout)
+    if r.returncode != 0:
+        raise AssertionError(f"{what} failed: exit {r.returncode}")
+
+
+def run_layouts_child(ds, tmp):
+    """:func:`layouts_child` in a fresh Python process (the dataset saved
+    for it as .npy under ``tmp``/reddit, the products shape saved by it
+    under ``tmp``/products); returns what it wrote."""
+    import os
+    here = os.path.dirname(os.path.abspath(__file__))
+    data, prod = os.path.join(tmp, "reddit"), os.path.join(tmp, "products")
+    os.makedirs(data)
+    os.makedirs(prod)
+    _save_dataset(ds, data)
+    out = os.path.join(tmp, "layouts.json")
+    _child(here, f"layouts_child({data!r}, {ds.num_classes}, {out!r}, "
+           f"{prod!r})", 900, "phase 14 (layouts)")
+    with open(out) as f:
+        return json.load(f)
 
 
 class Launches:
@@ -2941,19 +3537,10 @@ def run_zoo_child():
     this process's output; returns what it wrote, and raises if it
     failed."""
     import os
-    import tempfile
     here = os.path.dirname(os.path.abspath(__file__))
-    env = dict(os.environ, PYTHONPATH=here + os.pathsep
-               + os.environ.get("PYTHONPATH", ""))
     with tempfile.TemporaryDirectory() as tmp:
         out = os.path.join(tmp, "zoo.json")
-        r = subprocess.run(
-            [sys.executable, "-c",
-             f"import chip_smoke as s; s.zoo_child({out!r})"],
-            cwd=here, env=env, timeout=600)
-        if r.returncode != 0:
-            raise AssertionError(f"phase 12 (zoo) failed: exit "
-                                 f"{r.returncode}")
+        _child(here, f"zoo_child({out!r})", 600, "phase 12 (zoo)")
         with open(out) as f:
             return json.load(f)
 
@@ -3029,8 +3616,8 @@ def main() -> int:
         entries[key] = kernel_checks(torch, dev, gctx, adj, g.num_edges,
                                      esrc, edst, dtype)
         if key == F32:
-            # the SGC prefix of phase 13 runs K1 -> K4 -> K2 on the raw
-            # features, F = 602
+            # the SGC on 'cuda' (features on the card) runs K1 -> K4 -> K2
+            # on the raw features, F = 602
             akx_rows = kernel_checks(torch, dev, gctx, adj, g.num_edges,
                                      esrc, edst, dtype,
                                      widths=((LAYERS[0], "none"),),
@@ -3114,7 +3701,6 @@ def main() -> int:
 
     # 9. dist_p1: the partitioned trainer at world size 1 over NCCL, in
     # this process, each dtype's slice with the counts zeroed just before
-    import tempfile
     import torch.distributed as dist
     with tempfile.TemporaryDirectory() as tmp:
         dist.init_process_group("nccl", init_method=f"file://{tmp}/store",
@@ -3207,19 +3793,37 @@ def main() -> int:
     # 14. the large-graph layouts, in a fresh process: races against K3
     # and K4, the block-dense race, reordering, the GCN on the layouts,
     # the products shape; its counted runs (the 'cuda' baselines) join
-    # the table
+    # the table.  15. the memory tier, in a fresh process on the
+    # datasets 14 left: the streamed GCN and SGC (the walk on K3), remat,
+    # the autopilot, the drills; every run counted
     sys.stdout.flush()
-    child = run_layouts_child(ds)
+    with tempfile.TemporaryDirectory() as tmp:
+        child = run_layouts_child(ds, tmp)
+        for key in (F32, BF16):
+            for name in KERNELS:
+                counted[key][name] += child["counted"][key][name]
+        lrec = child["record"]
+        log({"phase": "layouts_summary", "seconds": lrec["seconds"],
+             "auto": lrec["train"]["auto"],
+             "peak_mem_gb_products": lrec["products"]["peak_mem_gb"],
+             "race_over_k4": {f"{r['F']}/{r['dtype']}": {
+                 k: v["over_k4"] for k, v in r.items()
+                 if isinstance(v, dict)}
+                 for r in lrec["race"]["rows"]}})
+        sys.stdout.flush()
+        child = run_memory_child(tmp, ds.num_classes)
     for key in (F32, BF16):
         for name in KERNELS:
             counted[key][name] += child["counted"][key][name]
-    lrec = child["record"]
-    log({"phase": "layouts_summary", "seconds": lrec["seconds"],
-         "auto": lrec["train"]["auto"],
-         "peak_mem_gb_products": lrec["products"]["peak_mem_gb"],
-         "race_over_k4": {f"{r['F']}/{r['dtype']}": {
-             k: v["over_k4"] for k, v in r.items() if isinstance(v, dict)}
-             for r in lrec["race"]["rows"]}})
+    mrec = child["record"]
+    walk_row = mrec["walk_k3"]
+    log({"phase": "memory_summary", "seconds": mrec["seconds"],
+         "streamed_gcn_epoch_ms": {
+             m: {t: r[t]["epoch_ms"] for t in ("host", "hbm")}
+             for m, r in mrec["streamed_gcn"].items()},
+         "walk_wall_ms": mrec["streamed_sgc"]["walk"]["wall_ms"],
+         "autopilot": {k: v["plan"] for k, v in mrec["autopilot"].items()
+                       if isinstance(v, dict)}})
 
     table = []
     for key, tag in ((F32, "fp32"), (BF16, "bf16")):
@@ -3238,7 +3842,9 @@ def main() -> int:
                 **({"zoo_shapes": e["zoo_shapes"]}
                    if "zoo_shapes" in e else {}),
                 **({"akx_shapes": akx_rows[name]["shapes"]}
-                   if key == F32 and akx_rows[name]["shapes"] else {})})
+                   if key == F32 and akx_rows[name]["shapes"] else {}),
+                **({"walk_shapes": [walk_row]}
+                   if key == F32 and name == "csr_spmm" else {})})
     log({"total_s": time.perf_counter() - t_start,
          "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9})
     log({"kernels": table})

@@ -25,10 +25,14 @@ The aggregation on every rank runs the same routes as one device
 K2, with K3/K4 reading ``R = P * part_nodes`` gathered rows and writing
 ``part_nodes`` rows.
 
+The step is :class:`Trainer`'s, rematerialisation (``remat``) included.
 Ported subset: ``halo='gather'`` on one host; the ring halo, the
 multi-host loader, the cost-model split and online rebalancing, and the
-``(parts, model)`` mesh are not ported.  A torch rank holds no other
-part's rows, so :class:`ShardedData` is one part.
+``(parts, model)`` mesh are not ported, and ``features='host'`` is
+single-device, as in the JAX package.  A ``memory='auto'`` plan that
+picks the ring is refused like an asked-for ring (:func:`shard_dataset`).
+A torch rank holds no other part's rows, so :class:`ShardedData` is one
+part.
 """
 
 from __future__ import annotations
@@ -268,6 +272,14 @@ def refuse_layout(aggr_impl: str) -> None:
             f"{ELL_IMPLS + EDGE_IMPLS}")
 
 
+def refuse_halo(halo: str) -> None:
+    """Raise for a halo the port does not run (the ring), whether a user
+    asked for it or the memory autopilot chose it."""
+    if halo not in HALOS:
+        raise NotImplementedError(f"halo={halo!r} is not ported; the port "
+                                  f"runs {HALOS}")
+
+
 def shard_dataset(dataset: Dataset, plan: PartitionPlan, rank: int,
                   device, dtype: torch.dtype = torch.float32,
                   aggr_impl: str = "cuda",
@@ -277,9 +289,7 @@ def shard_dataset(dataset: Dataset, plan: PartitionPlan, rank: int,
     (``partition_col``); its ELL buckets are padded for this part alone,
     so their row counts may be smaller than the all-parts table's
     (``ell_from_padded_parts`` over every part), with the same sums."""
-    if halo not in HALOS:
-        raise NotImplementedError(f"halo={halo!r} is not ported; the port "
-                                  f"runs {HALOS}")
+    refuse_halo(halo)
     refuse_layout(aggr_impl)
     if aggr_impl not in AGGR_IMPLS:
         raise ValueError(f"aggr_impl {aggr_impl!r} is not ported; "
@@ -347,7 +357,8 @@ class DistributedTrainer(Trainer):
       device, seeded with :func:`rank_seed` (``config.seed`` and the
       rank).  This stands where the JAX package folds the partition index
       into the step key; the draws differ from JAX's.
-    - A step: the part's summed masked CE and its gradients, one
+    - A step: the part's summed masked CE and its gradients (under
+      ``remat`` with the activations recomputed in the backward), one
       all-reduce sum of the gradients and the objective (one fp32
       buffer), then the same Adam update on every rank.
     - ``evaluate`` all-reduces the ``perf_metrics`` sums in one
@@ -390,6 +401,9 @@ class DistributedTrainer(Trainer):
         if self.rank != 0:
             self.generator = torch.Generator(device=self.device).manual_seed(
                 rank_seed(config.seed, self.rank))
+
+    def _num_parts(self) -> int:
+        return self.comm.world_size
 
     def _place(self, dataset: Dataset, symmetric: bool) -> None:
         """This rank's part of the edge-balanced plan (``plan``, ``data``)

@@ -26,11 +26,18 @@ rank.  Sites:
                        SIGKILL: the manifest-vs-shard CRC check must
                        reject it;
 - ``saver_stall``      wedge the async saver thread: the flush deadline
-                       must bound the damage (StallFailure, exit 75).
+                       must bound the damage (StallFailure, exit 75);
+- ``staging_io``       an OSError from the streamed tier's staging call
+                       (core/streaming.py ``_stage_block``) during the
+                       armed epoch: the recovery loop restores and
+                       retries;
+- ``stall_compile``    the first step's barrier (run_epoch_loop, under
+                       the ``first_compile`` heartbeat) sleeps far past
+                       any deadline: only ``ROC_TPU_STALL_TIMEOUT_S``
+                       ends it, as a StallFailure.
 
-The JAX package's other sites are not ported with their subsystems:
-``staging_io`` and ``stall_compile`` (the streamed tier) and the serve
-sites.  :func:`parse` refuses them, so no drill is armed as a no-op.
+The JAX package's serve-fleet sites are not ported with their subsystem:
+:func:`parse` refuses them, so no drill is armed as a no-op.
 """
 
 from __future__ import annotations
@@ -47,10 +54,10 @@ ENV_VAR = "ROC_TPU_FAULT"
 
 SITES = ("nan_grads", "sigkill", "sigterm", "kill_in_save",
          "kill_in_async_save", "shard_corrupt", "saver_stall",
-         "bitflip_checkpoint")
+         "bitflip_checkpoint", "staging_io", "stall_compile")
 # the JAX package's sites whose subsystem is not ported yet
-NOT_PORTED = ("staging_io", "stall_compile", "replica_sigkill",
-              "replica_stall", "table_swap_mid_query", "serve_io")
+NOT_PORTED = ("replica_sigkill", "replica_stall", "table_swap_mid_query",
+              "serve_io")
 
 
 @dataclass
@@ -78,8 +85,8 @@ def parse(spec: str) -> FaultSpec:
     if parts[0] in NOT_PORTED:
         raise ValueError(
             f"fault site {parts[0]!r} is not ported: its subsystem (the "
-            f"streamed tier or the serve fleet) is not in roc_tpu_torch "
-            f"yet; ported sites: {SITES}")
+            f"serve fleet) is not in roc_tpu_torch yet; ported sites: "
+            f"{SITES}")
     if len(parts) not in (2, 3) or parts[0] not in SITES:
         raise ValueError(
             f"bad fault spec {spec!r}; expected site:epoch[:proc] with "
@@ -149,15 +156,21 @@ def _fire(spec: FaultSpec, detail: str, **fields) -> None:
 
 
 def _ready(site: str, epoch: Optional[int] = None, *,
-           at_least: bool = False) -> Optional[FaultSpec]:
+           at_least: bool = False, noted: bool = False
+           ) -> Optional[FaultSpec]:
     """The one readiness gate: armed, not yet spent, right site, right
     rank, and the caller's epoch equal to the armed one (``at_least``:
-    at or past it; None skips the check)."""
+    at or past it; None skips the check).  ``noted`` compares the epoch
+    the loop last noted instead (sites with no epoch of their own; None
+    never matches, so work outside the epoch loop never spends an
+    epoch-gated fault)."""
     spec = current()
     if spec is None or spec.fired or spec.site != site:
         return None
     if spec.proc is not None and process_index() != spec.proc:
         return None
+    if noted:
+        return spec if _EPOCH == spec.epoch else None
     if epoch is None:
         return None if at_least else spec
     if epoch < spec.epoch if at_least else epoch != spec.epoch:
@@ -269,3 +282,26 @@ def maybe_corrupt_shard(path: str, epoch: int) -> None:
                 f"SIGKILL", path=target)
     _flip_byte(target)
     os.kill(os.getpid(), signal.SIGKILL)
+
+
+def maybe_staging_error() -> None:
+    """The streamed tier's staging site (core/streaming.py
+    ``_stage_block``): an OSError during the armed epoch; the recovery
+    loop treats it as a transient failure and retries."""
+    spec = _ready("staging_io", noted=True)
+    if spec is None:
+        return
+    _fire(spec, "OSError raised from the staging call site")
+    raise OSError(f"injected StagingPool I/O fault ({spec.spec_str()})")
+
+
+def maybe_stall() -> None:
+    """The first step's barrier (run_epoch_loop, inside the
+    ``first_compile`` heartbeat): sleep far past any sane deadline.  Only
+    the watchdog's ``ROC_TPU_STALL_TIMEOUT_S`` ends it (obs/heartbeat.py
+    interrupts the main thread and raises StallFailure)."""
+    spec = _ready("stall_compile", noted=True)
+    if spec is None:
+        return
+    _fire(spec, "stalling the first step's barrier")
+    time.sleep(3600.0)

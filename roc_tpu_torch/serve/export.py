@@ -126,9 +126,7 @@ def build_predictor(model, dataset, config, params=None,
             if cache is None:
                 cache = PropagationCache.build(
                     dataset.graph, prefix_descriptors(prefix_ops),
-                    np.asarray(dataset.features),
-                    aggr_impl=config.aggr_impl, device=device,
-                    chunk=config.chunk)
+                    np.asarray(dataset.features), device=device)
         elif cache is None:
             cache = logits_table_cache(_full_logits_host(
                 model, dataset, config, params, device))

@@ -4,9 +4,10 @@
 The SGC family's propagation has no parameters (models/sgc.py: ``logits
 = S^k X W``), so at serving time the graph part of the model becomes a
 lookup table: the prefix runs once (core/streaming.py
-``stream_prefix_to_host``, on the card through the route's kernels), its
-per-op stages stay on the host, and a query is a row gather plus the
-dense head.
+``stream_prefix_to_host``, the streamed tier's own walk: every stage on
+the host, each tile's neighbour sum on the card through K3), its per-op
+stages stay on the host, and a query is a row gather plus the dense
+head.
 
 :class:`PropagationCache` owns the stages and the invalidation: when a
 vertex's edges change, only rows inside the changed vertices' k-hop
@@ -26,7 +27,7 @@ from __future__ import annotations
 import json
 import os
 import tempfile
-from typing import Any, Dict, List, Sequence
+from typing import Any, Dict, List, Optional, Sequence
 
 import numpy as np
 
@@ -67,7 +68,8 @@ class PropagationCache:
 
     ``stages[i]`` is the fp32 ``[V, F]`` value after prefix op ``i``
     (``stages[-1]`` is the serving table); ``x0`` the feature matrix the
-    chain starts from."""
+    chain starts from.  ``loaded_quant`` is the mode of the artifact the
+    cache was loaded from (None for a built or fp32 cache)."""
 
     def __init__(self, row_ptr: np.ndarray, col_idx: np.ndarray,
                  ops: Sequence[Dict[str, Any]], x0: np.ndarray,
@@ -81,23 +83,34 @@ class PropagationCache:
         # host-table mutation generation: one per add_edges batch (the
         # device-side version is Predictor's publish counter)
         self.version = 0
+        self.loaded_quant: Optional[str] = None
 
     # ------------------------------------------------------------ build
 
     @classmethod
     def build(cls, graph, ops: Sequence[Dict[str, Any]],
-              feats: np.ndarray, aggr_impl: str = "cuda", device=None,
-              chunk: int = 512) -> "PropagationCache":
-        """Evaluate the prefix over the whole graph on ``device`` (the
-        card unless the caller passes another) through route
-        ``aggr_impl``, keeping every stage for invalidation."""
+              feats: np.ndarray, block_rows: int = 65536,
+              prefetch: int = 1, table_only: bool = False,
+              device=None) -> "PropagationCache":
+        """Evaluate the prefix over the whole graph through the trainer's
+        own precompute walk (core/streaming.py ``stream_prefix_to_host``:
+        ``block_rows``-row blocks staged through a pool of depth
+        ``prefetch`` to ``device``, the card unless the caller passes
+        another), keeping every stage for invalidation.  ``table_only``
+        keeps the last stage alone (a cache that cannot invalidate, as a
+        logits table cannot)."""
         from ..core.streaming import stream_prefix_to_host
         x0 = np.asarray(feats, dtype=np.float32).copy()
         stages: List[np.ndarray] = []
-        stream_prefix_to_host(graph, list(ops), x0, aggr_impl=aggr_impl,
-                              device=device, chunk=chunk, capture=stages)
+        stream_prefix_to_host(graph, list(ops), x0, block_rows=block_rows,
+                              prefetch=prefetch, capture=stages,
+                              device=device)
         if not stages:
             raise ValueError("empty propagation prefix")
+        if table_only:
+            stages = [stages[-1]]
+            x0 = np.zeros((0, 0), dtype=np.float32)
+            ops = [{"kind": "opaque"}]
         return cls(graph.row_ptr, graph.col_idx, ops, x0, stages)
 
     @property
@@ -131,8 +144,8 @@ class PropagationCache:
         the mutated graph to fp32 roundoff."""
         if len(self.ops) == 1 and self.ops[0].get("kind") == "opaque":
             raise NotImplementedError(
-                "this cache holds a full-logits table — incremental "
-                "invalidation needs "
+                "this cache was built table_only=True (or holds a "
+                "full-logits table) — incremental invalidation needs "
                 "the per-op stages; re-export the artifact instead")
         src = np.asarray(src, dtype=np.int32).ravel()
         dst = np.asarray(dst, dtype=np.int32).ravel()
@@ -244,8 +257,9 @@ class PropagationCache:
                 stages = [dequantize_rows(
                     from_storage_bytes(z[f"stage_{i}_q"], spec.mode),
                     z[f"stage_{i}_scale"]) for i in range(n)]
-                return cls(z["row_ptr"], z["col_idx"], ops, z["x0"],
-                           stages)
+                out = cls(z["row_ptr"], z["col_idx"], ops, z["x0"], stages)
+                out.loaded_quant = spec.mode
+                return out
             n = sum(1 for k in z.files if k.startswith("stage_"))
             stages = [z[f"stage_{i}"] for i in range(n)]
             return cls(z["row_ptr"], z["col_idx"], ops, z["x0"], stages)

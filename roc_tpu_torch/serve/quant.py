@@ -120,15 +120,18 @@ def row_scales(x: np.ndarray, mode: str) -> np.ndarray:
     return scale.astype(np.float32)
 
 
-def quantize_rows(x: np.ndarray, mode: str
+def quantize_rows(x: np.ndarray, mode: str,
+                  scale: Optional[np.ndarray] = None
                   ) -> Tuple[np.ndarray, np.ndarray]:
     """``(q, scale)`` for an fp32 ``[V, F]`` table: int8 codes, or fp8
     codes as uint8 bytes, under the per-row scales :func:`row_scales`
-    derives."""
+    derives, or under ``scale`` when given (a re-encode under a pinned
+    envelope; the round-trip identity needs the derived scales)."""
     x = np.asarray(x, dtype=np.float32)
     if x.ndim != 2:
         raise ValueError(f"quantize_rows wants [V, F], got {x.shape}")
-    scale = row_scales(x, mode)
+    if scale is None:
+        scale = row_scales(x, mode)
     scaled = x / scale[:, None]
     if mode == "int8":
         q = np.clip(np.rint(scaled), -INT8_QMAX,
@@ -290,3 +293,33 @@ def drift_sample(num_nodes: int, n: int = DRIFT_SAMPLE,
     n = min(int(n), int(num_nodes))
     return np.sort(rng.choice(num_nodes, size=n,
                               replace=False)).astype(np.int32)
+
+
+# ----------------------------------------------------- capture hook
+
+class QuantizingCapture:
+    """A ``stream_prefix_to_host`` capture sink that encodes each stage
+    as it streams: the walk hands the sink arrays it owns alone, so the
+    fp32 stage can go as soon as its ``(q, scale)`` pair is taken, and
+    the host holds one fp32 stage instead of all k (the export of a
+    graph whose stages do not fit in host memory together).
+
+    ``keep_fp32_last`` also keeps the last stage in fp32 (the drift
+    gate's reference)."""
+
+    def __init__(self, mode: str, keep_fp32_last: bool = False):
+        self.mode = check_mode(mode)
+        if self.mode == "off":
+            raise ValueError("QuantizingCapture needs a quantized mode; "
+                             "pass a plain list for fp32")
+        self.keep_fp32_last = keep_fp32_last
+        self.stages: list = []          # (q, scale) per stage
+        self.last_fp32: Optional[np.ndarray] = None
+
+    def append(self, x: np.ndarray) -> None:
+        self.stages.append(quantize_rows(x, self.mode))
+        if self.keep_fp32_last:
+            self.last_fp32 = x
+
+    def dequantized(self) -> list:
+        return [dequantize_rows(q, s) for q, s in self.stages]

@@ -7,7 +7,8 @@ that the port covers: the reference's flags (``gnn.cc:114-179``) —
 ``models.model_builders()``: gcn, sage, gin, gat, sgc, appnp, gcn2) with
 its knobs ``--heads``, ``--hops``, ``--alpha``, ``--lam`` and
 ``--learn-eps``, ``--impl``, ``--fuse``, ``--dtype``,
-``--eval-every``, ``--parts``, ``--dist-backend``, ``--cpu``, and the
+``--eval-every``, ``--parts``, ``--dist-backend``, ``--cpu``, the memory
+flags ``--memory``, ``--features``, ``--remat`` and ``--prefetch``, and the
 checkpoint and recovery flags ``--checkpoint``, ``--checkpoint-every``,
 ``--resume``, ``--recovery``, ``--max-retries``, ``--preempt-grace``,
 ``--async-save``, ``--fault`` and ``--events``, with the JAX CLI's
@@ -19,6 +20,10 @@ through this card's row, train/trainer.py ``resolve_auto_impl_probed``);
 ``--dtype`` its ``float32``, ``bfloat16`` and ``mixed``
 (train/trainer.py ``resolve_dtypes``); ``--reorder bfs|lpa`` relabels
 the vertices before training (core/reorder.py), with a ``plan`` event.
+``--memory auto`` (the default, as in the JAX CLI) lets the memory
+autopilot (core/memory.py) choose between device-resident and
+host-streamed features and rematerialisation by the device's memory; an
+explicit ``--features host`` or ``--remat`` switches it to ``manual``.
 
 Runs on the card unless ``--cpu`` is given; without a card and without
 ``--cpu`` it exits with an error.  Without ``-file`` it trains on a
@@ -50,6 +55,8 @@ failures, stalls and I/O errors from the last good one.  A preemption
     python -m roc_tpu_torch.train.cli --cpu --model gat --heads 2 \
         -layers 16-16-4 -e 20
     python -m roc_tpu_torch.train.cli -layers 16-16-4 -e 50 --dtype mixed
+    python -m roc_tpu_torch.train.cli --cpu -layers 16-16-4 -e 20 \
+        --features host --prefetch 1 --remat
     torchrun --standalone --nproc-per-node 2 -m roc_tpu_torch.train.cli \
         --parts 2 --cpu -layers 16-16-4 -e 20
     python -m roc_tpu_torch.train.cli --cpu -layers 16-16-4 -e 20 \
@@ -139,6 +146,22 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
                          "params) in bf16; mixed = fp32 master params "
                          "+ bf16 features/activations/aggregation (the "
                          "kernels' bf16 instances)")
+    ap.add_argument("--memory", default="auto", choices=["auto", "manual"],
+                    help="auto (default): the memory autopilot picks "
+                         "features/remat by the device's memory "
+                         "(core/memory.py); explicit --features host or "
+                         "--remat switch it to manual")
+    ap.add_argument("--features", default="hbm", choices=["hbm", "host"],
+                    help="hbm = input features on the device; host = in "
+                         "host memory, streamed through the first layer "
+                         "in row blocks (needs a streamable head)")
+    ap.add_argument("--remat", action="store_true",
+                    help="recompute activations in the backward instead "
+                         "of saving them")
+    ap.add_argument("--prefetch", default="auto",
+                    help="staging-pool depth for --features host: blocks "
+                         "the background stager runs ahead (auto = 1, "
+                         "double-buffered; 0 = synchronous)")
     ap.add_argument("--eval-every", type=int, default=5)
     ap.add_argument("--parts", type=int, default=1,
                     help="graph partitions, one per rank (launch N > 1 "
@@ -185,7 +208,8 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
                     help="arm one drill fault, site:epoch[:rank]; sites "
                          "nan_grads, sigkill, sigterm, kill_in_save, "
                          "kill_in_async_save, shard_corrupt, saver_stall, "
-                         "bitflip_checkpoint (env: ROC_TPU_FAULT)")
+                         "bitflip_checkpoint, staging_io, stall_compile "
+                         "(env: ROC_TPU_FAULT)")
     ap.add_argument("--events", type=str, default=None,
                     help="structured event-log JSONL path (also "
                          "ROC_TPU_EVENTS)")
@@ -212,6 +236,12 @@ def main(argv: Optional[List[str]] = None) -> int:
         return 2
     if args.max_retries < 0:
         print("error: --max-retries must be >= 0", file=sys.stderr)
+        return 2
+    from .trainer import TrainConfig, resolve_prefetch
+    try:
+        resolve_prefetch(TrainConfig(prefetch=args.prefetch))
+    except ValueError as e:
+        print(f"error: --prefetch: {e}", file=sys.stderr)
         return 2
     if args.fault:
         from ..resilience import inject
@@ -318,17 +348,24 @@ def _train(args, layers, model, device, rank) -> int:
               f"wd={args.weight_decay} dropout={args.dropout} "
               f"decay={args.decay_rate}/{args.decay_steps} "
               f"impl={args.impl} reorder={args.reorder} fuse={args.fuse} "
-              f"dtype={args.dtype} "
+              f"dtype={args.dtype} memory={args.memory} "
+              f"features={args.features} remat={args.remat} "
+              f"prefetch={args.prefetch} "
               f"parts={args.parts} device={device}",
               file=sys.stderr)
     dtype, compute_dtype = resolve_dtypes(args.dtype)
+    memory = args.memory
+    if memory == "auto" and (args.features != "hbm" or args.remat):
+        # explicit residency flags win over the autopilot
+        memory = "manual"
     cfg = TrainConfig(
         learning_rate=args.lr, weight_decay=args.weight_decay,
         dropout_rate=args.dropout, decay_rate=args.decay_rate,
         decay_steps=args.decay_steps, epochs=args.epochs, seed=args.seed,
         eval_every=args.eval_every, verbose=True, aggr_impl=args.impl,
         aggr_fuse=args.fuse, dtype=dtype, compute_dtype=compute_dtype,
-        async_save=args.async_save, fault=args.fault)
+        async_save=args.async_save, fault=args.fault, memory=memory,
+        features=args.features, remat=args.remat, prefetch=args.prefetch)
     if args.recovery or args.preempt_grace is not None:
         preempt.install(args.preempt_grace if args.preempt_grace is not None
                         else preempt.DEFAULT_GRACE_S)

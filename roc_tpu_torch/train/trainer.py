@@ -5,10 +5,15 @@ backward, Adam update; every ``eval_every`` epochs an inference pass
 printing train loss and train/val/test accuracy in the reference's
 format (``softmax_kernel.cu:141-152``).
 
-The subset ported is one device, features resident on the device, no
-rematerialisation, no mesh, no streamed head, no memory autopilot; the
-metrics registry and the timeline are not ported.  The epoch loop
-carries the resilience hooks (resilience/inject.py drill sites, the
+The memory tier is the JAX package's single-device one: features on the
+device ('hbm') or in host memory, streamed through the first layer
+(``features='host'``, core/streaming.py ``StreamedHead``; the SGC shape
+first runs its propagation prefix with every stage on the host),
+rematerialisation (``remat``, ``remat_policy``), and the memory autopilot
+(``memory='auto'``, core/memory.py) that picks among them by the
+device's memory.  The mesh, the metrics registry and the timeline are
+not ported.  The epoch loop carries the resilience hooks
+(resilience/inject.py drill sites, the first step's heartbeat, the
 preemption check), and the trainer the state a checkpoint needs besides
 weights and Adam state (utils/checkpoint.py): the dataset's identity
 and the dropout generator's state.
@@ -16,7 +21,9 @@ and the dropout generator's state.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import hashlib
 import time
 from dataclasses import dataclass
 from typing import Any, Dict, List, Optional, Tuple
@@ -29,8 +36,9 @@ from ..core.ell import (CARD_ROWS, FLAT_SUM_MIN_EDGES, default_section_rows,
                         port_route, sectioned_from_graph)
 from ..core.graph import Dataset, check_symmetric
 from ..core.partition import padded_edge_list
-from ..models.builder import (AGGR_IMPLS, EDGE_IMPLS, ELL_IMPLS,
-                              KERNEL_IMPLS, GraphContext, Model)
+from ..models.builder import (AGGR_IMPLS, AGGREGATE_KINDS, EDGE_IMPLS,
+                              ELL_IMPLS, KERNEL_IMPLS, REMAT_POLICIES,
+                              GraphContext, Model)
 from ..obs.events import emit
 from ..ops.loss import perf_metrics, summarize_metrics
 from ..ops import blockdense as bd
@@ -72,6 +80,26 @@ class TrainConfig:
       bdense_a_budget, bdense_group: the block-dense plan's least edges
       a dense tile, A-table byte cap (None: none) and blocks a product
       (ops/blockdense.py).  The JAX package's fields and defaults.
+    The memory policy (core/memory.py), the JAX package's fields and
+    defaults:
+    features: 'hbm' keeps the input features on the device; 'host' keeps
+      them in host memory and streams the first layer (dropout ->
+      linear), forward and weight gradient, through the device in row
+      blocks (core/streaming.py ``StreamedHead``); it needs a streamable
+      head (``Model.streamable_head`` or ``streamable_agg_head``).
+    prefetch: the staging pool's depth under ``features='host'``
+      (:func:`resolve_prefetch`): 'auto' is 1, double-buffered; 0 stages
+      synchronously (the same bits).
+    remat: recompute activations in the backward instead of saving them;
+      remat_policy: 'save_aggregates' keeps the graph ops' outputs and
+      recomputes the dense ops between them, 'full' recomputes
+      everything (:func:`remat_policy`).
+    memory: 'manual' takes features/remat as given; 'auto' runs
+      :func:`apply_memory_autopilot` and takes the first plan that fits
+      ``hbm_bytes`` (None: the device's memory,
+      core/memory.py ``detect_hbm_bytes``).  The port's halo is always
+      'gather': the ring is not ported, and an autopilot plan that picks
+      it is refused.
     """
     learning_rate: float = 0.01
     weight_decay: float = 0.05
@@ -95,6 +123,12 @@ class TrainConfig:
     bdense_min_fill: int = 64
     bdense_a_budget: Optional[int] = 2 << 30
     bdense_group: int = 1
+    remat: bool = False
+    remat_policy: str = "save_aggregates"
+    features: str = "hbm"
+    memory: str = "manual"
+    hbm_bytes: Optional[int] = None
+    prefetch: Any = "auto"
 
 
 # the TrainConfig fields that shape the layouts' tables
@@ -128,6 +162,105 @@ def resolve_async_save(config: TrainConfig) -> bool:
                     and dist.get_world_size() > 1)
     raise ValueError(f"unknown async_save {v!r}; expected 'auto', "
                      "'on', or 'off'")
+
+
+def resolve_prefetch(config: TrainConfig) -> int:
+    """``TrainConfig.prefetch`` -> the staging pool's depth: 'auto' is 1
+    (double-buffered: one block ahead hides the host copy and the copy
+    issue, and deeper pools only add live buffers); an int >= 0 is taken
+    as it is (0 stages synchronously).  The CLI's ``--prefetch`` goes
+    through this too."""
+    p = config.prefetch
+    if p == "auto":
+        return 1
+    try:
+        depth = int(p)
+    except (TypeError, ValueError):
+        raise ValueError(f"unknown prefetch {p!r}; expected 'auto' or "
+                         "an int >= 0") from None
+    if depth < 0:
+        raise ValueError(f"prefetch must be >= 0, got {depth}")
+    return depth
+
+
+def remat_policy(config: TrainConfig) -> Optional[str]:
+    """The ``remat`` argument of ``Model.apply`` for ``config``: None
+    without remat, else ``config.remat_policy`` ('save_aggregates' or
+    'full').  An unknown policy raises: a typo must not change the
+    memory footprint silently."""
+    if config.remat_policy not in REMAT_POLICIES:
+        raise ValueError(f"unknown remat_policy {config.remat_policy!r}; "
+                         f"expected one of {REMAT_POLICIES}")
+    return config.remat_policy if config.remat else None
+
+
+def model_layer_dims(model: Model) -> List[int]:
+    """The CLI-style layer spec (in-dim, the linear ops' out-dims) of a
+    built model: the shapes core/memory.py's estimate speaks."""
+    return [model._ops[0].dim] + [op.dim for op in model._ops
+                                  if op.kind == "linear"]
+
+
+def _dtype_bytes(dtype: torch.dtype) -> int:
+    return torch.empty((), dtype=dtype).element_size()
+
+
+def modeled_step_bytes(model: Model, dataset: Dataset, config: TrainConfig,
+                       num_parts: int = 1) -> int:
+    """The memory model's peak estimate for the resolved ``config``
+    (core/memory.py ``estimate_plan_bytes``), for manual configs too:
+    chip_smoke.py prints it beside the card's measured peak."""
+    from ..core.memory import charged_table_bytes, estimate_plan_bytes
+    a_tab = charged_table_bytes(
+        config.aggr_impl, model.uses_attention(),
+        model.uses_max_aggregation(), config.bdense_a_budget)
+    return estimate_plan_bytes(
+        dataset.graph.num_nodes, dataset.graph.num_edges,
+        model_layer_dims(model), num_parts=num_parts,
+        dtype_bytes=_dtype_bytes(compute_dtype_of(config)),
+        halo="gather", features=config.features, remat=config.remat,
+        remat_policy=config.remat_policy, extra_table_bytes=a_tab)
+
+
+def apply_memory_autopilot(model: Model, dataset: Dataset,
+                           config: TrainConfig, num_parts: int = 1,
+                           device=None) -> TrainConfig:
+    """``memory='auto'`` resolved into concrete features/remat by
+    core/memory.py ``choose_memory_plan`` over the dataset's and model's
+    shapes, with the budget ``hbm_bytes`` or the memory of ``device``;
+    the decision is a ``plan`` event (on the console when verbose, or
+    when no plan fits).  A plan that picks the ring halo (parts > 1) is
+    refused: the ring is not ported.  A no-op for ``memory='manual'``.
+    Runs after 'auto' is resolved, so a block-dense route's A-table is
+    charged."""
+    if config.memory != "auto":
+        return config
+    from ..core.memory import charged_table_bytes, choose_memory_plan
+    a_tab = charged_table_bytes(
+        config.aggr_impl, model.uses_attention(),
+        model.uses_max_aggregation(), config.bdense_a_budget)
+    plan = choose_memory_plan(
+        dataset.graph.num_nodes, dataset.graph.num_edges,
+        model_layer_dims(model), num_parts=num_parts,
+        dtype_bytes=_dtype_bytes(compute_dtype_of(config)),
+        hbm_bytes=config.hbm_bytes,
+        head_streamable=(model.streamable_head() is not None
+                         or model.streamable_agg_head() is not None),
+        remat_policy=config.remat_policy, extra_table_bytes=a_tab,
+        device=device)
+    # the estimate is the JAX package's model; under remat the card's
+    # peak has come out above it (PERF.md §7), so say so
+    note = ("; remat: an estimate, not a bound on the peak"
+            if plan.remat else "")
+    emit("plan", plan.echo() + note,
+         console=config.verbose or not plan.fits,
+         halo=plan.halo, features=plan.features, remat=plan.remat,
+         fits=plan.fits, est_bytes=plan.est_bytes,
+         budget_bytes=plan.budget_bytes, candidates=plan.candidates)
+    from ..parallel.distributed import refuse_halo
+    refuse_halo(plan.halo)
+    return dataclasses.replace(
+        config, memory="manual", features=plan.features, remat=plan.remat)
 
 
 def derived_seed(*words: int) -> int:
@@ -270,11 +403,13 @@ def resolve_attention_impl(model: Model, config: TrainConfig,
 
 
 def resolve_config(model: Model, dataset: Optional[Dataset],
-                   config: TrainConfig, device=None
+                   config: TrainConfig, device=None, num_parts: int = 1
                    ) -> Tuple[Model, TrainConfig]:
     """THE resolve pass, in the JAX package's order: the fuse rewrite
     (:func:`resolve_fuse`), 'auto' (:func:`resolve_auto_impl_early`, by
-    the card ``device`` is; None is the CPU), then the model-driven route
+    the card ``device`` is; None is the CPU), the memory autopilot
+    (:func:`apply_memory_autopilot`, over ``num_parts`` parts and the
+    memory of ``device``), then the model-driven route
     (:func:`resolve_attention_impl`).  ``Trainer`` and
     ``serve/export.build_predictor`` both run it, so a predictor serves
     the model and route a trainer would train.  Idempotent: a resolved
@@ -283,6 +418,14 @@ def resolve_config(model: Model, dataset: Optional[Dataset],
     config = resolve_auto_impl_early(
         model, config, dataset.graph if dataset is not None else None,
         device_kind=card_kind(device))
+    if config.memory == "auto":
+        if dataset is None:
+            raise ValueError("memory='auto' needs the dataset")
+        config = apply_memory_autopilot(model, dataset, config,
+                                        num_parts=num_parts, device=device)
+    elif config.memory != "manual":
+        raise ValueError(f"unknown memory {config.memory!r}; expected "
+                         "'auto' or 'manual'")
     return model, resolve_attention_impl(model, config, dataset)
 
 
@@ -343,8 +486,8 @@ def graph_context(g, aggr_impl: str = "cuda", symmetric: bool = True,
                   bdense_a_budget: Optional[int] = 2 << 30,
                   bdense_group: int = 1) -> GraphContext:
     """:func:`make_graph_context` of a bare ``core/graph.Graph`` whose
-    symmetry the caller states (the serving precompute's walk,
-    core/streaming.py, has a graph and no dataset).
+    symmetry the caller states (for a caller with a graph and no
+    dataset, as chip_smoke.py's races).
 
     The ELL routes get the degree-bucketed tables, the edge routes the
     edge list padded to a ``chunk`` multiple, 'sectioned' the sectioned
@@ -433,8 +576,23 @@ class Trainer:
     is the card unless the caller passes another (``'cpu'``).
 
     A subclass that holds one part of the graph (parallel/distributed.py
-    ``DistributedTrainer``) overrides :meth:`_place`, :meth:`_reduce` and
-    :meth:`predict`; the step, the epoch loop and the eval are shared."""
+    ``DistributedTrainer``) overrides :meth:`_num_parts`, :meth:`_place`,
+    :meth:`_reduce` and :meth:`predict`; the step, the epoch loop and the
+    eval are shared.
+
+    Under ``features='host'`` (:meth:`_place_host`) the features stay in
+    host memory (``feats_host``, in the compute dtype, pinned on the
+    card; ``feats`` is None) and a step is :meth:`_streamed_loss_and_grads`:
+    the streamed head's forward, the device-resident tail's loss and
+    gradients (its remat too), and the streamed weight gradient.  Block
+    b's dropout seed is ``derived_seed(step_seed, b)``, the step's seed
+    derived from the seed, the rank, the epoch and the dropout
+    generator's state at the step's start (:meth:`_step_seed`): a resumed
+    run redraws a step's masks from the checkpoint, and a retry, which
+    reseeds the generator, draws new ones.
+    ``spans_ms`` collects the host wall time of each part of a streamed
+    step (``head_forward``, ``tail_grad``, ``head_wgrad``, ``update``)
+    until :meth:`pipeline_fields` reads it."""
 
     def __init__(self, model: Model, dataset: Dataset,
                  config: TrainConfig = TrainConfig(),
@@ -442,7 +600,17 @@ class Trainer:
                  device=None):
         self.device = resolve_device(device)
         model, config = resolve_config(model, dataset, config,
-                                       device=self.device)
+                                       device=self.device,
+                                       num_parts=self._num_parts())
+        if config.features == "host" and self._num_parts() > 1:
+            raise NotImplementedError(
+                "features='host' streaming is single-device only; the "
+                "distributed >HBM mechanism is halo='ring' (the "
+                "autopilot picks it automatically for parts > 1)")
+        if config.features not in ("hbm", "host"):
+            raise ValueError(f"unknown features {config.features!r}; "
+                             "expected 'hbm' or 'host'")
+        remat_policy(config)
         self.model = model
         self.config = config
         self.compute = compute_dtype_of(config)
@@ -451,13 +619,21 @@ class Trainer:
         # (utils/checkpoint.trainer_fingerprint)
         self._fp_dataset = {"V": int(dataset.graph.num_nodes),
                             "E": int(dataset.graph.num_edges)}
+        self.modeled_bytes = modeled_step_bytes(model, dataset, config,
+                                                num_parts=self._num_parts())
         symmetric = resolve_symmetric(dataset, config.symmetric)
         if not symmetric and config.aggr_impl in KERNEL_IMPLS:
             raise NotImplementedError(
                 f"aggr_impl={config.aggr_impl!r} trains by the symmetric "
                 "trick only and this graph is not symmetric; use 'ell' "
                 "or 'segment'")
-        self._place(dataset, symmetric)
+        self._head = None
+        self.feats_host = None
+        self.spans_ms: Dict[str, List[float]] = {}
+        if config.features == "host":
+            self._place_host(dataset, symmetric)
+        else:
+            self._place(dataset, symmetric)
         self.generator = torch.Generator(device=self.device).manual_seed(
             config.seed)
         if params is None:
@@ -477,6 +653,10 @@ class Trainer:
         # first train() call ends before an eval
         self.first_step_ms: Optional[float] = None
 
+    def _num_parts(self) -> int:
+        """The partitions of this run: 1 on one device."""
+        return 1
+
     def _place(self, dataset: Dataset, symmetric: bool) -> None:
         """Put the rows this trainer computes on the device: ``feats``
         (in the compute dtype), ``labels``, ``mask`` and the graph
@@ -491,35 +671,177 @@ class Trainer:
             fuse=self.model.num_fused_aggregates() > 0,
             **layout_options(self.config))
 
+    def _place_host(self, dataset: Dataset, symmetric: bool) -> None:
+        """``features='host'``: split the model at its streamable head
+        (``Model.streamable_head``, else ``streamable_agg_head``, whose
+        propagation prefix runs here once through core/streaming.py
+        ``stream_prefix_to_host``), keep the features (or the prefix's
+        output) in host memory in the compute dtype, pinned on the card,
+        and put the labels, the mask and the tail's graph context on the
+        device; a tail with no graph op gets a context with no tables."""
+        from ..core.streaming import StreamedHead, stream_prefix_to_host
+        cfg = self.config
+        head = self.model.streamable_head()
+        prefix_ops = None
+        if head is None:
+            agg = self.model.streamable_agg_head()
+            if agg is None:
+                raise NotImplementedError(
+                    "features='host' needs a streamable model head (input "
+                    "-> dropout -> linear, Model.streamable_head) or an "
+                    "aggregation-prefix head (norm/aggregate chain -> "
+                    "dropout -> linear, Model.streamable_agg_head); this "
+                    "model's first layer reads the raw features elsewhere: "
+                    "use features='hbm'")
+            prefix_ops, rate, self._head_param, self._tail_model = agg
+        else:
+            rate, self._head_param, self._tail_model = head
+        depth = resolve_prefetch(cfg)
+        self._head = StreamedHead(rate, prefetch=depth, device=self.device)
+        feats = dataset.features
+        if prefix_ops is not None:
+            feats = stream_prefix_to_host(dataset.graph, prefix_ops, feats,
+                                          prefetch=depth, device=self.device)
+        host = torch.as_tensor(np.asarray(feats)).to(self.compute)
+        self.feats_host = (host.pin_memory() if self.device.type == "cuda"
+                           else host.contiguous())
+        self.feats = None
+        self.labels = torch.from_numpy(dataset.labels).to(self.device)
+        self.mask = torch.from_numpy(dataset.mask).to(self.device)
+        if any(op.kind in AGGREGATE_KINDS for op in self._tail_model._ops):
+            self.gctx = make_graph_context(
+                dataset, cfg.aggr_impl, symmetric=symmetric,
+                device=self.device, chunk=cfg.chunk,
+                fuse=self._tail_model.num_fused_aggregates() > 0,
+                **layout_options(cfg))
+        else:
+            # the whole graph part ran in the prefix: no O(E) tables
+            in_degree = torch.from_numpy(dataset.graph.in_degree).to(
+                self.device)
+            self.gctx = GraphContext(
+                in_degree=in_degree, inv_sqrt_deg=inv_sqrt_degree(in_degree),
+                num_rows=dataset.graph.num_nodes, aggr_impl="segment",
+                symmetric=symmetric)
+
     def _reduce(self, tensors: List[torch.Tensor]) -> List[torch.Tensor]:
         """The sums over every trainer of a run: ``tensors`` themselves
         on one device."""
         return tensors
 
+    @contextlib.contextmanager
+    def _span(self, name: str):
+        t0 = time.perf_counter()
+        try:
+            yield
+        finally:
+            self.spans_ms.setdefault(name, []).append(
+                (time.perf_counter() - t0) * 1e3)
+
     def loss_and_grads(self) -> Tuple[torch.Tensor,
                                       Dict[str, torch.Tensor]]:
         """The objective (summed masked CE) and its gradients at the
         current weights, summed by :meth:`_reduce`: one forward and
-        backward through the model (dropout draws from
-        ``generator``)."""
+        backward through the model (dropout draws from ``generator``;
+        with ``remat`` the activations are recomputed in the backward,
+        ``Model.apply``)."""
+        if self._head is not None:
+            return self._streamed_loss_and_grads()
         names = list(self.params)
         loss, _ = self.model.loss_fn(cast_floats(self.params, self.compute),
                                      self.feats, self.labels, self.mask,
                                      self.gctx, generator=self.generator,
-                                     train=True)
+                                     train=True,
+                                     remat=remat_policy(self.config))
         grads = torch.autograd.grad(loss, [self.params[k] for k in names])
         *grads, loss = self._reduce([*grads, loss.detach()])
         return loss, dict(zip(names, grads))
+
+    def _step_seed(self) -> int:
+        """The streamed head's seed for this step: ``derived_seed`` of the
+        seed, the rank, the epoch and a digest of the dropout generator's
+        state (a host read for a CUDA generator too: no device sync)."""
+        digest = hashlib.blake2b(self.generator.get_state().numpy()
+                                 .tobytes(), digest_size=16).digest()
+        return derived_seed(self.config.seed, getattr(self, "rank", 0),
+                            self.epoch,
+                            *np.frombuffer(digest, dtype=np.uint32))
+
+    def _streamed_loss_and_grads(self) -> Tuple[torch.Tensor,
+                                                Dict[str, torch.Tensor]]:
+        """The streamed step's objective and gradients: the head's forward
+        from host features (its masks from the step's seed), the tail's
+        loss and its gradients with respect to its weights and the
+        projected activations ``Y`` (the tail's dropout draws from
+        ``generator``), then the head's weight gradient from ``dY``."""
+        hp = self._head_param
+        seed = self._step_seed()
+        with self._span("head_forward"):
+            w0 = self.params[hp].detach().to(self.compute)
+            y = self._head.forward(w0, self.feats_host, seed, True)
+        with self._span("tail_grad"):
+            y.requires_grad_(True)
+            names = [k for k in self.params if k != hp]
+            loss, _ = self._tail_model.loss_fn(
+                cast_floats(self.params, self.compute), y, self.labels,
+                self.mask, self.gctx, generator=self.generator, train=True,
+                remat=remat_policy(self.config))
+            *gs, gy = torch.autograd.grad(
+                loss, [self.params[k] for k in names] + [y],
+                allow_unused=True)
+        with self._span("head_wgrad"):
+            gw = self._head.wgrad(self.feats_host, gy, seed, True).to(
+                self.params[hp].dtype)
+        got = dict(zip(names, gs))
+        got[hp] = gw
+        grads = [got[k] if got[k] is not None
+                 else torch.zeros_like(self.params[k]) for k in self.params]
+        *grads, loss = self._reduce([*grads, loss.detach()])
+        return loss, dict(zip(self.params, grads))
 
     def step(self, lr: float) -> torch.Tensor:
         """One training step at learning rate ``lr``: forward, backward,
         Adam update.  Returns the objective (summed masked CE) before the
         update, on the device."""
         loss, grads = self.loss_and_grads()
-        self.params, self.opt_state = adam_update(
-            self.params, grads, self.opt_state, lr, self.adam_cfg)
+        with self._span("update") if self._head is not None \
+                else contextlib.nullcontext():
+            self.params, self.opt_state = adam_update(
+                self.params, grads, self.opt_state, lr, self.adam_cfg)
         self.losses.append(loss)
         return loss
+
+    def pipeline_fields(self) -> Dict[str, Any]:
+        """The streamed tier's metrics since the last call, folded into
+        each eval record by :func:`run_epoch_loop` (empty without a
+        streamed head): ``prefetch_depth``, the staging pool's
+        ``h2d_wait_p50_ms`` (the consumer's median stall a block),
+        ``h2d_stage_p50_ms`` and ``overlap_frac`` (the share of staging
+        hidden under compute, as the host sees it: on the card a stage
+        only issues its copy, so this says nothing of the copies' overlap
+        on the device; 0 for ``prefetch=0`` by construction), on
+        the card the copies' ``h2d_gbps`` (bytes over their device time),
+        and each span's median ``spans_p50_ms``.  Also a ``pipeline``
+        event."""
+        if self._head is None:
+            return {}
+        stats = self._head.pool.take_stats()
+        spans, self.spans_ms = self.spans_ms, {}
+        if not stats["n"]:
+            return {}
+        out: Dict[str, Any] = {
+            "prefetch_depth": int(stats["depth"]),
+            "h2d_wait_p50_ms": stats["wait_p50_ms"],
+            "h2d_stage_p50_ms": stats["stage_p50_ms"]}
+        if stats["overlap_frac"] is not None:
+            out["overlap_frac"] = stats["overlap_frac"]
+        if stats.get("h2d_gbps") is not None:
+            out["h2d_gbps"] = stats["h2d_gbps"]
+        out["spans_p50_ms"] = {k: float(np.median(v))
+                               for k, v in spans.items()}
+        emit("pipeline", f"h2d: {stats['n']} blocks, wait p50 "
+             f"{out['h2d_wait_p50_ms']:.2f} ms, overlap_frac "
+             f"{out.get('overlap_frac', 0.0)}", console=False, **out)
+        return out
 
     def train(self, epochs: Optional[int] = None) -> List[Dict[str, float]]:
         """Run ``epochs`` more epochs (``config.epochs`` by default); the
@@ -574,9 +896,14 @@ class Trainer:
 
     @torch.no_grad()
     def _logits(self) -> torch.Tensor:
-        """Inference-mode logits of this trainer's rows."""
-        return self.model.apply(cast_floats(self.params, self.compute),
-                                self.feats, self.gctx, train=False)
+        """Inference-mode logits of this trainer's rows (through the
+        streamed head in eval mode under ``features='host'``)."""
+        params = cast_floats(self.params, self.compute)
+        if self._head is not None:
+            y = self._head.forward(params[self._head_param],
+                                   self.feats_host, None, False)
+            return self._tail_model.apply(params, y, self.gctx, train=False)
+        return self.model.apply(params, self.feats, self.gctx, train=False)
 
     def predict(self, node_ids=None) -> torch.Tensor:
         """Inference-mode logits ``[V, C]`` on the device, or the rows
@@ -623,7 +950,13 @@ def run_epoch_loop(tr: Trainer, epochs: Optional[int], do_step,
     epoch for the fault sites (``inject.note_epoch``), and after each
     epoch's step has been launched runs the epoch-boundary drill sites
     (``inject.epoch_hooks``) and the preemption check
-    (``preempt.raise_if_preempted``)."""
+    (``preempt.raise_if_preempted``); the first step's barrier runs
+    inside a ``first_compile`` heartbeat (obs/heartbeat.py) with the
+    ``stall_compile`` site (``inject.maybe_stall``), so with
+    ``ROC_TPU_STALL_TIMEOUT_S`` set a first step that hangs becomes a
+    StallFailure.  Each eval record carries :meth:`Trainer.pipeline_fields`
+    (the streamed tier's staging metrics)."""
+    from ..obs.heartbeat import Heartbeat
     from ..resilience import inject, preempt
     cfg = tr.config
     if cfg.fault:
@@ -639,7 +972,9 @@ def run_epoch_loop(tr: Trainer, epochs: Optional[int], do_step,
         do_step(float(decayed_lr(cfg.learning_rate, epoch, cfg.decay_rate,
                                  cfg.decay_steps)))
         if not tr._stepped:
-            tr.sync()
+            with Heartbeat("first_compile"):
+                inject.maybe_stall()
+                tr.sync()
             now = time.perf_counter()
             first_ms = tr.first_step_ms = (now - t_last) * 1e3
             t_last, e_last = now, epoch + 1
@@ -658,6 +993,7 @@ def run_epoch_loop(tr: Trainer, epochs: Optional[int], do_step,
                 first_ms = None
             if span > 0:
                 m["edges_per_s"] = tr.num_edges / (m["epoch_ms"] / 1e3)
+            m.update(tr.pipeline_fields())
             t_last, e_last = t_eval_end, epoch + 1
             history.append(m)
             emit("epoch", f"epoch {epoch}: train_loss {m['train_loss']}",

@@ -690,14 +690,14 @@ def test_world_of_one_nccl_trainer_matches_trainer(dev, tmp_path):
 
 def test_precomputed_akx_on_the_card_matches_the_cpu(dev):
     """The 'akx' predictor of an SGC (k = 2) built on the card (its
-    prefix through K1 -> K4 -> K2) serves within 1e-4 * max|logit| of the
+    prefix through the blocked host walk, each tile's sum on K3) serves within 1e-4 * max|logit| of the
     same predictor built on the CPU (the kernels' plain versions) from
     the same weights; an int8 table (the card's host table, quantized
     once: a table an ulp apart could round a code the other way) gathers
     and dequantizes on the card to the CPU's values within the same
     tolerance, and the pad row of a padded bucket stays out of the
     result."""
-    from roc_tpu_torch.kernels import ell_spmm
+    from roc_tpu_torch.kernels import spmm
     from roc_tpu_torch.models.sgc import build_sgc
     from roc_tpu_torch.serve.export import build_predictor
     from roc_tpu_torch.train.trainer import TrainConfig
@@ -707,11 +707,11 @@ def test_precomputed_akx_on_the_card_matches_the_cpu(dev):
     ids = np.arange(300)
     cache = None
     for quant in ("off", "int8"):
-        before = ell_spmm.ell_aggregate.launches
+        before = spmm.csr_spmm.launches
         got = build_predictor(build_sgc([24, 5], k=2), ds, TrainConfig(),
                               params=params, quant=quant, cache=cache)
         assert got.flavor == "akx" and got.device.type == "cuda"
-        assert (ell_spmm.ell_aggregate.launches > before) == (cache is None)
+        assert (spmm.csr_spmm.launches > before) == (cache is None)
         want = build_predictor(build_sgc([24, 5], k=2), ds, TrainConfig(),
                                params=params, quant=quant, device="cpu",
                                cache=cache)
@@ -723,3 +723,105 @@ def test_precomputed_akx_on_the_card_matches_the_cpu(dev):
         assert sub.shape == (3, 5)
         assert np.abs(sub - b[[7, 123, 250]]).max() <= \
             1e-4 * max(1.0, np.abs(b).max())
+
+
+# ------------------------------------------------- the out-of-core tier
+
+
+def test_staging_pool_stages_through_pinned_buffers_on_a_copy_stream(dev):
+    """A pageable source goes through the pinned ring, a pinned one is
+    copied from directly; both on the pool's copy stream (not the
+    consumer's), each block the source's rows, with the copies' bytes
+    and device time in the stats."""
+    from roc_tpu_torch.core.streaming import StagingPool, _stage_fns
+    rng = np.random.RandomState(0)
+    X = rng.randn(1000, 24).astype(np.float32)
+    for depth in (0, 1, 2):
+        pool = StagingPool(depth=depth, device=dev)
+        ranges = [(lo, lo + 128) for lo in range(0, 1000, 128)]
+        got = [b.clone() for b in pool.stream(_stage_fns(
+            pool, torch.from_numpy(X), ranges))]
+        assert all(b.device.type == "cuda" for b in got)
+        assert torch.equal(torch.cat(got).cpu(), torch.from_numpy(X))
+        st = pool.stager
+        assert st.ring_copies == len(ranges) and st.direct_copies == 0
+        assert all(b is None or b.is_pinned() for b in st.slots)
+        assert st.stream != torch.cuda.current_stream(dev)
+        stats = pool.take_stats()
+        assert stats["h2d_bytes"] == X.nbytes and stats["h2d_gbps"] > 0
+        assert pool.max_live <= depth + 1
+    pinned = torch.from_numpy(X).pin_memory()
+    pool = StagingPool(depth=1, device=dev)
+    got = torch.cat([b.clone() for b in pool.stream(_stage_fns(
+        pool, pinned, [(0, 500), (500, 1000)]))])
+    assert pool.stager.direct_copies == 2 and torch.equal(got.cpu(), pinned)
+
+
+def test_streamed_head_on_the_card_matches_the_cpu(dev):
+    """Forward (eval) and wgrad on the card against the CPU's (fp32
+    products in another order: rtol 1e-5); with masks, prefetch 1 gives
+    prefetch 0's bits on the card."""
+    from roc_tpu_torch.core.streaming import StreamedHead
+    rng = np.random.RandomState(1)
+    X = rng.randn(330, 24).astype(np.float32)
+    W = torch.from_numpy(rng.randn(24, 8).astype(np.float32))
+    dY = torch.from_numpy(rng.randn(330, 8).astype(np.float32))
+    cpu = StreamedHead(0.4, block_rows=64, device="cpu")
+    want = (cpu.forward(W, X, None, False), cpu.wgrad(X, dY, None, False))
+    runs = {}
+    for depth in (0, 1):
+        head = StreamedHead(0.4, block_rows=64, prefetch=depth, device=dev)
+        got = (head.forward(W.to(dev), X, None, False),
+               head.wgrad(X, dY.to(dev), None, False))
+        for g, w in zip(got, want):
+            torch.testing.assert_close(g.cpu(), w, rtol=1e-5, atol=1e-5)
+        runs[depth] = (head.forward(W.to(dev), X, 7, True),
+                       head.wgrad(X, dY.to(dev), 7, True))
+    assert all(torch.equal(a, b) for a, b in zip(runs[0], runs[1]))
+
+
+def test_aggregate_to_host_on_the_card_runs_k3(dev):
+    """The blocked walk's sums on the card (every tile chunk a K3 launch)
+    against the CPU's plain version, within rtol 1e-5."""
+    from roc_tpu_torch.core.streaming import aggregate_to_host
+    from roc_tpu_torch.kernels import spmm
+    ds = synthetic_dataset(700, 9, in_dim=24, num_classes=5, seed=2)
+    x = np.random.RandomState(3).randn(700, 41).astype(np.float32)
+    want = aggregate_to_host(ds.graph, x, block_rows=128, edge_chunk=1000,
+                             device="cpu")
+    before = spmm.csr_spmm.launches
+    got = aggregate_to_host(ds.graph, x, block_rows=128, edge_chunk=1000,
+                            device=dev)
+    assert spmm.csr_spmm.launches > before
+    np.testing.assert_allclose(got, want, rtol=1e-5,
+                               atol=1e-5 * float(np.abs(want).max()))
+
+
+@pytest.mark.parametrize("impl", ["cuda", "cuda_csr"])
+def test_host_tier_and_remat_train_on_the_card(dev, impl):
+    """On the card: the host tier's 3 steps at dropout 0 within rtol 1e-4
+    of the device-resident run; remat (both policies) and prefetch 0 on
+    the host tier at dropout 0.5 end on the plain runs' bits."""
+    from roc_tpu_torch.models.gcn import build_gcn
+    from roc_tpu_torch.train.trainer import TrainConfig, Trainer
+    ds = synthetic_dataset(500, 8, in_dim=24, num_classes=5, seed=4)
+
+    def run(dropout, **kw):
+        tr = Trainer(build_gcn([24, 16, 5], dropout_rate=dropout), ds,
+                     TrainConfig(aggr_impl=impl, epochs=3, verbose=False,
+                                 eval_every=1 << 30, symmetric=True,
+                                 chunk=64, **kw), device=dev)
+        tr.train()
+        return tr.params
+
+    a, b = run(0.0), run(0.0, features="host")
+    for k in a:
+        torch.testing.assert_close(b[k], a[k], rtol=1e-4, atol=1e-5)
+    for base, variants in (({}, [dict(remat=True),
+                                 dict(remat=True, remat_policy="full")]),
+                           (dict(features="host"), [dict(features="host",
+                                                         prefetch=0)])):
+        want = run(0.5, **base)
+        for kw in variants:
+            got = run(0.5, **kw)
+            assert all(torch.equal(got[k], want[k]) for k in want), kw

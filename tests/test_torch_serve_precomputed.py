@@ -6,10 +6,10 @@ publish.
 The JAX serve rig's size: V = 300, degree 6, 24 input features, 5
 classes; the same dataset in both packages (bit-equal,
 tests/test_torch_data.py) and the JAX package's Glorot weights carried
-across with convert.py.  The port's prefix runs on its routes (the
-kernel routes' plain versions on the CPU), the JAX one on its host walk:
-the same fp32 operations with the neighbour sums in another order, so
-stages and logits are held within 1e-5.
+across with convert.py.  Both packages run the prefix on their blocked
+host walk (core/streaming.py; the port's tile sums through K3's plain
+version on the CPU): the same fp32 operations with the neighbour sums in
+another order, so stages and logits are held within 1e-5.
 """
 
 import json
@@ -102,22 +102,22 @@ def test_flavor_logits_match_jax(data, flavor, impl):
     assert pred.query(sub).shape == (3, C)
 
 
-def _caches(jds, ds, prefix, impl="cuda"):
+def _caches(jds, ds, prefix, block_rows=65536):
     ops = PREFIXES[prefix]
     feats = np.asarray(ds.features)
     return (JCache.build(jds.graph, ops, np.asarray(jds.features)),
-            PropagationCache.build(ds.graph, ops, feats, aggr_impl=impl,
-                                   device="cpu"))
+            PropagationCache.build(ds.graph, ops, feats,
+                                   block_rows=block_rows, device="cpu"))
 
 
 @pytest.mark.parametrize("prefix", sorted(PREFIXES))
 def test_propagation_stages_match_jax(data, prefix):
     """Every stage of the prefix walk (SUM, AVG, the fused relu chain)
-    within 1e-5 of the JAX host walk's, through the kernel route and the
-    plain edge-list route."""
+    within 1e-5 of the JAX host walk's, in one block and in blocks of 64
+    rows (many tiles, each tile's sum through K3's plain version)."""
     jds, ds = data
-    for impl in ("cuda", "segment"):
-        jc, c = _caches(jds, ds, prefix, impl)
+    for block_rows in (65536, 64):
+        jc, c = _caches(jds, ds, prefix, block_rows)
         assert len(c.stages) == len(jc.stages) == len(PREFIXES[prefix])
         for got, want in zip(c.stages, jc.stages):
             assert got.dtype == np.float32 and got.shape == want.shape
