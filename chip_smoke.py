@@ -180,6 +180,26 @@ Phases (any failure exits nonzero):
    (one retry, the uninterrupted run's bits), stall_compile:0 with
    ROC_TPU_STALL_TIMEOUT_S (a StallFailure, then the restart finishes).
    Every run counted.
+16. the rest of the partitioned trainer (``dist_ring``, in a fresh
+   process on phase 14's Reddit-shape dataset, the GCN 602-256-41 at full
+   width from phase 5's weights, dropout 0): two gloo ranks on this card
+   (NCCL takes one rank per card; gloo stages the transfers through the
+   host), each holding one part: the ring halo (parallel/ring.py) in fp32,
+   3 steps with K3 at every hop (hops x aggregations x steps launches, no
+   pre-pass; K1, the masked K1 and K2 around it), each pair's row ranges
+   ending at its real edges (no padding read) and K3 at each hop's shape
+   held to its plain version with its times; the overlap off (the same
+   bits); the gather through 'auto' on the same split (the card's row,
+   K4; the split the numpy cost model's; the ring's losses within
+   PARITY_RTOL and logits within PREDICT_TOL); 'mixed' ring against
+   gather; memory='auto' under the gather plans (the ring plan, 3 steps);
+   a forced repartition (the objectives within PARITY_RTOL of the run
+   that never repartitions, the weights within the partitioned tests'
+   rtol 2e-4, atol 2e-5); 'sectioned', 'flat_sum' and 'bdense' at the arxiv shape
+   (planted communities) against 'cuda', 3 steps each; then four ranks:
+   each one's peak on the ring and on the gather beside core/memory.py's
+   modeled bytes.  Every path counted; its wall time printed.  The times
+   of ranks sharing one card are a layout check, not a speed number.
 
 Prints one JSON line per phase, the kernel table line
 ``{"kernels": [...]}`` (one row per kernel and dtype, e.g.
@@ -187,8 +207,8 @@ Prints one JSON line per phase, the kernel table line
 launches counted over the serve, train, dist, recovery, zoo, precompute,
 layouts and memory slices of that dtype; the F = 128 checks as each
 row's ``zoo_shapes``, the F = 602 ones as ``akx_shapes`` (K1, K2 and K4
-at the SGC's raw width) and K3's walk check as ``walk_shapes``), the
-card line, and as the last line
+at the SGC's raw width), K3's walk check as ``walk_shapes`` and its ring
+hops as ``ring_shapes``), the card line, and as the last line
 ``{"ok": true, "device": {...}}``.  Imports no JAX.
 """
 
@@ -196,10 +216,12 @@ import contextlib
 import dataclasses
 import functools
 import json
+import os
 import subprocess
 import sys
 import tempfile
 import time
+from typing import Any, Dict
 
 import numpy as np
 
@@ -3423,6 +3445,474 @@ def memory_child(data_dir, products_dir, num_classes, out_path):
         json.dump({"record": rec, "counted": counts.counted}, f)
 
 
+# ---------------------------------------------------------------------------
+# 16. The partitioned trainer's rest (parallel/ring.py, core/costmodel.py,
+# the partitioned layouts): gloo ranks on this card
+# ---------------------------------------------------------------------------
+
+RING_STEPS = 3
+# the 'mixed' logits of the ring against the gather's, as a share of
+# max|logit| (SERVE_TOL's 'mixed': bf16 activations rounded at other
+# places, and the ring adds its hops' bf16 sums)
+RING_MIXED_LOGIT_TOL = 3e-2
+# a forced repartition's weights against the run that never
+# repartitions (its objectives: PARITY_RTOL): tests/test_torch_
+# distributed.py's tolerance for a partitioned run against another split
+# (fp32 sums in another order; Adam moves a weight by ~lr whatever its
+# gradient's size, so a near-zero gradient amplifies rounding)
+REBALANCE_WEIGHT_TOL = dict(rtol=2e-4, atol=2e-5)
+# the forced repartition moves the first boundary by this share of the
+# first part's rows (the cost split of a graph of uniform degree is
+# balanced already: no measured time moves it)
+FORCED_SHIFT = 0.1
+# the arxiv-shape graph of the partitioned layouts: planted communities
+# (symmetrised, self edges) so that 'bdense' has dense tiles
+RING_LAYOUTS = ("sectioned", "flat_sum", "bdense")
+
+
+def _ring_run(torch, ds, impl, mode, params, parts, steps=RING_STEPS,
+              layers=LAYERS, before=None, **cfg):
+    """A DistributedTrainer of ``parts`` ranks on card 0, dropout 0 from
+    ``params``, ``before(trainer)`` when given, then ``steps`` steps each
+    synchronised: the trainer, its objectives and the steady steps' mean
+    wall ms."""
+    from roc_tpu_torch.models.gcn import build_gcn
+    from roc_tpu_torch.parallel.distributed import DistributedTrainer
+    from roc_tpu_torch.train.trainer import TrainConfig, resolve_dtypes
+    dtype, compute_dtype = resolve_dtypes(mode)
+    tr = DistributedTrainer(
+        build_gcn(layers, dropout_rate=0.0), ds, parts, TrainConfig(
+            aggr_impl=impl, symmetric=True, seed=SEED, dtype=dtype,
+            compute_dtype=compute_dtype, eval_every=10 ** 6, verbose=False,
+            **TRAIN, **cfg), params=params, device=torch.device("cuda", 0))
+    if before is not None:
+        before(tr)
+    ms = []
+    for _ in range(steps):
+        t = time.perf_counter()
+        tr.train(1)
+        tr.sync()
+        ms.append((time.perf_counter() - t) * 1e3)
+    losses = torch.stack(tr.losses).double().cpu().numpy()
+    if not np.isfinite(losses).all():
+        raise AssertionError(f"{impl} {mode} {cfg}: losses {losses}")
+    return tr, losses, float(np.mean(ms[1:])) if steps > 1 else ms[0]
+
+
+def _ring_hop_checks(torch, tr):
+    """This rank's ring against its plain versions and its padding: each
+    pair's row ranges end at its real edges and its padding sources the
+    dummy row alone (so K3 reads no padding), and K3 at each hop's shape
+    (the pair's edges into ``part_nodes`` rows from a ``part_nodes``-row
+    buffer, the precomputed row ranges) against its plain version
+    (:func:`sum_check`) at F = 256 and 41, fp32 and bf16, with its event
+    ms, bound, plain and library (``torch.sparse.mm`` of the pair) times.
+    Two ranks share the card: the times are a layout check."""
+    from roc_tpu_torch.kernels import spmm
+    from roc_tpu_torch.parallel.ring import RING_MULTIPLE
+    d, pn, dev = tr.data, tr.plan.part_nodes, tr.device
+    real = np.asarray(d.ring_real)
+    rp = d.ring_row_ptr.cpu().numpy()
+    src = d.ring_src.cpu().numpy()
+    S, pe = src.shape
+    for s in range(S):
+        n = int(real[s])
+        if not (rp[s, -1] == n and (src[s, :n] < pn).all()
+                and (src[s, n:] == pn).all()):
+            raise AssertionError(f"rank {tr.rank} pair {s}: the row ranges "
+                                 f"cover a padding slot ({rp[s, -1]} of "
+                                 f"{n} real edges, {pe} slots)")
+    gen = torch.Generator(device=dev).manual_seed(SEED + 11 + tr.rank)
+    rows = []
+    for dtype in (torch.float32, torch.bfloat16):
+        esize = 2 if dtype == torch.bfloat16 else 4
+        for F in (256, 41):
+            x = torch.randn((pn, F), generator=gen, device=dev).to(dtype)
+            for s in range(S):
+                args = (x, d.ring_src[s], d.ring_dst[s], pn)
+                n = int(real[s])
+
+                def kern():
+                    return spmm.csr_spmm(*args, chunk=RING_MULTIPLE,
+                                         row_ptr=d.ring_row_ptr[s])
+                got = kern()
+                want = spmm.csr_spmm_plain(*args)
+                ok, err = sum_check(torch, got, want)
+                if not (ok and torch.equal(got, kern())):
+                    raise AssertionError(f"rank {tr.rank}: K3 at hop pair "
+                                         f"{s}, F={F}, {dtype}: max_abs_err "
+                                         f"{err}")
+                adj = torch.sparse_csr_tensor(
+                    d.ring_row_ptr[s], d.ring_src[s][:n].long(),
+                    torch.ones(n, device=dev, dtype=dtype), size=(pn, pn),
+                    check_invariants=False)
+                b, by = bound_ms(2 * pn * F * esize + n * 4
+                                 + (pn + 1) * 8, n * F)
+                try:
+                    lib = time_ms(torch, lambda: torch.sparse.mm(adj, x), 3)
+                except RuntimeError:
+                    lib = None
+                rows.append({"kernel": "csr_spmm", "pair": s, "F": F,
+                             "dtype": str(dtype), "edges": n, "slots": pe,
+                             "rows": pn, "max_abs_err": err,
+                             "ms": time_ms(torch, kern, 3),
+                             "plain_ms": time_ms(
+                                 torch, lambda: spmm.csr_spmm_plain(*args),
+                                 1),
+                             "library_ms": lib, "bound_ms": b,
+                             "bound_by": by})
+            del x
+    torch.cuda.synchronize()
+    return rows
+
+
+class _EventSink(list):
+    """The event bus's records, through a sink of its own."""
+    write = list.append
+
+
+def _close_logits(a, b, tol):
+    """``(ok, max_abs_err, atol)``: logits ``a`` within ``tol`` of
+    max|b| of ``b``."""
+    err = float(np.abs(a - b).max())
+    atol = tol * max(float(np.abs(b).max()), 1.0)
+    return bool(a.shape == b.shape and np.isfinite(a).all()
+                and err <= atol), err, atol
+
+
+def _ring_p2(torch, ds, counts, arxiv_dir):
+    """One rank's part of phase 16 at P = 2 (see :func:`ring_child`)."""
+    from roc_tpu_torch.core.costmodel import cost_balanced_bounds
+    from roc_tpu_torch.core.memory import estimate_plan_bytes
+    from roc_tpu_torch.models.gcn import build_gcn
+    from roc_tpu_torch.obs.events import get_bus
+    rank = torch.distributed.get_rank()
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    params = {k: v.detach() for k, v in build_gcn(LAYERS).init_params(
+        gen, device="cuda").items()}
+    out: Dict[str, Any] = {}
+    runs: Dict[str, Any] = {}
+
+    def counted(tag, key, fn):
+        counts.zero()
+        got = fn()
+        runs[tag] = {"launches": counts.read(key)}
+        return got
+
+    # the ring in fp32, overlap on: its tables and hop kernels checked,
+    # then 3 counted steps, K3 at every hop and no pre-pass
+    tr, losses, ms = counted("ring_fp32", F32, lambda: _ring_run(
+        torch, ds, "cuda", "float32", params, 2, halo="ring"))
+    d = tr.data
+    out["ring"] = {"pair_edges": d.pair_edges, "real": d.ring_real.tolist(),
+                   "padding_ratio": d.ring_padding_ratio,
+                   "bounds": [list(map(int, b)) for b in tr.plan.bounds],
+                   "part_nodes": tr.plan.part_nodes}
+    n = runs["ring_fp32"]["launches"]
+    hops = 2 * 4 * RING_STEPS      # 2 hops x 2 aggregations x fwd + bwd
+    if not (n["csr_spmm"][F32] == hops and n["csr_row_ptr"] == 0
+            and n["ell_aggregate"][F32] == 0 and n["indegree_norm"][F32]
+            and n["scale_act"][F32] and n["indegree_norm_masked"]):
+        raise AssertionError(f"rank {rank}: the ring's launches {n}, want "
+                             f"K3 {hops} times and no pre-pass")
+    ring_logits = tr.predict().float().cpu().numpy()
+    ring_params = {k: v.detach().clone() for k, v in tr.params.items()}
+    out["hop_checks"] = _ring_hop_checks(torch, tr)
+    runs["ring_fp32"].update(losses=losses.tolist(), step_ms=ms)
+    del tr
+    torch.cuda.empty_cache()
+    # overlap off: the same bits
+    tr, off, ms = counted("ring_fp32_sequential", F32, lambda: _ring_run(
+        torch, ds, "cuda", "float32", params, 2, halo="ring",
+        ring_overlap=False))
+    same = bool(np.array_equal(off, losses)) and all(
+        torch.equal(tr.params[k], ring_params[k]) for k in ring_params)
+    runs["ring_fp32_sequential"].update(losses=off.tolist(), step_ms=ms,
+                                        same_bits=same)
+    if not same:
+        raise AssertionError(f"rank {rank}: overlap off {off} is not "
+                             f"overlap on's {losses}")
+    del tr
+    torch.cuda.empty_cache()
+    # the gather on the same split through 'auto' (the card's row), its
+    # split the cost model's
+    sink = _EventSink()
+    get_bus().add_sink(sink)
+    try:
+        tr, glosses, ms = counted("gather_auto_fp32", F32, lambda: _ring_run(
+            torch, ds, "auto", "float32", params, 2))
+    finally:
+        get_bus().sinks.remove(sink)
+    (res,) = [e for e in sink if e["cat"] == "resolve"]
+    want_bounds = [list(map(int, b)) for b in cost_balanced_bounds(
+        ds.graph.row_ptr, 2, 8, tr.config.chunk)]
+    ok, err, atol = _close_logits(tr.predict().float().cpu().numpy(),
+                                  ring_logits, PREDICT_TOL)
+    rel = np.abs(losses - glosses) / np.abs(glosses)
+    runs["gather_auto_fp32"].update(
+        losses=glosses.tolist(), step_ms=ms, route=tr.config.aggr_impl,
+        jax_resolves=res.get("jax_resolves"), resolve=res["msg"],
+        bounds=[list(map(int, b)) for b in tr.plan.bounds],
+        ring_max_rel_loss_err=float(rel.max()),
+        ring_logits_max_abs_err=err, ring_logits_atol=atol)
+    if not (tr.config.aggr_impl == "cuda"
+            and runs["gather_auto_fp32"]["launches"]["ell_aggregate"][F32]
+            and runs["gather_auto_fp32"]["bounds"] == want_bounds
+            == out["ring"]["bounds"]
+            and rel.max() <= PARITY_RTOL["float32"] and ok):
+        raise AssertionError(f"rank {rank}: ring against gather/auto: "
+                             f"{runs['gather_auto_fp32']}, cost bounds "
+                             f"{want_bounds}")
+    gather_params = {k: v.detach().clone() for k, v in tr.params.items()}
+    modeled = {"gather": tr.modeled_bytes}
+    del tr
+    torch.cuda.empty_cache()
+    # 'mixed': the ring against the gather
+    got = {}
+    for halo in ("ring", "gather"):
+        tr, ml, ms = counted(f"{halo}_mixed", BF16, lambda: _ring_run(
+            torch, ds, "cuda", "mixed", params, 2, halo=halo))
+        got[halo] = (ml, tr.predict().float().cpu().numpy())
+        runs[f"{halo}_mixed"].update(losses=ml.tolist(), step_ms=ms)
+        del tr
+        torch.cuda.empty_cache()
+    rel = np.abs(got["ring"][0] - got["gather"][0]) / np.abs(got["gather"][0])
+    ok, err, atol = _close_logits(got["ring"][1], got["gather"][1],
+                                  RING_MIXED_LOGIT_TOL)
+    runs["ring_mixed"].update(max_rel_loss_err=float(rel.max()),
+                              logits_max_abs_err=err, logits_atol=atol)
+    if not (rel.max() <= PARITY_RTOL["mixed"] and ok
+            and runs["ring_mixed"]["launches"]["csr_spmm"][BF16] == hops):
+        raise AssertionError(f"rank {rank}: mixed ring against gather: "
+                             f"{runs['ring_mixed']}")
+    # memory='auto' with half the gather/remat plan's estimate: no plan
+    # fits, and the autopilot's last candidate is the ring's (at P = 2
+    # the model puts every ring plan above the gather's)
+    budget = estimate_plan_bytes(ds.graph.num_nodes, ds.graph.num_edges,
+                                 LAYERS, num_parts=2, remat=True) // 2
+    tr, al, ms = counted("autopilot", F32, lambda: _ring_run(
+        torch, ds, "cuda", "float32", params, 2, memory="auto",
+        hbm_bytes=budget))
+    runs["autopilot"].update(losses=al.tolist(), step_ms=ms,
+                             budget_bytes=int(budget),
+                             plan={"halo": tr.config.halo,
+                                   "remat": tr.config.remat,
+                                   "features": tr.config.features},
+                             modeled_bytes=tr.modeled_bytes)
+    if tr.config.halo != "ring":
+        raise AssertionError(f"rank {rank}: memory='auto' under the gather "
+                             f"plans picked {runs['autopilot']['plan']}")
+    modeled["ring_remat"] = tr.modeled_bytes
+    del tr
+    torch.cuda.empty_cache()
+    # a forced repartition (the first boundary moved by FORCED_SHIFT),
+    # then the steps: the weights against the gather run's, which never
+    # repartitions
+    def force(t_r):
+        (l0, r0), (l1, r1) = t_r.plan.bounds
+        cut = r0 - int(FORCED_SHIFT * (r0 - l0 + 1))
+        t_r._repartition([(l0, cut), (cut + 1, r1)])
+    tr, rl, ms = counted("rebalance", F32, lambda: _ring_run(
+        torch, ds, "cuda", "float32", params, 2, before=force))
+    diffs = [(tr.params[k].detach() - gather_params[k]).abs()
+             for k in gather_params]
+    wt = REBALANCE_WEIGHT_TOL
+    worst = max(float((t - wt["rtol"] * gather_params[k].abs()).max())
+                for t, k in zip(diffs, gather_params))
+    runs["rebalance"].update(
+        losses=rl.tolist(), step_ms=ms, rebalances=tr._rebalances,
+        bounds=[list(map(int, b)) for b in tr.plan.bounds],
+        max_weight_diff=max(float(t.max()) for t in diffs),
+        share_weights_within_1e_5=sum(int((t <= 1e-5).sum()) for t in diffs)
+        / sum(int(t.numel()) for t in diffs),
+        max_rel_loss_err=float(np.max(np.abs(rl - glosses)
+                                      / np.abs(glosses))),
+        max_excess_over_rtol=worst)
+    if not (tr._rebalances == 1 and runs["rebalance"]["bounds"]
+            != want_bounds and worst <= wt["atol"]
+            and runs["rebalance"]["max_rel_loss_err"]
+            <= PARITY_RTOL["float32"]):
+        raise AssertionError(f"rank {rank}: forced rebalance: "
+                             f"{runs['rebalance']}")
+    del tr
+    torch.cuda.empty_cache()
+    out["runs"] = runs
+    out["modeled_bytes"] = modeled
+    # the layouts at the arxiv shape against 'cuda'
+    ax = _map_dataset(arxiv_dir, ZOO_LAYERS[-1], name="arxiv_planted")
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    ax_params = {k: v.detach() for k, v in build_gcn(
+        ZOO_LAYERS).init_params(gen, device="cuda").items()}
+    lay = {}
+    tr, base, ms = counted("arxiv_cuda", F32, lambda: _ring_run(
+        torch, ax, "cuda", "float32", ax_params, 2, layers=ZOO_LAYERS))
+    lay["cuda"] = {"losses": base.tolist(), "step_ms": ms}
+    del tr
+    for impl in RING_LAYOUTS:
+        tr, ll, ms = _ring_run(torch, ax, impl, "float32", ax_params, 2,
+                               layers=ZOO_LAYERS,
+                               **(BD_TRAIN if impl == "bdense" else {}))
+        rel = np.abs(ll - base) / np.abs(base)
+        lay[impl] = {"losses": ll.tolist(), "step_ms": ms,
+                     "max_rel_loss_err": float(rel.max()),
+                     "route": tr.config.aggr_impl}
+        if impl == "bdense":
+            lay[impl]["occupancy"] = tr.data.bd_occupancy
+            if tr.gctx.bd_a is None:
+                raise AssertionError(f"rank {rank}: bdense at the arxiv "
+                                     "shape has no dense tile")
+        if rel.max() > PARITY_RTOL["float32"]:
+            raise AssertionError(f"rank {rank}: {impl} at P = 2: {ll} "
+                                 f"against 'cuda' {base}")
+        del tr
+        torch.cuda.empty_cache()
+    out["layouts"] = lay
+    return out
+
+
+def _ring_p4(torch, ds, counts):
+    """One rank's part of phase 16 at P = 4: the ring against the gather
+    in fp32, 2 steps each with the peak reset before: the peak beside
+    core/memory.py's modeled bytes."""
+    from roc_tpu_torch.models.gcn import build_gcn
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    params = {k: v.detach() for k, v in build_gcn(LAYERS).init_params(
+        gen, device="cuda").items()}
+    out = {}
+    for halo in ("ring", "gather"):
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        counts.zero()
+        tr, losses, ms = _ring_run(torch, ds, "cuda", "float32", params, 4,
+                                   steps=2, halo=halo)
+        out[halo] = {"peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+                     "modeled_gb": tr.modeled_bytes / 1e9,
+                     "losses": losses.tolist(), "step_ms": ms,
+                     "launches": counts.read(F32),
+                     "part_nodes": tr.plan.part_nodes}
+        if halo == "ring":
+            out[halo]["pair_edges"] = tr.data.pair_edges
+            out[halo]["padding_ratio"] = tr.data.ring_padding_ratio
+        del tr
+    rel = np.abs(np.asarray(out["ring"]["losses"])
+                 - out["gather"]["losses"]) / np.abs(out["gather"]["losses"])
+    out["max_rel_loss_err"] = float(rel.max())
+    if rel.max() > PARITY_RTOL["float32"]:
+        raise AssertionError(f"P = 4 ring against gather: {out}")
+    return out
+
+
+def ring_rank_job(data_dir, arxiv_dir, num_classes, parts):
+    """One rank of phase 16, in a process spawned by
+    :func:`parallel.distributed.run_ranks` on card 0: map the Reddit-shape
+    dataset and run :func:`_ring_p2` or :func:`_ring_p4`, every path with
+    the counts zeroed just before and read just after.  Returns its
+    record and its counts."""
+    import torch
+    from roc_tpu_torch.kernels import _build
+    from roc_tpu_torch.ops.dense import set_fp32_matmul_precision
+    torch.cuda.set_device(0)
+    set_fp32_matmul_precision()
+    _build.library()
+    counts = Launches(torch)
+    ds = _map_dataset(data_dir, num_classes)
+    t0 = time.perf_counter()
+    rec = (_ring_p2(torch, ds, counts, arxiv_dir) if parts == 2
+           else _ring_p4(torch, ds, counts))
+    rec["rank"] = torch.distributed.get_rank()
+    rec["seconds"] = time.perf_counter() - t0
+    return {"record": rec, "counted": counts.counted}
+
+
+def arxiv_planted(seed=SEED):
+    """The partitioned layouts' graph: ogbn-arxiv's shape (V, E, 128 in,
+    40 out; features, labels and masks of ``synthetic_dataset``) with the
+    edges of ``planted_community_csr`` (communities of PLANTED_ROWS rows,
+    in their own order), symmetrised, with self edges."""
+    from roc_tpu_torch.core.graph import (add_self_edges, from_edge_list,
+                                          planted_community_csr,
+                                          synthetic_dataset)
+    ds = synthetic_dataset(ZOO_V, 2, in_dim=ZOO_LAYERS[0],
+                           num_classes=ZOO_LAYERS[-1], seed=seed,
+                           name="arxiv_planted")
+    g0 = planted_community_csr(ZOO_V, ZOO_E, community_rows=PLANTED_ROWS,
+                               seed=seed, shuffle=False)
+    dst = np.repeat(np.arange(ZOO_V), np.diff(g0.row_ptr))
+    return dataclasses.replace(ds, graph=add_self_edges(from_edge_list(
+        g0.col_idx, dst, ZOO_V, symmetrize=True)))
+
+
+def ring_child(data_dir, arxiv_dir, num_classes, out_path):
+    """Phase 16 in a fresh process: two gloo ranks on card 0 over the
+    Reddit-shape dataset the parent saved in ``data_dir`` (the GCN
+    602-256-41 at full width, phase 5's weights, dropout 0), then four;
+    writes the record and the ranks' counts to ``out_path``.
+
+    At P = 2 each rank: the ring in fp32 (K3 at every hop, its row ranges
+    covering no padding, held to its plain version at each hop's shape),
+    the ring with the overlap off (the same bits), the gather through
+    'auto' on the same split (the card's row, K4; the bounds the numpy
+    cost split's; losses within PARITY_RTOL and logits within PREDICT_TOL
+    of the ring's), 'mixed' ring against gather, memory='auto' under the
+    gather plans (the ring), a forced repartition (the objectives within
+    PARITY_RTOL of the gather run's, the weights within
+    REBALANCE_WEIGHT_TOL), and at the arxiv shape
+    (:func:`arxiv_planted`) 'sectioned', 'flat_sum' and 'bdense' 3 steps
+    each against 'cuda'.  At P = 4 each rank's peak on the ring and on
+    the gather beside the modeled bytes.  Two or four CUDA contexts share
+    the card and gloo stages every transfer through the host: the times
+    are a layout check, not a speed number."""
+    from roc_tpu_torch.parallel.distributed import run_ranks
+    t0 = time.perf_counter()
+    ax = arxiv_planted()
+    os.makedirs(arxiv_dir, exist_ok=True)
+    _save_dataset(ax, arxiv_dir)
+    data_s = time.perf_counter() - t0
+    rec: Dict[str, Any] = {"arxiv": {"V": ax.graph.num_nodes,
+                                     "E": ax.graph.num_edges,
+                                     "build_s": data_s}}
+    del ax
+    counted = {key: {name: 0 for name in KERNELS} for key in (F32, BF16)}
+    for parts in (2, 4):
+        t1 = time.perf_counter()
+        ranks = run_ranks(ring_rank_job, parts, backend="gloo",
+                          timeout_s=900, data_dir=data_dir,
+                          arxiv_dir=arxiv_dir, num_classes=num_classes,
+                          parts=parts)
+        for r in ranks:
+            for key in (F32, BF16):
+                for name in KERNELS:
+                    counted[key][name] += r["counted"][key][name]
+        recs = [r["record"] for r in ranks]
+        rec[f"p{parts}"] = {"seconds": time.perf_counter() - t1,
+                            "ranks": recs}
+        log({"phase": f"dist_ring_p{parts}",
+             "seconds": rec[f"p{parts}"]["seconds"],
+             **({"ranks": [{k: v for k, v in r.items()
+                            if k != "hop_checks"} for r in recs]}
+                if parts == 2 else {"ranks": recs})})
+        if parts == 2:
+            log({"phase": "dist_ring_hops",
+                 "rows": [dict(rank=r["rank"], **h) for r in recs
+                          for h in r["hop_checks"]]})
+    rec["seconds"] = time.perf_counter() - t0
+    with open(out_path, "w") as f:
+        json.dump({"record": rec, "counted": counted}, f)
+
+
+def run_ring_child(tmp, num_classes):
+    """:func:`ring_child` in a fresh Python process on the Reddit-shape
+    dataset phase 14's parent saved under ``tmp``/reddit; returns what it
+    wrote."""
+    here = os.path.dirname(os.path.abspath(__file__))
+    data, arxiv = os.path.join(tmp, "reddit"), os.path.join(tmp, "arxiv")
+    out = os.path.join(tmp, "ring.json")
+    _child(here, f"ring_child({data!r}, {arxiv!r}, {num_classes}, "
+           f"{out!r})", 600, "phase 16 (dist_ring)")
+    with open(out) as f:
+        return json.load(f)
+
+
 def run_memory_child(tmp, num_classes):
     """:func:`memory_child` in a fresh Python process on the datasets
     phases 14's parent and child saved under ``tmp``; returns what it
@@ -3812,18 +4302,40 @@ def main() -> int:
                  for r in lrec["race"]["rows"]}})
         sys.stdout.flush()
         child = run_memory_child(tmp, ds.num_classes)
-    for key in (F32, BF16):
-        for name in KERNELS:
-            counted[key][name] += child["counted"][key][name]
-    mrec = child["record"]
-    walk_row = mrec["walk_k3"]
-    log({"phase": "memory_summary", "seconds": mrec["seconds"],
-         "streamed_gcn_epoch_ms": {
-             m: {t: r[t]["epoch_ms"] for t in ("host", "hbm")}
-             for m, r in mrec["streamed_gcn"].items()},
-         "walk_wall_ms": mrec["streamed_sgc"]["walk"]["wall_ms"],
-         "autopilot": {k: v["plan"] for k, v in mrec["autopilot"].items()
-                       if isinstance(v, dict)}})
+        for key in (F32, BF16):
+            for name in KERNELS:
+                counted[key][name] += child["counted"][key][name]
+        mrec = child["record"]
+        walk_row = mrec["walk_k3"]
+        log({"phase": "memory_summary", "seconds": mrec["seconds"],
+             "streamed_gcn_epoch_ms": {
+                 m: {t: r[t]["epoch_ms"] for t in ("host", "hbm")}
+                 for m, r in mrec["streamed_gcn"].items()},
+             "walk_wall_ms": mrec["streamed_sgc"]["walk"]["wall_ms"],
+             "autopilot": {k: v["plan"]
+                           for k, v in mrec["autopilot"].items()
+                           if isinstance(v, dict)}})
+        # 16. the ring, the cost split and the partitioned layouts: gloo
+        # ranks on this card, in a fresh process on the dataset 14 saved;
+        # every rank's path counted
+        sys.stdout.flush()
+        t16 = time.perf_counter()
+        ring = run_ring_child(tmp, ds.num_classes)
+        for key in (F32, BF16):
+            for name in KERNELS:
+                counted[key][name] += ring["counted"][key][name]
+    rrec = ring["record"]
+    hop_rows = [h for r in rrec["p2"]["ranks"] for h in r["hop_checks"]]
+    log({"phase": "dist_ring_summary",
+         "seconds": time.perf_counter() - t16,
+         "pair_edges": rrec["p2"]["ranks"][0]["ring"]["pair_edges"],
+         "padding_ratio": rrec["p2"]["ranks"][0]["ring"]["padding_ratio"],
+         "step_ms": {k: v["step_ms"] for k, v in
+                     rrec["p2"]["ranks"][0]["runs"].items()
+                     if "step_ms" in v},
+         "p4_peak_gb": [{h: (r[h]["peak_gb"], r[h]["modeled_gb"])
+                         for h in ("ring", "gather")}
+                        for r in rrec["p4"]["ranks"]]})
 
     table = []
     for key, tag in ((F32, "fp32"), (BF16, "bf16")):
@@ -3844,7 +4356,10 @@ def main() -> int:
                 **({"akx_shapes": akx_rows[name]["shapes"]}
                    if key == F32 and akx_rows[name]["shapes"] else {}),
                 **({"walk_shapes": [walk_row]}
-                   if key == F32 and name == "csr_spmm" else {})})
+                   if key == F32 and name == "csr_spmm" else {}),
+                **({"ring_shapes": [h for h in hop_rows if h["dtype"] == (
+                    "torch.float32" if key == F32 else "torch.bfloat16")]}
+                   if name == "csr_spmm" else {})})
     log({"total_s": time.perf_counter() - t_start,
          "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9})
     log({"kernels": table})

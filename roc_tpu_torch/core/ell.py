@@ -2,11 +2,13 @@
 tables, the source-sectioned and flat sub-row tables, and the 'auto'
 route rule.
 
-A numpy copy of ``roc_tpu/core/ell.py`` without its partitioned
-builders; the tables are bit-equal to the JAX package's for the same
-graph (tests/test_torch_data.py, tests/test_torch_layouts.py).  The
+A numpy copy of ``roc_tpu/core/ell.py``; the tables are bit-equal to
+the JAX package's for the same graph (tests/test_torch_data.py,
+tests/test_torch_layouts.py, tests/test_torch_layouts_parts.py).  The
 sectioned builder runs the native host planners (roc_tpu_torch/native)
-when they are built.
+when they are built.  The partitioned builders take every part or, on a
+rank of a partitioned run, its own part with an ``agree_max`` collective
+that gives it the shapes the all-parts build would.
 
 - every row is assigned to a power-of-two **width bucket** covering its
   in-degree (min width 8; a hub row of any degree gets its own wide
@@ -403,6 +405,77 @@ def sectioned_plan(counts_max: np.ndarray,
     seg = max(8, min(seg_rows, -(-max_sub // 8) * 8))
     plan = [max(1, -(-int(c) // seg)) for c in np.asarray(counts_max)]
     return seg, plan
+
+
+def clean_part_ptr(part_row_ptr: np.ndarray, real_nodes: int,
+                   part_nodes: int) -> np.ndarray:
+    """One part's row pointers with the padding edges dropped: rows past
+    ``real_nodes`` are empty instead of carrying the padded edge tail."""
+    n = int(real_nodes)
+    ptr = part_row_ptr[:n + 1].astype(np.int64)
+    return np.concatenate(
+        [ptr, np.full(part_nodes - n, ptr[n], dtype=np.int64)])
+
+
+def sectioned_from_padded_parts(part_row_ptr: np.ndarray,
+                                part_col: np.ndarray,
+                                real_nodes: np.ndarray,
+                                part_nodes: int, src_rows: int,
+                                section_rows: int = SECTION_ROWS_DEFAULT,
+                                seg_rows: int = 131_072,
+                                sub_w: int = 8,
+                                agree_max=None) -> SectionedEll:
+    """Stacked per-part sectioned tables with one shape: ``idx[s]``
+    ``[P, n_chunks_s, seg_rows, sub_w]``, ``sub_dst[s]`` ``[P, n_chunks_s,
+    seg_rows]``.  The chunk counts and ``seg_rows`` come from the
+    elementwise max of every part's per-section sub-row counts
+    (:func:`sectioned_plan`), so a part with fewer edges carries padding
+    chunks.  ``part_col`` is ``[P, part_edges]`` in gathered coordinates;
+    the padding edges are cut by the real row extents.
+
+    ``agree_max(v)`` (an elementwise max over the ranks of a partitioned
+    run) lets a rank pass its own part alone (P = 1 here) and get its row
+    of the all-parts tables."""
+    P = part_row_ptr.shape[0]
+    ptrs = [clean_part_ptr(part_row_ptr[p], real_nodes[p], part_nodes)
+            for p in range(P)]
+    cols = [np.asarray(part_col[p][:int(ptrs[p][-1])]) for p in range(P)]
+    counts = np.stack([
+        section_sub_counts(ptrs[p], cols[p], part_nodes, src_rows,
+                           section_rows, sub_w) for p in range(P)])
+    counts_max = counts.max(axis=0)
+    if agree_max is not None:
+        counts_max = agree_max(counts_max)
+    seg_rows, plan = sectioned_plan(counts_max, seg_rows)
+    per_part = [
+        sectioned_from_graph(ptrs[p], cols[p], part_nodes,
+                             src_rows=src_rows, section_rows=section_rows,
+                             seg_rows=seg_rows, chunks_plan=plan,
+                             counts=counts[p], sub_w=sub_w)
+        for p in range(P)]
+    first = per_part[0]
+    return SectionedEll(
+        num_rows=part_nodes, src_rows=src_rows, section_rows=section_rows,
+        seg_rows=seg_rows, sec_starts=first.sec_starts,
+        sec_sizes=first.sec_sizes,
+        idx=tuple(np.stack([pp.idx[s] for pp in per_part])
+                  for s in range(len(first.idx))),
+        sub_dst=tuple(np.stack([pp.sub_dst[s] for pp in per_part])
+                      for s in range(len(first.sub_dst))),
+        sub_w=sub_w)
+
+
+def flat_sum_from_padded_parts(part_row_ptr: np.ndarray,
+                               part_col: np.ndarray,
+                               real_nodes: np.ndarray,
+                               part_nodes: int, src_rows: int,
+                               seg_rows: int = FLAT_SEG_ROWS,
+                               agree_max=None) -> SectionedEll:
+    """Stacked per-part flat tables (one section over the ``src_rows``
+    gathered rows), the partitioned :func:`flat_sum_from_graph`."""
+    return sectioned_from_padded_parts(
+        part_row_ptr, part_col, real_nodes, part_nodes, src_rows=src_rows,
+        section_rows=src_rows, seg_rows=seg_rows, agree_max=agree_max)
 
 
 # ---------------------------------------------------------------------------

@@ -8,8 +8,8 @@ does not fit (``types.cu:22-32``).  Here, as in the JAX package, the
 policy picks a *plan* before the step runs, among:
 
 - ``halo``: the one-shot all-gather (fast; every rank holds the gathered
-  ``[V, H]`` matrix) or the ring (O(V/P) peak; not ported, the
-  partitioned trainer refuses it);
+  ``[V, H]`` matrix) or the ring (parallel/ring.py: O(V/P) rows, at the
+  price of its tables);
 - ``features``: input features resident on the device, or in host
   memory and streamed through the first layer (core/streaming.py);
 - ``remat``: recompute activations in the backward instead of saving

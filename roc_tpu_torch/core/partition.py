@@ -19,8 +19,8 @@ land on the part's first padded row, so they add zeros and touch no real
 output row.
 
 Ported subset: the vectorised sweep (the JAX package's native C++ sweep,
-which its tests hold bit-identical to it, is not ported) and the greedy
-split; ``method='cost'`` needs ``core/costmodel.py``, not ported yet.
+which its tests hold bit-identical to it, is not ported), the greedy
+split and the cost-balanced one (``method='cost'``, core/costmodel.py).
 """
 
 from __future__ import annotations
@@ -190,17 +190,23 @@ def padded_edge_list(graph: Graph, multiple: int = 1024
 
 
 def partition_bounds(row_ptr: np.ndarray, num_parts: int,
-                     method: str = "greedy") -> List[Tuple[int, int]]:
+                     method: str = "greedy",
+                     node_multiple: int = NODE_MULTIPLE,
+                     edge_multiple: int = EDGE_MULTIPLE,
+                     cost_weights=None) -> List[Tuple[int, int]]:
     """Split-point selection: the reference's greedy edge sweep
-    (``method='greedy'``).  ``'cost'`` raises: its minimax search lives
-    in ``core/costmodel.py``, which is not ported yet.  Unknown methods
-    raise too, so a typo never changes the split."""
+    (``method='greedy'``) or the cost-balanced minimax search
+    (``method='cost'``, core/costmodel.py; ``cost_weights`` is the
+    model's ``search_weights()``, by default the edge-balance prior).
+    Unknown methods raise, so a typo never changes the split."""
     if method == "greedy":
         return edge_balanced_bounds(row_ptr, num_parts)
     if method == "cost":
-        raise NotImplementedError(
-            "method='cost' needs core/costmodel.py, which is not ported "
-            "yet; use method='greedy'")
+        from .costmodel import cost_balanced_bounds
+        return cost_balanced_bounds(row_ptr, num_parts,
+                                    node_multiple=node_multiple,
+                                    edge_multiple=edge_multiple,
+                                    weights=cost_weights)
     raise ValueError(f"unknown partition method {method!r}; expected "
                      "'greedy' or 'cost'")
 
@@ -208,11 +214,15 @@ def partition_bounds(row_ptr: np.ndarray, num_parts: int,
 def partition_plan(row_ptr: np.ndarray, num_parts: int,
                    node_multiple: int = NODE_MULTIPLE,
                    edge_multiple: int = EDGE_MULTIPLE,
-                   method: str = "greedy") -> PartitionPlan:
+                   method: str = "greedy",
+                   cost_weights=None) -> PartitionPlan:
     """Everything about the partitioning derivable from the global row
     pointers alone: bounds, padded shapes, local row CSRs, degrees."""
     row_ptr = np.asarray(row_ptr, dtype=np.int64)
-    bounds = partition_bounds(row_ptr, num_parts, method=method)
+    bounds = partition_bounds(row_ptr, num_parts, method=method,
+                              node_multiple=node_multiple,
+                              edge_multiple=edge_multiple,
+                              cost_weights=cost_weights)
     return plan_from_bounds(row_ptr, bounds, num_parts,
                             node_multiple=node_multiple,
                             edge_multiple=edge_multiple)
@@ -274,13 +284,14 @@ def partition_col(plan: PartitionPlan, col_slice, p: int) -> np.ndarray:
 def partition_graph(graph: Graph, num_parts: int,
                     node_multiple: int = NODE_MULTIPLE,
                     edge_multiple: int = EDGE_MULTIPLE,
-                    method: str = "greedy") -> PartitionedGraph:
+                    method: str = "greedy",
+                    cost_weights=None) -> PartitionedGraph:
     """Partition ``graph`` into ``num_parts`` equal-shaped padded parts,
     every part's columns included."""
     plan = partition_plan(graph.row_ptr, num_parts,
                           node_multiple=node_multiple,
                           edge_multiple=edge_multiple,
-                          method=method)
+                          method=method, cost_weights=cost_weights)
     return materialize_plan(graph, plan)
 
 

@@ -17,6 +17,13 @@ edges' dummy) add nothing, and rows with no edges come out 0.  The edge
 count must be a ``chunk`` multiple, the JAX contract; the kernel itself
 does not need it.
 
+A caller that sums the same edges many times may pass the row ranges
+once, built on the host (``row_ptr``, int64 ``[num_rows + 1]``): the
+pre-pass is then skipped, and rows past the ranges' last edge, padding
+included, are never read.  The ring halo (parallel/ring.py) does so for
+each of its pairs, whose padding would otherwise all fall in the last
+row's range.
+
 ``feats`` is float32 or bfloat16 (the main pass's ``_f32`` or ``_bf16``
 instance; any other dtype is refused on the card; the pre-pass does not
 depend on it).  The main pass walks the columns in slices of
@@ -116,7 +123,8 @@ csr_row_ptr.launches = 0
 
 def csr_spmm(feats: torch.Tensor, edge_src: torch.Tensor,
              edge_dst: torch.Tensor, num_rows: int, chunk: int = 512,
-             slice_cols: Optional[int] = None) -> torch.Tensor:
+             slice_cols: Optional[int] = None,
+             row_ptr: Optional[torch.Tensor] = None) -> torch.Tensor:
     """``out[v] = sum(feats[src] for edges (src, v))``.
 
     feats: float32 or bfloat16 [R, F], no zero row (the dummy id is R).
@@ -125,8 +133,18 @@ def csr_spmm(feats: torch.Tensor, edge_src: torch.Tensor,
     slice_cols: the main pass's column slice width, one of
     ``slicing.SLICE_COLS``; None takes :func:`default_slice_cols`.  The
     plain version on the CPU has no slices and ignores it.
+    row_ptr: int64 ``[num_rows + 1]`` row ranges into the edges, built by
+    the caller (the pre-pass is skipped; edges outside the ranges are not
+    read); None runs the pre-pass :func:`csr_row_ptr`.  The plain
+    version sums every edge, so ranges that leave out only padding edges
+    give its result.
     Returns [num_rows, F] in ``feats.dtype``."""
     _check(feats, edge_src, edge_dst, chunk)
+    if row_ptr is not None and (row_ptr.shape != (num_rows + 1,)
+                                or row_ptr.device != feats.device):
+        raise ValueError(f"csr_spmm: row_ptr must be [{num_rows + 1}] on "
+                         f"{feats.device}, got {tuple(row_ptr.shape)} on "
+                         f"{row_ptr.device}")
     S = slicing.resolve("csr_spmm", slice_cols,
                         default_slice_cols(feats.shape[1], feats.dtype))
     if feats.device.type == "cpu":
@@ -138,7 +156,10 @@ def csr_spmm(feats: torch.Tensor, edge_src: torch.Tensor,
         raise TypeError("csr_spmm: the CUDA kernel takes contiguous feats")
     fn = _build.entry("csr_spmm", feats.dtype)
     R, F = feats.shape
-    row_ptr = csr_row_ptr(edge_dst, num_rows)
+    if row_ptr is None:
+        row_ptr = csr_row_ptr(edge_dst, num_rows)
+    elif row_ptr.dtype != torch.int64 or not row_ptr.is_contiguous():
+        raise TypeError("csr_spmm: row_ptr must be contiguous int64")
     out = torch.empty((num_rows, F), dtype=feats.dtype, device=feats.device)
     _build.check("csr_spmm", fn(
         feats.data_ptr(), edge_src.data_ptr(), row_ptr.data_ptr(),

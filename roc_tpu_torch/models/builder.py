@@ -62,7 +62,12 @@ holds the rank's own rows: ``num_rows`` output rows, tables indexing the
 ``gathered_rows`` rows of the halo gather.  The rerun on the cotangent
 gathers the cotangent, which is the shard-level form of the same
 identity: rank p's rows of ``S^T g`` are ``S_p gather(g)`` when
-``S^T = S``.
+``S^T = S``.  With ``halo='ring'`` the context holds the ring's tables
+instead and every sum is parallel/ring.py ``ring_aggregate``: K3 at each
+hop on the kernel routes (the fused chain K1 -> the ring's K3 hops -> K2,
+the masked K1 in its backward), K3's plain version on 'ell' and
+'segment' (their fused form reads the baked ring weights).  MAX, MIN and
+attention have no ring form.
 """
 
 from __future__ import annotations
@@ -99,6 +104,8 @@ EDGE_IMPLS = ("segment", "cuda_csr")
 KERNEL_IMPLS = ("cuda", "cuda_csr")
 LAYOUT_IMPLS = ("sectioned", "flat_sum", "bdense", "attn_flat8")
 AGGR_IMPLS = ELL_IMPLS + EDGE_IMPLS + LAYOUT_IMPLS
+# the halo exchanges of a partitioned run (parallel/distributed.py)
+HALOS = ("gather", "ring")
 # the graph ops whose outputs remat='save_aggregates' keeps (the ops the
 # JAX package tags with its checkpoint name 'aggregate')
 AGGREGATE_KINDS = ("scatter_gather", "fused_aggregate", "gat")
@@ -211,9 +218,18 @@ class GraphContext:
     flat8_idx / flat8_dst: the flat tables ('flat_sum', 'attn_flat8'),
       ``flat8_w`` their baked weights ('flat_sum').
     bd_a / bd_src / bd_dst: the block-dense A-tables (uint8, or u4-packed
-      ``[..., 64]``) and tile ids, ``bd_vpad`` the padded rows, ``bd_group``
-      the blocks a product sums; ``bd_scale`` the fused normalization's
-      ``(d_dst [vpad], d_src [vpad])``.
+      ``[..., 64]``) and tile ids, ``bd_vpad`` the padded rows,
+      ``bd_src_vpad`` the padded source rows (0: ``bd_vpad``; a
+      partitioned plan's source tiles span the gathered rows),
+      ``bd_group`` the blocks a product sums; ``bd_scale`` the fused
+      normalization's ``(d_dst [bd_vpad], d_src [bd_src_vpad])``.
+    The ring halo (``halo='ring'``, parallel/ring.py; the gather tables
+    are then unused):
+    ring_src / ring_dst: int32 ``[S, pair_edges]`` this rank's pair edge
+      lists; ring_row_ptr: int64 ``[S, num_rows + 1]`` their row ranges
+      over the real edges (K3's); ring_w: fp32 ``[S, pair_edges]`` the
+      baked fused weights (plain routes), or None; ring_comm: the
+      rank's ``Collectives``; ring_overlap: transfer under the hop's sum.
     """
 
     in_degree: torch.Tensor
@@ -240,15 +256,48 @@ class GraphContext:
     bd_src: Optional[torch.Tensor] = None
     bd_dst: Optional[torch.Tensor] = None
     bd_vpad: int = 0
+    bd_src_vpad: int = 0
     bd_group: int = 1
     bd_scale: Tuple[torch.Tensor, ...] = ()
+    halo: str = "gather"
+    ring_src: Optional[torch.Tensor] = None
+    ring_dst: Optional[torch.Tensor] = None
+    ring_row_ptr: Optional[torch.Tensor] = None
+    ring_w: Optional[torch.Tensor] = None
+    ring_comm: Any = None
+    ring_overlap: bool = True
 
     def __post_init__(self):
         if self.aggr_impl not in AGGR_IMPLS:
             raise ValueError(f"unknown aggr_impl {self.aggr_impl!r}; "
                              f"expected one of {AGGR_IMPLS}")
+        if self.halo not in HALOS:
+            raise ValueError(f"unknown halo {self.halo!r}; expected one of "
+                             f"{HALOS}")
+        if self.halo == "ring" and (self.ring_src is None
+                                    or self.ring_comm is None):
+            raise ValueError("halo='ring' needs the ring tables and the "
+                             "rank's collectives")
         if self.gathered_rows is None:
             self.gathered_rows = self.num_rows
+
+    def _ring_sum(self, x: torch.Tensor, baked: bool = False
+                  ) -> torch.Tensor:
+        """The ring's neighbour sum of this rank's rows (parallel/ring.py);
+        ``baked`` weighs each edge by the fused normalization."""
+        from ..parallel.ring import ring_aggregate
+        return ring_aggregate(x, self.ring_src, self.ring_dst,
+                              self.ring_comm, row_ptr=self.ring_row_ptr,
+                              weights=self.ring_w if baked else None,
+                              kernel=self.aggr_impl in KERNEL_IMPLS,
+                              overlap=self.ring_overlap)
+
+    def _refuse_ring(self, what: str) -> None:
+        if self.halo == "ring":
+            raise NotImplementedError(
+                f"{what} is not supported with halo='ring' (the ring "
+                "accumulator is additive; the whole neighborhood is "
+                "needed per row); use halo='gather'")
 
     def _gathered(self, x: torch.Tensor) -> torch.Tensor:
         """The halo exchange: ``[gathered_rows, F]``."""
@@ -264,7 +313,9 @@ class GraphContext:
         return torch.cat([full, full.new_zeros((1, full.shape[1]))], dim=0)
 
     def _sum_fwd(self, x: torch.Tensor) -> torch.Tensor:
-        """``A @ gather(x)``."""
+        """``A @ gather(x)``, or the ring's sum."""
+        if self.halo == "ring":
+            return self._ring_sum(x)
         if self.aggr_impl == "cuda":
             from ..kernels.ell_spmm import ell_aggregate
             return ell_aggregate(self._gathered(x), self.ell_idx,
@@ -303,6 +354,7 @@ class GraphContext:
                 full, self.bd_a, self.bd_src, self.bd_dst, self.num_rows,
                 self.bd_vpad, out_dtype=torch.promote_types(
                     full.dtype, torch.float32),
+                src_vpad=self.bd_src_vpad,
                 group=self.bd_group, scale_dst=scales[0],
                 scale_src=scales[1])
         if self.sect_idx:
@@ -331,6 +383,8 @@ class GraphContext:
                 x, self.in_degree, relu_out=relu_out)), d, act=act)
         if relu_out is not None:
             x = torch.where(relu_out > 0, x, 0)
+        if self._baked() and self.halo == "ring":
+            return dense.activation(self._ring_sum(x, baked=True), act)
         if self._baked():
             return dense.activation(
                 self._layout_sum(self._gathered_with_zero(x), baked=True),
@@ -340,6 +394,8 @@ class GraphContext:
 
     def _baked(self) -> bool:
         """True when the tables carry the fused normalization."""
+        if self.halo == "ring":
+            return self.ring_w is not None
         if self.aggr_impl == "flat_sum":
             return self.flat8_w is not None
         if self.aggr_impl == "sectioned":
@@ -385,7 +441,8 @@ class GraphContext:
         give 0.  The ELL routes ('ell', 'cuda') run the plain ELL max on
         their tables, 'segment' the plain edge-list max, 'flat_sum' the
         flat max; the other routes have no max form (as in the JAX
-        package) and raise."""
+        package) and raise; so does the ring."""
+        self._refuse_ring("AGGR_MAX")
         full = self._gathered_with_zero(x)
         if self.aggr_impl in ELL_IMPLS:
             out = aggregate_ell_max(full, self.ell_idx, self.ell_row_pos,
@@ -409,6 +466,7 @@ class GraphContext:
         (ops/attention.py), K heads for ``a_src``/``a_dst`` of shape
         ``[K, dh]`` (``[dh]`` is one head).  Needs the ELL tables (routes
         'ell' and 'cuda') or the flat tables ('attn_flat8')."""
+        self._refuse_ring("attention")
         flat8 = self.aggr_impl == "attn_flat8" and self.flat8_idx is not None
         if not flat8 and (self.aggr_impl not in ELL_IMPLS
                           or not self.ell_idx):

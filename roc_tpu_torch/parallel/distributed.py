@@ -19,20 +19,34 @@ The reference's distribution stack, one rank per partition:
   same replicated weights.
 - **Metrics reduction** (``softmax_kernel.cu:41-79``): an all-reduce sum
   of the ``perf_metrics`` sums.
+- **The ring halo** (``halo='ring'``, parallel/ring.py): instead of the
+  all-gather, one part's rows rotate around the ranks, point to point,
+  while each rank sums the edges from the part it holds; O(V/P) rows a
+  rank.  The memory autopilot picks it at P > 1 when the gather does not
+  fit.
+- **Cost-model partitioning** (core/costmodel.py, the reference's
+  headline idea): the split minimises the modeled cost of the largest
+  part (``partition='cost'``, the default through 'auto'), and with
+  ``rebalance`` the model is refit to measured epoch times at each eval
+  and the graph repartitioned between epochs when the predicted gain
+  passes a threshold (:meth:`DistributedTrainer.maybe_rebalance`).
 
 The aggregation on every rank runs the same routes as one device
 (models/builder.py): on 'cuda' K1 -> K4 -> K2, on 'cuda_csr' K1 -> K3 ->
 K2, with K3/K4 reading ``R = P * part_nodes`` gathered rows and writing
-``part_nodes`` rows.
+``part_nodes`` rows; the layouts ('sectioned', 'flat_sum', 'bdense',
+'attn_flat8') index the gathered rows too, and 'auto' resolves with a
+part's rows (train/trainer.py ``resolve_config``).  On the ring, K1 -> K3
+at each hop -> K2 on the kernel routes.
 
 The step is :class:`Trainer`'s, rematerialisation (``remat``) included.
-Ported subset: ``halo='gather'`` on one host; the ring halo, the
-multi-host loader, the cost-model split and online rebalancing, and the
-``(parts, model)`` mesh are not ported, and ``features='host'`` is
-single-device, as in the JAX package.  A ``memory='auto'`` plan that
-picks the ring is refused like an asked-for ring (:func:`shard_dataset`).
-A torch rank holds no other part's rows, so :class:`ShardedData` is one
-part.
+Ported subset: one host.  The multi-host loader and the ``(parts,
+model)`` mesh are not ported, and ``features='host'`` is single-device,
+as in the JAX package.  A torch rank holds no other part's rows, so
+:class:`ShardedData` is one part; where the JAX package pads every part
+to one shape, a rank agrees on the shapes it must share with one
+collective (the ring's ``pair_edges``, the sectioned chunk plans, the
+block-dense A-table's packing).
 """
 
 from __future__ import annotations
@@ -49,17 +63,19 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
-from ..core.ell import ell_from_padded_parts
+from ..core.ell import (default_section_rows, ell_from_padded_parts,
+                        flat_sum_from_padded_parts,
+                        sectioned_from_padded_parts)
 from ..core.graph import MASK_NONE, Dataset
 from ..core.partition import (PartitionedGraph, PartitionPlan,
-                              partition_col, partition_plan)
-from ..models.builder import (AGGR_IMPLS, EDGE_IMPLS, ELL_IMPLS,
-                              LAYOUT_IMPLS,
+                              partition_col, partition_plan,
+                              plan_from_bounds)
+from ..models.builder import (AGGR_IMPLS, ELL_IMPLS, HALOS, KERNEL_IMPLS,
                               GraphContext, Model)
-from ..ops.norm import inv_sqrt_degree
-from ..train.trainer import TrainConfig, Trainer
-
-HALOS = ("gather",)
+from ..obs.events import emit
+from ..ops.norm import inv_sqrt_degree, inv_sqrt_degree_np
+from ..train.trainer import (TrainConfig, Trainer, layout_options,
+                             resolve_partition)
 
 # torch.distributed's one-tensor all-gather: ``all_gather_single`` where
 # the installed torch has it (the name that replaces the deprecated one),
@@ -161,13 +177,15 @@ class Collectives:
     """This rank's collectives over a ``torch.distributed`` process group
     (``group``; None is the default group), in PyTorch's idiom where the
     JAX package has a mesh and ``shard_map``: the halo all-gather and
-    its transpose, the reduce-scatter; the all-reduce sum and the
-    broadcast of the initial weights.
+    its transpose, the reduce-scatter; the ring's point-to-point shift;
+    the all-reduce (sum, or the max a rank agrees on shapes with) and
+    the broadcast of the initial weights.
 
     The backend is the group's: ``nccl`` on the card, ``gloo`` on the
     CPU, or ``gloo`` on the card where the caller asked for it (ranks
-    sharing one card, which NCCL refuses; gloo takes the CUDA tensors
-    and moves them through the host itself).  Every collective runs at
+    sharing one card, which NCCL refuses; gloo takes the CUDA tensors of
+    a collective and moves them through the host itself, and
+    :meth:`ring_shift` stages its own).  Every collective runs at
     world size 1 as at any other, with no elision, so a one-rank run
     times them."""
 
@@ -203,16 +221,85 @@ class Collectives:
                                    group=self.group)
         return out
 
-    def all_reduce(self, x: torch.Tensor) -> torch.Tensor:
-        """Sum over the ranks, in place; returns ``x``."""
-        dist.all_reduce(x, op=dist.ReduceOp.SUM, group=self.group)
+    def all_reduce(self, x: torch.Tensor, op: str = "sum") -> torch.Tensor:
+        """Sum (or ``op='max'``) over the ranks, in place; returns ``x``."""
+        dist.all_reduce(x, op=dist.ReduceOp.MAX if op == "max"
+                        else dist.ReduceOp.SUM, group=self.group)
         return x
+
+    def _host_device(self) -> torch.device:
+        """Where a host value crosses: the CPU on gloo, this rank's card
+        on NCCL."""
+        if self.backend == "gloo":
+            return torch.device("cpu")
+        return torch.device("cuda", torch.cuda.current_device())
+
+    def agree_max(self, v: np.ndarray) -> np.ndarray:
+        """The elementwise max of an int64 vector over the ranks (one
+        all-reduce): how a rank agrees with the others on a shape every
+        part's tables share."""
+        t = torch.from_numpy(np.ascontiguousarray(v, dtype=np.int64))
+        return self.all_reduce(t.to(self._host_device()), "max").cpu() \
+            .numpy()
+
+    def broadcast_float(self, value: Optional[float]) -> Optional[float]:
+        """Rank 0's ``value`` (a float or None) on every rank."""
+        t = torch.tensor([np.nan if value is None else float(value)],
+                         dtype=torch.float64, device=self._host_device())
+        v = float(self.broadcast(t).item())
+        return None if np.isnan(v) else v
+
+    def _peer(self, group_rank: int) -> int:
+        return group_rank if self.group is None else \
+            dist.get_global_rank(self.group, group_rank)
+
+    def ring_shift(self, x: torch.Tensor, shift: int = 1) -> "_Shift":
+        """Start sending ``x`` to rank ``rank + shift`` and receiving the
+        same shape from rank ``rank - shift`` (mod the world size), point
+        to point (``batch_isend_irecv``); ``.wait()`` on the result
+        returns what arrived.  On NCCL the card's tensors move device to
+        device.  Gloo's send and receive take host memory, so a tensor on
+        the card goes through pinned host buffers: copied down before the
+        send, copied up after the receive (gloo stages its collectives the
+        same way)."""
+        n = self.world_size
+        to, frm = self._peer((self.rank + shift) % n), \
+            self._peer((self.rank - shift) % n)
+        x = x.contiguous()
+        up = None
+        if self.backend == "gloo" and x.is_cuda:
+            up = x.device
+            send = torch.empty(x.shape, dtype=x.dtype, pin_memory=True)
+            send.copy_(x)
+            recv = torch.empty(x.shape, dtype=x.dtype, pin_memory=True)
+        else:
+            send, recv = x, torch.empty_like(x)
+        works = dist.batch_isend_irecv([
+            dist.P2POp(dist.isend, send, to, self.group),
+            dist.P2POp(dist.irecv, recv, frm, self.group)])
+        return _Shift(works, send, recv, up)
 
     def broadcast(self, x: torch.Tensor) -> torch.Tensor:
         """The group's rank 0's ``x`` on every rank, in place; returns
         ``x``."""
         dist.broadcast(x, group=self.group, group_src=0)
         return x
+
+
+class _Shift:
+    """A started :meth:`Collectives.ring_shift` (it holds the send buffer
+    until the transfer ends)."""
+
+    def __init__(self, works, send, recv, up):
+        self.works, self._send, self.recv, self.up = works, send, recv, up
+
+    def wait(self) -> torch.Tensor:
+        for w in self.works:
+            w.wait()
+        self._send = None
+        if self.up is not None:
+            return self.recv.to(self.up, non_blocking=True)
+        return self.recv
 
 
 def _flat(tensors: Sequence[torch.Tensor]) -> torch.Tensor:
@@ -249,6 +336,18 @@ class ShardedData:
     Edge routes: ``edge_src`` int32 ``[part_edges]`` in gathered
       coordinates (dummy ``P * part_nodes``), ``edge_dst`` the local
       destination rows, sorted (padding edges on the first padded row).
+    Layouts (the rank's row of the JAX package's stacked tables, in
+      gathered coordinates): ``sect_*`` the sectioned tables ('sectioned',
+      and 'bdense''s residual), ``flat8_*`` the flat ones ('flat_sum',
+      'attn_flat8'), ``bd_*`` the rectangular block-dense plan (dst rows
+      ``part_nodes``, source tiles over the gathered rows) with
+      ``bd_occupancy`` its plan's record; ``*_w`` and ``bd_scale`` the
+      baked fused weights.
+    The ring (``halo='ring'``; no other table is built): ``ring_src``,
+    ``ring_dst`` int32 ``[S, pair_edges]``, ``ring_row_ptr`` int64
+    ``[S, part_nodes + 1]``, ``ring_real`` each pair's real edges (host),
+    ``ring_w`` the baked fused weights (plain routes), ``pair_edges`` and
+    ``ring_padding_ratio`` (padded slots over real edges, every part).
     """
     feats: torch.Tensor
     labels: torch.Tensor
@@ -259,62 +358,192 @@ class ShardedData:
     ell_row_id: Tuple[torch.Tensor, ...] = ()
     edge_src: Optional[torch.Tensor] = None
     edge_dst: Optional[torch.Tensor] = None
+    sect_idx: Tuple[torch.Tensor, ...] = ()
+    sect_sub_dst: Tuple[torch.Tensor, ...] = ()
+    sect_meta: Tuple[Tuple[int, int], ...] = ()
+    sect_w: Tuple[torch.Tensor, ...] = ()
+    flat8_idx: Optional[torch.Tensor] = None
+    flat8_dst: Optional[torch.Tensor] = None
+    flat8_w: Optional[torch.Tensor] = None
+    bd_a: Optional[torch.Tensor] = None
+    bd_src: Optional[torch.Tensor] = None
+    bd_dst: Optional[torch.Tensor] = None
+    bd_vpad: int = 0
+    bd_src_vpad: int = 0
+    bd_group: int = 1
+    bd_scale: Tuple[torch.Tensor, ...] = ()
+    bd_occupancy: Optional[dict] = None
+    ring_src: Optional[torch.Tensor] = None
+    ring_dst: Optional[torch.Tensor] = None
+    ring_row_ptr: Optional[torch.Tensor] = None
+    ring_real: Optional[np.ndarray] = None
+    ring_w: Optional[torch.Tensor] = None
+    pair_edges: int = 0
+    ring_padding_ratio: Optional[float] = None
+
+    def context_tables(self) -> Dict[str, Any]:
+        """The GraphContext keywords of these tables."""
+        names = ("ell_idx", "ell_row_pos", "ell_row_id", "edge_src",
+                 "edge_dst", "sect_idx", "sect_sub_dst", "sect_meta",
+                 "sect_w", "flat8_idx", "flat8_dst", "flat8_w", "bd_a",
+                 "bd_src", "bd_dst", "bd_vpad", "bd_src_vpad", "bd_group",
+                 "bd_scale", "ring_src", "ring_dst", "ring_row_ptr",
+                 "ring_w")
+        return {k: getattr(self, k) for k in names}
 
 
-def refuse_layout(aggr_impl: str) -> None:
-    """The partitioned trainer has no form of the large-graph layouts or
-    of 'auto' yet: raise rather than remap them."""
-    if aggr_impl in LAYOUT_IMPLS or aggr_impl == "auto":
-        raise NotImplementedError(
-            f"aggr_impl={aggr_impl!r} has no partitioned form in the port "
-            "yet (ROADMAP item 1: the partitioned sectioned, flat and "
-            "block-dense builders); the partitioned trainer runs "
-            f"{ELL_IMPLS + EDGE_IMPLS}")
+def _sectioned(ptr, col, real_nodes, plan, dev, sect_sub_w, sect_u16,
+               fuse_d, agree_max):
+    """This rank's sectioned tables over the gathered rows: its row of
+    ``sectioned_from_padded_parts`` over every part (``agree_max`` gives
+    it the shared chunk plan), ids narrowed to uint16 on ``sect_u16``,
+    with the baked fused weights given ``fuse_d = (d_dst [1, part_nodes],
+    d_src [P * part_nodes])``."""
+    sect = sectioned_from_padded_parts(
+        ptr[None], col[None], np.asarray([real_nodes]), plan.part_nodes,
+        src_rows=plan.padded_num_nodes,
+        section_rows=default_section_rows(sect_u16), sub_w=sect_sub_w,
+        agree_max=agree_max)
+    if sect_u16:
+        sect = sect.with_idx_dtype(np.uint16)
+    out = dict(sect_idx=tuple(dev(a[0]) for a in sect.idx),
+               sect_sub_dst=tuple(dev(a[0]) for a in sect.sub_dst),
+               sect_meta=sect.meta)
+    if fuse_d is not None:
+        out["sect_w"] = tuple(dev(w[0]) for w in
+                              sect.weight_tables(*fuse_d))
+    return out
 
 
-def refuse_halo(halo: str) -> None:
-    """Raise for a halo the port does not run (the ring), whether a user
-    asked for it or the memory autopilot chose it."""
-    if halo not in HALOS:
-        raise NotImplementedError(f"halo={halo!r} is not ported; the port "
-                                  f"runs {HALOS}")
+def _bdense(ptr, col, plan, dev, min_fill, a_budget, group, fuse_d,
+            agree_max):
+    """This rank's block-dense plan over the rectangular tile space
+    (``part_nodes`` dst rows, ``P * part_nodes`` gathered source rows), the
+    JAX package's u4 rule decided across the ranks with one collective
+    (plan against twice the budget; pack when every rank's plan packs,
+    else plan again at the budget when a rank is over it), and the
+    plan's record.  Returns ``(tables, residual row_ptr, residual
+    col)``."""
+    from ..ops.blockdense import U4_MAX, pack_a_u4, plan_blocks
+    src_rows = plan.padded_num_nodes
+
+    def mk(budget):
+        return plan_blocks(ptr, col, plan.part_nodes, min_fill=min_fill,
+                           a_budget_bytes=budget, num_cols=src_rows,
+                           group=group)
+
+    pl = mk(a_budget * 2 if a_budget is not None else None)
+    unpackable = bool(pl.n_blocks and int(pl.a_blocks.max()) > U4_MAX)
+    over = a_budget is not None and pl.a_blocks.nbytes > a_budget
+    flags = np.array([unpackable, over], dtype=np.int64)
+    if agree_max is not None:
+        flags = agree_max(flags)
+    if not flags[0]:
+        pl = pack_a_u4(pl)
+    elif flags[1]:
+        pl = mk(a_budget)
+    tables: Dict[str, Any] = dict(bd_occupancy=pl.occupancy(),
+                                  bd_group=group)
+    if pl.n_blocks:
+        tables.update(bd_a=dev(pl.a_blocks), bd_src=dev(pl.src_blk),
+                      bd_dst=dev(pl.dst_blk), bd_vpad=pl.vpad,
+                      bd_src_vpad=pl.src_vpad)
+    if fuse_d is not None:
+        dd = np.zeros(pl.vpad, np.float32)
+        dd[:plan.part_nodes] = fuse_d[0][0]
+        ds = np.zeros(pl.src_vpad, np.float32)
+        ds[:src_rows] = fuse_d[1]
+        tables.update(bd_scale=(dev(dd), dev(ds)), bd_vpad=pl.vpad,
+                      bd_src_vpad=pl.src_vpad)
+    return tables, pl.res_row_ptr, pl.res_col
 
 
 def shard_dataset(dataset: Dataset, plan: PartitionPlan, rank: int,
                   device, dtype: torch.dtype = torch.float32,
-                  aggr_impl: str = "cuda",
-                  halo: str = "gather") -> ShardedData:
+                  aggr_impl: str = "cuda", halo: str = "gather",
+                  fuse: bool = False, agree_max=None,
+                  sect_sub_w: int = 8, sect_u16: bool = False,
+                  bdense_min_fill: int = 64,
+                  bdense_a_budget: Optional[int] = 2 << 30,
+                  bdense_group: int = 1) -> ShardedData:
     """Build part ``rank`` of ``plan`` on ``device``, with the tables of
-    ``aggr_impl`` only.  Only this part's columns are read and remapped
-    (``partition_col``); its ELL buckets are padded for this part alone,
-    so their row counts may be smaller than the all-parts table's
-    (``ell_from_padded_parts`` over every part), with the same sums."""
-    refuse_halo(halo)
-    refuse_layout(aggr_impl)
+    ``aggr_impl`` only, or the ring's alone for ``halo='ring'``.  Only
+    this part's columns are read (``partition_col``).
+
+    Its ELL buckets are padded for this part alone, so their row counts
+    may be smaller than the all-parts table's (``ell_from_padded_parts``
+    over every part), with the same sums.  The layouts and the ring need
+    shapes that every part shares: ``agree_max`` (``Collectives.
+    agree_max``, one collective each; None for a world of one) gives the
+    rank its row of the JAX package's stacked tables.  ``fuse`` bakes the
+    fused normalization into the layouts' tables and, on the plain
+    routes, the ring's (``ring_w``); the layout keywords are
+    ``TrainConfig``'s."""
     if aggr_impl not in AGGR_IMPLS:
-        raise ValueError(f"aggr_impl {aggr_impl!r} is not ported; "
-                         f"expected one of {AGGR_IMPLS}")
+        raise ValueError(f"aggr_impl {aggr_impl!r} is not a route; "
+                         f"expected one of {AGGR_IMPLS} ('auto' is "
+                         "resolved by resolve_config)")
+    if halo not in HALOS:
+        raise ValueError(f"unknown halo {halo!r}; expected one of {HALOS}")
     g = dataset.graph
     pn = plan.part_nodes
-    dummy = plan.num_parts * pn
+    dummy = plan.padded_num_nodes
 
     def dev(a):
         return torch.from_numpy(np.ascontiguousarray(a)).to(device)
 
-    col = remap_col_to_padded(plan, partition_col(
-        plan, lambda e0, e1: g.col_idx[e0:e1], rank))
+    col_global = partition_col(plan, lambda e0, e1: g.col_idx[e0:e1], rank)
     tables: Dict[str, Any] = {}
-    if aggr_impl in ELL_IMPLS:
-        t = ell_from_padded_parts(plan.part_row_ptr[rank:rank + 1],
-                                  col[None], plan.real_nodes[rank:rank + 1],
-                                  pn, dummy=dummy)
-        tables = dict(ell_idx=tuple(dev(a[0]) for a in t.idx),
-                      ell_row_pos=dev(t.row_pos[0]),
-                      ell_row_id=tuple(dev(a[0]) for a in t.row_id))
+    fuse_d = None
+    if fuse:
+        d_parts = inv_sqrt_degree_np(plan.part_in_degree)
+        fuse_d = (d_parts[rank:rank + 1], d_parts.reshape(-1))
+    if halo == "ring":
+        from .ring import ring_part_tables, ring_weight_part
+        rt = ring_part_tables(plan, rank, col_global, agree_max)
+        tables = dict(ring_src=dev(rt["src"]), ring_dst=dev(rt["dst"]),
+                      ring_row_ptr=dev(rt["row_ptr"]), ring_real=rt["real"],
+                      pair_edges=rt["pair_edges"],
+                      ring_padding_ratio=rt["padding_ratio"])
+        if fuse and aggr_impl not in KERNEL_IMPLS:
+            tables["ring_w"] = dev(ring_weight_part(
+                plan, rank, rt["src"], rt["dst"],
+                inv_sqrt_degree_np(g.in_degree)))
     else:
-        edge_dst = np.repeat(np.arange(pn, dtype=np.int32),
-                             np.diff(plan.part_row_ptr[rank]))
-        tables = dict(edge_src=dev(col), edge_dst=dev(edge_dst))
+        col = remap_col_to_padded(plan, col_global)
+        ptr = plan.part_row_ptr[rank]
+        n_real = int(plan.real_nodes[rank])
+        if aggr_impl in ELL_IMPLS:
+            t = ell_from_padded_parts(ptr[None], col[None],
+                                      plan.real_nodes[rank:rank + 1], pn,
+                                      dummy=dummy)
+            tables = dict(ell_idx=tuple(dev(a[0]) for a in t.idx),
+                          ell_row_pos=dev(t.row_pos[0]),
+                          ell_row_id=tuple(dev(a[0]) for a in t.row_id))
+        elif aggr_impl == "sectioned":
+            tables = _sectioned(ptr, col, n_real, plan, dev, sect_sub_w,
+                                sect_u16, fuse_d, agree_max)
+        elif aggr_impl in ("flat_sum", "attn_flat8"):
+            flat = flat_sum_from_padded_parts(
+                ptr[None], col[None], plan.real_nodes[rank:rank + 1], pn,
+                src_rows=dummy, agree_max=agree_max)
+            tables = dict(flat8_idx=dev(flat.idx[0][0]),
+                          flat8_dst=dev(flat.sub_dst[0][0]))
+            if fuse_d is not None and aggr_impl == "flat_sum":
+                tables["flat8_w"] = dev(flat.weight_tables(*fuse_d)[0][0])
+        elif aggr_impl == "bdense":
+            from ..core.ell import clean_part_ptr
+            cptr = clean_part_ptr(ptr, n_real, pn)
+            tables, res_ptr, res_col = _bdense(
+                cptr, col[:int(cptr[-1])], plan, dev, bdense_min_fill,
+                bdense_a_budget, bdense_group, fuse_d, agree_max)
+            tables.update(_sectioned(res_ptr, res_col, n_real, plan, dev,
+                                     sect_sub_w, sect_u16, fuse_d,
+                                     agree_max))
+        else:
+            edge_dst = np.repeat(np.arange(pn, dtype=np.int32),
+                                 np.diff(ptr))
+            tables = dict(edge_src=dev(col), edge_dst=dev(edge_dst))
     return ShardedData(
         feats=torch.as_tensor(_part_rows(dataset.features, plan, rank),
                               dtype=dtype).to(device),
@@ -345,9 +574,21 @@ class DistributedTrainer(Trainer):
     ``evaluate`` and ``predict`` run collectives.
 
     It is :class:`Trainer` on this rank's part: :meth:`_place` builds the
-    part and its graph context with the halo gather, :meth:`_reduce` is
-    an all-reduce sum, :meth:`predict` gathers every part's logits; the
-    step, the epoch loop and the eval are Trainer's.
+    part and its graph context with the halo (the gather, or the ring),
+    :meth:`_reduce` is an all-reduce sum, :meth:`predict` gathers every
+    part's logits; the step, the epoch loop and the eval are Trainer's.
+
+    - The split: ``config.partition`` (:func:`~roc_tpu_torch.train.
+      trainer.resolve_partition`; 'auto' is the cost model's) with the
+      cost model's search weights; a ``costmodel`` event records its
+      quality (:meth:`_emit_partition_stats`), and each eval record
+      carries the predicted straggler (:meth:`straggler_fields`).  With
+      ``config.rebalance``, :meth:`maybe_rebalance` refits the model at
+      each eval and repartitions (:meth:`_repartition`); rank 0's
+      measured time decides, broadcast, so every rank decides alike.
+    - The ring (``config.halo='ring'``): a ``plan`` event gives P,
+      ``pair_edges``, ``padding_ratio`` and the overlap, as the JAX
+      package's does.
 
     - Weights: ``params``, or Glorot weights drawn as :class:`Trainer`
       draws them (a generator seeded with ``config.seed``), then
@@ -386,7 +627,6 @@ class DistributedTrainer(Trainer):
                              f"has {self.comm.world_size} ranks (one "
                              f"partition per rank)")
         self.rank = self.comm.rank
-        refuse_layout(config.aggr_impl)
         super().__init__(model, dataset, dataclasses.replace(
             config, verbose=config.verbose and self.rank == 0),
             params=params, device=device)
@@ -401,29 +641,211 @@ class DistributedTrainer(Trainer):
         if self.rank != 0:
             self.generator = torch.Generator(device=self.device).manual_seed(
                 rank_seed(config.seed, self.rank))
+        cfg = self.config
+        if cfg.halo == "ring":
+            d = self.data
+            ratio = d.ring_padding_ratio
+            route = ("K3 at each hop" if cfg.aggr_impl in KERNEL_IMPLS
+                     else "plain hop sums")
+            emit("plan", f"halo=ring: P={self.plan.num_parts} "
+                 f"pair_edges={d.pair_edges} padding_ratio={ratio:.2f} "
+                 f"overlap={'on' if cfg.ring_overlap else 'off'} "
+                 f"(aggr_impl={cfg.aggr_impl!r}: {route}; the ring tables "
+                 f"drive the aggregation)", console=cfg.verbose,
+                 num_parts=self.plan.num_parts, pair_edges=d.pair_edges,
+                 padding_ratio=ratio, ring_overlap=bool(cfg.ring_overlap))
+        self._partition_stats = self._emit_partition_stats()
 
     def _num_parts(self) -> int:
         return self.comm.world_size
 
     def _place(self, dataset: Dataset, symmetric: bool) -> None:
-        """This rank's part of the edge-balanced plan (``plan``, ``data``)
-        and its graph context, whose aggregations read the halo
-        all-gather of every part's rows."""
+        """This rank's part of the split (``plan``, ``data``) and its graph
+        context: the method of ``config.partition`` under the cost model's
+        cold-start weights, the tables of the resolved route and halo."""
+        from ..core.costmodel import PartitionCostModel
         cfg = self.config
-        self.plan = partition_plan(dataset.graph.row_ptr, self.comm.world_size,
-                                   edge_multiple=cfg.chunk)
-        self.data = d = shard_dataset(dataset, self.plan, self.rank,
-                                      self.device, dtype=self.compute,
-                                      aggr_impl=cfg.aggr_impl)
+        self._dataset = dataset
+        self._symmetric = symmetric
+        self._partition_method = resolve_partition(cfg)
+        # the φ columns only this workload pays (attention's softmax pass,
+        # the flat layouts' sub-rows)
+        self._phi_flags = dict(
+            attn_edges=bool(self.model.uses_attention()),
+            flat8=cfg.aggr_impl in ("attn_flat8", "flat_sum"))
+        self._costmodel = PartitionCostModel(node_multiple=8,
+                                             edge_multiple=cfg.chunk)
+        self._rebalances = 0
+        self._phi_cache = None
+        self._build(partition_plan(
+            dataset.graph.row_ptr, self.comm.world_size, node_multiple=8,
+            edge_multiple=cfg.chunk, method=self._partition_method,
+            cost_weights=self._costmodel.search_weights(**self._phi_flags)))
+
+    def _build(self, plan: PartitionPlan) -> None:
+        """Build this rank's part of ``plan`` (``plan``, ``data``, ``feats``,
+        ``labels``, ``mask``) and its graph context: at init and after a
+        repartition, ring tables included."""
+        cfg = self.config
+        agree = self.comm.agree_max if self.comm.world_size > 1 else None
+        d = shard_dataset(self._dataset, plan, self.rank, self.device,
+                          dtype=self.compute, aggr_impl=cfg.aggr_impl,
+                          halo=cfg.halo,
+                          fuse=self.model.num_fused_aggregates() > 0,
+                          agree_max=agree, **layout_options(cfg))
+        self.plan, self.data = plan, d
         self.feats, self.labels, self.mask = d.feats, d.labels, d.mask
+        self._bd_occupancy: Tuple[dict, ...] = ()
+        if d.bd_occupancy is not None:
+            self._bd_occupancy = self._bdense_record(d.bd_occupancy)
         self.gctx = GraphContext(
             in_degree=d.in_degree, inv_sqrt_deg=inv_sqrt_degree(d.in_degree),
-            num_rows=self.plan.part_nodes, ell_idx=d.ell_idx,
-            ell_row_pos=d.ell_row_pos, ell_row_id=d.ell_row_id,
-            aggr_impl=cfg.aggr_impl, symmetric=symmetric,
-            edge_src=d.edge_src, edge_dst=d.edge_dst, chunk=cfg.chunk,
+            num_rows=plan.part_nodes, aggr_impl=cfg.aggr_impl,
+            symmetric=self._symmetric, chunk=cfg.chunk,
             gather_features=self.comm.gather,
-            gathered_rows=self.plan.padded_num_nodes)
+            gathered_rows=plan.padded_num_nodes, halo=cfg.halo,
+            ring_comm=self.comm if cfg.halo == "ring" else None,
+            ring_overlap=cfg.ring_overlap, **d.context_tables())
+
+    def _bdense_record(self, occ: dict) -> Tuple[dict, ...]:
+        """Every part's block count (one collective), with this part's
+        plan as a ``plan`` event, and the JAX package's echo when no part
+        has a dense tile."""
+        P = self.comm.world_size
+        mine = np.zeros(P, dtype=np.int64)
+        mine[self.rank] = occ["n_blocks"]
+        blocks = self.comm.agree_max(mine) if P > 1 else mine
+        cfg = self.config
+        emit("plan", f"bdense part {self.rank}: {occ['n_blocks']} blocks, "
+             f"dense_frac={occ['dense_frac']}, mean_fill="
+             f"{occ['mean_fill']}", console=cfg.verbose, part=self.rank,
+             **occ)
+        if not blocks.any():
+            emit("plan", "bdense: no [128,128] tile reaches min_fill="
+                 f"{cfg.bdense_min_fill} on any partition — running the "
+                 "pure sectioned residual")
+        return tuple({"n_blocks": int(n)} for n in blocks)
+
+    # -- the cost model (core/costmodel.py)
+
+    def _col_slice(self, e0: int, e1: int) -> np.ndarray:
+        return self._dataset.graph.col_idx[e0:e1]
+
+    def _phi(self) -> np.ndarray:
+        """The current split's feature matrix, computed once a split (its
+        halo pass is O(E)); the same on every rank."""
+        if self._phi_cache is None:
+            from ..core.costmodel import phi_matrix
+            self._phi_cache = phi_matrix(
+                self.plan, bd_occupancy=self._bd_occupancy,
+                col_slice=self._col_slice, **self._phi_flags)
+        return self._phi_cache
+
+    def _emit_partition_stats(self) -> dict:
+        """The split's quality record (core/costmodel.py
+        ``partition_static_stats``) as a ``costmodel`` event; returns it."""
+        from ..core.costmodel import partition_static_stats
+        stats = partition_static_stats(self.plan, phi=self._phi())
+        emit("costmodel",
+             f"partition={self._partition_method}: "
+             f"P={stats['num_parts']} "
+             f"part_nodes={stats['part_nodes']} "
+             f"part_edges={stats['part_edges']} "
+             f"edge imbalance (max/mean) {stats['edge_imbalance']:.2f} "
+             f"node {stats['node_imbalance']:.2f}",
+             console=self.config.verbose,
+             method=self._partition_method, **stats)
+        return stats
+
+    def straggler_fields(self, m: Dict[str, Any]) -> Dict[str, Any]:
+        """The part the cost model predicts slowest for an eval record's
+        measured epoch, and its predicted cost over the mean
+        (``straggler_part``, ``straggler_ratio``); a ``costmodel``
+        straggler event with every part's predicted cost.  Empty for a
+        record with no steady epoch time."""
+        t = m.get("epoch_ms")
+        if not t:
+            return {}
+        pred = self._costmodel.predict(self._phi())
+        p = int(np.argmax(pred))
+        mean = float(np.mean(pred))
+        ratio = round(float(pred[p]) / mean, 4) if mean > 0 else None
+        out: Dict[str, Any] = {"straggler_part": p,
+                               "straggler_ratio": ratio}
+        emit("costmodel",
+             f"straggler: epoch {m.get('epoch')} lap {t:.1f} ms -> "
+             f"part {p} (predicted {ratio}x the {self.plan.num_parts}-"
+             f"shard mean)", console=False, kind="straggler",
+             epoch=m.get("epoch"), measured_ms=float(t),
+             num_parts=self.plan.num_parts,
+             predicted_cost=[round(float(c), 3) for c in pred], **out)
+        return out
+
+    def maybe_rebalance(self, m: Dict[str, Any]) -> bool:
+        """The epoch-boundary rebalancing hook (train/trainer.py
+        ``run_epoch_loop`` calls it after each eval record, on every
+        rank): attribute rank 0's measured epoch time to the part the
+        model predicts slowest (winner takes all; broadcast, so every
+        rank fits the same model), search a split under the refit
+        weights, and repartition when the predicted gain of the largest
+        part's cost passes ``rebalance_gain`` (at most ``rebalance_max``
+        times).  Returns True when it repartitioned."""
+        cfg = self.config
+        if not cfg.rebalance or self._rebalances >= cfg.rebalance_max:
+            return False
+        from ..core.costmodel import bounds_max_cost, cost_balanced_bounds
+        t = self.comm.broadcast_float(m.get("epoch_ms") or None)
+        if t:
+            phi = self._phi()
+            p_star = int(np.argmax(self._costmodel.predict(phi)))
+            self._costmodel.observe(phi[p_star], float(t))
+            emit("costmodel",
+                 f"observe: epoch {m.get('epoch')} lap {t:.1f} ms "
+                 f"attributed to part {p_star}", console=False,
+                 part=p_star, epoch_ms=float(t),
+                 n_obs=self._costmodel.n_obs)
+        wn, we = self._costmodel.search_weights(**self._phi_flags)
+        row_ptr = self._dataset.graph.row_ptr
+        nm, em = self.plan.node_multiple, self.plan.edge_multiple
+        cur = bounds_max_cost(row_ptr, self.plan.bounds, wn, we, nm, em)
+        new_bounds = cost_balanced_bounds(
+            row_ptr, self.plan.num_parts, node_multiple=nm,
+            edge_multiple=em, weights=(wn, we))
+        new = bounds_max_cost(row_ptr, new_bounds, wn, we, nm, em)
+        gain = 1.0 - new / cur if cur > 0 else 0.0
+        same = [tuple(b) for b in new_bounds] == \
+            [tuple(b) for b in self.plan.bounds]
+        if same or gain <= cfg.rebalance_gain:
+            emit("costmodel",
+                 f"rebalance: predicted max-shard gain {gain:.1%} "
+                 f"<= threshold {cfg.rebalance_gain:.0%} — keeping "
+                 f"the current split", console=False,
+                 gain=round(gain, 4), threshold=cfg.rebalance_gain)
+            return False
+        self._repartition(new_bounds, gain=gain)
+        return True
+
+    def _repartition(self, bounds, gain: Optional[float] = None) -> None:
+        """Rebuild this rank's part for ``bounds`` (the plan, the tables,
+        ring tables included, and the graph context) and go on: the
+        weights and Adam state are replicated and full-batch training
+        does not depend on the split."""
+        old_edges = self.plan.part_edges
+        self._build(plan_from_bounds(
+            self._dataset.graph.row_ptr, [tuple(b) for b in bounds],
+            self.plan.num_parts, node_multiple=self.plan.node_multiple,
+            edge_multiple=self.plan.edge_multiple))
+        self._phi_cache = None
+        self._rebalances += 1
+        self._partition_stats = self._emit_partition_stats()
+        emit("costmodel",
+             f"repartition #{self._rebalances}: predicted max-shard "
+             f"gain {'?' if gain is None else format(gain, '.1%')}, "
+             f"part_edges {old_edges} -> {self.plan.part_edges}",
+             rebalance=self._rebalances,
+             gain=None if gain is None else round(gain, 4),
+             part_edges=self.plan.part_edges,
+             part_nodes=self.plan.part_nodes)
 
     def _reduce(self, tensors: List[torch.Tensor]) -> List[torch.Tensor]:
         """Every rank's ``tensors`` summed, in one all-reduce of one fp32
@@ -461,6 +883,12 @@ class DistributedTrainer(Trainer):
 
 def _rank_main(rank: int, world_size: int, backend: str, init_method: str,
                timeout_s: float, job: Callable, kwargs: dict, queue) -> None:
+    # the ranks share the host's cores: each takes its share of intra-op
+    # threads (with every rank at the host's count, a CPU index_add_ of a
+    # few hundred rows took ~200 ms instead of ~0.03)
+    cores = len(os.sched_getaffinity(0)) if hasattr(os, "sched_getaffinity") \
+        else (os.cpu_count() or 1)
+    torch.set_num_threads(max(1, cores // world_size))
     try:
         dist.init_process_group(backend, init_method=init_method,
                                 world_size=world_size, rank=rank,

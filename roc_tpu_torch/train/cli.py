@@ -7,7 +7,8 @@ that the port covers: the reference's flags (``gnn.cc:114-179``) —
 ``models.model_builders()``: gcn, sage, gin, gat, sgc, appnp, gcn2) with
 its knobs ``--heads``, ``--hops``, ``--alpha``, ``--lam`` and
 ``--learn-eps``, ``--impl``, ``--fuse``, ``--dtype``,
-``--eval-every``, ``--parts``, ``--dist-backend``, ``--cpu``, the memory
+``--eval-every``, ``--parts``, ``--dist-backend``, ``--halo``,
+``--partition``, ``--rebalance``, ``--cpu``, the memory
 flags ``--memory``, ``--features``, ``--remat`` and ``--prefetch``, and the
 checkpoint and recovery flags ``--checkpoint``, ``--checkpoint-every``,
 ``--resume``, ``--recovery``, ``--max-retries``, ``--preempt-grace``,
@@ -37,7 +38,12 @@ synthetic dataset (512 vertices, degree 8).  Prints the reference's
 must equal N); rank r takes card ``cuda:<local rank>``.  The backend is
 ``nccl`` on the card and ``gloo`` with ``--cpu``; ``--dist-backend``
 overrides it.  Only rank 0 prints, emits events to the console or
-``--events``, and writes checkpoints.
+``--events``, and writes checkpoints.  ``--halo ring`` rotates the parts'
+rows around the ranks instead of all-gathering them (O(V/P) rows a
+rank; ``--memory auto`` picks it when the gather does not fit);
+``--partition greedy|cost|auto`` picks the split (``auto``, the default,
+is the cost model's), and ``--rebalance`` refits the cost model at each
+eval and repartitions between epochs.
 
 ``--recovery --checkpoint PREFIX`` trains in rounds of
 ``--checkpoint-every`` epochs (default: ``--eval-every``) under a
@@ -59,6 +65,9 @@ failures, stalls and I/O errors from the last good one.  A preemption
         --features host --prefetch 1 --remat
     torchrun --standalone --nproc-per-node 2 -m roc_tpu_torch.train.cli \
         --parts 2 --cpu -layers 16-16-4 -e 20
+    torchrun --standalone --nproc-per-node 4 -m roc_tpu_torch.train.cli \
+        --parts 4 --halo ring --partition cost --rebalance --cpu \
+        -layers 16-16-4 -e 20
     python -m roc_tpu_torch.train.cli --cpu -layers 16-16-4 -e 20 \
         --recovery --checkpoint /tmp/ck --checkpoint-every 2 \
         --fault sigkill:5     # dies; the same command again resumes
@@ -166,6 +175,23 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
     ap.add_argument("--parts", type=int, default=1,
                     help="graph partitions, one per rank (launch N > 1 "
                          "ranks with torchrun --nproc-per-node N)")
+    ap.add_argument("--halo", default="gather", choices=["gather", "ring"],
+                    help="halo exchange for --parts > 1: gather = every "
+                         "rank all-gathers every part's rows; ring = the "
+                         "parts' rows rotate around the ranks (O(V/P) "
+                         "rows a rank)")
+    ap.add_argument("--partition", default="auto",
+                    choices=["greedy", "cost", "auto"],
+                    help="split for --parts > 1: greedy = the reference's "
+                         "edge sweep, cost = the cost model's minimax "
+                         "split, auto (default) = cost")
+    ap.add_argument("--rebalance", action="store_true",
+                    help="--parts > 1: refit the per-partition cost model "
+                         "to the measured epoch times at each eval and "
+                         "repartition when the predicted gain of the "
+                         "largest part's cost exceeds 10%% (at most 2 "
+                         "times a run; full-batch training does not "
+                         "depend on the split)")
     ap.add_argument("--dist-backend", default=None, choices=DIST_BACKENDS,
                     help="torch.distributed backend for --parts > 1 "
                          "(default: nccl on the card, gloo with --cpu)")
@@ -228,6 +254,14 @@ def main(argv: Optional[List[str]] = None) -> int:
         return 2
     if args.parts < 1:
         print("error: --parts must be >= 1", file=sys.stderr)
+        return 2
+    if args.rebalance and args.parts <= 1:
+        print("error: --rebalance requires --parts > 1 (rebalancing "
+              "moves partition boundaries over the ranks)", file=sys.stderr)
+        return 2
+    if args.halo == "ring" and args.parts <= 1:
+        print("error: --halo ring requires --parts > 1 (the ring "
+              "rotates parts over the ranks)", file=sys.stderr)
         return 2
     if args.recovery and not args.checkpoint:
         print("error: --recovery needs --checkpoint PREFIX (the rotation "
@@ -351,11 +385,14 @@ def _train(args, layers, model, device, rank) -> int:
               f"dtype={args.dtype} memory={args.memory} "
               f"features={args.features} remat={args.remat} "
               f"prefetch={args.prefetch} "
-              f"parts={args.parts} device={device}",
+              f"parts={args.parts} halo={args.halo} "
+              f"partition={args.partition} rebalance={args.rebalance} "
+              f"device={device}",
               file=sys.stderr)
     dtype, compute_dtype = resolve_dtypes(args.dtype)
     memory = args.memory
-    if memory == "auto" and (args.features != "hbm" or args.remat):
+    if memory == "auto" and (args.halo != "gather"
+                             or args.features != "hbm" or args.remat):
         # explicit residency flags win over the autopilot
         memory = "manual"
     cfg = TrainConfig(
@@ -365,7 +402,8 @@ def _train(args, layers, model, device, rank) -> int:
         eval_every=args.eval_every, verbose=True, aggr_impl=args.impl,
         aggr_fuse=args.fuse, dtype=dtype, compute_dtype=compute_dtype,
         async_save=args.async_save, fault=args.fault, memory=memory,
-        features=args.features, remat=args.remat, prefetch=args.prefetch)
+        features=args.features, remat=args.remat, prefetch=args.prefetch,
+        halo=args.halo, partition=args.partition, rebalance=args.rebalance)
     if args.recovery or args.preempt_grace is not None:
         preempt.install(args.preempt_grace if args.preempt_grace is not None
                         else preempt.DEFAULT_GRACE_S)

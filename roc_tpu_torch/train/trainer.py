@@ -94,12 +94,24 @@ class TrainConfig:
       remat_policy: 'save_aggregates' keeps the graph ops' outputs and
       recomputes the dense ops between them, 'full' recomputes
       everything (:func:`remat_policy`).
-    memory: 'manual' takes features/remat as given; 'auto' runs
+    memory: 'manual' takes halo/features/remat as given; 'auto' runs
       :func:`apply_memory_autopilot` and takes the first plan that fits
       ``hbm_bytes`` (None: the device's memory,
-      core/memory.py ``detect_hbm_bytes``).  The port's halo is always
-      'gather': the ring is not ported, and an autopilot plan that picks
-      it is refused.
+      core/memory.py ``detect_hbm_bytes``).
+    The partitioned trainer's fields (parallel/distributed.py), the JAX
+    package's:
+    halo: 'gather' (every rank all-gathers every part's rows before each
+      aggregation) or 'ring' (parallel/ring.py: one part's rows rotate
+      around the ranks, O(V/P) rows held); one part runs 'gather'.
+    ring_overlap: the ring's transfer runs under the hop's sum (the same
+      bits either way).
+    partition: 'greedy' (the reference's edge sweep), 'cost' (the
+      cost-balanced minimax split, core/costmodel.py) or 'auto', which is
+      'cost' (:func:`resolve_partition`).
+    rebalance: at each eval, refit the cost model to the measured epoch
+      time and repartition when the predicted gain of the largest part's
+      cost passes ``rebalance_gain``, at most ``rebalance_max`` times a
+      run (full-batch training does not depend on the split).
     """
     learning_rate: float = 0.01
     weight_decay: float = 0.05
@@ -129,6 +141,12 @@ class TrainConfig:
     memory: str = "manual"
     hbm_bytes: Optional[int] = None
     prefetch: Any = "auto"
+    halo: str = "gather"
+    ring_overlap: bool = True
+    partition: str = "auto"
+    rebalance: bool = False
+    rebalance_gain: float = 0.10
+    rebalance_max: int = 2
 
 
 # the TrainConfig fields that shape the layouts' tables
@@ -162,6 +180,21 @@ def resolve_async_save(config: TrainConfig) -> bool:
                     and dist.get_world_size() > 1)
     raise ValueError(f"unknown async_save {v!r}; expected 'auto', "
                      "'on', or 'off'")
+
+
+def resolve_partition(config: TrainConfig) -> str:
+    """``TrainConfig.partition`` -> the split method: 'auto' is 'cost'
+    (its cold-start weights are the quantized edge-balance prior, so the
+    searched split is never worse than the greedy sweep under the model),
+    as in the JAX package; unknown values raise.  The CLI's
+    ``--partition`` goes through this too."""
+    p = config.partition
+    if p == "auto":
+        return "cost"
+    if p in ("greedy", "cost"):
+        return p
+    raise ValueError(f"unknown partition {p!r}; expected 'greedy', "
+                     "'cost', or 'auto'")
 
 
 def resolve_prefetch(config: TrainConfig) -> int:
@@ -218,21 +251,22 @@ def modeled_step_bytes(model: Model, dataset: Dataset, config: TrainConfig,
         dataset.graph.num_nodes, dataset.graph.num_edges,
         model_layer_dims(model), num_parts=num_parts,
         dtype_bytes=_dtype_bytes(compute_dtype_of(config)),
-        halo="gather", features=config.features, remat=config.remat,
+        halo=config.halo if num_parts > 1 else "gather",
+        features=config.features, remat=config.remat,
         remat_policy=config.remat_policy, extra_table_bytes=a_tab)
 
 
 def apply_memory_autopilot(model: Model, dataset: Dataset,
                            config: TrainConfig, num_parts: int = 1,
                            device=None) -> TrainConfig:
-    """``memory='auto'`` resolved into concrete features/remat by
+    """``memory='auto'`` resolved into concrete halo/features/remat by
     core/memory.py ``choose_memory_plan`` over the dataset's and model's
     shapes, with the budget ``hbm_bytes`` or the memory of ``device``;
     the decision is a ``plan`` event (on the console when verbose, or
-    when no plan fits).  A plan that picks the ring halo (parts > 1) is
-    refused: the ring is not ported.  A no-op for ``memory='manual'``.
-    Runs after 'auto' is resolved, so a block-dense route's A-table is
-    charged."""
+    when no plan fits).  The ring plans come in at parts > 1, as in the
+    JAX package; one part keeps the configured halo.  A no-op for
+    ``memory='manual'``.  Runs after 'auto' is resolved, so a
+    block-dense route's A-table is charged."""
     if config.memory != "auto":
         return config
     from ..core.memory import charged_table_bytes, choose_memory_plan
@@ -257,10 +291,9 @@ def apply_memory_autopilot(model: Model, dataset: Dataset,
          halo=plan.halo, features=plan.features, remat=plan.remat,
          fits=plan.fits, est_bytes=plan.est_bytes,
          budget_bytes=plan.budget_bytes, candidates=plan.candidates)
-    from ..parallel.distributed import refuse_halo
-    refuse_halo(plan.halo)
     return dataclasses.replace(
-        config, memory="manual", features=plan.features, remat=plan.remat)
+        config, memory="manual", features=plan.features, remat=plan.remat,
+        halo=plan.halo if num_parts > 1 else config.halo)
 
 
 def derived_seed(*words: int) -> int:
@@ -311,7 +344,8 @@ def card_kind(device) -> Optional[str]:
     return torch.cuda.get_device_name(device)
 
 
-def resolve_auto_impl_probed(graph, *, device_kind: Optional[str] = None,
+def resolve_auto_impl_probed(graph, out_rows: Optional[int] = None, *,
+                             device_kind: Optional[str] = None,
                              bdense_min_fill: int = 64,
                              bdense_a_budget: Optional[int] = 2 << 30,
                              bdense_group: int = 1) -> str:
@@ -321,9 +355,12 @@ def resolve_auto_impl_probed(graph, *, device_kind: Optional[str] = None,
     the window, from ``BDENSE_AUTO_MIN_EDGES`` edges: 'bdense' when the
     census puts ``BDENSE_AUTO_MIN_FRAC`` of the edges on dense tiles;
     native planners only), then the card's row (core/ell.py
-    ``port_route``).  Emits a ``resolve`` event with the JAX rule's
-    answer (``jax_resolves``) beside the port's."""
-    jax_impl = jax_auto_impl(graph.num_nodes, num_edges=graph.num_edges)
+    ``port_route``).  ``out_rows`` is a part's output rows on a
+    partitioned run (the window's upper bound reads it; None: every
+    row).  Emits a ``resolve`` event with the JAX rule's answer
+    (``jax_resolves``) beside the port's."""
+    jax_impl = jax_auto_impl(graph.num_nodes, out_rows=out_rows,
+                             num_edges=graph.num_edges)
     fields: Dict[str, Any] = {}
     if jax_impl == "sectioned" and \
             graph.num_edges >= bd.BDENSE_AUTO_MIN_EDGES:
@@ -347,17 +384,19 @@ def resolve_auto_impl_probed(graph, *, device_kind: Optional[str] = None,
 
 
 def resolve_auto_impl_early(model: Model, config: TrainConfig, graph,
-                            device_kind: Optional[str] = None
+                            device_kind: Optional[str] = None,
+                            out_rows: Optional[int] = None
                             ) -> TrainConfig:
     """'auto' resolved for a model of sums; attention and MAX/MIN models
-    are left to :func:`resolve_attention_impl`, as in the JAX package."""
+    are left to :func:`resolve_attention_impl`, as in the JAX package.
+    ``out_rows``: a part's output rows on a partitioned run."""
     if config.aggr_impl != "auto" or model.uses_attention() \
             or model.uses_max_aggregation():
         return config
     if graph is None:
         raise ValueError("aggr_impl='auto' needs the dataset")
     return dataclasses.replace(config, aggr_impl=resolve_auto_impl_probed(
-        graph, device_kind=device_kind,
+        graph, out_rows=out_rows, device_kind=device_kind,
         bdense_min_fill=config.bdense_min_fill,
         bdense_a_budget=config.bdense_a_budget,
         bdense_group=config.bdense_group))
@@ -375,7 +414,8 @@ def resolve_attention_impl(model: Model, config: TrainConfig,
     'attn_flat8' and a MAX/MIN model to 'flat_sum', and below them to
     'ell' ('cuda' for an 'auto' request: the JAX rule's 'ell'), each with
     a ``resolve`` event.  'attn_flat8' on a model without attention
-    raises."""
+    raises, and so does an attention or MAX/MIN model on the ring halo
+    (the JAX package's message)."""
     why = ("attention" if model.uses_attention()
            else "MAX/MIN aggregation" if model.uses_max_aggregation()
            else None)
@@ -383,7 +423,14 @@ def resolve_attention_impl(model: Model, config: TrainConfig,
         raise NotImplementedError(
             "aggr_impl='attn_flat8' is the attention-only layout; this "
             f"model uses {why or 'sum aggregation'}")
-    if why is None or config.aggr_impl in ("ell", "cuda", "attn_flat8"):
+    if why is None:
+        return config
+    if config.halo == "ring":
+        raise NotImplementedError(
+            f"{why} models are not supported with halo='ring' (the "
+            "ring accumulator is additive; the whole neighborhood is "
+            "needed per row); use halo='gather'")
+    if config.aggr_impl in ("ell", "cuda", "attn_flat8"):
         return config
     if why != "attention" and config.aggr_impl in ("segment", "flat_sum"):
         return config
@@ -407,17 +454,27 @@ def resolve_config(model: Model, dataset: Optional[Dataset],
                    ) -> Tuple[Model, TrainConfig]:
     """THE resolve pass, in the JAX package's order: the fuse rewrite
     (:func:`resolve_fuse`), 'auto' (:func:`resolve_auto_impl_early`, by
-    the card ``device`` is; None is the CPU), the memory autopilot
+    the card ``device`` is, None the CPU, and a part's rows at
+    ``num_parts`` > 1), the memory autopilot
     (:func:`apply_memory_autopilot`, over ``num_parts`` parts and the
     memory of ``device``), then the model-driven route
-    (:func:`resolve_attention_impl`).  ``Trainer`` and
+    (:func:`resolve_attention_impl`).  One part runs the halo 'gather',
+    whatever the config asks (no rank to rotate to).  ``Trainer`` and
     ``serve/export.build_predictor`` both run it, so a predictor serves
     the model and route a trainer would train.  Idempotent: a resolved
     pair comes back unchanged.  Returns ``(model, config)``."""
+    from ..models.builder import HALOS
+    if config.halo not in HALOS:
+        raise ValueError(f"unknown halo {config.halo!r}; expected one of "
+                         f"{HALOS}")
+    if num_parts == 1 and config.halo != "gather":
+        config = dataclasses.replace(config, halo="gather")
     model = resolve_fuse(model, config)
+    out_rows = (-(-dataset.graph.num_nodes // num_parts)
+                if num_parts > 1 and dataset is not None else None)
     config = resolve_auto_impl_early(
         model, config, dataset.graph if dataset is not None else None,
-        device_kind=card_kind(device))
+        device_kind=card_kind(device), out_rows=out_rows)
     if config.memory == "auto":
         if dataset is None:
             raise ValueError("memory='auto' needs the dataset")
@@ -955,7 +1012,10 @@ def run_epoch_loop(tr: Trainer, epochs: Optional[int], do_step,
     ``stall_compile`` site (``inject.maybe_stall``), so with
     ``ROC_TPU_STALL_TIMEOUT_S`` set a first step that hangs becomes a
     StallFailure.  Each eval record carries :meth:`Trainer.pipeline_fields`
-    (the streamed tier's staging metrics)."""
+    (the streamed tier's staging metrics) and, on a trainer that has
+    them (parallel/distributed.py), ``straggler_fields``; after each eval
+    record the loop calls its ``maybe_rebalance``, which may repartition
+    between epochs."""
     from ..obs.heartbeat import Heartbeat
     from ..resilience import inject, preempt
     cfg = tr.config
@@ -994,12 +1054,19 @@ def run_epoch_loop(tr: Trainer, epochs: Optional[int], do_step,
             if span > 0:
                 m["edges_per_s"] = tr.num_edges / (m["epoch_ms"] / 1e3)
             m.update(tr.pipeline_fields())
+            straggler = getattr(tr, "straggler_fields", None)
+            if straggler is not None:
+                m.update(straggler(m))
             t_last, e_last = t_eval_end, epoch + 1
             history.append(m)
             emit("epoch", f"epoch {epoch}: train_loss {m['train_loss']}",
                  console=False, **m)
             if cfg.verbose:
                 print(format_metrics(epoch, m), flush=True)
+            rebalance = getattr(tr, "maybe_rebalance", None)
+            if rebalance is not None and rebalance(m):
+                # the rebuild is not an epoch's time
+                t_last = time.perf_counter()
         tr.epoch += 1
         inject.epoch_hooks(tr, epoch)
         preempt.raise_if_preempted(epoch)

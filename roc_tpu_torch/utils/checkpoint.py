@@ -146,8 +146,8 @@ def trainer_fingerprint(trainer) -> Dict[str, Any]:
       and the dataset's ``{V, E}``; a mismatch is CheckpointCorrupt;
     - ``elastic`` — what a restart may change: the partition count and
       the plan's part shapes, and the route (by its JAX name,
-      ``convert.aggr_impl_to_jax``), the halo (the port runs 'gather'
-      only), the feature residency (``config.features``, 'hbm' or
+      ``convert.aggr_impl_to_jax``), the halo ('gather' or 'ring'), the
+      feature residency (``config.features``, 'hbm' or
       'host') and the mesh (the port runs the JAX default ``auto``); a
       mismatch restores and emits
       ``elastic_restore``."""
@@ -165,7 +165,7 @@ def trainer_fingerprint(trainer) -> Dict[str, Any]:
         "num_parts": int(plan.num_parts) if plan is not None else 1,
         "part_nodes": int(plan.part_nodes) if plan is not None else None,
         "part_edges": int(plan.part_edges) if plan is not None else None,
-        "aggr_impl": aggr_impl_to_jax(cfg.aggr_impl), "halo": "gather",
+        "aggr_impl": aggr_impl_to_jax(cfg.aggr_impl), "halo": cfg.halo,
         "features": cfg.features, "mesh": "auto"}
     return {"strict": strict, "elastic": elastic}
 

@@ -9,7 +9,9 @@ edges, against the JAX package on the CPU:
   ``Trainer`` from the same weights, dropout 0;
 - the CLI's ``--impl`` and ``--reorder``;
 - a predictor on a layout route serves the trainer's tables and logits;
-- the partitioned trainer refuses the layouts and 'auto'.
+- the partitioned trainer runs the layouts and 'auto' at a world of one
+  as Trainer does, and refuses 'attn_flat8' for a model without
+  attention (tests/test_torch_layouts_parts.py holds them at P > 1).
 """
 
 import json
@@ -310,13 +312,29 @@ def world_of_one(tmp_path):
 @pytest.mark.parametrize("impl", ["auto", "sectioned", "flat_sum", "bdense",
                                   "attn_flat8"])
 def test_partitioned_trainer_refuses_layouts(world_of_one, impl):
-    """No partitioned form of the layouts or 'auto' yet: a loud refusal
-    naming ROADMAP item 1, from the trainer and from shard_dataset."""
+    """The partitioned trainer has the layouts and 'auto' now (it refused
+    them before): at a world of one each resolves to Trainer's route and
+    its logits equal Trainer's from the same weights within fp32 rounding
+    (the rank's tables index the halo's rows in another order); what it
+    still refuses is Trainer's refusal, 'attn_flat8' for a model without
+    attention.  shard_dataset builds every layout's tables."""
     _, tds = _datasets()
-    with pytest.raises(NotImplementedError, match="ROADMAP item 1"):
-        DistributedTrainer(_build(model_builders, "gcn"), tds, 1,
-                           TrainConfig(aggr_impl=impl, verbose=False),
-                           device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP item 1"):
-        shard_dataset(tds, partition_plan(tds.graph.row_ptr, 1), 0, "cpu",
-                      aggr_impl=impl)
+    cfg = TrainConfig(aggr_impl=impl, verbose=False, symmetric=True)
+    plan = partition_plan(tds.graph.row_ptr, 1)
+    d = shard_dataset(tds, plan, 0, "cpu", aggr_impl=impl if impl != "auto"
+                      else "cuda")
+    assert d.feats.shape == (plan.part_nodes, LAYERS[0])
+    if impl == "attn_flat8":
+        assert d.flat8_idx is not None
+        with pytest.raises(NotImplementedError, match="attention-only"):
+            DistributedTrainer(_build(model_builders, "gcn"), tds, 1, cfg,
+                               device="cpu")
+        return
+    model = _build(model_builders, "gcn")
+    one = Trainer(model, tds, cfg, device="cpu")
+    part = DistributedTrainer(model, tds, 1, cfg, params=one.params,
+                              device="cpu")
+    assert part.config.aggr_impl == one.config.aggr_impl
+    want = one.predict()
+    np.testing.assert_allclose(part.predict().numpy(), want.numpy(),
+                               rtol=0, atol=1e-5 * float(want.abs().max()))

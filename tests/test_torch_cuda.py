@@ -825,3 +825,76 @@ def test_host_tier_and_remat_train_on_the_card(dev, impl):
         for kw in variants:
             got = run(0.5, **kw)
             assert all(torch.equal(got[k], want[k]) for k in want), kw
+
+
+@pytest.mark.parametrize("F", [256, 41])
+def test_csr_spmm_precomputed_row_ptr_reads_no_padding(dev, F):
+    """K3 with row ranges built on the host (the ring's pairs): no
+    pre-pass launch, and edges past the ranges are never read.  The
+    padding here sources row 0, a real row, so a kernel that read it
+    would add x[0] to the last row; the result equals the plain sum of
+    the real edges alone (rtol 1e-5, atol 1e-5 * max|row|)."""
+    from roc_tpu_torch.kernels.spmm import (csr_row_ptr, csr_spmm,
+                                            csr_spmm_plain)
+    g = _graph(3001, 9, seed=F)
+    V, E = g.num_nodes, g.num_edges
+    pad = 5000 + (-(E + 5000)) % 8
+    src_np = np.concatenate([g.col_idx, np.zeros(pad, np.int32)])
+    dst_np = np.concatenate([g.edge_dst(), np.full(pad, V - 1, np.int32)])
+    src, dst = (torch.from_numpy(a.astype(np.int32)).to(dev)
+                for a in (src_np, dst_np))
+    row_ptr = torch.from_numpy(g.row_ptr.astype(np.int64)).to(dev)
+    x = torch.from_numpy(np.random.RandomState(2).randn(V, F)
+                         .astype(np.float32)).to(dev)
+    n, n_pre = csr_spmm.launches, csr_row_ptr.launches
+    got = csr_spmm(x, src, dst, V, chunk=8, row_ptr=row_ptr)
+    torch.cuda.synchronize()
+    assert (csr_spmm.launches, csr_row_ptr.launches) == (n + 1, n_pre)
+    want = csr_spmm_plain(x, src[:E], dst[:E], V)
+    torch.testing.assert_close(got, want, rtol=1e-5,
+                               atol=1e-5 * float(want.abs().max()))
+    with_pad = csr_spmm(x, src, dst, V, chunk=8)
+    assert not torch.allclose(with_pad[V - 1], want[V - 1])
+    with pytest.raises(ValueError, match="row_ptr"):
+        csr_spmm(x, src, dst, V, chunk=8, row_ptr=row_ptr[:-1])
+
+
+@pytest.mark.parametrize("mode", ["float32", "mixed"])
+def test_ring_hops_on_the_card_match_the_gather(dev, mode):
+    """Two gloo ranks on this card (NCCL takes one rank per card; gloo
+    stages each hop's buffer through pinned host memory), the GCN of the
+    CPU tests on 'cuda' with halo='ring' against halo='gather' from the
+    same weights, 4 epochs at dropout 0: the objectives within rtol 1e-5
+    in fp32 and 2e-3 in 'mixed' (tests/test_torch_ring.py's), K3 at every
+    hop (hops x aggregations: 2 x (2 forward + 2 backward + 2 eval) an
+    epoch), none of its pre-passes, K1, the masked K1 and K2 around it;
+    the gather's route runs K4 and no K3."""
+    from roc_tpu_torch.models.gcn import build_gcn
+    from roc_tpu_torch.parallel.distributed import run_ranks
+    from roc_tpu_torch.train.trainer import TrainConfig, resolve_dtypes
+    import torch_rank_jobs
+    ds = synthetic_dataset(96, 7, in_dim=12, num_classes=3, seed=11)
+    p0 = build_gcn([12, 16, 3]).init_params(torch.Generator().manual_seed(5))
+    p0 = {k: v.detach().clone() for k, v in p0.items()}
+    dtype, compute = resolve_dtypes(mode)
+    runs = [dict(model=build_gcn([12, 16, 3], dropout_rate=0.0), dataset=ds,
+                 params=p0, config=TrainConfig(
+                     aggr_impl="cuda", halo=halo, dropout_rate=0.0, epochs=4,
+                     eval_every=1, verbose=False, chunk=64, symmetric=True,
+                     dtype=dtype, compute_dtype=compute))
+            for halo in ("ring", "gather")]
+    res = run_ranks(torch_rank_jobs.job, 2, runs=runs, device="cuda:0")
+    rtol = 1e-5 if mode == "float32" else 2e-3
+    for ring, gather in res:
+        torch.testing.assert_close(torch.from_numpy(ring["losses"]),
+                                   torch.from_numpy(gather["losses"]),
+                                   rtol=rtol, atol=0)
+        n = ring["launches"]
+        assert n["csr_spmm"] == 2 * 6 * 4 and n["csr_row_ptr"] == 0
+        assert n["ell_aggregate"] == 0 and n["indegree_norm_masked"] > 0
+        assert n["indegree_norm"] > 0 and n["scale_act"] > 0
+        assert gather["launches"]["csr_spmm"] == 0 and \
+            gather["launches"]["ell_aggregate"] > 0
+        rt = ring["ring"]
+        for s in range(2):
+            assert rt["row_ptr"][s, -1] == rt["real"][s]

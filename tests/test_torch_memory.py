@@ -175,7 +175,7 @@ def test_autopilot_resolves_as_jax(budget):
     _, cfg = resolve_config(build_gcn([16, 8, 4]), ds, TrainConfig(
         memory="auto", hbm_bytes=budget, verbose=False, symmetric=True),
         device="cpu")
-    assert (cfg.memory, cfg.features, cfg.remat, "gather") == \
+    assert (cfg.memory, cfg.features, cfg.remat, cfg.halo) == \
         (jcfg.memory, jcfg.features, jcfg.remat, jcfg.halo)
 
 
@@ -220,8 +220,10 @@ def test_autopilot_picks_each_plan_at_its_estimate():
 
 
 def test_distributed_refuses_host_and_an_auto_ring():
-    """features='host' is single-device (JAX's words), and an autopilot
-    plan that picks the ring meets the ring's refusal."""
+    """features='host' is single-device (JAX's words); an autopilot plan
+    that picks the ring, refused before the ring was ported, now
+    resolves to it as the JAX package's does, and shard_dataset builds
+    the ring's tables alone."""
     ds = tgraph.synthetic_dataset(64 * 64, 5, in_dim=8, num_classes=3,
                                   seed=4)
 
@@ -237,13 +239,22 @@ def test_distributed_refuses_host_and_an_auto_ring():
         ds.graph.num_nodes, ds.graph.num_edges, [8, 64, 3], num_parts=4,
         hbm_bytes=1_500_000, head_streamable=True)
     assert plan.halo == "ring"
-    with pytest.raises(NotImplementedError, match="halo='ring'"):
-        resolve_config(build_gcn([8, 64, 3]), ds, TrainConfig(
-            memory="auto", hbm_bytes=1_500_000, verbose=False,
-            symmetric=True), device="cpu", num_parts=4)
-    with pytest.raises(NotImplementedError, match="halo='ring'"):
-        shard_dataset(ds, partition_plan(ds.graph.row_ptr, 4), 0, "cpu",
+    _, cfg = resolve_config(build_gcn([8, 64, 3]), ds, TrainConfig(
+        memory="auto", hbm_bytes=1_500_000, verbose=False,
+        symmetric=True), device="cpu", num_parts=4)
+    jds = jgraph.synthetic_dataset(64 * 64, 5, in_dim=8, num_classes=3,
+                                   seed=4)
+    _, jcfg, _ = j_resolve_config(
+        j_build_gcn([8, 64, 3]), jds,
+        JTrainConfig(memory="auto", hbm_bytes=1_500_000, verbose=False,
+                     symmetric=True), num_parts=4)
+    assert (cfg.halo, cfg.features, cfg.remat) == \
+        (jcfg.halo, jcfg.features, jcfg.remat) == ("ring", "hbm",
+                                                    plan.remat)
+    d = shard_dataset(ds, partition_plan(ds.graph.row_ptr, 4), 0, "cpu",
                       halo=plan.halo)
+    assert d.ring_src.shape[0] == 4 and d.edge_src is None \
+        and not d.ell_idx
 
 
 # ------------------------------------------------------------- remat

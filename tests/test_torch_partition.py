@@ -125,12 +125,15 @@ def test_plan_from_row_ptr_and_columns_by_part():
 
 
 def test_split_methods():
-    """'cost' needs the cost model, which is not ported: it raises and
-    never falls back to the greedy split; an unknown method raises too;
-    a PartitionedGraph needs its columns."""
-    g = tgraph.synthetic_graph(64, 4, seed=0)
-    with pytest.raises(NotImplementedError, match="costmodel"):
-        tpart.partition_plan(g.row_ptr, 2, method="cost")
+    """'cost' is the cost model's minimax split (core/costmodel.py), the
+    JAX package's bounds and not the greedy sweep's on this graph; an
+    unknown method raises; a PartitionedGraph needs its columns."""
+    g = tgraph.zipf_csr(300, 3000, seed=0)
+    got = tpart.partition_plan(g.row_ptr, 2, method="cost").bounds
+    want = jpart.partition_plan(g.row_ptr, 2, method="cost").bounds
+    assert [tuple(map(int, b)) for b in got] == \
+        [tuple(map(int, b)) for b in want]
+    assert got != tpart.partition_plan(g.row_ptr, 2).bounds
     with pytest.raises(ValueError, match="unknown partition method"):
         tpart.partition_bounds(g.row_ptr, 2, method="greedyy")
     plan = tpart.partition_plan(g.row_ptr, 2)
