@@ -200,12 +200,35 @@ Phases (any failure exits nonzero):
    each one's peak on the ring and on the gather beside core/memory.py's
    modeled bytes.  Every path counted; its wall time printed.  The times
    of ranks sharing one card are a layout check, not a speed number.
+17. partition-local loading, the ``(parts, model)`` mesh and its
+   multi-writer checkpoint (``dist_mesh``, a child like 16, on phase 14's
+   Reddit-shape dataset, the GCN 602-256-41 from phase 5's weights,
+   dropout 0, 3 steps): the dataset written in the reference layout with
+   the port's ``save_dataset`` (``.add_self_edge.lux``, ``.feats.bin``,
+   ``.label``, ``.mask``; the native writer's and reader's calls, the
+   native whole read and ``load_lux_rows`` of one part equal to the
+   arrays); two gloo ranks each building its part from a ``FileSource``
+   (``parallel/multihost.py shard_dataset_local`` under the cost split:
+   the bytes read from the ``.lux`` columns and ``.feats.bin`` equal to
+   its part's share, the tables' sha256 equal to ``shard_dataset``'s from
+   the whole Dataset, 3 counted steps on 'cuda' bit-equal to phase 16's
+   P = 2 gather run, the host peak RSS beside phase 16's ranks'); then
+   four ranks on the 2x2 mesh from the FileSource, the gather and the
+   ring in fp32 and 'mixed' (objectives within PARITY_RTOL of phase 16's
+   1-D runs, bit-equality printed; every param and Adam moment of its
+   ``model_shard_spec`` slice shape; each rank's peak GPU memory; K1, the
+   masked K1, K2 and K4 or K3 counted on every rank), the fp32 gather run
+   saving a checkpoint after 2 steps with two writers (the manifest lists
+   2 shard files), restored into a fresh 2x2 trainer (its next step the
+   uninterrupted run's, bit for bit) and into 1-D trainers of two parts
+   (the saved weights).  Its wall time printed.  Ranks sharing one card
+   over gloo: a layout check, not a speed number.
 
 Prints one JSON line per phase, the kernel table line
 ``{"kernels": [...]}`` (one row per kernel and dtype, e.g.
 ``ell_aggregate[bf16]``, K1's masked form as ``indegree_norm_masked``;
 launches counted over the serve, train, dist, recovery, zoo, precompute,
-layouts and memory slices of that dtype; the F = 128 checks as each
+layouts, memory, ring and mesh slices of that dtype; the F = 128 checks as each
 row's ``zoo_shapes``, the F = 602 ones as ``akx_shapes`` (K1, K2 and K4
 at the SGC's raw width), K3's walk check as ``walk_shapes`` and its ring
 hops as ``ring_shapes``), the card line, and as the last line
@@ -2389,9 +2412,10 @@ PRODUCTS_DEGREE = 52
 PRODUCTS_LAYERS = [100, 256, 47]
 # the layouts' training runs: epochs a run (2 steady steps after the
 # first), and the timed calls a route takes in the races (K3 and K4 take
-# RACE_KERNEL_N)
+# RACE_KERNEL_N; the races are not gates, and were cut from 2 and 10 to
+# keep the whole script well inside its time limit)
 LAYOUT_EPOCHS = 3
-RACE_N, RACE_KERNEL_N = 2, 10
+RACE_N, RACE_KERNEL_N = 1, 4
 # 3 steps of GAT on 'attn_flat8' against the plain 'ell' route: its
 # softmax-weighted sums in another order and bf16 activations rounded at
 # other places, over two layers and 3 Adam steps
@@ -3515,6 +3539,13 @@ def _ring_hop_checks(torch, tr):
     rp = d.ring_row_ptr.cpu().numpy()
     src = d.ring_src.cpu().numpy()
     S, pe = src.shape
+    if d.ring_dst is not None:
+        raise AssertionError(f"rank {tr.rank}: the kernel route uploaded "
+                             "ring_dst")
+    # the plain version's dst, as the row ranges encode it (the kernel
+    # reads the ranges alone)
+    dst = torch.stack([spmm.dst_from_row_ptr(d.ring_row_ptr[s], pe)
+                       for s in range(S)])
     for s in range(S):
         n = int(real[s])
         if not (rp[s, -1] == n and (src[s, :n] < pn).all()
@@ -3529,11 +3560,12 @@ def _ring_hop_checks(torch, tr):
         for F in (256, 41):
             x = torch.randn((pn, F), generator=gen, device=dev).to(dtype)
             for s in range(S):
-                args = (x, d.ring_src[s], d.ring_dst[s], pn)
+                args = (x, d.ring_src[s], dst[s], pn)
                 n = int(real[s])
 
                 def kern():
-                    return spmm.csr_spmm(*args, chunk=RING_MULTIPLE,
+                    return spmm.csr_spmm(x, d.ring_src[s], None, pn,
+                                         chunk=RING_MULTIPLE,
                                          row_ptr=d.ring_row_ptr[s])
                 got = kern()
                 want = spmm.csr_spmm_plain(*args)
@@ -3604,7 +3636,13 @@ def _ring_p2(torch, ds, counts, arxiv_dir):
     tr, losses, ms = counted("ring_fp32", F32, lambda: _ring_run(
         torch, ds, "cuda", "float32", params, 2, halo="ring"))
     d = tr.data
+    # the ring's device tables: the kernel routes upload no ring_dst
     out["ring"] = {"pair_edges": d.pair_edges, "real": d.ring_real.tolist(),
+                   "table_bytes": sum(
+                       t.numel() * t.element_size()
+                       for t in (d.ring_src, d.ring_dst, d.ring_row_ptr)
+                       if t is not None),
+                   "dst_uploaded": d.ring_dst is not None,
                    "padding_ratio": d.ring_padding_ratio,
                    "bounds": [list(map(int, b)) for b in tr.plan.bounds],
                    "part_nodes": tr.plan.part_nodes}
@@ -3821,6 +3859,7 @@ def ring_rank_job(data_dir, arxiv_dir, num_classes, parts):
            else _ring_p4(torch, ds, counts))
     rec["rank"] = torch.distributed.get_rank()
     rec["seconds"] = time.perf_counter() - t0
+    rec["rss_peak_gb"] = _rss_gb()
     return {"record": rec, "counted": counts.counted}
 
 
@@ -3911,6 +3950,518 @@ def run_ring_child(tmp, num_classes):
            f"{out!r})", 600, "phase 16 (dist_ring)")
     with open(out) as f:
         return json.load(f)
+
+
+# ------------------------------------------------------- 17. dist_mesh
+
+MESH_STEPS = 3
+# the 1-D P = 2 runs of phase 16 that phase 17 holds its runs to, by
+# (halo, dtype mode)
+MESH_REFS = {("gather", "float32"): "gather_auto_fp32",
+             ("ring", "float32"): "ring_fp32",
+             ("gather", "mixed"): "gather_mixed",
+             ("ring", "mixed"): "ring_mixed"}
+
+
+def _rss_gb():
+    """This process's peak resident host memory, GB (Linux: KB).  Linux
+    keeps ru_maxrss across exec, so in a spawned rank it is the larger
+    of the rank's own peak and the resident size of the process it was
+    forked from: a reading above the one taken at the rank's start is
+    the rank's own."""
+    import resource
+    return resource.getrusage(resource.RUSAGE_SELF).ru_maxrss / 1e6
+
+
+def _rss_now_gb():
+    """This process's resident host memory now, GB (``/proc/self/statm``),
+    or None where the system has no such file."""
+    try:
+        with open("/proc/self/statm") as f:
+            pages = int(f.read().split()[1])
+    except (OSError, ValueError, IndexError):
+        return None
+    return pages * os.sysconf("SC_PAGE_SIZE") / 1e9
+
+
+class _ReadBytes:
+    """Every core/graph.py ``_read_slice`` call of a block, as ``(section,
+    byte offset, bytes)``: the .lux row offsets ("lux_rows") and columns
+    ("lux_cols"), the .feats.bin rows ("feats"), any other file
+    ("other")."""
+
+    def __init__(self, num_nodes, in_dim):
+        from roc_tpu_torch.core import graph
+        self.graph, self.col_base = graph, 12 + 8 * num_nodes
+        self.in_dim, self.reads = in_dim, []
+
+    def __enter__(self):
+        real = self.real = self.graph._read_slice
+
+        def spy(f, offset, count, dtype):
+            key = ("feats" if f.name.endswith(".feats.bin") else
+                   "other" if not f.name.endswith(".lux") else
+                   "lux_cols" if offset >= self.col_base else "lux_rows")
+            self.reads.append((key, int(offset),
+                               int(count) * np.dtype(dtype).itemsize))
+            return real(f, offset, count, dtype)
+        self.graph._read_slice = spy
+        return self
+
+    def __exit__(self, *exc):
+        self.graph._read_slice = self.real
+
+    @property
+    def bytes(self):
+        out = {"lux_rows": 0, "lux_cols": 0, "feats": 0, "other": 0}
+        for key, _, n in self.reads:
+            out[key] += n
+        return out
+
+    def part(self, plan, p):
+        """Part ``p``'s column bytes and feature rows' bytes, and the
+        column and feature bytes read outside them."""
+        (l, r), (e0, e1) = plan.bounds[p], plan.edge_range(p)
+        ranges = {"lux_cols": (self.col_base + 4 * e0,
+                               self.col_base + 4 * e1),
+                  "feats": (4 * self.in_dim * l, 4 * self.in_dim * (r + 1))}
+        outside = 0
+        for key, off, n in self.reads:
+            if key in ranges:
+                lo, hi = ranges[key]
+                outside += n - max(0, min(off + n, hi) - max(off, lo))
+        return {"lux_cols": (e1 - e0) * 4,
+                "feats": (r - l + 1) * self.in_dim * 4, "outside": outside}
+
+    def local(self, plan, p):
+        """Whether the block read part ``p``'s columns and feature rows
+        once each and no column or feature byte outside them."""
+        want, got = self.part(plan, p), self.bytes
+        return (want["outside"] == 0 and got["lux_cols"] == want["lux_cols"]
+                and got["feats"] == want["feats"])
+
+
+def _table_digest(d):
+    """sha256 of a ShardedData's device tables and host fields, by field
+    name (the tuples field by field)."""
+    import hashlib
+    import torch
+    h = hashlib.sha256()
+    for f in sorted(x.name for x in dataclasses.fields(d)):
+        v = getattr(d, f)
+        vs = v if isinstance(v, tuple) else (v,)
+        for t in vs:
+            if isinstance(t, torch.Tensor):
+                h.update(f.encode())
+                h.update(t.detach().cpu().contiguous().view(-1).view(
+                    torch.uint8).numpy().tobytes())
+            elif isinstance(t, np.ndarray):
+                h.update(f.encode())
+                h.update(np.ascontiguousarray(t).tobytes())
+            elif t is not None and not isinstance(t, dict):
+                h.update(f"{f}={t!r}".encode())
+    return h.hexdigest()
+
+
+def _mesh_trainer(torch, dataset, mode, halo, params, parts, mesh="auto",
+                  group=None, **kw):
+    """phase 16's DistributedTrainer (the GCN 602-256-41 at dropout 0 from
+    ``params``, the cost split) on card 0, over ``dataset`` (a Dataset or
+    a DataSource), on ``mesh``."""
+    from roc_tpu_torch.models.gcn import build_gcn
+    from roc_tpu_torch.parallel.distributed import DistributedTrainer
+    from roc_tpu_torch.train.trainer import TrainConfig, resolve_dtypes
+    dtype, compute_dtype = resolve_dtypes(mode)
+    return DistributedTrainer(
+        build_gcn(LAYERS, dropout_rate=0.0), dataset, parts, TrainConfig(
+            aggr_impl="cuda", symmetric=True, seed=SEED, dtype=dtype,
+            compute_dtype=compute_dtype, eval_every=10 ** 6, verbose=False,
+            halo=halo, mesh=mesh, **TRAIN), params=params,
+        device=torch.device("cuda", 0), group=group, **kw)
+
+
+def _mesh_steps(torch, tr, n):
+    """``n`` steps, each synchronised: the objectives so far and the
+    steady steps' mean wall ms."""
+    ms = []
+    for _ in range(n):
+        t = time.perf_counter()
+        tr.train(1)
+        tr.sync()
+        ms.append((time.perf_counter() - t) * 1e3)
+    losses = torch.stack(tr.losses).double().cpu().numpy()
+    if not np.isfinite(losses).all():
+        raise AssertionError(f"mesh run: losses {losses}")
+    return losses, float(np.mean(ms[1:])) if n > 1 else ms[0]
+
+
+def _gcn_params(torch):
+    """Phase 5's weights (the GCN's init from SEED on the card)."""
+    from roc_tpu_torch.models.gcn import build_gcn
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    return {k: v.detach() for k, v in build_gcn(LAYERS).init_params(
+        gen, device="cuda").items()}
+
+
+def _rank_setup(torch):
+    """A spawned rank's set-up on card 0: the device, the fp32 matmul
+    precision, the kernels' library, a CUDA context, and the launch
+    counts; the GPU peak reset.  Returns the counts and the host
+    readings: ``rss_start_gb`` (ru_maxrss before the set-up, what the
+    rank inherited), ``rss_setup_gb`` (resident after it, the process's
+    baseline before any data)."""
+    from roc_tpu_torch.kernels import _build
+    from roc_tpu_torch.ops.dense import set_fp32_matmul_precision
+    start = _rss_gb()
+    torch.cuda.set_device(0)
+    set_fp32_matmul_precision()
+    _build.library()
+    torch.empty(1, device="cuda").sum().item()
+    counts = Launches(torch)
+    torch.cuda.reset_peak_memory_stats()
+    return counts, {"rss_start_gb": start, "rss_setup_gb": _rss_now_gb()}
+
+
+def mesh_p2_job(prefix, data_dir, num_classes, ref_losses):
+    """One rank of phase 17's P = 2 run, spawned on card 0: this rank's
+    tables from a FileSource over the reference-layout files
+    (shard_dataset_local under the cost split the trainer would take),
+    3 counted steps through DistributedTrainer(data=, plan=) bit-equal to
+    phase 16's gather losses, with every byte read from the files through
+    all of it (the part's columns and feature rows once each, nothing of
+    them outside the part), the host peak RSS after the set-up and after
+    the steps, and the GPU peak; then (after those readings) the whole
+    Dataset mapped and shard_dataset's tables from it, whose digest must
+    equal the FileSource build's."""
+    import torch
+    from roc_tpu_torch.core.costmodel import PartitionCostModel
+    from roc_tpu_torch.core.partition import partition_plan
+    from roc_tpu_torch.core.source import FileSource
+    from roc_tpu_torch.parallel.distributed import Collectives, shard_dataset
+    from roc_tpu_torch.parallel.multihost import shard_dataset_local
+    from roc_tpu_torch.train.trainer import TrainConfig
+    counts, rss_setup = _rank_setup(torch)
+    rank = torch.distributed.get_rank()
+    dev = torch.device("cuda", 0)
+    t0 = time.perf_counter()
+    chunk = TrainConfig().chunk
+    params = _gcn_params(torch)
+    src = FileSource(prefix, LAYERS[0], num_classes)
+    with _ReadBytes(src.num_nodes, LAYERS[0]) as rb:
+        plan = partition_plan(
+            src.row_ptr(), 2, node_multiple=8, edge_multiple=chunk,
+            method="cost", cost_weights=PartitionCostModel(
+                node_multiple=8, edge_multiple=chunk).search_weights(
+                    attn_edges=False, flat8=False))
+        data = shard_dataset_local(src, plan, rank, device=dev,
+                                   aggr_impl="cuda", fuse=True)
+        build_s = time.perf_counter() - t0
+        digest = _table_digest(data)
+        counts.zero()
+        tr = _mesh_trainer(torch, src, "float32", "gather", params, 2,
+                           data=data, plan=plan)
+        losses, ms = _mesh_steps(torch, tr, MESH_STEPS)
+    launches = counts.read(F32)
+    out = {"rank": rank, "bounds": [list(map(int, b)) for b in plan.bounds],
+           "build_s": build_s, "read_bytes": rb.bytes,
+           "part_bytes": rb.part(plan, rank), "reads_local":
+           rb.local(plan, rank),
+           "file_bytes": {"lux_cols": src.num_edges * 4,
+                          "feats": src.num_nodes * LAYERS[0] * 4},
+           "losses": losses.tolist(), "step_ms": ms, "launches": launches,
+           **rss_setup, "rss_peak_gb": _rss_gb(),
+           "rss_end_gb": _rss_now_gb(),
+           "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+           "losses_equal_phase16": bool(np.array_equal(
+               losses, np.asarray(ref_losses)))}
+    del tr, data
+    torch.cuda.empty_cache()
+    ds = _map_dataset(data_dir, num_classes)
+    want = shard_dataset(ds, plan, rank, dev, aggr_impl="cuda", fuse=True,
+                         agree_max=Collectives().agree_max)
+    out["digest"] = digest
+    out["digest_equal"] = digest == _table_digest(want)
+    if not (out["digest_equal"] and out["losses_equal_phase16"]
+            and out["reads_local"]
+            and all(launches[k][F32] for k in (
+                "indegree_norm", "scale_act", "ell_aggregate"))
+            and launches["indegree_norm_masked"]):
+        raise AssertionError(f"rank {rank}: P = 2 from the files: {out}, "
+                             f"phase 16's losses {ref_losses}")
+    return {"record": out, "counted": counts.counted}
+
+
+def mesh_2x2_job(prefix, num_classes, refs, ckdir):
+    """One rank of phase 17's 2x2 mesh, spawned on card 0 (4 ranks), each
+    trainer building its part from the FileSource: the gather on 'cuda'
+    then the ring, in fp32 and 'mixed', 3 counted steps each against
+    phase 16's 1-D P = 2 objectives, the params and Adam moments' at-rest
+    shapes, the peak GPU memory, and every byte each trainer read from
+    the files through its construction and steps (the part's columns and
+    feature rows once each, nothing of them outside the part); the fp32
+    gather run saves a checkpoint after 2 steps (two writers), which
+    restores into a fresh 2x2 trainer (its next step the uninterrupted
+    run's 3rd, bit for bit) and into 1-D P = 2 trainers (the saved
+    weights); the host peak RSS after the set-up and at the end."""
+    import torch
+    from roc_tpu_torch.core.source import FileSource
+    from roc_tpu_torch.parallel import model_shard_spec
+    from roc_tpu_torch.utils.checkpoint import (checkpoint_trainer,
+                                                restore_trainer)
+    counts, rss_setup = _rank_setup(torch)
+    rank = torch.distributed.get_rank()
+    src = FileSource(prefix, LAYERS[0], num_classes)
+    params = _gcn_params(torch)
+    out: Dict[str, Any] = {"rank": rank, "runs": {}, **rss_setup}
+    kept = {}
+    for halo, mode in (("gather", "float32"), ("gather", "mixed"),
+                       ("ring", "float32"), ("ring", "mixed")):
+        key = F32 if mode == "float32" else BF16
+        tag = f"{halo}_{mode}"
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        counts.zero()
+        rec: Dict[str, Any] = {}
+        with _ReadBytes(src.num_nodes, LAYERS[0]) as rb:
+            tr = _mesh_trainer(torch, src, mode, halo, params, 2,
+                               mesh="2x2")
+            if tag == "gather_float32":
+                _mesh_steps(torch, tr, MESH_STEPS - 1)
+                rec["save"] = checkpoint_trainer(tr, ckdir)
+                kept["saved"] = {k: v.detach().clone()
+                                 for k, v in tr._full_params().items()}
+            losses, ms = _mesh_steps(torch, tr, MESH_STEPS -
+                                     len(tr.losses))
+        losses = torch.stack(tr.losses).double().cpu().numpy()
+        ref = np.asarray(refs[tag])
+        rel = np.abs(losses - ref) / np.abs(ref)
+        full = tr._full_params()
+        shapes_ok = all(
+            tuple(tr.params[k].shape) == tuple(tr.opt_state.m[k].shape)
+            == tuple(tr.opt_state.v[k].shape) == tuple(
+                n // 2 if spec is not None and spec[i] == "model" else n
+                for i, n in enumerate(full[k].shape))
+            for k in full
+            for spec in (model_shard_spec(tuple(full[k].shape), 2),))
+        rec.update(losses=losses.tolist(), step_ms=ms,
+                   max_rel_vs_1d=float(rel.max()),
+                   bit_equal_1d=bool(np.array_equal(losses, ref)),
+                   rest_shapes={k: list(v.shape)
+                                for k, v in tr.params.items()},
+                   shapes_ok=shapes_ok,
+                   peak_gb=torch.cuda.max_memory_allocated() / 1e9,
+                   read_bytes=rb.bytes, part_bytes=rb.part(tr.plan, tr.rank),
+                   reads_local=rb.local(tr.plan, tr.rank),
+                   launches=counts.read(key))
+        n = rec["launches"]
+        kernel = "csr_spmm" if halo == "ring" else "ell_aggregate"
+        if not (rel.max() <= PARITY_RTOL[mode] and shapes_ok
+                and rec["reads_local"]
+                and n["indegree_norm"][key] and n["scale_act"][key]
+                and n[kernel][key] and n["indegree_norm_masked"]):
+            raise AssertionError(f"rank {rank}: 2x2 {tag}: {rec}, 1-D "
+                                 f"{ref.tolist()}")
+        if tag == "gather_float32":
+            kept["final"] = {k: v.detach().clone() for k, v in full.items()}
+            kept["losses"] = losses
+        out["runs"][tag] = rec
+        del tr, full
+    # the two-writer checkpoint, restored into a fresh 2x2 trainer (one
+    # step) and into 1-D trainers of two parts on two subgroups
+    torch.cuda.empty_cache()
+    with _ReadBytes(src.num_nodes, LAYERS[0]) as rb:
+        tr = _mesh_trainer(torch, src, "float32", "gather", None, 2,
+                           mesh="2x2")
+        restore_trainer(tr, ckdir)
+        _mesh_steps(torch, tr, 1)
+    local = rb.local(tr.plan, tr.rank)
+    step = float(tr.losses[-1])
+    same = step == float(kept["losses"][-1]) and all(
+        torch.equal(v, kept["final"][k])
+        for k, v in tr._full_params().items())
+    del tr
+    groups = [torch.distributed.new_group([0, 1]),
+              torch.distributed.new_group([2, 3])]
+    with _ReadBytes(src.num_nodes, LAYERS[0]) as rb:
+        tr = _mesh_trainer(torch, src, "float32", "gather", None, 2,
+                           group=groups[rank // 2])
+        restore_trainer(tr, ckdir)
+    local = local and rb.local(tr.plan, tr.rank)
+    same_1d = all(torch.equal(tr.params[k], kept["saved"][k])
+                  for k in kept["saved"])
+    del tr
+    out["restore"] = {"resumed_step_equal": same, "restored_1d_equal":
+                      same_1d, "resumed_loss": step, "reads_local": local}
+    if not (same and same_1d and local):
+        raise AssertionError(f"rank {rank}: 2x2 restore: {out['restore']}")
+    out["rss_peak_gb"] = _rss_gb()
+    out["rss_end_gb"] = _rss_now_gb()
+    return {"record": out, "counted": counts.counted}
+
+
+def mesh_child(data_dir, tmp, num_classes, refs, out_path):
+    """Phase 17 in a fresh process: the Reddit-shape dataset phase 14 saved
+    in ``data_dir``, written in the reference layout with the port's
+    save_dataset (.add_self_edge.lux, .feats.bin, .label, .mask) under
+    ``tmp``; the native loader's calls and load_lux_rows of one part
+    against the numpy arrays; then two gloo ranks from the FileSource
+    (:func:`mesh_p2_job`) and four on the 2x2 mesh (:func:`mesh_2x2_job`),
+    ``refs`` phase 16's 1-D objectives.  Writes the record and the ranks'
+    counts to ``out_path``.  Ranks sharing one card over gloo: a layout
+    check, not a speed number."""
+    from roc_tpu_torch import native
+    from roc_tpu_torch.core.graph import load_lux, load_lux_rows, save_dataset
+    from roc_tpu_torch.parallel.distributed import run_ranks
+    t0 = time.perf_counter()
+    ds = _map_dataset(data_dir, num_classes)
+    prefix = os.path.join(tmp, "reddit")
+    before = dict(native.calls)
+    save_dataset(ds, prefix, csv=False)
+    write_s = time.perf_counter() - t0
+    t1 = time.perf_counter()
+    g = load_lux(prefix + ".add_self_edge.lux")
+    whole_equal = bool(np.array_equal(g.row_ptr, ds.graph.row_ptr)
+                       and np.array_equal(g.col_idx, ds.graph.col_idx))
+    del g
+    read_s = time.perf_counter() - t1
+    lo, hi = ds.graph.num_nodes // 3, 2 * ds.graph.num_nodes // 3
+    ptr, col = load_lux_rows(prefix + ".add_self_edge.lux", lo, hi)
+    rp = np.asarray(ds.graph.row_ptr)
+    rows_equal = bool(np.array_equal(ptr, rp[lo:hi + 1] - rp[lo]) and
+                      np.array_equal(col, ds.graph.col_idx[rp[lo]:rp[hi]]))
+    calls = {k: native.calls.get(k, 0) - before.get(k, 0)
+             for k in ("save_lux", "lux_header", "load_lux")}
+    rec: Dict[str, Any] = {"files": {
+        "write_s": write_s, "native_read_s": read_s, "calls": calls,
+        "native_whole_equal": whole_equal, "rows_equal": rows_equal,
+        "bytes": {ext: os.path.getsize(prefix + ext) for ext in (
+            ".add_self_edge.lux", ".feats.bin", ".label", ".mask")}}}
+    log({"phase": "dist_mesh_files", **rec["files"]})
+    if not (whole_equal and rows_equal and calls["save_lux"]
+            and calls["load_lux"]):
+        raise AssertionError(f"phase 17 files: {rec['files']}")
+    del ds
+    counted = {key: {name: 0 for name in KERNELS} for key in (F32, BF16)}
+
+    def add(ranks):
+        for r in ranks:
+            for key in (F32, BF16):
+                for name in KERNELS:
+                    counted[key][name] += r["counted"][key][name]
+        return [r["record"] for r in ranks]
+
+    t1 = time.perf_counter()
+    rec["p2"] = add(run_ranks(mesh_p2_job, 2, backend="gloo",
+                              timeout_s=600, prefix=prefix,
+                              data_dir=data_dir, num_classes=num_classes,
+                              ref_losses=refs["gather_float32"]))
+    rec["p2_s"] = time.perf_counter() - t1
+    log({"phase": "dist_mesh_p2", "seconds": rec["p2_s"], "ranks": rec["p2"]})
+    t1 = time.perf_counter()
+    ckdir = os.path.join(tmp, "ck_2x2")
+    rec["m2x2"] = add(run_ranks(mesh_2x2_job, 4, backend="gloo",
+                                timeout_s=900, prefix=prefix,
+                                num_classes=num_classes, refs=refs,
+                                ckdir=ckdir))
+    rec["m2x2_s"] = time.perf_counter() - t1
+    from roc_tpu_torch.utils.checkpoint import read_manifest
+    rec["manifest_shards"] = [s["file"] for s in
+                              read_manifest(ckdir)["shards"]]
+    if len(rec["manifest_shards"]) != 2:
+        raise AssertionError(f"2x2 manifest: {rec['manifest_shards']}")
+    log({"phase": "dist_mesh_2x2", "seconds": rec["m2x2_s"],
+         "manifest_shards": rec["manifest_shards"], "ranks": rec["m2x2"]})
+    rec["seconds"] = time.perf_counter() - t0
+    with open(out_path, "w") as f:
+        json.dump({"record": rec, "counted": counted}, f)
+
+
+def run_mesh_child(tmp, num_classes, refs):
+    """:func:`mesh_child` in a fresh Python process on the Reddit-shape
+    dataset phase 14's parent saved under ``tmp``/reddit; returns what it
+    wrote."""
+    here = os.path.dirname(os.path.abspath(__file__))
+    data, files = os.path.join(tmp, "reddit"), os.path.join(tmp, "files")
+    os.makedirs(files, exist_ok=True)
+    out = os.path.join(tmp, "mesh.json")
+    _child(here, f"mesh_child({data!r}, {files!r}, {num_classes}, "
+           f"{refs!r}, {out!r})", 900, "phase 17 (dist_mesh)")
+    with open(out) as f:
+        return json.load(f)
+
+
+def ring_ab(other, out_path=None):
+    """Phase 16 of another checkout ``other`` (its root, e.g. the parent
+    commit unpacked with ``git archive``) and of this one on one card, in
+    turns other, this, this, other, on one Reddit-shape dataset; then
+    this checkout's phase 17 held to the second run of this one.  Prints
+    each run's step ms (``ab`` lines) and phase 17's readings, and writes
+    them to ``out_path`` as JSON.  ``python -c "import chip_smoke as s;
+    s.ring_ab('<other checkout>', 'ab.json')"`` on the card."""
+    from roc_tpu_torch.core.graph import synthetic_dataset
+    here = os.path.dirname(os.path.abspath(__file__))
+    trees = {"other": os.path.abspath(other), "this": here}
+
+    def ring(tree, tmp, tag):
+        out = os.path.join(tmp, f"ring_{tag}.json")
+        code = (f"import json, chip_smoke as s; json.dump("
+                f"s.run_ring_child({tmp!r}, {LAYERS[-1]}), open({out!r}, "
+                f"'w'))")
+        t = time.perf_counter()
+        subprocess.run([sys.executable, "-c", code], cwd=trees[tree],
+                       env=dict(os.environ, PYTHONPATH=trees[tree]),
+                       check=True, timeout=900)
+        wall = time.perf_counter() - t
+        with open(out) as f:
+            rec = json.load(f)["record"]
+        ranks = rec["p2"]["ranks"]
+        summary = {"tag": tag, "tree": tree, "wall_s": wall,
+                   "step_ms": [{k: v["step_ms"] for k, v in r["runs"].items()
+                                if "step_ms" in v} for r in ranks],
+                   "ring_table_bytes": [r["ring"].get("table_bytes")
+                                        for r in ranks],
+                   "losses": {k: v["losses"]
+                              for k, v in ranks[0]["runs"].items()
+                              if "losses" in v}}
+        log({"phase": "ab", **summary})
+        return rec, summary
+
+    print(card_line(), flush=True)
+    t0 = time.perf_counter()
+    ds = synthetic_dataset(num_nodes=V, avg_degree=AVG_DEGREE,
+                           in_dim=LAYERS[0], num_classes=LAYERS[-1],
+                           seed=SEED, name="reddit_shape")
+    with tempfile.TemporaryDirectory() as tmp:
+        os.makedirs(os.path.join(tmp, "reddit"))
+        _save_dataset(ds, os.path.join(tmp, "reddit"))
+        del ds
+        log({"phase": "ab_data", "seconds": time.perf_counter() - t0})
+        res = []
+        for i, tree in enumerate(("other", "this", "this", "other")):
+            rec, summary = ring(tree, tmp, f"{tree}{i}")
+            res.append(summary)
+            if i == 2:
+                runs16 = rec["p2"]["ranks"][0]["runs"]
+                refs = {f"{h}_{m}": runs16[name]["losses"]
+                        for (h, m), name in MESH_REFS.items()}
+        t = time.perf_counter()
+        m = run_mesh_child(tmp, LAYERS[-1], refs)["record"]
+    keep = ("read_bytes", "part_bytes", "reads_local", "peak_gb", "step_ms")
+    rss = ("rss_start_gb", "rss_setup_gb", "rss_peak_gb", "rss_end_gb")
+    p17 = {"seconds": time.perf_counter() - t,
+           "p2": [dict({k: r[k] for k in keep + rss}) for r in m["p2"]],
+           "m2x2": [{**{k: r[k] for k in rss}, "restore": r["restore"],
+                     "runs": {k: dict({x: v[x] for x in keep},
+                                      **({"save": v["save"]}
+                                         if "save" in v else {}))
+                              for k, v in r["runs"].items()}}
+                    for r in m["m2x2"]],
+           "manifest_shards": m["manifest_shards"]}
+    log({"phase": "ab_p17", **p17})
+    if out_path:
+        with open(out_path, "w") as f:
+            json.dump({"ab": res, "p17": p17}, f)
+    print(card_line(), flush=True)
 
 
 def run_memory_child(tmp, num_classes):
@@ -4324,18 +4875,63 @@ def main() -> int:
         for key in (F32, BF16):
             for name in KERNELS:
                 counted[key][name] += ring["counted"][key][name]
-    rrec = ring["record"]
+        rrec = ring["record"]
+        log({"phase": "dist_ring_summary",
+             "seconds": time.perf_counter() - t16,
+             "pair_edges": rrec["p2"]["ranks"][0]["ring"]["pair_edges"],
+             "padding_ratio": rrec["p2"]["ranks"][0]["ring"][
+                 "padding_ratio"],
+             "ring_table_bytes": [r["ring"]["table_bytes"]
+                                  for r in rrec["p2"]["ranks"]],
+             "rss_peak_gb": {f"p{n}": [r["rss_peak_gb"]
+                                       for r in rrec[f"p{n}"]["ranks"]]
+                             for n in (2, 4)},
+             "step_ms": {k: v["step_ms"] for k, v in
+                         rrec["p2"]["ranks"][0]["runs"].items()
+                         if "step_ms" in v},
+             "p4_peak_gb": [{h: (r[h]["peak_gb"], r[h]["modeled_gb"])
+                             for h in ("ring", "gather")}
+                            for r in rrec["p4"]["ranks"]]})
+        # 17. partition-local loading from the reference's files, the
+        # (parts, model) mesh and its two-writer checkpoint: gloo ranks on
+        # this card, in a fresh process, held to phase 16's objectives
+        sys.stdout.flush()
+        t17 = time.perf_counter()
+        runs16 = rrec["p2"]["ranks"][0]["runs"]
+        refs = {f"{h}_{m}": runs16[name]["losses"]
+                for (h, m), name in MESH_REFS.items()}
+        mesh = run_mesh_child(tmp, ds.num_classes, refs)
+        for key in (F32, BF16):
+            for name in KERNELS:
+                counted[key][name] += mesh["counted"][key][name]
+    mrec = mesh["record"]
+    log({"phase": "dist_mesh_summary", "seconds": time.perf_counter() - t17,
+         "p2_s": mrec["p2_s"], "m2x2_s": mrec["m2x2_s"],
+         "p2_read_bytes": [(r["read_bytes"], r["part_bytes"])
+                           for r in mrec["p2"]],
+         "m2x2_read_bytes": [{k: (v["read_bytes"], v["part_bytes"])
+                              for k, v in r["runs"].items()}
+                             for r in mrec["m2x2"]],
+         "rss_gb": {j: {k: [r[k] for r in mrec[j]] for k in (
+             "rss_start_gb", "rss_setup_gb", "rss_peak_gb", "rss_end_gb")}
+             for j in ("p2", "m2x2")},
+         "p16_rss_peak_gb": [r["rss_peak_gb"]
+                             for r in rrec["p2"]["ranks"]],
+         "gpu_peak_gb_gather_fp32": {
+             "p2_1d": [r["peak_gb"] for r in mrec["p2"]],
+             "m2x2": [r["runs"]["gather_float32"]["peak_gb"]
+                      for r in mrec["m2x2"]]},
+         "m2x2_max_rel_vs_1d": {k: max(r["runs"][k]["max_rel_vs_1d"]
+                                       for r in mrec["m2x2"])
+                                for k in mrec["m2x2"][0]["runs"]},
+         "m2x2_bit_equal_1d": {k: all(r["runs"][k]["bit_equal_1d"]
+                                      for r in mrec["m2x2"])
+                               for k in mrec["m2x2"][0]["runs"]},
+         "m2x2_peak_gb": [{k: v["peak_gb"] for k, v in r["runs"].items()}
+                          for r in mrec["m2x2"]],
+         "save": [r["runs"]["gather_float32"]["save"]
+                  for r in mrec["m2x2"]]})
     hop_rows = [h for r in rrec["p2"]["ranks"] for h in r["hop_checks"]]
-    log({"phase": "dist_ring_summary",
-         "seconds": time.perf_counter() - t16,
-         "pair_edges": rrec["p2"]["ranks"][0]["ring"]["pair_edges"],
-         "padding_ratio": rrec["p2"]["ranks"][0]["ring"]["padding_ratio"],
-         "step_ms": {k: v["step_ms"] for k, v in
-                     rrec["p2"]["ranks"][0]["runs"].items()
-                     if "step_ms" in v},
-         "p4_peak_gb": [{h: (r[h]["peak_gb"], r[h]["modeled_gb"])
-                         for h in ("ring", "gather")}
-                        for r in rrec["p4"]["ranks"]]})
 
     table = []
     for key, tag in ((F32, "fp32"), (BF16, "bf16")):

@@ -277,21 +277,59 @@ def partition_halo_stats(pg, col_slice: Optional[Callable] = None
     return halo_in, halo_out
 
 
+def part_halo_read(plan, p: int, col: np.ndarray) -> np.ndarray:
+    """bool ``[V]``: the rows outside part ``p`` that its edges read
+    (``col``: the part's global source ids, padding ``V`` included)."""
+    V = plan.num_nodes
+    l, r = plan.bounds[p]
+    col = np.asarray(col)
+    col = col[col < V]
+    outside = col[(col < l) | (col > r)] if r >= l else col
+    read = np.zeros(V, dtype=bool)
+    read[outside] = True
+    return read
+
+
+def halo_stats_ranked(plan, p: int, read: np.ndarray, agree_max=None
+                      ) -> Tuple[np.ndarray, np.ndarray]:
+    """:func:`partition_halo_stats` on a rank that holds part ``p``'s
+    columns alone: ``read`` is its :func:`part_halo_read`, and
+    ``agree_max`` (the elementwise max over the ranks, one collective of
+    ``P + V`` entries; None for a world of one) joins every part's."""
+    P, V = plan.num_parts, plan.num_nodes
+    mine = np.zeros(P + V, dtype=np.int64)
+    mine[p] = int(np.count_nonzero(read))
+    mine[P:] = read
+    got = mine if agree_max is None else agree_max(mine)
+    halo_in = got[:P].copy()
+    union = got[P:] > 0
+    halo_out = np.zeros(P, dtype=np.int64)
+    for q in range(P):
+        l, r = plan.bounds[q]
+        if r >= l:
+            halo_out[q] = int(np.count_nonzero(union[l:r + 1]))
+    return halo_in, halo_out
+
+
 def phi_matrix(pg, bd_occupancy: Sequence[dict] = (),
                stream_blocks: int = 0, attn_edges: bool = False,
                flat8: bool = False,
-               col_slice: Optional[Callable] = None) -> np.ndarray:
+               col_slice: Optional[Callable] = None,
+               halo: Optional[Tuple[np.ndarray, np.ndarray]] = None
+               ) -> np.ndarray:
     """``[P, len(PHI)]`` raw feature matrix of a plan.  ``bd_occupancy``
     is each part's block-dense occupancy (``n_blocks``) where the bdense
     planner ran; ``attn_edges`` charges the padded edges a second time
     (attention models); ``flat8`` fills the flat layouts' sub-row column;
-    ``col_slice`` as in :func:`partition_halo_stats`."""
+    ``col_slice`` as in :func:`partition_halo_stats`; ``halo`` its
+    result, given (:func:`halo_stats_ranked`), in place of the pass."""
     P = pg.num_parts
     nm = getattr(pg, "node_multiple", 8)
     em = getattr(pg, "edge_multiple", 128)
     real_n = np.asarray(pg.real_nodes, dtype=np.int64)
     real_e = np.asarray(pg.real_edges, dtype=np.int64)
-    halo_in, halo_out = partition_halo_stats(pg, col_slice=col_slice)
+    halo_in, halo_out = halo if halo is not None else \
+        partition_halo_stats(pg, col_slice=col_slice)
     p95 = np.zeros(P)
     for p in range(P):
         n = int(real_n[p])

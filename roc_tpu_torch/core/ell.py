@@ -5,10 +5,11 @@ route rule.
 A numpy copy of ``roc_tpu/core/ell.py``; the tables are bit-equal to
 the JAX package's for the same graph (tests/test_torch_data.py,
 tests/test_torch_layouts.py, tests/test_torch_layouts_parts.py).  The
-sectioned builder runs the native host planners (roc_tpu_torch/native)
-when they are built.  The partitioned builders take every part or, on a
-rank of a partitioned run, its own part with an ``agree_max`` collective
-that gives it the shapes the all-parts build would.
+sectioned builder and the ELL bucket widths run in the native library
+(roc_tpu_torch/native) when it is built.  The partitioned builders take
+every part or, on a rank of a partitioned run, its own part with an
+``agree_max`` collective that gives it the shapes the all-parts build
+would.
 
 - every row is assigned to a power-of-two **width bucket** covering its
   in-degree (min width 8; a hub row of any degree gets its own wide
@@ -73,9 +74,12 @@ def build_ell(local_row_ptr: np.ndarray, col_idx: np.ndarray,
     """One partition's buckets from a local CSR: ``{width: (rows,
     idx)}`` with int64 row ids and int32 ``[R_w, w]`` source ids (-1
     padding, replaced by the dummy id in :func:`stack_ell`)."""
+    from .. import native
     row_ptr = np.asarray(local_row_ptr, dtype=np.int64)
     deg = np.diff(row_ptr)
-    widths = row_widths(deg, min_width)
+    # the widths natively when the library is built (the same values)
+    widths = (native.ell_widths(row_ptr, min_width).astype(np.int64)
+              if native.available() else row_widths(deg, min_width))
     buckets: dict = {}
     for w in np.unique(widths[widths > 0]):
         w = int(w)

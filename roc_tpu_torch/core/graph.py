@@ -5,9 +5,15 @@ A numpy copy of the subset of ``roc_tpu/core/graph.py`` this package
 needs.  The generators draw from ``np.random.RandomState`` in the same
 order as the JAX package's, so the same seed gives bit-equal arrays in
 both packages (tests/test_torch_data.py holds them to that).  The
-loaders read whole files on numpy's paths only: neither the JAX
-package's native C++ parser nor its partition-local ``rows=`` reads are
-ported (tests/test_torch_train.py holds the loaded arrays bit-equal).
+loaders read the reference's files through the port's native library
+(native/rocload.cc: the ``.lux`` reader and writer, the CSV parser, the
+mask parser, self-edge insertion) when it is built, else on numpy's
+paths, which give the same arrays (tests/test_torch_source.py).  The
+partition-local reads (:func:`load_lux_rows`, ``rows=(lo, hi)`` of the
+feature, label and mask loaders) read only the requested rows' bytes,
+as the reference's per-partition loader does (``load_task.cu:41-51,
+201-245``); every binary slice goes through :func:`_read_slice`, called
+module-qualified, so a test can spy on the byte ranges a rank reads.
 
 ``Graph`` is destination-major CSR: ``row_ptr`` has length ``V+1`` with
 ``row_ptr[0] == 0``, and ``col_idx[row_ptr[v]:row_ptr[v+1]]`` are the
@@ -84,7 +90,12 @@ def add_self_edges(graph: Graph) -> Graph:
     """Ensure every vertex has a self edge (the reference's offline
     ``.add_self_edge.lux`` preprocessing, ``gnn.cc:756``).  Existing
     self edges are kept; missing ones are inserted after the row's
-    other edges."""
+    other edges (natively when the library is built)."""
+    from .. import native
+    if native.available():
+        row_ptr, col_idx = native.add_self_edges(graph.row_ptr,
+                                                 graph.col_idx)
+        return Graph(row_ptr=row_ptr, col_idx=col_idx)
     V = graph.num_nodes
     dst = graph.edge_dst()
     has_self = np.zeros(V, dtype=bool)
@@ -123,6 +134,208 @@ def from_edge_list(src: np.ndarray, dst: np.ndarray, num_nodes: int,
     return Graph(row_ptr=row_ptr, col_idx=src.astype(np.int32))
 
 
+# ---------------------------------------------------------------------------
+# The reference on-disk layout (gnn.cc:756-801, load_task.cu:25-199)
+# ---------------------------------------------------------------------------
+
+def _read_slice(f, offset: int, count: int, dtype: str) -> np.ndarray:
+    """Seek + read ``count`` items of ``dtype``; raises on a short read.
+    Every partition-local binary read goes through here, so a test can
+    spy on the byte ranges a rank touches."""
+    f.seek(offset)
+    out = np.fromfile(f, dtype=dtype, count=count)
+    if out.size != count:
+        raise IOError(f"truncated read at {offset} (+{count}): "
+                      f"got {out.size} items")
+    return out
+
+
+def load_lux_header(path: str) -> tuple:
+    """(num_nodes, num_edges) from a `.lux` header without reading the
+    body."""
+    with open(path, "rb") as f:
+        return struct.unpack("<IQ", f.read(12))
+
+
+def load_lux_rows(path: str, row_lo: int, row_hi: int) -> tuple:
+    """Rows ``[row_lo, row_hi)`` of a `.lux` file alone: the
+    ``row_hi - row_lo + 1`` offsets that bound them and exactly their
+    column bytes (the reference loader's skip to rowLeft,
+    ``load_task.cu:41-51, 201-245``).  Returns ``(local_row_ptr,
+    col_idx)``, ``local_row_ptr`` int64 ``[n + 1]`` rebased to 0."""
+    num_nodes, num_edges = load_lux_header(path)
+    if not 0 <= row_lo <= row_hi <= num_nodes:
+        raise ValueError(f"bad row range [{row_lo}, {row_hi}) for "
+                         f"{num_nodes} nodes")
+    n = row_hi - row_lo
+    header = 12
+    with open(path, "rb") as f:
+        # the offsets are u64 inclusive ends: row v's edges end at off[v]
+        # and start at off[v - 1] (0 for v == 0)
+        lo_off = 0 if row_lo == 0 else int(_read_slice(
+            f, header + (row_lo - 1) * 8, 1, "<u8")[0])
+        if n == 0:
+            return np.zeros(1, dtype=np.int64), np.zeros(0, dtype=np.int32)
+        ends = _read_slice(f, header + row_lo * 8, n, "<u8").astype(
+            np.int64)
+        if not ((np.diff(ends) >= 0).all() and ends[0] >= lo_off):
+            raise ValueError(f"{path}: non-monotone row offsets in "
+                             f"rows [{row_lo}, {row_hi})")
+        col_base = header + num_nodes * 8
+        e0, e1 = lo_off, int(ends[-1])
+        col = _read_slice(f, col_base + e0 * 4, e1 - e0, "<u4")
+    local_ptr = np.zeros(n + 1, dtype=np.int64)
+    local_ptr[1:] = ends - lo_off
+    return local_ptr, col.astype(np.int32)
+
+
+def load_lux(path: str) -> Graph:
+    """Read a `.lux` binary graph: u32 num_nodes, u64 num_edges,
+    num_nodes x u64 inclusive-end row offsets, num_edges x u32 source
+    ids; natively when the library is built, else with numpy."""
+    from .. import native
+    if native.available():
+        row_ptr, col_idx = native.load_lux(path)
+        return Graph(row_ptr=row_ptr, col_idx=col_idx)
+    num_nodes, num_edges = load_lux_header(path)
+    with open(path, "rb") as f:
+        raw_rows = _read_slice(f, 12, num_nodes, "<u8")
+        col_idx = _read_slice(f, 12 + 8 * num_nodes, num_edges, "<u4")
+    # monotonicity checks mirror gnn.cc:798-800 (ValueError, not assert)
+    if not (np.diff(raw_rows.astype(np.int64)) >= 0).all():
+        raise ValueError(f"{path}: non-monotone row offsets")
+    if num_nodes and raw_rows[-1] != num_edges:
+        raise ValueError(f"{path}: row offsets end at {raw_rows[-1]}, "
+                         f"expected {num_edges}")
+    row_ptr = np.zeros(num_nodes + 1, dtype=np.int64)
+    row_ptr[1:] = raw_rows.astype(np.int64)
+    return Graph(row_ptr=row_ptr, col_idx=col_idx.astype(np.int32))
+
+
+def save_lux(graph: Graph, path: str) -> None:
+    """Write the reference `.lux` format (the inverse of
+    :func:`load_lux`); natively when the library is built."""
+    from .. import native
+    if native.available():
+        native.save_lux(path, graph.row_ptr, graph.col_idx)
+        return
+    with open(path, "wb") as f:
+        f.write(struct.pack("<IQ", graph.num_nodes, graph.num_edges))
+        graph.row_ptr[1:].astype("<u8").tofile(f)
+        graph.col_idx.astype("<u4").tofile(f)
+
+
+def _check_rows(rows: tuple, num_nodes: int) -> tuple:
+    lo, hi = (int(r) for r in rows)
+    if not 0 <= lo <= hi <= num_nodes:
+        raise ValueError(f"bad row range [{lo}, {hi}) for {num_nodes} "
+                         "nodes")
+    return lo, hi
+
+
+def _iter_lines(path: str, lo: int, hi: int):
+    """Lines ``[lo, hi)`` of a text file (the numpy path's line skip for
+    the partition-local CSV, label and mask reads)."""
+    import itertools
+    with open(path) as f:
+        yield from itertools.islice(f, lo, hi)
+
+
+def load_features(prefix: str, num_nodes: int, in_dim: int,
+                  rows: Optional[tuple] = None) -> np.ndarray:
+    """``<prefix>.feats.bin`` (float32) when present, else
+    ``<prefix>.feats.csv`` (one comma-separated row per vertex), caching
+    the ``.feats.bin`` beside it as ``load_task.cu:41-73`` does.  Returns
+    float32 ``[num_nodes, in_dim]``.
+
+    ``rows=(lo, hi)`` reads that half-open row range alone: from the
+    ``.feats.bin`` an exact byte-range read (:func:`_read_slice`), from
+    the CSV the native parser's line skip to ``lo`` (numpy's path parses
+    only the needed lines); no ``.feats.bin`` is cached then."""
+    from .. import native
+    bin_path = prefix + ".feats.bin"
+    csv_path = prefix + ".feats.csv"
+    if rows is not None:
+        lo, hi = _check_rows(rows, num_nodes)
+        if os.path.exists(bin_path):
+            with open(bin_path, "rb") as f:
+                data = _read_slice(f, lo * in_dim * 4, (hi - lo) * in_dim,
+                                   np.float32)
+            return data.reshape(hi - lo, in_dim)
+        if native.available():
+            return native.load_features_csv_rows(csv_path, lo, hi, in_dim)
+        if hi == lo:
+            return np.zeros((0, in_dim), dtype=np.float32)
+        data = np.loadtxt(_iter_lines(csv_path, lo, hi), delimiter=",",
+                          dtype=np.float32, ndmin=2)
+        if data.shape != (hi - lo, in_dim):
+            raise ValueError(f"{csv_path}: rows [{lo}, {hi}) parsed to "
+                             f"{data.shape}, expected {(hi - lo, in_dim)}")
+        return data
+    if os.path.exists(bin_path):
+        data = np.fromfile(bin_path, dtype=np.float32,
+                           count=num_nodes * in_dim)
+        if data.size != num_nodes * in_dim:
+            raise IOError(f"{bin_path}: truncated .feats.bin "
+                          f"({data.size} of {num_nodes * in_dim} floats)")
+        return data.reshape(num_nodes, in_dim)
+    if native.available():
+        data = native.load_features_csv(csv_path, num_nodes, in_dim)
+    else:
+        data = np.loadtxt(csv_path, delimiter=",",
+                          dtype=np.float32).reshape(num_nodes, in_dim)
+    data.tofile(bin_path)
+    return data
+
+
+def load_labels(prefix: str, num_nodes: int, num_classes: int,
+                rows: Optional[tuple] = None) -> np.ndarray:
+    """``<prefix>.label``, one class index per line (``load_task.cu:118-
+    123``).  Returns int32 ``[num_nodes]``, or the ``rows=(lo, hi)``
+    slice (lines before ``lo`` are skipped, unparsed)."""
+    if rows is not None:
+        lo, hi = _check_rows(rows, num_nodes)
+        labels = np.loadtxt(_iter_lines(prefix + ".label", lo, hi),
+                            dtype=np.int64, ndmin=1)
+        n = hi - lo
+    else:
+        labels = np.loadtxt(prefix + ".label", dtype=np.int64,
+                            ndmin=1)[:num_nodes]
+        n = num_nodes
+    if labels.shape[0] != n:
+        raise ValueError(f"{prefix}.label: got {labels.shape[0]} rows, "
+                         f"expected {n}")
+    if not ((labels >= 0) & (labels < num_classes)).all():
+        raise ValueError(f"{prefix}.label: class index outside "
+                         f"[0, {num_classes})")
+    return labels.astype(np.int32)
+
+
+def load_mask(prefix: str, num_nodes: int,
+              rows: Optional[tuple] = None) -> np.ndarray:
+    """``<prefix>.mask``, "Train"/"Val"/"Test"/"None" per line
+    (``load_task.cu:169-183``).  Returns int32 ``[num_nodes]`` of MASK_*
+    values (natively when the library is built), or the ``rows=(lo,
+    hi)`` slice."""
+    from .. import native
+    if rows is None and native.available():
+        return native.load_mask(prefix + ".mask", num_nodes)
+    lo, hi = _check_rows(rows, num_nodes) if rows is not None \
+        else (0, num_nodes)
+    out = np.empty(hi - lo, dtype=np.int32)
+    count = 0
+    for i, line in enumerate(_iter_lines(prefix + ".mask", lo, hi)):
+        line = line.strip()
+        if line not in _MASK_NAMES:
+            raise ValueError(f"Unrecognized mask: {line!r}")
+        out[i] = _MASK_NAMES[line]
+        count = i + 1
+    if count != hi - lo:
+        raise ValueError(f"truncated .mask: wanted rows [{lo}, {hi}), "
+                         f"got {count}")
+    return out
+
+
 @dataclass
 class Dataset:
     """A fully-loaded full-graph node-classification problem."""
@@ -139,98 +352,24 @@ class Dataset:
         return int(self.features.shape[1])
 
 
-# ---------------------------------------------------------------------------
-# The reference on-disk layout (gnn.cc:756-801, load_task.cu:25-199)
-# ---------------------------------------------------------------------------
-
-def _read_slice(f, offset: int, count: int, dtype: str) -> np.ndarray:
-    """Seek + read ``count`` items of ``dtype``; raises on a short read."""
-    f.seek(offset)
-    out = np.fromfile(f, dtype=dtype, count=count)
-    if out.size != count:
-        raise IOError(f"truncated read at {offset} (+{count}): "
-                      f"got {out.size} items")
-    return out
-
-
-def load_lux_header(path: str) -> tuple:
-    """(num_nodes, num_edges) from a `.lux` header without reading the
-    body."""
-    with open(path, "rb") as f:
-        return struct.unpack("<IQ", f.read(12))
-
-
-def load_lux(path: str) -> Graph:
-    """Read a `.lux` binary graph: u32 num_nodes, u64 num_edges,
-    num_nodes x u64 inclusive-end row offsets, num_edges x u32 source
-    ids."""
-    num_nodes, num_edges = load_lux_header(path)
-    with open(path, "rb") as f:
-        raw_rows = _read_slice(f, 12, num_nodes, "<u8")
-        col_idx = _read_slice(f, 12 + 8 * num_nodes, num_edges, "<u4")
-    # monotonicity checks mirror gnn.cc:798-800 (ValueError, not assert)
-    if not (np.diff(raw_rows.astype(np.int64)) >= 0).all():
-        raise ValueError(f"{path}: non-monotone row offsets")
-    if num_nodes and raw_rows[-1] != num_edges:
-        raise ValueError(f"{path}: row offsets end at {raw_rows[-1]}, "
-                         f"expected {num_edges}")
-    row_ptr = np.zeros(num_nodes + 1, dtype=np.int64)
-    row_ptr[1:] = raw_rows.astype(np.int64)
-    return Graph(row_ptr=row_ptr, col_idx=col_idx.astype(np.int32))
-
-
-def load_features(prefix: str, num_nodes: int, in_dim: int) -> np.ndarray:
-    """``<prefix>.feats.bin`` (float32) when present, else
-    ``<prefix>.feats.csv`` (one comma-separated row per vertex), caching
-    the ``.feats.bin`` beside it as ``load_task.cu:41-73`` does.  Returns
-    float32 ``[num_nodes, in_dim]``."""
-    bin_path = prefix + ".feats.bin"
-    if os.path.exists(bin_path):
-        data = np.fromfile(bin_path, dtype=np.float32,
-                           count=num_nodes * in_dim)
-        if data.size != num_nodes * in_dim:
-            raise IOError(f"{bin_path}: truncated .feats.bin "
-                          f"({data.size} of {num_nodes * in_dim} floats)")
-        return data.reshape(num_nodes, in_dim)
-    data = np.loadtxt(prefix + ".feats.csv", delimiter=",",
-                      dtype=np.float32).reshape(num_nodes, in_dim)
-    data.tofile(bin_path)
-    return data
-
-
-def load_labels(prefix: str, num_nodes: int, num_classes: int) -> np.ndarray:
-    """``<prefix>.label``, one class index per line (``load_task.cu:118-
-    123``).  Returns int32 ``[num_nodes]``."""
-    labels = np.loadtxt(prefix + ".label", dtype=np.int64,
-                        ndmin=1)[:num_nodes]
-    if labels.shape[0] != num_nodes:
-        raise ValueError(f"{prefix}.label: got {labels.shape[0]} rows, "
-                         f"expected {num_nodes}")
-    if not ((labels >= 0) & (labels < num_classes)).all():
-        raise ValueError(f"{prefix}.label: class index outside "
-                         f"[0, {num_classes})")
-    return labels.astype(np.int32)
-
-
-def load_mask(prefix: str, num_nodes: int) -> np.ndarray:
-    """``<prefix>.mask``, "Train"/"Val"/"Test"/"None" per line
-    (``load_task.cu:169-183``).  Returns int32 ``[num_nodes]`` of MASK_*
-    values."""
-    out = np.empty(num_nodes, dtype=np.int32)
-    count = 0
-    with open(prefix + ".mask") as f:
-        for line in f:
-            if count == num_nodes:
-                break
-            line = line.strip()
-            if line not in _MASK_NAMES:
-                raise ValueError(f"Unrecognized mask: {line!r}")
-            out[count] = _MASK_NAMES[line]
-            count += 1
-    if count != num_nodes:
-        raise ValueError(f"truncated .mask: wanted {num_nodes} rows, "
-                         f"got {count}")
-    return out
+def save_dataset(ds: Dataset, prefix: str, csv: bool = True,
+                 feats_bin: bool = True) -> None:
+    """Write a dataset in the reference on-disk layout (what
+    ``load_task.cu:25-199`` reads): ``<prefix>.add_self_edge.lux``,
+    ``.feats.csv`` and/or ``.feats.bin``, ``.label``, ``.mask``.  The
+    graph is written as it is: the caller gives it its self edges
+    (:func:`add_self_edges`), as the file name promises."""
+    save_lux(ds.graph, prefix + ".add_self_edge.lux")
+    if csv:
+        np.savetxt(prefix + ".feats.csv", ds.features, delimiter=",",
+                   fmt="%.7g")
+    if feats_bin:
+        np.asarray(ds.features, dtype=np.float32).tofile(
+            prefix + ".feats.bin")
+    np.savetxt(prefix + ".label", ds.labels, fmt="%d")
+    names = {v: k for k, v in _MASK_NAMES.items()}
+    with open(prefix + ".mask", "w") as f:
+        f.write("".join(names[int(m)] + "\n" for m in ds.mask))
 
 
 def load_dataset(prefix: str, in_dim: int, num_classes: int,

@@ -18,9 +18,10 @@ holds the same shapes: node rows pad to the largest part rounded up to
 land on the part's first padded row, so they add zeros and touch no real
 output row.
 
-Ported subset: the vectorised sweep (the JAX package's native C++ sweep,
-which its tests hold bit-identical to it, is not ported), the greedy
-split and the cost-balanced one (``method='cost'``, core/costmodel.py).
+The sweep runs in the port's native library (native/rocload.cc) when
+it is built, else vectorised in numpy; the two give the same ranges
+(tests/test_torch_source.py).  Splits: the greedy one and the
+cost-balanced one (``method='cost'``, core/costmodel.py).
 """
 
 from __future__ import annotations
@@ -39,11 +40,16 @@ def edge_balanced_bounds(row_ptr: np.ndarray, num_parts: int
     vertex ranges ``[left, right]`` (reference ``gnn.cc:806-829``).
     Ranges may be empty (``left > right``) only in the padded tail.
 
-    The sweep closes a range at the first vertex whose running edge
-    count exceeds the cap, i.e. at ``searchsorted(row_ptr, row_ptr[left]
-    + cap, 'right') - 1``: O(P log V)."""
+    Natively when the library is built (an O(V) sweep); numpy's path
+    closes a range at the first vertex whose running edge count exceeds
+    the cap, i.e. at ``searchsorted(row_ptr, row_ptr[left] + cap,
+    'right') - 1``: O(P log V)."""
+    from .. import native
     row_ptr = np.asarray(row_ptr, dtype=np.int64)
     num_nodes = row_ptr.shape[0] - 1
+    if native.available():
+        return [(int(l), int(r)) for l, r in
+                native.edge_balanced_bounds(row_ptr, num_parts)]
     num_edges = int(row_ptr[-1])
     cap = (num_edges + num_parts - 1) // num_parts
     bounds: List[Tuple[int, int]] = []

@@ -22,7 +22,9 @@ once, built on the host (``row_ptr``, int64 ``[num_rows + 1]``): the
 pre-pass is then skipped, and rows past the ranges' last edge, padding
 included, are never read.  The ring halo (parallel/ring.py) does so for
 each of its pairs, whose padding would otherwise all fall in the last
-row's range.
+row's range; it then passes no ``edge_dst`` at all (the kernel never
+reads it, and the plain version rebuilds it from the ranges,
+:func:`dst_from_row_ptr`).
 
 ``feats`` is float32 or bfloat16 (the main pass's ``_f32`` or ``_bf16``
 instance; any other dtype is refused on the card; the pre-pass does not
@@ -48,10 +50,12 @@ from . import _build, slicing
 
 
 def _check(feats: torch.Tensor, edge_src: torch.Tensor,
-           edge_dst: torch.Tensor, chunk: int) -> None:
+           edge_dst: Optional[torch.Tensor], chunk: int) -> None:
     if feats.dim() != 2:
         raise ValueError(f"csr_spmm: feats must be [R, F], got "
                          f"{tuple(feats.shape)}")
+    if edge_dst is None:
+        edge_dst = edge_src
     if (edge_src.dim() != 1 or edge_dst.dim() != 1
             or edge_src.shape != edge_dst.shape):
         raise ValueError(f"csr_spmm: edge_src and edge_dst must be [E], "
@@ -85,6 +89,22 @@ def default_slice_cols(F: int, dtype: torch.dtype = torch.float32) -> int:
     at F = 256 (PERF.md), 2x the unsliced schedule; in bf16 128, the
     bytes of fp32's 64 and the bf16 race's winner (PERF.md)."""
     return slicing.default_slice_cols(F, wide=_WIDE.get(dtype, 64))
+
+
+def dst_from_row_ptr(row_ptr: torch.Tensor, num_edges: int
+                     ) -> torch.Tensor:
+    """The dst-sorted ``edge_dst`` (int32 ``[num_edges]``) whose row
+    ranges are ``row_ptr``: edge e of row v's range gets v, and the edges
+    past the last range (padding) the last row, as the tables lay them
+    out."""
+    n = row_ptr.shape[0] - 1
+    out = torch.full((num_edges,), max(n - 1, 0), dtype=torch.int32,
+                     device=row_ptr.device)
+    end = int(row_ptr[-1])
+    out[:end] = torch.repeat_interleave(
+        torch.arange(n, dtype=torch.int32, device=row_ptr.device),
+        torch.diff(row_ptr))
+    return out
 
 
 def csr_row_ptr_plain(edge_dst: torch.Tensor, num_rows: int
@@ -122,14 +142,16 @@ csr_row_ptr.launches = 0
 
 
 def csr_spmm(feats: torch.Tensor, edge_src: torch.Tensor,
-             edge_dst: torch.Tensor, num_rows: int, chunk: int = 512,
+             edge_dst: Optional[torch.Tensor], num_rows: int,
+             chunk: int = 512,
              slice_cols: Optional[int] = None,
              row_ptr: Optional[torch.Tensor] = None) -> torch.Tensor:
     """``out[v] = sum(feats[src] for edges (src, v))``.
 
     feats: float32 or bfloat16 [R, F], no zero row (the dummy id is R).
     edge_src/edge_dst: int32 [Ep], sorted by ``edge_dst``, ``Ep`` a
-    multiple of ``chunk``.
+    multiple of ``chunk``; ``edge_dst`` may be None when ``row_ptr`` is
+    given.
     slice_cols: the main pass's column slice width, one of
     ``slicing.SLICE_COLS``; None takes :func:`default_slice_cols`.  The
     plain version on the CPU has no slices and ignores it.
@@ -140,6 +162,8 @@ def csr_spmm(feats: torch.Tensor, edge_src: torch.Tensor,
     give its result.
     Returns [num_rows, F] in ``feats.dtype``."""
     _check(feats, edge_src, edge_dst, chunk)
+    if edge_dst is None and row_ptr is None:
+        raise ValueError("csr_spmm: pass edge_dst or row_ptr")
     if row_ptr is not None and (row_ptr.shape != (num_rows + 1,)
                                 or row_ptr.device != feats.device):
         raise ValueError(f"csr_spmm: row_ptr must be [{num_rows + 1}] on "
@@ -148,8 +172,10 @@ def csr_spmm(feats: torch.Tensor, edge_src: torch.Tensor,
     S = slicing.resolve("csr_spmm", slice_cols,
                         default_slice_cols(feats.shape[1], feats.dtype))
     if feats.device.type == "cpu":
+        if edge_dst is None:
+            edge_dst = dst_from_row_ptr(row_ptr, edge_src.shape[0])
         return csr_spmm_plain(feats, edge_src, edge_dst, num_rows)
-    for t in (edge_src, edge_dst):
+    for t in (edge_src, edge_dst if edge_dst is not None else edge_src):
         if t.dtype != torch.int32 or not t.is_contiguous():
             raise TypeError("csr_spmm: edge arrays must be contiguous int32")
     if not feats.is_contiguous():

@@ -1,13 +1,18 @@
-"""The host planners of the large-graph layouts, in C++ (``rocplan.cc``),
-loaded with ctypes: the sectioned sub-row tables (core/ell.py), the
-block-dense tile census and fill (ops/blockdense.py) and the
-label-propagation sweep (core/reorder.py).  They are the port's copy of
-the JAX package's ``native/rocio.cc`` planning passes; the port neither
-builds nor loads that library.
+"""The port's native host library, in C++, loaded with ctypes: the
+planners of the large-graph layouts (``rocplan.cc``: the sectioned sub-row
+tables of core/ell.py, the block-dense tile census and fill of
+ops/blockdense.py, the label-propagation sweep of core/reorder.py) and the
+loaders of the data layer (``rocload.cc``: the ``.lux`` reader and writer,
+the CSV feature parser, whole and by rows, the mask parser, the
+edge-balanced split of core/partition.py, self-edge insertion and the ELL
+bucket widths of core/ell.py).  They are the port's copy of the JAX
+package's ``native/rocio.cc`` passes; the port neither builds nor loads
+that library (nor reads its ``ROC_TPU_NATIVE`` variable): this one is
+loaded by its path alone.
 
-At first use :func:`available` builds ``rocplan.cc`` with ``g++`` into
-``native/build/`` (listed in ``.gitignore``) under a name that carries a
-hash of the source and flags, so an edited source is rebuilt; the build
+At first use :func:`available` builds both sources with ``g++`` into one
+library in ``native/build/`` (listed in ``.gitignore``) under a name that
+carries a hash of the sources and flags, so an edited source is rebuilt; the build
 writes a temporary file and renames it, so processes that build at once
 never load a half-written library.  A library whose ABI version differs
 from :data:`ABI_VERSION` is refused.  When no library can be built or
@@ -32,10 +37,14 @@ from typing import Dict, Optional, Tuple
 import numpy as np
 
 _HERE = os.path.dirname(os.path.abspath(__file__))
-SOURCE = os.path.join(_HERE, "rocplan.cc")
+SOURCES = (os.path.join(_HERE, "rocplan.cc"),
+           os.path.join(_HERE, "rocload.cc"))
 BUILD_DIR = os.path.join(_HERE, "build")
 CXX_FLAGS = ("-O3", "-fPIC", "-std=c++17", "-Wall", "-Wextra", "-shared")
-ABI_VERSION = 1
+ABI_VERSION = 2
+# the loaders' error codes (rocload.cc): -1 open, -2 read, -3 format,
+# -4 value
+_IO_ERRORS = (-1, -2)
 
 _lock = threading.Lock()
 _lib: Optional[ctypes.CDLL] = None
@@ -53,8 +62,9 @@ def _i32p(a: np.ndarray):
 
 def _target() -> str:
     h = hashlib.sha256(" ".join(CXX_FLAGS).encode())
-    with open(SOURCE, "rb") as f:
-        h.update(f.read())
+    for src in SOURCES:
+        with open(src, "rb") as f:
+            h.update(f.read())
     return os.path.join(BUILD_DIR, f"librocplan_{h.hexdigest()[:16]}.so")
 
 
@@ -66,7 +76,7 @@ def _build(target: str) -> None:
     fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
     os.close(fd)
     try:
-        res = subprocess.run([cxx, *CXX_FLAGS, "-o", tmp, SOURCE],
+        res = subprocess.run([cxx, *CXX_FLAGS, "-o", tmp, *SOURCES],
                              capture_output=True, text=True, timeout=300)
         if res.returncode != 0:
             raise OSError(f"g++ failed: {res.stderr[-2000:]}")
@@ -79,8 +89,20 @@ def _build(target: str) -> None:
 def _declare(lib: ctypes.CDLL) -> None:
     c = ctypes
     i64, i32p, i64p = c.c_int64, c.POINTER(c.c_int32), c.POINTER(c.c_int64)
-    u8p = c.POINTER(c.c_uint8)
+    u8p, f32p = c.POINTER(c.c_uint8), c.POINTER(c.c_float)
     for name, res, args in (
+            ("roc_lux_header", c.c_int,
+             [c.c_char_p, c.POINTER(c.c_uint32), c.POINTER(c.c_uint64)]),
+            ("roc_lux_read", c.c_int, [c.c_char_p, i64, i64, i64p, i32p]),
+            ("roc_lux_write", c.c_int, [c.c_char_p, i64, i64, i64p, i32p]),
+            ("roc_load_features_csv", c.c_int, [c.c_char_p, f32p, i64, i64]),
+            ("roc_load_features_csv_rows", c.c_int,
+             [c.c_char_p, f32p, i64, i64, i64]),
+            ("roc_load_mask", c.c_int, [c.c_char_p, i32p, i64]),
+            ("roc_edge_balanced_bounds", c.c_int, [i64p, i64, i64, i64p]),
+            ("roc_add_self_edges", c.c_int64,
+             [i64p, i32p, i64, i64p, i32p, i64]),
+            ("roc_ell_widths", c.c_int, [i64p, i64, c.c_int32, i32p]),
             ("roc_sectioned_counts", c.c_int,
              [i64p, i32p, i64, i64, i64, i64, i64p]),
             ("roc_sectioned_fill", c.c_int,
@@ -110,8 +132,9 @@ def _load() -> Optional[ctypes.CDLL]:
             lib.roc_abi_version.restype = ctypes.c_int
             got = int(lib.roc_abi_version())
         except (OSError, AttributeError, subprocess.SubprocessError) as e:
-            emit("resolve", f"native host planners unavailable ({e}); the "
-                 "layouts are planned by their numpy paths",
+            emit("resolve", f"native host library unavailable ({e}); the "
+                 "layouts are planned and the files read by their numpy "
+                 "paths",
                  native=False, reason=str(e)[:300])
             return None
         if got != ABI_VERSION:
@@ -133,7 +156,7 @@ def available() -> bool:
 def _lib_for(name: str) -> ctypes.CDLL:
     lib = _load()
     if lib is None:
-        raise RuntimeError("the native host planners are not available")
+        raise RuntimeError("the native host library is not available")
     calls[name] = calls.get(name, 0) + 1
     return lib
 
@@ -244,3 +267,124 @@ def lpa_iterate(nbr_ptr: np.ndarray, nbr: np.ndarray, labels: np.ndarray
     if rc < 0:
         raise ValueError(f"roc_lpa_iterate failed: {rc}")
     return out, rc
+
+
+# ---------------------------------------------------------------- loaders
+
+
+def _check_io(rc: int, what: str) -> None:
+    """A loader's return code as the numpy path's exception: IOError for
+    a file that cannot be opened or read, ValueError for a malformed
+    one."""
+    if rc in _IO_ERRORS:
+        raise IOError(f"{what} failed: {rc}")
+    if rc != 0:
+        raise ValueError(f"{what} failed: malformed file ({rc})")
+
+
+def lux_header(path: str) -> Tuple[int, int]:
+    """``(num_nodes, num_edges)`` of a ``.lux`` file."""
+    lib = _lib_for("lux_header")
+    nn, ne = ctypes.c_uint32(), ctypes.c_uint64()
+    _check_io(lib.roc_lux_header(path.encode(), ctypes.byref(nn),
+                                 ctypes.byref(ne)), f"roc_lux_header({path})")
+    return int(nn.value), int(ne.value)
+
+
+def load_lux(path: str) -> Tuple[np.ndarray, np.ndarray]:
+    """``(row_ptr int64 [V+1], col_idx int32 [E])`` of a ``.lux`` file,
+    its offsets checked monotone and ending at E, its ids below V."""
+    V, E = lux_header(path)
+    lib = _lib_for("load_lux")
+    row_ptr = np.empty(V + 1, dtype=np.int64)
+    col_idx = np.empty(E, dtype=np.int32)
+    _check_io(lib.roc_lux_read(path.encode(), V, E, _i64p(row_ptr),
+                               _i32p(col_idx)), f"roc_lux_read({path})")
+    return row_ptr, col_idx
+
+
+def save_lux(path: str, row_ptr: np.ndarray, col_idx: np.ndarray) -> None:
+    """Write a ``.lux`` file (the inverse of :func:`load_lux`)."""
+    lib = _lib_for("save_lux")
+    row_ptr, col_idx = _csr(row_ptr, col_idx)
+    _check_io(lib.roc_lux_write(path.encode(), row_ptr.shape[0] - 1,
+                                col_idx.shape[0], _i64p(row_ptr),
+                                _i32p(col_idx)), f"roc_lux_write({path})")
+
+
+def _f32p(a: np.ndarray):
+    return a.ctypes.data_as(ctypes.POINTER(ctypes.c_float))
+
+
+def load_features_csv(path: str, rows: int, cols: int) -> np.ndarray:
+    """float32 ``[rows, cols]`` from a CSV of exactly that many values."""
+    lib = _lib_for("load_features_csv")
+    out = np.empty((rows, cols), dtype=np.float32)
+    _check_io(lib.roc_load_features_csv(path.encode(), _f32p(out), rows,
+                                        cols),
+              f"roc_load_features_csv({path})")
+    return out
+
+
+def load_features_csv_rows(path: str, row_lo: int, row_hi: int,
+                           cols: int) -> np.ndarray:
+    """Rows ``[row_lo, row_hi)`` of a CSV feature file: the first
+    ``row_lo`` lines are skipped by counting newlines, unparsed."""
+    lib = _lib_for("load_features_csv_rows")
+    out = np.empty((row_hi - row_lo, cols), dtype=np.float32)
+    _check_io(lib.roc_load_features_csv_rows(path.encode(), _f32p(out),
+                                             row_lo, row_hi, cols),
+              f"roc_load_features_csv_rows({path})")
+    return out
+
+
+def load_mask(path: str, n: int) -> np.ndarray:
+    """int32 ``[n]`` MASK_* values from the first ``n`` lines of a
+    ``.mask`` file."""
+    lib = _lib_for("load_mask")
+    out = np.empty(n, dtype=np.int32)
+    _check_io(lib.roc_load_mask(path.encode(), _i32p(out), n),
+              f"roc_load_mask({path})")
+    return out
+
+
+def edge_balanced_bounds(row_ptr: np.ndarray, num_parts: int) -> np.ndarray:
+    """The greedy edge sweep: int64 ``[num_parts, 2]`` inclusive ranges,
+    empty tail ranges ``(V, V - 1)``."""
+    lib = _lib_for("edge_balanced_bounds")
+    row_ptr = np.ascontiguousarray(row_ptr, dtype=np.int64)
+    bounds = np.empty((num_parts, 2), dtype=np.int64)
+    rc = lib.roc_edge_balanced_bounds(_i64p(row_ptr), row_ptr.shape[0] - 1,
+                                      num_parts, _i64p(bounds))
+    if rc != 0:
+        raise ValueError(f"roc_edge_balanced_bounds failed: {rc}")
+    return bounds
+
+
+def add_self_edges(row_ptr: np.ndarray, col_idx: np.ndarray
+                   ) -> Tuple[np.ndarray, np.ndarray]:
+    """The CSR with a self edge appended to every row that has none."""
+    lib = _lib_for("add_self_edges")
+    row_ptr, col_idx = _csr(row_ptr, col_idx)
+    V = row_ptr.shape[0] - 1
+    cap = col_idx.shape[0] + V
+    new_ptr = np.empty(V + 1, dtype=np.int64)
+    new_col = np.empty(cap, dtype=np.int32)
+    rc = int(lib.roc_add_self_edges(_i64p(row_ptr), _i32p(col_idx), V,
+                                    _i64p(new_ptr), _i32p(new_col), cap))
+    if rc < 0:
+        raise ValueError(f"roc_add_self_edges failed: {rc}")
+    return new_ptr, new_col[:col_idx.shape[0] + rc].copy()
+
+
+def ell_widths(row_ptr: np.ndarray, min_width: int = 8) -> np.ndarray:
+    """Per-row power-of-two ELL bucket width (floored at ``min_width``;
+    0 for an empty row), int32."""
+    lib = _lib_for("ell_widths")
+    row_ptr = np.ascontiguousarray(row_ptr, dtype=np.int64)
+    n = row_ptr.shape[0] - 1
+    out = np.empty(n, dtype=np.int32)
+    rc = lib.roc_ell_widths(_i64p(row_ptr), n, min_width, _i32p(out))
+    if rc != 0:
+        raise ValueError(f"roc_ell_widths failed: {rc}")
+    return out

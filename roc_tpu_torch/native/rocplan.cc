@@ -20,9 +20,10 @@ constexpr int kErrValue = -4;
 
 extern "C" {
 
-// Bumped on every change of a C signature below; the loader refuses a
-// library whose version differs.
-int roc_abi_version(void) { return 1; }
+// Bumped on every change of a C signature below or in rocload.cc, the
+// loaders built into the same library; the loader refuses a library whose
+// version differs.  v2: rocload.cc's loader passes added.
+int roc_abi_version(void) { return 2; }
 
 // ---------------------------------------------------------------------------
 // Sectioned fast-gather layout prep (core/ell.py SectionedEll): the

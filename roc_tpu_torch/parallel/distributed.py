@@ -40,13 +40,18 @@ part's rows (train/trainer.py ``resolve_config``).  On the ring, K1 -> K3
 at each hop -> K2 on the kernel routes.
 
 The step is :class:`Trainer`'s, rematerialisation (``remat``) included.
-Ported subset: one host.  The multi-host loader and the ``(parts,
-model)`` mesh are not ported, and ``features='host'`` is single-device,
-as in the JAX package.  A torch rank holds no other part's rows, so
-:class:`ShardedData` is one part; where the JAX package pads every part
-to one shape, a rank agrees on the shapes it must share with one
-collective (the ring's ``pair_edges``, the sectioned chunk plans, the
-block-dense A-table's packing).
+``features='host'`` is single-device, as in the JAX package.  A torch
+rank holds no other part's rows, so :class:`ShardedData` is one part;
+where the JAX package pads every part to one shape, a rank agrees on the
+shapes it must share with one collective (the ring's ``pair_edges``, the
+sectioned chunk plans, the block-dense A-table's packing).  A rank may
+build its part from a ``DataSource`` (core/source.py; parallel/
+multihost.py ``shard_dataset_local``) and so never hold the whole graph,
+and the ``(parts, model)`` mesh keeps the params and Adam moments
+sharded over a part's model ranks at rest (:class:`DistributedTrainer`).
+The mesh's model ranks each run their part's whole 1-D step: the hidden
+width is not split across them (the JAX package's GSPMD may split it on
+its gather path).
 """
 
 from __future__ import annotations
@@ -66,7 +71,7 @@ import torch.distributed as dist
 from ..core.ell import (default_section_rows, ell_from_padded_parts,
                         flat_sum_from_padded_parts,
                         sectioned_from_padded_parts)
-from ..core.graph import MASK_NONE, Dataset
+from ..core.graph import MASK_NONE
 from ..core.partition import (PartitionedGraph, PartitionPlan,
                               partition_col, partition_plan,
                               plan_from_bounds)
@@ -75,7 +80,7 @@ from ..models.builder import (AGGR_IMPLS, ELL_IMPLS, HALOS, KERNEL_IMPLS,
 from ..obs.events import emit
 from ..ops.norm import inv_sqrt_degree, inv_sqrt_degree_np
 from ..train.trainer import (TrainConfig, Trainer, layout_options,
-                             resolve_partition)
+                             resolve_mesh, resolve_partition)
 
 # torch.distributed's one-tensor all-gather: ``all_gather_single`` where
 # the installed torch has it (the name that replaces the deprecated one),
@@ -112,14 +117,16 @@ def remap_to_padded(pg: PartitionedGraph) -> np.ndarray:
     return remap_col_to_padded(pg, pg.part_col_idx)
 
 
-def _part_rows(arr: np.ndarray, plan: PartitionPlan, p: int,
-               fill=0) -> np.ndarray:
-    """Part ``p``'s padded rows ``[part_nodes, ...]`` of a global
-    per-node array ``[V, ...]``; padding rows get ``fill``."""
-    out = np.full((plan.part_nodes,) + arr.shape[1:], fill, dtype=arr.dtype)
+def _part_rows(get: Callable[[int, int], np.ndarray], plan: PartitionPlan,
+               p: int, fill, dtype, extra: Tuple[int, ...] = ()
+               ) -> np.ndarray:
+    """Part ``p``'s padded rows ``[part_nodes, *extra]`` of a per-node
+    field, its real rows read as ``get(lo, hi)`` (a slice of a global
+    array, or a DataSource's accessor); padding rows get ``fill``."""
+    out = np.full((plan.part_nodes,) + tuple(extra), fill, dtype=dtype)
     l, r = plan.bounds[p]
     if r >= l:
-        out[:r - l + 1] = arr[l:r + 1]
+        out[:r - l + 1] = get(l, r + 1)
     return out
 
 
@@ -127,7 +134,8 @@ def pad_nodes(arr: np.ndarray, pg: PartitionPlan,
               fill: float = 0) -> np.ndarray:
     """Scatter a global per-node array ``[V, ...]`` into the stacked
     padded layout ``[P, part_nodes, ...]``; padding rows get ``fill``."""
-    return np.stack([_part_rows(arr, pg, p, fill)
+    return np.stack([_part_rows(lambda lo, hi: arr[lo:hi], pg, p, fill,
+                                arr.dtype, arr.shape[1:])
                      for p in range(pg.num_parts)])
 
 
@@ -344,10 +352,15 @@ class ShardedData:
       ``bd_occupancy`` its plan's record; ``*_w`` and ``bd_scale`` the
       baked fused weights.
     The ring (``halo='ring'``; no other table is built): ``ring_src``,
-    ``ring_dst`` int32 ``[S, pair_edges]``, ``ring_row_ptr`` int64
-    ``[S, part_nodes + 1]``, ``ring_real`` each pair's real edges (host),
+    ``ring_dst`` int32 ``[S, pair_edges]`` (no ``ring_dst`` on the
+    kernel routes, whose K3 reads the row ranges alone), ``ring_row_ptr``
+    int64 ``[S, part_nodes + 1]``, ``ring_real`` each pair's real edges
+    (host),
     ``ring_w`` the baked fused weights (plain routes), ``pair_edges`` and
     ``ring_padding_ratio`` (padded slots over real edges, every part).
+    ``halo_read``: bool ``[V]`` (host), the rows outside the part that
+    its edges read (core/costmodel.py ``part_halo_read``), the part's
+    share of the split's quality record.
     """
     feats: torch.Tensor
     labels: torch.Tensor
@@ -380,6 +393,7 @@ class ShardedData:
     ring_w: Optional[torch.Tensor] = None
     pair_edges: int = 0
     ring_padding_ratio: Optional[float] = None
+    halo_read: Optional[np.ndarray] = None
 
     def context_tables(self) -> Dict[str, Any]:
         """The GraphContext keywords of these tables."""
@@ -458,7 +472,7 @@ def _bdense(ptr, col, plan, dev, min_fill, a_budget, group, fuse_d,
     return tables, pl.res_row_ptr, pl.res_col
 
 
-def shard_dataset(dataset: Dataset, plan: PartitionPlan, rank: int,
+def shard_dataset(dataset, plan: PartitionPlan, rank: int,
                   device, dtype: torch.dtype = torch.float32,
                   aggr_impl: str = "cuda", halo: str = "gather",
                   fuse: bool = False, agree_max=None,
@@ -467,8 +481,11 @@ def shard_dataset(dataset: Dataset, plan: PartitionPlan, rank: int,
                   bdense_a_budget: Optional[int] = 2 << 30,
                   bdense_group: int = 1) -> ShardedData:
     """Build part ``rank`` of ``plan`` on ``device``, with the tables of
-    ``aggr_impl`` only, or the ring's alone for ``halo='ring'``.  Only
-    this part's columns are read (``partition_col``).
+    ``aggr_impl`` only, or the ring's alone for ``halo='ring'``.
+    ``dataset`` is a :class:`Dataset` or any ``DataSource``
+    (core/source.py; a ``FileSource`` reads the reference's files): only
+    this part's rows and columns are read (``partition_col``), besides
+    the O(V) row pointer the plan came from.
 
     Its ELL buckets are padded for this part alone, so their row counts
     may be smaller than the all-parts table's (``ell_from_padded_parts``
@@ -478,22 +495,26 @@ def shard_dataset(dataset: Dataset, plan: PartitionPlan, rank: int,
     rank its row of the JAX package's stacked tables.  ``fuse`` bakes the
     fused normalization into the layouts' tables and, on the plain
     routes, the ring's (``ring_w``); the layout keywords are
-    ``TrainConfig``'s."""
+    ``TrainConfig``'s.  On the kernel routes the ring uploads no
+    ``ring_dst``: K3 reads each pair's row ranges (``ring_row_ptr``)."""
+    from ..core.source import as_source
     if aggr_impl not in AGGR_IMPLS:
         raise ValueError(f"aggr_impl {aggr_impl!r} is not a route; "
                          f"expected one of {AGGR_IMPLS} ('auto' is "
                          "resolved by resolve_config)")
     if halo not in HALOS:
         raise ValueError(f"unknown halo {halo!r}; expected one of {HALOS}")
-    g = dataset.graph
+    src = as_source(dataset)
     pn = plan.part_nodes
     dummy = plan.padded_num_nodes
 
     def dev(a):
         return torch.from_numpy(np.ascontiguousarray(a)).to(device)
 
-    col_global = partition_col(plan, lambda e0, e1: g.col_idx[e0:e1], rank)
-    tables: Dict[str, Any] = {}
+    from ..core.costmodel import part_halo_read
+    col_global = partition_col(plan, src.col_slice, rank)
+    tables: Dict[str, Any] = dict(
+        halo_read=part_halo_read(plan, rank, col_global))
     fuse_d = None
     if fuse:
         d_parts = inv_sqrt_degree_np(plan.part_in_degree)
@@ -501,14 +522,17 @@ def shard_dataset(dataset: Dataset, plan: PartitionPlan, rank: int,
     if halo == "ring":
         from .ring import ring_part_tables, ring_weight_part
         rt = ring_part_tables(plan, rank, col_global, agree_max)
-        tables = dict(ring_src=dev(rt["src"]), ring_dst=dev(rt["dst"]),
+        kernel = aggr_impl in KERNEL_IMPLS
+        tables.update(ring_src=dev(rt["src"]),
+                      ring_dst=None if kernel else dev(rt["dst"]),
                       ring_row_ptr=dev(rt["row_ptr"]), ring_real=rt["real"],
                       pair_edges=rt["pair_edges"],
                       ring_padding_ratio=rt["padding_ratio"])
-        if fuse and aggr_impl not in KERNEL_IMPLS:
+        if fuse and not kernel:
             tables["ring_w"] = dev(ring_weight_part(
                 plan, rank, rt["src"], rt["dst"],
-                inv_sqrt_degree_np(g.in_degree)))
+                inv_sqrt_degree_np(
+                    np.diff(src.row_ptr()).astype(np.int32))))
     else:
         col = remap_col_to_padded(plan, col_global)
         ptr = plan.part_row_ptr[rank]
@@ -517,38 +541,41 @@ def shard_dataset(dataset: Dataset, plan: PartitionPlan, rank: int,
             t = ell_from_padded_parts(ptr[None], col[None],
                                       plan.real_nodes[rank:rank + 1], pn,
                                       dummy=dummy)
-            tables = dict(ell_idx=tuple(dev(a[0]) for a in t.idx),
+            tables.update(ell_idx=tuple(dev(a[0]) for a in t.idx),
                           ell_row_pos=dev(t.row_pos[0]),
                           ell_row_id=tuple(dev(a[0]) for a in t.row_id))
         elif aggr_impl == "sectioned":
-            tables = _sectioned(ptr, col, n_real, plan, dev, sect_sub_w,
-                                sect_u16, fuse_d, agree_max)
+            tables.update(_sectioned(ptr, col, n_real, plan, dev,
+                                     sect_sub_w, sect_u16, fuse_d,
+                                     agree_max))
         elif aggr_impl in ("flat_sum", "attn_flat8"):
             flat = flat_sum_from_padded_parts(
                 ptr[None], col[None], plan.real_nodes[rank:rank + 1], pn,
                 src_rows=dummy, agree_max=agree_max)
-            tables = dict(flat8_idx=dev(flat.idx[0][0]),
+            tables.update(flat8_idx=dev(flat.idx[0][0]),
                           flat8_dst=dev(flat.sub_dst[0][0]))
             if fuse_d is not None and aggr_impl == "flat_sum":
                 tables["flat8_w"] = dev(flat.weight_tables(*fuse_d)[0][0])
         elif aggr_impl == "bdense":
             from ..core.ell import clean_part_ptr
             cptr = clean_part_ptr(ptr, n_real, pn)
-            tables, res_ptr, res_col = _bdense(
+            bd_tables, res_ptr, res_col = _bdense(
                 cptr, col[:int(cptr[-1])], plan, dev, bdense_min_fill,
                 bdense_a_budget, bdense_group, fuse_d, agree_max)
+            tables.update(bd_tables)
             tables.update(_sectioned(res_ptr, res_col, n_real, plan, dev,
                                      sect_sub_w, sect_u16, fuse_d,
                                      agree_max))
         else:
             edge_dst = np.repeat(np.arange(pn, dtype=np.int32),
                                  np.diff(ptr))
-            tables = dict(edge_src=dev(col), edge_dst=dev(edge_dst))
+            tables.update(edge_src=dev(col), edge_dst=dev(edge_dst))
     return ShardedData(
-        feats=torch.as_tensor(_part_rows(dataset.features, plan, rank),
+        feats=torch.as_tensor(_part_rows(src.features, plan, rank, 0,
+                                         np.float32, (src.in_dim,)),
                               dtype=dtype).to(device),
-        labels=dev(_part_rows(dataset.labels, plan, rank)),
-        mask=dev(_part_rows(dataset.mask, plan, rank, fill=MASK_NONE)),
+        labels=dev(_part_rows(src.labels, plan, rank, 0, np.int32)),
+        mask=dev(_part_rows(src.mask, plan, rank, MASK_NONE, np.int32)),
         in_degree=dev(plan.part_in_degree[rank]),
         **tables)
 
@@ -569,9 +596,10 @@ def rank_seed(seed: int, rank: int) -> int:
 class DistributedTrainer(Trainer):
     """The reference epoch loop (``gnn.cc:99-111``) with one partition
     per rank of a ``torch.distributed`` process group (``group``; None
-    is the default group), whose world size must be ``num_parts``.
-    Every rank constructs it and calls each method together: the step,
-    ``evaluate`` and ``predict`` run collectives.
+    is the default group), whose world size must be ``num_parts``, or
+    ``P * M`` on the ``(parts, model)`` mesh (``config.mesh='PxM'``, P
+    the ``num_parts``).  Every rank constructs it and calls each method
+    together: the step, ``evaluate`` and ``predict`` run collectives.
 
     It is :class:`Trainer` on this rank's part: :meth:`_place` builds the
     part and its graph context with the halo (the gather, or the ring),
@@ -581,55 +609,133 @@ class DistributedTrainer(Trainer):
     - The split: ``config.partition`` (:func:`~roc_tpu_torch.train.
       trainer.resolve_partition`; 'auto' is the cost model's) with the
       cost model's search weights; a ``costmodel`` event records its
-      quality (:meth:`_emit_partition_stats`), and each eval record
+      quality (:meth:`_emit_partition_stats`; each rank counts its own
+      part's halo, one collective joins them), and each eval record
       carries the predicted straggler (:meth:`straggler_fields`).  With
       ``config.rebalance``, :meth:`maybe_rebalance` refits the model at
       each eval and repartitions (:meth:`_repartition`); rank 0's
-      measured time decides, broadcast, so every rank decides alike.
+      measured time decides, broadcast to every rank, so every rank
+      decides alike.
     - The ring (``config.halo='ring'``): a ``plan`` event gives P,
       ``pair_edges``, ``padding_ratio`` and the overlap, as the JAX
       package's does.
+    - Partition-local data (the JAX package's ``data=``/``pg=``):
+      ``dataset`` may be a ``DataSource`` (core/source.py, e.g. a
+      ``FileSource`` over the reference's files) instead of a Dataset.
+      The trainer then reads of it only what a rank needs: the counts,
+      the O(V) row pointer (the split, and the rebalancer's searches) and
+      its own part's rows and columns (parallel/multihost.py
+      ``shard_dataset_local``), so no rank holds the whole graph;
+      ``config.symmetric`` must be stated (checking it reads every
+      column) and 'auto' skips the block-dense probe.  ``data`` injects
+      this rank's tables built by the caller (``shard_dataset_local``)
+      from ``plan``, which must come with them; the tables must be those
+      of the resolved ``aggr_impl`` and halo, and ``rebalance`` cannot
+      rebuild them (each raises, as the JAX package's trainer does).
 
     - Weights: ``params``, or Glorot weights drawn as :class:`Trainer`
       draws them (a generator seeded with ``config.seed``), then
-      broadcast from rank 0; so both trainers start from the same
-      weights at the same seed.
+      broadcast from the part group's first rank; so both trainers start
+      from the same weights at the same seed.
     - Dropout: each rank draws its masks from its own generator on its
       device, seeded with :func:`rank_seed` (``config.seed`` and the
-      rank).  This stands where the JAX package folds the partition index
-      into the step key; the draws differ from JAX's.
+      part index).  This stands where the JAX package folds the partition
+      index into the step key; the draws differ from JAX's.
     - A step: the part's summed masked CE and its gradients (under
       ``remat`` with the activations recomputed in the backward), one
       all-reduce sum of the gradients and the objective (one fp32
       buffer), then the same Adam update on every rank.
+    - The ``(parts, model)`` mesh (``config.mesh='PxM'``,
+      :class:`~roc_tpu_torch.parallel.RankMesh`): rank ``p * M + m``
+      holds part p.  Every rank creates the parts groups ``{p * M + m}``
+      (one per m) and the model groups ``{p * M, ..., p * M + M - 1}``
+      (one per p), in that order.  At rest a rank keeps, of every param
+      and Adam moment, its slice along ``parallel.model_shard_spec``'s
+      dimension (a leaf that no dimension divides stays whole).  A step
+      gathers the whole params in the model group (one flat all-gather),
+      runs the 1-D step of its part over its parts group (the halo, the
+      ring and the gradient all-reduce in the 1-D order), and updates its
+      slice alone (Adam is elementwise).  Dropout is seeded by the part,
+      so a P x M run draws what the 1-D run of P parts draws, and the
+      metrics and logits reduce over the parts group.
     - ``evaluate`` all-reduces the ``perf_metrics`` sums in one
       collective; the ``[INFER]`` line prints on rank 0 only.
     - ``predict`` all-gathers the logits into original vertex order.
-    - Checkpoints (utils/checkpoint.py): every rank calls the save and
-      rank 0 writes (the weights and Adam state are replicated); the
-      generators' states are all-gathered so each rank's row is saved;
-      the fingerprint's elastic half records ``num_parts`` and the
-      plan's part shapes, so a checkpoint written at P parts restores at
-      any P.  The recovery rotation's ``restore_latest`` picks the epoch
-      on rank 0 and broadcasts it (:meth:`agree`).
+    - Checkpoints (utils/checkpoint.py): every rank calls the save; rank
+      0 writes whole leaves (on the 1-D mesh, every leaf: the weights and
+      Adam state are replicated) and, on a 2-D mesh, the ranks of part
+      0's model row each write their slices, committed with an
+      un-commit barrier and a commit barrier over a gloo group made at
+      setup for them alone (the saver thread never shares a group with
+      the step).  The generators' states are all-gathered so each part's
+      row is saved; the fingerprint's elastic half records ``num_parts``,
+      the plan's part shapes and the mesh, so a checkpoint written at
+      one (P, M) restores at any other.  The recovery rotation's
+      ``restore_latest`` picks the epoch on rank 0 and broadcasts it
+      (:meth:`agree`).
 
     ``device`` is the card unless the caller passes another (``'cpu'``);
     on the card it is this rank's card (``cuda:<local rank>``, chosen by
     the caller)."""
 
-    def __init__(self, model: Model, dataset: Dataset, num_parts: int,
+    _takes_source = True
+
+    def __init__(self, model: Model, dataset, num_parts: int,
                  config: TrainConfig = TrainConfig(),
                  params: Optional[Dict[str, torch.Tensor]] = None,
-                 device=None, group=None):
-        self.comm = Collectives(group)
-        if self.comm.world_size != num_parts:
-            raise ValueError(f"num_parts={num_parts} but the process group "
-                             f"has {self.comm.world_size} ranks (one "
-                             f"partition per rank)")
+                 device=None, group=None,
+                 data: Optional[ShardedData] = None,
+                 plan: Optional[PartitionPlan] = None):
+        from . import RankMesh
+        _, M = resolve_mesh(config, num_parts=num_parts)
+        self.world_comm = Collectives(group)
+        self.global_rank = self.world_comm.rank
+        if self.world_comm.world_size != num_parts * M:
+            raise ValueError(
+                f"num_parts={num_parts} but the process group has "
+                f"{self.world_comm.world_size} ranks (one partition per "
+                f"rank" + (f", x {M} model ranks: mesh {config.mesh!r}"
+                           if M > 1 else "") + ")")
+        self.mesh = RankMesh(num_parts, M)
+        self.sharding = None
+        self._ckpt_group = None
+        if M > 1:
+            if group is not None:
+                raise ValueError("the (parts, model) mesh runs over the "
+                                 "default process group (group=None)")
+            parts_groups = [dist.new_group(self.mesh.parts_group(m))
+                            for m in range(M)]
+            model_groups = [dist.new_group(self.mesh.model_group(p))
+                            for p in range(num_parts)]
+            # the checkpoint barriers' own group (the async saver's
+            # thread must never share a group with the step's collectives)
+            self._ckpt_group = dist.new_group(backend="gloo")
+            m = self.mesh.model_index(self.global_rank)
+            part = self.mesh.part_of(self.global_rank)
+            self.comm = Collectives(parts_groups[m])
+            self.model_comm = Collectives(model_groups[part])
+        else:
+            self.comm = self.world_comm
+            self.model_comm = None
+        # the part index (the parts group's rank): the split's part, the
+        # dropout seed and the checkpoint generator row are the part's
         self.rank = self.comm.rank
+        if data is not None and plan is None:
+            raise ValueError(
+                "pass plan= alongside data= (the SAME PartitionPlan the "
+                "tables were built from)")
+        if plan is not None and plan.num_parts != num_parts:
+            raise ValueError(f"injected plan has {plan.num_parts} parts, "
+                             f"the trainer was asked for {num_parts}")
+        if data is not None and config.rebalance:
+            raise ValueError(
+                "rebalance=True requires the trainer-owned data build; "
+                "injected data= cannot be repartitioned")
+        self._injected = (data, plan)
         super().__init__(model, dataset, dataclasses.replace(
-            config, verbose=config.verbose and self.rank == 0),
+            config, verbose=config.verbose and self.global_rank == 0),
             params=params, device=device)
+        self._injected = (None, None)
         names = list(self.params)
         with torch.no_grad():
             flat = self.comm.broadcast(_flat([self.params[k]
@@ -637,7 +743,9 @@ class DistributedTrainer(Trainer):
             for k, v in zip(names, _unflat(flat, [self.params[k]
                                                   for k in names])):
                 self.params[k].copy_(v)
-        # rank 0 goes on drawing from Trainer's generator
+        if M > 1:
+            self._shard_at_rest()
+        # part 0 goes on drawing from Trainer's generator
         if self.rank != 0:
             self.generator = torch.Generator(device=self.device).manual_seed(
                 rank_seed(config.seed, self.rank))
@@ -657,15 +765,66 @@ class DistributedTrainer(Trainer):
         self._partition_stats = self._emit_partition_stats()
 
     def _num_parts(self) -> int:
-        return self.comm.world_size
+        return self.mesh.parts
 
-    def _place(self, dataset: Dataset, symmetric: bool) -> None:
+    def _check_mesh(self, config: TrainConfig) -> None:
+        """Checked in ``__init__`` (the mesh is this trainer's)."""
+
+    # -- the (parts, model) mesh
+
+    def _shard_at_rest(self) -> None:
+        """Keep this rank's slice of every param and Adam moment
+        (:class:`~roc_tpu_torch.parallel.ModelSharding`)."""
+        from . import ModelSharding
+        sh = self.sharding = ModelSharding(
+            rank=self.global_rank, part=self.rank,
+            m=self.model_comm.rank, model=self.mesh.model,
+            full_shapes={k: tuple(v.shape) for k, v in self.params.items()})
+        with torch.no_grad():
+            self.params = {k: sh.local(k, v).clone().requires_grad_(
+                v.requires_grad) for k, v in self.params.items()}
+            st = self.opt_state
+            self.opt_state = st._replace(
+                m={k: sh.local(k, v).clone() for k, v in st.m.items()},
+                v={k: sh.local(k, v).clone() for k, v in st.v.items()})
+
+    def _full_params(self) -> Dict[str, torch.Tensor]:
+        """The whole params: on the 2-D mesh the model group's slices
+        joined (one flat all-gather of the sharded leaves; the whole
+        leaves as they are), each a leaf tensor that autograd can
+        differentiate; ``params`` itself on the 1-D mesh."""
+        sh = self.sharding
+        if sh is None:
+            return self.params
+        names = [k for k in self.params if sh.dims[k] is not None]
+        mine = [self.params[k] for k in names]
+        full = dict(self.params)
+        if names:
+            M = self.mesh.model
+            buf = self.model_comm.all_gather(_flat(mine)).view(M, -1)
+            pieces = [_unflat(buf[m], mine) for m in range(M)]
+            for i, k in enumerate(names):
+                full[k] = torch.cat([pieces[m][i] for m in range(M)],
+                                    dim=sh.dims[k]).requires_grad_(True)
+        return full
+
+    def _local_grads(self, grads: Dict[str, torch.Tensor]
+                     ) -> Dict[str, torch.Tensor]:
+        """The whole gradients' slices of this rank (2-D mesh)."""
+        sh = self.sharding
+        if sh is None:
+            return grads
+        return {k: sh.local(k, g) for k, g in grads.items()}
+
+    def _place(self, dataset, symmetric: bool) -> None:
         """This rank's part of the split (``plan``, ``data``) and its graph
         context: the method of ``config.partition`` under the cost model's
-        cold-start weights, the tables of the resolved route and halo."""
+        cold-start weights (or the injected ``plan``), the tables of the
+        resolved route and halo (or the injected ``data``)."""
         from ..core.costmodel import PartitionCostModel
+        from ..core.source import as_source
         cfg = self.config
-        self._dataset = dataset
+        self._source = as_source(dataset)
         self._symmetric = symmetric
         self._partition_method = resolve_partition(cfg)
         # the φ columns only this workload pays (attention's softmax pass,
@@ -677,22 +836,72 @@ class DistributedTrainer(Trainer):
                                              edge_multiple=cfg.chunk)
         self._rebalances = 0
         self._phi_cache = None
-        self._build(partition_plan(
-            dataset.graph.row_ptr, self.comm.world_size, node_multiple=8,
-            edge_multiple=cfg.chunk, method=self._partition_method,
-            cost_weights=self._costmodel.search_weights(**self._phi_flags)))
+        data, plan = self._injected
+        if plan is None:
+            plan = partition_plan(
+                self._source.row_ptr(), self.mesh.parts, node_multiple=8,
+                edge_multiple=cfg.chunk, method=self._partition_method,
+                cost_weights=self._costmodel.search_weights(
+                    **self._phi_flags))
+        if data is not None:
+            self._check_injected(data, plan)
+        self._build(plan, data)
 
-    def _build(self, plan: PartitionPlan) -> None:
+    def _check_injected(self, data: ShardedData, plan: PartitionPlan
+                        ) -> None:
+        """Refuse injected tables that are not the resolved config's (the
+        JAX package's checks), here and not mid-step."""
+        cfg = self.config
+        if tuple(data.feats.shape[:1]) != (plan.part_nodes,):
+            raise ValueError(
+                f"injected data has {data.feats.shape[0]} rows but the "
+                f"plan's parts have {plan.part_nodes}")
+        if cfg.halo == "ring":
+            if data.ring_src is None:
+                raise ValueError(
+                    "injected data has no ring tables but the resolved "
+                    "config wants halo='ring' (build it with "
+                    "shard_dataset_local(..., halo='ring') or pass "
+                    "memory/halo explicitly)")
+            return
+        if data.ring_src is not None:
+            raise ValueError(
+                "injected data carries the ring's tables but the resolved "
+                f"halo is {cfg.halo!r} — build it with the same halo")
+        impl = cfg.aggr_impl
+        missing = (
+            (impl in ELL_IMPLS and not data.ell_idx) or
+            (impl in ("sectioned", "bdense") and not data.sect_meta) or
+            (impl in ("flat_sum", "attn_flat8") and data.flat8_idx is None)
+            or (impl == "bdense" and data.bd_occupancy is None) or
+            (impl not in ELL_IMPLS and impl not in (
+                "sectioned", "bdense", "flat_sum", "attn_flat8")
+             and data.edge_src is None))
+        if missing:
+            raise ValueError(
+                f"injected data has no tables of the resolved aggr_impl "
+                f"{impl!r} — build it with the same aggr_impl (note: "
+                f"'auto' resolves by the graph's size, and attention and "
+                f"MAX models route by their own rule)")
+        if impl == "bdense" and data.bd_group != cfg.bdense_group:
+            raise ValueError(
+                f"injected data was built with bdense_group="
+                f"{data.bd_group} but the config wants bdense_group="
+                f"{cfg.bdense_group}")
+
+    def _build(self, plan: PartitionPlan,
+               data: Optional[ShardedData] = None) -> None:
         """Build this rank's part of ``plan`` (``plan``, ``data``, ``feats``,
-        ``labels``, ``mask``) and its graph context: at init and after a
-        repartition, ring tables included."""
+        ``labels``, ``mask``) and its graph context: at init (``data``
+        given: those tables) and after a repartition, ring tables
+        included."""
         cfg = self.config
         agree = self.comm.agree_max if self.comm.world_size > 1 else None
-        d = shard_dataset(self._dataset, plan, self.rank, self.device,
-                          dtype=self.compute, aggr_impl=cfg.aggr_impl,
-                          halo=cfg.halo,
-                          fuse=self.model.num_fused_aggregates() > 0,
-                          agree_max=agree, **layout_options(cfg))
+        d = data if data is not None else shard_dataset(
+            self._source, plan, self.rank, self.device, dtype=self.compute,
+            aggr_impl=cfg.aggr_impl, halo=cfg.halo,
+            fuse=self.model.num_fused_aggregates() > 0, agree_max=agree,
+            **layout_options(cfg))
         self.plan, self.data = plan, d
         self.feats, self.labels, self.mask = d.feats, d.labels, d.mask
         self._bd_occupancy: Tuple[dict, ...] = ()
@@ -728,17 +937,26 @@ class DistributedTrainer(Trainer):
 
     # -- the cost model (core/costmodel.py)
 
-    def _col_slice(self, e0: int, e1: int) -> np.ndarray:
-        return self._dataset.graph.col_idx[e0:e1]
-
     def _phi(self) -> np.ndarray:
-        """The current split's feature matrix, computed once a split (its
-        halo pass is O(E)); the same on every rank."""
+        """The current split's feature matrix, computed once a split: each
+        rank counts its own part's halo (``ShardedData.halo_read``) and
+        one collective joins them, so the same on every rank, and no rank
+        reads another part's columns."""
         if self._phi_cache is None:
-            from ..core.costmodel import phi_matrix
+            from ..core.costmodel import halo_stats_ranked, phi_matrix
+            read = self.data.halo_read
+            if read is None:
+                # injected tables built without the record: this part's
+                # columns, read once more
+                from ..core.costmodel import part_halo_read
+                read = part_halo_read(self.plan, self.rank, partition_col(
+                    self.plan, self._source.col_slice, self.rank))
+            halo = halo_stats_ranked(
+                self.plan, self.rank, read,
+                self.comm.agree_max if self.comm.world_size > 1 else None)
             self._phi_cache = phi_matrix(
-                self.plan, bd_occupancy=self._bd_occupancy,
-                col_slice=self._col_slice, **self._phi_flags)
+                self.plan, bd_occupancy=self._bd_occupancy, halo=halo,
+                **self._phi_flags)
         return self._phi_cache
 
     def _emit_partition_stats(self) -> dict:
@@ -794,7 +1012,9 @@ class DistributedTrainer(Trainer):
         if not cfg.rebalance or self._rebalances >= cfg.rebalance_max:
             return False
         from ..core.costmodel import bounds_max_cost, cost_balanced_bounds
-        t = self.comm.broadcast_float(m.get("epoch_ms") or None)
+        # rank 0's time on every rank of the world (the model replicas of
+        # a part repartition alike)
+        t = self.world_comm.broadcast_float(m.get("epoch_ms") or None)
         if t:
             phi = self._phi()
             p_star = int(np.argmax(self._costmodel.predict(phi)))
@@ -805,7 +1025,7 @@ class DistributedTrainer(Trainer):
                  part=p_star, epoch_ms=float(t),
                  n_obs=self._costmodel.n_obs)
         wn, we = self._costmodel.search_weights(**self._phi_flags)
-        row_ptr = self._dataset.graph.row_ptr
+        row_ptr = self._source.row_ptr()
         nm, em = self.plan.node_multiple, self.plan.edge_multiple
         cur = bounds_max_cost(row_ptr, self.plan.bounds, wn, we, nm, em)
         new_bounds = cost_balanced_bounds(
@@ -832,7 +1052,7 @@ class DistributedTrainer(Trainer):
         does not depend on the split."""
         old_edges = self.plan.part_edges
         self._build(plan_from_bounds(
-            self._dataset.graph.row_ptr, [tuple(b) for b in bounds],
+            self._source.row_ptr(), [tuple(b) for b in bounds],
             self.plan.num_parts, node_multiple=self.plan.node_multiple,
             edge_multiple=self.plan.edge_multiple))
         self._phi_cache = None
@@ -853,17 +1073,18 @@ class DistributedTrainer(Trainer):
         return _unflat(self.comm.all_reduce(_flat(tensors)), tensors)
 
     def rng_states(self) -> np.ndarray:
-        """Every rank's dropout generator state, ``[P, n]`` uint8, in rank
-        order (one all-gather; every rank calls it)."""
+        """Every part's dropout generator state, ``[P, n]`` uint8, in part
+        order (one all-gather over the parts group; every rank calls
+        it)."""
         mine = self.generator.get_state().to(self.device)
         return self.comm.all_gather(mine[None]).cpu().numpy()
 
     def agree(self, value: Optional[int]) -> Optional[int]:
-        """Rank 0's ``value`` (an epoch, or None) on every rank: one
-        broadcast."""
+        """Rank 0's ``value`` (an epoch, or None) on every rank of the
+        world: one broadcast."""
         t = torch.tensor([-1 if value is None else int(value)],
                          dtype=torch.int64, device=self.device)
-        v = int(self.comm.broadcast(t).item())
+        v = int(self.world_comm.broadcast(t).item())
         return None if v < 0 else v
 
     @torch.no_grad()

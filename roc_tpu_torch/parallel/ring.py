@@ -235,7 +235,7 @@ def _pair_sum(buf, src, dst, num_rows, row_ptr, w, kernel):
 
 
 def ring_aggregate(x: torch.Tensor, ring_src: torch.Tensor,
-                   ring_dst: torch.Tensor, comm,
+                   ring_dst: Optional[torch.Tensor], comm,
                    row_ptr: Optional[torch.Tensor] = None,
                    weights: Optional[torch.Tensor] = None,
                    kernel: bool = True, overlap: bool = True
@@ -244,8 +244,9 @@ def ring_aggregate(x: torch.Tensor, ring_src: torch.Tensor,
 
     x: ``[part_nodes, F]`` this rank's rows.  ring_src/ring_dst: int32
     ``[S, pair_edges]``, this rank's tables (S the world size of
-    ``comm``, parallel/distributed.py ``Collectives``).  row_ptr: int64
-    ``[S, part_nodes + 1]`` (:func:`pair_row_ptr`), read by K3.
+    ``comm``, parallel/distributed.py ``Collectives``); ``ring_dst`` is
+    None on the kernel routes, whose K3 reads row_ptr alone.  row_ptr:
+    int64 ``[S, part_nodes + 1]`` (:func:`pair_row_ptr`), read by K3.
     Returns ``[part_nodes, F]``: at hop k the rank holds part ``(rank -
     k) mod S`` and adds that pair's sum, then the buffer moves to rank +
     1 and the previous rank's arrives (S hops, S - 1 transfers).
@@ -274,7 +275,8 @@ def ring_aggregate(x: torch.Tensor, ring_src: torch.Tensor,
         s = (me - k) % S
         last = k == S - 1
         pending = comm.ring_shift(buf, 1) if overlap and not last else None
-        part = _pair_sum(buf, ring_src[s], ring_dst[s], n,
+        part = _pair_sum(buf, ring_src[s],
+                         None if ring_dst is None else ring_dst[s], n,
                          None if row_ptr is None else row_ptr[s],
                          None if weights is None else weights[s], kernel)
         out = part if out is None else out.add_(part)

@@ -11,7 +11,12 @@ training launches the next epochs.
 - **Bounded queue, depth 1, coalescing**: at most one snapshot waits
   behind the in-flight save; a newer one supersedes it (a
   ``checkpoint``/``superseded`` event), so the saver never buffers more
-  than two state copies nor blocks the step path.
+  than two state copies nor blocks the step path.  A snapshot with more
+  than one writer (``Snapshot.writer_procs``, the ``(parts, model)``
+  mesh) is never superseded: every writer's saver must write the same
+  epochs in the same order, or the commit barriers would pair one rank's
+  epoch with another's.  Its submit waits, deadline-bounded like
+  :meth:`AsyncSaver.flush`, until the queued snapshot has started.
 - **flush()** — the emergency-save barrier: returns once the queue is
   empty and the in-flight save committed, bounded by a deadline
   (``ROC_TPU_CKPT_FLUSH_TIMEOUT_S``, else ``ROC_TPU_STALL_TIMEOUT_S``,
@@ -22,9 +27,11 @@ training launches the next epochs.
 - A background failure is stored and raised on the next submit or
   flush: an async save never fails silently.
 
-Single writer: rank 0 writes (``utils/checkpoint.py``), so coalescing
+With a single writer (rank 0, ``utils/checkpoint.py``) the coalescing
 decisions, which depend on the saver's timing, never need to agree
-across ranks.
+across ranks; with several, no save is dropped, and the commit barriers
+(``parallel/multihost.checkpoint_commit_barrier``) check that every rank
+reached the same save.
 """
 
 from __future__ import annotations
@@ -103,11 +110,24 @@ class AsyncSaver:
     def submit(self, snap, path: str, on_commit=None) -> None:
         """Queue a snapshot for background save.  Raises a previously
         stored background failure (once); replaces (and reports) a
-        still-queued older snapshot.  ``on_commit`` runs on the saver
-        thread strictly AFTER the manifest commit (the rotation's
-        keep-window prune rides it)."""
+        still-queued older snapshot, unless ``snap`` has more than one
+        writer: then it waits until the queued one has started (a
+        :class:`StallFailure` past the flush deadline).  ``on_commit``
+        runs on the saver thread strictly AFTER the manifest commit (the
+        rotation's keep-window prune rides it)."""
         dropped: Optional[_Request] = None
+        ordered = len(getattr(snap, "writer_procs", ())) > 1
+        deadline = time.monotonic() + flush_timeout()
         with self._cond:
+            while ordered and self._pending is not None \
+                    and self._error is None:
+                left = deadline - time.monotonic()
+                if left <= 0:
+                    raise StallFailure(
+                        "async checkpoint saver wedged: a multi-writer "
+                        "submit waited past the flush deadline for the "
+                        "queued save to start")
+                self._cond.wait(timeout=min(left, 1.0))
             err, self._error = self._error, None
             if err is None:
                 self._ensure_thread_locked()
@@ -176,6 +196,8 @@ class AsyncSaver:
                 req = self._pending
                 self._pending = None
                 self._busy = True
+                # a multi-writer submit waits for the slot to free
+                self._cond.notify_all()
             try:
                 self._process(req)
             except Exception as e:  # noqa: BLE001 - stored, re-raised on the next submit/flush

@@ -28,7 +28,7 @@ from ..obs.events import emit, process_index
 from ..obs.heartbeat import StallFailure
 from ..utils.checkpoint import (CheckpointCorrupt, checkpoint_trainer,
                                 is_committed, restore_trainer,
-                                snapshot_trainer)
+                                snapshot_trainer, writes)
 from .preempt import Preempted
 
 
@@ -206,7 +206,7 @@ class CheckpointRotation:
         snap = snapshot_trainer(trainer)
         self.last_block_ms = snap.block_ms = round(
             (time.perf_counter() - t0) * 1e3, 3)
-        if snap.proc == 0:
+        if writes(snap):
             self.saver().submit(snap, p, on_commit=self._prune)
         return p
 
@@ -240,7 +240,7 @@ class CheckpointRotation:
         newest checkpoint (never rewind live progress)."""
         # an in-flight async save lands (or fails loudly) before the scan
         self.flush()
-        rank = getattr(trainer, "rank", 0)
+        rank = getattr(trainer, "global_rank", getattr(trainer, "rank", 0))
         ep = self._restore_newest(trainer, only_if_ahead) if rank == 0 \
             else None
         ep = trainer.agree(ep)

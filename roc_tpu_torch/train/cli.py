@@ -7,17 +7,20 @@ that the port covers: the reference's flags (``gnn.cc:114-179``) —
 ``models.model_builders()``: gcn, sage, gin, gat, sgc, appnp, gcn2) with
 its knobs ``--heads``, ``--hops``, ``--alpha``, ``--lam`` and
 ``--learn-eps``, ``--impl``, ``--fuse``, ``--dtype``,
-``--eval-every``, ``--parts``, ``--dist-backend``, ``--halo``,
+``--eval-every``, ``--parts``, ``--mesh``, ``--dist-backend``, ``--halo``,
 ``--partition``, ``--rebalance``, ``--cpu``, the memory
 flags ``--memory``, ``--features``, ``--remat`` and ``--prefetch``, and the
 checkpoint and recovery flags ``--checkpoint``, ``--checkpoint-every``,
 ``--resume``, ``--recovery``, ``--max-retries``, ``--preempt-grace``,
 ``--async-save``, ``--fault`` and ``--events``, with the JAX CLI's
 meanings and exit codes.  ``--impl``
-takes the ported counterparts of the JAX CLI's choices: ``cuda`` (its
-``pallas``, the default), ``ell``, ``segment``, the large-graph layouts
-``sectioned``, ``flat_sum`` and ``bdense``, and ``auto`` (the JAX rule
-through this card's row, train/trainer.py ``resolve_auto_impl_probed``);
+takes the ported counterparts of the JAX CLI's choices: ``auto`` (the
+default, as in the JAX CLI: the JAX rule, 'ell', 'sectioned' or
+'flat_sum' by the graph's size, through this card's row,
+train/trainer.py ``resolve_auto_impl_probed``, with a ``resolve`` event
+giving the JAX rule's answer beside the route), ``cuda`` (its
+``pallas``), ``ell``, ``segment`` and the large-graph layouts
+``sectioned``, ``flat_sum`` and ``bdense``;
 ``--dtype`` its ``float32``, ``bfloat16`` and ``mixed``
 (train/trainer.py ``resolve_dtypes``); ``--reorder bfs|lpa`` relabels
 the vertices before training (core/reorder.py), with a ``plan`` event.
@@ -33,9 +36,13 @@ synthetic dataset (512 vertices, degree 8).  Prints the reference's
 
 ``--parts 1`` (the default) trains on one device (``Trainer``);
 ``--parts N`` trains N partitions, one per rank of a process group
-(parallel/distributed.py ``DistributedTrainer``).  The ranks come from
-``torchrun``, whose environment gives the rank and world size (which
-must equal N); rank r takes card ``cuda:<local rank>``.  The backend is
+(parallel/distributed.py ``DistributedTrainer``).  ``--mesh PxM`` (the
+JAX CLI's vocabulary; P must equal ``--parts``) runs the ``(parts,
+model)`` mesh on P x M ranks: each part's M model ranks keep the params
+and Adam moments sharded at rest.  The ranks come from ``torchrun``,
+whose environment gives the rank and world size (which must equal N, or
+P x M; parallel/multihost.py ``init_distributed``); rank r takes card
+``cuda:<local rank>``.  The backend is
 ``nccl`` on the card and ``gloo`` with ``--cpu``; ``--dist-backend``
 overrides it.  Only rank 0 prints, emits events to the console or
 ``--events``, and writes checkpoints.  ``--halo ring`` rotates the parts'
@@ -68,6 +75,8 @@ failures, stalls and I/O errors from the last good one.  A preemption
     torchrun --standalone --nproc-per-node 4 -m roc_tpu_torch.train.cli \
         --parts 4 --halo ring --partition cost --rebalance --cpu \
         -layers 16-16-4 -e 20
+    torchrun --standalone --nproc-per-node 4 -m roc_tpu_torch.train.cli \
+        --parts 2 --mesh 2x2 --cpu -layers 16-16-4 -e 20
     python -m roc_tpu_torch.train.cli --cpu -layers 16-16-4 -e 20 \
         --recovery --checkpoint /tmp/ck --checkpoint-every 2 \
         --fault sigkill:5     # dies; the same command again resumes
@@ -134,12 +143,15 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
                     help="for --model gin: learnable per-layer "
                          "epsilon self-weight (zero-init GIN-0) "
                          "instead of the fixed self-add")
-    ap.add_argument("--impl", default="cuda", choices=IMPLS,
-                    help="aggregation route: cuda = the hand-written "
-                         "kernels (K1 -> K4 -> K2), ell / segment = the "
-                         "plain PyTorch sums, sectioned / flat_sum / "
-                         "bdense = the large-graph layouts, auto = the "
-                         "measured rule")
+    ap.add_argument("--impl", default="auto", choices=IMPLS,
+                    help="aggregation route: auto (default, as the JAX "
+                         "CLI's) = the JAX rule by the graph's size "
+                         "('ell', 'sectioned' past the VMEM table size, "
+                         "'flat_sum' from 20M edges) through this card's "
+                         "measured row; cuda = the hand-written kernels "
+                         "(K1 -> K4 -> K2), ell / segment = the plain "
+                         "PyTorch sums, sectioned / flat_sum / bdense = "
+                         "the large-graph layouts")
     ap.add_argument("--reorder", default="none",
                     choices=["none", "bfs", "lpa"],
                     help="vertex relabeling for gather locality "
@@ -175,6 +187,12 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
     ap.add_argument("--parts", type=int, default=1,
                     help="graph partitions, one per rank (launch N > 1 "
                          "ranks with torchrun --nproc-per-node N)")
+    ap.add_argument("--mesh", type=str, default="auto",
+                    help="rank mesh PxM (parts x model), e.g. 2x2: P "
+                         "must equal --parts and M > 1 shards the params "
+                         "and Adam moments over each part's M model ranks "
+                         "at rest (launch P*M ranks); 'auto' (default) = "
+                         "every rank on the parts axis, the 1-D run")
     ap.add_argument("--halo", default="gather", choices=["gather", "ring"],
                     help="halo exchange for --parts > 1: gather = every "
                          "rank all-gathers every part's rows; ring = the "
@@ -271,11 +289,18 @@ def main(argv: Optional[List[str]] = None) -> int:
     if args.max_retries < 0:
         print("error: --max-retries must be >= 0", file=sys.stderr)
         return 2
-    from .trainer import TrainConfig, resolve_prefetch
+    from .trainer import TrainConfig, resolve_mesh, resolve_prefetch
     try:
         resolve_prefetch(TrainConfig(prefetch=args.prefetch))
     except ValueError as e:
         print(f"error: --prefetch: {e}", file=sys.stderr)
+        return 2
+    # the JAX CLI's validator: the same PxM vocabulary and checks
+    try:
+        _, mesh_model = resolve_mesh(TrainConfig(mesh=args.mesh),
+                                     num_parts=args.parts)
+    except ValueError as e:
+        print(f"error: --mesh: {e}", file=sys.stderr)
         return 2
     if args.fault:
         from ..resilience import inject
@@ -290,10 +315,11 @@ def main(argv: Optional[List[str]] = None) -> int:
         print(f"error: {e}", file=sys.stderr)
         return 2
     world = int(os.environ.get("WORLD_SIZE", "1"))
-    if world != args.parts:
-        print(f"error: --parts {args.parts} but the launcher started "
-              f"{world} rank(s) (torchrun --nproc-per-node {args.parts})",
-              file=sys.stderr)
+    ranks = args.parts * mesh_model
+    if world != ranks:
+        print(f"error: --parts {args.parts} --mesh {args.mesh} needs "
+              f"{ranks} rank(s) but the launcher started {world} "
+              f"(torchrun --nproc-per-node {ranks})", file=sys.stderr)
         return 2
     from .trainer import resolve_device
     try:
@@ -302,14 +328,15 @@ def main(argv: Optional[List[str]] = None) -> int:
         print(f"error: {e} (or --cpu)", file=sys.stderr)
         return 2
     rank = 0
-    if args.parts > 1:
+    if ranks > 1:
         import torch
         import torch.distributed as dist
+        from ..parallel.multihost import init_distributed
         backend = args.dist_backend or ("gloo" if args.cpu else "nccl")
         if device.type == "cuda":
             device = torch.device("cuda", int(os.environ["LOCAL_RANK"]))
             torch.cuda.set_device(device)
-        dist.init_process_group(backend)
+        init_distributed(backend)
         rank = dist.get_rank()
     from ..obs import events
     if rank != 0:
@@ -317,9 +344,9 @@ def main(argv: Optional[List[str]] = None) -> int:
     elif args.events:
         events.configure(jsonl_path=args.events)
     try:
-        return _train(args, layers, model, device, rank)
+        return _train(args, layers, model, device, rank, ranks)
     finally:
-        if args.parts > 1:
+        if ranks > 1:
             dist.destroy_process_group()
 
 
@@ -350,7 +377,7 @@ def _build_model(args, layers):
                                         **kwargs)
 
 
-def _train(args, layers, model, device, rank) -> int:
+def _train(args, layers, model, device, rank, ranks) -> int:
     from ..core.graph import load_dataset, synthetic_dataset
     from ..obs.events import emit
     from ..obs.heartbeat import StallFailure
@@ -385,7 +412,7 @@ def _train(args, layers, model, device, rank) -> int:
               f"dtype={args.dtype} memory={args.memory} "
               f"features={args.features} remat={args.remat} "
               f"prefetch={args.prefetch} "
-              f"parts={args.parts} halo={args.halo} "
+              f"parts={args.parts} mesh={args.mesh} halo={args.halo} "
               f"partition={args.partition} rebalance={args.rebalance} "
               f"device={device}",
               file=sys.stderr)
@@ -403,11 +430,12 @@ def _train(args, layers, model, device, rank) -> int:
         aggr_fuse=args.fuse, dtype=dtype, compute_dtype=compute_dtype,
         async_save=args.async_save, fault=args.fault, memory=memory,
         features=args.features, remat=args.remat, prefetch=args.prefetch,
-        halo=args.halo, partition=args.partition, rebalance=args.rebalance)
+        halo=args.halo, partition=args.partition, rebalance=args.rebalance,
+        mesh=args.mesh)
     if args.recovery or args.preempt_grace is not None:
         preempt.install(args.preempt_grace if args.preempt_grace is not None
                         else preempt.DEFAULT_GRACE_S)
-    if args.parts > 1:
+    if ranks > 1:
         from ..parallel.distributed import DistributedTrainer
         trainer = DistributedTrainer(model, ds, args.parts, cfg,
                                      device=device)

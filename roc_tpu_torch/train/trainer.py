@@ -11,8 +11,10 @@ device ('hbm') or in host memory, streamed through the first layer
 first runs its propagation prefix with every stage on the host),
 rematerialisation (``remat``, ``remat_policy``), and the memory autopilot
 (``memory='auto'``, core/memory.py) that picks among them by the
-device's memory.  The mesh, the metrics registry and the timeline are
-not ported.  The epoch loop carries the resilience hooks
+device's memory.  The metrics registry and the timeline are not
+ported; the ``(parts, model)`` mesh is the partitioned trainer's
+(``TrainConfig.mesh``, parallel/distributed.py), one device taking
+'auto' and '1x1' only.  The epoch loop carries the resilience hooks
 (resilience/inject.py drill sites, the first step's heartbeat, the
 preemption check), and the trainer the state a checkpoint needs besides
 weights and Adam state (utils/checkpoint.py): the dataset's identity
@@ -112,6 +114,11 @@ class TrainConfig:
       time and repartition when the predicted gain of the largest part's
       cost passes ``rebalance_gain``, at most ``rebalance_max`` times a
       run (full-batch training does not depend on the split).
+    mesh: 'auto' (every rank on the parts axis, the 1-D run) or 'PxM'
+      (:func:`resolve_mesh`): the ``(parts, model)`` mesh of P * M ranks,
+      where each part's M model ranks keep the params and Adam moments
+      sharded at rest (parallel/distributed.py ``DistributedTrainer``).
+      The single-device :class:`Trainer` takes 'auto' and '1x1' only.
     """
     learning_rate: float = 0.01
     weight_decay: float = 0.05
@@ -147,6 +154,7 @@ class TrainConfig:
     rebalance: bool = False
     rebalance_gain: float = 0.10
     rebalance_max: int = 2
+    mesh: Any = "auto"
 
 
 # the TrainConfig fields that shape the layouts' tables
@@ -195,6 +203,46 @@ def resolve_partition(config: TrainConfig) -> str:
         return p
     raise ValueError(f"unknown partition {p!r}; expected 'greedy', "
                      "'cost', or 'auto'")
+
+
+def resolve_mesh(config: TrainConfig, num_parts: Optional[int] = None,
+                 num_devices: Optional[int] = None) -> Tuple[int, int]:
+    """``TrainConfig.mesh`` -> the ``(parts, model)`` shape, the JAX
+    package's vocabulary and checks: 'auto' (or None) is ``(num_parts or
+    1, 1)``; 'PxM' names both axes; a ``(p, m)`` pair is taken as it is.
+    An explicit P must equal ``num_parts`` when given (the parts axis is
+    the partition count), and ``p * m`` must fit ``num_devices`` (here
+    the ranks) when given.  The CLI's ``--mesh`` goes through this too."""
+    v = config.mesh
+    if v in (None, "auto"):
+        p, m = (int(num_parts) if num_parts else 1), 1
+    else:
+        if isinstance(v, str):
+            try:
+                ps, ms = v.lower().split("x")
+                p, m = int(ps), int(ms)
+            except ValueError:
+                raise ValueError(
+                    f"unknown mesh {v!r}; expected 'auto' or 'PxM' "
+                    "(e.g. '2x4')") from None
+        else:
+            try:
+                p, m = (int(v[0]), int(v[1]))
+            except (TypeError, ValueError, IndexError):
+                raise ValueError(
+                    f"unknown mesh {v!r}; expected 'auto', 'PxM', or "
+                    "a (parts, model) pair") from None
+        if p < 1 or m < 1:
+            raise ValueError(f"mesh axes must be >= 1, got {p}x{m}")
+        if num_parts is not None and p != int(num_parts):
+            raise ValueError(
+                f"mesh {p}x{m} names {p} parts but the trainer was "
+                f"built with {num_parts} partitions — the parts axis "
+                "IS the partition count")
+    if num_devices is not None and p * m > int(num_devices):
+        raise ValueError(
+            f"mesh {p}x{m} needs {p * m} devices, have {num_devices}")
+    return p, m
 
 
 def resolve_prefetch(config: TrainConfig) -> int:
@@ -354,7 +402,8 @@ def resolve_auto_impl_probed(graph, out_rows: Optional[int] = None, *,
     ``FLAT_SUM_MIN_EDGES``) with its block-dense structure probe (inside
     the window, from ``BDENSE_AUTO_MIN_EDGES`` edges: 'bdense' when the
     census puts ``BDENSE_AUTO_MIN_FRAC`` of the edges on dense tiles;
-    native planners only), then the card's row (core/ell.py
+    native planners only; skipped for a graph without columns, a
+    DataSource's ``RowGraph``), then the card's row (core/ell.py
     ``port_route``).  ``out_rows`` is a part's output rows on a
     partitioned run (the window's upper bound reads it; None: every
     row).  Emits a ``resolve`` event with the JAX rule's answer
@@ -363,6 +412,12 @@ def resolve_auto_impl_probed(graph, out_rows: Optional[int] = None, *,
                              num_edges=graph.num_edges)
     fields: Dict[str, Any] = {}
     if jax_impl == "sectioned" and \
+            graph.num_edges >= bd.BDENSE_AUTO_MIN_EDGES and \
+            getattr(graph, "col_idx", None) is None:
+        # a DataSource's RowGraph holds no columns: the JAX package skips
+        # the probe the same way on a multi-process run
+        fields["probe"] = "skipped: no columns held"
+    elif jax_impl == "sectioned" and \
             graph.num_edges >= bd.BDENSE_AUTO_MIN_EDGES:
         frac = bd.probe_dense_frac(
             graph.row_ptr, graph.col_idx, graph.num_nodes,
@@ -486,8 +541,15 @@ def resolve_config(model: Model, dataset: Optional[Dataset],
     return model, resolve_attention_impl(model, config, dataset)
 
 
-def resolve_symmetric(dataset: Dataset, symmetric: Optional[bool]) -> bool:
+def resolve_symmetric(dataset, symmetric: Optional[bool]) -> bool:
+    """``symmetric`` as given, or the graph's exact check for None.  A
+    ``DataSource`` (core/source.py) holds no columns to check: it needs
+    ``symmetric`` stated."""
     if symmetric is None:
+        if not isinstance(dataset, Dataset):
+            raise ValueError(
+                "a DataSource needs TrainConfig.symmetric stated: checking "
+                "the graph's symmetry reads every column")
         return check_symmetric(dataset.graph)
     return bool(symmetric)
 
@@ -651,10 +713,19 @@ class Trainer:
     step (``head_forward``, ``tail_grad``, ``head_wgrad``, ``update``)
     until :meth:`pipeline_fields` reads it."""
 
+    # whether the trainer builds from a DataSource (core/source.py): the
+    # partitioned one does; this one holds the whole graph
+    _takes_source = False
+
     def __init__(self, model: Model, dataset: Dataset,
                  config: TrainConfig = TrainConfig(),
                  params: Optional[Dict[str, torch.Tensor]] = None,
                  device=None):
+        if not self._takes_source and not isinstance(dataset, Dataset):
+            raise TypeError(
+                f"{type(self).__name__} holds the whole graph: pass a "
+                "Dataset (a DataSource stands in on DistributedTrainer)")
+        self._check_mesh(config)
         self.device = resolve_device(device)
         model, config = resolve_config(model, dataset, config,
                                        device=self.device,
@@ -713,6 +784,29 @@ class Trainer:
     def _num_parts(self) -> int:
         """The partitions of this run: 1 on one device."""
         return 1
+
+    def _check_mesh(self, config: TrainConfig) -> None:
+        """One device hosts no model axis: 'auto' and '1x1' only.  (The
+        JAX package places '1xM' over M local devices; here the ranked
+        path does that.)"""
+        _, m = resolve_mesh(config, num_parts=1)
+        if m > 1:
+            raise NotImplementedError(
+                f"mesh={config.mesh!r}: the single-device Trainer hosts "
+                "no model axis; run DistributedTrainer with num_parts=1 "
+                f"on {m} ranks (torchrun --nproc-per-node {m} -m "
+                f"roc_tpu_torch.train.cli --parts 1 --mesh 1x{m})")
+
+    def _full_params(self) -> Dict[str, torch.Tensor]:
+        """The whole weights the model computes with: ``params`` itself
+        here; a trainer that keeps them sharded gathers them."""
+        return self.params
+
+    def _local_grads(self, grads: Dict[str, torch.Tensor]
+                     ) -> Dict[str, torch.Tensor]:
+        """The gradients of the weights this trainer updates: all of them
+        here; a trainer that keeps the weights sharded slices them."""
+        return grads
 
     def _place(self, dataset: Dataset, symmetric: bool) -> None:
         """Put the rows this trainer computes on the device: ``feats``
@@ -804,12 +898,13 @@ class Trainer:
         if self._head is not None:
             return self._streamed_loss_and_grads()
         names = list(self.params)
-        loss, _ = self.model.loss_fn(cast_floats(self.params, self.compute),
+        full = self._full_params()
+        loss, _ = self.model.loss_fn(cast_floats(full, self.compute),
                                      self.feats, self.labels, self.mask,
                                      self.gctx, generator=self.generator,
                                      train=True,
                                      remat=remat_policy(self.config))
-        grads = torch.autograd.grad(loss, [self.params[k] for k in names])
+        grads = torch.autograd.grad(loss, [full[k] for k in names])
         *grads, loss = self._reduce([*grads, loss.detach()])
         return loss, dict(zip(names, grads))
 
@@ -863,7 +958,8 @@ class Trainer:
         with self._span("update") if self._head is not None \
                 else contextlib.nullcontext():
             self.params, self.opt_state = adam_update(
-                self.params, grads, self.opt_state, lr, self.adam_cfg)
+                self.params, self._local_grads(grads), self.opt_state, lr,
+                self.adam_cfg)
         self.losses.append(loss)
         return loss
 
@@ -955,7 +1051,7 @@ class Trainer:
     def _logits(self) -> torch.Tensor:
         """Inference-mode logits of this trainer's rows (through the
         streamed head in eval mode under ``features='host'``)."""
-        params = cast_floats(self.params, self.compute)
+        params = cast_floats(self._full_params(), self.compute)
         if self._head is not None:
             y = self._head.forward(params[self._head_param],
                                    self.feats_host, None, False)

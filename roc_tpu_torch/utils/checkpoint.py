@@ -43,11 +43,20 @@ read.  Restore validates the manifest, every listed shard's bytes and
 file CRC, every member's CRC and every array's coverage before anything
 touches the trainer.
 
-**Writers**: the port's params are replicated on every rank, so rank 0
-alone writes (``writer_procs == [0]``); a snapshot with more writers
-raises until the multi-writer commit barrier lands with
-``parallel/multihost.py``.  The loader still gathers sharded pieces,
-so a JAX checkpoint saved across processes restores here.
+**Writers**: on the 1-D mesh the params are replicated on every rank,
+so rank 0 alone writes (``writer_procs == [0]``).  On the ``(parts,
+model)`` mesh (parallel/distributed.py ``DistributedTrainer``) the
+params and Adam moments are sharded over a part's model ranks: the owners
+of a sharded leaf are the ranks of part 0's model row (the JAX package's
+``replica_id == 0`` rule), each writing ``shard_<rank>.npz`` with its
+pieces ``<member>@0`` and their index ranges; whole leaves and the
+scalars belong to rank 0.  With more than one writer every rank runs
+:func:`write_snapshot`, whose un-commit barrier and commit barrier
+(``parallel/multihost.checkpoint_commit_barrier``, over the trainer's own
+gloo group) order the renames after rank 0's un-commit and the manifest
+after every shard.  The loader gathers pieces into whole arrays, so a
+checkpoint of any (P, M) layout, the JAX package's included, restores
+into a trainer of any other, each rank keeping its slice.
 
 v1 (a bare npz) and v2 (one npz with a CRC header) files still load,
 each with a ``resilience`` event.  The async saver
@@ -144,16 +153,18 @@ def trainer_fingerprint(trainer) -> Dict[str, Any]:
     - ``strict`` — what a checkpoint never survives changing: the
       param signature, ``dtype`` and ``compute_dtype`` (numpy names),
       and the dataset's ``{V, E}``; a mismatch is CheckpointCorrupt;
-    - ``elastic`` — what a restart may change: the partition count and
+    ``elastic`` — what a restart may change: the partition count and
       the plan's part shapes, and the route (by its JAX name,
       ``convert.aggr_impl_to_jax``), the halo ('gather' or 'ring'), the
-      feature residency (``config.features``, 'hbm' or
-      'host') and the mesh (the port runs the JAX default ``auto``); a
-      mismatch restores and emits
-      ``elastic_restore``."""
+      feature residency (``config.features``, 'hbm' or 'host') and the
+      mesh (``config.mesh``); a mismatch restores and emits
+      ``elastic_restore``.
+
+    The param signature is of the whole params, on a sharded trainer
+    too (``trainer.sharding``)."""
     cfg = trainer.config
     strict: Dict[str, Any] = {
-        "params_sig": params_signature(trainer.params),
+        "params_sig": params_signature(_whole_meta(trainer)),
         "dtype": dtype_name(cfg.dtype),
         "compute_dtype": (None if cfg.compute_dtype is None
                           else dtype_name(cfg.compute_dtype))}
@@ -166,8 +177,26 @@ def trainer_fingerprint(trainer) -> Dict[str, Any]:
         "part_nodes": int(plan.part_nodes) if plan is not None else None,
         "part_edges": int(plan.part_edges) if plan is not None else None,
         "aggr_impl": aggr_impl_to_jax(cfg.aggr_impl), "halo": cfg.halo,
-        "features": cfg.features, "mesh": "auto"}
+        "features": cfg.features, "mesh": str(cfg.mesh)}
     return {"strict": strict, "elastic": elastic}
+
+
+@dataclass
+class _Meta:
+    """A leaf's whole shape, dtype and device, without its values."""
+    shape: Tuple[int, ...]
+    dtype: Any
+    device: Any = "cpu"
+
+
+def _whole_meta(trainer) -> Dict[str, Any]:
+    """The trainer's params as whole-shaped :class:`_Meta` on a sharded
+    trainer (``trainer.sharding``), else the params themselves."""
+    sh = getattr(trainer, "sharding", None)
+    if sh is None:
+        return trainer.params
+    return {k: _Meta(sh.full_shapes[k], v.dtype)
+            for k, v in trainer.params.items()}
 
 
 # ---------------------------------------------------------- host snapshot
@@ -192,7 +221,8 @@ class Snapshot:
     """A host copy of the training state, decoupled from the trainer:
     :func:`write_snapshot` can run it on the saver thread while training
     goes on.  ``ready`` is the CUDA event after the device-to-host
-    copies; :meth:`wait` blocks on it."""
+    copies; :meth:`wait` blocks on it.  ``group``: the process group of
+    the commit barriers when ``writer_procs`` has more than one rank."""
     epoch: int
     proc: int
     writer_procs: List[int]
@@ -202,6 +232,8 @@ class Snapshot:
     block_ms: float = 0.0
     stats: Dict[str, Any] = field(default_factory=dict)
     ready: Any = None
+    # the process group of the commit barriers (None: the default)
+    group: Any = None
 
     def wait(self) -> None:
         """Block until the copies have landed; the pieces become numpy
@@ -236,29 +268,56 @@ def _host_copy(leaf):
     return t.clone()
 
 
+_PARAM_NAME = re.compile(r"\['([^']+)'\]$")
+
+
 def snapshot_state(params: Dict[str, torch.Tensor], opt_state: AdamState,
                    epoch: int, rng: Optional[np.ndarray] = None,
-                   fingerprint: Optional[Dict[str, Any]] = None
-                   ) -> Snapshot:
+                   fingerprint: Optional[Dict[str, Any]] = None,
+                   sharding=None, group=None) -> Snapshot:
     """Host snapshot of the full training state, the only part of a save
-    on the step path.  Rank 0 copies every leaf (asynchronously from the
-    card); other ranks copy nothing.  ``rng``: the generators' states,
-    ``[ranks, n]`` uint8."""
+    on the step path.  ``rng``: the generators' states, ``[ranks, n]``
+    uint8.
+
+    Without ``sharding`` (replicated params) rank 0 copies every leaf
+    (asynchronously from the card) and other ranks copy nothing.  With a
+    ``parallel.ModelSharding`` (the params and moments given are this
+    rank's slices) a sharded leaf's owners are the ranks of part 0, each
+    copying its slice as piece ``<member>@0`` with its index ranges; a
+    whole leaf and the scalars are rank 0's; ``writer_procs`` lists the
+    owners and ``group`` rides along for the barriers."""
     t0 = time.perf_counter()
     proc = process_index()
     pieces: List[_Piece] = []
     arrays: Dict[str, Dict[str, Any]] = {}
+    writers = {0}
     leaves = state_leaves(params, opt_state)
     leaves.append((EPOCH_KEY, np.asarray(epoch, dtype=np.int64)))
     if rng is not None:
         leaves.append((RNG_KEY, np.asarray(rng, dtype=np.uint8)))
     cuda = None
     for k, leaf in leaves:
-        arrays[k] = {"shape": [int(d) for d in leaf.shape],
-                     "dtype": dtype_name(leaf.dtype),
-                     "spec": [None] * len(leaf.shape)}
-        if proc == 0:
-            pieces.append(_Piece(member=k, key=k, index=None,
+        name = _PARAM_NAME.search(k)
+        index = (sharding.index(name.group(1))
+                 if sharding is not None and name is not None
+                 and isinstance(leaf, torch.Tensor) else None)
+        shape = [int(d) for d in leaf.shape]
+        spec: List[Any] = [None] * len(shape)
+        if index is None:
+            mine = proc == 0
+            member = k
+        else:
+            shape = list(sharding.full_shapes[name.group(1)])
+            d = sharding.dims[name.group(1)]
+            spec[d] = "model"
+            owners = range(sharding.model)  # part 0's model row
+            writers.update(owners)
+            mine = sharding.part == 0
+            member = f"{k}@0"
+        arrays[k] = {"shape": shape, "dtype": dtype_name(leaf.dtype),
+                     "spec": spec}
+        if mine:
+            pieces.append(_Piece(member=member, key=k, index=index,
                                  data=_host_copy(leaf)))
             if isinstance(leaf, torch.Tensor) and leaf.device.type == "cuda":
                 cuda = leaf.device
@@ -266,10 +325,11 @@ def snapshot_state(params: Dict[str, torch.Tensor], opt_state: AdamState,
     if cuda is not None:
         ready = torch.cuda.Event()
         ready.record(torch.cuda.current_stream(cuda))
-    return Snapshot(epoch=int(epoch), proc=proc, writer_procs=[0],
-                    pieces=pieces, arrays=arrays,
-                    fingerprint=fingerprint or {},
-                    block_ms=(time.perf_counter() - t0) * 1e3, ready=ready)
+    return Snapshot(epoch=int(epoch), proc=proc,
+                    writer_procs=sorted(writers), pieces=pieces,
+                    arrays=arrays, fingerprint=fingerprint or {},
+                    block_ms=(time.perf_counter() - t0) * 1e3, ready=ready,
+                    group=group)
 
 
 def snapshot_trainer(trainer) -> Snapshot:
@@ -278,7 +338,16 @@ def snapshot_trainer(trainer) -> Snapshot:
     finite guard is the caller's job."""
     return snapshot_state(trainer.params, trainer.opt_state, trainer.epoch,
                           rng=trainer.rng_states(),
-                          fingerprint=trainer_fingerprint(trainer))
+                          fingerprint=trainer_fingerprint(trainer),
+                          sharding=getattr(trainer, "sharding", None),
+                          group=getattr(trainer, "_ckpt_group", None))
+
+
+def writes(snap: Snapshot) -> bool:
+    """Whether this rank runs :func:`write_snapshot` for ``snap``: rank 0
+    always; every rank when more than one writes (the barriers need
+    them all)."""
+    return snap.proc == 0 or len(snap.writer_procs) > 1
 
 
 # ------------------------------------------------ write + two-phase commit
@@ -345,36 +414,57 @@ def commit_manifest(d: str, snap: Snapshot,
 def write_snapshot(path: str, snap: Snapshot) -> Dict[str, Any]:
     """The full save of a taken snapshot — wait for its copies, CRC,
     shard write, manifest commit — on the calling thread (the saver's,
-    in async mode).  Returns the save's stats: ``block_ms`` (the step
-    path's part), ``write_ms`` (copies landed, un-commit, shard),
-    ``commit_ms`` (manifest), ``save_ms``, ``bytes``."""
+    in async mode), in the JAX package's order: rank 0 un-commits a
+    replayed epoch; the un-commit barrier; each writer's shard renamed
+    into place; the ``kill_in_commit`` drill site; the commit barrier;
+    rank 0 reads the peers' shards, CRCs them and publishes the manifest.
+    The barriers run only with more than one writer (every rank then
+    calls this, :func:`writes`).  Returns the save's stats:
+    ``block_ms`` (the step path's part), ``write_ms`` (copies landed,
+    un-commit, shard), ``commit_ms`` (barrier and manifest),
+    ``save_ms``, ``bytes``, ``shards``."""
+    from ..parallel.multihost import checkpoint_commit_barrier
     from ..resilience import inject
-    if len(snap.writer_procs) > 1:
-        raise NotImplementedError(
-            f"a snapshot with writers {snap.writer_procs}: the port's "
-            f"params are replicated and rank 0 alone writes; the "
-            f"multi-writer commit barrier lands with parallel/multihost.py")
     t0 = time.perf_counter()
     d = os.path.abspath(path)
     os.makedirs(d, exist_ok=True)
     man = os.path.join(d, MANIFEST_NAME)
+    many = len(snap.writer_procs) > 1
     if snap.proc == 0 and os.path.exists(man):
         # re-saving a replayed epoch: un-commit first, so a crash mid-
         # rewrite leaves an invisible directory, never a manifest over
         # half-replaced shards
         os.remove(man)
         _fsync_dir(d)
+    if many:
+        # no writer renames its shard while a previous manifest may still
+        # name the old bytes
+        checkpoint_commit_barrier(
+            f"{os.path.basename(d)}:{snap.epoch}:uncommit", snap.group)
     snap.wait()
-    my_raw = None
+    my_name = my_raw = None
     if snap.pieces:
         my_name, my_raw = _write_shard(d, snap)
     t_write = time.perf_counter()
     # drill site: shards renamed into place, manifest not yet published
     inject.maybe_kill_in_commit(snap.epoch)
+    if many:
+        checkpoint_commit_barrier(f"{os.path.basename(d)}:{snap.epoch}",
+                                  snap.group)
     if snap.proc == 0:
-        commit_manifest(d, snap, [{
-            "file": my_name, "process": 0, "bytes": len(my_raw),
-            "crc32": zlib.crc32(my_raw) & 0xFFFFFFFF}])
+        shards = []
+        for p in snap.writer_procs:
+            name = shard_file_name(p)
+            if name == my_name:
+                raw = my_raw
+            else:
+                # a peer's shard, landed before the barrier above
+                with open(os.path.join(d, name), "rb") as f:
+                    raw = f.read()
+            shards.append({"file": name, "process": int(p),
+                           "bytes": len(raw),
+                           "crc32": zlib.crc32(raw) & 0xFFFFFFFF})
+        commit_manifest(d, snap, shards)
     t_commit = time.perf_counter()
     stats = {"epoch": snap.epoch, "path": d,
              "block_ms": round(snap.block_ms, 3),
@@ -643,12 +733,13 @@ def _scalar(data, key: str, path: str) -> np.ndarray:
     return data[key]
 
 
-def load_checkpoint(path: str, params_template: Dict[str, torch.Tensor],
+def load_checkpoint(path: str, params_template: Dict[str, Any],
                     opt_template: AdamState,
                     expect_fingerprint: Optional[Dict[str, Any]] = None
                     ) -> Tuple[Dict[str, torch.Tensor], AdamState, int,
                                Optional[np.ndarray]]:
-    """Restore against templates (a trainer's params and Adam state):
+    """Restore against templates (a trainer's params and Adam state, or
+    :class:`_Meta` leaves of the whole shapes):
     every leaf checked for presence and shape, every byte against the
     stored CRC32s, the strict fingerprint half against
     ``expect_fingerprint`` — any failure raises CheckpointCorrupt before
@@ -707,21 +798,31 @@ def restore_params_only(path: str
 def restore_trainer(trainer, path: str) -> None:
     """Resume a Trainer or DistributedTrainer in place.  The loader
     gathers whatever layout was saved to full host arrays, so a
-    checkpoint from another partition count restores (elastic restart).
-    The values are written into the trainer's existing leaves with
-    ``copy_`` (Adam updates params, ``m`` and ``v`` in place and the
-    trainer holds those leaves); the step scalars, the epoch and the
-    dropout generator (``Trainer.restore_rng``) follow."""
+    checkpoint from another partition count or mesh restores (elastic
+    restart); a sharded trainer (``trainer.sharding``, the 2-D mesh)
+    keeps its slice of each.  The values are written into the trainer's
+    existing leaves with ``copy_`` (Adam updates params, ``m`` and ``v``
+    in place and the trainer holds those leaves); the step scalars, the
+    epoch and the dropout generator (``Trainer.restore_rng``) follow."""
+    sh = getattr(trainer, "sharding", None)
+    whole = _whole_meta(trainer)
+    opt = trainer.opt_state
+    tmpl = opt if sh is None else opt._replace(
+        m={k: _Meta(sh.full_shapes[k], torch.float32) for k in opt.m},
+        v={k: _Meta(sh.full_shapes[k], torch.float32) for k in opt.v})
     params, opt_state, epoch, rng = load_checkpoint(
-        path, trainer.params, trainer.opt_state,
-        expect_fingerprint=trainer_fingerprint(trainer))
+        path, whole, tmpl, expect_fingerprint=trainer_fingerprint(trainer))
+
+    def mine(k, t):
+        return t if sh is None else sh.local(k, t)
+
     with torch.no_grad():
         for k, p in trainer.params.items():
-            p.copy_(params[k])
+            p.copy_(mine(k, params[k]))
         for have, got in ((trainer.opt_state.m, opt_state.m),
                           (trainer.opt_state.v, opt_state.v)):
             for k, t in have.items():
-                t.copy_(got[k])
+                t.copy_(mine(k, got[k]))
     trainer.opt_state = trainer.opt_state._replace(
         step=opt_state.step, beta1_t=opt_state.beta1_t,
         beta2_t=opt_state.beta2_t)
@@ -733,9 +834,10 @@ def checkpoint_trainer(trainer, path: str) -> Optional[Dict[str, Any]]:
     """Save a trainer's state synchronously.  Every trainer save passes
     the finite guard first (params and Adam state, one host sync,
     ``resilience/recovery.check_params_finite``): a poisoned state never
-    persists.  Every rank calls it; rank 0 writes and gets the save's
-    stats (:func:`write_snapshot`), the others None."""
+    persists.  Every rank calls it; the ranks that run
+    :func:`write_snapshot` (:func:`writes`) get the save's stats, the
+    others None."""
     from ..resilience.recovery import check_params_finite
     check_params_finite(trainer.params, trainer.opt_state)
     snap = snapshot_trainer(trainer)
-    return write_snapshot(path, snap) if snap.proc == 0 else None
+    return write_snapshot(path, snap) if writes(snap) else None

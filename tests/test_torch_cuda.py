@@ -898,3 +898,41 @@ def test_ring_hops_on_the_card_match_the_gather(dev, mode):
         rt = ring["ring"]
         for s in range(2):
             assert rt["row_ptr"][s, -1] == rt["real"][s]
+
+
+@pytest.mark.parametrize("halo", ["gather", "ring"])
+def test_mesh_2x2_step_on_the_card_matches_1d(dev, halo):
+    """Four gloo ranks on this card: the GCN of the CPU tests on 'cuda'
+    on the (parts, model) mesh 2x2 against the 1-D run of 2 parts (two
+    subgroups of two ranks each running it), 3 epochs at dropout 0 from
+    the same weights: the objectives within the contract's rtol 1e-5
+    (bit-equal expected: the same sums in the same order), the params
+    and Adam moments sharded at rest (each rank half of every leaf), and
+    K1, the masked K1, K2 and K4 (gather) or K3 at every hop (ring)
+    launched on every rank."""
+    from roc_tpu_torch.models.gcn import build_gcn
+    from roc_tpu_torch.parallel.distributed import run_ranks
+    from roc_tpu_torch.train.trainer import TrainConfig
+    import torch_rank_jobs
+    ds = synthetic_dataset(96, 7, in_dim=12, num_classes=3, seed=11)
+    p0 = build_gcn([12, 16, 3]).init_params(torch.Generator().manual_seed(5))
+    p0 = {k: v.detach().clone() for k, v in p0.items()}
+    runs = [dict(model=build_gcn([12, 16, 3], dropout_rate=0.0), dataset=ds,
+                 params=p0, parts=2, epochs=3, config=TrainConfig(
+                     aggr_impl="cuda", halo=halo, dropout_rate=0.0,
+                     eval_every=1, verbose=False, chunk=64, symmetric=True,
+                     mesh=mesh)) for mesh in ("2x2", "auto")]
+    res = run_ranks(torch_rank_jobs.mesh_job, 4, runs=runs,
+                    device="cuda:0")
+    for mesh2d, oned in res:
+        torch.testing.assert_close(torch.from_numpy(mesh2d["losses"]),
+                                   torch.from_numpy(oned["losses"]),
+                                   rtol=1e-5, atol=0)
+        for k, full in mesh2d["params"].items():
+            assert mesh2d["rest"][k] == mesh2d["rest_m"][k] == tuple(
+                n // 2 if i == (1 if full.shape[1] % 2 == 0 else 0) else n
+                for i, n in enumerate(full.shape))
+        n = mesh2d["launches"]
+        assert n["indegree_norm"] > 0 and n["scale_act"] > 0 and \
+            n["indegree_norm_masked"] > 0
+        assert (n["csr_spmm"] if halo == "ring" else n["ell_aggregate"]) > 0

@@ -525,7 +525,9 @@ def test_cli_prints_reference_infer_lines(capsys):
     lines = captured.out.splitlines()
     assert len(lines) == 2, captured.out
     assert [int(_INFER.match(ln).group(1)) for ln in lines] == [4, 9]
-    assert "impl=cuda" in captured.err
+    # the default --impl is 'auto', as the JAX CLI's, resolved to 'cuda'
+    assert "impl=auto" in captured.err
+    assert "aggr_impl='auto' -> 'cuda'" in captured.err
 
 
 def test_karate_gate_through_the_port_cli(tmp_path, capsys):
