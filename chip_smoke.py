@@ -146,11 +146,11 @@ Phases (any failure exits nonzero):
    'sectioned'; a shuffled planted graph at the arxiv shape relabeled by
    lpa and bfs (seconds, dense shares; lpa must recover the oracle's);
    the 602-256-41 GCN on 'sectioned', 'flat_sum' and 'bdense' (3 parity
-   steps against 'cuda', then 3 epochs, fp32 and 'mixed') and what
-   'auto' resolves to on this card (its row); ogbn-products' shape
-   (symmetric, V = 2,449,029, E ~ 126 M, saved for phase 15): GIN
-   100-256-47 through 'auto', 'flat_sum' and 'cuda' (parity, 3 epochs,
-   fp32 and 'mixed'), GAT
+   steps against 'cuda', fp32 and 'mixed', with their steps' epoch_ms)
+   and what 'auto' resolves to on this card (its row); ogbn-products'
+   shape (symmetric, V = 2,449,029, E ~ 126 M, saved for phase 15): GIN
+   100-256-47 with 'auto' resolved to the card row's route, 'flat_sum'
+   (parity) and 'cuda' (3 counted epochs), fp32 and 'mixed', GAT
    ('mixed', 'attn_flat8': 3 steps against 3 on 'ell'), SAGE-pool (fp32,
    'flat_sum''s max: its logits against 'ell''s, whose max cannot train
    at this shape in 80 GB, then 3 steps), and the peak memory.  The native host
@@ -223,12 +223,28 @@ Phases (any failure exits nonzero):
    uninterrupted run's, bit for bit) and into 1-D trainers of two parts
    (the saved weights).  Its wall time printed.  Ranks sharing one card
    over gloo: a layout check, not a speed number.
+18. the replica fleet (``fleet``, a child like 14, replicas on card 0):
+   the SGC 602-41 at Reddit's shape on 'akx' (phase 13's trained
+   weights) exported with ``--shards 2`` in fp32 and int8, the GCN
+   602-256-41 on 'table' (phase 4's weights) the same (K3 in the walk,
+   K1, K4 and K2 in the forward, counted); a ``Router(sharded=True)``
+   on each, its replicas' table budget 0.6 of the full table: a sample
+   and a batch across the seam against the exporting predictor ('table'
+   bit-equal, 'akx' within 1e-5 of the logit scale, the bit-equal share
+   printed), each request size 20 times through the router beside the
+   in-process Server on the whole table, the router's stats; the whole
+   table refused under that budget (exit 3 before ``ready``); at the
+   arxiv shape (SGC 128-40), the sharded refresh across the seam in this
+   process and the four serve drills (``replica_sigkill:2:1``,
+   ``replica_stall:2:0``, ``serve_io:1:0``, ``table_swap_mid_query:1:0``)
+   each on its own 2-replica fleet, a replica drained by SIGTERM, an SLO
+   armed on one router; its wall time printed.
 
 Prints one JSON line per phase, the kernel table line
 ``{"kernels": [...]}`` (one row per kernel and dtype, e.g.
 ``ell_aggregate[bf16]``, K1's masked form as ``indegree_norm_masked``;
 launches counted over the serve, train, dist, recovery, zoo, precompute,
-layouts, memory, ring and mesh slices of that dtype; the F = 128 checks as each
+layouts, memory, ring, mesh and fleet slices of that dtype; the F = 128 checks as each
 row's ``zoo_shapes``, the F = 602 ones as ``akx_shapes`` (K1, K2 and K4
 at the SGC's raw width), K3's walk check as ``walk_shapes`` and its ring
 hops as ``ring_shapes``), the card line, and as the last line
@@ -240,6 +256,7 @@ import dataclasses
 import functools
 import json
 import os
+import signal
 import subprocess
 import sys
 import tempfile
@@ -2187,7 +2204,7 @@ def serve_akx(torch, ds, counts, root):
     rec["checks"] = checks
     del pred, quantized["fp8"]
     torch.cuda.empty_cache()
-    return rec, lat, quantized["int8"]
+    return rec, lat, quantized["int8"], params
 
 
 def serve_table(torch, ds, params, counts, root):
@@ -2364,10 +2381,11 @@ def serve_invalidate(torch, counts):
 def serve_precomputed(torch, ds, gcn_params, counts):
     """Phase 13: :func:`serve_akx`, :func:`serve_table`,
     :func:`serve_artifact` and :func:`serve_invalidate`, each logged as
-    its phase line (request times in a line of their own)."""
+    its phase line (request times in a line of their own).  Returns the
+    SGC's trained weights (phase 18 serves them)."""
     import tempfile
     with tempfile.TemporaryDirectory() as root:
-        rec, lat, akx8 = serve_akx(torch, ds, counts, root)
+        rec, lat, akx8, akx_params = serve_akx(torch, ds, counts, root)
         log({"phase": "serve_akx", **rec})
         log({"phase": "serve_akx_requests", **lat})
         rec, lat, tab = serve_table(torch, ds, gcn_params, counts, root)
@@ -2380,6 +2398,7 @@ def serve_precomputed(torch, ds, gcn_params, counts):
         torch.cuda.empty_cache()
     log({"phase": "serve_invalidate", **serve_invalidate(torch, counts)})
     torch.cuda.empty_cache()
+    return akx_params
 
 
 # ---------------------------------------------------------------------------
@@ -2736,8 +2755,9 @@ def _counted(counts, key, fn):
 def reddit_train(torch, ds, counts):
     """The 602-256-41 GCN at Reddit's shape on 'sectioned', 'flat_sum'
     and 'bdense' (``BD``): 3 parity steps against 'cuda' (the smoke's
-    gates, PARITY_RTOL), then LAYOUT_EPOCHS epochs each in fp32 and
-    mixed; and what
+    gates, PARITY_RTOL) in fp32 and mixed, their steady steps'
+    ``epoch_ms`` (the dropout-0.5 epochs, timed in earlier runs of this
+    script, PERF.md §5, are left out for phase 18's time); and what
     'auto' resolves to on this card (its row in core/ell.py)."""
     from roc_tpu_torch.core.ell import jax_auto_impl, port_route
     from roc_tpu_torch.models.gcn import build_gcn
@@ -2773,9 +2793,7 @@ def reddit_train(torch, ds, counts):
                                       params)
             rec = {"mode": mode, "route": impl,
                    "parity": _held(got, info, ref, "cuda",
-                                   PARITY_RTOL[mode]),
-                   "train": _layout_epochs(torch, _layout_trainer, ds, impl,
-                                           mode)}
+                                   PARITY_RTOL[mode])}
             log({"phase": "layouts_train", **rec})
             out["routes"][f"{impl}/{mode}"] = rec
     out["seconds"] = time.perf_counter() - t0
@@ -2785,8 +2803,11 @@ def reddit_train(torch, ds, counts):
 def products(torch, counts, save_to=None):
     """ogbn-products' shape (symmetric synthetic_graph, V = 2,449,029,
     E ~ 126 M; saved as .npy under ``save_to`` for phase 15): GIN
-    100-256-47 through 'auto', 'flat_sum' and 'cuda', 3 parity steps
-    against 'cuda' and LAYOUT_EPOCHS epochs each, in fp32 and mixed;
+    100-256-47: 'auto' resolved to the card row's route ('cuda' on the
+    H100, so it is not run again), 'flat_sum' 3 parity steps against
+    'cuda', and LAYOUT_EPOCHS counted epochs on 'cuda', in fp32 and mixed
+    (the epochs of 'auto' and 'flat_sum', timed in earlier runs of this
+    script, are left out for phase 18's time);
     GAT (1 head, mixed) on 'attn_flat8', 3 steps against 3 on the plain
     'ell' route (LAYOUT_PLAIN_RTOL); SAGE-pool (fp32) on 'flat_sum''s
     max, its logits against 'ell''s, then 3 steps; each run's steady
@@ -2824,17 +2845,29 @@ def products(torch, counts, save_to=None):
         return {k: v.detach() for k, v in model_builders()[name](
             PRODUCTS_LAYERS, **kw).init_params(gen, device=dev).items()}
 
+    from roc_tpu_torch.core.ell import jax_auto_impl, port_route
+    from roc_tpu_torch.train.trainer import (TrainConfig, card_kind,
+                                             resolve_config)
+    name, kw = fams["gin"]
+    _, cfg = resolve_config(model_builders()[name](PRODUCTS_LAYERS, **kw),
+                            ds, TrainConfig(aggr_impl="auto",
+                                            symmetric=True), device=dev)
+    rule = jax_auto_impl(PRODUCTS_V, None, g.num_edges)
+    out["auto"] = {"resolved": cfg.aggr_impl, "jax_rule": rule,
+                   "row_route": port_route(rule, card_kind(dev))}
+    if cfg.aggr_impl != out["auto"]["row_route"]:
+        raise AssertionError(f"products 'auto': {out['auto']}")
     params = init("gin")
     for mode, key in (("float32", F32), ("mixed", BF16)):
         rec = out[f"gin/{mode}"] = {}
         (ref, _), _ = _counted(counts, key, lambda: _layout_steps(
             torch, make("gin"), ds, "cuda", mode, params))
-        for impl in ("auto", "flat_sum"):
+        for impl in ("flat_sum",):
             got, info = _layout_steps(torch, make("gin"), ds, impl, mode,
                                       params)
             rec[impl] = {"parity": _held(got, info, ref, "cuda",
                                          PARITY_RTOL[mode])}
-        for impl in ("auto", "flat_sum", "cuda"):
+        for impl in ("cuda",):
             run, launches = _counted(counts, key, lambda: _layout_epochs(
                 torch, make("gin"), ds, impl, mode))
             rec.setdefault(impl, {}).update(train=run, launches=launches)
@@ -4464,6 +4497,597 @@ def ring_ab(other, out_path=None):
     print(card_line(), flush=True)
 
 
+# ---------------------------------------------------------------------------
+# 18. The replica fleet (serve/router.py, serve/replica.py): tables
+# exported with --shards, replicas on this card behind routers, the
+# cross-shard gather, the capacity refusal, the sharded refresh and the
+# serve drills
+# ---------------------------------------------------------------------------
+
+FLEET_SHARDS = 2
+# a replica's table budget as a share of the full table: a slice (half
+# the rows and the halo) fits, the whole table does not
+FLEET_BUDGET = 0.6
+# the akx head's GEMM runs at the bucket of the sub-request a replica
+# receives, and a GEMM is bit-exact within one bucket size only
+FLEET_TOL = 1e-5
+FLEET_ARGS = ["--drain-timeout", "3"]
+FLEET_SEAM = 256
+REFRESH_PAIRS = 8
+# the JAX package's drill strings (tests/test_serve_robustness.py)
+FLEET_DRILLS = ("replica_sigkill:2:1", "replica_stall:2:0", "serve_io:1:0",
+                "table_swap_mid_query:1:0")
+FLEET_SLOS = ("availability(ok/requests) >= 0.99 over 60s",
+              "p99(request_ms) <= 50ms over 60s")
+# a hedge threshold no request reaches: the drills that must see one
+# replica's own answers turn hedging off
+NO_HEDGE_MS = 600_000.0
+
+
+def _fleet_env(fault=None):
+    env = dict(os.environ)
+    env.pop("ROC_TPU_FAULT", None)
+    if fault:
+        env["ROC_TPU_FAULT"] = fault
+    return env
+
+
+def _shard_summary(man, export_s):
+    sb = man["shards"]
+    return {"plan": sb["plan"], "rows_padded": sb["rows_padded"],
+            "halo": sb["halo"], "bytes_per_replica": sb["bytes_per_replica"],
+            "bytes_full": sb["bytes_full"],
+            "slice_share": sb["bytes_per_replica"] / sb["bytes_full"],
+            "export_s": export_s}
+
+
+def fleet_exports(torch, ds, akx_params, gcn_params, counts, root):
+    """The fleet's three artifacts, each with FLEET_SHARDS slices: the SGC
+    602-41 on 'akx' in fp32 (its precompute, the walk on K3, with the
+    counts zeroed just before and read just after) and int8 (the same
+    table), and the GCN 602-256-41 on 'table' (its forward on K1, K4 and
+    K2, counted the same way).  Returns the record and, per artifact, the
+    exporting predictor and its path."""
+    from roc_tpu_torch.models.gcn import build_gcn
+    from roc_tpu_torch.models.sgc import build_sgc
+    from roc_tpu_torch.serve.export import build_predictor, export_predictor
+    from roc_tpu_torch.train.trainer import TrainConfig
+    cfg = TrainConfig(aggr_impl="cuda", symmetric=True, seed=SEED)
+    sgc = build_sgc(AKX_LAYERS, k=AKX_HOPS)
+    rec, out = {}, {}
+    counts.zero()
+    akx, wall = _timed(torch, lambda: build_predictor(sgc, ds, cfg,
+                                                      params=akx_params))
+    launches = counts.read(F32)
+    if not launches["csr_spmm"][F32] or any(launches[k][F32]
+                                            for k in _CHAIN):
+        raise AssertionError(f"fleet: the akx walk did not run K3 alone: "
+                             f"{launches}")
+    rec["akx_precompute"] = {"wall_s": wall, "launches": launches}
+    akx8 = build_predictor(sgc, ds, cfg, params=akx_params, cache=akx.cache,
+                           quant="int8")
+    counts.zero()
+    tab, wall = _timed(torch, lambda: build_predictor(
+        build_gcn(LAYERS), ds, cfg, params=gcn_params,
+        backend="precomputed"))
+    launches = counts.read(F32)
+    if tab.flavor != "table" or not all(launches[k][F32] for k in _CHAIN):
+        raise AssertionError(f"fleet: the GCN forward did not run K1, K4 "
+                             f"and K2: {launches}")
+    rec["table_precompute"] = {"wall_s": wall, "launches": launches}
+    for name, pred in (("akx_fp32", akx), ("akx_int8", akx8),
+                       ("table", tab)):
+        path = os.path.join(root, name)
+        man, s = _timed(torch, lambda: export_predictor(
+            pred, path, shards=FLEET_SHARDS))
+        rec[name] = _shard_summary(man, s)
+        out[name] = (pred, path, man)
+    return rec, out
+
+
+def _bit_share(got, want):
+    return float(np.all(got == want, axis=1).mean()) if got.size else 1.0
+
+
+def fleet_answers(name, pred, router, seam):
+    """A SAMPLE-id sample and a batch straddling the seam through the
+    router against the exporting predictor's rows: bit-equal on 'table'
+    (a gather), within FLEET_TOL of the logit scale on 'akx'."""
+    rtol = 0.0 if pred.flavor == "table" else FLEET_TOL
+    out = []
+    for label, ids in (("sample", _sample(pred.num_nodes, SEED + 61)),
+                       ("seam", np.arange(seam - FLEET_SEAM,
+                                          seam + FLEET_SEAM))):
+        got = np.asarray(router.submit(ids).result(timeout=300))
+        want = pred.query(ids)
+        rec = _rows_check(f"{name}_{label}", got, want, rtol)
+        rec["bit_equal_share"] = _bit_share(got, want)
+        out.append(rec)
+    return out
+
+
+def fleet_latency(pred, router, seed):
+    """Each request size REPEATS times through the router and through the
+    in-process Server on the unsharded table: medians, the router's
+    stats, its wire_ms and gather_ms p50."""
+    from roc_tpu_torch.serve.server import Server
+
+    def med(rows):
+        return {r["rows"]: r["median_ms"] for r in rows}
+    rt = request_times(lambda i: router.submit(i).result(timeout=300),
+                       pred.num_nodes, seed)
+    with Server(pred, max_wait_ms=0.2, name="chip_smoke_fleet") as srv:
+        st = request_times(lambda i: srv.submit(i).result(timeout=300),
+                           pred.num_nodes, seed)
+        server_stats = srv.stats()
+    wire = router.reg.histogram("wire_ms").quantile(0.5)
+    stats = router.stats()
+    return {"router_median_ms": med(rt), "server_median_ms": med(st),
+            "router_p90_ms": {r["rows"]: r["p90_ms"] for r in rt},
+            "wire_p50_ms": wire, "gather_p50_ms": stats["gather_p50_ms"],
+            "router_stats": {k: v for k, v in stats.items()
+                             if k != "replicas"},
+            "replicas": stats["replicas"], "server_stats": server_stats}
+
+
+def fleet_capacity(art, budget):
+    """The unsharded akx artifact under the slices' budget: the replica
+    loads the whole table and exits 3 before ``ready``, stdout empty."""
+    here = os.path.dirname(os.path.abspath(__file__))
+    t0 = time.perf_counter()
+    r = subprocess.run([sys.executable, "-m", "roc_tpu_torch.serve.replica",
+                        art, "--table-budget-bytes", str(budget)],
+                       stdin=subprocess.DEVNULL, capture_output=True,
+                       text=True, timeout=300, cwd=here,
+                       env=dict(_fleet_env(), PYTHONPATH=here))
+    rec = {"rc": r.returncode, "stdout": r.stdout[:200],
+           "stderr_tail": r.stderr.strip().splitlines()[-1:],
+           "budget": budget, "seconds": time.perf_counter() - t0}
+    if r.returncode != 3 or r.stdout:
+        raise AssertionError(f"fleet capacity: {rec}")
+    return rec
+
+
+def _wire_pair(a, b):
+    from roc_tpu_torch.serve.errors import GatherError
+
+    def mk(owner, me):
+        def gather(ids, version):
+            try:
+                return owner.read_rows(ids, version)
+            except GatherError:
+                return None, None, -1, me.quant
+        return gather
+    a.gather_fn = mk(b, a)
+    b.gather_fn = mk(a, b)
+
+
+def fleet_refresh(torch, pred, art, man):
+    """The sharded refresh in this process at the arxiv shape (at
+    Reddit's degree the 2-hop set of a few edges is most of the graph,
+    phase 13): the two shards loaded with ``load_predictor(shard=k)`` and
+    wired gather_fn -> read_rows; REFRESH_PAIRS undirected edges across
+    the seam appended through the full cache, the changed rows passed to
+    both shards' apply_refresh.  Gates: each row applied by its owner,
+    the versions in lockstep, the shards' host and device rows equal to
+    the mutated table's, the answers (seam included) within FLEET_TOL of
+    the full predictor's at the new version."""
+    from roc_tpu_torch.serve.export import load_predictor
+    shards = [load_predictor(art, shard=k) for k in range(FLEET_SHARDS)]
+    _wire_pair(*shards)
+    seam = man["shards"]["plan"][0][1]
+    rng = np.random.RandomState(SEED + 62)
+    u = seam - 1 - rng.randint(0, 64, size=REFRESH_PAIRS)
+    v = seam + rng.randint(0, 64, size=REFRESH_PAIRS)
+    src, dst = np.concatenate([u, v]), np.concatenate([v, u])
+    ids = np.union1d(np.union1d(_sample(pred.num_nodes, SEED + 63), src),
+                     np.arange(seam - FLEET_SEAM, seam + FLEET_SEAM))
+    t0 = time.perf_counter()
+    rows = pred.cache.add_edges(src, dst)
+    host_ms = (time.perf_counter() - t0) * 1e3
+    pred.refresh_rows(rows)
+    values = np.asarray(pred.cache.table[rows], dtype=np.float32)
+    t0 = time.perf_counter()
+    applied = [s.apply_refresh(rows, values) for s in shards]
+    apply_ms = (time.perf_counter() - t0) * 1e3
+    want_v = pred.published().version
+    rec = {"edges_appended": int(src.size), "rows_recomputed": int(rows.size),
+           "applied": applied, "host_ms": host_ms, "apply_ms": apply_ms,
+           "versions": [s.published().version for s in shards] + [want_v]}
+    if (min(applied) <= 0 or sum(applied) != rows.size
+            or any(s.published().version != want_v for s in shards)):
+        raise AssertionError(f"fleet refresh: {rec}")
+    full = pred.published().table
+    for s in shards:
+        lo, hi = s.shard
+        own = np.arange(lo, hi)
+        vals, _, _, _ = s.read_rows(own, want_v)
+        dev = s.published().table[:hi - lo]
+        if not (np.array_equal(vals, pred.cache.table[lo:hi])
+                and torch.equal(dev, full[lo:hi])):
+            raise AssertionError(f"fleet refresh: shard {s.shard}'s rows "
+                                 f"differ from the mutated table's")
+    want = pred.query(ids)
+    rec["checks"] = []
+    for s in shards:
+        got = s.query(ids)
+        c = _rows_check(f"refresh_shard{s.shard[0]}", got, want, FLEET_TOL)
+        c.update(bit_equal_share=_bit_share(got, want),
+                 gather_ms=s.last_gather_ms)
+        rec["checks"].append(c)
+    return rec
+
+
+def _drill_sigkill(art, ref, scale, events):
+    from roc_tpu_torch.serve.errors import ServeTimeout
+    from roc_tpu_torch.serve.router import Router
+    # no hedge: a hedge answering first would leave the dying replica no
+    # request in flight to fail over
+    with Router(art, n_replicas=2, env=_fleet_env(FLEET_DRILLS[0]),
+                default_deadline_ms=20_000.0, hedge_min_ms=NO_HEDGE_MS,
+                replica_args=FLEET_ARGS) as router:
+        t_warm = time.monotonic() + 120.0
+        while time.monotonic() < t_warm:
+            for p in [router.submit([0, 1]) for _ in range(2)]:
+                p.result(timeout=60)
+            reps = router.stats()["replicas"]
+            if (any(not x["alive"] for x in reps)
+                    or all(x["served"] > 0 for x in reps)):
+                break
+            time.sleep(0.05)
+        n = ref.shape[0]
+        futs = [(i, router.submit([i % n, (i * 3) % 200]))
+                for i in range(60)]
+        ok = timeouts = 0
+        for i, fut in futs:
+            try:
+                rows = fut.result(timeout=60)
+                _rows_check("sigkill", np.asarray(rows),
+                            ref[[i % n, (i * 3) % 200]], FLEET_TOL)
+                ok += 1
+            except ServeTimeout:
+                timeouts += 1
+        stats = router.stats()
+    alive = [x["alive"] for x in stats["replicas"]]
+    fo = [e for e in events if e.get("cat") == "serve"
+          and e.get("kind") == "failover" and e.get("replica") == 1]
+    rec = {"ok": ok, "timeouts": timeouts, "alive": alive,
+           "failover_events": len(fo), "n_failover": stats["n_failover"]}
+    if (ok + timeouts != 60 or not ok or alive != [True, False] or not fo
+            or not stats["n_failover"]):
+        raise AssertionError(f"drill replica_sigkill: {rec}")
+    return rec
+
+
+def _drill_stall(art, ref, scale, events, closing):
+    """The wedged fleet's router goes to ``closing``: its close, which
+    waits out the wedged replica (drain timeout, TERM, KILL), runs later
+    beside other work (:func:`close_wedged`)."""
+    from roc_tpu_torch.serve.errors import ServeTimeout
+    from roc_tpu_torch.serve.router import Router
+    t0 = time.perf_counter()
+    # one request warms each replica (replica 0's microbatch 1) and the
+    # hedge keys on the median round trip, so cold first round trips on
+    # a loaded host cannot push the threshold past the deadline
+    router = Router(art, n_replicas=2, env=_fleet_env(FLEET_DRILLS[1]),
+                    default_deadline_ms=30_000.0, hedge_min_ms=150.0,
+                    hedge_pct=0.5, replica_args=FLEET_ARGS)
+    try:
+        for p in [router.submit([0]) for _ in range(2)]:
+            p.result(timeout=60)
+        futs = []
+        for i in range(40):
+            futs.append((i, router.submit([i])))
+            time.sleep(0.003)
+        ok = timeouts = 0
+        for i, fut in futs:
+            try:
+                _rows_check("stall", np.asarray(fut.result(timeout=60)),
+                            ref[[i]], FLEET_TOL)
+                ok += 1
+            except ServeTimeout:
+                timeouts += 1
+        stats = router.stats()
+    except BaseException:
+        router.close()
+        raise
+    closing.append(router)
+    rec = {"ok": ok, "timeouts": timeouts, "n_hedge": stats["n_hedge"],
+           "hedge_events": sum(1 for e in events if e.get("kind") == "hedge"),
+           "seconds": time.perf_counter() - t0}
+    if ok + timeouts != 40 or not ok or not stats["n_hedge"]:
+        raise AssertionError(f"drill replica_stall: {rec}")
+    return rec
+
+
+def close_wedged(routers):
+    """Close the wedged fleets: seconds each took, and a gate that every
+    replica process ended."""
+    out = []
+    for r in routers:
+        t0 = time.perf_counter()
+        r.close()
+        out.append(time.perf_counter() - t0)
+        if not all(x.proc.poll() is not None for x in r.replicas):
+            raise AssertionError("drill replica_stall: a replica outlived "
+                                 "its router's close")
+    return out
+
+
+def _drill_serve_io(art, ref, scale, events):
+    from roc_tpu_torch.serve.router import Router
+    with Router(art, n_replicas=2, env=_fleet_env(FLEET_DRILLS[2]),
+                default_deadline_ms=30_000.0, slos=list(FLEET_SLOS),
+                replica_args=FLEET_ARGS) as router:
+        futs = [router.submit([i]) for i in range(30)]
+        for i, f in enumerate(futs):
+            _rows_check("serve_io", np.asarray(f.result(timeout=60)),
+                        ref[[i]], FLEET_TOL)
+        stats = router.stats()
+        health = router.health()
+    redispatch = sum(1 for e in events if e.get("kind") == "redispatch")
+    rec = {"n_ok": stats["n_ok"], "n_failed": stats["n_failed"],
+           "redispatch_events": redispatch,
+           "health": {"ok": health["ok"],
+                      "replicas_alive": health["replicas_alive"],
+                      "states": health["states"],
+                      "objectives": [{k: o[k] for k in (
+                          "name", "value", "target", "burn", "compliant")}
+                          for o in health["objectives"]]}}
+    if (stats["n_ok"] != 30 or stats["n_failed"] or not redispatch
+            or len(health["objectives"]) != len(FLEET_SLOS)):
+        raise AssertionError(f"drill serve_io: {rec}")
+    return rec
+
+
+def _drill_swap(art, ref, ref_new, scale):
+    from roc_tpu_torch.serve.router import Router
+    versions, matched = set(), {"old": 0, "new": 0}
+    tol = FLEET_TOL * max(scale, 1.0)
+    # no hedge: replica 1 answering first would hide replica 0's swap;
+    # after the burst, requests one at a time go to the idle replica 0,
+    # past the swap
+    with Router(art, n_replicas=2, env=_fleet_env(FLEET_DRILLS[3]),
+                default_deadline_ms=30_000.0, hedge_min_ms=NO_HEDGE_MS,
+                replica_args=FLEET_ARGS) as router:
+        futs = [router.submit([i]) for i in range(200)]
+        for i, f in enumerate(futs):
+            rows = f.result(timeout=60)
+            versions.add(int(rows.version))
+            # a torn batch would match neither version
+            for tag, want in (("old", ref[[i]]), ("new", ref_new[[i]])):
+                if np.abs(np.asarray(rows) - want).max() <= tol:
+                    matched[tag] += 1
+                    break
+            else:
+                raise AssertionError(f"drill table_swap_mid_query: row {i} "
+                                     f"matches neither version")
+        for i in range(4):
+            rows = router.submit([i]).result(timeout=60)
+            versions.add(int(rows.version))
+            if np.abs(np.asarray(rows) - ref_new[[i]]).max() > tol:
+                raise AssertionError(f"drill table_swap_mid_query: row {i} "
+                                     f"after the swap")
+        stats = router.stats()
+    rec = {"n_ok": stats["n_ok"], "versions": sorted(versions), **matched}
+    if stats["n_ok"] != 204 or versions != {0, 1}:
+        raise AssertionError(f"drill table_swap_mid_query: {rec}")
+    return rec
+
+
+def _drill_sigterm(art):
+    """SIGTERM to a replica serving requests: it answers them, writes
+    ``drained`` with ``clean: true`` and exits 0."""
+    here = os.path.dirname(os.path.abspath(__file__))
+    p = subprocess.Popen([sys.executable, "-m", "roc_tpu_torch.serve.replica",
+                          art, "--replica", "0"] + FLEET_ARGS,
+                         stdin=subprocess.PIPE, stdout=subprocess.PIPE,
+                         stderr=subprocess.DEVNULL, text=True, cwd=here,
+                         env=dict(_fleet_env(), PYTHONPATH=here))
+    try:
+        lines = []
+
+        def read_until(kind, n=1):
+            got = 0
+            for line in p.stdout:
+                msg = json.loads(line)
+                lines.append(msg)
+                got += msg["kind"] == kind
+                if got == n:
+                    return
+            raise AssertionError(f"drill sigterm: EOF before {kind}")
+        read_until("ready")
+        for i in range(5):
+            p.stdin.write(json.dumps({"kind": "req", "id": i, "ids": [i],
+                                      "deadline_ms": None, "rid": None})
+                          + "\n")
+        p.stdin.flush()
+        p.send_signal(signal.SIGTERM)
+        read_until("drained")
+        rc = p.wait(timeout=60)
+    finally:
+        if p.poll() is None:
+            p.kill()
+            p.wait()
+    res = [m for m in lines if m["kind"] == "res"]
+    drained = lines[-1]
+    rec = {"rc": rc, "answered": sum(1 for m in res if m["ok"]),
+           "failed_typed": [m["error"] for m in res if not m["ok"]],
+           "drained": drained}
+    if rc != 0 or drained.get("clean") is not True or len(res) != 5:
+        raise AssertionError(f"drill sigterm: {rec}")
+    return rec
+
+
+def fleet_drills(art, ref, ref_new, closing):
+    """The four serve drills, each on its own unsharded 2-replica fleet
+    on this card, and the SIGTERM drain, all at once (their spawns
+    dominate); every one a gate.  The stalled fleet's router is left in
+    ``closing``."""
+    import concurrent.futures as cf
+    from roc_tpu_torch.obs.events import get_bus
+    scale = float(np.abs(ref).max())
+    sink = _EventSink()
+    bus = get_bus()
+    bus.add_sink(sink)
+    try:
+        with cf.ThreadPoolExecutor(5) as pool:
+            futs = {
+                "replica_sigkill": pool.submit(_drill_sigkill, art, ref,
+                                               scale, sink),
+                "replica_stall": pool.submit(_drill_stall, art, ref, scale,
+                                             sink, closing),
+                "serve_io": pool.submit(_drill_serve_io, art, ref, scale,
+                                        sink),
+                "table_swap_mid_query": pool.submit(_drill_swap, art, ref,
+                                                    ref_new, scale),
+                "sigterm": pool.submit(_drill_sigterm, art)}
+            return {k: f.result() for k, f in futs.items()}
+    finally:
+        bus.sinks.remove(sink)
+
+
+def fleet_child(data_dir, params_path, out_path):
+    """Phase 18 in a fresh process on card 0: the sharded exports of
+    :func:`fleet_exports` (counted); the capacity refusal in the
+    background; the drills and the sharded refresh at the arxiv shape
+    (SGC 128-40, k = 2); then a ``Router(sharded=True)`` on each export
+    with the replicas' table budget at FLEET_BUDGET of the full table
+    (answers, latency beside the in-process Server) while the wedged
+    drill fleet closes; writes the record and the counts."""
+    import concurrent.futures as cf
+
+    import torch
+    from roc_tpu_torch.core.graph import synthetic_dataset
+    from roc_tpu_torch.kernels import _build
+    from roc_tpu_torch.models.sgc import build_sgc
+    from roc_tpu_torch.ops.dense import set_fp32_matmul_precision
+    from roc_tpu_torch.serve.export import (build_predictor, export_predictor,
+                                            load_predictor)
+    from roc_tpu_torch.serve.router import Router
+    from roc_tpu_torch.train.trainer import TrainConfig
+    t_start = time.perf_counter()
+    torch.cuda.set_device(0)
+    set_fp32_matmul_precision()
+    # built before any replica starts: replicas never race a first build
+    _build.library()
+    counts = Launches(torch)
+    saved = torch.load(params_path, map_location="cuda")
+    ds = _map_dataset(data_dir, LAYERS[-1])
+    rec = {}
+    closing = []
+    with tempfile.TemporaryDirectory() as root, \
+            cf.ThreadPoolExecutor(4) as pool:
+        # Reddit's shape: the exports (counted); the whole akx table under
+        # the slices' budget, checked in the background
+        t0 = time.perf_counter()
+        rec["exports"], arts = fleet_exports(torch, ds, saved["akx"],
+                                             saved["gcn"], counts, root)
+        rec["exports"]["seconds"] = time.perf_counter() - t0
+        log({"phase": "fleet_exports", **rec["exports"]})
+        cap = pool.submit(fleet_capacity, arts["akx_fp32"][1], int(
+            FLEET_BUDGET * arts["akx_fp32"][2]["shards"]["bytes_full"]))
+        try:
+            # the arxiv shape: the drills on replicas, the refresh in
+            # this process, both on one exported artifact (no export
+            # runs beside the drills: their hedges key on measured
+            # latency)
+            t0 = time.perf_counter()
+            ads = synthetic_dataset(ZOO_V, ZOO_DEGREE,
+                                    in_dim=ZOO_LAYERS[0],
+                                    num_classes=ZOO_LAYERS[-1], seed=SEED,
+                                    name="arxiv_shape")
+            model = build_sgc([ZOO_LAYERS[0], ZOO_LAYERS[-1]], k=2)
+            params = model.init_params(
+                torch.Generator(device="cuda").manual_seed(SEED + 60),
+                device="cuda")
+            pred = build_predictor(model, ads, TrainConfig(
+                aggr_impl="cuda", symmetric=True, seed=SEED), params=params)
+            art = os.path.join(root, "arxiv")
+            man = export_predictor(pred, art, shards=FLEET_SHARDS)
+            allv = np.arange(pred.num_nodes)
+            ref = pred.query(allv)
+            swapped = load_predictor(art)
+            swapped.invalidate([0], [0])
+            ref_new = swapped.query(allv)
+            del swapped, ads
+            rec["arxiv_setup_s"] = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            drills = pool.submit(fleet_drills, art, ref, ref_new, closing)
+            rec["refresh"] = fleet_refresh(torch, pred, art, man)
+            log({"phase": "fleet_refresh", **rec["refresh"]})
+            rec["drills"] = drills.result()
+            rec["drills_s"] = time.perf_counter() - t0
+            log({"phase": "fleet_drills", **rec["drills"],
+                 "seconds": rec["drills_s"]})
+            del pred
+            torch.cuda.empty_cache()
+        finally:
+            # the wedged fleet ends while the sharded fleets start
+            wedged = pool.submit(close_wedged, list(closing))
+        rec["capacity"] = cap.result()
+        log({"phase": "fleet_capacity", **rec["capacity"]})
+
+        def start(name):
+            pred, path, man = arts[name]
+            b = int(FLEET_BUDGET * man["shards"]["bytes_full"])
+            t = time.perf_counter()
+            r = Router(path, n_replicas=FLEET_SHARDS, sharded=True,
+                       table_budget_bytes=b, replica_args=FLEET_ARGS)
+            return r, time.perf_counter() - t
+        t0 = time.perf_counter()
+        started = {n: pool.submit(start, n) for n in arts}
+        cf.wait(list(started.values()))
+        rec["fleet_start_s"] = time.perf_counter() - t0
+        routers = {n: f.result() for n, f in started.items()
+                   if f.exception() is None}
+        try:
+            for f in started.values():
+                if f.exception() is not None:
+                    raise f.exception()
+            for i, (name, (router, up_s)) in enumerate(routers.items()):
+                pred, path, man = arts[name]
+                seam = man["shards"]["plan"][0][1]
+                r = {"ready_s": up_s,
+                     "table_bytes": [x.ready["table_bytes"]
+                                     for x in router.replicas],
+                     "checks": fleet_answers(name, pred, router, seam),
+                     **fleet_latency(pred, router, SEED + 64 + i)}
+                rec[name] = r
+                log({"phase": "fleet_sharded", "artifact": name, **r})
+        finally:
+            list(pool.map(lambda rt: rt[0].close(), routers.values()))
+            rec["stall_close_s"] = wedged.result()
+            log({"phase": "fleet_stall_close",
+                 "seconds": rec["stall_close_s"]})
+    rec["seconds"] = time.perf_counter() - t_start
+    log({"phase": "fleet_seconds", "total": rec["seconds"],
+         "exports": rec["exports"]["seconds"],
+         "fleet_start": rec["fleet_start_s"],
+         "arxiv_setup": rec["arxiv_setup_s"], "drills": rec["drills_s"]})
+    with open(out_path, "w") as f:
+        json.dump({"record": rec, "counted": counts.counted}, f)
+
+
+def run_fleet_child(tmp, akx_params, gcn_params):
+    """:func:`fleet_child` in a fresh Python process on the Reddit-shape
+    dataset phase 14's parent saved under ``tmp``/reddit, with phase 13's
+    trained SGC weights and phase 4's GCN weights; returns what it
+    wrote."""
+    import torch
+    here = os.path.dirname(os.path.abspath(__file__))
+    data = os.path.join(tmp, "reddit")
+    params = os.path.join(tmp, "fleet_params.pt")
+    torch.save({"akx": {k: v.detach().cpu() for k, v in akx_params.items()},
+                "gcn": {k: v.detach().cpu() for k, v in gcn_params.items()}},
+               params)
+    out = os.path.join(tmp, "fleet.json")
+    _child(here, f"fleet_child({data!r}, {params!r}, {out!r})", 600,
+           "phase 18 (fleet)")
+    with open(out) as f:
+        return json.load(f)
+
+
 def run_memory_child(tmp, num_classes):
     """:func:`memory_child` in a fresh Python process on the datasets
     phases 14's parent and child saved under ``tmp``; returns what it
@@ -4829,7 +5453,7 @@ def main() -> int:
     # 13. the precomputed serving backend: akx, table, the artifacts and
     # the invalidation, each precompute with the counts zeroed just
     # before and read just after
-    serve_precomputed(torch, ds, params, counts)
+    akx_params = serve_precomputed(torch, ds, params, counts)
 
     # 14. the large-graph layouts, in a fresh process: races against K3
     # and K4, the block-dense race, reordering, the GCN on the layouts,
@@ -4901,11 +5525,34 @@ def main() -> int:
         refs = {f"{h}_{m}": runs16[name]["losses"]
                 for (h, m), name in MESH_REFS.items()}
         mesh = run_mesh_child(tmp, ds.num_classes, refs)
+        s17 = time.perf_counter() - t17
         for key in (F32, BF16):
             for name in KERNELS:
                 counted[key][name] += mesh["counted"][key][name]
+        # 18. the replica fleet: sharded exports (counted), routers and
+        # replicas on this card, the refresh and the drills, in a fresh
+        # process on the dataset 14 saved
+        sys.stdout.flush()
+        t18 = time.perf_counter()
+        fleet = run_fleet_child(tmp, akx_params, params)
+        for key in (F32, BF16):
+            for name in KERNELS:
+                counted[key][name] += fleet["counted"][key][name]
+        frec = fleet["record"]
+        log({"phase": "fleet_summary", "seconds": time.perf_counter() - t18,
+             "slices": {k: {x: v[x] for x in ("bytes_per_replica",
+                                               "bytes_full", "slice_share")}
+                        for k, v in frec["exports"].items()
+                        if isinstance(v, dict) and "plan" in v},
+             "router_median_ms": {k: frec[k]["router_median_ms"]
+                                  for k in ("akx_fp32", "akx_int8",
+                                            "table")},
+             "server_median_ms": {k: frec[k]["server_median_ms"]
+                                  for k in ("akx_fp32", "akx_int8",
+                                            "table")},
+             "drills": sorted(frec["drills"])})
     mrec = mesh["record"]
-    log({"phase": "dist_mesh_summary", "seconds": time.perf_counter() - t17,
+    log({"phase": "dist_mesh_summary", "seconds": s17,
          "p2_s": mrec["p2_s"], "m2x2_s": mrec["m2x2_s"],
          "p2_read_bytes": [(r["read_bytes"], r["part_bytes"])
                            for r in mrec["p2"]],

@@ -1,4 +1,4 @@
-"""Observability (``roc_tpu/obs``): the ported subset is the event bus
-(``events.py``) and the stall watchdog (``heartbeat.py``), which the
-checkpoint and recovery path emit through.  The metrics registry, the
-timeline merger and the SLO engine are not ported."""
+"""Observability (``roc_tpu/obs``): the event bus (``events.py``), the
+stall watchdog (``heartbeat.py``), the streaming metrics registry
+(``metrics_registry.py``) and the SLO engine (``slo.py``).  The timeline
+merger is not ported."""

@@ -42,7 +42,10 @@ from typing import Any, Dict, List, Optional
 # form strings are accepted.  The port emits: resolve, epoch, stall, run,
 # resilience (injected faults, recovery retries, corrupt-checkpoint
 # fallbacks, preemption, elastic restores), timeline (the saver's span
-# laps) and checkpoint (committed async saves, superseded snapshots).
+# laps, the server's and router's spans and clock_sync), checkpoint
+# (committed async saves, superseded snapshots), serve (publishes,
+# failover, hedges, re-dispatches, drains, summaries) and slo (breaches
+# and recoveries).
 CATEGORIES = ("manifest", "resolve", "plan", "compile", "epoch",
               "bench", "stall", "run", "analysis", "pipeline",
               "costmodel", "programspace", "resilience", "timeline",

@@ -1,5 +1,5 @@
-"""Site-based fault injection (``roc_tpu/resilience/inject.py``), the
-training sites: drill the failure paths for real.
+"""Site-based fault injection (``roc_tpu/resilience/inject.py``): drill
+the failure paths for real.
 
 One fault is armed per process (``ROC_TPU_FAULT=site:epoch[:proc]``, the
 JAX package's variable, or ``TrainConfig.fault``) and fires at most once
@@ -36,8 +36,22 @@ rank.  Sites:
                        any deadline: only ``ROC_TPU_STALL_TIMEOUT_S``
                        ends it, as a StallFailure.
 
-The JAX package's serve-fleet sites are not ported with their subsystem:
-:func:`parse` refuses them, so no drill is armed as a no-op.
+Serve sites: the same grammar drills the serving tier, ``epoch`` read as
+the server's microbatch index (``Server._dispatch`` passes it) and
+``proc`` as the replica index a router assigned (:func:`note_proc_index`;
+a replica has no process group).  They fire at or past the armed index:
+
+- ``replica_sigkill``  SIGKILL this replica mid-dispatch: the router
+                       fails over its in-flight requests;
+- ``replica_stall``    hang one dispatch for an hour: hedging and
+                       deadlines must cover;
+- ``table_swap_mid_query``  publish a real edge-append version swap
+                       between a microbatch's version capture and its
+                       dispatch: the batch finishes bit-exact on the
+                       version it captured;
+- ``serve_io``         an OSError from the dispatch site: the replica
+                       reports a retryable failure, the router
+                       re-dispatches.
 """
 
 from __future__ import annotations
@@ -54,10 +68,9 @@ ENV_VAR = "ROC_TPU_FAULT"
 
 SITES = ("nan_grads", "sigkill", "sigterm", "kill_in_save",
          "kill_in_async_save", "shard_corrupt", "saver_stall",
-         "bitflip_checkpoint", "staging_io", "stall_compile")
-# the JAX package's sites whose subsystem is not ported yet
-NOT_PORTED = ("replica_sigkill", "replica_stall", "table_swap_mid_query",
-              "serve_io")
+         "bitflip_checkpoint", "staging_io", "stall_compile",
+         "replica_sigkill", "replica_stall", "table_swap_mid_query",
+         "serve_io")
 
 
 @dataclass
@@ -78,15 +91,13 @@ _SPEC: Optional[FaultSpec] = None
 _ENV_CHECKED = False
 # the epoch the training loop last entered (run_epoch_loop notes it)
 _EPOCH: Optional[int] = None
+# a serve replica's router-assigned index, which the ``:proc`` arm
+# matches in place of the rank (note_proc_index)
+_PROC_OVERRIDE: Optional[int] = None
 
 
 def parse(spec: str) -> FaultSpec:
     parts = spec.split(":")
-    if parts[0] in NOT_PORTED:
-        raise ValueError(
-            f"fault site {parts[0]!r} is not ported: its subsystem (the "
-            f"serve fleet) is not in roc_tpu_torch yet; ported sites: "
-            f"{SITES}")
     if len(parts) not in (2, 3) or parts[0] not in SITES:
         raise ValueError(
             f"bad fault spec {spec!r}; expected site:epoch[:proc] with "
@@ -121,10 +132,18 @@ def arm(spec: Optional[str]) -> Optional[FaultSpec]:
 
 def disarm() -> None:
     """Reset (tests)."""
-    global _SPEC, _ENV_CHECKED, _EPOCH
+    global _SPEC, _ENV_CHECKED, _EPOCH, _PROC_OVERRIDE
     _SPEC = None
     _ENV_CHECKED = False
     _EPOCH = None
+    _PROC_OVERRIDE = None
+
+
+def note_proc_index(idx: int) -> None:
+    """Pin this process's identity for the ``:proc`` arm: a serve replica
+    calls it with its router-assigned index (it wins over the rank)."""
+    global _PROC_OVERRIDE
+    _PROC_OVERRIDE = int(idx)
 
 
 def current() -> Optional[FaultSpec]:
@@ -167,7 +186,8 @@ def _ready(site: str, epoch: Optional[int] = None, *,
     spec = current()
     if spec is None or spec.fired or spec.site != site:
         return None
-    if spec.proc is not None and process_index() != spec.proc:
+    if spec.proc is not None and spec.proc != (
+            process_index() if _PROC_OVERRIDE is None else _PROC_OVERRIDE):
         return None
     if noted:
         return spec if _EPOCH == spec.epoch else None
@@ -305,3 +325,39 @@ def maybe_stall() -> None:
         return
     _fire(spec, "stalling the first step's barrier")
     time.sleep(3600.0)
+
+
+def serve_batch_hooks(server, batch_no: int) -> None:
+    """The serve sites, called by ``Server._dispatch`` after the
+    microbatch captured its table version and before its dispatch.
+    ``batch_no`` is the server's microbatch index; the sites fire at or
+    past the armed index, once."""
+    spec = (_ready("replica_sigkill", batch_no, at_least=True)
+            or _ready("replica_stall", batch_no, at_least=True)
+            or _ready("table_swap_mid_query", batch_no, at_least=True)
+            or _ready("serve_io", batch_no, at_least=True))
+    if spec is None:
+        return
+    if spec.site == "replica_sigkill":
+        _fire(spec, f"SIGKILL mid-dispatch (microbatch {batch_no})")
+        os.kill(os.getpid(), signal.SIGKILL)
+    elif spec.site == "replica_stall":
+        _fire(spec, f"stalling dispatch of microbatch {batch_no}: "
+                    f"hedging and deadlines must cover")
+        time.sleep(3600.0)
+    elif spec.site == "table_swap_mid_query":
+        _fire(spec, f"publishing a table-version swap under microbatch "
+                    f"{batch_no}'s captured version")
+        try:
+            # a real mutation (a self edge on node 0)
+            server.pred.invalidate([0], [0])
+        except NotImplementedError:
+            # no mutable table (the full backend, the 'table' flavor, a
+            # shard): the fault event above records the drill ran here
+            emit("resilience", "table_swap_mid_query: backend has no "
+                 "mutable table — swap skipped", kind="fault_noop",
+                 site=spec.site)
+    elif spec.site == "serve_io":
+        _fire(spec, f"OSError raised from the serve dispatch site "
+                    f"(microbatch {batch_no})")
+        raise OSError(f"injected serve I/O fault ({spec.spec_str()})")

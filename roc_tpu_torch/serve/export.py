@@ -13,6 +13,11 @@ export.py``): ``python -m roc_tpu_torch.export``.
   v1 (the resolved model spec, the config, the params fingerprint and
   the quant block).  A quantized export runs the drift gate before any
   file is written.
+- ``--shards N`` (``export_predictor(shards=N)``) also writes N table
+  slices, ``propagation_shard{k}.npz`` (:func:`make_shard_slices`), and
+  the manifest's ``shards`` block; ``load_predictor(shard=k)`` loads one
+  slice, which serves the global ids through the cross-shard gather
+  (serve/predictor.py, serve/router.py).
 - :func:`load_predictor` rebuilds a predictor from an artifact written
   by this package or by the JAX package.  The JAX manifest's
   compile-cache fields (``program_keys``, ``prewarm``) have no meaning
@@ -42,12 +47,14 @@ from ..train.trainer import (LAYOUT_FIELDS, layout_options,
                              make_graph_context,
                              resolve_config, resolve_device,
                              resolve_symmetric)
-from .predictor import SERVE_BUCKETS, Predictor
+from .predictor import SERVE_BUCKETS, Predictor, ShardSlice
 from .propagation import (PropagationCache, logits_table_cache,
                           prefix_descriptors)
 
 MANIFEST_NAME = "serve_manifest.json"
 MANIFEST_VERSION = 1
+
+SHARD_FILE = "propagation_shard{k}.npz"
 
 
 def resolve_backend(model, backend: str) -> Tuple[str, Optional[str]]:
@@ -143,6 +150,116 @@ def build_predictor(model, dataset, config, params=None,
                      quant=quant, device=device)
 
 
+# ------------------------------------------------------- sharded slices
+
+def make_shard_slices(cache: PropagationCache, num_shards: int,
+                      buckets: Sequence[int],
+                      quant: str = "off") -> List[ShardSlice]:
+    """The export's shard plan: contiguous ``[lo, hi)`` ranges from the
+    trainer's edge-balanced sweep (``core/partition.py
+    edge_balanced_bounds``) in one fleet-uniform layout: ``rows_padded``
+    the largest range rounded up to ``NODE_MULTIPLE``, ``halo`` the
+    largest bucket.  Quantized slices are cut from the full table's codes
+    and scales and carry its largest scale.  A cache that holds no edges
+    (the 'table' flavor's logits) is split by rows: each row weighs one
+    edge, where an edge-weighted sweep would put every row in the first
+    range."""
+    from ..core.partition import NODE_MULTIPLE, edge_balanced_bounds
+    if num_shards < 1:
+        raise ValueError(f"num_shards must be >= 1, got {num_shards}")
+    V = cache.num_nodes
+    weights = (cache.row_ptr if cache.row_ptr[-1] > 0
+               else np.arange(V + 1, dtype=np.int64))
+    plan: List[Tuple[int, int]] = []
+    for left, right in edge_balanced_bounds(weights, num_shards):
+        plan.append((int(left), int(right) + 1) if right >= left
+                    else (V, V))
+    own_max = max(hi - lo for lo, hi in plan)
+    rows_padded = -(-max(own_max, 1) // NODE_MULTIPLE) * NODE_MULTIPLE
+    halo = max(int(b) for b in buckets)
+    if quant != "off":
+        from .quant import quantize_rows
+        q, sc = quantize_rows(cache.table, quant)
+        guard = float(sc.max())
+        return [ShardSlice(lo, hi, V, rows_padded, halo, codes=q[lo:hi],
+                           scales=sc[lo:hi], scale_guard=guard)
+                for lo, hi in plan]
+    return [ShardSlice(lo, hi, V, rows_padded, halo,
+                       rows=cache.table[lo:hi]) for lo, hi in plan]
+
+
+def _write_shard_slice(out_dir: str, k: int, sl: ShardSlice,
+                       quant: str) -> str:
+    """``propagation_shard{k}.npz`` with the JAX package's members,
+    written to a temporary file and renamed into place."""
+    import tempfile
+    data: Dict[str, Any] = {
+        "lo": np.int64(sl.lo), "hi": np.int64(sl.hi),
+        "num_nodes": np.int64(sl.num_nodes),
+        "rows_padded": np.int64(sl.rows_padded),
+        "halo": np.int64(sl.halo)}
+    if quant != "off":
+        from .quant import to_storage_bytes
+        data["rows_q"] = to_storage_bytes(sl.codes)
+        data["rows_scale"] = sl.scales
+        data["scale_guard"] = np.float64(sl.scale_guard)
+    else:
+        data["rows"] = sl.rows
+    path = os.path.join(out_dir, SHARD_FILE.format(k=k))
+    fd, tmp = tempfile.mkstemp(dir=out_dir, suffix=".npz.tmp")
+    try:
+        with os.fdopen(fd, "wb") as f:
+            np.savez(f, **data)
+        os.replace(tmp, path)
+    finally:
+        if os.path.exists(tmp):
+            os.unlink(tmp)
+    return path
+
+
+def load_shard_slice(artifact_dir: str, k: int,
+                     quant: str = "off") -> ShardSlice:
+    """One stored table slice (this package's or the JAX package's) as a
+    :class:`ShardSlice`; quantized codes come back from their bytes."""
+    path = os.path.join(artifact_dir, SHARD_FILE.format(k=k))
+    with np.load(path) as z:
+        lo, hi = int(z["lo"]), int(z["hi"])
+        num_nodes = int(z["num_nodes"])
+        rows_padded, halo = int(z["rows_padded"]), int(z["halo"])
+        if quant != "off":
+            from .quant import from_storage_bytes
+            return ShardSlice(
+                lo, hi, num_nodes, rows_padded, halo,
+                codes=from_storage_bytes(z["rows_q"], quant),
+                scales=np.asarray(z["rows_scale"], dtype=np.float32),
+                scale_guard=float(z["scale_guard"]))
+        return ShardSlice(lo, hi, num_nodes, rows_padded, halo,
+                          rows=np.asarray(z["rows"], dtype=np.float32))
+
+
+def _shard_block(pred: Predictor, out_dir: str,
+                 shards: int) -> Dict[str, Any]:
+    """Write ``pred``'s table slices; returns the manifest's ``shards``
+    block (the plan, the shared layout, the files, and the bytes a
+    replica holds beside the full table's)."""
+    from .quant import table_bytes
+    slices = make_shard_slices(pred.cache, shards, pred.buckets, pred.quant)
+    files = [os.path.basename(_write_shard_slice(out_dir, k, sl,
+                                                 pred.quant))
+             for k, sl in enumerate(slices)]
+    F = int(pred.cache.table.shape[1])
+    return {"n": int(shards),
+            "plan": [[int(sl.lo), int(sl.hi)] for sl in slices],
+            "rows_padded": int(slices[0].rows_padded),
+            "halo": int(slices[0].halo),
+            "files": files,
+            "bytes_per_replica": int(table_bytes(
+                (slices[0].rows_padded + slices[0].halo + 1, F),
+                pred.quant)),
+            "bytes_full": int(table_bytes((pred.num_nodes + 1, F),
+                                          pred.quant))}
+
+
 # ------------------------------------------------------------ artifact
 
 def _host_params(params: Dict[str, torch.Tensor]) -> Dict[str, np.ndarray]:
@@ -196,10 +313,11 @@ def _config_block(cfg) -> Dict[str, Any]:
 def export_predictor(pred: Predictor, out_dir: str,
                      dataset_meta: Optional[Dict[str, Any]] = None,
                      drift_argmax_min: Optional[float] = None,
-                     drift_dlogit_max: Optional[float] = None
-                     ) -> Dict[str, Any]:
+                     drift_dlogit_max: Optional[float] = None,
+                     shards: int = 0) -> Dict[str, Any]:
     """Persist ``pred`` as a serving artifact in ``out_dir``; returns
-    the manifest.  A quantized predictor first runs the drift gate
+    the manifest.  ``shards`` > 0 also writes that many table slices
+    (precomputed backend only).  A quantized predictor first runs the drift gate
     (argmax agreement and relative max |Δlogit| against the fp32
     reference on a held-out sample, thresholds from serve/quant.py
     unless given) and raises ``QuantDriftError`` before any file is
@@ -238,11 +356,15 @@ def export_predictor(pred: Predictor, out_dir: str,
         qblock["table"] = {"stages": len(shapes), "bytes_fp32": int(b_fp32),
                            "bytes": int(b_mode),
                            "shrink": round(b_fp32 / max(b_mode, 1), 2)}
+    if shards and (pred.backend != "precomputed" or pred.cache is None):
+        raise ValueError("sharded export applies to the precomputed "
+                         "table backend")
     os.makedirs(out_dir, exist_ok=True)
     np.savez(os.path.join(out_dir, "params.npz"), **store_params)
     if pred.cache is not None:
         pred.cache.save(os.path.join(out_dir, "propagation.npz"),
                         quant=pred.quant)
+    shard_block = _shard_block(pred, out_dir, shards) if shards else None
     cfg = pred.config
     block = _config_block(cfg)
     meta = dict(dataset_meta or {})
@@ -261,7 +383,7 @@ def export_predictor(pred: Predictor, out_dir: str,
         "dataset": meta,
         "num_nodes": pred.num_nodes,
         "quant": qblock,
-        "shards": None,
+        "shards": shard_block,
         "created": time.strftime("%Y-%m-%dT%H:%M:%S%z"),
     }
     path = os.path.join(out_dir, MANIFEST_NAME)
@@ -306,12 +428,16 @@ def _route_from_manifest(impl: str, backend: str) -> str:
 
 
 def load_predictor(artifact_dir: str, dataset=None, device=None,
-                   verbose: bool = False) -> Predictor:
+                   verbose: bool = False,
+                   shard: Optional[int] = None) -> Predictor:
     """Rebuild a Predictor from an artifact (this package's or the JAX
     package's) on ``device`` (the card unless the caller passes
     another).  No resolve pass runs: the manifest carries the resolved
     op list and config.  ``dataset`` is needed by the full backend only
-    (a precomputed artifact holds its table)."""
+    (a precomputed artifact holds its table).  ``shard=k`` loads table
+    slice k of an artifact exported with ``--shards`` (its rows and the
+    halo, not the table); it answers foreign ids once the caller wires
+    ``pred.gather_fn``."""
     from ..models.builder import Model
     from ..train.trainer import TrainConfig
     from ..utils.checkpoint import params_signature
@@ -347,8 +473,19 @@ def load_predictor(artifact_dir: str, dataset=None, device=None,
             f"{artifact_dir}: params fingerprint mismatch ({sig} != "
             f"manifest {want}) — params.npz does not belong to this "
             f"manifest")
-    cache = head_model = gctx = None
-    if backend == "precomputed":
+    cache = head_model = gctx = slice_ = None
+    if shard is not None:
+        sb = manifest.get("shards")
+        if not sb:
+            raise ValueError(f"{artifact_dir}: shard={shard} requested but "
+                             f"the artifact was not exported with --shards")
+        if not 0 <= int(shard) < int(sb["n"]):
+            raise ValueError(f"{artifact_dir}: shard {shard} out of range "
+                             f"[0, {sb['n']})")
+        slice_ = load_shard_slice(artifact_dir, int(shard), qmode)
+        if flavor == "akx":
+            head_model = model.precompute_split()[1]
+    elif backend == "precomputed":
         cache = PropagationCache.load(
             os.path.join(artifact_dir, "propagation.npz"))
         if flavor == "akx":
@@ -373,7 +510,7 @@ def load_predictor(artifact_dir: str, dataset=None, device=None,
                      cache=cache, head_model=head_model, flavor=flavor,
                      dataset=dataset if backend == "full" else None,
                      gctx=gctx, num_classes=manifest.get("num_classes"),
-                     quant=qmode, device=device)
+                     quant=qmode, device=device, shard=slice_)
 
 
 # ----------------------------------------------------------------- CLI
@@ -431,7 +568,11 @@ def parse_args(argv: Optional[List[str]] = None):
                     help="drift gate: largest relative |Δlogit| against "
                          "the fp32 reference (default in serve/quant.py)")
     ap.add_argument("--shards", type=int, default=0,
-                    help="per-shard table slices: not ported yet")
+                    help="also write N per-shard propagation slices and a "
+                         "shard manifest block (edge-balanced [lo,hi) "
+                         "plan, fleet-uniform padded shape); a replica "
+                         "then loads ONE slice (load_predictor(shard=k)) "
+                         "at O(V/N)+halo table bytes")
     ap.add_argument("--cache-dir", default=None,
                     help="the JAX package's compile-cache directory; "
                          "accepted and ignored")
@@ -452,9 +593,8 @@ def main(argv: Optional[List[str]] = None) -> int:
     if args.events:
         from ..obs.events import configure
         configure(jsonl_path=args.events)
-    if args.shards:
-        print("error: --shards is not ported yet (sharded tables and the "
-              "fleet, ROADMAP item 4d)", file=sys.stderr)
+    if args.shards < 0:
+        print("error: --shards must be >= 0", file=sys.stderr)
         return 2
     if args.cache_dir is not None or args.no_verify_warm:
         print("note: --cache-dir and --no-verify-warm drive the JAX "
@@ -511,13 +651,23 @@ def main(argv: Optional[List[str]] = None) -> int:
                            verbose=args.verbose)
     meta = {"V": int(ds.graph.num_nodes), "E": int(ds.graph.num_edges),
             "name": getattr(ds, "name", None), "prefix": args.file}
+    if args.shards and pred.backend != "precomputed":
+        print("error: sharded export applies to the precomputed table "
+              "backend (--backend auto or precomputed)", file=sys.stderr)
+        return 2
     manifest = export_predictor(pred, args.out, dataset_meta=meta,
                                 drift_argmax_min=args.drift_argmax_min,
-                                drift_dlogit_max=args.drift_dlogit_max)
+                                drift_dlogit_max=args.drift_dlogit_max,
+                                shards=args.shards)
+    sb = manifest["shards"]
     print(json.dumps({"artifact": args.out, "backend": manifest["backend"],
                       "flavor": manifest["flavor"],
                       "buckets": manifest["buckets"],
-                      "quant": manifest["quant"]}))
+                      "quant": manifest["quant"],
+                      "shards": None if not sb else {
+                          k: sb[k] for k in ("n", "plan",
+                                             "bytes_per_replica",
+                                             "bytes_full")}}))
     return 0
 
 

@@ -936,3 +936,44 @@ def test_mesh_2x2_step_on_the_card_matches_1d(dev, halo):
         assert n["indegree_norm"] > 0 and n["scale_act"] > 0 and \
             n["indegree_norm_masked"] > 0
         assert (n["csr_spmm"] if halo == "ring" else n["ell_aggregate"]) > 0
+
+
+@pytest.mark.parametrize("flavor", ["akx", "table"])
+def test_sharded_router_on_the_card_matches_the_predictor(dev, tmp_path,
+                                                          flavor):
+    """A 2-replica ``Router(sharded=True)`` with its replicas on the card
+    (the SGC 24-5 on 'akx', the APPNP 24-16-5 on 'table', V = 2,000, two
+    table slices) against the in-process predictor that exported them:
+    bit-equal on 'table' (a gather); within 1e-5 of the logit scale on
+    'akx' (a replica's head GEMM runs at its sub-request's bucket)."""
+    from roc_tpu_torch.models import model_builders
+    from roc_tpu_torch.serve.export import build_predictor, export_predictor
+    from roc_tpu_torch.serve.router import Router
+    from roc_tpu_torch.train.trainer import TrainConfig
+    name, kw, layers, backend = {
+        "akx": ("sgc", {"k": 2}, [24, 5], "auto"),
+        "table": ("appnp", {"k": 3}, [24, 16, 5], "precomputed")}[flavor]
+    ds = synthetic_dataset(2000, 6, in_dim=24, num_classes=5, seed=0)
+    model = model_builders()[name](layers, dropout_rate=0.5, **kw)
+    pred = build_predictor(model, ds, TrainConfig(aggr_impl="cuda",
+                                                  symmetric=True, seed=3),
+                           device=dev, backend=backend)
+    art = str(tmp_path / "art")
+    man = export_predictor(pred, art, shards=2)
+    seam = man["shards"]["plan"][0][1]
+    rng = np.random.RandomState(5)
+    batches = [rng.randint(0, 2000, size=n) for n in (1, 5, 64, 600)]
+    batches.append(np.arange(seam - 6, seam + 6))
+    with Router(art, n_replicas=2, sharded=True,
+                replica_args=["--drain-timeout", "3"]) as router:
+        for ids in batches:
+            got = np.asarray(router.submit(ids).result(timeout=120))
+            want = pred.query(ids)
+            if flavor == "table":
+                assert np.array_equal(got, want), ids.size
+            else:
+                err = np.abs(got - want).max()
+                assert err <= 1e-5 * max(1.0, np.abs(want).max()), ids.size
+        stats = router.stats()
+    assert stats["n_ok"] == len(batches) and stats["gather_p50_ms"]
+    assert [r["shard"] for r in stats["replicas"]] == man["shards"]["plan"]

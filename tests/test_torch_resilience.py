@@ -307,12 +307,17 @@ def test_preemption_guard_is_graceful():
     assert preempt.RESTARTABLE_EXIT_CODE == 75
 
 
-@pytest.mark.parametrize("spec", list(inject.NOT_PORTED))
+@pytest.mark.parametrize("spec", ["replica_sigkill", "replica_stall",
+                                  "table_swap_mid_query", "serve_io"])
 def test_inject_refuses_unported_sites(spec):
-    """The JAX package's streamed-tier and serve sites are refused, never
-    armed as a no-op."""
-    with pytest.raises(ValueError, match="not ported"):
-        inject.parse(f"{spec}:1")
+    """The serve sites, once refused as not ported, now parse as the JAX
+    package's do; their malformed specs are refused, never armed as a
+    no-op."""
+    assert spec in inject.SITES
+    assert inject.parse(f"{spec}:1:0").spec_str() == f"{spec}:1:0"
+    for bad in (f"{spec}", f"{spec}:x", f"{spec}:-1", f"{spec}:1:-2"):
+        with pytest.raises(ValueError):
+            inject.parse(bad)
 
 
 def test_inject_parse_and_arm():

@@ -230,11 +230,13 @@ def test_scale_guard_refuses_and_keeps_the_old_version(data):
 @pytest.mark.parametrize("argv,rc", [
     (["--cpu", "--model", "sgc", "-layers", "24-5", "--quantize",
       "int8"], 0),
-    (["--cpu", "--model", "sgc", "-layers", "24-5", "--shards", "2"], 2),
+    (["--cpu", "--model", "sgc", "-layers", "24-5", "--backend", "full",
+      "--shards", "2"], 2),
 ])
 def test_export_cli(tmp_path, argv, rc, capsys):
     """``python -m roc_tpu_torch.export``: an int8 SGC export on the CPU
-    passes the default gate and cold-loads; ``--shards`` is refused."""
+    passes the default gate and cold-loads; ``--shards`` on the full
+    backend (no table to slice) is refused before any file is written."""
     art = str(tmp_path / "art")
     assert main(argv + ["--out", art]) == rc
     if rc == 0:
@@ -243,7 +245,7 @@ def test_export_cli(tmp_path, argv, rc, capsys):
         assert out["quant"]["drift"]["ok"]
         assert load_predictor(art, device="cpu").quant == "int8"
     else:
-        assert "4d" in capsys.readouterr().err
+        assert "precomputed table backend" in capsys.readouterr().err
         assert not os.path.exists(art)
 
 
