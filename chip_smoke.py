@@ -1,7 +1,20 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port (roc_tpu_torch) on one NVIDIA card.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--deep]
+
+The Reddit and products shapes are built on the host by a process of
+their own (:func:`prep_datasets`) and saved as .npy in a temporary
+directory that every later phase maps; phase 12 runs meanwhile, right
+after the ragged checks.  Each phase child (12, 14-19) and the kill
+drill's children are started one phase ahead and wait for their turn
+(:class:`_Child`), so a process's start overlaps the phase before.
+Phases 13 and 14, 15 and 16, and 17 and 19 share the card two at a
+time (:func:`_run_together`; no gate of theirs reads a time), and 18,
+whose drills key on measured latency, runs alone, last.  ``--deep``
+runs them one after another (their times then stand alone) and adds
+the timed work that gates nothing (:data:`DEEP`); the default run
+drives every path and holds every check.
 
 Phases (any failure exits nonzero):
 
@@ -22,9 +35,10 @@ Phases (any failure exits nonzero):
    (``device_ms``; null where it reads below the bound, the reading kept
    as ``device_ms_below_bound``);
    race: every slice width of K3 and K4 (16, 32, 64, 128 and unsliced)
-   at F = 256 and F = 41 over the full graph, timed in turns, with its
-   gather rate and HBM rate, and the fastest and the ties beside the
-   default; all of it again in bf16 (K1 and K2 bit for bit, K3 and K4
+   at F = 256 and F = 41 over the full graph held to the plain version
+   (with --deep timed in turns, with its gather rate and HBM rate, and
+   the fastest and the ties beside the default); all of it again in
+   bf16 (K1 and K2 bit for bit, K3 and K4
    within one bf16 ulp of each row's magnitude, every instance launched
    twice for equal bits);
    the SGC's raw width too: K1, K2 and K4 at F = 602 in fp32 (the
@@ -54,15 +68,16 @@ Phases (any failure exits nonzero):
    only; rows against the plain route in 'mixed' and the fp32 route),
    3 parity steps in 'mixed' on 'cuda', 'cuda_csr' and 'ell', 10 epochs
    in 'mixed' on 'cuda' and 'cuda_csr' and in 'bfloat16' on 'cuda'
-   (every bf16 kernel ran, the train loss falls), and a 'mixed' profile;
+   (every bf16 kernel ran, the train loss falls), and with --deep a
+   'mixed' profile;
 9. dist_p1, the partitioned trainer (parallel/distributed.py) at world
    size 1 over NCCL in this process, in fp32 and in 'mixed': 3 parity
    steps from the same weights, dropout 0, on 'cuda' and 'cuda_csr', each
    objective within the parity tolerance of Trainer's on the same route;
    then, with the counters zeroed just before, 10 epochs with dropout 0.5
    on both routes (the train loss falls, every kernel of the dtype ran,
-   the masked K1 too), ``epoch_ms`` beside Trainer's, and in fp32 the
-   step profile of phase 7 (the collectives' device time in its own
+   the masked K1 too), ``epoch_ms`` beside Trainer's, and with --deep
+   in fp32 the step profile of phase 7 (the collectives' device time in its own
    group);
 10. dist_p2, two fresh rank processes on this one card over gloo (NCCL
    takes one rank per card), each holding one part of the edge-balanced
@@ -85,11 +100,12 @@ Phases (any failure exits nonzero):
    corrupt_fallback and ends on the uninterrupted fp32 run's bits); the
    nan_grads drill on 'cuda_csr' (one retry, a finite loss); the final
    checkpoint's params (restore_params_only) served through Server,
-   each row equal to Trainer.predict's bit for bit; per save block,
-   write and commit ms and bytes, async and sync, the finite guard's
-   ms, the checkpointed run's wall per steady epoch beside the plain
-   run's (run first and again last) and beside rounds ending in the
-   guard alone and in guard + snapshot, and the children's set-up;
+   each row equal to Trainer.predict's bit for bit; the checkpointed
+   run's wall per steady epoch beside the plain run's (run first and
+   again last), with --deep beside rounds ending in the guard alone and
+   in guard + snapshot, and per save block, write and commit ms and
+   bytes, async and sync, and the finite guard's ms; the children's
+   set-up;
    every kernel launched, with the counts zeroed before the fp32 path
    and again before the mixed one;
 12. zoo, the model zoo (roc_tpu_torch/models/) at ogbn-arxiv's shape
@@ -104,21 +120,22 @@ Phases (any failure exits nonzero):
    1e-4 * max|logit| and its gradients within 1e-3 of each weight's
    largest (MAX outputs whose maxima differ between the precisions have
    their cotangent cut, and the uncut error is printed); then phase 6's
-   10 epochs at lr 0.01 (SAGE-pool at 0.003, beside its lr-0.01 runs on
-   the ELL max, the edge-list max and in float64, ungated), sum families
+   10 epochs at lr 0.01 (SAGE-pool at 0.003; with --deep beside its
+   lr-0.01 runs on the ELL max, the edge-list max and in float64,
+   ungated), sum families
    on 'cuda' and 'cuda_csr', the others on 'cuda', with the counts
    zeroed just before each run: the train loss falls from epoch 4 to 9,
    each expected kernel ran (K4 on 'cuda', K3 on 'cuda_csr', K1 and K2
    for the fused chains of SGC, APPNP, GCNII and SAGE with GraphNorm) and
    no other; ``epoch_ms``, ``first_step_ms``, the launches a step, and
-   phase 7's profile on 'cuda'.
+   with --deep phase 7's profile on 'cuda'.
 13. the precomputed serving backend (roc_tpu_torch/serve/), each
    precompute with the counts zeroed just before and read just after:
    ``serve_akx``, an SGC 602-41 (k = 2, trained 20 epochs) at Reddit's
    shape on its 'akx' table: the precompute (the blocked host walk of
    core/streaming.py) with its wall and launches (K3 alone: the walk's
-   norms are host row scales), one more walk's event span and pinned
-   copies, the table bytes per mode, a 4,096-id sample against the same
+   norms are host row scales), with --deep one more walk's event span
+   and pinned copies, the table bytes per mode, a 4,096-id sample against the same
    SGC on the full backend (fp32 within 1e-4, 'mixed' within 3e-2 of the
    logit scale), int8 exported through the default drift gate and fp8 behind
    the relaxed one, and each request size 20 times through
@@ -134,7 +151,7 @@ Phases (any failure exits nonzero):
    and int8 published while a thread serves batches pinned to the fp32
    version, each bit-exact.
 14. the large-graph layouts (``layouts``, in a fresh process, as phase
-   12): races at Reddit's shape, the forward sum at F = 256 and 41 in
+   12): with --deep, races at Reddit's shape, the forward sum at F = 256 and 41 in
    fp32 and bf16 on K4 ('cuda'), K3 ('cuda_csr'), 'sectioned' (sub_w 8,
    int32 and uint16 ids) and 'flat_sum', each held to K4 (rtol 1e-5 in
    fp32, one bf16 ulp of the row's magnitude in bf16) with its host
@@ -143,12 +160,12 @@ Phases (any failure exits nonzero):
    planted communities in their own order (E cut to 23 M; min_fill 32,
    a 6 GiB A budget): the probe's dense share, the plans at group 1 and
    16, u4 packed and not, each held to K4 and timed beside it and
-   'sectioned'; a shuffled planted graph at the arxiv shape relabeled by
+   'sectioned'; then a shuffled planted graph at the arxiv shape relabeled by
    lpa and bfs (seconds, dense shares; lpa must recover the oracle's);
    the 602-256-41 GCN on 'sectioned', 'flat_sum' and 'bdense' (3 parity
    steps against 'cuda', fp32 and 'mixed', with their steps' epoch_ms)
    and what 'auto' resolves to on this card (its row); ogbn-products'
-   shape (symmetric, V = 2,449,029, E ~ 126 M, saved for phase 15): GIN
+   shape (symmetric, V = 2,449,029, E ~ 126 M, from the prep): GIN
    100-256-47 with 'auto' resolved to the card row's route, 'flat_sum'
    (parity) and 'cuda' (3 counted epochs), fp32 and 'mixed', GAT
    ('mixed', 'attn_flat8': 3 steps against 3 on 'ell'), SAGE-pool (fp32,
@@ -156,8 +173,8 @@ Phases (any failure exits nonzero):
    at this shape in 80 GB, then 3 steps), and the peak memory.  The native host
    planners must have run for every layout built.  Its 'cuda' baselines
    are counted runs of the table.
-15. the memory tier (``memory``, in a fresh process on the datasets of
-   phase 14): K3 at the blocked walk's shape (a tile's first edge chunk
+15. the memory tier (``memory``, in a fresh process on the prep's
+   datasets): K3 at the blocked walk's shape (a tile's first edge chunk
    over a 65,536-row source block, F = 602) against its plain version,
    timed with its library call and bound (the kernel table's
    ``walk_shapes``); the GCN with features='host' on 'cuda' in fp32 and
@@ -165,10 +182,11 @@ Phases (any failure exits nonzero):
    with prefetch 1 and 0 to the same bits, 10 epochs (K1, the masked K1,
    K2 and K4 ran; the loss falls) beside 10 on 'hbm', with epoch_ms,
    overlap_frac (the host's view), the staging waits, the pinned H2D
-   rate, the peak and the modeled bytes, and one profiled steady step's
-   device overlap (the share of H2D copy time under a kernel); the SGC 602-41 with features='host' (the trainer's
-   walk launches K3 alone; the walk profiled: wall, device ms, the
-   copies' share; 3 parity steps against 'hbm'); remat none, full and
+   rate, the peak and the modeled bytes, and with --deep one profiled
+   steady step's device overlap (the share of H2D copy time under a
+   kernel); the SGC 602-41 with features='host' (the trainer's walk
+   launches K3 alone; with --deep the walk profiled: wall, device ms,
+   the copies' share; 3 parity steps against 'hbm'); remat none, full and
    save_aggregates on the GCN (fp32, 'mixed') and on GIN 100-256-47 at
    the products shape (3 steps at dropout 0.5: weights within 1e-5 of
    none's, epoch_ms and peak each; 'full' recomputes a layer at a time,
@@ -181,7 +199,7 @@ Phases (any failure exits nonzero):
    ROC_TPU_STALL_TIMEOUT_S (a StallFailure, then the restart finishes).
    Every run counted.
 16. the rest of the partitioned trainer (``dist_ring``, in a fresh
-   process on phase 14's Reddit-shape dataset, the GCN 602-256-41 at full
+   process on the prep's Reddit-shape dataset, the GCN 602-256-41 at full
    width from phase 5's weights, dropout 0): two gloo ranks on this card
    (NCCL takes one rank per card; gloo stages the transfers through the
    host), each holding one part: the ring halo (parallel/ring.py) in fp32,
@@ -201,7 +219,7 @@ Phases (any failure exits nonzero):
    modeled bytes.  Every path counted; its wall time printed.  The times
    of ranks sharing one card are a layout check, not a speed number.
 17. partition-local loading, the ``(parts, model)`` mesh and its
-   multi-writer checkpoint (``dist_mesh``, a child like 16, on phase 14's
+   multi-writer checkpoint (``dist_mesh``, a child like 16, on the prep's
    Reddit-shape dataset, the GCN 602-256-41 from phase 5's weights,
    dropout 0, 3 steps): the dataset written in the reference layout with
    the port's ``save_dataset`` (``.add_self_edge.lux``, ``.feats.bin``,
@@ -240,11 +258,29 @@ Phases (any failure exits nonzero):
    each on its own 2-replica fleet, a replica drained by SIGTERM, an SLO
    armed on one router; its wall time printed.
 
+19. the chunked edge-list routes (``routes``, a child like 18, on the
+   prep's datasets): the GCN 602-256-41 at Reddit's shape from
+   phase 5's weights, dropout 0, fp32, 2 steps each on 'cuda'
+   (head_chunk 0), 'blocked' and 'scan' (objectives within 1e-4 of
+   'cuda''s, no kernel launched, each run's step ms and the card's peak)
+   and on 'auto' with head_chunk 65536 (K1, K2, K4; within 1e-5); the
+   CLI on a 16,384-row file set in the reference's format, 3 epochs with
+   ``--checkpoint``, then ``--resume --eval-only --save-logits
+   --reorder bfs`` (the logits in the original order within 1e-4 of
+   ``Trainer.predict`` on the unreordered graph); SAGE-pool 100-256-47
+   at the products shape on 'ell' (the checkpointed ELL max), 2 steps
+   in 'mixed', its peak.
+
+``python3 chip_smoke.py --attention-race [out.json]`` runs only the race
+behind core/ell.py ``CARD_ROWS``'s attention entry: GAT 100-256-47 at
+the products shape on 'attn_flat8', 'ell' and 'cuda', fp32 and 'mixed',
+3 steps each (timed work, kept out of the default run).
+
 Prints one JSON line per phase, the kernel table line
 ``{"kernels": [...]}`` (one row per kernel and dtype, e.g.
 ``ell_aggregate[bf16]``, K1's masked form as ``indegree_norm_masked``;
 launches counted over the serve, train, dist, recovery, zoo, precompute,
-layouts, memory, ring, mesh and fleet slices of that dtype; the F = 128 checks as each
+layouts, memory, ring, mesh, fleet and routes slices of that dtype; the F = 128 checks as each
 row's ``zoo_shapes``, the F = 602 ones as ``akx_shapes`` (K1, K2 and K4
 at the SGC's raw width), K3's walk check as ``walk_shapes`` and its ring
 hops as ``ring_shapes``), the card line, and as the last line
@@ -291,9 +327,25 @@ KERNELS = {
 }
 # the launch counters' dtype keys (kernels/_build.py DTYPE_SUFFIX)
 F32, BF16 = "f32", "bf16"
+# The timed work that gates nothing runs only with ``--deep`` (the
+# children read it from CHIP_SMOKE_DEEP): the slice-width races' timings
+# (phase 3, K3 at the walk's shape), the step profiles past phase 7's,
+# the recovery's guard and snapshot rounds and save timings, the zoo's
+# profiles and lr witness, the walk's profiles, the layouts' races and
+# the block-dense race.  Every path, check and counted run stays in the
+# default run, which must end well inside a 1,200 s limit.
+DEEP = os.environ.get("CHIP_SMOKE_DEEP") == "1"
+
+
+# the process's start, for the elapsed seconds of each phase line
+_T0 = time.perf_counter()
 
 
 def log(obj):
+    """One JSON line; a phase line also carries ``t_s``, the seconds since
+    this process started (a child's own)."""
+    if "phase" in obj:
+        obj = {**obj, "t_s": round(time.perf_counter() - _T0, 1)}
     print(json.dumps(obj), flush=True)
 
 
@@ -629,7 +681,9 @@ def kernel_checks(torch, dev, gctx, adj, num_edges, esrc, edst, dtype,
 
 def race(torch, dev, gctx, num_edges, esrc, edst, dtype):
     """Every slice width of K4 and K3 in ``dtype`` at the layer widths
-    F = 256 and F = 41 over the full graph, in turns in one process: the
+    F = 256 and F = 41 over the full graph, each held to the plain
+    version and launched twice for equal bits; with ``--deep``
+    (:data:`DEEP`) also timed in turns in one process: the
     plain version, each instance, each instance again in reverse order,
     the plain version again (``ms`` is the mean of an instance's two
     readings).  Each instance is first held to the plain version
@@ -678,6 +732,13 @@ def race(torch, dev, gctx, num_edges, esrc, edst, dtype):
                            + ids_bytes * slices, "readings": []}
                 del got
             del want
+            if not DEEP:
+                rec = {"phase": "race", "kernel": name, "dtype": str(dtype),
+                       "F": F, "instances": list(inst.values()),
+                       "timed": "with --deep"}
+                log(rec)
+                records.append(rec)
+                continue
             plain_ms = [time_ms(torch, plain, 1)]
             for S in (*slicing.SLICE_COLS, *reversed(slicing.SLICE_COLS)):
                 inst[S]["readings"].append(
@@ -1156,11 +1217,13 @@ def _save_dataset(ds, path):
         np.save(f"{path}/{name}.npy", arr)
 
 
-def _map_dataset(path, num_classes, name="reddit_shape"):
+def _map_dataset(path, num_classes, name="reddit_shape", mmap=True):
+    """The dataset :func:`_save_dataset` wrote under ``path``, its arrays
+    mapped read-only (or with ``mmap`` False read into memory)."""
     from roc_tpu_torch.core.graph import Dataset, Graph
 
     def load(name):
-        return np.load(f"{path}/{name}.npy", mmap_mode="r")
+        return np.load(f"{path}/{name}.npy", mmap_mode="r" if mmap else None)
     return Dataset(Graph(load("row_ptr"), load("col_idx")), load("features"),
                    load("labels"), load("mask"), num_classes, name=name)
 
@@ -1297,25 +1360,22 @@ def dist_rank_job(data_dir, num_classes, params, steps):
 PREDICT_TOL = 1e-4
 
 
-def dist_p2(torch, ds, params, parity, trainer_logits, steps=3):
+def dist_p2(torch, ds, params, parity, trainer_logits, data_dir, steps=3):
     """Two fresh rank processes on card 0 over gloo (NCCL takes one rank
     per card), each holding one part of the edge-balanced split, the
     'cuda' route in fp32: ``steps`` steps from ``params`` with dropout 0,
     each step's objective within ``PARITY_RTOL['float32']`` of Trainer's
     (``parity``) and the logits after them within ``PREDICT_TOL`` of
-    max|logit| of Trainer's (``trainer_logits``).  Returns the record and
-    the ranks' launch counts."""
-    import tempfile
+    max|logit| of Trainer's (``trainer_logits``); the ranks map ``ds``
+    from its files in ``data_dir``.  Returns the record and the ranks'
+    launch counts."""
     from roc_tpu_torch.parallel.distributed import run_ranks
     t0 = time.perf_counter()
-    with tempfile.TemporaryDirectory() as tmp:
-        _save_dataset(ds, tmp)
-        save_s = time.perf_counter() - t0
-        ranks = run_ranks(dist_rank_job, 2, backend="gloo", timeout_s=900,
-                          data_dir=tmp, num_classes=ds.num_classes,
-                          params={k: v.detach().cpu().numpy()
-                                  for k, v in params.items()},
-                          steps=steps)
+    ranks = run_ranks(dist_rank_job, 2, backend="gloo", timeout_s=900,
+                      data_dir=data_dir, num_classes=ds.num_classes,
+                      params={k: v.detach().cpu().numpy()
+                              for k, v in params.items()},
+                      steps=steps)
     wall_s = time.perf_counter() - t0
     rtol = PARITY_RTOL["float32"]
     want = np.asarray(parity["cuda"]["losses"])
@@ -1323,7 +1383,7 @@ def dist_p2(torch, ds, params, parity, trainer_logits, steps=3):
     ranks[1].pop("logits")
     scale = float(np.abs(trainer_logits).max())
     err = float(np.abs(logits - trainer_logits).max())
-    out = {"save_s": save_s, "wall_s": wall_s, "ranks": ranks,
+    out = {"wall_s": wall_s, "ranks": ranks,
            "trainer_losses": want.tolist(), "rtol": rtol,
            "predict_max_abs_err": err,
            "predict_atol": PREDICT_TOL * max(scale, 1.0),
@@ -1396,7 +1456,8 @@ def recovery_pair(torch, ds, impl, mode, root):
     same seed through train_with_recovery with an async rotation: the
     final params, Adam state and every objective must be equal bit for
     bit (saving must not perturb training).  To split what a save costs
-    the step path, the same rounds run twice more without a rotation:
+    the step path (with ``--deep``), the same rounds run twice more
+    without a rotation:
     ending in the finite guard alone (the drain of the launched steps)
     and in the guard and the host snapshot (the step path's whole share
     of an async save, the saver thread's writes left out), each held to
@@ -1420,8 +1481,9 @@ def recovery_pair(torch, ds, impl, mode, root):
                              async_save=True)
     variants = {
         "plain": lambda tr: tr.train(),
-        "guard_only": lambda tr: _rounds(tr, guard),
-        "snapshot_only": lambda tr: _rounds(tr, snapshot),
+        **({"guard_only": lambda tr: _rounds(tr, guard),
+            "snapshot_only": lambda tr: _rounds(tr, snapshot)}
+           if DEEP else {}),
         "recovered": lambda tr: train_with_recovery(
             tr, RECOVERY_EPOCHS, rot, checkpoint_every=CKPT_EVERY),
         "plain_again": lambda tr: tr.train()}
@@ -1448,7 +1510,9 @@ def recovery_pair(torch, ds, impl, mode, root):
     base = (out["plain"]["steady_epoch_ms"]
             + out["plain_again"]["steady_epoch_ms"]) / 2
     for name in ("guard_only", "snapshot_only", "recovered"):
-        out[name]["overhead_share"] = out[name]["steady_epoch_ms"] / base - 1
+        if name in out:
+            out[name]["overhead_share"] = \
+                out[name]["steady_epoch_ms"] / base - 1
     st = rot.save_stats()
     out["saves"] = [{k: s[k] for k in ("epoch", "block_ms", "write_ms",
                                         "commit_ms", "queued_ms", "bytes")}
@@ -1550,57 +1614,57 @@ def recovery_child(data_dir, num_classes, prefix, fault, out_path):
                   "epoch": tr.epoch}).encode(), np.uint8))
 
 
-def _run_child(root, prefix, fault, tag):
-    """:func:`recovery_child` in a fresh Python process; returns its exit
-    code, its setup_s and its output file."""
-    import os
-    out = f"{root}/{tag}.npz"
-    here = os.path.dirname(os.path.abspath(__file__))
-    env = dict(os.environ, PYTHONPATH=here + os.pathsep
-               + os.environ.get("PYTHONPATH", ""))
+def start_recovery_child(root, data_dir, fault, tag):
+    """:func:`recovery_child` pre-started (:class:`_Child`, its output
+    captured): the kill drill's run ``tag`` on the dataset in
+    ``data_dir`` over the rotation at ``root``/drill/ck, ``fault``
+    armed, its flight records under ``root``."""
+    env = dict(os.environ, ROC_TPU_FLIGHT_DIR=root)
     env.pop("ROC_TPU_FAULT", None)
-    code = (f"import chip_smoke as s; s.recovery_child({root + '/data'!r}, "
-            f"{LAYERS[-1]}, {prefix!r}, {fault!r}, {out!r})")
-    r = subprocess.run([sys.executable, "-c", code], cwd=here, env=env,
-                       capture_output=True, text=True, timeout=600)
-    setup = [json.loads(ln)["setup_s"] for ln in r.stdout.splitlines()
+    return _Child(f"recovery_child({data_dir!r}, {LAYERS[-1]}, "
+                  f"{root + '/drill/ck'!r}, {fault!r}, "
+                  f"{root + '/' + tag + '.npz'!r})", 600,
+                  f"the kill drill's {tag}", capture=True, env=env)
+
+
+def _setup_s(child):
+    """The set-up seconds a recovery child printed, or None."""
+    setup = [json.loads(ln)["setup_s"] for ln in child.stdout.splitlines()
              if ln.startswith('{"setup_s"')]
-    return r, (setup[0] if setup else None), out
+    return setup[0] if setup else None
 
 
-def kill_drill(torch, ds, root, want):
-    """Child 1 runs the fp32 'cuda' recovery run with kill_in_async_save
-    at epoch 4 and must die by SIGKILL, leaving ck.4 with a shard and no
-    manifest and ck.2 committed; child 2 runs the identical job, resumes
-    from ck.2 with no corrupt_fallback event, and must end on ``want``
-    (the uninterrupted run's trainer) bit for bit.  Returns the record
-    and child 2's launch counts."""
-    import os
+def kill_drill(torch, root, data_dir, want, child1):
+    """Child 1 (pre-started, :func:`start_recovery_child`) runs the fp32
+    'cuda' recovery run with kill_in_async_save at epoch 4 and must die
+    by SIGKILL, leaving ck.4 with a shard and no manifest and ck.2
+    committed; child 2 runs the identical job, resumes from ck.2 with no
+    corrupt_fallback event, and must end on ``want`` (the uninterrupted
+    run's trainer) bit for bit.  Returns the record and child 2's launch
+    counts."""
     import signal
     from roc_tpu_torch.utils.checkpoint import is_committed
-    t0 = time.perf_counter()
-    os.makedirs(f"{root}/data")
-    _save_dataset(ds, f"{root}/data")
-    out = {"save_s": time.perf_counter() - t0}
     prefix = f"{root}/drill/ck"
-    os.makedirs(f"{root}/drill")
-    r1, out["child1_setup_s"], _ = _run_child(root, prefix,
-                                              "kill_in_async_save:4", "child1")
-    out["child1_rc"] = r1.returncode
+    os.makedirs(f"{root}/drill", exist_ok=True)
+    # child 2 sets up while child 1 runs
+    child2 = start_recovery_child(root, data_dir, "", "child2")
+    out = {"child1_rc": child1.run(check=False),
+           "child1_setup_s": _setup_s(child1)}
     ck4 = sorted(os.listdir(f"{prefix}.4")) if os.path.isdir(
         f"{prefix}.4") else None
     out["ck4_after_kill"] = ck4
-    if r1.returncode != -signal.SIGKILL or ck4 != ["shard_00000.npz"] or \
-            not is_committed(f"{prefix}.2"):
-        raise AssertionError(f"kill drill: child 1 rc {r1.returncode}, ck.4 "
-                             f"holds {ck4}, ck.2 committed "
+    if out["child1_rc"] != -signal.SIGKILL or ck4 != ["shard_00000.npz"] \
+            or not is_committed(f"{prefix}.2"):
+        raise AssertionError(f"kill drill: child 1 rc {out['child1_rc']}, "
+                             f"ck.4 holds {ck4}, ck.2 committed "
                              f"{is_committed(prefix + '.2')}: "
-                             f"{r1.stderr[-3000:]}")
-    r2, out["child2_setup_s"], path = _run_child(root, prefix, "", "child2")
-    out["child2_rc"] = r2.returncode
-    if r2.returncode != 0:
+                             f"{child1.stderr[-3000:]}")
+    out["child2_rc"] = child2.run(check=False)
+    out["child2_setup_s"] = _setup_s(child2)
+    if out["child2_rc"] != 0:
         raise AssertionError(f"kill drill: child 2 failed: "
-                             f"{r2.stderr[-3000:]}")
+                             f"{child2.stderr[-3000:]}")
+    path = f"{root}/child2.npz"
     got = np.load(path)
     meta = json.loads(bytes(got["meta"]))
     evs = [json.loads(ln) for ln in open(f"{path}.events.jsonl")]
@@ -1694,26 +1758,28 @@ def serve_from_checkpoint(torch, ds, path, trainer):
     return out
 
 
-def recovery(torch, ds, zero_counts, read_counts):
-    """Phase 11: the fp32 path (the 'cuda' pair, its save timings, the
-    kill drill's children, the nan_grads drill on 'cuda_csr', serving
-    from the checkpoint) with the counts zeroed before and read after,
-    then the 'mixed' pair on 'cuda_csr' the same way.  Returns the
-    record, the two reads and child 2's launches."""
-    import os
-    import tempfile
+def recovery(torch, ds, zero_counts, read_counts, root, data_dir, child1):
+    """Phase 11 under ``root`` (the dataset's files in ``data_dir``, the
+    kill drill's child 1 pre-started there): the fp32 path (the 'cuda'
+    pair, with ``--deep`` its save timings, the kill drill's children,
+    the nan_grads drill on 'cuda_csr', serving from the checkpoint) with
+    the counts zeroed before and read after, then the 'mixed' pair on
+    'cuda_csr' the same way.  Returns the record, the two reads and
+    child 2's launches."""
     rec = {}
-    with tempfile.TemporaryDirectory() as root:
-        # the fault sites' flight records go with the checkpoints
-        os.environ["ROC_TPU_FLIGHT_DIR"] = root
+    # the fault sites' flight records go with the checkpoints
+    os.environ["ROC_TPU_FLIGHT_DIR"] = root
+    try:
         zero_counts()
         rec["cuda_fp32"], plain, rot = recovery_pair(torch, ds, "cuda",
                                                      "float32", root)
-        rec["kill_drill"], child = kill_drill(torch, ds, root, plain)
+        rec["kill_drill"], child = kill_drill(torch, root, data_dir, plain,
+                                              child1)
         rec["nan_drill"] = nan_drill(torch, ds, root)
         rec["serve"] = serve_from_checkpoint(torch, ds, rot.path(10), plain)
         f32 = read_counts(F32)
-        rec["save_timings"] = save_timings(torch, plain, root)
+        if DEEP:
+            rec["save_timings"] = save_timings(torch, plain, root)
         del plain
         torch.cuda.empty_cache()
         zero_counts()
@@ -1722,6 +1788,7 @@ def recovery(torch, ds, zero_counts, read_counts):
         bf16 = read_counts(BF16)
         del plain
         torch.cuda.empty_cache()
+    finally:
         os.environ.pop("ROC_TPU_FLIGHT_DIR")
     return rec, f32, bf16, child
 
@@ -1970,8 +2037,8 @@ def zoo(torch, dev, entries, counts):
     trains below the reference's lr, the training runs
     (:func:`train_slice`; sum families on 'cuda' and 'cuda_csr', the
     others on 'cuda'; each mode of the family; the launches checked by
-    :func:`zoo_launches` on ``counts``) and a profile per mode
-    (:func:`train_profile` on 'cuda')."""
+    :func:`zoo_launches` on ``counts``) and, with ``--deep``, a profile
+    per mode (:func:`train_profile` on 'cuda') and the lr witness."""
     from roc_tpu_torch.core.graph import synthetic_dataset
     from roc_tpu_torch.core.partition import padded_edge_list
     from roc_tpu_torch.models import model_builders
@@ -2018,15 +2085,16 @@ def zoo(torch, dev, entries, counts):
         else:
             rec["fp64"] = zoo_fp64(torch, ds, fam, params)
         del params
-        if fam in ZOO_LR:
+        if fam in ZOO_LR and DEEP:
             rec["lr_witness"] = lr_witness(torch, ds, fam)
         routes = ("cuda", "cuda_csr") if kernels else ("cuda",)
         rec["train"] = train_slice(
             torch, ds, [(impl, mode) for mode in modes for impl in routes],
             make=make, check=zoo_launches(fam, counts))
-        rec["profile"] = {mode: train_profile(torch, ds, mode, steps=2,
-                                              make=make, impls=("cuda",))
-                          for mode in modes}
+        if DEEP:
+            rec["profile"] = {mode: train_profile(
+                torch, ds, mode, steps=2, make=make, impls=("cuda",))
+                for mode in modes}
         torch.cuda.empty_cache()
         rec["seconds"] = time.perf_counter() - t1
         log({"phase": "zoo", **rec})
@@ -2110,8 +2178,8 @@ def serve_akx(torch, ds, counts, root):
     blocked host walk, core/streaming.py) with the counts zeroed just
     before and read just after (K3 must run, and K1, K2 and K4 must not:
     the walk's norms are host row scales and its sums K3 tiles), its
-    wall, event span and pinned copies (:func:`precompute_profile`), the
-    table
+    wall (with ``--deep`` its event span and pinned copies,
+    :func:`precompute_profile`), the table
     bytes per mode, the logits of a sample against the same SGC on the
     full backend (fp32 within 1e-4, 'mixed' within 3e-2 of the scale),
     int8 through the export drift gate (defaults) and fp8 behind the
@@ -2152,10 +2220,12 @@ def serve_akx(torch, ds, counts, root):
             launches[k][F32] for k in _CHAIN):
         raise AssertionError(f"serve_akx: the precompute's walk did not "
                              f"run K3 alone: {rec}")
-    rec.update(precompute_profile(
-        torch, ds.graph, prefix_descriptors(pred.model.precompute_split()[0]),
-        ds.features))
-    torch.cuda.empty_cache()
+    if DEEP:
+        rec.update(precompute_profile(
+            torch, ds.graph,
+            prefix_descriptors(pred.model.precompute_split()[0]),
+            ds.features))
+        torch.cuda.empty_cache()
     shape = pred.cache.table.shape
     rec["table_bytes"] = {m: quant.table_bytes(shape, m)
                           for m in quant.QMODES}
@@ -2172,8 +2242,10 @@ def serve_akx(torch, ds, counts, root):
     lat = {"akx_query": request_times(pred.query, pred.num_nodes, SEED + 22),
            "akx_mixed_query": request_times(mixed.query, pred.num_nodes,
                                             SEED + 23),
+           # the full backend's ~140 ms a request, the yardstick of the
+           # akx table's, 5 times a size (20 cost ~11 s of the script)
            "full_query": request_times(full.query, pred.num_nodes,
-                                       SEED + 24)}
+                                       SEED + 24, reps=5)}
     with Server(pred, max_wait_ms=2.0, name="chip_smoke_akx") as srv:
         lat["akx_server"] = request_times(
             lambda i: srv.submit(i).result(timeout=300), pred.num_nodes,
@@ -2709,8 +2781,8 @@ def _layout_steps(torch, make, ds, impl, mode, params, steps=3):
 
 def _layout_epochs(torch, make, ds, impl, mode, epochs=LAYOUT_EPOCHS):
     """``epochs`` epochs, dropout 0.5, one eval at the end: its
-    ``epoch_ms`` (steady steps), ``first_step_ms``, and the device ms of
-    one more step under torch.profiler."""
+    ``epoch_ms`` (steady steps), ``first_step_ms``, and with ``--deep``
+    the device ms of one more step under torch.profiler."""
     from torch.profiler import ProfilerActivity, profile
     tr = make(ds, impl, 0.5, mode=mode, epochs=epochs, eval_every=epochs,
               verbose=False)
@@ -2719,17 +2791,20 @@ def _layout_epochs(torch, make, ds, impl, mode, epochs=LAYOUT_EPOCHS):
     losses = torch.stack(tr.losses).double().cpu().numpy()
     if not np.isfinite(losses).all():
         raise AssertionError(f"{impl} {mode}: non-finite loss {losses}")
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        tr.train(1)
-        tr.sync()
-    us = sum(e.device_time_total for e in prof.key_averages()
-             if e.device_type == torch.autograd.DeviceType.CUDA)
+    us = 0
+    if DEEP:
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            tr.train(1)
+            tr.sync()
+        us = sum(e.device_time_total for e in prof.key_averages()
+                 if e.device_type == torch.autograd.DeviceType.CUDA)
+        del prof
     rec = {"route": tr.config.aggr_impl, "epoch_ms": hist[0]["epoch_ms"],
            "first_step_ms": hist[0]["first_step_ms"],
            "device_ms_per_step": us / 1e3 if us > 0 else "not measured",
            "train_loss": hist[0]["train_loss"]}
-    del tr, prof
+    del tr
     torch.cuda.empty_cache()
     return rec
 
@@ -2780,6 +2855,7 @@ def reddit_train(torch, ds, counts):
         gen, device=dev).items()}
     out = {"auto": auto, "routes": {}}
     t0 = time.perf_counter()
+    before = _native_calls()
     for mode, key in (("float32", F32), ("mixed", BF16)):
         (ref, _), launches = _counted(counts, key, lambda: _layout_steps(
             torch, _layout_trainer, ds, "cuda", mode, params))
@@ -2796,13 +2872,31 @@ def reddit_train(torch, ds, counts):
                                    PARITY_RTOL[mode])}
             log({"phase": "layouts_train", **rec})
             out["routes"][f"{impl}/{mode}"] = rec
+    _native_ran(before, ("sectioned_counts", "sectioned_fill",
+                         "block_counts", "block_fill"))
     out["seconds"] = time.perf_counter() - t0
     return out
 
 
-def products(torch, counts, save_to=None):
+def products_dataset():
+    """ogbn-products' shape from SEED: the symmetric synthetic graph,
+    features ``[V, 100]``, labels of 47 classes, half the rows training
+    rows."""
+    from roc_tpu_torch.core.graph import Dataset, MASK_TRAIN, synthetic_graph
+    g = synthetic_graph(PRODUCTS_V, PRODUCTS_DEGREE, seed=SEED)
+    rng = np.random.RandomState(SEED)
+    C = PRODUCTS_LAYERS[-1]
+    return Dataset(
+        g, rng.randn(PRODUCTS_V, PRODUCTS_LAYERS[0]).astype(np.float32),
+        rng.randint(0, C, PRODUCTS_V).astype(np.int32),
+        np.where(rng.rand(PRODUCTS_V) < 0.5, MASK_TRAIN, 0).astype(np.int32),
+        C, name="products_shape")
+
+
+def products(torch, counts, products_dir=None):
     """ogbn-products' shape (symmetric synthetic_graph, V = 2,449,029,
-    E ~ 126 M; saved as .npy under ``save_to`` for phase 15): GIN
+    E ~ 126 M; mapped from :func:`prep_datasets`'s files in
+    ``products_dir``, else built here): GIN
     100-256-47: 'auto' resolved to the card row's route ('cuda' on the
     H100, so it is not run again), 'flat_sum' 3 parity steps against
     'cuda', and LAYOUT_EPOCHS counted epochs on 'cuda', in fp32 and mixed
@@ -2812,25 +2906,20 @@ def products(torch, counts, save_to=None):
     'ell' route (LAYOUT_PLAIN_RTOL); SAGE-pool (fp32) on 'flat_sum''s
     max, its logits against 'ell''s, then 3 steps; each run's steady
     steps' epoch_ms; the peak memory."""
-    from roc_tpu_torch.core.graph import Dataset, MASK_TRAIN, synthetic_graph
     from roc_tpu_torch.models import model_builders
     from roc_tpu_torch.ops.attention import resolve_dh_chunk
     dev = torch.device("cuda")
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    g = synthetic_graph(PRODUCTS_V, PRODUCTS_DEGREE, seed=SEED)
-    rng = np.random.RandomState(SEED)
-    C = PRODUCTS_LAYERS[-1]
-    ds = Dataset(g, rng.randn(PRODUCTS_V, PRODUCTS_LAYERS[0]).astype(
-        np.float32), rng.randint(0, C, PRODUCTS_V).astype(np.int32),
-        np.where(rng.rand(PRODUCTS_V) < 0.5, MASK_TRAIN, 0).astype(np.int32),
-        C, name="products_shape")
+    if products_dir is not None:
+        ds = _map_dataset(products_dir, PRODUCTS_LAYERS[-1],
+                          name="products_shape", mmap=False)
+    else:
+        ds = products_dataset()
+    g = ds.graph
     out = {"V": g.num_nodes, "E": g.num_edges,
-           "dataset_s": time.perf_counter() - t0}
-    if save_to is not None:
-        t1 = time.perf_counter()
-        _save_dataset(ds, save_to)
-        out["save_s"] = time.perf_counter() - t1
+           "dataset_s": time.perf_counter() - t0,
+           "mapped": products_dir is not None}
     log({"phase": "layouts_products_data", **out})
     fams = {"gin": ("gin", {}), "gat": ("gat", {"heads": 1}),
             "sage_pool": ("sage", {"aggregator": "pool"})}
@@ -2923,11 +3012,12 @@ def products(torch, counts, save_to=None):
 
 
 def layouts_child(data_dir, num_classes, out_path, products_dir=None):
-    """Phase 14 in a fresh process on card 0: the races at Reddit's
-    shape (the dataset the parent saved in ``data_dir``), the block-dense
-    race, the reorder check, the GCN on the layouts, the products shape
-    (saved under ``products_dir`` for phase 15); writes the record and
-    the counts to ``out_path``."""
+    """Phase 14 in a fresh process on card 0 (the Reddit shape's files in
+    ``data_dir``, the products shape's in ``products_dir``, else built
+    here): with ``--deep`` the races at Reddit's shape and the
+    block-dense race; the reorder check, the GCN on the layouts, the
+    products shape; writes the record and the counts to
+    ``out_path``."""
     import torch
     from roc_tpu_torch.kernels import _build
     from roc_tpu_torch.ops.dense import set_fp32_matmul_precision
@@ -2945,11 +3035,13 @@ def layouts_child(data_dir, num_classes, out_path, products_dir=None):
         log({"phase": "layouts_section", "name": name,
              "seconds": time.perf_counter() - t1})
 
-    section("race", layout_race, torch, ds, counts)
+    if DEEP:
+        section("race", layout_race, torch, ds, counts)
     with shared_contexts():
         section("train", reddit_train, torch, ds, counts)
     del ds
-    section("bdense", bdense_race, torch, counts)
+    if DEEP:
+        section("bdense", bdense_race, torch, counts)
     section("reorder", reorder_check)
     with shared_contexts():
         section("products", products, torch, counts, products_dir)
@@ -3038,7 +3130,8 @@ def walk_k3_check(torch, ds):
     tile (dst block 0, src block 0) over a 65,536-row source block at
     F = 602 fp32, against its plain version (:func:`sum_check`), two
     launches for equal bits; kernel, plain and torch.sparse.mm (the
-    chunk as a CSR) timed, and every slice width raced; the bound counts
+    chunk as a CSR) timed, and every slice width held to the plain
+    version (raced with ``--deep``); the bound counts
     the source rows the chunk reads, its ids and its output once."""
     from roc_tpu_torch.core.streaming import BLOCK_ROWS, build_tile_plans
     from roc_tpu_torch.kernels import slicing, spmm
@@ -3086,16 +3179,17 @@ def walk_k3_check(torch, ds):
                len(v) for v in tiles.values()), "tile_plan_s": tile_s,
            "chunk_edges": n_real, "source_rows_read": n_src}
     # every slice width at this shape, each held to the plain version
-    # (a race, not a counted run)
+    # (with --deep a race; not a counted run)
     race = {}
     for S in slicing.SLICE_COLS:
         ok, err = sum_check(torch, spmm.csr_spmm(block, src, dst, rows,
                                                  slice_cols=S), want)
         if not ok:
             raise AssertionError(f"walk K3 slice_cols={S}: {err}")
-        race[str(S)] = time_ms(torch, lambda S=S: spmm.csr_spmm(
-            block, src, dst, rows, slice_cols=S), 10)
-    row["slice_race_ms"] = race
+        if DEEP:
+            race[str(S)] = time_ms(torch, lambda S=S: spmm.csr_spmm(
+                block, src, dst, rows, slice_cols=S), 10)
+    row["slice_race_ms"] = race if DEEP else "with --deep"
     log({"phase": "memory_walk_k3", **row})
     del tiles, block, got, want, adj
     torch.cuda.empty_cache()
@@ -3242,7 +3336,9 @@ def streamed_gcn(torch, ds, counts, params):
                         "peak_gb": run["peak_gb"],
                         "modeled_gb": run["modeled_gb"],
                         "launches": launches}
-        rec["host"]["device_overlap"] = copy_overlap(torch, ds, mode, params)
+        if DEEP:
+            rec["host"]["device_overlap"] = copy_overlap(torch, ds, mode,
+                                                         params)
         log({"phase": "memory_streamed_gcn", "mode": mode, **rec})
     return out
 
@@ -3282,7 +3378,8 @@ def streamed_sgc(torch, ds, counts):
     if not (np.isfinite(host["losses"]).all()
             and rel <= PARITY_RTOL["float32"]):
         raise AssertionError(f"streamed sgc: {rec['parity']}")
-    rec["walk"] = walk_profile(torch, ds)
+    if DEEP:
+        rec["walk"] = walk_profile(torch, ds)
     log({"phase": "memory_streamed_sgc", **rec})
     return rec
 
@@ -3332,7 +3429,7 @@ def remat_gcn(torch, ds, counts, params):
 
 
 def remat_products(torch, counts, products_dir):
-    """GIN 100-256-47 at the products shape (phase 14's graph, from
+    """GIN 100-256-47 at the products shape (the prep's graph, from
     ``products_dir``) on 'cuda' in fp32, for remat none, full and
     save_aggregates (:func:`_remat_set`)."""
     from roc_tpu_torch.models.gin import build_gin
@@ -3460,8 +3557,8 @@ def drills(torch, counts):
 def memory_child(data_dir, products_dir, num_classes, out_path):
     """Phase 15 in a fresh process on card 0: K3 at the walk's shape,
     the streamed GCN and SGC, remat, the autopilot and the drills (the
-    Reddit-shape dataset the parent saved in ``data_dir``, phase 14's
-    products shape in ``products_dir``); writes the record, the counts
+    Reddit-shape dataset the parent saved in ``data_dir``, the products
+    shape in ``products_dir``); writes the record, the counts
     and K3's walk row to ``out_path``."""
     import torch
     from roc_tpu_torch.kernels import _build
@@ -3972,16 +4069,20 @@ def ring_child(data_dir, arxiv_dir, num_classes, out_path):
         json.dump({"record": rec, "counted": counted}, f)
 
 
-def run_ring_child(tmp, num_classes):
-    """:func:`ring_child` in a fresh Python process on the Reddit-shape
-    dataset phase 14's parent saved under ``tmp``/reddit; returns what it
-    wrote."""
-    here = os.path.dirname(os.path.abspath(__file__))
+def start_ring_child(tmp, num_classes):
+    """:func:`ring_child` pre-started on the Reddit shape under
+    ``tmp``/reddit."""
     data, arxiv = os.path.join(tmp, "reddit"), os.path.join(tmp, "arxiv")
     out = os.path.join(tmp, "ring.json")
-    _child(here, f"ring_child({data!r}, {arxiv!r}, {num_classes}, "
-           f"{out!r})", 600, "phase 16 (dist_ring)")
-    with open(out) as f:
+    return _Child(f"ring_child({data!r}, {arxiv!r}, {num_classes}, "
+                  f"{out!r})", 600, "phase 16 (dist_ring)")
+
+
+def run_ring_child(tmp, num_classes, pre=None):
+    """:func:`ring_child` in a fresh Python process on the Reddit-shape
+    dataset saved under ``tmp``/reddit; returns what it wrote."""
+    (pre or start_ring_child(tmp, num_classes)).run()
+    with open(os.path.join(tmp, "ring.json")) as f:
         return json.load(f)
 
 
@@ -4333,18 +4434,21 @@ def mesh_2x2_job(prefix, num_classes, refs, ckdir):
 
 
 def mesh_child(data_dir, tmp, num_classes, refs, out_path):
-    """Phase 17 in a fresh process: the Reddit-shape dataset phase 14 saved
+    """Phase 17 in a fresh process: the Reddit-shape dataset saved
     in ``data_dir``, written in the reference layout with the port's
     save_dataset (.add_self_edge.lux, .feats.bin, .label, .mask) under
     ``tmp``; the native loader's calls and load_lux_rows of one part
     against the numpy arrays; then two gloo ranks from the FileSource
     (:func:`mesh_p2_job`) and four on the 2x2 mesh (:func:`mesh_2x2_job`),
-    ``refs`` phase 16's 1-D objectives.  Writes the record and the ranks'
+    ``refs`` phase 16's 1-D objectives (or a JSON file of them).  Writes the record and the ranks'
     counts to ``out_path``.  Ranks sharing one card over gloo: a layout
     check, not a speed number."""
     from roc_tpu_torch import native
     from roc_tpu_torch.core.graph import load_lux, load_lux_rows, save_dataset
     from roc_tpu_torch.parallel.distributed import run_ranks
+    if isinstance(refs, str):
+        with open(refs) as f:
+            refs = json.load(f)
     t0 = time.perf_counter()
     ds = _map_dataset(data_dir, num_classes)
     prefix = os.path.join(tmp, "reddit")
@@ -4409,17 +4513,22 @@ def mesh_child(data_dir, tmp, num_classes, refs, out_path):
         json.dump({"record": rec, "counted": counted}, f)
 
 
-def run_mesh_child(tmp, num_classes, refs):
-    """:func:`mesh_child` in a fresh Python process on the Reddit-shape
-    dataset phase 14's parent saved under ``tmp``/reddit; returns what it
-    wrote."""
-    here = os.path.dirname(os.path.abspath(__file__))
+def start_mesh_child(tmp, num_classes, refs):
+    """:func:`mesh_child` pre-started on the Reddit shape under
+    ``tmp``/reddit; ``refs`` phase 16's objectives or the path of a JSON
+    file that holds them by the time the child runs."""
     data, files = os.path.join(tmp, "reddit"), os.path.join(tmp, "files")
     os.makedirs(files, exist_ok=True)
     out = os.path.join(tmp, "mesh.json")
-    _child(here, f"mesh_child({data!r}, {files!r}, {num_classes}, "
-           f"{refs!r}, {out!r})", 900, "phase 17 (dist_mesh)")
-    with open(out) as f:
+    return _Child(f"mesh_child({data!r}, {files!r}, {num_classes}, "
+                  f"{refs!r}, {out!r})", 900, "phase 17 (dist_mesh)")
+
+
+def run_mesh_child(tmp, num_classes, refs, pre=None):
+    """:func:`mesh_child` in a fresh Python process on the Reddit-shape
+    dataset saved under ``tmp``/reddit; returns what it wrote."""
+    (pre or start_mesh_child(tmp, num_classes, refs)).run()
+    with open(os.path.join(tmp, "mesh.json")) as f:
         return json.load(f)
 
 
@@ -4877,7 +4986,9 @@ def _drill_swap(art, ref, ref_new, scale):
 
 def _drill_sigterm(art):
     """SIGTERM to a replica serving requests: it answers them, writes
-    ``drained`` with ``clean: true`` and exits 0."""
+    ``drained`` with ``clean: true`` and exits 0.  The replica answers
+    one request first, so its CUDA start (seconds on a loaded host) does
+    not fall inside the drain's 3 s timeout (FLEET_ARGS)."""
     here = os.path.dirname(os.path.abspath(__file__))
     p = subprocess.Popen([sys.executable, "-m", "roc_tpu_torch.serve.replica",
                           art, "--replica", "0"] + FLEET_ARGS,
@@ -4897,6 +5008,10 @@ def _drill_sigterm(art):
                     return
             raise AssertionError(f"drill sigterm: EOF before {kind}")
         read_until("ready")
+        p.stdin.write(json.dumps({"kind": "req", "id": 5, "ids": [0],
+                                  "deadline_ms": None, "rid": None}) + "\n")
+        p.stdin.flush()
+        read_until("res")
         for i in range(5):
             p.stdin.write(json.dumps({"kind": "req", "id": i, "ids": [i],
                                       "deadline_ms": None, "rid": None})
@@ -4909,7 +5024,7 @@ def _drill_sigterm(art):
         if p.poll() is None:
             p.kill()
             p.wait()
-    res = [m for m in lines if m["kind"] == "res"]
+    res = [m for m in lines if m["kind"] == "res" and m["id"] != 5]
     drained = lines[-1]
     rec = {"rc": rc, "answered": sum(1 for m in res if m["ok"]),
            "failed_typed": [m["error"] for m in res if not m["ok"]],
@@ -5069,68 +5184,535 @@ def fleet_child(data_dir, params_path, out_path):
         json.dump({"record": rec, "counted": counts.counted}, f)
 
 
-def run_fleet_child(tmp, akx_params, gcn_params):
-    """:func:`fleet_child` in a fresh Python process on the Reddit-shape
-    dataset phase 14's parent saved under ``tmp``/reddit, with phase 13's
-    trained SGC weights and phase 4's GCN weights; returns what it
-    wrote."""
+def save_fleet_params(tmp, akx_params, gcn_params):
+    """Phase 13's trained SGC weights and phase 4's GCN weights saved for
+    :func:`fleet_child` under ``tmp``."""
     import torch
-    here = os.path.dirname(os.path.abspath(__file__))
-    data = os.path.join(tmp, "reddit")
-    params = os.path.join(tmp, "fleet_params.pt")
     torch.save({"akx": {k: v.detach().cpu() for k, v in akx_params.items()},
                 "gcn": {k: v.detach().cpu() for k, v in gcn_params.items()}},
-               params)
+               os.path.join(tmp, "fleet_params.pt"))
+
+
+def start_fleet_child(tmp):
+    """:func:`fleet_child` pre-started on the Reddit shape under
+    ``tmp``/reddit and the weights :func:`save_fleet_params` wrote."""
+    data = os.path.join(tmp, "reddit")
+    params = os.path.join(tmp, "fleet_params.pt")
     out = os.path.join(tmp, "fleet.json")
-    _child(here, f"fleet_child({data!r}, {params!r}, {out!r})", 600,
-           "phase 18 (fleet)")
-    with open(out) as f:
+    return _Child(f"fleet_child({data!r}, {params!r}, {out!r})", 600,
+                  "phase 18 (fleet)")
+
+
+def run_fleet_child(tmp, akx_params=None, gcn_params=None, pre=None):
+    """:func:`fleet_child` in a fresh Python process on the Reddit-shape
+    dataset under ``tmp``/reddit, with phase 13's trained SGC weights and
+    phase 4's GCN weights (saved now when given); returns what it
+    wrote."""
+    if akx_params is not None:
+        save_fleet_params(tmp, akx_params, gcn_params)
+    (pre or start_fleet_child(tmp)).run()
+    with open(os.path.join(tmp, "fleet.json")) as f:
         return json.load(f)
 
 
-def run_memory_child(tmp, num_classes):
-    """:func:`memory_child` in a fresh Python process on the datasets
-    phases 14's parent and child saved under ``tmp``; returns what it
-    wrote."""
-    import os
-    here = os.path.dirname(os.path.abspath(__file__))
+def start_memory_child(tmp, num_classes):
+    """:func:`memory_child` pre-started on the datasets under ``tmp``."""
     data, prod = os.path.join(tmp, "reddit"), os.path.join(tmp, "products")
     out = os.path.join(tmp, "memory.json")
-    _child(here, f"memory_child({data!r}, {prod!r}, {num_classes}, "
-           f"{out!r})", 600, "phase 15 (memory)")
-    with open(out) as f:
+    return _Child(f"memory_child({data!r}, {prod!r}, {num_classes}, "
+                  f"{out!r})", 600, "phase 15 (memory)")
+
+
+def run_memory_child(tmp, num_classes, pre=None):
+    """:func:`memory_child` in a fresh Python process on the datasets
+    under ``tmp`` (:func:`prep_datasets`); returns what it wrote."""
+    (pre or start_memory_child(tmp, num_classes)).run()
+    with open(os.path.join(tmp, "memory.json")) as f:
         return json.load(f)
+
+
+# every child process started ahead of its turn, ended by main() on its
+# way out whatever happened
+_STARTED = []
+
+
+def _ready(go):
+    """A pre-started child's set-up (torch, a CUDA context on card 0, the
+    kernels' library, the port's heavy modules), then its wait for the
+    file ``go``; it exits if its parent ended first.  ``t_s`` counts from
+    the go."""
+    global _T0
+    parent = os.getppid()
+    import torch
+    from roc_tpu_torch.kernels import _build
+    torch.cuda.set_device(0)
+    torch.empty(1, device="cuda").sum().item()
+    _build.library()
+    import roc_tpu_torch.parallel.distributed  # noqa: F401
+    import roc_tpu_torch.serve.export  # noqa: F401
+    import roc_tpu_torch.train.trainer  # noqa: F401
+    while not os.path.exists(go):
+        if os.getppid() != parent:
+            sys.exit(1)
+        time.sleep(0.05)
+    _T0 = time.perf_counter()
+
+
+class _Child:
+    """``python -c "import chip_smoke as s; s.<call>"`` in a fresh process
+    on this card, started ahead of its turn: it sets up (:func:`_ready`)
+    and waits for :meth:`run`, which releases it and waits for its end,
+    so a process's start (~8 s on the card's host) overlaps the phase
+    before.  Its output goes to this process's, or with ``capture`` to
+    ``stdout`` and ``stderr``."""
+
+    def __init__(self, call, timeout, what, capture=False, env=None):
+        here = os.path.dirname(os.path.abspath(__file__))
+        env = dict(os.environ if env is None else env)
+        env["PYTHONPATH"] = here + os.pathsep + env.get("PYTHONPATH", "")
+        self.go = os.path.join(tempfile.gettempdir(), f"chip_smoke_go_"
+                               f"{os.getpid()}_{len(_STARTED)}")
+        pipe = subprocess.PIPE if capture else None
+        self.proc = subprocess.Popen(
+            [sys.executable, "-c",
+             f"import chip_smoke as s; s._ready({self.go!r}); s.{call}"],
+            cwd=here, env=env, stdout=pipe, stderr=pipe, text=True)
+        self.timeout, self.what = timeout, what
+        self.stdout = self.stderr = None
+        _STARTED.append(self)
+
+    def release(self):
+        """Let the child run (its ``timeout`` counts from here)."""
+        with open(self.go, "w"):
+            pass
+        self.t_go = time.perf_counter()
+
+    def wait(self, check=True):
+        """Wait for the released child's end; raises if ``check`` and it
+        failed, or if it outlived its ``timeout``.  Returns its exit
+        code."""
+        left = self.timeout - (time.perf_counter() - self.t_go)
+        try:
+            self.stdout, self.stderr = self.proc.communicate(
+                timeout=max(left, 1.0))
+        except subprocess.TimeoutExpired:
+            self.proc.kill()
+            self.proc.communicate()
+            raise AssertionError(f"{self.what} still ran after "
+                                 f"{self.timeout} s")
+        finally:
+            if os.path.exists(self.go):
+                os.unlink(self.go)
+        if check and self.proc.returncode != 0:
+            raise AssertionError(f"{self.what} failed: exit "
+                                 f"{self.proc.returncode}")
+        return self.proc.returncode
+
+    def run(self, check=True):
+        """:meth:`release`, then :meth:`wait`."""
+        self.release()
+        return self.wait(check)
+
+
+def _run_together(children, alongside=None):
+    """Phases that share the card at once: release every child, run
+    ``alongside()`` in this process, then wait for all of them, raising
+    as soon as one fails.  With ``--deep`` (timed work wanted) one after
+    another instead.  Returns what ``alongside`` returned."""
+    if DEEP:
+        got = alongside() if alongside is not None else None
+        for c in children:
+            c.run()
+        return got
+    for c in children:
+        c.release()
+    got = alongside() if alongside is not None else None
+    pending = list(children)
+    while pending:
+        for c in list(pending):
+            if c.proc.poll() is not None or \
+                    time.perf_counter() - c.t_go > c.timeout:
+                c.wait()
+                pending.remove(c)
+        time.sleep(0.2)
+    return got
+
+
+def _end_started():
+    """Kill every started child still running (an early exit)."""
+    for c in _STARTED:
+        if c.proc.poll() is None:
+            c.proc.kill()
+            c.proc.wait()
+        if os.path.exists(c.go):
+            os.unlink(c.go)
 
 
 def _child(here, call, timeout, what):
-    """``python -c "import chip_smoke as s; s.<call>"`` in a fresh
-    process on this card, its output on this process's; raises if it
-    failed."""
-    import os
-    env = dict(os.environ, PYTHONPATH=here + os.pathsep
-               + os.environ.get("PYTHONPATH", ""))
-    r = subprocess.run([sys.executable, "-c",
-                        f"import chip_smoke as s; s.{call}"],
-                       cwd=here, env=env, timeout=timeout)
-    if r.returncode != 0:
-        raise AssertionError(f"{what} failed: exit {r.returncode}")
+    """:class:`_Child` started and run at once; raises if it failed."""
+    _Child(call, timeout, what).run()
 
 
-def run_layouts_child(ds, tmp):
-    """:func:`layouts_child` in a fresh Python process (the dataset saved
-    for it as .npy under ``tmp``/reddit, the products shape saved by it
-    under ``tmp``/products); returns what it wrote."""
-    import os
-    here = os.path.dirname(os.path.abspath(__file__))
+def reddit_dataset():
+    """Reddit's shape from SEED: V = 232,965, average degree ~493, the
+    602-256-41 GCN's widths."""
+    from roc_tpu_torch.core.graph import synthetic_dataset
+    return synthetic_dataset(num_nodes=V, avg_degree=AVG_DEGREE,
+                             in_dim=LAYERS[0], num_classes=LAYERS[-1],
+                             seed=SEED, name="reddit_shape")
+
+
+def prep_datasets(root):
+    """The Reddit and products shapes built on the host and saved as .npy
+    under ``root``/reddit and ``root``/products, each directory's
+    ``done.json`` (build and save seconds) written last.  main() runs
+    it in a process of its own beside the card's set-up and first
+    phases; every later phase maps these files."""
+    for name, make in (("reddit", reddit_dataset),
+                       ("products", products_dataset)):
+        path = os.path.join(root, name)
+        os.makedirs(path)
+        t0 = time.perf_counter()
+        ds = make()
+        info = {"dataset_s": time.perf_counter() - t0}
+        t0 = time.perf_counter()
+        _save_dataset(ds, path)
+        info["save_s"] = time.perf_counter() - t0
+        del ds
+        with open(os.path.join(path, "done.tmp"), "w") as f:
+            json.dump(info, f)
+        os.replace(os.path.join(path, "done.tmp"),
+                   os.path.join(path, "done.json"))
+
+
+def _await_prep(prep, path, timeout=900):
+    """:func:`prep_datasets`'s record of ``path`` once written, with the
+    seconds waited (``wait_s``); raises if the prep process ended
+    without it."""
+    done = os.path.join(path, "done.json")
+    t0 = time.perf_counter()
+    while not os.path.exists(done):
+        if prep.poll() is not None and not os.path.exists(done):
+            raise AssertionError(f"the dataset prep exited "
+                                 f"{prep.returncode} before {path}")
+        if time.perf_counter() - t0 > timeout:
+            raise AssertionError(f"no dataset at {path} after {timeout} s")
+        time.sleep(0.05)
+    with open(done) as f:
+        return {**json.load(f), "wait_s": time.perf_counter() - t0}
+
+
+def start_layouts_child(tmp, num_classes):
+    """:func:`layouts_child` pre-started (:class:`_Child`) on the datasets
+    :func:`prep_datasets` wrote under ``tmp``."""
     data, prod = os.path.join(tmp, "reddit"), os.path.join(tmp, "products")
-    os.makedirs(data)
-    os.makedirs(prod)
-    _save_dataset(ds, data)
     out = os.path.join(tmp, "layouts.json")
-    _child(here, f"layouts_child({data!r}, {ds.num_classes}, {out!r}, "
-           f"{prod!r})", 900, "phase 14 (layouts)")
-    with open(out) as f:
+    return _Child(f"layouts_child({data!r}, {num_classes}, {out!r}, "
+                  f"{prod!r})", 900, "phase 14 (layouts)")
+
+
+def run_layouts_child(tmp, num_classes, pre=None):
+    """:func:`layouts_child` in a fresh Python process (``pre``, else one
+    started now) on the datasets under ``tmp``; returns what it wrote."""
+    (pre or start_layouts_child(tmp, num_classes)).run()
+    with open(os.path.join(tmp, "layouts.json")) as f:
         return json.load(f)
+
+
+# ---------------------------------------------------------------------------
+# 19. The chunked edge-list routes ('blocked', 'scan'), the chunked head,
+# the CLI's compute flags (--resume, --eval-only, --save-logits under
+# --reorder) and the checkpointed ELL max, in a fresh process on the
+# prep's datasets; and, behind --attention-race, the race that
+# gives the card row its attention entry
+# ---------------------------------------------------------------------------
+
+ROUTE_STEPS = 2
+# 'blocked' and 'scan' against 'cuda' (fp32 sums in other orders over two
+# steps); the chunked head against the whole one (the head's rows in other
+# cuBLAS tilings, its weight gradient summed by blocks)
+ROUTE_RTOL = 1e-4
+HEAD_RTOL = 1e-5
+HEAD_CHUNK = 65_536
+# the CLI's file set: the GCN's widths on a small synthetic graph
+CLI_V, CLI_DEGREE, CLI_EPOCHS = 16_384, 24, 3
+CLI_RTOL = 1e-4
+SAGE_POOL = ("sage", {"aggregator": "pool"})
+
+
+def _route_run(torch, ds, impl, params, counts, **cfg):
+    """``ROUTE_STEPS`` steps of the GCN (dropout 0, fp32) on ``impl`` from
+    ``params``, counted (the counts zeroed just before the trainer is
+    built and read just after the steps): the objectives, the set-up
+    seconds, the first and the steady step's ms, and the card's peak
+    bytes over the run (tables, features and the steps)."""
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    counts.zero()
+    t0 = time.perf_counter()
+    tr = _trainer(ds, impl, 0.0, params=params, eval_every=10 ** 6,
+                  verbose=False, **cfg)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    steps = []
+    for _ in range(ROUTE_STEPS):
+        t1 = time.perf_counter()
+        tr.train(1)
+        tr.sync()
+        steps.append((time.perf_counter() - t1) * 1e3)
+    launches = counts.read(F32)
+    rec = {"route": tr.config.aggr_impl, "head_chunk": tr.gctx.head_chunk,
+           "losses": torch.stack(tr.losses).double().cpu().tolist(),
+           "setup_s": setup_s, "step_ms": steps,
+           "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+           "launches": launches}
+    del tr
+    torch.cuda.empty_cache()
+    return rec
+
+
+def _rel_err(got, ref):
+    got, ref = np.asarray(got), np.asarray(ref)
+    return float((np.abs(got - ref) / np.abs(ref)).max())
+
+
+def edge_routes(torch, ds, params, counts):
+    """The GCN at Reddit's shape on 'cuda' (the yardstick, head_chunk 0),
+    'blocked' and 'scan': objectives within ROUTE_RTOL of 'cuda''s, no
+    kernel launched by the plain routes; then 'auto' with head_chunk
+    65536, which resolves to 'cuda' and runs K1, K2 and K4, within
+    HEAD_RTOL of head_chunk 0."""
+    out = {"cuda": _route_run(torch, ds, "cuda", params, counts,
+                              head_chunk=0)}
+    ref = out["cuda"]["losses"]
+    if not all(out["cuda"]["launches"][k][F32] for k in (
+            "indegree_norm", "scale_act", "ell_aggregate")):
+        raise AssertionError(f"cuda: launches {out['cuda']['launches']}")
+    for impl in ("blocked", "scan"):
+        rec = out[impl] = _route_run(torch, ds, impl, params, counts)
+        rec["max_rel_err"] = _rel_err(rec["losses"], ref)
+        if any(by[F32] for k, by in rec["launches"].items()
+               if isinstance(by, dict)) or rec["route"] != impl:
+            raise AssertionError(f"{impl}: {rec['route']}, launches "
+                                 f"{rec['launches']}")
+        if not (np.isfinite(rec["losses"]).all()
+                and rec["max_rel_err"] <= ROUTE_RTOL):
+            raise AssertionError(f"{impl}: losses {rec['losses']} against "
+                                 f"cuda's {ref}")
+        log({"phase": "routes_edge", "impl": impl, **rec})
+    rec = out["head_chunk"] = _route_run(torch, ds, "auto", params, counts,
+                                         head_chunk=HEAD_CHUNK)
+    rec["max_rel_err"] = _rel_err(rec["losses"], ref)
+    if rec["route"] != "cuda" or rec["head_chunk"] != HEAD_CHUNK or not (
+            rec["max_rel_err"] <= HEAD_RTOL) or not all(
+            rec["launches"][k][F32] for k in (
+                "indegree_norm", "scale_act", "ell_aggregate")) or not \
+            rec["launches"]["indegree_norm_masked"]:
+        raise AssertionError(f"head_chunk: {rec} against cuda's {ref}")
+    log({"phase": "routes_head_chunk", **rec})
+    log({"phase": "routes_cuda", **out["cuda"]})
+    return out
+
+
+def cli_flags(torch, tmp, counts):
+    """The CLI at the GCN's widths on a file set in the reference's
+    format: 3 epochs with --checkpoint, then --resume --eval-only
+    --save-logits under --reorder bfs (counted); the saved logits,
+    in the original order, against ``Trainer.predict`` of the
+    unreordered graph restored from the checkpoint (CLI_RTOL of the
+    logit scale)."""
+    import io
+    from roc_tpu_torch.core.graph import (load_dataset, save_dataset,
+                                          synthetic_dataset)
+    from roc_tpu_torch.models.gcn import build_gcn
+    from roc_tpu_torch.train import cli
+    from roc_tpu_torch.train.trainer import TrainConfig, Trainer
+    from roc_tpu_torch.utils.checkpoint import restore_trainer
+    root = os.path.join(tmp, "cli")
+    os.makedirs(root)
+    prefix, ck = os.path.join(root, "g"), os.path.join(root, "ck")
+    npy = os.path.join(root, "logits.npy")
+    save_dataset(synthetic_dataset(CLI_V, CLI_DEGREE, in_dim=LAYERS[0],
+                                   num_classes=LAYERS[-1], seed=SEED),
+                 prefix, csv=False)
+    base = ["-file", prefix, "-layers", "-".join(map(str, LAYERS)),
+            "-dropout", "0", "-e", str(CLI_EPOCHS)]
+    t0 = time.perf_counter()
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc1 = cli.main(base + ["--checkpoint", ck])
+    train_s = time.perf_counter() - t0
+    counts.zero()
+    t0 = time.perf_counter()
+    buf2 = io.StringIO()
+    with contextlib.redirect_stdout(buf2):
+        rc2 = cli.main(base + ["--resume", ck, "--eval-only",
+                               "--save-logits", npy, "--reorder", "bfs"])
+    eval_s = time.perf_counter() - t0
+    launches = counts.read(F32)
+    if (rc1, rc2) != (0, 0):
+        raise AssertionError(f"cli exits {rc1}, {rc2}")
+    got = np.load(npy)
+    ds = load_dataset(prefix, LAYERS[0], LAYERS[-1])
+    tr = Trainer(build_gcn(LAYERS, dropout_rate=0.0), ds,
+                 TrainConfig(aggr_impl="auto", verbose=False, **TRAIN))
+    restore_trainer(tr, ck)
+    want = tr.predict().float().cpu().numpy()
+    err = float(np.abs(got - want).max())
+    scale = float(np.abs(want).max())
+    lines = buf2.getvalue().splitlines()
+    rec = {"V": ds.graph.num_nodes, "E": ds.graph.num_edges,
+           "shape": list(got.shape), "dtype": str(got.dtype),
+           "max_abs_err": err, "logit_scale": scale,
+           "train_s": train_s, "eval_only_s": eval_s, "infer": lines,
+           "epoch": tr.epoch, "launches": launches}
+    del tr
+    torch.cuda.empty_cache()
+    if got.shape != want.shape or got.dtype != np.float32 or not (
+            err <= CLI_RTOL * max(scale, 1.0)) or len(lines) != 1 or \
+            not lines[0].startswith(f"[INFER][{CLI_EPOCHS}]"):
+        raise AssertionError(f"cli: {rec}")
+    if not all(launches[k][F32] for k in ("indegree_norm", "scale_act",
+                                          "ell_aggregate")):
+        raise AssertionError(f"cli --eval-only: launches {launches}")
+    log({"phase": "routes_cli", **rec})
+    return rec
+
+
+def ell_max_products(torch, products_dir):
+    """SAGE-pool 100-256-47 at the products shape on 'ell' (the
+    checkpointed ELL max), ROUTE_STEPS steps in 'mixed' from the seed's
+    weights, dropout 0: finite objectives, the card's peak."""
+    ds = _map_dataset(products_dir, PRODUCTS_LAYERS[-1],
+                      name="products_shape")
+    make = functools.partial(_layout_trainer, fam=SAGE_POOL,
+                             layers=PRODUCTS_LAYERS)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    tr = make(ds, "ell", 0.0, mode="mixed", eval_every=10 ** 6,
+              verbose=False)
+    setup_s = time.perf_counter() - t0
+    steps = []
+    for _ in range(ROUTE_STEPS):
+        t1 = time.perf_counter()
+        tr.train(1)
+        tr.sync()
+        steps.append((time.perf_counter() - t1) * 1e3)
+    losses = torch.stack(tr.losses).double().cpu().numpy()
+    rec = {"route": tr.config.aggr_impl, "mode": "mixed",
+           "V": ds.graph.num_nodes, "E": ds.graph.num_edges,
+           "losses": losses.tolist(), "setup_s": setup_s, "step_ms": steps,
+           "peak_gb": torch.cuda.max_memory_allocated() / 1e9}
+    del tr
+    torch.cuda.empty_cache()
+    if rec["route"] != "ell" or not np.isfinite(losses).all():
+        raise AssertionError(f"sage_pool ell: {rec}")
+    log({"phase": "routes_ell_max", **rec})
+    return rec
+
+
+def routes_child(data_dir, products_dir, num_classes, out_path):
+    """Phase 19 in a fresh process on card 0 (the datasets saved
+    under ``data_dir`` and ``products_dir``): :func:`edge_routes`,
+    :func:`cli_flags`, :func:`ell_max_products`; writes the record and
+    the counts to ``out_path``."""
+    import torch
+    from roc_tpu_torch.kernels import _build
+    from roc_tpu_torch.ops.dense import set_fp32_matmul_precision
+    torch.cuda.set_device(0)
+    set_fp32_matmul_precision()
+    _build.library()
+    counts = Launches(torch)
+    t0 = time.perf_counter()
+    rec = {"edge": edge_routes(torch, _map_dataset(data_dir, num_classes),
+                               _gcn_params(torch), counts)}
+    with tempfile.TemporaryDirectory() as tmp:
+        rec["cli"] = cli_flags(torch, tmp, counts)
+    rec["ell_max"] = ell_max_products(torch, products_dir)
+    rec["seconds"] = time.perf_counter() - t0
+    with open(out_path, "w") as f:
+        json.dump({"record": rec, "counted": counts.counted}, f)
+
+
+def start_routes_child(tmp, num_classes):
+    """:func:`routes_child` pre-started on the datasets under ``tmp``."""
+    data, prod = os.path.join(tmp, "reddit"), os.path.join(tmp, "products")
+    out = os.path.join(tmp, "routes.json")
+    return _Child(f"routes_child({data!r}, {prod!r}, {num_classes}, "
+                  f"{out!r})", 600, "phase 19 (routes)")
+
+
+def run_routes_child(tmp, num_classes, pre=None):
+    """:func:`routes_child` in a fresh Python process on the datasets
+    under ``tmp``; returns what it wrote."""
+    (pre or start_routes_child(tmp, num_classes)).run()
+    with open(os.path.join(tmp, "routes.json")) as f:
+        return json.load(f)
+
+
+# the attention race: routes and modes, steps a run
+ATTN_RACE_ROUTES = ("attn_flat8", "ell", "cuda")
+ATTN_RACE_STEPS = 3
+
+
+def attention_race(out_path=None):
+    """GAT 100-256-47 (1 head) at the products shape on each of
+    ATTN_RACE_ROUTES in fp32 and 'mixed', ATTN_RACE_STEPS steps each from
+    the seed's weights, dropout 0: each run's steady steps' ``epoch_ms``
+    and first step, objectives held to 'ell''s (LAYOUT_PLAIN_RTOL in
+    'mixed', PARITY_RTOL in fp32), and the fastest route per mode.  Its
+    figures are core/ell.py ``CARD_ROWS``'s attention source.  Timed
+    work, so not part of the default run: ``python3 chip_smoke.py
+    --attention-race``."""
+    import torch
+    from roc_tpu_torch.kernels import _build
+    from roc_tpu_torch.models import model_builders
+    from roc_tpu_torch.ops.dense import set_fp32_matmul_precision
+    torch.cuda.set_device(0)
+    set_fp32_matmul_precision()
+    _build.library()
+    print(card_line(), flush=True)
+    dev = torch.device("cuda")
+    t0 = time.perf_counter()
+    ds = products_dataset()
+    log({"phase": "attn_race_data", "V": ds.graph.num_nodes,
+         "E": ds.graph.num_edges, "seconds": time.perf_counter() - t0})
+    gat = ("gat", {"heads": 1})
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    params = {k: v.detach() for k, v in model_builders()["gat"](
+        PRODUCTS_LAYERS, heads=1).init_params(gen, device=dev).items()}
+    make = functools.partial(_layout_trainer, fam=gat,
+                             layers=PRODUCTS_LAYERS)
+    out = {}
+    with shared_contexts():
+        for mode, rtol in (("float32", PARITY_RTOL["float32"]),
+                           ("mixed", LAYOUT_PLAIN_RTOL["mixed"])):
+            runs = {}
+            for impl in ("ell",) + tuple(r for r in ATTN_RACE_ROUTES
+                                         if r != "ell"):
+                torch.cuda.reset_peak_memory_stats()
+                losses, info = _layout_steps(torch, make, ds, impl, mode,
+                                             params, steps=ATTN_RACE_STEPS)
+                info["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+                runs[impl] = (_held(losses, info, runs["ell"]["losses"],
+                                    "ell", rtol) if impl != "ell"
+                              else {**info, "losses": losses})
+                log({"phase": "attn_race", "mode": mode, "impl": impl,
+                     **{k: (v.tolist() if isinstance(v, np.ndarray) else v)
+                        for k, v in runs[impl].items()}})
+            runs["ell"]["losses"] = runs["ell"]["losses"].tolist()
+            out[mode] = {"runs": runs, "fastest": min(
+                runs, key=lambda r: runs[r]["epoch_ms"])}
+    log({"phase": "attn_race_summary",
+         **{m: {"fastest": r["fastest"],
+                "epoch_ms": {k: v["epoch_ms"] for k, v in r["runs"].items()}}
+            for m, r in out.items()}})
+    if out_path:
+        with open(out_path, "w") as f:
+            json.dump(out, f)
+    print(card_line(), flush=True)
+    return out
 
 
 class Launches:
@@ -5197,26 +5779,51 @@ def zoo_child(out_path):
                                   for key, by in entries.items()}}, f)
 
 
-def run_zoo_child():
+def start_zoo_child(tmp):
+    """:func:`zoo_child` pre-started, writing ``tmp``/zoo.json."""
+    out = os.path.join(tmp, "zoo.json")
+    return _Child(f"zoo_child({out!r})", 600, "phase 12 (zoo)")
+
+
+def run_zoo_child(tmp, pre=None):
     """:func:`zoo_child` in a fresh Python process, its phase lines on
     this process's output; returns what it wrote, and raises if it
     failed."""
-    import os
-    here = os.path.dirname(os.path.abspath(__file__))
-    with tempfile.TemporaryDirectory() as tmp:
-        out = os.path.join(tmp, "zoo.json")
-        _child(here, f"zoo_child({out!r})", 600, "phase 12 (zoo)")
-        with open(out) as f:
-            return json.load(f)
+    (pre or start_zoo_child(tmp)).run()
+    with open(os.path.join(tmp, "zoo.json")) as f:
+        return json.load(f)
 
 
 def main() -> int:
+    import shutil
+
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
     t_start = time.perf_counter()
-    from roc_tpu_torch.core.graph import synthetic_dataset
+    here = os.path.dirname(os.path.abspath(__file__))
+    root = tempfile.mkdtemp(prefix="chip_smoke_")
+    # the Reddit and products shapes are built on the host beside the
+    # card's set-up and first phases, and mapped by every phase
+    prep = subprocess.Popen(
+        [sys.executable, "-c",
+         f"import chip_smoke as s; s.prep_datasets({root!r})"],
+        cwd=here, env=dict(os.environ, PYTHONPATH=here + os.pathsep
+                           + os.environ.get("PYTHONPATH", "")))
+    try:
+        return _main(torch, root, prep, t_start)
+    finally:
+        if prep.poll() is None:
+            prep.kill()
+            prep.wait()
+        _end_started()
+        shutil.rmtree(root, ignore_errors=True)
+
+
+def _main(torch, root, prep, t_start) -> int:
+    """The phases of :func:`main`, the datasets from ``prep``
+    (:func:`prep_datasets`) under ``root``."""
     from roc_tpu_torch.core.partition import padded_edge_list
     from roc_tpu_torch.kernels import _build
     from roc_tpu_torch.models.gcn import build_gcn
@@ -5242,13 +5849,31 @@ def main() -> int:
     log({"phase": "build", "seconds": _build.build_seconds,
          "ptxas": ptxas})
 
+    # the zoo's process sets up during the ragged checks
+    zoo_pre = start_zoo_child(root)
+
     # 3. kernels, in fp32 and in bf16
     log({"phase": "ragged", **ragged_checks(torch, dev)})
-    t0 = time.perf_counter()
-    ds = synthetic_dataset(num_nodes=V, avg_degree=AVG_DEGREE,
-                           in_dim=LAYERS[0], num_classes=LAYERS[-1],
-                           seed=SEED, name="reddit_shape")
-    t_data = time.perf_counter() - t0
+    reddit = os.path.join(root, "reddit")
+    products = os.path.join(root, "products")
+
+    # 12. the model zoo at ogbn-arxiv's shape, in a fresh process, run
+    # here while the prep builds the Reddit shape (with --deep after the
+    # prep): K1-K4 at F = 128, then every family's parity (or float64)
+    # check, training runs (each with the counts zeroed just before and
+    # read just after, added to the table's) and, with --deep, step
+    # profiles
+    if DEEP:
+        _await_prep(prep, products)
+    sys.stdout.flush()
+    zoo = run_zoo_child(root, zoo_pre)
+    zrec = zoo["record"]
+    log({"phase": "zoo_summary", "V": zrec["V"], "E": zrec["E"],
+         "seconds": zrec["seconds"], "peak_mem_gb": zrec["peak_mem_gb"],
+         "epoch_ms": {f: {k: r["epoch_ms"] for k, r in rec["train"].items()}
+                      for f, rec in zrec["families"].items()}})
+    prep_info = _await_prep(prep, reddit)
+    ds = _map_dataset(reddit, LAYERS[-1], mmap=False)
     gen = torch.Generator(device=dev).manual_seed(SEED)
     model = build_gcn(LAYERS)
     params = model.init_params(gen, device=dev)
@@ -5261,8 +5886,9 @@ def main() -> int:
     gctx = pred.gctx
     log({"phase": "data", "V": ds.graph.num_nodes,
          "E": ds.graph.num_edges, "in_dim": ds.in_dim,
-         "classes": ds.num_classes, "dataset_s": t_data,
-         "predictor_s": t_pred,
+         "classes": ds.num_classes, "dataset_s": prep_info["dataset_s"],
+         "dataset_save_s": prep_info["save_s"],
+         "dataset_wait_s": prep_info["wait_s"], "predictor_s": t_pred,
          "buckets": [list(a.shape) for a in gctx.ell_idx]})
     g = ds.graph
 
@@ -5299,6 +5925,11 @@ def main() -> int:
     counts = Launches(torch)
     zero_counts, read_counts, counted = counts.zero, counts.read, \
         counts.counted
+    # phase 12's counted runs and its F = 128 rows join the table
+    for key in (F32, BF16):
+        for name in KERNELS:
+            counted[key][name] += zoo["counted"][key][name]
+            entries[key][name]["zoo_shapes"] = zoo["zoo_shapes"][key][name]
 
     # 4. serve slice: the serving path, fp32; the first 8-row and 64-row
     # requests profiled (the 64-row one was the slow one before)
@@ -5361,8 +5992,9 @@ def main() -> int:
     log({"phase": "train_slice_bf16", **record,
          "launches": train_launches_bf16})
     check_train_launches(train_launches_bf16, BF16)
-    log({"phase": "train_profile_mixed",
-         **train_profile(torch, ds, mode="mixed")})
+    if DEEP:
+        log({"phase": "train_profile_mixed",
+             **train_profile(torch, ds, mode="mixed")})
 
     # 9. dist_p1: the partitioned trainer at world size 1 over NCCL, in
     # this process, each dtype's slice with the counts zeroed just before
@@ -5382,7 +6014,7 @@ def main() -> int:
                     make=_dist_trainer)
                 rec["launches"] = read_counts(key)
                 check_train_launches(rec["launches"], key)
-                if mode == "float32":
+                if mode == "float32" and DEEP:
                     # where the partitioned step's extra time goes
                     rec["profile"] = train_profile(torch, ds,
                                                    make=_dist_trainer)
@@ -5392,9 +6024,18 @@ def main() -> int:
         finally:
             dist.destroy_process_group()
 
+    # the kill drill's first process and phase 14's set up while
+    # dist_p2's ranks run (a layout check, not a speed number)
+    rec_root = os.path.join(root, "recovery")
+    os.makedirs(rec_root)
+    drill_pre = start_recovery_child(rec_root, reddit,
+                                     "kill_in_async_save:4", "child1")
+    layouts_pre = start_layouts_child(root, LAYERS[-1])
+
     # 10. dist_p2: two ranks on this card over gloo; their launches count
     # with the fp32 paths'
-    rec, rank_launches = dist_p2(torch, ds, params, parity, logits32)
+    rec, rank_launches = dist_p2(torch, ds, params, parity, logits32,
+                                 reddit)
     for by in rank_launches:
         for name in ("indegree_norm", "scale_act", "ell_aggregate",
                      "csr_spmm"):
@@ -5406,7 +6047,8 @@ def main() -> int:
     # 11. recovery: checkpointed, killed and resumed runs; the fp32 path's
     # and the mixed path's launches each read just after the path, the
     # resumed child's count with the fp32 paths'
-    rec, f32, bf16, child = recovery(torch, ds, zero_counts, read_counts)
+    rec, f32, bf16, child = recovery(torch, ds, zero_counts, read_counts,
+                                     rec_root, reddit, drill_pre)
     for name in ("indegree_norm", "scale_act", "ell_aggregate", "csr_spmm"):
         counted[F32][name] += child[name][F32]
     counted[F32]["indegree_norm"] -= child["indegree_norm_masked"]
@@ -5424,133 +6066,154 @@ def main() -> int:
         log({"phase": "recovery_epoch_ms", "run": tag,
              **{f"{v}_steady_epoch_ms": r[v]["steady_epoch_ms"]
                 for v in ("plain", "guard_only", "snapshot_only",
-                          "recovered", "plain_again")},
+                          "recovered", "plain_again") if v in r},
              "overhead_share": r["overhead_share"],
              "plain_epoch_ms": r["plain"]["epoch_ms"],
              "recovered_epoch_ms": r["recovered"]["epoch_ms"],
              "async_saves": r["saves"]})
-    log({"phase": "recovery_saves", **rec["save_timings"],
+    log({"phase": "recovery_saves", **rec.get("save_timings", {}),
          "children_setup_s": [rec["kill_drill"]["child1_setup_s"],
                               rec["kill_drill"]["child2_setup_s"]]})
     log({"phase": "recovery", **rec})
 
-    # 12. the model zoo at ogbn-arxiv's shape, in a fresh process: K1-K4
-    # at F = 128, then every family's parity (or float64) check, training
-    # runs (each with the counts zeroed just before and read just after,
-    # added to the table's) and step profiles
-    sys.stdout.flush()
-    child = run_zoo_child()
-    zrec = child["record"]
-    for key in (F32, BF16):
-        for name in KERNELS:
-            counted[key][name] += child["counted"][key][name]
-            entries[key][name]["zoo_shapes"] = child["zoo_shapes"][key][name]
-    log({"phase": "zoo_summary", "V": zrec["V"], "E": zrec["E"],
-         "seconds": zrec["seconds"], "peak_mem_gb": zrec["peak_mem_gb"],
-         "epoch_ms": {f: {k: r["epoch_ms"] for k, r in rec["train"].items()}
-                      for f, rec in zrec["families"].items()}})
+    def add_counted(child):
+        for key in (F32, BF16):
+            for name in KERNELS:
+                counted[key][name] += child["counted"][key][name]
+
+    def read(name):
+        with open(os.path.join(root, f"{name}.json")) as f:
+            return json.load(f)
+
+    # From here phases share the card two at a time (with --deep one
+    # after another, for their times): 13 with 14, 15 with 16, 17 with
+    # 19; 18, whose drills key on measured latency, runs alone.  Every
+    # child set up one phase ahead.
+    products_info = _await_prep(prep, products)
+    if prep.wait() != 0:
+        raise AssertionError(f"the dataset prep exited {prep.returncode}")
+    log({"phase": "schedule", "deep": DEEP, "together": [] if DEEP else [
+        ["serve_precomputed", "layouts"], ["memory", "dist_ring"],
+        ["dist_mesh", "routes"]], "alone": ["fleet"]})
+    memory_pre = start_memory_child(root, LAYERS[-1])
+    ring_pre = start_ring_child(root, LAYERS[-1])
 
     # 13. the precomputed serving backend: akx, table, the artifacts and
     # the invalidation, each precompute with the counts zeroed just
-    # before and read just after
-    akx_params = serve_precomputed(torch, ds, params, counts)
-
-    # 14. the large-graph layouts, in a fresh process: races against K3
-    # and K4, the block-dense race, reordering, the GCN on the layouts,
-    # the products shape; its counted runs (the 'cuda' baselines) join
-    # the table.  15. the memory tier, in a fresh process on the
-    # datasets 14 left: the streamed GCN and SGC (the walk on K3), remat,
-    # the autopilot, the drills; every run counted
+    # before and read just after.  14. the large-graph layouts, in a
+    # fresh process: with --deep races against K3 and K4 and the
+    # block-dense race; reordering, the GCN on the layouts, the products
+    # shape; its counted runs (the 'cuda' baselines) join the table
     sys.stdout.flush()
-    with tempfile.TemporaryDirectory() as tmp:
-        child = run_layouts_child(ds, tmp)
-        for key in (F32, BF16):
-            for name in KERNELS:
-                counted[key][name] += child["counted"][key][name]
-        lrec = child["record"]
-        log({"phase": "layouts_summary", "seconds": lrec["seconds"],
-             "auto": lrec["train"]["auto"],
-             "peak_mem_gb_products": lrec["products"]["peak_mem_gb"],
-             "race_over_k4": {f"{r['F']}/{r['dtype']}": {
-                 k: v["over_k4"] for k, v in r.items()
-                 if isinstance(v, dict)}
-                 for r in lrec["race"]["rows"]}})
-        sys.stdout.flush()
-        child = run_memory_child(tmp, ds.num_classes)
-        for key in (F32, BF16):
-            for name in KERNELS:
-                counted[key][name] += child["counted"][key][name]
-        mrec = child["record"]
-        walk_row = mrec["walk_k3"]
-        log({"phase": "memory_summary", "seconds": mrec["seconds"],
-             "streamed_gcn_epoch_ms": {
-                 m: {t: r[t]["epoch_ms"] for t in ("host", "hbm")}
-                 for m, r in mrec["streamed_gcn"].items()},
-             "walk_wall_ms": mrec["streamed_sgc"]["walk"]["wall_ms"],
-             "autopilot": {k: v["plan"]
-                           for k, v in mrec["autopilot"].items()
-                           if isinstance(v, dict)}})
-        # 16. the ring, the cost split and the partitioned layouts: gloo
-        # ranks on this card, in a fresh process on the dataset 14 saved;
-        # every rank's path counted
-        sys.stdout.flush()
-        t16 = time.perf_counter()
-        ring = run_ring_child(tmp, ds.num_classes)
-        for key in (F32, BF16):
-            for name in KERNELS:
-                counted[key][name] += ring["counted"][key][name]
-        rrec = ring["record"]
-        log({"phase": "dist_ring_summary",
-             "seconds": time.perf_counter() - t16,
-             "pair_edges": rrec["p2"]["ranks"][0]["ring"]["pair_edges"],
-             "padding_ratio": rrec["p2"]["ranks"][0]["ring"][
-                 "padding_ratio"],
-             "ring_table_bytes": [r["ring"]["table_bytes"]
-                                  for r in rrec["p2"]["ranks"]],
-             "rss_peak_gb": {f"p{n}": [r["rss_peak_gb"]
-                                       for r in rrec[f"p{n}"]["ranks"]]
-                             for n in (2, 4)},
-             "step_ms": {k: v["step_ms"] for k, v in
-                         rrec["p2"]["ranks"][0]["runs"].items()
-                         if "step_ms" in v},
-             "p4_peak_gb": [{h: (r[h]["peak_gb"], r[h]["modeled_gb"])
-                             for h in ("ring", "gather")}
-                            for r in rrec["p4"]["ranks"]]})
-        # 17. partition-local loading from the reference's files, the
-        # (parts, model) mesh and its two-writer checkpoint: gloo ranks on
-        # this card, in a fresh process, held to phase 16's objectives
-        sys.stdout.flush()
-        t17 = time.perf_counter()
-        runs16 = rrec["p2"]["ranks"][0]["runs"]
-        refs = {f"{h}_{m}": runs16[name]["losses"]
-                for (h, m), name in MESH_REFS.items()}
-        mesh = run_mesh_child(tmp, ds.num_classes, refs)
-        s17 = time.perf_counter() - t17
-        for key in (F32, BF16):
-            for name in KERNELS:
-                counted[key][name] += mesh["counted"][key][name]
-        # 18. the replica fleet: sharded exports (counted), routers and
-        # replicas on this card, the refresh and the drills, in a fresh
-        # process on the dataset 14 saved
-        sys.stdout.flush()
-        t18 = time.perf_counter()
-        fleet = run_fleet_child(tmp, akx_params, params)
-        for key in (F32, BF16):
-            for name in KERNELS:
-                counted[key][name] += fleet["counted"][key][name]
-        frec = fleet["record"]
-        log({"phase": "fleet_summary", "seconds": time.perf_counter() - t18,
-             "slices": {k: {x: v[x] for x in ("bytes_per_replica",
-                                               "bytes_full", "slice_share")}
-                        for k, v in frec["exports"].items()
-                        if isinstance(v, dict) and "plan" in v},
-             "router_median_ms": {k: frec[k]["router_median_ms"]
-                                  for k in ("akx_fp32", "akx_int8",
-                                            "table")},
-             "server_median_ms": {k: frec[k]["server_median_ms"]
-                                  for k in ("akx_fp32", "akx_int8",
-                                            "table")},
-             "drills": sorted(frec["drills"])})
+    akx_params = _run_together([layouts_pre], lambda: serve_precomputed(
+        torch, ds, params, counts))
+    save_fleet_params(root, akx_params, params)
+    child = read("layouts")
+    add_counted(child)
+    lrec = child["record"]
+    log({"phase": "layouts_summary", "seconds": lrec["seconds"],
+         "auto": lrec["train"]["auto"],
+         "products_dataset": products_info,
+         "peak_mem_gb_products": lrec["products"]["peak_mem_gb"],
+         "race_over_k4": {f"{r['F']}/{r['dtype']}": {
+             k: v["over_k4"] for k, v in r.items()
+             if isinstance(v, dict)}
+             for r in lrec["race"]["rows"]} if "race" in lrec
+         else "with --deep"})
+
+    # 15. the memory tier, in a fresh process: the streamed GCN and SGC
+    # (the walk on K3), remat, the autopilot, the drills; every run
+    # counted.  16. the ring, the cost split and the partitioned
+    # layouts: gloo ranks on this card, in a fresh process on the Reddit
+    # shape's files; every rank's path counted
+    refs_path = os.path.join(root, "mesh_refs.json")
+    mesh_pre = start_mesh_child(root, LAYERS[-1], refs_path)
+    routes_pre = start_routes_child(root, LAYERS[-1])
+    sys.stdout.flush()
+    t16 = time.perf_counter()
+    _run_together([memory_pre, ring_pre])
+    s16 = time.perf_counter() - t16
+    child = read("memory")
+    add_counted(child)
+    mrec = child["record"]
+    walk_row = mrec["walk_k3"]
+    log({"phase": "memory_summary", "seconds": mrec["seconds"],
+         "streamed_gcn_epoch_ms": {
+             m: {t: r[t]["epoch_ms"] for t in ("host", "hbm")}
+             for m, r in mrec["streamed_gcn"].items()},
+         "walk_wall_ms": mrec["streamed_sgc"].get("walk", {}).get(
+             "wall_ms", "with --deep"),
+         "autopilot": {k: v["plan"]
+                       for k, v in mrec["autopilot"].items()
+                       if isinstance(v, dict)}})
+    ring = read("ring")
+    add_counted(ring)
+    rrec = ring["record"]
+    log({"phase": "dist_ring_summary", "seconds": s16,
+         "pair_edges": rrec["p2"]["ranks"][0]["ring"]["pair_edges"],
+         "padding_ratio": rrec["p2"]["ranks"][0]["ring"][
+             "padding_ratio"],
+         "ring_table_bytes": [r["ring"]["table_bytes"]
+                              for r in rrec["p2"]["ranks"]],
+         "rss_peak_gb": {f"p{n}": [r["rss_peak_gb"]
+                                   for r in rrec[f"p{n}"]["ranks"]]
+                         for n in (2, 4)},
+         "step_ms": {k: v["step_ms"] for k, v in
+                     rrec["p2"]["ranks"][0]["runs"].items()
+                     if "step_ms" in v},
+         "p4_peak_gb": [{h: (r[h]["peak_gb"], r[h]["modeled_gb"])
+                         for h in ("ring", "gather")}
+                        for r in rrec["p4"]["ranks"]]})
+
+    # 17. partition-local loading from the reference's files, the
+    # (parts, model) mesh and its two-writer checkpoint: gloo ranks on
+    # this card, in a fresh process, held to phase 16's objectives.
+    # 19. the chunked edge-list routes, the chunked head, the CLI's
+    # compute flags and the checkpointed ELL max, in a fresh process;
+    # every run of a kernel route counted
+    runs16 = rrec["p2"]["ranks"][0]["runs"]
+    with open(refs_path, "w") as f:
+        json.dump({f"{h}_{m}": runs16[name]["losses"]
+                   for (h, m), name in MESH_REFS.items()}, f)
+    fleet_pre = start_fleet_child(root)
+    sys.stdout.flush()
+    t17 = time.perf_counter()
+    _run_together([mesh_pre, routes_pre])
+    s17 = time.perf_counter() - t17
+    mesh = read("mesh")
+    add_counted(mesh)
+    routes = read("routes")
+    add_counted(routes)
+    erec = routes["record"]
+    log({"phase": "routes_summary", "seconds": erec["seconds"],
+         "step_ms": {k: v["step_ms"] for k, v in erec["edge"].items()},
+         "peak_gb": {k: v["peak_gb"] for k, v in erec["edge"].items()},
+         "max_rel_err": {k: v.get("max_rel_err")
+                         for k, v in erec["edge"].items()},
+         "cli_max_abs_err": erec["cli"]["max_abs_err"],
+         "ell_max_peak_gb": erec["ell_max"]["peak_gb"],
+         "ell_max_step_ms": erec["ell_max"]["step_ms"]})
+
+    # 18. the replica fleet: sharded exports (counted), routers and
+    # replicas on this card, the refresh and the drills, in a fresh
+    # process on the Reddit shape's files
+    sys.stdout.flush()
+    t18 = time.perf_counter()
+    fleet = run_fleet_child(root, pre=fleet_pre)
+    add_counted(fleet)
+    frec = fleet["record"]
+    log({"phase": "fleet_summary", "seconds": time.perf_counter() - t18,
+         "slices": {k: {x: v[x] for x in ("bytes_per_replica",
+                                           "bytes_full", "slice_share")}
+                    for k, v in frec["exports"].items()
+                    if isinstance(v, dict) and "plan" in v},
+         "router_median_ms": {k: frec[k]["router_median_ms"]
+                              for k in ("akx_fp32", "akx_int8",
+                                        "table")},
+         "server_median_ms": {k: frec[k]["server_median_ms"]
+                              for k in ("akx_fp32", "akx_int8",
+                                        "table")},
+         "drills": sorted(frec["drills"])})
     mrec = mesh["record"]
     log({"phase": "dist_mesh_summary", "seconds": s17,
          "p2_s": mrec["p2_s"], "m2x2_s": mrec["m2x2_s"],
@@ -5613,4 +6276,14 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--attention-race"]:
+        import torch
+        if not torch.cuda.is_available():
+            print("chip_smoke: no CUDA device", file=sys.stderr)
+            sys.exit(1)
+        attention_race(sys.argv[2] if len(sys.argv) > 2 else None)
+        sys.exit(0)
+    if "--deep" in sys.argv[1:]:
+        os.environ["CHIP_SMOKE_DEEP"] = "1"
+        DEEP = True
     sys.exit(main())

@@ -21,9 +21,10 @@ import torch
 
 # The hand-written ELL route is 'pallas' in the JAX package, 'cuda' here;
 # the hand-written CSR route is 'pallas_csr' there, 'cuda_csr' here; the
-# large-graph layouts keep their names.
+# edge-list sums and the large-graph layouts keep their names.
 AGGR_IMPL_FROM_JAX = {"pallas": "cuda", "ell": "ell",
                       "pallas_csr": "cuda_csr", "segment": "segment",
+                      "blocked": "blocked", "scan": "scan",
                       "sectioned": "sectioned", "flat_sum": "flat_sum",
                       "bdense": "bdense", "attn_flat8": "attn_flat8"}
 AGGR_IMPL_TO_JAX = {v: k for k, v in AGGR_IMPL_FROM_JAX.items()}

@@ -27,7 +27,7 @@ would.
 
 from __future__ import annotations
 
-from dataclasses import dataclass, replace
+from dataclasses import dataclass, field, replace
 from typing import Dict, Optional, Sequence, Tuple
 
 import numpy as np
@@ -490,11 +490,15 @@ def flat_sum_from_padded_parts(part_row_ptr: np.ndarray,
 @dataclass(frozen=True)
 class CardRow:
     """What the port runs on a card where the JAX rule names a layout:
-    ``routes`` maps each of the JAX rule's answers ('sectioned',
-    'flat_sum', 'bdense', 'ell') to the port's route that the races on
-    that card put first; ``source`` says which races, on which card."""
+    ``routes`` maps each of the JAX rule's answers for a model of sums
+    ('sectioned', 'flat_sum', 'bdense', 'ell') to the port's route that
+    the races on that card put first; ``source`` says which races, on
+    which card.  ``attention`` and ``attention_source`` do the same for
+    the JAX rule's answers for an attention model ('attn_flat8', 'ell')."""
     routes: Dict[str, str]
     source: str
+    attention: Dict[str, str] = field(default_factory=dict)
+    attention_source: str = ""
 
 
 # JAX's 'ell' is the port's kernel route 'cuda' (K4 is the port's ELL
@@ -512,7 +516,16 @@ CARD_ROWS: Dict[str, CardRow] = {
                "'sectioned', 146.6 on 'flat_sum', 14.6 on K4 (bf16: 128.1, "
                "124.7, 7.5; F = 41: 7-8x K4); on planted communities "
                "(E = 23 M, 81 % on dense tiles) 'bdense' took 84.1-139.3 ms "
-               "fp32 and 48.7-99.9 bf16 against K4's 5.6 and 3.3"),
+               "fp32 and 48.7-99.9 bf16 against K4's 5.6 and 3.3",
+        attention={"attn_flat8": "cuda"},
+        attention_source="chip_smoke.py --attention-race on an NVIDIA H100 "
+                         "80GB HBM3 at a 700.00 W limit: GAT 100-256-47 "
+                         "(1 head) at ogbn-products' shape (E = 127,348,145), "
+                         "3 steps, a steady step in 'mixed' took 2467.7 ms on "
+                         "'cuda', 2564.1 on 'ell', 3068.2 on 'attn_flat8'; "
+                         "in fp32 2934.7, 2798.2, 2696.5 (a tie: 'cuda' and "
+                         "'ell' run the same ops 4.9 % apart); peak 9.8 GB "
+                         "against 35.6 ('mixed'), 16.8 against 41.2 (fp32)"),
 }
 
 
@@ -538,6 +551,18 @@ def port_route(jax_choice: str, device_kind: Optional[str] = None) -> str:
     row = CARD_ROWS.get(device_kind) if device_kind else None
     if row is not None and jax_choice in row.routes:
         return row.routes[jax_choice]
+    return JAX_ROUTE.get(jax_choice, jax_choice)
+
+
+def port_attention_route(jax_choice: str,
+                         device_kind: Optional[str] = None) -> str:
+    """The port's route for an attention model where the JAX rule answers
+    ``jax_choice`` ('attn_flat8' or 'ell') on a card of ``device_kind``:
+    its row's attention entry where it has one, else the same layout
+    ('ell' as 'cuda')."""
+    row = CARD_ROWS.get(device_kind) if device_kind else None
+    if row is not None and jax_choice in row.attention:
+        return row.attention[jax_choice]
     return JAX_ROUTE.get(jax_choice, jax_choice)
 
 

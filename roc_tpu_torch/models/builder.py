@@ -5,7 +5,7 @@ The builder API records a static op list, as the reference's ``Model``
 class does (``gnn.h:162-203``); :meth:`Model.apply` interprets it
 eagerly and autograd differentiates it.  Graph access goes through
 :class:`GraphContext`, which holds the graph on the model's device and
-runs one of eight routes.  Four are two layouts times plain or
+runs one of ten routes.  Four are two layouts times plain or
 hand-written:
 
 - ``aggr_impl='ell'``: the plain PyTorch ELL sum (ops/aggregate.py);
@@ -16,6 +16,11 @@ hand-written:
 - ``aggr_impl='cuda_csr'``: the hand-written CSR kernel K3
   (kernels/spmm.py), fused as K1 -> K3 -> K2.  The JAX package's
   'pallas_csr'.
+
+Two more take the padded edge list: ``aggr_impl='blocked'`` and
+``'scan'``, the JAX package's chunked edge-list sums as plain PyTorch ops
+(ops/aggregate.py ``aggregate_blocked``, ``aggregate_scan``), whose
+transient is bounded by a run of chunks.
 
 Four are the large-graph layouts, plain PyTorch ops as in the JAX
 package (core/ell.py, ops/aggregate.py, ops/blockdense.py):
@@ -46,6 +51,10 @@ The backward of both aggregations is the reference's symmetric trick
 the gradient is the forward rerun on the cotangent, through the same
 kernels.  ``symmetric=False`` differentiates the plain routes by
 autograd (exact for any graph) and raises on the kernel routes.
+
+The classification head (the last linear op) runs in row blocks of
+``head_chunk`` rows when the context sets it (ops/dense.py
+``linear_chunked``; ``TrainConfig.head_chunk``).
 
 AVG is the sum (the same symmetric backward) over ``max(deg, 1)`` cast to
 the activations' dtype, as in the JAX package (in bf16 a degree above
@@ -80,9 +89,10 @@ import torch
 from torch import nn
 
 from ..ops import dense
-from ..ops.aggregate import (aggregate_ell, aggregate_ell_max,
-                             aggregate_ell_sect, aggregate_flat_max,
-                             aggregate_flat_sum, aggregate_segment,
+from ..ops.aggregate import (aggregate_blocked, aggregate_ell,
+                             aggregate_ell_max, aggregate_ell_sect,
+                             aggregate_flat_max, aggregate_flat_sum,
+                             aggregate_scan, aggregate_segment,
                              aggregate_segment_max)
 from ..ops.attention import (gat_aggregate_ell, gat_aggregate_flat8,
                              resolve_dh_chunk)
@@ -100,7 +110,7 @@ AGGR_MAX = "max"
 AGGR_MIN = "min"
 
 ELL_IMPLS = ("ell", "cuda")
-EDGE_IMPLS = ("segment", "cuda_csr")
+EDGE_IMPLS = ("segment", "blocked", "scan", "cuda_csr")
 KERNEL_IMPLS = ("cuda", "cuda_csr")
 LAYOUT_IMPLS = ("sectioned", "flat_sum", "bdense", "attn_flat8")
 AGGR_IMPLS = ELL_IMPLS + EDGE_IMPLS + LAYOUT_IMPLS
@@ -198,7 +208,8 @@ class GraphContext:
       bucket outputs (read by the 'ell' route).
     ell_row_id: int32 [rows_b] per bucket, the output row of each
       bucket row (read by the 'cuda' route).
-    Edge routes ('segment', 'cuda_csr'; None otherwise):
+    Edge routes ('segment', 'blocked', 'scan', 'cuda_csr'; None
+    otherwise):
     edge_src/edge_dst: int32 [Ep] padded edge list sorted by destination
       (core/partition.py), ``Ep`` a multiple of ``chunk``, dummy source
       == gathered_rows.
@@ -230,6 +241,8 @@ class GraphContext:
       over the real edges (K3's); ring_w: fp32 ``[S, pair_edges]`` the
       baked fused weights (plain routes), or None; ring_comm: the
       rank's ``Collectives``; ring_overlap: transfer under the hop's sum.
+    head_chunk: the classification head's row block (0: one product;
+      train/trainer.py ``resolve_head_chunk``).
     """
 
     in_degree: torch.Tensor
@@ -266,6 +279,7 @@ class GraphContext:
     ring_w: Optional[torch.Tensor] = None
     ring_comm: Any = None
     ring_overlap: bool = True
+    head_chunk: int = 0
 
     def __post_init__(self):
         if self.aggr_impl not in AGGR_IMPLS:
@@ -328,6 +342,11 @@ class GraphContext:
             return aggregate_segment(self._gathered_with_zero(x),
                                      self.edge_src, self.edge_dst,
                                      self.num_rows)
+        if self.aggr_impl in ("blocked", "scan"):
+            fn = (aggregate_blocked if self.aggr_impl == "blocked"
+                  else aggregate_scan)
+            return fn(self._gathered_with_zero(x), self.edge_src,
+                      self.edge_dst, self.num_rows, chunk=self.chunk)
         if self.aggr_impl in LAYOUT_IMPLS:
             return self._layout_sum(self._gathered_with_zero(x))
         return aggregate_ell(self._gathered_with_zero(x), self.ell_idx,
@@ -440,8 +459,8 @@ class GraphContext:
         """Neighbour max over the gathered rows; rows with no neighbour
         give 0.  The ELL routes ('ell', 'cuda') run the plain ELL max on
         their tables, 'segment' the plain edge-list max, 'flat_sum' the
-        flat max; the other routes have no max form (as in the JAX
-        package) and raise; so does the ring."""
+        flat max; the other routes have no max form and raise with the
+        JAX package's message; so does the ring."""
         self._refuse_ring("AGGR_MAX")
         full = self._gathered_with_zero(x)
         if self.aggr_impl in ELL_IMPLS:
@@ -454,9 +473,14 @@ class GraphContext:
             out = aggregate_flat_max(full, self.flat8_idx, self.flat8_dst,
                                      self.num_rows)
         else:
+            # every chunked-sum route: falling through to the segment max
+            # would materialize the [E, F] per-edge matrix
             raise NotImplementedError(
-                f"MAX/MIN aggregation has no {self.aggr_impl!r} form; use "
-                "an ELL route ('ell', 'cuda'), 'segment' or 'flat_sum'")
+                f"AGGR_MAX has no {self.aggr_impl!r} implementation; "
+                "use aggr_impl='ell' (big graphs; sectioned carries "
+                "no ELL tables and its additive carry can't max) or "
+                "'segment' — the segment path materializes the full "
+                "[E, F] per-edge matrix")
         return torch.where(torch.isfinite(out), out, 0.0)
 
     def gat_attention(self, x: torch.Tensor, a_src: torch.Tensor,
@@ -553,7 +577,8 @@ class Model(nn.Module):
 
     def uses_max_aggregation(self) -> bool:
         """True when a scatter_gather op is MAX or MIN (no form on the
-        chunked-sum route 'cuda_csr')."""
+        chunked-sum routes 'blocked', 'scan', 'cuda_csr' and the
+        sectioned layouts)."""
         return any(op.kind == "scatter_gather"
                    and op.attrs.get("aggr") in (AGGR_MAX, AGGR_MIN)
                    for op in self._ops)
@@ -912,8 +937,15 @@ class Model(nn.Module):
         if op.kind == "dropout":
             vals[i] = dense.dropout(x, op.attrs["rate"], generator, train)
         elif op.kind == "linear":
-            vals[i] = dense.linear(x, params[op.param],
-                                   op.attrs["activation"])
+            if gctx is not None and gctx.head_chunk \
+                    and i == self._head_index() \
+                    and x.shape[0] > gctx.head_chunk:
+                vals[i] = dense.linear_chunked(
+                    x, params[op.param], op.attrs["activation"],
+                    gctx.head_chunk)
+            else:
+                vals[i] = dense.linear(x, params[op.param],
+                                       op.attrs["activation"])
         elif op.kind == "indegree_norm":
             vals[i] = indegree_norm(x, gctx.in_degree)
         elif op.kind == "scatter_gather":
@@ -939,6 +971,12 @@ class Model(nn.Module):
             vals[i] = (1.0 - al) * x + al * vals[op.inputs[1]]
         else:
             raise ValueError(f"unknown op kind {op.kind}")
+
+    def _head_index(self) -> int:
+        """The output head: the last linear op (the classifier of every
+        family; the loss may sit on a later op), -1 without one."""
+        return max((i for i, op in enumerate(self._ops)
+                    if op.kind == "linear"), default=-1)
 
     def _out_index(self) -> int:
         return self._loss_op if self._loss_op is not None \

@@ -8,15 +8,25 @@ sums are the routes the hand-written kernels are held to:
 - :func:`aggregate_segment`, the edge-list sum (route 'segment', kernel
   K3 in kernels/spmm.py): gather ``feats[src]`` and ``index_add_`` it
   into the destination rows.
+- :func:`aggregate_blocked` and :func:`aggregate_scan` (routes 'blocked'
+  and 'scan'), the JAX package's chunked edge-list sums.  There they are
+  TPU tricks (a one-hot selection matmul, a cumsum difference); here
+  each keeps its contract: dst-sorted edges padded to a ``chunk``
+  multiple (another count raises, as the JAX assertion does), taken in
+  runs of whole chunks under a budget, never the ``[E, F]`` gather.
+  'blocked' adds every gathered row into its destination; 'scan' sums
+  each chunk's rows by prefix-sum differences at the chunk's row ends
+  and adds one partial a row a chunk (the JAX scan's carry records).
 - :func:`aggregate_ell_sect` (route 'sectioned', and the residual of
   'bdense') and :func:`aggregate_flat_sum` (route 'flat_sum'), the
   large-graph layouts' sums over core/ell.py's sub-row tables: gather a
   run of chunks' sub-rows, sum their width, ``index_add_`` the partials
   into their rows.  No kernel; they are raced against K3 and K4.
 
-The first two work in pieces of at most ``budget_elems`` gathered
-scalars (row segments of a bucket, chunks of edges), the layouts in
-runs of their tables' chunks under ``LAYOUT_BUDGET_ELEMS``.  Without
+The ELL and segment sums work in pieces of at most ``budget_elems``
+gathered scalars (row segments of a bucket, chunks of edges), the
+chunked edge-list sums and the layouts in runs of their chunks under
+``LAYOUT_BUDGET_ELEMS``.  Without
 them the transient is the whole gather: at Reddit scale (E ~ 112M,
 F = 256) over 100 GB.
 
@@ -28,7 +38,9 @@ round while it accumulates).  fp32 inputs are summed as they are.
 The neighbour maxima (:func:`aggregate_ell_max`,
 :func:`aggregate_segment_max`, :func:`aggregate_flat_max`; MIN is
 ``-max(-x)`` at the call site) are plain ops on every route: the
-JAX package computes them with XLA ops outside any Pallas kernel.  They
+JAX package computes them with XLA ops outside any Pallas kernel.  The
+ELL and flat maxima recompute each gathered segment in the backward
+(``torch.utils.checkpoint``) instead of keeping it.  They
 mask the padding/dummy sources to ``-inf`` and differentiate by autograd
 with the JAX package's tie rule, the gradient split evenly among the
 tied maxima (``amax`` and ``scatter_reduce('amax')`` do so; ``max(dim)``
@@ -46,6 +58,12 @@ from torch.utils.checkpoint import checkpoint
 # 2**24 scalars = 64 MiB of fp32 per gathered segment, the JAX
 # package's default
 DEFAULT_BUDGET_ELEMS = 1 << 24
+# 2^27 gathered elements (512 MiB of fp32) per step of the chunked
+# layouts, the chunked edge-list sums and the checkpointed maxima: a step
+# takes as many consecutive chunks (rows) as fit, so a table of small
+# chunks does not cost one round of launches, or of a checkpoint's
+# recompute, per chunk.
+LAYOUT_BUDGET_ELEMS = 1 << 27
 
 
 def _acc_dtype(dtype: torch.dtype) -> torch.dtype:
@@ -123,7 +141,7 @@ def rows(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
 
 def aggregate_ell_max(feats: torch.Tensor, ell_idx: Sequence[torch.Tensor],
                       ell_row_pos: torch.Tensor, num_rows: int,
-                      budget_elems: int = DEFAULT_BUDGET_ELEMS
+                      budget_elems: int = LAYOUT_BUDGET_ELEMS
                       ) -> torch.Tensor:
     """ELL neighbour MAX, the JAX function's contract: ``feats [R+1, F]``
     with the dummy id ``R`` masked to ``-inf`` (not read as its zero
@@ -131,24 +149,35 @@ def aggregate_ell_max(feats: torch.Tensor, ell_idx: Sequence[torch.Tensor],
     segments of at most ``budget_elems`` gathered scalars (a row's whole
     neighbourhood stays in one segment, so ties split as in one max),
     then ``ell_row_pos`` back to row order; degree-0 rows read a
-    trailing ``-inf`` slot."""
+    trailing ``-inf`` slot.  Under autograd each segment is recomputed
+    in the backward (``torch.utils.checkpoint``), so the backward keeps
+    no gathered ``[rows, W, F]`` segment, with the same gradients; a
+    segment is then transient, so the default budget is the layouts'
+    (the segmentation changes no value: rows are never split)."""
     F = feats.shape[1]
-    dummy = feats.shape[0] - 1
-    neg = torch.tensor(float("-inf"), dtype=feats.dtype,
-                       device=feats.device)
-
-    def seg_max(i):
-        g = rows(feats, i)                             # [r, W, F]
-        return torch.where((i != dummy)[:, :, None], g, neg).amax(dim=1)
-
+    grad = torch.is_grad_enabled() and feats.requires_grad
     outs = []
     for idx in ell_idx:
         R, W = idx.shape
         seg_rows = max(1, budget_elems // max(W * F, 1))
-        outs.extend(seg_max(idx[r0:r0 + seg_rows])
-                    for r0 in range(0, R, seg_rows))
+        for r0 in range(0, R, seg_rows):
+            seg = idx[r0:r0 + seg_rows]
+            outs.append(checkpoint(_ell_max_segment, feats, seg,
+                                   use_reentrant=False)
+                        if grad else _ell_max_segment(feats, seg))
     outs.append(feats.new_full((1, F), float("-inf")))
     return torch.cat(outs, dim=0).index_select(0, ell_row_pos)[:num_rows]
+
+
+def _ell_max_segment(feats: torch.Tensor, idx: torch.Tensor
+                     ) -> torch.Tensor:
+    """The masked maximum over the width of one row segment ``idx [r,
+    W]`` of a bucket (the dummy id ``feats.shape[0] - 1`` masked to
+    ``-inf``)."""
+    g = rows(feats, idx)                               # [r, W, F]
+    return torch.where((idx != feats.shape[0] - 1)[:, :, None], g,
+                       torch.tensor(float("-inf"), dtype=feats.dtype,
+                                    device=feats.device)).amax(dim=1)
 
 
 def aggregate_segment_max(feats: torch.Tensor, edge_src: torch.Tensor,
@@ -171,11 +200,6 @@ def aggregate_segment_max(feats: torch.Tensor, edge_src: torch.Tensor,
                               "amax", include_self=False)
 
 
-# 2^27 gathered elements (512 MiB of fp32) per step of the chunked
-# layouts below: a step takes as many consecutive chunks of the tables
-# as fit, so a layout with 8192-row chunks does not cost one round of
-# launches per chunk.
-LAYOUT_BUDGET_ELEMS = 1 << 27
 
 
 def _steps(n_chunks: int, chunk_elems: int, budget_elems: int):
@@ -349,20 +373,96 @@ def aggregate_flat_max(feats: torch.Tensor, flat_idx: torch.Tensor,
     return torch.cat(pieces, dim=0)[:num_rows]
 
 
-IMPLS = ("segment", "cuda_csr")
+def _check_chunks(num_edges: int, chunk: int) -> int:
+    """The chunk count of ``num_edges`` edges; raises unless they are a
+    whole number of chunks (the JAX package asserts it)."""
+    if chunk < 1 or num_edges % chunk:
+        raise ValueError(f"pad edges to a chunk multiple: {num_edges} "
+                         f"edges, chunk {chunk}")
+    return num_edges // chunk
+
+
+def aggregate_blocked(feats: torch.Tensor, edge_src: torch.Tensor,
+                      edge_dst: torch.Tensor, num_rows: int,
+                      chunk: int = 512,
+                      budget_elems: int = LAYOUT_BUDGET_ELEMS
+                      ) -> torch.Tensor:
+    """The JAX package's ``aggregate_blocked`` contract: ``out[d] = sum of
+    feats[s]`` over the edges ``(s, d)``, sorted by destination and
+    padded to a ``chunk`` multiple (padding edges read the zero row
+    ``feats[-1]``).  Runs of whole chunks of at most ``budget_elems``
+    gathered scalars are gathered and ``index_add_`` into the output;
+    a bf16 input is summed in fp32 and rounded once."""
+    n = _check_chunks(edge_src.shape[0], chunk)
+    acc = _acc_dtype(feats.dtype)
+    out = feats.new_zeros((num_rows, feats.shape[1]), dtype=acc)
+    for c0, c1 in _steps(n, chunk * feats.shape[1], budget_elems):
+        e0, e1 = c0 * chunk, c1 * chunk
+        out.index_add_(0, edge_dst[e0:e1].long(),
+                       rows(feats, edge_src[e0:e1]).to(acc))
+    return out.to(feats.dtype)
+
+
+def aggregate_scan(feats: torch.Tensor, edge_src: torch.Tensor,
+                   edge_dst: torch.Tensor, num_rows: int,
+                   chunk: int = 1024,
+                   budget_elems: int = LAYOUT_BUDGET_ELEMS) -> torch.Tensor:
+    """The JAX package's ``aggregate_scan`` contract (as
+    :func:`aggregate_blocked`'s): within each chunk of dst-sorted edges
+    the row sums are differences of the chunk's prefix sum (fp32) at the
+    row ends, and each chunk adds one partial a row into the output, so
+    a row that spans chunks is summed from their partials, as the JAX
+    scan's carry records are.  The row ends are found once for the whole
+    edge list; runs of whole chunks of at most ``budget_elems`` gathered
+    scalars go at a time.  A bf16 input is rounded once."""
+    n = _check_chunks(edge_src.shape[0], chunk)
+    F = feats.shape[1]
+    acc = _acc_dtype(feats.dtype)
+    out = feats.new_zeros((num_rows, F), dtype=acc)
+    dst = edge_dst.reshape(n, chunk)
+    # a row ends at its chunk's last edge or where the next edge's row
+    # differs; the first end of each chunk subtracts nothing
+    is_end = torch.ones_like(dst, dtype=torch.bool)
+    is_end[:, :-1] = dst[:, 1:] != dst[:, :-1]
+    ends = torch.nonzero(is_end.view(-1)).squeeze(1)
+    first = torch.ones_like(ends, dtype=torch.bool)
+    first[1:] = ends[1:] // chunk != ends[:-1] // chunk
+    end_rows = edge_dst.index_select(0, ends).long()
+    offsets = [0] + torch.cumsum(is_end.sum(dim=1), 0).tolist()
+    zero = torch.zeros((), dtype=acc, device=feats.device)
+    for c0, c1 in _steps(n, chunk * F, budget_elems):
+        e0, e1 = c0 * chunk, c1 * chunk
+        k0, k1 = offsets[c0], offsets[c1]
+        g = rows(feats, edge_src[e0:e1]).to(acc)
+        prefix = g.view(c1 - c0, chunk, F).cumsum(dim=1).view(-1, F)
+        at_end = prefix.index_select(0, ends[k0:k1] - e0)
+        before = torch.where(first[k0:k1, None], zero,
+                             at_end.roll(1, dims=0))
+        out.index_add_(0, end_rows[k0:k1], at_end - before)
+    return out.to(feats.dtype)
+
+
+IMPLS = ("segment", "blocked", "scan", "cuda_csr")
 
 
 def aggregate(feats: torch.Tensor, edge_src: torch.Tensor,
               edge_dst: torch.Tensor, num_rows: int,
               impl: str = "segment", chunk: int = 512) -> torch.Tensor:
     """The edge-list dispatcher (``roc_tpu/ops/aggregate.py aggregate``)
-    over the ported impls: 'segment' (plain) or 'cuda_csr' (kernel K3,
-    the JAX package's 'pallas_csr').  ``feats`` is ``[R+1, F]`` with a
-    trailing zero row, as there; edges are sorted by destination and
-    padded to a ``chunk`` multiple for 'cuda_csr'.  The sums agree to
-    fp32 rounding (another summation order)."""
+    over the ported impls: 'segment', 'blocked', 'scan' (plain) or
+    'cuda_csr' (kernel K3, the JAX package's 'pallas_csr').  ``feats``
+    is ``[R+1, F]`` with a trailing zero row, as there; edges are sorted
+    by destination and padded to a ``chunk`` multiple for every impl
+    but 'segment'.  The sums agree to fp32 rounding (another summation
+    order)."""
     if impl == "segment":
         return aggregate_segment(feats, edge_src, edge_dst, num_rows)
+    if impl == "blocked":
+        return aggregate_blocked(feats, edge_src, edge_dst, num_rows,
+                                 chunk=chunk)
+    if impl == "scan":
+        return aggregate_scan(feats, edge_src, edge_dst, num_rows,
+                              chunk=chunk)
     if impl == "cuda_csr":
         from ..kernels.spmm import csr_spmm
         # K3 skips the dummy id instead of reading the zero row
@@ -370,3 +470,16 @@ def aggregate(feats: torch.Tensor, edge_src: torch.Tensor,
                         chunk=chunk)
     raise ValueError(f"aggregate impl {impl!r} is not ported; expected "
                      f"one of {IMPLS}")
+
+
+def aggregate_mean(feats: torch.Tensor, edge_src: torch.Tensor,
+                   edge_dst: torch.Tensor, num_rows: int,
+                   in_degree: torch.Tensor, impl: str = "segment",
+                   chunk: int = 512) -> torch.Tensor:
+    """The mean aggregator (the reference's AGGR_AVG, ``gnn.h:75-80``):
+    the :func:`aggregate` sum over the real in-degree, ``max(deg, 1)``
+    cast to the sum's dtype, as the JAX package divides."""
+    s = aggregate(feats, edge_src, edge_dst, num_rows, impl=impl,
+                  chunk=chunk)
+    deg = in_degree.to(s.dtype).clamp_min(1.0)
+    return s / deg[:, None]

@@ -1,4 +1,5 @@
-"""Dense ops: linear, activations, dropout (``roc_tpu/ops/dense.py``).
+"""Dense ops: linear (whole or in row blocks), activations, dropout
+(``roc_tpu/ops/dense.py``).
 
 - Activations: none, relu, sigmoid and elu (alpha 1, as ``jax.nn.elu``;
   both take slope 1 at 0 in the backward, the negative branch's).
@@ -54,6 +55,21 @@ def linear(x: torch.Tensor, w: torch.Tensor,
     """x: [V, in] @ w: [in, out], with an optional activation, in the
     inputs' dtype (fp32 accumulation in bf16, see the module doc)."""
     return _ACTIVATIONS[activation](torch.matmul(x, w))
+
+
+def linear_chunked(x: torch.Tensor, w: torch.Tensor,
+                   activation: str = AC_MODE_NONE,
+                   block: int = 65536) -> torch.Tensor:
+    """:func:`linear` over ``block``-row blocks of ``x``, concatenated:
+    the chunked output head (``TrainConfig.head_chunk``, the JAX
+    package's ``linear_chunked``).  Each output row is the same dot
+    product over the whole ``in`` axis as :func:`linear`'s; the weight
+    gradient sums the row blocks' products, another fp32 order.  One
+    block or fewer is :func:`linear` itself."""
+    if x.shape[0] <= block:
+        return linear(x, w, activation)
+    return torch.cat([linear(xb, w, activation)
+                      for xb in torch.split(x, block, dim=0)], dim=0)
 
 
 def activation(x: torch.Tensor, mode: str) -> torch.Tensor:

@@ -75,12 +75,13 @@ from ..core.graph import MASK_NONE
 from ..core.partition import (PartitionedGraph, PartitionPlan,
                               partition_col, partition_plan,
                               plan_from_bounds)
-from ..models.builder import (AGGR_IMPLS, ELL_IMPLS, HALOS, KERNEL_IMPLS,
-                              GraphContext, Model)
+from ..models.builder import (AGGR_IMPLS, EDGE_IMPLS, ELL_IMPLS, HALOS,
+                              KERNEL_IMPLS, GraphContext, Model)
 from ..obs.events import emit
 from ..ops.norm import inv_sqrt_degree, inv_sqrt_degree_np
 from ..train.trainer import (TrainConfig, Trainer, layout_options,
-                             resolve_mesh, resolve_partition)
+                             resolve_head_chunk, resolve_mesh,
+                             resolve_partition)
 
 # torch.distributed's one-tensor all-gather: ``all_gather_single`` where
 # the installed torch has it (the name that replaces the deprecated one),
@@ -98,18 +99,23 @@ def remap_col_to_padded(plan, col: np.ndarray) -> np.ndarray:
     global id g living in part p maps to ``p * part_nodes + (g -
     node_offset[p])``; the dummy source maps to ``num_parts *
     part_nodes``."""
+    col = np.asarray(col)
+    dummy = plan.num_parts * plan.part_nodes
+    if col.size and (int(col.min()) < 0 or int(col.max()) > plan.num_nodes):
+        raise ValueError("column ids outside [0, num_nodes]")
+    # per source id (and the dummy id num_nodes), the shift to its padded
+    # row: an id of part p moves by p * part_nodes - node_offset[p]
     offsets = np.asarray([l for l, _ in plan.bounds] + [plan.num_nodes],
                          dtype=np.int64)
-    col = np.asarray(col, dtype=np.int64)
-    dummy = plan.num_parts * plan.part_nodes
-    out = np.full(col.shape, dummy, dtype=np.int64)
-    real = col < plan.num_nodes
-    g = col[real]
-    p = np.searchsorted(offsets[1:plan.num_parts + 1], g, side="right")
-    out[real] = p * plan.part_nodes + (g - offsets[p])
-    if not ((out <= dummy).all() and (out >= 0).all()):
+    p = np.searchsorted(offsets[1:plan.num_parts + 1],
+                        np.arange(plan.num_nodes, dtype=np.int64),
+                        side="right")
+    shift = np.append(p * plan.part_nodes - offsets[p],
+                      dummy - plan.num_nodes).astype(np.int32)
+    out = col.astype(np.int32, copy=False) + shift[col]
+    if out.size and (int(out.min()) < 0 or int(out.max()) > dummy):
         raise ValueError("column ids outside [0, num_nodes]")
-    return out.astype(np.int32)
+    return out
 
 
 def remap_to_padded(pg: PartitionedGraph) -> np.ndarray:
@@ -883,6 +889,14 @@ class DistributedTrainer(Trainer):
                 f"{impl!r} — build it with the same aggr_impl (note: "
                 f"'auto' resolves by the graph's size, and attention and "
                 f"MAX models route by their own rule)")
+        if impl in EDGE_IMPLS and data.edge_src.shape[-1] != \
+                plan.part_edges:
+            # a flat-edge route would sum whatever edges the arrays hold
+            raise ValueError(
+                f"injected data carries edge stubs (shape "
+                f"{tuple(data.edge_src.shape)}) but the resolved aggr_impl "
+                f"{impl!r} reads the flat edge arrays — build the data "
+                f"with the same aggr_impl")
         if impl == "bdense" and data.bd_group != cfg.bdense_group:
             raise ValueError(
                 f"injected data was built with bdense_group="
@@ -914,7 +928,9 @@ class DistributedTrainer(Trainer):
             gather_features=self.comm.gather,
             gathered_rows=plan.padded_num_nodes, halo=cfg.halo,
             ring_comm=self.comm if cfg.halo == "ring" else None,
-            ring_overlap=cfg.ring_overlap, **d.context_tables())
+            ring_overlap=cfg.ring_overlap,
+            head_chunk=resolve_head_chunk(cfg, plan.part_nodes),
+            **d.context_tables())
 
     def _bdense_record(self, occ: dict) -> Tuple[dict, ...]:
         """Every part's block count (one collective), with this part's

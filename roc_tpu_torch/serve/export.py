@@ -80,7 +80,9 @@ def _num_classes(model) -> Optional[int]:
 
 def _graph_context(model, dataset, config, device):
     """The trainer's graph context of a resolved ``(model, config)``: the
-    same route, tables and baked normalization (Trainer._place)."""
+    same route, tables and baked normalization (Trainer._place), with
+    the head unchunked (``head_chunk`` 0), as the JAX package's export
+    builds it."""
     return make_graph_context(dataset, config.aggr_impl,
                               symmetric=config.symmetric, device=device,
                               chunk=config.chunk,

@@ -6,24 +6,31 @@ that the port covers: the reference's flags (``gnn.cc:114-179``) —
 ``-verbose/-v`` — and ``--model`` (every family of
 ``models.model_builders()``: gcn, sage, gin, gat, sgc, appnp, gcn2) with
 its knobs ``--heads``, ``--hops``, ``--alpha``, ``--lam`` and
-``--learn-eps``, ``--impl``, ``--fuse``, ``--dtype``,
+``--learn-eps``, ``--impl``, ``--fuse``, ``--dtype``, ``--head-chunk``,
 ``--eval-every``, ``--parts``, ``--mesh``, ``--dist-backend``, ``--halo``,
 ``--partition``, ``--rebalance``, ``--cpu``, the memory
 flags ``--memory``, ``--features``, ``--remat`` and ``--prefetch``, and the
 checkpoint and recovery flags ``--checkpoint``, ``--checkpoint-every``,
 ``--resume``, ``--recovery``, ``--max-retries``, ``--preempt-grace``,
-``--async-save``, ``--fault`` and ``--events``, with the JAX CLI's
-meanings and exit codes.  ``--impl``
+``--async-save``, ``--fault`` and ``--events``, and ``--eval-only`` and
+``--save-logits``, with the JAX CLI's meanings and exit codes.  ``--impl``
 takes the ported counterparts of the JAX CLI's choices: ``auto`` (the
 default, as in the JAX CLI: the JAX rule, 'ell', 'sectioned' or
 'flat_sum' by the graph's size, through this card's row,
 train/trainer.py ``resolve_auto_impl_probed``, with a ``resolve`` event
 giving the JAX rule's answer beside the route), ``cuda`` (its
-``pallas``), ``ell``, ``segment`` and the large-graph layouts
-``sectioned``, ``flat_sum`` and ``bdense``;
+``pallas``), ``ell``, ``segment``, the chunked edge-list sums
+``blocked`` and ``scan`` and the large-graph layouts ``sectioned``,
+``flat_sum`` and ``bdense``;
 ``--dtype`` its ``float32``, ``bfloat16`` and ``mixed``
 (train/trainer.py ``resolve_dtypes``); ``--reorder bfs|lpa`` relabels
-the vertices before training (core/reorder.py), with a ``plan`` event.
+the vertices before training (core/reorder.py), with a ``plan`` event;
+``--head-chunk`` sets the classification head's row block
+(train/trainer.py ``resolve_head_chunk``).  ``--eval-only`` runs one
+inference pass, typically after ``--resume``, prints its ``[INFER]``
+line and exits 0; ``--save-logits PATH`` writes the ``[V, C]`` fp32
+logits as ``.npy`` after training or that pass, in the original vertex
+order under ``--reorder``.
 ``--memory auto`` (the default, as in the JAX CLI) lets the memory
 autopilot (core/memory.py) choose between device-resident and
 host-streamed features and rematerialisation by the device's memory; an
@@ -94,8 +101,8 @@ from ..models import model_builders
 from .trainer import DTYPE_MODES
 
 # the JAX CLI's --impl choices that have a ported route, by port name
-IMPLS = ("cuda", "ell", "segment", "auto", "sectioned", "flat_sum",
-         "bdense")
+IMPLS = ("cuda", "ell", "segment", "blocked", "scan", "auto", "sectioned",
+         "flat_sum", "bdense")
 DIST_BACKENDS = ("nccl", "gloo")
 
 
@@ -150,7 +157,8 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
                          "'flat_sum' from 20M edges) through this card's "
                          "measured row; cuda = the hand-written kernels "
                          "(K1 -> K4 -> K2), ell / segment = the plain "
-                         "PyTorch sums, sectioned / flat_sum / bdense = "
+                         "PyTorch sums, blocked / scan = the chunked "
+                         "edge-list sums, sectioned / flat_sum / bdense = "
                          "the large-graph layouts")
     ap.add_argument("--reorder", default="none",
                     choices=["none", "bfs", "lpa"],
@@ -183,6 +191,19 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
                     help="staging-pool depth for --features host: blocks "
                          "the background stager runs ahead (auto = 1, "
                          "double-buffered; 0 = synchronous)")
+    ap.add_argument("--head-chunk", default="auto",
+                    help="chunked output head: the classification-head "
+                         "linear in blocks of this many vertex rows "
+                         "(the same values; dW to fp32 rounding); "
+                         "'auto' (default) chunks at 65536 rows once the "
+                         "rows reach 262144, 0 disables")
+    ap.add_argument("--eval-only", action="store_true",
+                    help="run one inference pass (typically with "
+                         "--resume), print its [INFER] line and exit")
+    ap.add_argument("--save-logits", type=str, default=None,
+                    help="write the [V, C] inference logits here (.npy, "
+                         "float32, the ORIGINAL vertex order even under "
+                         "--reorder) after training or --eval-only")
     ap.add_argument("--eval-every", type=int, default=5)
     ap.add_argument("--parts", type=int, default=1,
                     help="graph partitions, one per rank (launch N > 1 "
@@ -289,11 +310,18 @@ def main(argv: Optional[List[str]] = None) -> int:
     if args.max_retries < 0:
         print("error: --max-retries must be >= 0", file=sys.stderr)
         return 2
-    from .trainer import TrainConfig, resolve_mesh, resolve_prefetch
+    from .trainer import (TrainConfig, resolve_head_chunk, resolve_mesh,
+                          resolve_prefetch)
     try:
         resolve_prefetch(TrainConfig(prefetch=args.prefetch))
     except ValueError as e:
         print(f"error: --prefetch: {e}", file=sys.stderr)
+        return 2
+    # the trainer's validator, as for --prefetch
+    try:
+        resolve_head_chunk(TrainConfig(head_chunk=args.head_chunk), 1 << 30)
+    except ValueError as e:
+        print(f"error: --head-chunk: {e}", file=sys.stderr)
         return 2
     # the JAX CLI's validator: the same PxM vocabulary and checks
     try:
@@ -393,11 +421,12 @@ def _train(args, layers, model, device, rank, ranks) -> int:
     else:
         ds = synthetic_dataset(512, 8, in_dim=layers[0],
                                num_classes=layers[-1], seed=args.seed)
+    perm = None
     if args.reorder != "none":
         from ..core.reorder import ORDERINGS, apply_vertex_order
         t0 = time.time()
-        ds, _ = apply_vertex_order(ds, ORDERINGS[args.reorder](ds.graph),
-                                   order_name=args.reorder)
+        ds, perm = apply_vertex_order(ds, ORDERINGS[args.reorder](ds.graph),
+                                      order_name=args.reorder)
         emit("plan", f"reorder={args.reorder} applied in "
              f"{time.time() - t0:.1f}s", reorder=args.reorder,
              reorder_s=round(time.time() - t0, 2))
@@ -414,7 +443,7 @@ def _train(args, layers, model, device, rank, ranks) -> int:
               f"prefetch={args.prefetch} "
               f"parts={args.parts} mesh={args.mesh} halo={args.halo} "
               f"partition={args.partition} rebalance={args.rebalance} "
-              f"device={device}",
+              f"head_chunk={args.head_chunk} device={device}",
               file=sys.stderr)
     dtype, compute_dtype = resolve_dtypes(args.dtype)
     memory = args.memory
@@ -431,7 +460,7 @@ def _train(args, layers, model, device, rank, ranks) -> int:
         async_save=args.async_save, fault=args.fault, memory=memory,
         features=args.features, remat=args.remat, prefetch=args.prefetch,
         halo=args.halo, partition=args.partition, rebalance=args.rebalance,
-        mesh=args.mesh)
+        mesh=args.mesh, head_chunk=args.head_chunk)
     if args.recovery or args.preempt_grace is not None:
         preempt.install(args.preempt_grace if args.preempt_grace is not None
                         else preempt.DEFAULT_GRACE_S)
@@ -445,6 +474,31 @@ def _train(args, layers, model, device, rank, ranks) -> int:
         restore_trainer(trainer, args.resume)
         emit("run", f"resumed from {args.resume} at epoch "
              f"{trainer.epoch}", epoch=trainer.epoch)
+
+    def save_logits():
+        if not args.save_logits:
+            return
+        import numpy as np
+        # every rank takes part in a partitioned predict; rank 0 writes
+        logits = trainer.predict().float().cpu().numpy()
+        if rank != 0:
+            return
+        if perm is not None:
+            # row i of the reordered graph is original vertex perm[i]
+            out = np.empty_like(logits)
+            out[perm] = logits
+            logits = out
+        np.save(args.save_logits, logits)
+        emit("run", f"logits [{logits.shape[0]}, {logits.shape[1]}] "
+             f"saved to {args.save_logits}", path=args.save_logits)
+
+    if args.eval_only:
+        from .trainer import format_metrics
+        m = trainer.evaluate()
+        if rank == 0:
+            print(format_metrics(trainer.epoch, m), flush=True)
+        save_logits()
+        return 0
     t0 = time.perf_counter()
     remaining = args.epochs - trainer.epoch
     try:
@@ -502,6 +556,7 @@ def _train(args, layers, model, device, rank, ranks) -> int:
         checkpoint_trainer(trainer, args.checkpoint)
         emit("run", f"checkpoint saved to {args.checkpoint}",
              path=args.checkpoint)
+    save_logits()
     return 0
 
 

@@ -33,9 +33,11 @@ from typing import Any, Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
-from ..core.ell import (CARD_ROWS, FLAT_SUM_MIN_EDGES, default_section_rows,
-                        ell_from_graph, flat_sum_from_graph, jax_auto_impl,
-                        port_route, sectioned_from_graph)
+from ..core.ell import (CARD_ROWS, FLAT_SUM_MIN_EDGES, JAX_ROUTE,
+                        default_section_rows, ell_from_graph,
+                        flat_sum_from_graph, jax_auto_impl,
+                        port_attention_route, port_route,
+                        sectioned_from_graph)
 from ..core.graph import Dataset, check_symmetric
 from ..core.partition import padded_edge_list
 from ..models.builder import (AGGR_IMPLS, AGGREGATE_KINDS, EDGE_IMPLS,
@@ -56,7 +58,8 @@ class TrainConfig:
 
     aggr_impl: 'cuda' (the hand-written ELL kernels, the JAX package's
       'pallas'), 'cuda_csr' (the hand-written CSR kernel K3, its
-      'pallas_csr'), the plain 'ell' / 'segment', the large-graph
+      'pallas_csr'), the plain 'ell' / 'segment', the chunked edge-list
+      sums 'blocked' / 'scan', the large-graph
       layouts 'sectioned' / 'flat_sum' / 'bdense' (and 'attn_flat8',
       which the resolver gives attention models), or 'auto'
       (:func:`resolve_auto_impl_probed`).
@@ -119,6 +122,12 @@ class TrainConfig:
       where each part's M model ranks keep the params and Adam moments
       sharded at rest (parallel/distributed.py ``DistributedTrainer``).
       The single-device :class:`Trainer` takes 'auto' and '1x1' only.
+    head_chunk: the classification head's row block
+      (:func:`resolve_head_chunk`): 'auto' takes ``HEAD_CHUNK_ROWS`` once
+      the trainer's rows (a part's on a partitioned run) reach
+      ``HEAD_CHUNK_AUTO_MIN_ROWS``, an int >= 0 is the block (0: one
+      product).  The same values either way up to fp32 rounding of the
+      weight gradient (ops/dense.py ``linear_chunked``).
     """
     learning_rate: float = 0.01
     weight_decay: float = 0.05
@@ -155,6 +164,7 @@ class TrainConfig:
     rebalance_gain: float = 0.10
     rebalance_max: int = 2
     mesh: Any = "auto"
+    head_chunk: Any = "auto"
 
 
 # the TrainConfig fields that shape the layouts' tables
@@ -262,6 +272,34 @@ def resolve_prefetch(config: TrainConfig) -> int:
     if depth < 0:
         raise ValueError(f"prefetch must be >= 0, got {depth}")
     return depth
+
+
+# The chunked head's block, the streamed head's staging block
+# (core/streaming.py), and the rows from which 'auto' chunks: the JAX
+# package's constants.
+HEAD_CHUNK_ROWS = 65_536
+HEAD_CHUNK_AUTO_MIN_ROWS = 262_144
+
+
+def resolve_head_chunk(config: TrainConfig, num_rows: int) -> int:
+    """``TrainConfig.head_chunk`` -> the row block the graph context
+    carries (0: unchunked), the JAX package's rule (the CLI's
+    ``--head-chunk`` goes through this too): 'auto' is
+    :data:`HEAD_CHUNK_ROWS` from :data:`HEAD_CHUNK_AUTO_MIN_ROWS` rows
+    on, else 0; an int >= 0 is taken as it is, and a block of
+    ``num_rows`` or more is 0 (one block is the plain product)."""
+    hc = config.head_chunk
+    if hc == "auto":
+        return (HEAD_CHUNK_ROWS
+                if num_rows >= HEAD_CHUNK_AUTO_MIN_ROWS else 0)
+    try:
+        block = int(hc)
+    except (TypeError, ValueError):
+        raise ValueError(f"unknown head_chunk {hc!r}; expected 'auto' "
+                         "or an int >= 0") from None
+    if block < 0:
+        raise ValueError(f"head_chunk must be >= 0, got {block}")
+    return 0 if block >= num_rows else block
 
 
 def remat_policy(config: TrainConfig) -> Optional[str]:
@@ -458,7 +496,8 @@ def resolve_auto_impl_early(model: Model, config: TrainConfig, graph,
 
 
 def resolve_attention_impl(model: Model, config: TrainConfig,
-                           dataset: Optional[Dataset] = None
+                           dataset: Optional[Dataset] = None,
+                           device_kind: Optional[str] = None
                            ) -> TrainConfig:
     """The JAX package's model-driven route rule on the port's routes
     ('cuda' plays its 'pallas', 'cuda_csr' its 'pallas_csr').  An
@@ -467,10 +506,13 @@ def resolve_attention_impl(model: Model, config: TrainConfig,
     'segment' and 'flat_sum' keep a MAX/MIN model.  Otherwise, with
     ``dataset`` past the edge thresholds an attention model goes to
     'attn_flat8' and a MAX/MIN model to 'flat_sum', and below them to
-    'ell' ('cuda' for an 'auto' request: the JAX rule's 'ell'), each with
-    a ``resolve`` event.  'attn_flat8' on a model without attention
-    raises, and so does an attention or MAX/MIN model on the ring halo
-    (the JAX package's message)."""
+    'ell', each with a ``resolve`` event naming the JAX rule's answer
+    (``jax_resolves``).  An 'auto' request takes the port's counterpart
+    of that answer: 'cuda' for 'ell', and for an attention model the
+    attention entry of the row of ``device_kind``
+    (core/ell.py ``port_attention_route``).  'attn_flat8' on a model
+    without attention raises, and so does an attention or MAX/MIN model
+    on the ring halo (the JAX package's message)."""
     why = ("attention" if model.uses_attention()
            else "MAX/MIN aggregation" if model.uses_max_aggregation()
            else None)
@@ -492,15 +534,23 @@ def resolve_attention_impl(model: Model, config: TrainConfig,
     flat, limit = (("attn_flat8", ATTN_FLAT8_MIN_EDGES) if why == "attention"
                    else ("flat_sum", FLAT_SUM_MIN_EDGES))
     E = None if dataset is None else int(dataset.graph.num_edges)
-    if E is not None and E >= limit:
-        emit("resolve", f"aggr_impl={config.aggr_impl!r} -> {flat!r} "
-             f"({why} at E={E:,}: the flat layout)",
-             requested=config.aggr_impl, resolved=flat, why=why)
-        return dataclasses.replace(config, aggr_impl=flat)
-    to = port_route("ell") if config.aggr_impl == "auto" else "ell"
-    emit("resolve", f"aggr_impl={config.aggr_impl!r} -> {to!r} ({why} "
-         "model needs the ELL tables)", requested=config.aggr_impl,
-         resolved=to, why=why)
+    past = E is not None and E >= limit
+    jax_to = flat if past else "ell"
+    to = jax_to
+    if config.aggr_impl == "auto":
+        to = (port_attention_route(jax_to, device_kind)
+              if why == "attention" else JAX_ROUTE.get(jax_to, jax_to))
+    reason = (f"{why} at E={E:,}: the flat layout" if past
+              else f"{why} model needs the ELL tables")
+    row = CARD_ROWS.get(device_kind) if device_kind else None
+    if row is not None and why == "attention" and \
+            to != JAX_ROUTE.get(jax_to, jax_to):
+        reason += (f"; the JAX rule takes {jax_to!r}, and on "
+                   f"{device_kind} {to!r} won the race "
+                   f"({row.attention_source})")
+    emit("resolve", f"aggr_impl={config.aggr_impl!r} -> {to!r} ({reason})",
+         requested=config.aggr_impl, resolved=to, why=why,
+         jax_resolves=jax_to, device_kind=device_kind)
     return dataclasses.replace(config, aggr_impl=to)
 
 
@@ -538,7 +588,8 @@ def resolve_config(model: Model, dataset: Optional[Dataset],
     elif config.memory != "manual":
         raise ValueError(f"unknown memory {config.memory!r}; expected "
                          "'auto' or 'manual'")
-    return model, resolve_attention_impl(model, config, dataset)
+    return model, resolve_attention_impl(model, config, dataset,
+                                         device_kind=card_kind(device))
 
 
 def resolve_symmetric(dataset, symmetric: Optional[bool]) -> bool:
@@ -821,6 +872,8 @@ class Trainer:
             device=self.device, chunk=self.config.chunk,
             fuse=self.model.num_fused_aggregates() > 0,
             **layout_options(self.config))
+        self.gctx.head_chunk = resolve_head_chunk(self.config,
+                                                  self.gctx.num_rows)
 
     def _place_host(self, dataset: Dataset, symmetric: bool) -> None:
         """``features='host'``: split the model at its streamable head
@@ -873,6 +926,7 @@ class Trainer:
                 in_degree=in_degree, inv_sqrt_deg=inv_sqrt_degree(in_degree),
                 num_rows=dataset.graph.num_nodes, aggr_impl="segment",
                 symmetric=symmetric)
+        self.gctx.head_chunk = resolve_head_chunk(cfg, self.gctx.num_rows)
 
     def _reduce(self, tensors: List[torch.Tensor]) -> List[torch.Tensor]:
         """The sums over every trainer of a run: ``tensors`` themselves

@@ -977,3 +977,69 @@ def test_sharded_router_on_the_card_matches_the_predictor(dev, tmp_path,
         stats = router.stats()
     assert stats["n_ok"] == len(batches) and stats["gather_p50_ms"]
     assert [r["shard"] for r in stats["replicas"]] == man["shards"]["plan"]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("impl", ["blocked", "scan"])
+def test_chunked_edge_routes_on_the_card_match_segment(dev, impl, dtype):
+    """'blocked' and 'scan' on the card against the plain 'segment' sum on
+    the same inputs (fp32 sums in other orders: rtol 1e-5, atol 1e-5 of
+    the largest row; bf16: both sum in fp32 and round once, within one
+    bf16 ulp of the segment's fp32 sum), in one run of chunks and in
+    runs of 2; the forward of each also under autograd, whose gradient
+    equals the segment route's on a symmetric graph's transpose."""
+    from roc_tpu_torch.core.partition import padded_edge_list
+    from roc_tpu_torch.ops import aggregate as agg
+    ds = synthetic_dataset(3_000, 20, in_dim=8, num_classes=3, seed=4)
+    g = ds.graph
+    V = g.num_nodes
+    src, dst = (torch.from_numpy(a).to(dev)
+                for a in padded_edge_list(g, multiple=128))
+    x = torch.zeros(V + 1, 41, device=dev)
+    x[:V] = torch.randn(V, 41, generator=torch.Generator(device=dev)
+                        .manual_seed(3), device=dev)
+    x = x.to(dtype)
+    want = agg.aggregate_segment(x.float(), src, dst, V)
+    fn = getattr(agg, f"aggregate_{impl}")
+    for budget in (agg.LAYOUT_BUDGET_ELEMS, 2 * 128 * 41):
+        got = fn(x, src, dst, V, chunk=128, budget_elems=budget)
+        assert got.dtype == dtype and got.device.type == "cuda"
+        if dtype == torch.float32:
+            torch.testing.assert_close(
+                got, want, rtol=1e-5,
+                atol=1e-5 * float(want.abs().max()))
+        else:
+            ulp = torch.pow(2.0, torch.floor(torch.log2(
+                want.abs().clamp_min(2.0 ** -126))) - 7)
+            assert bool(((got.float() - want).abs() <= ulp).all())
+    if dtype == torch.float32:
+        xr = x.clone().requires_grad_(True)
+        cot = torch.randn(V, 41, device=dev)
+        (gx,) = torch.autograd.grad(fn(xr, src, dst, V, chunk=128), xr, cot)
+        xs = x.clone().requires_grad_(True)
+        (gs,) = torch.autograd.grad(agg.aggregate_segment(xs, src, dst, V),
+                                    xs, cot)
+        torch.testing.assert_close(gx, gs, rtol=1e-5,
+                                   atol=1e-5 * float(gs.abs().max()))
+
+
+def test_linear_chunked_on_the_card(dev):
+    """The chunked head on the card: each row block's product against the
+    whole product (rtol 1e-5: cuBLAS may tile another row count another
+    way), the weight gradient summed by blocks within rtol 1e-5, and one
+    block is the whole product."""
+    from roc_tpu_torch.ops.dense import linear, linear_chunked
+    gen = torch.Generator(device=dev).manual_seed(5)
+    x = torch.randn(70_001, 256, generator=gen, device=dev,
+                    requires_grad=True)
+    w = torch.randn(256, 41, generator=gen, device=dev, requires_grad=True)
+    cot = torch.randn(70_001, 41, generator=gen, device=dev)
+    outs = []
+    for fn in (lambda: linear_chunked(x, w, "relu", block=16_384),
+               lambda: linear(x, w, "relu")):
+        y = fn()
+        outs.append((y, *torch.autograd.grad(y, (x, w), cot)))
+    for a, b in zip(*outs):
+        torch.testing.assert_close(a, b, rtol=1e-5,
+                                   atol=1e-5 * float(b.abs().max()))
+    assert torch.equal(linear_chunked(x, w, block=70_001), linear(x, w))

@@ -78,8 +78,9 @@ def test_convert_round_trip(rig):
     assert convert.aggr_impl_from_jax("pallas") == "cuda"
     assert convert.aggr_impl_to_jax("cuda") == "pallas"
     assert convert.aggr_impl_from_jax("sectioned") == "sectioned"
+    assert convert.aggr_impl_from_jax("blocked") == "blocked"
     with pytest.raises(ValueError):
-        convert.aggr_impl_from_jax("blocked")
+        convert.aggr_impl_from_jax("tiled")
 
 
 @pytest.mark.parametrize("fuse", ["auto", "off"])

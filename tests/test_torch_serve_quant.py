@@ -287,7 +287,8 @@ def test_fp8_gathers_through_byte_codes(data):
 
 
 def test_full_artifact_on_an_unported_layout_is_refused(data, tmp_path):
-    """A full-backend artifact resolved to a JAX layout the port lacks
+    """A full-backend artifact resolved to a layout the port lacks (a
+    name no route of either package has, every JAX layout being ported)
     raises NotImplementedError naming it; a full artifact loaded without
     its dataset, or with another graph, raises ValueError."""
     _, ds = data
@@ -303,10 +304,10 @@ def test_full_artifact_on_an_unported_layout_is_refused(data, tmp_path):
     path = os.path.join(art, "serve_manifest.json")
     with open(path) as f:
         man = json.load(f)
-    man["config"]["aggr_impl"] = "blocked"
+    man["config"]["aggr_impl"] = "tiled"
     with open(path, "w") as f:
         json.dump(man, f)
-    with pytest.raises(NotImplementedError, match="blocked"):
+    with pytest.raises(NotImplementedError, match="tiled"):
         load_predictor(art, dataset=ds, device="cpu")
 
 

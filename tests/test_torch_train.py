@@ -265,13 +265,14 @@ def test_convert_maps_the_edge_routes():
     assert convert.aggr_impl_from_jax("pallas_csr") == "cuda_csr"
     assert convert.aggr_impl_to_jax("cuda_csr") == "pallas_csr"
     assert convert.aggr_impl_from_jax("segment") == "segment"
+    assert convert.aggr_impl_from_jax("scan") == "scan"
     with pytest.raises(ValueError):
-        convert.aggr_impl_from_jax("scan")
+        convert.aggr_impl_from_jax("tiled")
 
 
 def test_edge_list_dispatcher_and_k3_contract():
     """aggregate(impl=) takes the JAX contract (a trailing zero row) for
-    both ported impls; K3 keeps the JAX function's chunk assertion."""
+    every ported impl; K3 keeps the JAX function's chunk assertion."""
     g = _hub_graph()
     V = g.num_nodes
     src, dst = (torch.from_numpy(a) for a in padded_edge_list(g, 64))
@@ -281,8 +282,12 @@ def test_edge_list_dispatcher_and_k3_contract():
     a = aggregate(feats, src, dst, V, impl="segment")
     b = aggregate(feats, src, dst, V, impl="cuda_csr", chunk=64)
     torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-5)
+    for impl in ("blocked", "scan"):
+        torch.testing.assert_close(
+            aggregate(feats, src, dst, V, impl=impl, chunk=64), a,
+            rtol=1e-5, atol=1e-5)
     with pytest.raises(ValueError, match="not ported"):
-        aggregate(feats, src, dst, V, impl="blocked")
+        aggregate(feats, src, dst, V, impl="pallas")
     with pytest.raises(ValueError, match="chunk multiple"):
         csr_spmm(feats[:V], src[:-1], dst[:-1], V, chunk=64)
     n = csr_spmm.launches
