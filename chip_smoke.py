@@ -264,12 +264,24 @@ Phases (any failure exits nonzero):
    (head_chunk 0), 'blocked' and 'scan' (objectives within 1e-4 of
    'cuda''s, no kernel launched, each run's step ms and the card's peak)
    and on 'auto' with head_chunk 65536 (K1, K2, K4; within 1e-5); the
-   CLI on a 16,384-row file set in the reference's format, 3 epochs with
-   ``--checkpoint``, then ``--resume --eval-only --save-logits
-   --reorder bfs`` (the logits in the original order within 1e-4 of
-   ``Trainer.predict`` on the unreordered graph); SAGE-pool 100-256-47
-   at the products shape on 'ell' (the checkpointed ELL max), 2 steps
-   in 'mixed', its peak.
+   run telemetry (:func:`telemetry`): the same GCN from the same weights,
+   dropout 0.5, 6 epochs with an eval every 5, in fp32 and 'mixed', each
+   with telemetry on (events, ``metrics_path``, and on fp32
+   ``profile_dir``) and off (the bare step slots): the manifest (the
+   card, 'cuda', the modeled bytes), the first step's ``compile`` event
+   (its kernel FLOPs equal to the wrappers' launches at their shapes,
+   the whole within 10 % of :func:`gcn_step_flops`; the peak and the
+   memory model's ratio printed), the eval record's ``tflops_per_s`` and
+   ``mfu`` in (0, 1], every objective bit-equal on and off, the trace's
+   ``roc_`` ranges, phases and device kernels, and ``python -m
+   roc_tpu_torch.report`` on the files; the CLI on a 16,384-row file set
+   in the reference's format, 3 epochs with ``--checkpoint`` and
+   ``--events --metrics --profile-dir`` (the report on its files), again
+   with ``--events`` alone (``epoch_ms`` side by side), then ``--resume
+   --eval-only --save-logits --reorder bfs`` (the logits in the original
+   order within 1e-4 of ``Trainer.predict`` on the unreordered graph);
+   SAGE-pool 100-256-47 at the products shape on 'ell' (the checkpointed
+   ELL max), 2 steps in 'mixed', its peak.
 
 ``python3 chip_smoke.py --attention-race [out.json]`` runs only the race
 behind core/ell.py ``CARD_ROWS``'s attention entry: GAT 100-256-47 at
@@ -390,7 +402,8 @@ def device_ms(torch, fn, n):
 
 def bound_ms(nbytes, nops):
     """The card's least time: the larger of bytes over the memory rate
-    and operations over the fp32 rate."""
+    and operations (kernels/_build.py ``kernel_ops``, the count the
+    first-step observer's tally uses) over the fp32 rate."""
     tb = nbytes / HBM_BYTES_PER_S * 1e3
     to = nops / FP32_FLOPS * 1e3
     return max(tb, to), ("bytes" if tb >= to else "operations")
@@ -504,6 +517,7 @@ def kernel_checks(torch, dev, gctx, adj, num_edges, esrc, edst, dtype,
     :func:`sum_check`; every kernel gives the same bits on a second
     launch.  Returns the per-kernel table entries."""
     from roc_tpu_torch.kernels import ell_spmm, graphnorm, spmm
+    from roc_tpu_torch.kernels._build import kernel_ops
     gen = torch.Generator(device=dev).manual_seed(SEED + 1)
     bf16 = dtype == torch.bfloat16
     esize = 2 if bf16 else 4
@@ -613,7 +627,8 @@ def kernel_checks(torch, dev, gctx, adj, num_edges, esrc, edst, dtype,
             lambda: graphnorm.indegree_norm(x, deg),
             lambda: graphnorm.indegree_norm_plain(x, deg),
             lambda: x * d_lib[:, None],
-            2 * esize * vf + 4 * V, vf, 50, lib_call="x * d[:, None]",
+            2 * esize * vf + 4 * V, kernel_ops("indegree_norm", V, 0, F), 50,
+            lib_call="x * d[:, None]",
             copy=lambda: buf.copy_(x))
         # K2: 0 ulp
         lib = ((lambda: torch.relu(x * d_lib[:, None])) if act == "relu"
@@ -623,7 +638,7 @@ def kernel_checks(torch, dev, gctx, adj, num_edges, esrc, edst, dtype,
                   graphnorm.scale_act_plain(x, d, act)),
             lambda: graphnorm.scale_act(x, d, act),
             lambda: graphnorm.scale_act_plain(x, d, act), lib,
-            2 * esize * vf + 4 * V, vf * (2 if act == "relu" else 1), 50,
+            2 * esize * vf + 4 * V, kernel_ops("scale_act", V, 0, F), 50,
             lib_call=("relu(x * d[:, None])" if act == "relu"
                       else "x * d[:, None]"), copy=lambda: buf.copy_(x))
         if act == "relu":
@@ -640,7 +655,8 @@ def kernel_checks(torch, dev, gctx, adj, num_edges, esrc, edst, dtype,
                 lambda: graphnorm.indegree_norm(g, deg, relu_out=y),
                 lambda: graphnorm.indegree_norm_plain(g, deg, relu_out=y),
                 lambda: (g * (y > 0).to(dtype)) * d_lib[:, None],
-                3 * esize * vf + 4 * V, 2 * vf, 50,
+                3 * esize * vf + 4 * V,
+                kernel_ops("indegree_norm_masked", V, 0, F), 50,
                 lib_call="chain of calls: (g * (y > 0).to(dtype)) * "
                          "d[:, None]")
             del g, y
@@ -656,7 +672,7 @@ def kernel_checks(torch, dev, gctx, adj, num_edges, esrc, edst, dtype,
             lambda: ell_spmm.ell_aggregate_plain(x, idx, rid, V),
             library_call(lambda: torch.sparse.mm(adj, x)),
             2 * esize * vf + 4 * idx_entries + 4 * bucket_rows,
-            num_edges * F, 5)
+            kernel_ops("ell_aggregate", V, num_edges, F), 5)
         if not with_csr:
             del x, want, got
             continue
@@ -670,7 +686,8 @@ def kernel_checks(torch, dev, gctx, adj, num_edges, esrc, edst, dtype,
             lambda: spmm.csr_spmm(x, esrc, edst, V),
             lambda: spmm.csr_spmm_plain(x, esrc, edst, V),
             library_call(lambda: torch.sparse.mm(adj, x)),
-            2 * esize * vf + 8 * padded_edges, num_edges * F, 5)
+            2 * esize * vf + 8 * padded_edges,
+            kernel_ops("csr_spmm", V, num_edges, F), 5)
         del x, want, got
     for e in entries.values():
         e["bound_by"] = ("bytes" if e["_tb"] / HBM_BYTES_PER_S
@@ -3135,6 +3152,7 @@ def walk_k3_check(torch, ds):
     the source rows the chunk reads, its ids and its output once."""
     from roc_tpu_torch.core.streaming import BLOCK_ROWS, build_tile_plans
     from roc_tpu_torch.kernels import slicing, spmm
+    from roc_tpu_torch.kernels._build import kernel_ops
     dev = torch.device("cuda")
     F = LAYERS[0]
     t0 = time.perf_counter()
@@ -3163,7 +3181,7 @@ def walk_k3_check(torch, ds):
         size=(rows, t.src_rows), check_invariants=False)
     n_src = int(torch.unique(src[real]).numel())
     nbytes = 4 * (n_src * F + rows * F) + 8 * int(src.numel())
-    b, by = bound_ms(nbytes, n_real * F)
+    b, by = bound_ms(nbytes, kernel_ops("csr_spmm", rows, n_real, F))
     row = {"kernel": "csr_spmm", "dtype": "torch.float32",
            "shape": [t.src_rows, F, int(src.numel()), rows,
                      f"slice_cols={spmm.default_slice_cols(F)}"],
@@ -3663,6 +3681,7 @@ def _ring_hop_checks(torch, tr):
     ms, bound, plain and library (``torch.sparse.mm`` of the pair) times.
     Two ranks share the card: the times are a layout check."""
     from roc_tpu_torch.kernels import spmm
+    from roc_tpu_torch.kernels._build import kernel_ops
     from roc_tpu_torch.parallel.ring import RING_MULTIPLE
     d, pn, dev = tr.data, tr.plan.part_nodes, tr.device
     real = np.asarray(d.ring_real)
@@ -3709,7 +3728,8 @@ def _ring_hop_checks(torch, tr):
                     torch.ones(n, device=dev, dtype=dtype), size=(pn, pn),
                     check_invariants=False)
                 b, by = bound_ms(2 * pn * F * esize + n * 4
-                                 + (pn + 1) * 8, n * F)
+                                 + (pn + 1) * 8,
+                                 kernel_ops("csr_spmm", pn, n, F))
                 try:
                     lib = time_ms(torch, lambda: torch.sparse.mm(adj, x), 3)
                 except RuntimeError:
@@ -5516,11 +5536,14 @@ def edge_routes(torch, ds, params, counts):
 
 def cli_flags(torch, tmp, counts):
     """The CLI at the GCN's widths on a file set in the reference's
-    format: 3 epochs with --checkpoint, then --resume --eval-only
-    --save-logits under --reorder bfs (counted); the saved logits,
-    in the original order, against ``Trainer.predict`` of the
-    unreordered graph restored from the checkpoint (CLI_RTOL of the
-    logit scale)."""
+    format: 3 epochs with --checkpoint and the telemetry flags (--events,
+    --metrics, --profile-dir, an eval every epoch), the report on their
+    files (exit 0, the first-step, span and throughput rows), the same 3
+    epochs with --events alone (``epoch_ms`` beside the first run's, not
+    gated), then --resume --eval-only --save-logits under --reorder bfs;
+    each run counted; the saved logits, in the original order, against
+    ``Trainer.predict`` of the unreordered graph restored from the
+    checkpoint (CLI_RTOL of the logit scale)."""
     import io
     from roc_tpu_torch.core.graph import (load_dataset, save_dataset,
                                           synthetic_dataset)
@@ -5537,11 +5560,42 @@ def cli_flags(torch, tmp, counts):
                  prefix, csv=False)
     base = ["-file", prefix, "-layers", "-".join(map(str, LAYERS)),
             "-dropout", "0", "-e", str(CLI_EPOCHS)]
+    tele = {k: os.path.join(root, k) for k in ("events.jsonl",
+                                               "metrics.jsonl", "prof")}
+    ev_off = os.path.join(root, "events_off.jsonl")
+    from roc_tpu_torch.obs import events
+    counts.zero()
     t0 = time.perf_counter()
     buf = io.StringIO()
-    with contextlib.redirect_stdout(buf):
-        rc1 = cli.main(base + ["--checkpoint", ck])
-    train_s = time.perf_counter() - t0
+    try:
+        with contextlib.redirect_stdout(buf):
+            rc1 = cli.main(base + [
+                "--checkpoint", ck, "--eval-every", "1", "--events",
+                tele["events.jsonl"], "--metrics", tele["metrics.jsonl"],
+                "--profile-dir", tele["prof"]])
+        train_s = time.perf_counter() - t0
+        train_launches = counts.read(F32)
+        counts.zero()
+        with contextlib.redirect_stdout(io.StringIO()):
+            rc_off = cli.main(base + ["--eval-every", "1", "--events",
+                                      ev_off])
+        off_launches = counts.read(F32)
+    finally:
+        events.configure()
+    rc_report, text = _report(tele)
+    ms_on = [r["epoch_ms"] for r in map(json.loads, open(
+        tele["metrics.jsonl"]))]
+    ms_off = [r["epoch_ms"] for r in map(json.loads, open(ev_off))
+              if r["cat"] == "epoch" and "train_loss" in r]
+    _, kernels, _ = _trace_names(tele["prof"])
+    if (rc1, rc_off, rc_report) != (0, 0, 0) or "train_step" not in \
+            _report_rows(text, "first step (per step slot)") or not {
+            "train", "eval"} <= set(_report_rows(text, "phase spans (ms)")) \
+            or "tflops_per_s" not in _report_rows(text, "throughput") or \
+            not kernels.get("ell_bucket_sum"):
+        raise AssertionError(f"cli telemetry: exits {rc1}, {rc_off}, "
+                             f"report {rc_report}, trace kernels "
+                             f"{kernels}:\n{text}")
     counts.zero()
     t0 = time.perf_counter()
     buf2 = io.StringIO()
@@ -5565,7 +5619,10 @@ def cli_flags(torch, tmp, counts):
            "shape": list(got.shape), "dtype": str(got.dtype),
            "max_abs_err": err, "logit_scale": scale,
            "train_s": train_s, "eval_only_s": eval_s, "infer": lines,
-           "epoch": tr.epoch, "launches": launches}
+           "epoch": tr.epoch, "launches": launches,
+           "train_launches": train_launches, "off_launches": off_launches,
+           "telemetry_epoch_ms": {"on": ms_on, "off": ms_off},
+           "trace_device_kernels": kernels}
     del tr
     torch.cuda.empty_cache()
     if got.shape != want.shape or got.dtype != np.float32 or not (
@@ -5612,11 +5669,251 @@ def ell_max_products(torch, products_dir):
     return rec
 
 
+# the telemetry phase: epochs a run, the eval cadence, and how far the
+# first-step observer's FLOP count may lie from gcn_step_flops
+TELEMETRY_EPOCHS, TELEMETRY_EVAL_EVERY = 6, 5
+TELEMETRY_FLOPS_RTOL = 0.10
+TELEMETRY_MODES = (("float32", F32), ("mixed", BF16))
+
+
+def gcn_step_flops(V, E, layers=LAYERS):
+    """The analytic work of one training step of the fused GCN on 'cuda':
+    ``(matmul FLOPs, kernel operations)``.  The matmuls are every layer's
+    forward and weight gradient and every input gradient but the first
+    layer's (the features take none), 2·M·N·K each; a fused aggregation
+    runs K1, K4 and K2 once forward and once backward at its width
+    (kernels/_build.py ``kernel_ops``)."""
+    from roc_tpu_torch.kernels._build import kernel_ops
+    mm = [2 * V * a * b for a, b in zip(layers, layers[1:])]
+    kern = sum(2 * sum(kernel_ops(k, V, E, F) for k in (
+        "indegree_norm", "ell_aggregate", "scale_act"))
+        for F in layers[1:])
+    return 3 * sum(mm) - mm[0], kern
+
+
+def _telemetry_run(torch, ds, params, counts, root, mode, key, on,
+                   profile):
+    """``TELEMETRY_EPOCHS`` epochs of the GCN on 'cuda' in ``mode`` from
+    ``params``, dropout 0.5, an eval every ``TELEMETRY_EVAL_EVERY``,
+    counted (the counts zeroed just before the loop, read just after).
+    ``on``: through ``Trainer.train`` with its events in a JSONL under
+    ``root``, ``metrics_path`` and (``profile``) ``profile_dir``; off:
+    the same loop over the bare step slots (no first-step observer), no
+    file.  The card's peak is reset before the trainer is built."""
+    from roc_tpu_torch.obs import events
+    from roc_tpu_torch.train.trainer import run_epoch_loop
+    tag = f"{mode}_{'on' if on else 'off'}"
+    paths = {k: os.path.join(root, f"{tag}_{k}") for k in (
+        "events.jsonl", "metrics.jsonl", "prof")}
+    cfg = dict(epochs=TELEMETRY_EPOCHS, eval_every=TELEMETRY_EVAL_EVERY,
+               verbose=False)
+    if on:
+        cfg["metrics_path"] = paths["metrics.jsonl"]
+        if profile:
+            cfg["profile_dir"] = paths["prof"]
+    sink = events.JsonlSink(paths["events.jsonl"]) if on else None
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    bus = events.get_bus()
+    if sink is not None:
+        bus.add_sink(sink)
+    try:
+        tr = _trainer(ds, "cuda", 0.5, params=params, mode=mode, **cfg)
+        counts.zero()
+        t0 = time.perf_counter()
+        hist = (tr.train() if on else
+                run_epoch_loop(tr, None, tr.step, tr.evaluate))
+        tr.sync()
+        wall_s = time.perf_counter() - t0
+        launches = counts.read(key)
+        ops = sum(k.ops for k in counts.kernels)
+    finally:
+        if sink is not None:
+            bus.sinks.remove(sink)
+            sink.close()
+    rec = {"mode": mode, "on": on, "wall_s": wall_s,
+           "epoch_ms": [m["epoch_ms"] for m in hist],
+           "losses": torch.stack(tr.losses).double().cpu().tolist(),
+           "launches": launches, "kernel_ops": ops,
+           "buckets": len(tr.gctx.ell_idx),
+           "bucket_edges": sum(tr.gctx.ell_edges),
+           "modeled_bytes": tr.modeled_bytes, "hist": hist,
+           "paths": paths}
+    if on:
+        rec["events"] = [json.loads(ln) for ln in open(paths[
+            "events.jsonl"])]
+        rec["metrics"] = [json.loads(ln) for ln in open(paths[
+            "metrics.jsonl"])]
+    del tr
+    torch.cuda.empty_cache()
+    return rec
+
+
+def _report(paths):
+    """``python -m roc_tpu_torch.report`` on a run's event and metrics
+    files: its exit code and output."""
+    here = os.path.dirname(os.path.abspath(__file__))
+    r = subprocess.run(
+        [sys.executable, "-m", "roc_tpu_torch.report",
+         paths["events.jsonl"], "--metrics", paths["metrics.jsonl"]],
+        cwd=here, capture_output=True, text=True, timeout=120)
+    return r.returncode, r.stdout + r.stderr[-2000:]
+
+
+def _report_rows(out, title):
+    """The first words of the rows of a report's table ``title``."""
+    body = out.split(f"== {title} ==\n", 1)[1].split("\n\n")[0]
+    return [ln.split()[0] for ln in body.splitlines()[1:] if ln.strip()]
+
+
+def _trace_names(prof_dir):
+    """The event names of the one Chrome trace under ``prof_dir``, and
+    the device kernels' names by count."""
+    import glob
+    (path,) = glob.glob(os.path.join(prof_dir, "*.pt.trace.json"))
+    with open(path) as f:
+        evs = json.load(f)["traceEvents"]
+    kernels = {}
+    for e in evs:
+        if e.get("cat") == "kernel":
+            name = e.get("name", "")
+            for k in ("ell_bucket_sum", "row_scale_kernel", "csr_row_sum"):
+                if k in name:
+                    kernels[k] = kernels.get(k, 0) + 1
+    return {e.get("name") for e in evs}, kernels, os.path.getsize(path)
+
+
+def telemetry(torch, ds, params, counts, root):
+    """The trainer's run telemetry on the card: the GCN 602-256-41 at
+    Reddit's shape from phase 5's weights, fp32 and 'mixed', with
+    telemetry on (events, metrics, the profiler on fp32) and off; checks
+    the manifest, the first step's ``compile`` event (the kernels' FLOPs
+    equal to the wrappers' launches at their shapes, the whole within
+    ``TELEMETRY_FLOPS_RTOL`` of :func:`gcn_step_flops`, no degrade), each
+    eval record's fields (``mfu`` in (0, 1]), the objectives of every step
+    bit-equal on and off, the trace's ranges and kernels, and the report
+    on the run's files."""
+    kind = torch.cuda.get_device_name(0)
+    g = ds.graph
+    V, E = g.num_nodes, g.num_edges
+    mm, kern = gcn_step_flops(V, E)
+    kern_eval = kern // 2
+    out = {"analytic_step_flops": mm + kern, "analytic_matmul_flops": mm,
+           "analytic_kernel_ops": kern}
+    t0 = time.perf_counter()
+    with shared_contexts():
+        for mode, key in TELEMETRY_MODES:
+            on = _telemetry_run(torch, ds, params, counts, root, mode, key,
+                                True, mode == "float32")
+            off = _telemetry_run(torch, ds, params, counts, root, mode,
+                                 key, False, False)
+            evs = on.pop("events")
+            (man,) = [e for e in evs if e["cat"] == "manifest"]
+            firsts = {e["name"]: e for e in evs if e["cat"] == "compile"
+                      and "first_step_s" in e}
+            degraded = [e for e in evs if e.get("degraded")]
+            c, ce = firsts["train_step"], firsts["eval_step"]
+            nb = on["buckets"]
+            steps, evals = TELEMETRY_EPOCHS, (
+                TELEMETRY_EPOCHS // TELEMETRY_EVAL_EVERY)
+            want_launches = {
+                "indegree_norm": 4 * steps + 2 * evals,
+                "scale_act": 4 * steps + 2 * evals,
+                "ell_aggregate": (4 * steps + 2 * evals) * nb,
+                "indegree_norm_masked": steps}
+            got_launches = {k: (on["launches"][k][key]
+                                if isinstance(on["launches"][k], dict)
+                                else on["launches"][k])
+                            for k in want_launches}
+            (m,) = on["hist"]
+            rel = abs(c["flops"] - (mm + kern)) / (mm + kern)
+            rec = {
+                "mode": mode, "device_kinds": man["device_kinds"],
+                "manifest_resolved": man["resolved"],
+                "modeled_step_bytes": man.get("modeled_step_bytes"),
+                "first_step_s": c["first_step_s"], "flops": c["flops"],
+                "flops_counted": c["flops_counted"],
+                "flops_kernels": c["flops_kernels"],
+                "flops_rel_err": rel, "eval_flops": ce["flops"],
+                "peak_bytes": c["peak_bytes"],
+                "modeled_bytes": c["modeled_bytes"],
+                "model_actual_ratio": c.get("model_actual_ratio"),
+                "model_delta_bytes": c.get("model_delta_bytes"),
+                "launches": got_launches, "kernel_ops": on["kernel_ops"],
+                "record": {k: m.get(k) for k in (
+                    "epoch_ms", "first_step_ms", "eval_ms", "edges_per_s",
+                    "tflops_per_s", "mfu", "step_ewma_ms")},
+                "metrics_records": len(on["metrics"]),
+                "epoch_ms_on": on["epoch_ms"], "epoch_ms_off": off[
+                    "epoch_ms"], "wall_s_on": on["wall_s"],
+                "wall_s_off": off["wall_s"],
+                "bit_equal": on["losses"] == off["losses"]}
+            if man["platform"] != "gpu" or not any(
+                    "H100" in k for k in man["device_kinds"]) or \
+                    man["resolved"]["aggr_impl"] != "cuda" or \
+                    man.get("modeled_step_bytes") != on["modeled_bytes"]:
+                raise AssertionError(f"telemetry {mode}: manifest {man}")
+            if degraded or set(firsts) != {"train_step", "eval_step"}:
+                raise AssertionError(f"telemetry {mode}: first-step events "
+                                     f"{firsts}, degraded {degraded}")
+            if on["bucket_edges"] != E or got_launches != want_launches or \
+                    c["flops_kernels"] != kern or \
+                    ce["flops_kernels"] != kern_eval or \
+                    on["kernel_ops"] != steps * kern + evals * kern_eval:
+                raise AssertionError(
+                    f"telemetry {mode}: kernel work {rec}: want launches "
+                    f"{want_launches}, step ops {kern}, eval ops "
+                    f"{kern_eval}")
+            if not rel <= TELEMETRY_FLOPS_RTOL or not (
+                    c["peak_bytes"] and c["peak_bytes"] > 0) or \
+                    c.get("model_actual_ratio") is None:
+                raise AssertionError(f"telemetry {mode}: {rec}")
+            if not all(isinstance(m.get(k), (int, float)) and m[k] > 0
+                       for k in ("epoch_ms", "first_step_ms",
+                                 "edges_per_s", "tflops_per_s",
+                                 "step_ewma_ms")) or not (
+                    0 < m.get("mfu", 0) <= 1) or \
+                    len(on["metrics"]) != evals or \
+                    not set(on["metrics"][0]) >= set(m):
+                raise AssertionError(f"telemetry {mode}: record {m}, "
+                                     f"metrics {on['metrics']}")
+            if not rec["bit_equal"]:
+                raise AssertionError(
+                    f"telemetry {mode}: objectives on {on['losses']} and "
+                    f"off {off['losses']} differ")
+            if mode == "float32":
+                names, kernels, size = _trace_names(on["paths"]["prof"])
+                want = {"roc_indegree_norm", "roc_scale_act",
+                        "roc_ell_aggregate", "first_step", "train", "eval"}
+                rec["trace"] = {"bytes": size, "device_kernels": kernels,
+                                "missing": sorted(want - names)}
+                if want - names or not kernels.get("ell_bucket_sum") or \
+                        not kernels.get("row_scale_kernel"):
+                    raise AssertionError(f"telemetry trace: {rec['trace']}")
+            rc, text = _report(on["paths"])
+            rec["report_rc"] = rc
+            if rc != 0 or "train_step" not in _report_rows(
+                    text, "first step (per step slot)") or not {
+                    "first_step", "train", "eval"} <= set(_report_rows(
+                        text, "phase spans (ms)")) or not {
+                    "edges_per_s", "tflops_per_s", "mfu"} <= set(
+                        _report_rows(text, "throughput")):
+                raise AssertionError(f"telemetry {mode}: report exit {rc}:"
+                                     f"\n{text}")
+            log({"phase": "routes_telemetry", **rec})
+            out[mode] = rec
+    out["seconds"] = time.perf_counter() - t0
+    out["card"] = kind
+    return out
+
+
 def routes_child(data_dir, products_dir, num_classes, out_path):
     """Phase 19 in a fresh process on card 0 (the datasets saved
     under ``data_dir`` and ``products_dir``): :func:`edge_routes`,
-    :func:`cli_flags`, :func:`ell_max_products`; writes the record and
-    the counts to ``out_path``."""
+    :func:`telemetry`, :func:`cli_flags`, :func:`ell_max_products`; writes
+    the record and the counts to ``out_path``.  This process opens no
+    profiler session before the telemetry phase's trace (the profiler
+    loses records after ~60 sessions in one process)."""
     import torch
     from roc_tpu_torch.kernels import _build
     from roc_tpu_torch.ops.dense import set_fp32_matmul_precision
@@ -5625,8 +5922,12 @@ def routes_child(data_dir, products_dir, num_classes, out_path):
     _build.library()
     counts = Launches(torch)
     t0 = time.perf_counter()
-    rec = {"edge": edge_routes(torch, _map_dataset(data_dir, num_classes),
-                               _gcn_params(torch), counts)}
+    ds = _map_dataset(data_dir, num_classes)
+    params = _gcn_params(torch)
+    rec = {"edge": edge_routes(torch, ds, params, counts)}
+    with tempfile.TemporaryDirectory() as tmp:
+        rec["telemetry"] = telemetry(torch, ds, params, counts, tmp)
+    del ds
     with tempfile.TemporaryDirectory() as tmp:
         rec["cli"] = cli_flags(torch, tmp, counts)
     rec["ell_max"] = ell_max_products(torch, products_dir)
@@ -6191,6 +6492,18 @@ def _main(torch, root, prep, t_start) -> int:
          "max_rel_err": {k: v.get("max_rel_err")
                          for k, v in erec["edge"].items()},
          "cli_max_abs_err": erec["cli"]["max_abs_err"],
+         "telemetry_s": erec["telemetry"]["seconds"],
+         "telemetry": {m: {k: erec["telemetry"][m][k] for k in (
+             "flops", "flops_kernels", "flops_rel_err", "peak_bytes",
+             "modeled_bytes", "model_actual_ratio", "bit_equal")}
+             | {k: erec["telemetry"][m]["record"][k] for k in (
+                 "tflops_per_s", "mfu", "epoch_ms", "first_step_ms")}
+             for m in ("float32", "mixed")},
+         "telemetry_epoch_ms_on_off": {
+             m: [erec["telemetry"][m]["epoch_ms_on"],
+                 erec["telemetry"][m]["epoch_ms_off"]]
+             for m in ("float32", "mixed")},
+         "cli_epoch_ms_on_off": erec["cli"]["telemetry_epoch_ms"],
          "ell_max_peak_gb": erec["ell_max"]["peak_gb"],
          "ell_max_step_ms": erec["ell_max"]["step_ms"]})
 

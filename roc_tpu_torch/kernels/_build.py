@@ -14,11 +14,20 @@ Each C entry point takes device pointers and the CUDA stream as
 exception.  A kernel that takes features has one entry point per element
 type, ``<name>_f32`` and ``<name>_bf16``: :func:`entry` picks it by the
 tensor's dtype and refuses any other, and :func:`launched` counts a
-launch in the wrapper's ``launches`` and ``launches_by_dtype``.
+launch in the wrapper's ``launches`` and ``launches_by_dtype`` and its
+arithmetic (:func:`kernel_ops`) in the wrapper's ``ops`` and the
+process's :func:`ops_launched`: the first step's FLOP count
+(obs/compile_watch.py) adds it to what ``FlopCounterMode`` sees, since
+a ``ctypes`` launch is no aten op.  While the port's trace records
+(utils/profiling.py ``trace``, which sets :data:`trace_ranges`), a
+wrapper runs its launches inside :func:`named`, so the trace names each
+launch by its wrapper (K1 and K2 run one device kernel,
+``row_scale_kernel``).
 """
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import glob
 import hashlib
@@ -188,15 +197,68 @@ def entry(name: str, dtype: torch.dtype):
     return fn
 
 
+# the wrappers whose launch is a neighbour sum (one add per edge per
+# column) and those whose launch is a row scaling (one multiply per
+# element; the relu's max and the mask's select are not counted)
+SUM_KERNELS = ("csr_spmm", "ell_aggregate")
+ROW_KERNELS = ("indegree_norm", "indegree_norm_masked", "scale_act")
+
+
+def kernel_ops(name: str, rows: int, edges: int, F: int) -> int:
+    """The arithmetic of one launch of kernel ``name`` on ``F`` columns:
+    ``edges * F`` for a neighbour sum (K3 ``csr_spmm``, K4
+    ``ell_aggregate``; ``edges`` the ids it sums), ``rows * F`` for a row
+    scaling (K1 ``indegree_norm`` and its masked form, K2 ``scale_act``).
+    The operation count of chip_smoke.py's bounds and of the work tally
+    (:func:`launched`)."""
+    if name in SUM_KERNELS:
+        return int(edges) * int(F)
+    if name in ROW_KERNELS:
+        return int(rows) * int(F)
+    raise ValueError(f"unknown kernel {name!r}; expected one of "
+                     f"{SUM_KERNELS + ROW_KERNELS}")
+
+
+# kernel_ops summed over every launch of this process; never reset (a
+# reader takes the difference around the work it observes)
+_ops_launched = 0
+
+
+def ops_launched() -> int:
+    """The operations of every kernel launched in this process so far."""
+    return _ops_launched
+
+
 def zero_launches(*wrappers) -> None:
-    """Set each wrapper's launch counts to 0: ``launches`` (all dtypes)
-    and ``launches_by_dtype`` (``{'f32': n, 'bf16': n}``)."""
+    """Set each wrapper's launch counts to 0: ``launches`` (all dtypes),
+    ``launches_by_dtype`` (``{'f32': n, 'bf16': n}``) and ``ops`` (the
+    launches' :func:`kernel_ops`).  :func:`ops_launched` is not reset."""
     for fn in wrappers:
         fn.launches = 0
         fn.launches_by_dtype = {s: 0 for s in DTYPE_SUFFIX.values()}
+        fn.ops = 0
 
 
-def launched(wrapper, dtype: torch.dtype) -> None:
-    """Count one kernel launch of ``wrapper`` on features of ``dtype``."""
+def launched(wrapper, dtype: torch.dtype, ops: int) -> None:
+    """Count one kernel launch of ``wrapper`` on features of ``dtype``
+    doing ``ops`` operations (:func:`kernel_ops`)."""
+    global _ops_launched
     wrapper.launches += 1
     wrapper.launches_by_dtype[DTYPE_SUFFIX[dtype]] += 1
+    wrapper.ops += ops
+    _ops_launched += ops
+
+
+_NOT_TRACED = contextlib.nullcontext()
+# set by utils/profiling.py ``trace`` while it records; other profiler
+# sessions (a kernel's device time summed by name) get no ranges, whose
+# device spans would count the kernels' time twice
+trace_ranges = False
+
+
+def named(name: str):
+    """``record_function('roc_<name>')`` while :data:`trace_ranges` is
+    set, else a no-op (one flag read on the launch path)."""
+    if trace_ranges:
+        return torch.profiler.record_function(f"roc_{name}")
+    return _NOT_TRACED

@@ -89,7 +89,8 @@ def ell_aggregate_plain(feats: torch.Tensor,
 
 def ell_aggregate(feats: torch.Tensor, ell_idx: Sequence[torch.Tensor],
                   ell_row_id: Sequence[torch.Tensor], num_rows: int,
-                  slice_cols: Optional[int] = None) -> torch.Tensor:
+                  slice_cols: Optional[int] = None,
+                  edges: Optional[Sequence[int]] = None) -> torch.Tensor:
     """``out[v] = sum(feats[ids of v])`` over the ELL buckets.
 
     feats: float32 or bfloat16 [R, F], no zero row (the dummy id is R).
@@ -99,6 +100,8 @@ def ell_aggregate(feats: torch.Tensor, ell_idx: Sequence[torch.Tensor],
     slice_cols: the kernel's column slice width, one of
     ``slicing.SLICE_COLS``; None takes :func:`default_slice_cols`.  The
     plain version on the CPU has no slices and ignores it.
+    edges: the real ids of each bucket (not the dummy), for the work
+    tally (``_build.kernel_ops``); None counts every slot.
     Returns [num_rows, F] in ``feats.dtype``."""
     _check(feats, ell_idx, ell_row_id)
     S = slicing.resolve("ell_aggregate", slice_cols,
@@ -116,12 +119,15 @@ def ell_aggregate(feats: torch.Tensor, ell_idx: Sequence[torch.Tensor],
     R, F = feats.shape
     out = feats.new_zeros((num_rows, F))
     stream = _build.stream_ptr(feats.device)
-    for idx, rid in zip(ell_idx, ell_row_id):
-        rows, width = idx.shape
-        _build.check("ell_aggregate", fn(
-            feats.data_ptr(), idx.data_ptr(), rid.data_ptr(),
-            out.data_ptr(), rows, width, R, num_rows, F, S, stream))
-        _build.launched(ell_aggregate, feats.dtype)
+    with _build.named("ell_aggregate"):
+        for b, (idx, rid) in enumerate(zip(ell_idx, ell_row_id)):
+            rows, width = idx.shape
+            _build.check("ell_aggregate", fn(
+                feats.data_ptr(), idx.data_ptr(), rid.data_ptr(),
+                out.data_ptr(), rows, width, R, num_rows, F, S, stream))
+            _build.launched(ell_aggregate, feats.dtype, _build.kernel_ops(
+                "ell_aggregate", rows,
+                rows * width if edges is None else edges[b], F))
     return out
 
 

@@ -101,10 +101,12 @@ def indegree_norm(x: torch.Tensor, in_degree: torch.Tensor,
                          same=(relu_out,))
         inputs = (x.data_ptr(), relu_out.data_ptr(), in_degree.data_ptr())
     out = torch.empty_like(x)
-    _build.check("indegree_norm", fn(
-        *inputs, out.data_ptr(), x.shape[0], x.shape[1],
-        _build.stream_ptr(x.device)))
-    _build.launched(indegree_norm, x.dtype)
+    with _build.named("indegree_norm"):
+        _build.check("indegree_norm", fn(
+            *inputs, out.data_ptr(), x.shape[0], x.shape[1],
+            _build.stream_ptr(x.device)))
+    _build.launched(indegree_norm, x.dtype, _build.kernel_ops(
+        "indegree_norm", x.shape[0], 0, x.shape[1]))
     if relu_out is not None:
         indegree_norm.masked_launches += 1
     return out
@@ -131,10 +133,12 @@ def scale_act(x: torch.Tensor, scale: torch.Tensor,
         return scale_act_plain(x, scale, act)
     fn = _check_cuda("scale_act", x, floats=(scale,))
     out = torch.empty_like(x)
-    _build.check("scale_act", fn(
-        x.data_ptr(), scale.data_ptr(), out.data_ptr(), x.shape[0],
-        x.shape[1], int(act == "relu"), _build.stream_ptr(x.device)))
-    _build.launched(scale_act, x.dtype)
+    with _build.named("scale_act"):
+        _build.check("scale_act", fn(
+            x.data_ptr(), scale.data_ptr(), out.data_ptr(), x.shape[0],
+            x.shape[1], int(act == "relu"), _build.stream_ptr(x.device)))
+    _build.launched(scale_act, x.dtype, _build.kernel_ops(
+        "scale_act", x.shape[0], 0, x.shape[1]))
     return out
 
 

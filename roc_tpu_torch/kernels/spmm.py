@@ -160,6 +160,8 @@ def csr_spmm(feats: torch.Tensor, edge_src: torch.Tensor,
     read); None runs the pre-pass :func:`csr_row_ptr`.  The plain
     version sums every edge, so ranges that leave out only padding edges
     give its result.
+    The work tally (``_build.kernel_ops``) counts every slot of
+    ``edge_src``, padding included.
     Returns [num_rows, F] in ``feats.dtype``."""
     _check(feats, edge_src, edge_dst, chunk)
     if edge_dst is None and row_ptr is None:
@@ -187,10 +189,13 @@ def csr_spmm(feats: torch.Tensor, edge_src: torch.Tensor,
     elif row_ptr.dtype != torch.int64 or not row_ptr.is_contiguous():
         raise TypeError("csr_spmm: row_ptr must be contiguous int64")
     out = torch.empty((num_rows, F), dtype=feats.dtype, device=feats.device)
-    _build.check("csr_spmm", fn(
-        feats.data_ptr(), edge_src.data_ptr(), row_ptr.data_ptr(),
-        out.data_ptr(), R, num_rows, F, S, _build.stream_ptr(feats.device)))
-    _build.launched(csr_spmm, feats.dtype)
+    with _build.named("csr_spmm"):
+        _build.check("csr_spmm", fn(
+            feats.data_ptr(), edge_src.data_ptr(), row_ptr.data_ptr(),
+            out.data_ptr(), R, num_rows, F, S,
+            _build.stream_ptr(feats.device)))
+    _build.launched(csr_spmm, feats.dtype, _build.kernel_ops(
+        "csr_spmm", num_rows, edge_src.shape[0], F))
     return out
 
 

@@ -208,6 +208,8 @@ class GraphContext:
       bucket outputs (read by the 'ell' route).
     ell_row_id: int32 [rows_b] per bucket, the output row of each
       bucket row (read by the 'cuda' route).
+    ell_edges: the real ids of each bucket (host ints), K4's work tally
+      (kernels/_build.py ``kernel_ops``); empty counts every slot.
     Edge routes ('segment', 'blocked', 'scan', 'cuda_csr'; None
     otherwise):
     edge_src/edge_dst: int32 [Ep] padded edge list sorted by destination
@@ -251,6 +253,7 @@ class GraphContext:
     ell_idx: Tuple[torch.Tensor, ...] = ()
     ell_row_pos: Optional[torch.Tensor] = None
     ell_row_id: Tuple[torch.Tensor, ...] = ()
+    ell_edges: Tuple[int, ...] = ()
     aggr_impl: str = "cuda"
     symmetric: bool = True
     edge_src: Optional[torch.Tensor] = None
@@ -333,7 +336,8 @@ class GraphContext:
         if self.aggr_impl == "cuda":
             from ..kernels.ell_spmm import ell_aggregate
             return ell_aggregate(self._gathered(x), self.ell_idx,
-                                 self.ell_row_id, self.num_rows)
+                                 self.ell_row_id, self.num_rows,
+                                 edges=self.ell_edges or None)
         if self.aggr_impl == "cuda_csr":
             from ..kernels.spmm import csr_spmm
             return csr_spmm(self._gathered(x), self.edge_src,

@@ -1,4 +1,11 @@
 """Observability (``roc_tpu/obs``): the event bus (``events.py``), the
 stall watchdog (``heartbeat.py``), the streaming metrics registry
-(``metrics_registry.py``) and the SLO engine (``slo.py``).  The timeline
-merger is not ported."""
+(``metrics_registry.py``), the SLO engine (``slo.py``), the run manifest
+(``manifest.py``, :func:`run_manifest`) and the first-step observer
+(``compile_watch.py``).  Not ported yet: the timeline merger
+(``timeline.py``), the sentinel over bench rounds (``sentinel.py``) and
+the compile cache."""
+
+from .manifest import run_manifest
+
+__all__ = ["run_manifest"]

@@ -346,7 +346,8 @@ class ShardedData:
       ``[rows_b]`` (read by K4 on 'cuda', padding rows ``part_nodes``)
       and ``ell_row_pos`` ``[part_nodes]`` (read by the plain sum); both
       routes carry both, since the MAX and the attention of either read
-      ``row_pos`` and attention reads ``row_id``.
+      ``row_pos`` and attention reads ``row_id``; ``ell_edges`` the real
+      ids of each bucket (host ints, K4's work tally).
     Edge routes: ``edge_src`` int32 ``[part_edges]`` in gathered
       coordinates (dummy ``P * part_nodes``), ``edge_dst`` the local
       destination rows, sorted (padding edges on the first padded row).
@@ -375,6 +376,7 @@ class ShardedData:
     ell_idx: Tuple[torch.Tensor, ...] = ()
     ell_row_pos: Optional[torch.Tensor] = None
     ell_row_id: Tuple[torch.Tensor, ...] = ()
+    ell_edges: Tuple[int, ...] = ()
     edge_src: Optional[torch.Tensor] = None
     edge_dst: Optional[torch.Tensor] = None
     sect_idx: Tuple[torch.Tensor, ...] = ()
@@ -403,8 +405,9 @@ class ShardedData:
 
     def context_tables(self) -> Dict[str, Any]:
         """The GraphContext keywords of these tables."""
-        names = ("ell_idx", "ell_row_pos", "ell_row_id", "edge_src",
-                 "edge_dst", "sect_idx", "sect_sub_dst", "sect_meta",
+        names = ("ell_idx", "ell_row_pos", "ell_row_id", "ell_edges",
+                 "edge_src", "edge_dst", "sect_idx", "sect_sub_dst",
+                 "sect_meta",
                  "sect_w", "flat8_idx", "flat8_dst", "flat8_w", "bd_a",
                  "bd_src", "bd_dst", "bd_vpad", "bd_src_vpad", "bd_group",
                  "bd_scale", "ring_src", "ring_dst", "ring_row_ptr",
@@ -549,7 +552,9 @@ def shard_dataset(dataset, plan: PartitionPlan, rank: int,
                                       dummy=dummy)
             tables.update(ell_idx=tuple(dev(a[0]) for a in t.idx),
                           ell_row_pos=dev(t.row_pos[0]),
-                          ell_row_id=tuple(dev(a[0]) for a in t.row_id))
+                          ell_row_id=tuple(dev(a[0]) for a in t.row_id),
+                          ell_edges=tuple(int(np.count_nonzero(a[0] != dummy))
+                                          for a in t.idx))
         elif aggr_impl == "sectioned":
             tables.update(_sectioned(ptr, col, n_real, plan, dev,
                                      sect_sub_w, sect_u16, fuse_d,
@@ -616,7 +621,9 @@ class DistributedTrainer(Trainer):
       trainer.resolve_partition`; 'auto' is the cost model's) with the
       cost model's search weights; a ``costmodel`` event records its
       quality (:meth:`_emit_partition_stats`; each rank counts its own
-      part's halo, one collective joins them), and each eval record
+      part's halo, one collective joins them) and the run manifest
+      carries it (``partition``, obs/manifest.py; each rank emits its
+      own, stamped with its rank), and each eval record
       carries the predicted straggler (:meth:`straggler_fields`).  With
       ``config.rebalance``, :meth:`maybe_rebalance` refits the model at
       each eval and repartitions (:meth:`_repartition`); rank 0's
@@ -685,6 +692,7 @@ class DistributedTrainer(Trainer):
     the caller)."""
 
     _takes_source = True
+    _manifest_in_init = False
 
     def __init__(self, model: Model, dataset, num_parts: int,
                  config: TrainConfig = TrainConfig(),
@@ -769,6 +777,9 @@ class DistributedTrainer(Trainer):
                  num_parts=self.plan.num_parts, pair_edges=d.pair_edges,
                  padding_ratio=ratio, ring_overlap=bool(cfg.ring_overlap))
         self._partition_stats = self._emit_partition_stats()
+        # the manifest once the split is known, with its quality record;
+        # its proc (and every later event's) is this process's rank
+        self._emit_manifest(dataset, partition=self._partition_stats)
 
     def _num_parts(self) -> int:
         return self.mesh.parts

@@ -12,8 +12,9 @@ its knobs ``--heads``, ``--hops``, ``--alpha``, ``--lam`` and
 flags ``--memory``, ``--features``, ``--remat`` and ``--prefetch``, and the
 checkpoint and recovery flags ``--checkpoint``, ``--checkpoint-every``,
 ``--resume``, ``--recovery``, ``--max-retries``, ``--preempt-grace``,
-``--async-save``, ``--fault`` and ``--events``, and ``--eval-only`` and
-``--save-logits``, with the JAX CLI's meanings and exit codes.  ``--impl``
+``--async-save``, ``--fault`` and ``--events``, ``--eval-only`` and
+``--save-logits``, and the telemetry flags ``--metrics`` and
+``--profile-dir``, with the JAX CLI's meanings and exit codes.  ``--impl``
 takes the ported counterparts of the JAX CLI's choices: ``auto`` (the
 default, as in the JAX CLI: the JAX rule, 'ell', 'sectioned' or
 'flat_sum' by the graph's size, through this card's row,
@@ -30,7 +31,13 @@ the vertices before training (core/reorder.py), with a ``plan`` event;
 inference pass, typically after ``--resume``, prints its ``[INFER]``
 line and exits 0; ``--save-logits PATH`` writes the ``[V, C]`` fp32
 logits as ``.npy`` after training or that pass, in the original vertex
-order under ``--reorder``.
+order under ``--reorder``.  ``--metrics PATH`` appends each eval record
+to PATH as JSONL (``TrainConfig.metrics_path``; on a partitioned run
+every rank appends its own, stamped with its ``proc``).
+``--profile-dir DIR`` trains one epoch, then one epoch inside a profiler
+trace written to DIR with the loop's phases as named ranges, then the
+rest (utils/profiling.py); read a run's files with
+``python -m roc_tpu_torch.report EVENTS --metrics PATH``.
 ``--memory auto`` (the default, as in the JAX CLI) lets the memory
 autopilot (core/memory.py) choose between device-resident and
 host-streamed features and rematerialisation by the device's memory; an
@@ -278,6 +285,11 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
     ap.add_argument("--events", type=str, default=None,
                     help="structured event-log JSONL path (also "
                          "ROC_TPU_EVENTS)")
+    ap.add_argument("--metrics", type=str, default=None,
+                    help="training-metrics JSONL path (one record per "
+                         "eval)")
+    ap.add_argument("--profile-dir", type=str, default=None,
+                    help="write a torch.profiler trace of one epoch here")
     return ap.parse_args(argv)
 
 
@@ -460,7 +472,8 @@ def _train(args, layers, model, device, rank, ranks) -> int:
         async_save=args.async_save, fault=args.fault, memory=memory,
         features=args.features, remat=args.remat, prefetch=args.prefetch,
         halo=args.halo, partition=args.partition, rebalance=args.rebalance,
-        mesh=args.mesh, head_chunk=args.head_chunk)
+        mesh=args.mesh, head_chunk=args.head_chunk,
+        metrics_path=args.metrics)
     if args.recovery or args.preempt_grace is not None:
         preempt.install(args.preempt_grace if args.preempt_grace is not None
                         else preempt.DEFAULT_GRACE_S)
@@ -499,6 +512,20 @@ def _train(args, layers, model, device, rank, ranks) -> int:
             print(format_metrics(trainer.epoch, m), flush=True)
         save_logits()
         return 0
+    if args.profile_dir:
+        from ..utils.profiling import trace
+        trainer.train(1)  # the first step outside the trace
+        # the traced epoch's phases as named ranges; the CLI never sets
+        # TrainConfig.profile_dir (the loop would nest a second profiler)
+        trainer.timer.annotate = True
+        try:
+            with trace(args.profile_dir):
+                trainer.train(1)
+                trainer.sync()
+        finally:
+            trainer.timer.annotate = False
+        emit("run", f"profile written to {args.profile_dir}",
+             path=args.profile_dir)
     t0 = time.perf_counter()
     remaining = args.epochs - trainer.epoch
     try:

@@ -11,14 +11,18 @@ device ('hbm') or in host memory, streamed through the first layer
 first runs its propagation prefix with every stage on the host),
 rematerialisation (``remat``, ``remat_policy``), and the memory autopilot
 (``memory='auto'``, core/memory.py) that picks among them by the
-device's memory.  The metrics registry and the timeline are not
-ported; the ``(parts, model)`` mesh is the partitioned trainer's
-(``TrainConfig.mesh``, parallel/distributed.py), one device taking
-'auto' and '1x1' only.  The epoch loop carries the resilience hooks
-(resilience/inject.py drill sites, the first step's heartbeat, the
-preemption check), and the trainer the state a checkpoint needs besides
-weights and Adam state (utils/checkpoint.py): the dataset's identity
-and the dropout generator's state.
+device's memory.  The ``(parts, model)`` mesh is the partitioned
+trainer's (``TrainConfig.mesh``, parallel/distributed.py), one device
+taking 'auto' and '1x1' only.  The epoch loop carries the resilience
+hooks (resilience/inject.py drill sites, the first step's heartbeat, the
+preemption check) and the run telemetry: the profiler trace
+(``profile_dir``), the metrics log (``metrics_path``), the loop's
+metrics registry, the span laps flushed as ``timeline`` events, and the
+throughput fields from the first-step observer's FLOP count
+(obs/compile_watch.py); the trainer emits the run manifest
+(obs/manifest.py) and carries the state a checkpoint needs besides
+weights and Adam state (utils/checkpoint.py): the dataset's identity and
+the dropout generator's state.
 """
 
 from __future__ import annotations
@@ -27,6 +31,7 @@ import contextlib
 import dataclasses
 import hashlib
 import time
+import weakref
 from dataclasses import dataclass
 from typing import Any, Dict, List, Optional, Tuple
 
@@ -128,6 +133,11 @@ class TrainConfig:
       ``HEAD_CHUNK_AUTO_MIN_ROWS``, an int >= 0 is the block (0: one
       product).  The same values either way up to fp32 rounding of the
       weight gradient (ops/dense.py ``linear_chunked``).
+    Telemetry (utils/profiling.py), the JAX package's fields:
+    profile_dir: a profiler trace of every ``train()`` call into this
+      directory, with the loop's phases as named ranges (None: off).
+    metrics_path: the eval records appended here as JSONL (None: kept in
+      memory only, ``Trainer.metrics_log``).
     """
     learning_rate: float = 0.01
     weight_decay: float = 0.05
@@ -165,6 +175,8 @@ class TrainConfig:
     rebalance_max: int = 2
     mesh: Any = "auto"
     head_chunk: Any = "auto"
+    profile_dir: Optional[str] = None
+    metrics_path: Optional[str] = None
 
 
 # the TrainConfig fields that shape the layouts' tables
@@ -700,7 +712,9 @@ def graph_context(g, aggr_impl: str = "cuda", symmetric: bool = True,
         table = ell_from_graph(g.row_ptr, g.col_idx, V)
         tables = dict(ell_idx=tuple(dev(a[0]) for a in table.idx),
                       ell_row_pos=dev(table.row_pos[0]),
-                      ell_row_id=tuple(dev(a[0]) for a in table.row_id))
+                      ell_row_id=tuple(dev(a[0]) for a in table.row_id),
+                      ell_edges=tuple(int(np.count_nonzero(a[0] != V))
+                                      for a in table.idx))
     elif aggr_impl == "sectioned":
         tables = sectioned(g.row_ptr, g.col_idx)
     elif aggr_impl in ("flat_sum", "attn_flat8"):
@@ -767,6 +781,9 @@ class Trainer:
     # whether the trainer builds from a DataSource (core/source.py): the
     # partitioned one does; this one holds the whole graph
     _takes_source = False
+    # whether __init__ emits the run manifest; the partitioned trainer
+    # emits it once its split is known
+    _manifest_in_init = True
 
     def __init__(self, model: Model, dataset: Dataset,
                  config: TrainConfig = TrainConfig(),
@@ -831,10 +848,41 @@ class Trainer:
         # the first step's ms (run_epoch_loop), kept for a caller whose
         # first train() call ends before an eval
         self.first_step_ms: Optional[float] = None
+        # the step slots the epoch loop calls, with first-step telemetry:
+        # late-bound (a subclass's or a test's step is the one run) through
+        # a weak proxy, so no cycle keeps a dropped trainer's device memory
+        # alive until the collector runs
+        from ..obs.compile_watch import ObservedStep
+        from ..utils.profiling import EpochTimer, MetricsLog
+        me = weakref.proxy(self)
+        self._train_step = ObservedStep(
+            lambda lr: me.step(lr), name="train_step",
+            device=self.device, modeled_bytes=self.modeled_bytes,
+            verbose=config.verbose)
+        self._eval_step = ObservedStep(lambda: me.evaluate(),
+                                       name="eval_step", device=self.device,
+                                       verbose=config.verbose)
+        # annotate: the loop's phases as named ranges in the trace of
+        # profile_dir
+        self.timer = EpochTimer(annotate=bool(config.profile_dir))
+        self.metrics_log = MetricsLog(config.metrics_path)
+        if self._manifest_in_init:
+            self._emit_manifest(dataset)
 
     def _num_parts(self) -> int:
         """The partitions of this run: 1 on one device."""
         return 1
+
+    def _emit_manifest(self, dataset, **extra: Any) -> None:
+        """The run manifest (obs/manifest.py) of the resolved config and
+        model, with the memory model's ``modeled_step_bytes`` and
+        ``extra``."""
+        from ..obs.manifest import run_manifest
+        run_manifest(config=self.config, dataset=dataset, model=self.model,
+                     num_parts=self._num_parts(),
+                     extra={"modeled_step_bytes": self.modeled_bytes,
+                            **extra},
+                     console=self.config.verbose, device=self.device)
 
     def _check_mesh(self, config: TrainConfig) -> None:
         """One device hosts no model axis: 'auto' and '1x1' only.  (The
@@ -1054,7 +1102,8 @@ class Trainer:
         """Run ``epochs`` more epochs (``config.epochs`` by default); the
         epoch counter persists across calls, so lr decay and the eval
         cadence continue."""
-        return run_epoch_loop(self, epochs, self.step, self.evaluate)
+        return run_epoch_loop(self, epochs, self._train_step,
+                              self._eval_step)
 
     def sync(self) -> None:
         """Block until every launched step has finished."""
@@ -1147,11 +1196,28 @@ def run_epoch_loop(tr: Trainer, epochs: Optional[int], do_step,
     before each eval, so ``epoch_ms`` is the steps' wall clock over the
     steps since the last eval, and ``eval_ms`` is the eval pass on its
     own.  The first step of a trainer (cold kernels, allocator and
-    library handles) is synchronised and reported apart, as
-    ``first_step_ms`` on the first eval's record; ``epoch_ms`` counts
+    library handles, and the observer's count, obs/compile_watch.py) is
+    synchronised and reported apart, as ``first_step_ms`` on the first
+    eval's record (the JAX loop's ``compile_ms``); ``epoch_ms`` counts
     steady steps only, and is None when an eval follows the first step
     with no steady step between.  Each eval record is also emitted as an
     ``epoch`` event (off the console).
+
+    Telemetry, as the JAX loop has it: the loop runs inside
+    ``trace(config.profile_dir)`` (utils/profiling.py), with the first
+    step, each steady step and each eval in ``first_step``/``train``/
+    ``eval`` ranges when ``tr.timer.annotate`` is on; a ``timeline``
+    ``clock_sync`` event at the first step's barrier; the timer's laps
+    (the first step's as its warmup lap) and span laps
+    (``first_step``, the steady burst as one ``train`` lap, ``eval``),
+    flushed as one ``timeline`` ``spans`` event an eval and once more at
+    the end; the loop's registry ``tr.reg`` (``MetricsRegistry('train')``:
+    ``step_ewma_ms``, an EWMA of the steady ``epoch_ms`` with alpha 0.2,
+    also on the record; ``straggler_ratio``; ``h2d_wait_p50_ms``; the
+    ``epoch_ms`` histogram); :func:`throughput_fields` on each record with
+    steady steps; ``tr.metrics_log`` (``config.metrics_path``) takes each
+    record and is closed when the loop ends, on an exception too, after
+    which a ``phase spans`` ``epoch`` event summarises the spans.
 
     Resilience hooks, where the JAX loop has them: the loop notes each
     epoch for the fault sites (``inject.note_epoch``), and after each
@@ -1167,60 +1233,155 @@ def run_epoch_loop(tr: Trainer, epochs: Optional[int], do_step,
     record the loop calls its ``maybe_rebalance``, which may repartition
     between epochs."""
     from ..obs.heartbeat import Heartbeat
+    from ..obs.metrics_registry import MetricsRegistry
     from ..resilience import inject, preempt
+    from ..utils.profiling import trace
     cfg = tr.config
     if cfg.fault:
         inject.arm(cfg.fault)
     epochs = cfg.epochs if epochs is None else epochs
     history: List[Dict[str, float]] = []
-    t_last = time.perf_counter()
+    reg = getattr(tr, "reg", None)
+    if reg is None:
+        reg = tr.reg = MetricsRegistry("train")
+    g_step = reg.gauge("step_ewma_ms", ewma_alpha=0.2)
+    g_strag = reg.gauge("straggler_ratio")
+    g_h2d = reg.gauge("h2d_wait_p50_ms")
+    h_epoch = reg.histogram("epoch_ms")
+    timer = tr.timer
     e_last = tr.epoch
     first_ms: Optional[float] = None
-    for _ in range(epochs):
-        epoch = tr.epoch
-        inject.note_epoch(epoch)
-        do_step(float(decayed_lr(cfg.learning_rate, epoch, cfg.decay_rate,
-                                 cfg.decay_steps)))
-        if not tr._stepped:
-            with Heartbeat("first_compile"):
-                inject.maybe_stall()
-                tr.sync()
-            now = time.perf_counter()
-            first_ms = tr.first_step_ms = (now - t_last) * 1e3
-            t_last, e_last = now, epoch + 1
-            tr._stepped = True
-        if epoch % cfg.eval_every == cfg.eval_every - 1:
-            tr.sync()
-            now = time.perf_counter()
-            m = do_eval()
-            t_eval_end = time.perf_counter()
-            span = epoch + 1 - e_last
-            m["epoch"] = epoch
-            m["epoch_ms"] = (now - t_last) * 1e3 / span if span > 0 else None
-            m["eval_ms"] = (t_eval_end - now) * 1e3
-            if first_ms is not None:
-                m["first_step_ms"] = first_ms
-                first_ms = None
-            if span > 0:
-                m["edges_per_s"] = tr.num_edges / (m["epoch_ms"] / 1e3)
-            m.update(tr.pipeline_fields())
-            straggler = getattr(tr, "straggler_fields", None)
-            if straggler is not None:
-                m.update(straggler(m))
-            t_last, e_last = t_eval_end, epoch + 1
-            history.append(m)
-            emit("epoch", f"epoch {epoch}: train_loss {m['train_loss']}",
-                 console=False, **m)
-            if cfg.verbose:
-                print(format_metrics(epoch, m), flush=True)
-            rebalance = getattr(tr, "maybe_rebalance", None)
-            if rebalance is not None and rebalance(m):
-                # the rebuild is not an epoch's time
-                t_last = time.perf_counter()
-        tr.epoch += 1
-        inject.epoch_hooks(tr, epoch)
-        preempt.raise_if_preempted(epoch)
+    try:
+        with trace(cfg.profile_dir):
+            # the profiler's start is not the first step's time
+            t_last = time.perf_counter()
+            for _ in range(epochs):
+                epoch = tr.epoch
+                inject.note_epoch(epoch)
+                lr = float(decayed_lr(cfg.learning_rate, epoch,
+                                      cfg.decay_rate, cfg.decay_steps))
+                with timer.phase("train" if tr._stepped else "first_step"):
+                    do_step(lr)
+                if not tr._stepped:
+                    with Heartbeat("first_compile"):
+                        inject.maybe_stall()
+                        tr.sync()
+                    now = time.perf_counter()
+                    first_ms = tr.first_step_ms = (now - t_last) * 1e3
+                    timer.laps_ms.append(first_ms)
+                    timer.note_span("first_step", first_ms)
+                    # the clock-sync handshake on the barrier just crossed
+                    # (every rank passes the first step's collectives
+                    # within a step of the others)
+                    emit("timeline", f"clock_sync: first-step barrier "
+                         f"crossed (epoch {epoch})", console=False,
+                         kind="clock_sync", epoch=epoch,
+                         first_step_ms=round(first_ms, 1))
+                    t_last, e_last = now, epoch + 1
+                    tr._stepped = True
+                if epoch % cfg.eval_every == cfg.eval_every - 1:
+                    tr.sync()
+                    now = time.perf_counter()
+                    mono_now = time.monotonic()
+                    with timer.phase("eval"):
+                        m = do_eval()
+                    t_eval_end = time.perf_counter()
+                    span = epoch + 1 - e_last
+                    m["epoch"] = epoch
+                    m["epoch_ms"] = ((now - t_last) * 1e3 / span
+                                     if span > 0 else None)
+                    m["eval_ms"] = (t_eval_end - now) * 1e3
+                    if span > 0:
+                        burst_ms = (now - t_last) * 1e3
+                        timer.laps_ms.append(m["epoch_ms"])
+                        timer.spans_ms.setdefault("train", []).append(
+                            m["epoch_ms"])
+                        # the steady burst as one timeline span (its steps
+                        # have no host-visible boundaries)
+                        timer.timeline.append(
+                            ("train", mono_now - burst_ms / 1e3, burst_ms))
+                    timer.note_span("eval", m["eval_ms"])
+                    if first_ms is not None:
+                        m["first_step_ms"] = first_ms
+                        first_ms = None
+                    if span > 0:
+                        m.update(throughput_fields(tr, m["epoch_ms"]))
+                    m.update(tr.pipeline_fields())
+                    straggler = getattr(tr, "straggler_fields", None)
+                    if straggler is not None:
+                        m.update(straggler(m))
+                    # only steady laps feed the EWMA
+                    if span > 0 and m.get("epoch_ms"):
+                        h_epoch.record(m["epoch_ms"])
+                        g_step.set(m["epoch_ms"])
+                        if g_step.ewma is not None:
+                            m["step_ewma_ms"] = round(g_step.ewma, 2)
+                    if m.get("straggler_ratio") is not None:
+                        g_strag.set(m["straggler_ratio"])
+                    if m.get("h2d_wait_p50_ms") is not None:
+                        g_h2d.set(m["h2d_wait_p50_ms"])
+                    t_last, e_last = t_eval_end, epoch + 1
+                    history.append(m)
+                    tr.metrics_log.log(m)
+                    _flush_spans(timer, f"to epoch {epoch}", epoch=epoch)
+                    emit("epoch", f"epoch {epoch}: train_loss "
+                         f"{m['train_loss']}", console=False, **m)
+                    if cfg.verbose:
+                        print(format_metrics(epoch, m), flush=True)
+                    rebalance = getattr(tr, "maybe_rebalance", None)
+                    if rebalance is not None and rebalance(m):
+                        # the rebuild is not an epoch's time
+                        t_last = time.perf_counter()
+                tr.epoch += 1
+                inject.epoch_hooks(tr, epoch)
+                preempt.raise_if_preempted(epoch)
+    finally:
+        # bound descriptors across many trainers, on exceptions too; the
+        # log reopens in append mode if train() is called again
+        tr.metrics_log.close()
+        # the laps since the last eval's flush (a run dying between evals
+        # keeps them)
+        _flush_spans(timer, "(final)")
+        if timer.spans_ms:
+            spans = timer.span_summary()
+            emit("epoch", "phase spans " + " ".join(
+                f"{k}:n={v['n']},p50={v['p50_ms']:.1f}ms"
+                for k, v in spans.items()),
+                console=False, spans=spans, laps=timer.summary())
     return history
+
+
+def _flush_spans(timer, what: str, **fields: Any) -> None:
+    """The timer's span laps as one ``timeline`` ``spans`` event."""
+    tl = timer.take_timeline()
+    if tl:
+        emit("timeline", f"spans: {len(tl)} laps {what}", console=False,
+             kind="spans", spans=[[n, round(t0, 6), round(ms, 3)]
+                                  for n, t0, ms in tl], **fields)
+
+
+def throughput_fields(tr: Trainer, epoch_ms: Optional[float]
+                      ) -> Dict[str, float]:
+    """Edges a second, and with the first-step observer's FLOP count of
+    the train step (``tr._train_step.cost``; on a partitioned run, this
+    rank's) TFLOP/s and the MFU against the card's peak
+    (obs/compile_watch.py ``peak_flops_per_s``; no ``mfu`` on the CPU or
+    a card without a row), for one steady epoch lap."""
+    from ..obs.compile_watch import peak_flops_per_s
+    out: Dict[str, float] = {}
+    if not epoch_ms or epoch_ms <= 0:
+        return out
+    s = epoch_ms / 1e3
+    out["edges_per_s"] = round(tr.num_edges / s, 1)
+    cost = getattr(getattr(tr, "_train_step", None), "cost", None)
+    flops = (cost or {}).get("flops")
+    if flops:
+        out["tflops_per_s"] = round(flops / s / 1e12, 4)
+        kind = card_kind(tr.device)
+        peak = peak_flops_per_s(kind) if kind else None
+        if peak:
+            out["mfu"] = round(flops / s / peak, 4)
+    return out
 
 
 def format_metrics(epoch: int, m: Dict[str, float]) -> str:

@@ -1043,3 +1043,38 @@ def test_linear_chunked_on_the_card(dev):
         torch.testing.assert_close(a, b, rtol=1e-5,
                                    atol=1e-5 * float(b.abs().max()))
     assert torch.equal(linear_chunked(x, w, block=70_001), linear(x, w))
+
+
+def test_observed_first_step_on_the_card(dev):
+    """The first-step observer on the card: the kernels' FLOPs of the
+    first step (K1, K2 and K4 on 'cuda', each at its kernel_ops) equal
+    the tally of the fused GCN's launches and join the matmuls' count;
+    the peak is the allocator's, above 0; the eval slot counts the
+    forward; the step's objective is the one of a trainer without the
+    observer."""
+    from roc_tpu_torch.kernels._build import kernel_ops
+    from roc_tpu_torch.models.gcn import build_gcn
+    from roc_tpu_torch.train.trainer import (TrainConfig, Trainer,
+                                             run_epoch_loop)
+    ds = synthetic_dataset(2_000, 12, in_dim=32, num_classes=5, seed=0)
+    V, E = ds.graph.num_nodes, ds.graph.num_edges
+    layers = [32, 16, 5]
+
+    def make():
+        return Trainer(build_gcn(layers, dropout_rate=0.5), ds, TrainConfig(
+            aggr_impl="cuda", symmetric=True, verbose=False, epochs=2,
+            eval_every=2), device=dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    tr = make()
+    tr.train()
+    c = tr._train_step.cost
+    kern = sum(2 * sum(kernel_ops(k, V, E, F) for k in (
+        "indegree_norm", "ell_aggregate", "scale_act")) for F in layers[1:])
+    mm = [2 * V * a * b for a, b in zip(layers, layers[1:])]
+    assert c["flops_kernels"] == kern > 0
+    assert c["flops_counted"] == 3 * sum(mm) - mm[0]
+    assert c["peak_bytes"] > 0 and c["model_actual_ratio"] > 0
+    assert tr._eval_step.cost["flops_kernels"] == kern // 2
+    bare = make()
+    run_epoch_loop(bare, None, bare.step, bare.evaluate)
+    assert torch.equal(torch.stack(tr.losses), torch.stack(bare.losses))

@@ -272,10 +272,11 @@ def test_world_size_one_equals_trainer(world_of_one, impl):
     assert b.plan.part_nodes == 96 and b.gctx.gathered_rows == 96
     ha, hb = a.train(), b.train()
     assert torch.equal(torch.stack(a.losses), torch.stack(b.losses))
-    # the timings, and the cost model's straggler fields of the
-    # partitioned trainer's records
+    # the timings (and the rates and EWMA made of them), and the cost
+    # model's straggler fields of the partitioned trainer's records
     drop = ("epoch_ms", "eval_ms", "first_step_ms", "edges_per_s",
-            "straggler_part", "straggler_ratio")
+            "tflops_per_s", "step_ewma_ms", "straggler_part",
+            "straggler_ratio")
     assert [{k: v for k, v in m.items() if k not in drop} for m in ha] == \
         [{k: v for k, v in m.items() if k not in drop} for m in hb]
     for k in a.params:

@@ -377,7 +377,9 @@ def _wait(p, timeout=240):
 
 def _last_loss(path):
     recs = [json.loads(ln) for ln in open(path)]
-    ep = [r for r in recs if r["cat"] == "epoch"]
+    # the eval records (the loop's closing 'phase spans' event carries no
+    # epoch)
+    ep = [r for r in recs if r["cat"] == "epoch" and "epoch" in r]
     assert ep and ep[-1]["epoch"] == 9, ep
     return ep[-1]["train_loss"], recs
 

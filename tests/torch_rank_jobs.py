@@ -371,3 +371,25 @@ def async_rotation_job(model, dataset, config, prefix: str, saves: int,
                 same=all(torch.equal(fresh.params[k], tr.params[k])
                          for k in tr.params),
                 mismatch=mismatch)
+
+
+# ------------------------------------------------------------- telemetry
+
+
+def telemetry_job(model, dataset, config, ev_dir: str) -> Dict[str, Any]:
+    """One rank of a partitioned run with its telemetry: its events to
+    ``ev_dir/ev_p<rank>.jsonl`` (a JSONL sink of its own), the eval
+    records to ``config.metrics_path`` (every rank appends to the one
+    path).  Returns the rank's eval count and objectives."""
+    from roc_tpu_torch.obs.events import JsonlSink
+    sink = JsonlSink(os.path.join(ev_dir, f"ev_p{dist.get_rank()}.jsonl"))
+    get_bus().add_sink(sink)
+    try:
+        tr = DistributedTrainer(model, dataset, dist.get_world_size(),
+                                config, device="cpu")
+        hist = tr.train()
+    finally:
+        get_bus().sinks.remove(sink)
+        sink.close()
+    return {"evals": len(hist),
+            "losses": torch.stack(tr.losses).double().numpy()}
