@@ -256,7 +256,17 @@ Phases (any failure exits nonzero):
    process and the four serve drills (``replica_sigkill:2:1``,
    ``replica_stall:2:0``, ``serve_io:1:0``, ``table_swap_mid_query:1:0``)
    each on its own 2-replica fleet, a replica drained by SIGTERM, an SLO
-   armed on one router; its wall time printed.
+   armed on one router; the merged trace (:func:`fleet_traces`): the
+   router process, the sharded fp32 'akx' fleet's replicas and the
+   ``replica_sigkill`` fleet's write their events, each fleet's files
+   merged by ``python -m roc_tpu_torch.timeline`` (one lane a process,
+   the lanes' skew, ``--request`` on a request across the seam on warm
+   replicas joining the router's span and a microbatch span on each
+   replica, and on a
+   requeued request the failover marker, the dead replica's fault
+   marker and the survivor's span), and per request size the medians of
+   the router span, the replica microbatch span and the gap between
+   them, printed; its wall time printed.
 
 19. the chunked edge-list routes (``routes``, a child like 18, on the
    prep's datasets): the GCN 602-256-41 at Reddit's shape from
@@ -4637,6 +4647,9 @@ FLEET_SHARDS = 2
 # a replica's table budget as a share of the full table: a slice (half
 # the rows and the halo) fits, the whole table does not
 FLEET_BUDGET = 0.6
+# a merged trace's lanes on one host: each lane's clock offset within this
+# of the router lane's (the stamps' wall clock has ms resolution)
+FLEET_SKEW_MS = 5.0
 # the akx head's GEMM runs at the bucket of the sub-request a replica
 # receives, and a GEMM is bit-exact within one bucket size only
 FLEET_TOL = 1e-5
@@ -4718,16 +4731,20 @@ def _bit_share(got, want):
     return float(np.all(got == want, axis=1).mean()) if got.size else 1.0
 
 
-def fleet_answers(name, pred, router, seam):
+def fleet_answers(name, pred, router, seam, rids=None):
     """A SAMPLE-id sample and a batch straddling the seam through the
     router against the exporting predictor's rows: bit-equal on 'table'
-    (a gather), within FLEET_TOL of the logit scale on 'akx'."""
+    (a gather), within FLEET_TOL of the logit scale on 'akx'.  ``rids``
+    (a dict) receives each request's id by its label."""
     rtol = 0.0 if pred.flavor == "table" else FLEET_TOL
     out = []
     for label, ids in (("sample", _sample(pred.num_nodes, SEED + 61)),
                        ("seam", np.arange(seam - FLEET_SEAM,
                                           seam + FLEET_SEAM))):
-        got = np.asarray(router.submit(ids).result(timeout=300))
+        fut = router.submit(ids)
+        if rids is not None:
+            rids[label] = fut.rid
+        got = np.asarray(fut.result(timeout=300))
         want = pred.query(ids)
         rec = _rows_check(f"{name}_{label}", got, want, rtol)
         rec["bit_equal_share"] = _bit_share(got, want)
@@ -4735,16 +4752,22 @@ def fleet_answers(name, pred, router, seam):
     return out
 
 
-def fleet_latency(pred, router, seed):
+def fleet_latency(pred, router, seed, rids=None):
     """Each request size REPEATS times through the router and through the
     in-process Server on the unsharded table: medians, the router's
-    stats, its wire_ms and gather_ms p50."""
+    stats, its wire_ms and gather_ms p50.  ``rids`` (a list) receives
+    each router request's ``(rows, rid)``."""
     from roc_tpu_torch.serve.server import Server
 
     def med(rows):
         return {r["rows"]: r["median_ms"] for r in rows}
-    rt = request_times(lambda i: router.submit(i).result(timeout=300),
-                       pred.num_nodes, seed)
+
+    def call(ids):
+        fut = router.submit(ids)
+        if rids is not None:
+            rids.append((len(ids), fut.rid))
+        return fut.result(timeout=300)
+    rt = request_times(call, pred.num_nodes, seed)
     with Server(pred, max_wait_ms=0.2, name="chip_smoke_fleet") as srv:
         st = request_times(lambda i: srv.submit(i).result(timeout=300),
                            pred.num_nodes, seed)
@@ -4847,18 +4870,25 @@ def fleet_refresh(torch, pred, art, man):
     return rec
 
 
-def _drill_sigkill(art, ref, scale, events):
+def _drill_sigkill(art, ref, scale, events, ev_path=None):
+    """``ev_path``: the fleet's replicas append their events there (the
+    merged trace of :func:`fleet_traces`)."""
     from roc_tpu_torch.serve.errors import ServeTimeout
     from roc_tpu_torch.serve.router import Router
+    env = _fleet_env(FLEET_DRILLS[0])
+    if ev_path:
+        env["ROC_TPU_EVENTS"] = ev_path
     # no hedge: a hedge answering first would leave the dying replica no
     # request in flight to fail over
-    with Router(art, n_replicas=2, env=_fleet_env(FLEET_DRILLS[0]),
+    with Router(art, n_replicas=2, env=env,
                 default_deadline_ms=20_000.0, hedge_min_ms=NO_HEDGE_MS,
                 replica_args=FLEET_ARGS) as router:
         t_warm = time.monotonic() + 120.0
+        answered = set()        # the rids answered
         while time.monotonic() < t_warm:
             for p in [router.submit([0, 1]) for _ in range(2)]:
                 p.result(timeout=60)
+                answered.add(p.rid)
             reps = router.stats()["replicas"]
             if (any(not x["alive"] for x in reps)
                     or all(x["served"] > 0 for x in reps)):
@@ -4874,6 +4904,7 @@ def _drill_sigkill(art, ref, scale, events):
                 _rows_check("sigkill", np.asarray(rows),
                             ref[[i % n, (i * 3) % 200]], FLEET_TOL)
                 ok += 1
+                answered.add(fut.rid)
             except ServeTimeout:
                 timeouts += 1
         stats = router.stats()
@@ -4881,7 +4912,11 @@ def _drill_sigkill(art, ref, scale, events):
     fo = [e for e in events if e.get("cat") == "serve"
           and e.get("kind") == "failover" and e.get("replica") == 1]
     rec = {"ok": ok, "timeouts": timeouts, "alive": alive,
-           "failover_events": len(fo), "n_failover": stats["n_failover"]}
+           "failover_events": len(fo), "n_failover": stats["n_failover"],
+           # the requests this fleet requeued and then answered
+           "requeued_rids": sorted({r for e in fo
+                                    for r in e.get("rids") or []}
+                                   & answered)}
     if (ok + timeouts != 60 or not ok or alive != [True, False] or not fo
             or not stats["n_failover"]):
         raise AssertionError(f"drill replica_sigkill: {rec}")
@@ -4945,8 +4980,11 @@ def close_wedged(routers):
 
 def _drill_serve_io(art, ref, scale, events):
     from roc_tpu_torch.serve.router import Router
+    # no hedge: a hedge answering first (a cold replica's first batch)
+    # would drop the failing replica's retryable error unredispatched
     with Router(art, n_replicas=2, env=_fleet_env(FLEET_DRILLS[2]),
                 default_deadline_ms=30_000.0, slos=list(FLEET_SLOS),
+                hedge_min_ms=NO_HEDGE_MS,
                 replica_args=FLEET_ARGS) as router:
         futs = [router.submit([i]) for i in range(30)]
         for i, f in enumerate(futs):
@@ -5054,11 +5092,12 @@ def _drill_sigterm(art):
     return rec
 
 
-def fleet_drills(art, ref, ref_new, closing):
+def fleet_drills(art, ref, ref_new, closing, sigkill_events=None):
     """The four serve drills, each on its own unsharded 2-replica fleet
     on this card, and the SIGTERM drain, all at once (their spawns
     dominate); every one a gate.  The stalled fleet's router is left in
-    ``closing``."""
+    ``closing``; the SIGKILL fleet's replicas write their events to
+    ``sigkill_events``."""
     import concurrent.futures as cf
     from roc_tpu_torch.obs.events import get_bus
     scale = float(np.abs(ref).max())
@@ -5069,7 +5108,7 @@ def fleet_drills(art, ref, ref_new, closing):
         with cf.ThreadPoolExecutor(5) as pool:
             futs = {
                 "replica_sigkill": pool.submit(_drill_sigkill, art, ref,
-                                               scale, sink),
+                                               scale, sink, sigkill_events),
                 "replica_stall": pool.submit(_drill_stall, art, ref, scale,
                                              sink, closing),
                 "serve_io": pool.submit(_drill_serve_io, art, ref, scale,
@@ -5080,6 +5119,148 @@ def fleet_drills(art, ref, ref_new, closing):
             return {k: f.result() for k, f in futs.items()}
     finally:
         bus.sinks.remove(sink)
+
+
+def _merge_trace(files, out, rid):
+    """``python -m roc_tpu_torch.timeline files -o out --request rid``,
+    started (a Popen)."""
+    here = os.path.dirname(os.path.abspath(__file__))
+    return subprocess.Popen(
+        [sys.executable, "-m", "roc_tpu_torch.timeline", *files, "-o", out,
+         "--request", rid], stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+        text=True, cwd=here, env=dict(_fleet_env(), PYTHONPATH=here))
+
+
+def _trace_lanes(doc, records):
+    """``{proc: pid}`` of a merged doc's lanes, and the skew of each lane's
+    clock offset from the router lane's (proc 0), in ms: on one host every
+    process's wall minus monotonic clock is one number, so the skew is
+    the merge's own error (the stamps' ``t`` has ms resolution)."""
+    from roc_tpu_torch.obs.timeline import clock_offsets
+    pids = {p["proc"]: p["pid"] for p in doc["roc_tpu"]["processes"]}
+    offs = {k[1]: v for k, v in clock_offsets(records).items()}
+    skew = {p: abs(offs[p] - offs[0]) * 1e3 for p in offs if p != 0}
+    return pids, skew
+
+
+def _within(e, route, tol_ms):
+    lo = route["ts_ms"] - tol_ms
+    hi = route["ts_ms"] + route["dur_ms"] + tol_ms
+    return lo <= e["ts_ms"] and e["ts_ms"] + (e["dur_ms"] or 0.0) <= hi
+
+
+def fleet_traces(router_ev, akx_ev, kill_ev, seam_rids, size_rids,
+                 requeued, root):
+    """Each armed fleet's files merged by ``python -m
+    roc_tpu_torch.timeline`` (the router process's file holds every
+    router of this process: rids are unique per process).  Gates: exit
+    0; one lane per process (1 + replicas), each aligned, its skew from
+    the router lane under FLEET_SKEW_MS; ``--request`` on the seam
+    request one connected trace over the router's and both replicas'
+    lanes, each replica span inside the router span to within the skew
+    (at least the stamps' 1 ms) — the seam batch sent once more after
+    the latency runs (``seam_rids['warm']``; the trace of the first,
+    cold one, ``seam_rids['seam']``, is printed); on a requeued request
+    of the SIGKILL
+    fleet the failover marker naming replica 1, the dead replica's fault
+    marker and a span on the survivor, inside the router span.  Prints
+    per request size the medians of the router span, the replica span
+    (the longer of a split request's two) and the gap between them."""
+    from roc_tpu_torch.obs.timeline import load_jsonl, request_trace
+    if not requeued:
+        raise AssertionError("fleet trace: the SIGKILL drill answered no "
+                             "requeued request")
+    t0 = time.perf_counter()
+    jobs = {"akx_fp32": ([router_ev, akx_ev], seam_rids["warm"]),
+            "sigkill": ([router_ev, kill_ev], requeued[0])}
+    procs = {k: _merge_trace(f, os.path.join(root, f"trace_{k}.json"), r)
+             for k, (f, r) in jobs.items()}
+    rec, failed = {}, []
+    for k, pr in procs.items():
+        out, err = pr.communicate(timeout=300)
+        if pr.returncode != 0:
+            raise AssertionError(f"fleet trace {k}: the merge exited "
+                                 f"{pr.returncode}: {err[-2000:]}")
+        summary = json.loads(out.strip().splitlines()[-1])
+        with open(os.path.join(root, f"trace_{k}.json")) as f:
+            doc = json.load(f)
+        records = [r for p in jobs[k][0] for r in load_jsonl(p)]
+        pids, skew = _trace_lanes(doc, records)
+        tol = max(1.0, max(skew.values(), default=0.0))
+        tr = summary["request"]
+        routes = [e for e in tr["events"] if e["name"] == "route_request"]
+        batches = [e for e in tr["events"] if e["name"] == "serve_batch"]
+        r = {"processes": summary["processes"], "lanes": sorted(pids),
+             "aligned": all(p["aligned"]
+                            for p in doc["roc_tpu"]["processes"]),
+             "skew_ms": skew, "rid": tr["rid"], "connected": tr["connected"],
+             "trace_lanes": tr["lanes"], "trace_span_ms": tr["span_ms"],
+             "batch_lanes": sorted({e["pid"] for e in batches})}
+        ok = (summary["processes"] == 1 + FLEET_SHARDS
+              and sorted(pids) == list(range(1 + FLEET_SHARDS))
+              and r["aligned"] and max(skew.values()) < FLEET_SKEW_MS
+              and tr["connected"] and len(routes) == 1
+              and all(_within(e, routes[0], tol) for e in batches))
+        if k == "akx_fp32":
+            ok = ok and (len(tr["lanes"]) == 1 + FLEET_SHARDS
+                         and r["batch_lanes"] == sorted([pids[1], pids[2]]))
+            r["split"] = _trace_split(doc, size_rids)
+            cold = request_trace(doc, seam_rids["seam"])
+            r["cold_seam"] = {"connected": cold["connected"],
+                              "lanes": cold["lanes"],
+                              "span_ms": cold["span_ms"],
+                              "events": _trace_events(cold)}
+        else:
+            fo = [e for e in tr["events"] if e["name"] == "serve:failover"]
+            dead = [e for e in doc["traceEvents"]
+                    if e.get("pid") == pids[2]
+                    and e.get("name") == "fault:replica_sigkill"]
+            r["failover_replica"] = [e["args"].get("replica") for e in fo]
+            r["dead_fault_in_route"] = bool(dead and routes and _within(
+                {"ts_ms": dead[0]["ts"] / 1e3, "dur_ms": 0.0}, routes[0],
+                tol))
+            ok = ok and (r["failover_replica"] == [1]
+                         and r["batch_lanes"] == [pids[1]]
+                         and r["dead_fault_in_route"])
+        rec[k] = r
+        if not ok:
+            r["events"] = _trace_events(tr)
+            failed.append(k)
+    rec["seconds"] = time.perf_counter() - t0
+    if failed:
+        raise AssertionError(f"fleet trace {failed}: {rec}")
+    return rec
+
+
+def _trace_events(tr):
+    """A request trace's events, short: name, lane, start and length."""
+    return [(e["name"], e["pid"], e["ts_ms"], e["dur_ms"])
+            for e in tr["events"]]
+
+
+def _trace_split(doc, size_rids):
+    """Per request size: the medians of the router's route_request span,
+    the replica serve_batch span that served it (the longest, for a
+    request split between the replicas) and the gap (wire, queues and
+    the router), in ms."""
+    routes, batches = {}, {}
+    for e in doc["traceEvents"]:
+        args = e.get("args") or {}
+        if e.get("name") == "route_request" and "rid" in args:
+            routes[args["rid"]] = e["dur"] / 1e3
+        elif e.get("name") == "serve_batch":
+            for rid in args.get("rids") or []:
+                batches[rid] = max(batches.get(rid, 0.0), e["dur"] / 1e3)
+    out = {}
+    for n in sorted({n for n, _ in size_rids}):
+        got = [(routes[r], batches[r]) for m, r in size_rids
+               if m == n and r in routes and r in batches]
+        if got:
+            rt, rb = np.array(got).T
+            out[n] = {"n": len(got), "router_ms": float(np.median(rt)),
+                      "replica_ms": float(np.median(rb)),
+                      "gap_ms": float(np.median(rt - rb))}
+    return out
 
 
 def fleet_child(data_dir, params_path, out_path):
@@ -5096,6 +5277,7 @@ def fleet_child(data_dir, params_path, out_path):
     from roc_tpu_torch.core.graph import synthetic_dataset
     from roc_tpu_torch.kernels import _build
     from roc_tpu_torch.models.sgc import build_sgc
+    from roc_tpu_torch.obs.events import JsonlSink, get_bus
     from roc_tpu_torch.ops.dense import set_fp32_matmul_precision
     from roc_tpu_torch.serve.export import (build_predictor, export_predictor,
                                             load_predictor)
@@ -5122,6 +5304,13 @@ def fleet_child(data_dir, params_path, out_path):
         log({"phase": "fleet_exports", **rec["exports"]})
         cap = pool.submit(fleet_capacity, arts["akx_fp32"][1], int(
             FLEET_BUDGET * arts["akx_fp32"][2]["shards"]["bytes_full"]))
+        # the merged traces' files: this (the routers') process, the
+        # SIGKILL fleet's replicas, the sharded fp32 akx fleet's replicas
+        ev = {k: os.path.join(root, f"ev_{k}.jsonl")
+              for k in ("router", "sigkill", "akx_fp32")}
+        router_sink = JsonlSink(ev["router"])
+        get_bus().add_sink(router_sink)
+        trace_rids = {"seam": {}, "sizes": []}
         try:
             # the arxiv shape: the drills on replicas, the refresh in
             # this process, both on one exported artifact (no export
@@ -5148,7 +5337,8 @@ def fleet_child(data_dir, params_path, out_path):
             del swapped, ads
             rec["arxiv_setup_s"] = time.perf_counter() - t0
             t0 = time.perf_counter()
-            drills = pool.submit(fleet_drills, art, ref, ref_new, closing)
+            drills = pool.submit(fleet_drills, art, ref, ref_new, closing,
+                                 ev["sigkill"])
             rec["refresh"] = fleet_refresh(torch, pred, art, man)
             log({"phase": "fleet_refresh", **rec["refresh"]})
             rec["drills"] = drills.result()
@@ -5166,9 +5356,13 @@ def fleet_child(data_dir, params_path, out_path):
         def start(name):
             pred, path, man = arts[name]
             b = int(FLEET_BUDGET * man["shards"]["bytes_full"])
+            env = _fleet_env()
+            if name in ev:
+                env["ROC_TPU_EVENTS"] = ev[name]
             t = time.perf_counter()
             r = Router(path, n_replicas=FLEET_SHARDS, sharded=True,
-                       table_budget_bytes=b, replica_args=FLEET_ARGS)
+                       table_budget_bytes=b, replica_args=FLEET_ARGS,
+                       env=env)
             return r, time.perf_counter() - t
         t0 = time.perf_counter()
         started = {n: pool.submit(start, n) for n in arts}
@@ -5183,11 +5377,23 @@ def fleet_child(data_dir, params_path, out_path):
             for i, (name, (router, up_s)) in enumerate(routers.items()):
                 pred, path, man = arts[name]
                 seam = man["shards"]["plan"][0][1]
+                traced = name in ev
                 r = {"ready_s": up_s,
                      "table_bytes": [x.ready["table_bytes"]
                                      for x in router.replicas],
-                     "checks": fleet_answers(name, pred, router, seam),
-                     **fleet_latency(pred, router, SEED + 64 + i)}
+                     "checks": fleet_answers(
+                         name, pred, router, seam,
+                         trace_rids["seam"] if traced else None),
+                     **fleet_latency(pred, router, SEED + 64 + i,
+                                     trace_rids["sizes"] if traced
+                                     else None)}
+                if traced:
+                    # the traced seam request, on warm replicas (the
+                    # answers' first requests pay the replicas' start)
+                    fut = router.submit(np.arange(seam - FLEET_SEAM,
+                                                  seam + FLEET_SEAM))
+                    fut.result(timeout=300)
+                    trace_rids["seam"]["warm"] = fut.rid
                 rec[name] = r
                 log({"phase": "fleet_sharded", "artifact": name, **r})
         finally:
@@ -5195,11 +5401,20 @@ def fleet_child(data_dir, params_path, out_path):
             rec["stall_close_s"] = wedged.result()
             log({"phase": "fleet_stall_close",
                  "seconds": rec["stall_close_s"]})
+            get_bus().sinks.remove(router_sink)
+            router_sink.close()
+        # every traced router and replica has closed: its spans are out
+        rec["traces"] = fleet_traces(
+            ev["router"], ev["akx_fp32"], ev["sigkill"],
+            trace_rids["seam"], trace_rids["sizes"],
+            rec["drills"]["replica_sigkill"]["requeued_rids"], root)
+        log({"phase": "fleet_traces", **rec["traces"], "card": card_line()})
     rec["seconds"] = time.perf_counter() - t_start
     log({"phase": "fleet_seconds", "total": rec["seconds"],
          "exports": rec["exports"]["seconds"],
          "fleet_start": rec["fleet_start_s"],
-         "arxiv_setup": rec["arxiv_setup_s"], "drills": rec["drills_s"]})
+         "arxiv_setup": rec["arxiv_setup_s"], "drills": rec["drills_s"],
+         "traces": rec["traces"]["seconds"]})
     with open(out_path, "w") as f:
         json.dump({"record": rec, "counted": counts.counted}, f)
 

@@ -99,6 +99,9 @@ class _PinnedStager:
             self.next = (slot + 1) % len(self.slots)
             done = self.slot_ready[slot]
             if done is not None:
+                # ring reuse: the slot's last copy lands before its pinned
+                # buffer is rewritten
+                # roc-lint: ok=host-sync-hot-path
                 done.synchronize()
             buf = self.slots[slot]
             if buf is None or buf.dtype != src.dtype \
@@ -129,6 +132,8 @@ class _PinnedStager:
             copies, self._copies = self._copies, []
         ms = 0.0
         for start, end, _ in copies:
+            # the pass's copy stats: the caller asks to wait
+            # roc-lint: ok=host-sync-hot-path
             end.synchronize()
             ms += start.elapsed_time(end)
         return {"copies": len(copies),
@@ -249,6 +254,8 @@ class StagingPool:
         pool keeps (a pageable download runs at a fraction of the pinned
         rate); from the CPU, a copy."""
         if self.stager is None:
+            # no stager: a CPU tensor, a host copy
+            # roc-lint: ok=host-sync-hot-path
             out[...] = src.numpy()
             return
         n = src.numel()
@@ -258,6 +265,8 @@ class StagingPool:
                                           pin_memory=True)
         host = buf[:n].view(src.shape)
         host.copy_(src)
+        # the pinned buffer the download just filled: its product
+        # roc-lint: ok=host-sync-hot-path
         out[...] = host.numpy()
 
     def _ready(self, item):
@@ -290,6 +299,9 @@ class StagingPool:
 
         def wait_done(j: int):
             if self.stager is not None and j >= 0:
+                # flow control: block j's consumer is done before its
+                # slot is restaged
+                # roc-lint: ok=host-sync-hot-path
                 done[j].synchronize()
 
         if self.depth == 0:
@@ -430,6 +442,9 @@ def _iter_chunks(src: np.ndarray, dst: np.ndarray, edge_chunk: int,
     for e0 in range(0, src.shape[0], edge_chunk):
         s, d, d0, rows = _pad_chunk(src[e0:e0 + edge_chunk],
                                     dst[e0:e0 + edge_chunk], dummy)
+        # once a plan (its memo); past TABLE_CACHE_BYTES one chunk
+        # is live at a time, by design
+        # roc-lint: ok=sync-h2d-in-loop
         yield (torch.from_numpy(s).to(device), torch.from_numpy(d).to(device),
                d0, rows)
 

@@ -148,10 +148,14 @@ def library() -> ctypes.CDLL:
         if _lib is not None:
             return _lib
         srcs = sources()
-        target = os.path.join(BUILD_DIR,
-                              f"libroc_kernels_{_digest(srcs)}.so")
+        # the build is what the other holders wait for
+        # roc-lint: ok=blocking-under-lock
+        digest = _digest(srcs)
+        target = os.path.join(BUILD_DIR, f"libroc_kernels_{digest}.so")
         t0 = time.perf_counter()
         if not os.path.exists(target):
+            # the build is what the other holders wait for
+            # roc-lint: ok=blocking-under-lock
             _build(srcs, target)
         build_seconds = time.perf_counter() - t0
         lib = ctypes.CDLL(target)

@@ -100,6 +100,8 @@ def dst_from_row_ptr(row_ptr: torch.Tensor, num_edges: int
     n = row_ptr.shape[0] - 1
     out = torch.full((num_edges,), max(n - 1, 0), dtype=torch.int32,
                      device=row_ptr.device)
+    # the CPU path's plain version only: a host tensor
+    # roc-lint: ok=host-sync-hot-path
     end = int(row_ptr[-1])
     out[:end] = torch.repeat_interleave(
         torch.arange(n, dtype=torch.int32, device=row_ptr.device),

@@ -93,7 +93,8 @@ from ..ops.aggregate import (aggregate_blocked, aggregate_ell,
                              aggregate_ell_max, aggregate_ell_sect,
                              aggregate_flat_max, aggregate_flat_sum,
                              aggregate_scan, aggregate_segment,
-                             aggregate_segment_max)
+                             aggregate_segment_max, flat_row_ends,
+                             scan_offsets)
 from ..ops.attention import (gat_aggregate_ell, gat_aggregate_flat8,
                              resolve_dh_chunk)
 from ..ops.blockdense import aggregate_block_dense
@@ -229,7 +230,11 @@ class GraphContext:
       ``sect_meta`` their ``(start, size)`` ('sectioned'; 'bdense''s
       residual); ``sect_w`` the baked fused weights, shaped like the ids.
     flat8_idx / flat8_dst: the flat tables ('flat_sum', 'attn_flat8'),
-      ``flat8_w`` their baked weights ('flat_sum').
+      ``flat8_w`` their baked weights ('flat_sum'); ``flat8_row_ends``
+      the host bits the flat max reads (ops/aggregate.py
+      ``flat_row_ends``), read from ``flat8_dst`` once, here.
+    scan_offsets: the host bits route 'scan' reads (ops/aggregate.py
+      ``scan_offsets`` of ``edge_dst``), read once, here.
     bd_a / bd_src / bd_dst: the block-dense A-tables (uint8, or u4-packed
       ``[..., 64]``) and tile ids, ``bd_vpad`` the padded rows,
       ``bd_src_vpad`` the padded source rows (0: ``bd_vpad``; a
@@ -268,6 +273,10 @@ class GraphContext:
     flat8_idx: Optional[torch.Tensor] = None
     flat8_dst: Optional[torch.Tensor] = None
     flat8_w: Optional[torch.Tensor] = None
+    flat8_row_ends: Optional[Tuple[List[int], List[int]]] = field(
+        default=None, init=False, repr=False)
+    scan_offsets: Optional[List[int]] = field(default=None, init=False,
+                                              repr=False)
     bd_a: Optional[torch.Tensor] = None
     bd_src: Optional[torch.Tensor] = None
     bd_dst: Optional[torch.Tensor] = None
@@ -297,6 +306,12 @@ class GraphContext:
                              "rank's collectives")
         if self.gathered_rows is None:
             self.gathered_rows = self.num_rows
+        # the host bits the flat max and the scan split their runs on
+        # depend on the tables alone: read here once, not every call
+        if self.flat8_dst is not None:
+            self.flat8_row_ends = flat_row_ends(self.flat8_dst)
+        if self.aggr_impl == "scan" and self.edge_dst is not None:
+            self.scan_offsets = scan_offsets(self.edge_dst, self.chunk)
 
     def _ring_sum(self, x: torch.Tensor, baked: bool = False
                   ) -> torch.Tensor:
@@ -346,11 +361,15 @@ class GraphContext:
             return aggregate_segment(self._gathered_with_zero(x),
                                      self.edge_src, self.edge_dst,
                                      self.num_rows)
-        if self.aggr_impl in ("blocked", "scan"):
-            fn = (aggregate_blocked if self.aggr_impl == "blocked"
-                  else aggregate_scan)
-            return fn(self._gathered_with_zero(x), self.edge_src,
-                      self.edge_dst, self.num_rows, chunk=self.chunk)
+        if self.aggr_impl == "blocked":
+            return aggregate_blocked(self._gathered_with_zero(x),
+                                     self.edge_src, self.edge_dst,
+                                     self.num_rows, chunk=self.chunk)
+        if self.aggr_impl == "scan":
+            return aggregate_scan(self._gathered_with_zero(x),
+                                  self.edge_src, self.edge_dst,
+                                  self.num_rows, chunk=self.chunk,
+                                  offsets=self.scan_offsets)
         if self.aggr_impl in LAYOUT_IMPLS:
             return self._layout_sum(self._gathered_with_zero(x))
         return aggregate_ell(self._gathered_with_zero(x), self.ell_idx,
@@ -475,7 +494,8 @@ class GraphContext:
                                         self.num_rows)
         elif self.aggr_impl == "flat_sum":
             out = aggregate_flat_max(full, self.flat8_idx, self.flat8_dst,
-                                     self.num_rows)
+                                     self.num_rows,
+                                     row_ends=self.flat8_row_ends)
         else:
             # every chunked-sum route: falling through to the segment max
             # would materialize the [E, F] per-edge matrix

@@ -124,20 +124,28 @@ def _load() -> Optional[ctypes.CDLL]:
             return _lib
         _tried = True
         from ..obs.events import emit
+        # the build is what the other holders wait for
+        # roc-lint: ok=blocking-under-lock
         target = _target()
         try:
             if not os.path.exists(target):
+                # the build is what the other holders wait for
+                # roc-lint: ok=blocking-under-lock
                 _build(target)
             lib = ctypes.CDLL(target)
             lib.roc_abi_version.restype = ctypes.c_int
             got = int(lib.roc_abi_version())
         except (OSError, AttributeError, subprocess.SubprocessError) as e:
+            # one event line, once a process
+            # roc-lint: ok=blocking-under-lock
             emit("resolve", f"native host library unavailable ({e}); the "
                  "layouts are planned and the files read by their numpy "
                  "paths",
                  native=False, reason=str(e)[:300])
             return None
         if got != ABI_VERSION:
+            # one event line, once a process
+            # roc-lint: ok=blocking-under-lock
             emit("resolve", f"{target}: ABI v{got} != expected "
                  f"v{ABI_VERSION}; planning with numpy", native=False,
                  abi_got=got, abi_expected=ABI_VERSION)

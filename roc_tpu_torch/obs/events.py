@@ -68,7 +68,9 @@ def set_clock_identity(proc: Optional[int] = None,
 
 def process_index() -> int:
     """This process's rank in the default ``torch.distributed`` group,
-    0 when none is up."""
+    0 when none is up (nor can be: ``torch.distributed`` not imported)."""
+    if "torch.distributed" not in sys.modules:
+        return 0
     import torch.distributed as dist
     if dist.is_available() and dist.is_initialized():
         return int(dist.get_rank())
@@ -116,8 +118,11 @@ class ConsoleSink:
 
 
 class JsonlSink:
-    """Append-only JSONL; opens lazily on the first event and flushes
-    every line (a killed run still leaves a readable artifact)."""
+    """Append-only JSONL; opens lazily on the first event and writes
+    every line at once, unbuffered, to a file opened for appending: a
+    killed run still leaves a readable artifact, and processes that
+    share one file (a router and the replicas that inherit its
+    ``ROC_TPU_EVENTS``) append whole lines that never interleave."""
 
     def __init__(self, path: str):
         self.path = path
@@ -129,9 +134,9 @@ class JsonlSink:
         if self._fh is None:
             d = os.path.dirname(os.path.abspath(self.path))
             os.makedirs(d, exist_ok=True)
-            self._fh = open(self.path, "a")
-        self._fh.write(json.dumps(rec) + "\n")
-        self._fh.flush()
+            self._fh = open(self.path, "ab", buffering=0)
+        # one write call a line (O_APPEND places it at the end whole)
+        self._fh.write((json.dumps(rec) + "\n").encode())
 
     def close(self) -> None:
         if self._fh is not None:
@@ -179,6 +184,7 @@ class EventLog:
                 try:
                     # the bus lock serialises the sinks: concurrent
                     # emitters would tear a shared JSONL handle's lines
+                    # roc-lint: ok=blocking-under-lock
                     sink.write(record)
                 except Exception as e:  # noqa: BLE001 - never raise
                     if not self._sink_warned:

@@ -50,7 +50,7 @@ would route it all to one index).  Rows with no real neighbour come out
 
 from __future__ import annotations
 
-from typing import Optional, Sequence, Tuple
+from typing import List, Optional, Sequence, Tuple
 
 import torch
 from torch.utils.checkpoint import checkpoint
@@ -330,10 +330,20 @@ def _flat_max_piece(feats: torch.Tensor, carry: Optional[torch.Tensor],
     return local
 
 
+def flat_row_ends(flat_dst: torch.Tensor) -> Tuple[List[int], List[int]]:
+    """The first and last output row of each flat chunk row, on the host:
+    the bits :func:`aggregate_flat_max` splits its runs on.  They depend
+    on the table alone, so the model's graph context reads them once
+    where the tables are built (models/builder.py)."""
+    # once a table set: roc-lint: ok=host-sync-hot-path
+    return flat_dst[:, 0].tolist(), flat_dst[:, -1].tolist()
+
+
 def aggregate_flat_max(feats: torch.Tensor, flat_idx: torch.Tensor,
                        flat_dst: torch.Tensor, num_rows: int,
-                       budget_elems: int = LAYOUT_BUDGET_ELEMS
-                       ) -> torch.Tensor:
+                       budget_elems: int = LAYOUT_BUDGET_ELEMS,
+                       row_ends: Optional[Tuple[List[int], List[int]]]
+                       = None) -> torch.Tensor:
     """Neighbour MAX over the flat layout (MIN as ``-max(-x)`` at the call
     site): per sub-row a masked ``amax`` over the width (the dummy id
     ``G`` masked to ``-inf``), combined per row by one scatter-max per
@@ -347,11 +357,12 @@ def aggregate_flat_max(feats: torch.Tensor, flat_idx: torch.Tensor,
     the output, starting from the previous piece's last row where the
     row continues; under autograd each piece is recomputed in the
     backward (``torch.utils.checkpoint``), which keeps no gathered
-    ``[rows, 8, F]`` block alive."""
+    ``[rows, 8, F]`` block alive.  ``row_ends``: :func:`flat_row_ends`
+    of ``flat_dst``, read from it when not given."""
     n, seg, W = flat_idx.shape
     F = feats.shape[1]
-    firsts = flat_dst[:, 0].tolist()
-    lasts = flat_dst[:, -1].tolist()
+    firsts, lasts = (row_ends if row_ends is not None
+                     else flat_row_ends(flat_dst))
     grad = torch.is_grad_enabled() and feats.requires_grad
     pieces = []
     prev, prev_hi = None, -1
@@ -403,10 +414,23 @@ def aggregate_blocked(feats: torch.Tensor, edge_src: torch.Tensor,
     return out.to(feats.dtype)
 
 
+def scan_offsets(edge_dst: torch.Tensor, chunk: int) -> List[int]:
+    """Where each chunk's row ends start in :func:`aggregate_scan`'s list
+    of row ends, on the host (``[n_chunks + 1]``).  They depend on the
+    edge table alone, so the model's graph context reads them once where
+    the tables are built (models/builder.py)."""
+    dst = edge_dst.reshape(-1, chunk)
+    is_end = torch.ones_like(dst, dtype=torch.bool)
+    is_end[:, :-1] = dst[:, 1:] != dst[:, :-1]
+    # once a table set: roc-lint: ok=host-sync-hot-path
+    return [0] + torch.cumsum(is_end.sum(dim=1), 0).tolist()
+
+
 def aggregate_scan(feats: torch.Tensor, edge_src: torch.Tensor,
                    edge_dst: torch.Tensor, num_rows: int,
                    chunk: int = 1024,
-                   budget_elems: int = LAYOUT_BUDGET_ELEMS) -> torch.Tensor:
+                   budget_elems: int = LAYOUT_BUDGET_ELEMS,
+                   offsets: Optional[List[int]] = None) -> torch.Tensor:
     """The JAX package's ``aggregate_scan`` contract (as
     :func:`aggregate_blocked`'s): within each chunk of dst-sorted edges
     the row sums are differences of the chunk's prefix sum (fp32) at the
@@ -414,7 +438,8 @@ def aggregate_scan(feats: torch.Tensor, edge_src: torch.Tensor,
     a row that spans chunks is summed from their partials, as the JAX
     scan's carry records are.  The row ends are found once for the whole
     edge list; runs of whole chunks of at most ``budget_elems`` gathered
-    scalars go at a time.  A bf16 input is rounded once."""
+    scalars go at a time.  A bf16 input is rounded once.  ``offsets``:
+    :func:`scan_offsets` of ``edge_dst``, read from it when not given."""
     n = _check_chunks(edge_src.shape[0], chunk)
     F = feats.shape[1]
     acc = _acc_dtype(feats.dtype)
@@ -428,7 +453,8 @@ def aggregate_scan(feats: torch.Tensor, edge_src: torch.Tensor,
     first = torch.ones_like(ends, dtype=torch.bool)
     first[1:] = ends[1:] // chunk != ends[:-1] // chunk
     end_rows = edge_dst.index_select(0, ends).long()
-    offsets = [0] + torch.cumsum(is_end.sum(dim=1), 0).tolist()
+    if offsets is None:
+        offsets = scan_offsets(edge_dst, chunk)
     zero = torch.zeros((), dtype=acc, device=feats.device)
     for c0, c1 in _steps(n, chunk * F, budget_elems):
         e0, e1 = c0 * chunk, c1 * chunk

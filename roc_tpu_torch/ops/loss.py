@@ -53,6 +53,8 @@ def summarize_metrics(m: Dict[str, object]) -> Dict[str, float]:
     values or floats."""
     if any(isinstance(v, torch.Tensor) for v in m.values()):
         keys = list(m)
+        # once an eval: every metric in one fetch
+        # roc-lint: ok=host-sync-hot-path
         vals = torch.stack([torch.as_tensor(m[k], dtype=torch.float32)
                             for k in keys]).cpu().tolist()
         m = dict(zip(keys, vals))

@@ -26,9 +26,14 @@ behind:
 
 ``--slo SNAPSHOT`` renders a metrics-registry snapshot
 (``MetricsRegistry.dump``) as the live dashboard; a bare ``--slo`` only
-the SLO transitions of the event files.  The JAX report's analysis views
-(``--sharding``, ``--protocol``, ``--concurrency``, the program space)
-read payloads the port does not produce yet.
+the SLO transitions of the event files.  ``--concurrency FILE`` and
+``--protocol FILE`` render the analysis CLI's ``--json`` payload
+(``python -m roc_tpu_torch.analysis --json``): the thread model and the
+wire vocabulary, model-check verdicts and transition sites; without them
+the same tables come from the ``concurrency_surface``/``protocol_surface``
+events of an audited run's stream.  The JAX report's ``--sharding`` and
+program-space views read XLA programs the port does not have, and are
+not ported.
 
 A reader: it works on the artifacts of a dead run and imports neither
 torch nor anything of its package, so it runs anywhere as a plain
@@ -111,7 +116,8 @@ def _first_step_s(e: Dict[str, Any]) -> float:
 
 def summarize(events: List[Dict[str, Any]],
               metrics: Optional[List[Dict[str, Any]]] = None,
-              out=None) -> int:
+              out=None, concurrency: Optional[Dict[str, Any]] = None,
+              protocol: Optional[Dict[str, Any]] = None) -> int:
     out = out if out is not None else sys.stdout
 
     # merged multi-process artifacts: say what was merged before
@@ -262,6 +268,33 @@ def summarize(events: List[Dict[str, Any]],
     _rows("resilience (faults injected / recoveries)",
           ["kind", "n", "last"], rows, out)
 
+    # the concurrency surface: the auditor's thread model — every thread,
+    # sync object and signal handler per module.  Source: the
+    # ``--concurrency`` payload (``python -m roc_tpu_torch.analysis
+    # --select concurrency --json``), or the ``concurrency_surface``
+    # analysis event an audited run leaves in its stream
+    conc = concurrency
+    if conc is None:
+        evs = [e for e in events if e.get("cat") == "analysis"
+               and e.get("kind") == "concurrency_surface"]
+        if evs:
+            conc = {"modules": evs[-1].get("modules") or [],
+                    "totals": evs[-1].get("totals") or {}}
+    summarize_concurrency(conc or {}, out)
+
+    # the protocol surface: the wire vocabulary and the model checker's
+    # verdicts.  Source: the ``--protocol`` payload, or the
+    # ``protocol_surface`` event an audited run leaves in its stream
+    proto = protocol
+    if proto is None:
+        evs = [e for e in events if e.get("kind") == "protocol_surface"]
+        if evs:
+            proto = {"channels": evs[-1].get("channels") or [],
+                     "models": evs[-1].get("models") or [],
+                     "totals": evs[-1].get("totals") or {}}
+    if proto:
+        summarize_protocol(proto, out)
+
     summarize_slo_events(events, out)
 
     stalls = [e for e in events if e.get("cat") == "stall"]
@@ -274,6 +307,104 @@ def summarize(events: List[Dict[str, Any]],
     _rows("stalls (heartbeats)", ["stage", "beats", "max_wait"],
           rows, out)
     return 0
+
+
+def summarize_concurrency(surface: Dict[str, Any], out=None) -> int:
+    """Render the concurrency surface: per module, its threads (target,
+    daemon), sync objects and signal handlers.  Input: the
+    ``concurrency_surface`` of ``python -m roc_tpu_torch.analysis
+    --select concurrency --json``, or the equivalent analysis event."""
+    out = out if out is not None else sys.stdout
+    rows = []
+    for mod in surface.get("modules", []):
+        threads = ", ".join(
+            (str(t.get("target") or "?")
+             + ("(daemon)" if t.get("daemon") else ""))
+            for t in mod.get("threads", [])) or "-"
+        locks = ", ".join(
+            f"{lk.get('name')}[{lk.get('kind')}]"
+            for lk in mod.get("locks", [])) or "-"
+        handlers = ", ".join(str(h.get("handler") or "?")
+                             for h in mod.get("handlers", [])) or "-"
+        rows.append([str(mod.get("module", "?")), threads, locks,
+                     handlers])
+    _rows("concurrency surface (threads / sync objects / handlers)",
+          ["module", "threads", "sync objects", "signal handlers"],
+          rows, out)
+    return 0
+
+
+def summarize_protocol(surface: Dict[str, Any], out=None) -> int:
+    """Render the protocol audit: the per-channel wire vocabulary (kind,
+    field contract, send/handle sites, drift status), each dispatcher's
+    unknown-kind rejection, the bounded model checker's per-model state
+    counts and invariant verdicts (with the counterexample schedule of a
+    violation), and the lifecycle/commit transition sites.  Input: the
+    ``protocol_surface`` of ``python -m roc_tpu_torch.analysis --select
+    protocol --json``, or the equivalent ``protocol`` event."""
+    out = out if out is not None else sys.stdout
+    for chan in surface.get("channels") or []:
+        rows = []
+        for kind, k in sorted((chan.get("kinds") or {}).items()):
+            sent_at = ",".join(str(x) for x in k.get("sent_at") or [])
+            if not sent_at:
+                sent_at = ("(by design)" if k.get("sent") is False
+                           else "-")
+            rows.append([
+                kind,
+                ",".join(k.get("required") or []) or "?",
+                ",".join(k.get("optional") or []) or "-",
+                sent_at,
+                ",".join(str(x) for x in k.get("handled_at") or [])
+                or "-",
+                str(k.get("status", "?"))])
+        _rows(f"wire vocabulary: {chan.get('name')} "
+              f"({chan.get('sender')} -> {chan.get('receiver')})",
+              ["kind", "required", "optional", "sent@", "handled@",
+               "status"], rows, out)
+        rej = ", ".join(
+            f"{d.get('func')}:{d.get('line')}"
+            + ("" if d.get("rejects_unknown") else " [NO REJECTION]")
+            for d in chan.get("dispatchers") or []) or "(none)"
+        print(f"  unknown-kind rejection: {rej}", file=out)
+    rows = [[str(m.get("model", "?")), str(m.get("states")),
+             str(m.get("transitions")),
+             "yes" if m.get("complete") else "BUDGET EXHAUSTED",
+             str(len(m.get("violations") or [])),
+             ", ".join(m.get("invariants") or [])]
+            for m in surface.get("models") or []]
+    _rows("protocol models (bounded exhaustive exploration)",
+          ["model", "states", "transitions", "complete",
+           "violations", "invariants"], rows, out)
+    for m in surface.get("models") or []:
+        for v in m.get("violations") or []:
+            print(f"  VIOLATION {m.get('model')}/"
+                  f"{v.get('invariant')}: {v.get('msg')}", file=out)
+            sched = " -> ".join(v.get("trace") or [])
+            print(f"    schedule: {sched or '<initial state>'}",
+                  file=out)
+    rows = [[str(s.get("machine", "?")), str(s.get("module", "?")),
+             str(s.get("site", "?")), str(s.get("line") or "-"),
+             "yes" if s.get("present") else "MISSING"]
+            for s in surface.get("sites") or []]
+    _rows("protocol transition sites",
+          ["machine", "module", "site", "line", "present"], rows, out)
+    return 0
+
+
+def _load_surface(path: str, key: str) -> Optional[Dict[str, Any]]:
+    """The ``key`` surface of an analysis ``--json`` payload (or a bare
+    surface dict) at ``path``; None after printing the error when the
+    file cannot be read."""
+    try:
+        with open(path) as f:
+            payload = json.load(f)
+    except (OSError, ValueError) as e:
+        print(f"error: cannot read {path}: {e}", file=sys.stderr)
+        return None
+    surface = payload.get(key, payload) if isinstance(payload, dict) \
+        else None
+    return surface if isinstance(surface, dict) else {}
 
 
 def summarize_slo_events(events: List[Dict[str, Any]],
@@ -413,6 +544,17 @@ def main(argv: Optional[List[str]] = None) -> int:
                     help="training metrics JSONL (--metrics artifact) to "
                          "fold into the span/throughput tables; "
                          "repeatable")
+    ap.add_argument("--concurrency", default=None, metavar="FILE",
+                    help="`python -m roc_tpu_torch.analysis --select "
+                         "concurrency --json` payload: renders the "
+                         "concurrency-surface table (threads / locks / "
+                         "signal handlers per module) from it instead of "
+                         "the event stream (works without event files)")
+    ap.add_argument("--protocol", default=None, metavar="FILE",
+                    help="`python -m roc_tpu_torch.analysis --select "
+                         "protocol --json` payload: renders the wire-"
+                         "vocabulary, model-check and transition-site "
+                         "tables from it (works without event files)")
     ap.add_argument("--slo", nargs="?", const="__events__",
                     default=None, metavar="SNAPSHOT",
                     help="SLO view.  With SNAPSHOT: render a metrics-"
@@ -443,8 +585,23 @@ def main(argv: Optional[List[str]] = None) -> int:
             return 2
         events.sort(key=lambda e: float(e.get("t") or 0.0))
         return summarize_slo_events(events)
+    surfaces: Dict[str, Optional[Dict[str, Any]]] = {}
+    for name, key, path in (
+            ("concurrency", "concurrency_surface", args.concurrency),
+            ("protocol", "protocol_surface", args.protocol)):
+        if path:
+            surfaces[name] = _load_surface(path, key)
+            if surfaces[name] is None:
+                return 2
     if not args.events:
-        ap.error("event files required (or --slo SNAPSHOT)")
+        if not surfaces:
+            ap.error("event files required (or --slo SNAPSHOT, "
+                     "--concurrency FILE, --protocol FILE)")
+        if "concurrency" in surfaces:
+            summarize_concurrency(surfaces["concurrency"])
+        if "protocol" in surfaces:
+            summarize_protocol(surfaces["protocol"])
+        return 0
     events = _load_all(args.events)
     if events is None:
         return 2
@@ -456,7 +613,7 @@ def main(argv: Optional[List[str]] = None) -> int:
         metrics = _load_all(args.metrics)
         if metrics is None:
             return 2
-    return summarize(events, metrics)
+    return summarize(events, metrics, **surfaces)
 
 
 if __name__ == "__main__":

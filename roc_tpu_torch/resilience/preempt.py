@@ -80,9 +80,12 @@ class PreemptionGuard:
         self.signum = int(signum)
         try:
             # os.write on a raw fd: async-signal-safe (no buffer, no lock)
+            # roc-lint: ok=signal-unsafe-handler
             os.write(2, b"# preemption signal received; finishing the "
                         b"in-flight epoch step\n")
-        except OSError:  # stderr gone mid-teardown: nobody to tell
+        # stderr gone mid-teardown, nobody to tell
+        # roc-lint: ok=swallowed-exception
+        except OSError:
             pass
 
     def requested(self) -> bool:

@@ -186,6 +186,7 @@ class CheckpointRotation:
                         os.remove(p)
                 # best effort: a leftover wastes disk, harms nothing, and
                 # the next save retries it
+                # roc-lint: ok=swallowed-exception
                 except OSError:
                     pass
 

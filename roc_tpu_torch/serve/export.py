@@ -104,6 +104,8 @@ def _full_logits_host(model, dataset, config, params,
         logits = model.apply(cast_floats(
             {k: v.detach().to(device) for k, v in params.items()},
             compute), feats, gctx, train=False)
+        # export: the forward's logits, written to the artifact
+        # roc-lint: ok=host-sync-hot-path
         return logits.to(torch.float32).cpu().numpy()
 
 
@@ -268,6 +270,8 @@ def _host_params(params: Dict[str, torch.Tensor]) -> Dict[str, np.ndarray]:
     """Host arrays for ``params.npz``: fp32 as is, bf16 as its 2-byte
     words (``|V2``, how numpy stores the JAX package's bf16)."""
     from ..utils.checkpoint import _tensor_to_numpy
+    # export: the params, written to params.npz
+    # roc-lint: ok=host-sync-hot-path
     return {k: _tensor_to_numpy(v.detach().cpu()) for k, v in params.items()}
 
 
@@ -296,6 +300,8 @@ def _quant_ref_logits(pred: Predictor, params, sample) -> np.ndarray:
         pred.device, pred.compute)
     with torch.inference_mode():
         out = pred.head_model.apply(params, x, None, train=False)
+    # export's drift gate: the fp32 reference logits
+    # roc-lint: ok=host-sync-hot-path
     return out.to(torch.float32).cpu().numpy()
 
 

@@ -341,6 +341,8 @@ class Predictor:
             padded[:chunk.size] = chunk
             logits = self.query_device(
                 torch.from_numpy(padded).to(self.device), pub, staged)
+            # the result itself, returned to the caller
+            # roc-lint: ok=host-sync-hot-path
             out.append(logits[:chunk.size].to(torch.float32).cpu().numpy())
         return (np.concatenate(out) if out
                 else np.zeros((0, self.num_classes or 0), np.float32))
@@ -437,6 +439,8 @@ class Predictor:
                             self._host_scales[local], pub.version,
                             pub.qmode)
                 return self._host_rows[local], None, pub.version, "off"
+            # the requested rows only (a row fetch)
+            # roc-lint: ok=dequant-hot-path
             vals = np.asarray(self.cache.table[local], dtype=np.float32)
         if pub.qmode != "off":
             from .quant import quantize_rows
@@ -466,6 +470,9 @@ class Predictor:
             version = old.version + 1
             table, scale = old.table, old.scale
             if own.size:
+                # copy-on-write publish: its uploads hold the writers' lock
+                # only; readers never take it
+                # roc-lint: ok=blocking-under-lock
                 idx = torch.from_numpy(own).to(self.device)
                 if old.qmode != "off":
                     from .quant import QuantDriftError, quantize_rows
@@ -480,11 +487,14 @@ class Predictor:
                             f"v{old.version}")
                     self._host_codes[own] = q
                     self._host_scales[own] = sc
+                    # roc-lint: ok=blocking-under-lock
                     table = old.table.index_copy(0, idx, self._codes(q))
                     scale = old.scale.index_copy(
+                        # roc-lint: ok=blocking-under-lock
                         0, idx, torch.from_numpy(sc).to(self.device))
                 else:
                     self._host_rows[own] = vals
+                    # roc-lint: ok=blocking-under-lock
                     table = old.table.index_copy(0, idx, torch.from_numpy(
                         np.ascontiguousarray(vals)).to(self.device,
                                                        self.compute))
@@ -514,6 +524,8 @@ class Predictor:
         self._need_cache("invalidation")
         with self._pub_lock:
             rows = self.cache.add_edges(src, dst)
+            # copy-on-write publish: writers only; readers never lock
+            # roc-lint: ok=blocking-under-lock
             version = self._publish_rows_locked(rows)
         self._emit_publish(version, rows)
         return int(rows.size)
@@ -524,6 +536,8 @@ class Predictor:
         self._need_cache("a row refresh")
         rows = np.asarray(rows, dtype=np.int64).ravel()
         with self._pub_lock:
+            # copy-on-write publish: writers only; readers never lock
+            # roc-lint: ok=blocking-under-lock
             version = self._publish_rows_locked(rows)
         self._emit_publish(version, rows)
 
@@ -571,6 +585,8 @@ class Predictor:
         mode = check_mode(mode)
         with self._pub_lock:
             old = self._published
+            # copy-on-write publish: writers only; readers never lock
+            # roc-lint: ok=blocking-under-lock
             table, scale = self._device_table(mode)
             self.quant = mode
             version = old.version + 1

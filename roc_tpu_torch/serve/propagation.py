@@ -270,6 +270,8 @@ def logits_table_cache(table: np.ndarray) -> PropagationCache:
     frozen forward is the cached object, as for APPNP, where propagation
     runs after the MLP) in the same container; :meth:`add_edges`
     refuses with the re-export message."""
+    # the 'table' flavor's build: the table is the artifact
+    # roc-lint: ok=dequant-hot-path
     t = np.asarray(table, dtype=np.float32)
     V = t.shape[0]
     return PropagationCache(

@@ -90,7 +90,11 @@ class _Wire:
     def send(self, obj: Dict[str, Any]) -> None:
         line = json.dumps(obj)
         with self._lock:
+            # the wire lock is its line serialiser: one flushed line
+            # roc-lint: ok=blocking-under-lock
             self._stream.write(line + "\n")
+            # same bounded hold
+            # roc-lint: ok=blocking-under-lock
             self._stream.flush()
 
 
@@ -380,9 +384,11 @@ def main(argv: Optional[List[str]] = None) -> int:
     from ..resilience import inject, preempt
     from .export import MANIFEST_NAME, load_predictor
     from .server import DEFAULT_MAX_QUEUE, Server
-    # identity first: the fault arm and every event carry the index
+    # identity first: the fault arm carries the index; the event lane is
+    # proc 1 + index, since the router's own lane is proc 0 (its rank):
+    # the merged trace keeps the router and replica 0 apart
     inject.note_proc_index(args.replica)
-    set_clock_identity(proc=args.replica)
+    set_clock_identity(proc=args.replica + 1)
     preempt.install()
     with Heartbeat(f"replica{args.replica} loading artifact"):
         pred = load_predictor(args.artifact, shard=args.shard_index,
@@ -410,10 +416,14 @@ def main(argv: Optional[List[str]] = None) -> int:
     elif args.shard:
         lo, hi = args.shard.split(":")
         shard = [int(lo), int(hi)]
+    # no clock_sync: the router started this process on its own host, so
+    # the lane aligns on the wall clock they share (a sync stamped at this
+    # replica's start is no barrier with the router's, and the timeline
+    # merger would pin the two different instants together)
     server = Server(pred, max_wait_ms=args.max_wait_ms,
                     name=f"replica{args.replica}",
                     max_queue=(DEFAULT_MAX_QUEUE if args.max_queue is None
-                               else args.max_queue))
+                               else args.max_queue), clock_sync=False)
     wire.send({"kind": "ready", "replica": args.replica,
                "pid": os.getpid(), "num_nodes": int(pred.num_nodes),
                "num_classes": pred.num_classes,

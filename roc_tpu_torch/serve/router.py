@@ -44,6 +44,7 @@ unless ``cpu=True``.
 
 from __future__ import annotations
 
+import itertools
 import json
 import os
 import subprocess
@@ -65,6 +66,9 @@ from .replica import hb_interval
 # monitor cadence: deadline expiry + hedging both resolve on this
 # grain, so it sits well under the smallest deadline worth setting
 _MONITOR_TICK_S = 0.01
+# the request ids' sequence, one per process: two routers of a process
+# never mint the same rid (the trace joins its lanes on it)
+_RID_SEQ = itertools.count(1)
 
 # typed names a replica may report; anything else maps to ServeError
 _TYPED = {"ServeTimeout": ServeTimeout, "ServeOverload": ServeOverload,
@@ -98,7 +102,11 @@ class _Replica:
         try:
             with self.wlock:
                 # the per-replica pipe's serialiser: one flushed line
+                # the pipe lock is its line serialiser: one flushed line
+                # roc-lint: ok=blocking-under-lock
                 self.proc.stdin.write(line)
+                # same bounded hold
+                # roc-lint: ok=blocking-under-lock
                 self.proc.stdin.flush()
             return True
         except (OSError, ValueError):
@@ -208,7 +216,6 @@ class Router:
         self._lock = threading.Lock()
         self._pending: Dict[int, _Sub] = {}
         self._next_id = 0
-        self._rid_seq = 0
         self._closed = False
         self._stop = threading.Event()
         # ALL counting goes through the registry: lifetime totals AND
@@ -375,7 +382,9 @@ class Router:
                deadline_ms: Optional[float] = None) -> Future:
         """One client request; resolves to the fp32 ``[n, C]`` logits
         or a typed ``serve/errors.py`` failure.  Mints the request id
-        (``rid``) the distributed trace connects on."""
+        (``rid``) the distributed trace connects on; the future carries
+        it as ``fut.rid`` (``python -m roc_tpu_torch.timeline ...
+        --request RID``)."""
         ids = np.asarray(node_ids, dtype=np.int32).ravel()
         fut: Future = Future()
         if ids.size and self.num_nodes is not None and (
@@ -400,8 +409,7 @@ class Router:
                     f"router in-flight cap {self.max_inflight} "
                     f"reached — load shed"))
                 return fut
-            self._rid_seq += 1
-            rid = f"{os.getpid():x}-{self._rid_seq}"
+            rid = fut.rid = f"{os.getpid():x}-{next(_RID_SEQ)}"
             parent = _Parent(fut, len(groups),
                              [g[1] for g in groups], rid=rid, t0=t0)
             subs = []

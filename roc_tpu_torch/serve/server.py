@@ -28,7 +28,11 @@ error of serve/errors.py:
 Every count goes through a metrics registry (obs/metrics_registry.py),
 so :meth:`Server.stats` gives lifetime totals beside rates over the
 trailing ``stats_window_s``.  The server emits a ``clock_sync`` timeline
-event at start, and a ``serve_batch`` span per microbatch (its index,
+event at start (unless ``clock_sync=False``: a router's replica, whose
+lane aligns on the wall clock it shares with the router, since a sync
+stamped at each replica's own start is no barrier with the router's and
+the merger would pin those different instants together), and a
+``serve_batch`` span per microbatch (its index,
 rows, table version and the router-minted request ids ``rids``), flushed
 as ``timeline`` events every 64 microbatches and at close.
 ``instrument=False`` stops the registry and the stamps.  The serve fault
@@ -119,7 +123,8 @@ class Server:
                  name: str = "serve", max_queue: int = DEFAULT_MAX_QUEUE,
                  default_deadline_ms: Optional[float] = None,
                  registry: Optional[MetricsRegistry] = None,
-                 instrument: bool = True, stats_window_s: float = 60.0):
+                 instrument: bool = True, stats_window_s: float = 60.0,
+                 clock_sync: bool = True):
         self.pred = predictor
         self.max_wait_s = max(0.0, float(max_wait_ms)) / 1e3
         self.name = name
@@ -149,9 +154,10 @@ class Server:
         self._batch_seq = 0
         self._versions = set()       # table versions served
         # the timeline's lane handshake: the bus stamps wall and mono
-        emit("timeline", f"clock_sync: serve server '{name}' up "
-             f"(backend={predictor.backend})", console=False,
-             kind="clock_sync", server=name)
+        if clock_sync:
+            emit("timeline", f"clock_sync: serve server '{name}' up "
+                 f"(backend={predictor.backend})", console=False,
+                 kind="clock_sync", server=name)
         self._thread = threading.Thread(target=self._loop,
                                         name=f"serve:{name}", daemon=True)
         self._thread.start()

@@ -1268,6 +1268,9 @@ def run_epoch_loop(tr: Trainer, epochs: Optional[int], do_step,
                         tr.sync()
                     now = time.perf_counter()
                     first_ms = tr.first_step_ms = (now - t_last) * 1e3
+                    # the epoch timer's laps: one per eval, flushed to the
+                    # timeline
+                    # roc-lint: ok=metric-adhoc
                     timer.laps_ms.append(first_ms)
                     timer.note_span("first_step", first_ms)
                     # the clock-sync handshake on the barrier just crossed
@@ -1293,6 +1296,9 @@ def run_epoch_loop(tr: Trainer, epochs: Optional[int], do_step,
                     m["eval_ms"] = (t_eval_end - now) * 1e3
                     if span > 0:
                         burst_ms = (now - t_last) * 1e3
+                        # the epoch timer's laps: one per eval, flushed to
+                        # the timeline
+                        # roc-lint: ok=metric-adhoc
                         timer.laps_ms.append(m["epoch_ms"])
                         timer.spans_ms.setdefault("train", []).append(
                             m["epoch_ms"])
