@@ -9,8 +9,8 @@ directory that every later phase maps; phase 12 runs meanwhile, right
 after the ragged checks.  Each phase child (12, 14-19) and the kill
 drill's children are started one phase ahead and wait for their turn
 (:class:`_Child`), so a process's start overlaps the phase before.
-Phases 13 and 14, 15 and 16, and 17 and 19 share the card two at a
-time (:func:`_run_together`; no gate of theirs reads a time), and 18,
+Phases 13 and 14 and 15 and 16 share the card two at a time, 17, 19
+and 20 three (:func:`_run_together`; no gate of theirs reads a time), and 18,
 whose drills key on measured latency, runs alone, last.  ``--deep``
 runs them one after another (their times then stand alone) and adds
 the timed work that gates nothing (:data:`DEEP`); the default run
@@ -266,7 +266,12 @@ Phases (any failure exits nonzero):
    requeued request the failover marker, the dead replica's fault
    marker and the survivor's span), and per request size the medians of
    the router span, the replica microbatch span and the gap between
-   them, printed; its wall time printed.
+   them, printed; its wall time printed.  Each replica runs every
+   bucket before ``ready`` (serve/predictor.py ``Predictor.warm``): its
+   warm report, which rides on the ready line, is printed and must show
+   every bucket and no failure; each bucket's first request through each
+   router is timed before any other and printed beside its steady median
+   (``fleet_first_request``).
 
 19. the chunked edge-list routes (``routes``, a child like 18, on the
    prep's datasets): the GCN 602-256-41 at Reddit's shape from
@@ -293,6 +298,27 @@ Phases (any failure exits nonzero):
    SAGE-pool 100-256-47 at the products shape on 'ell' (the checkpointed
    ELL max), 2 steps in 'mixed', its peak.
 
+20. prewarm (``prewarm``, a child like 19, beside it, in fresh temporary
+   build caches): each kernel's first and second launch in the child
+   (lazy module loading loads a kernel at its first launch); ``python -m
+   roc_tpu_torch.prewarm --config all`` cold (exactly one library build,
+   its seconds; the rigs of more ranks than one card skipped) and again
+   in a second process, all warm with no new file (each process's wall
+   printed; every rig's enumerated kernel instances equal to its
+   launched ones); ``warm_trainer`` on phase 6's GCN 602-256-41 at
+   Reddit's shape on 'cuda', dropout 0.5, in fp32 and 'mixed': the
+   enumerated instances equal the launched ones (K1, the masked K1, K2
+   and K4 at F = 256 and 41), the params and Adam state bit-equal after
+   the warm, the next step's objective bit-equal to an unwarmed twin's
+   (warm and steps counted); a truncated library in a third cache
+   rebuilt (cold, never the plain versions) and K1-K4 then held to
+   their plain versions as in phase 3.
+
+``python3 chip_smoke.py --first-gather [out.json]`` (:func:`first_gather`,
+not in the default run) takes a small sharded fleet's first requests
+apart: in process through ``Server``, through a router, the replicas'
+spans of the first gathered request.
+
 ``python3 chip_smoke.py --attention-race [out.json]`` runs only the race
 behind core/ell.py ``CARD_ROWS``'s attention entry: GAT 100-256-47 at
 the products shape on 'attn_flat8', 'ell' and 'cuda', fp32 and 'mixed',
@@ -302,7 +328,7 @@ Prints one JSON line per phase, the kernel table line
 ``{"kernels": [...]}`` (one row per kernel and dtype, e.g.
 ``ell_aggregate[bf16]``, K1's masked form as ``indegree_norm_masked``;
 launches counted over the serve, train, dist, recovery, zoo, precompute,
-layouts, memory, ring, mesh, fleet and routes slices of that dtype; the F = 128 checks as each
+layouts, memory, ring, mesh, fleet, routes and prewarm slices of that dtype; the F = 128 checks as each
 row's ``zoo_shapes``, the F = 602 ones as ``akx_shapes`` (K1, K2 and K4
 at the SGC's raw width), K3's walk check as ``walk_shapes`` and its ring
 hops as ``ring_shapes``), the card line, and as the last line
@@ -4782,6 +4808,21 @@ def fleet_latency(pred, router, seed, rids=None):
             "replicas": stats["replicas"], "server_stats": server_stats}
 
 
+def fleet_first(router, num_nodes, buckets):
+    """The wall of each bucket's first request through ``router`` (ids of
+    the bucket's size, id 0 first), in ms by size: what a client of a
+    fresh fleet waits."""
+    rng = np.random.RandomState(SEED + 70)
+    out = {}
+    for n in buckets:
+        ids = rng.randint(0, num_nodes, size=n)
+        ids[0] = 0
+        t0 = time.perf_counter()
+        router.submit(ids).result(timeout=300)
+        out[int(n)] = (time.perf_counter() - t0) * 1e3
+    return out
+
+
 def fleet_capacity(art, budget):
     """The unsharded akx artifact under the slices' budget: the replica
     loads the whole table and exits 3 before ``ready``, stdout empty."""
@@ -5378,7 +5419,18 @@ def fleet_child(data_dir, params_path, out_path):
                 pred, path, man = arts[name]
                 seam = man["shards"]["plan"][0][1]
                 traced = name in ev
-                r = {"ready_s": up_s,
+                warm = [x.ready.get("warm") for x in router.replicas]
+                if not all(w and w["failed"] == 0
+                           and w["programs"] == len(pred.buckets)
+                           for w in warm):
+                    raise AssertionError(f"{name}: a replica did not warm "
+                                         f"every bucket before ready: "
+                                         f"{warm}")
+                r = {"ready_s": up_s, "replica_warm": warm,
+                     # each bucket's first request through this router,
+                     # before any other (the replicas warmed before ready)
+                     "first_ms": fleet_first(router, pred.num_nodes,
+                                             pred.buckets),
                      "table_bytes": [x.ready["table_bytes"]
                                      for x in router.replicas],
                      "checks": fleet_answers(
@@ -5396,6 +5448,10 @@ def fleet_child(data_dir, params_path, out_path):
                     trace_rids["seam"]["warm"] = fut.rid
                 rec[name] = r
                 log({"phase": "fleet_sharded", "artifact": name, **r})
+                log({"phase": "fleet_first_request", "artifact": name,
+                     "first_ms": r["first_ms"],
+                     "steady_median_ms": r["router_median_ms"],
+                     "replica_warm": warm, "card": card_line()})
         finally:
             list(pool.map(lambda rt: rt[0].close(), routers.values()))
             rec["stall_close_s"] = wedged.result()
@@ -5417,6 +5473,238 @@ def fleet_child(data_dir, params_path, out_path):
          "traces": rec["traces"]["seconds"]})
     with open(out_path, "w") as f:
         json.dump({"record": rec, "counted": counts.counted}, f)
+
+
+def _prewarm_cli(cache, *extra):
+    """``python -m roc_tpu_torch.prewarm --config all`` against ``cache``
+    in a fresh process on the card: its JSON lines, its wall, the cache's
+    files before and after."""
+    here = os.path.dirname(os.path.abspath(__file__))
+    before = sorted(os.listdir(cache)) if os.path.isdir(cache) else []
+    t0 = time.perf_counter()
+    r = subprocess.run([sys.executable, "-m", "roc_tpu_torch.prewarm",
+                        "--config", "all", "--cache-dir", cache, *extra],
+                       capture_output=True, text=True, timeout=300,
+                       cwd=here, env=dict(os.environ, PYTHONPATH=here))
+    wall = time.perf_counter() - t0
+    if r.returncode != 0:
+        raise AssertionError(f"prewarm CLI exited {r.returncode}: "
+                             f"{r.stderr[-2000:]}")
+    lines = [json.loads(x) for x in r.stdout.splitlines()
+             if x.startswith("{")]
+    after = sorted(n for n in os.listdir(cache) if not n.startswith("."))
+    return {"wall_s": wall, "lines": lines,
+            "new_files": sorted(set(after) - set(before)),
+            "configs": [x["config"] for x in lines],
+            "skipped": [x["config"] for x in lines if x.get("skipped")],
+            "library_builds": sum(bool(x.get("library_cold"))
+                                  for x in lines),
+            "cold": sum(x.get("compile_cold", 0) for x in lines),
+            "warm": sum(x.get("compile_warm_hits", 0) for x in lines),
+            "failed": sum(x.get("failed", 0) for x in lines),
+            "library_s": sum(x.get("library_s", 0) for x in lines),
+            "instances_match": all(x.get("instances_match", True)
+                                   for x in lines)}
+
+
+def _first_launches(torch):
+    """Each kernel's first launch in this process (lazy CUDA module
+    loading loads its module there) and its second, in ms, synchronised,
+    on a small input."""
+    from roc_tpu_torch.core.ell import ell_from_graph
+    from roc_tpu_torch.core.graph import from_edge_list
+    from roc_tpu_torch.core.partition import padded_edge_list
+    from roc_tpu_torch.kernels import ell_spmm, graphnorm, spmm
+    rng = np.random.RandomState(5)
+    n, F = 1003, 64
+    g = from_edge_list(rng.randint(0, n, 8000), rng.randint(0, n, 8000), n)
+    t = ell_from_graph(g.row_ptr, g.col_idx, n)
+    dev = torch.device("cuda")
+    idx = tuple(torch.from_numpy(a[0]).to(dev) for a in t.idx)
+    rid = tuple(torch.from_numpy(a[0]).to(dev) for a in t.row_id)
+    deg = torch.from_numpy(g.in_degree).to(dev)
+    esrc, edst = (torch.from_numpy(a).to(dev)
+                  for a in padded_edge_list(g, multiple=512))
+    x = torch.randn(n, F, device=dev)
+    s = torch.rand(n, device=dev)
+    torch.cuda.synchronize()
+    out = {}
+    for name, fn in (
+            ("indegree_norm", lambda: graphnorm.indegree_norm(x, deg)),
+            ("indegree_norm_masked",
+             lambda: graphnorm.indegree_norm(x, deg, relu_out=x)),
+            ("scale_act", lambda: graphnorm.scale_act(x, s, "relu")),
+            ("ell_aggregate",
+             lambda: ell_spmm.ell_aggregate(x, idx, rid, n)),
+            ("csr_spmm", lambda: spmm.csr_spmm(x, esrc, edst, n))):
+        ms = []
+        for _ in range(2):
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t0) * 1e3)
+        out[name] = {"first_ms": ms[0], "second_ms": ms[1]}
+    return out
+
+
+def _warm_gcn(torch, ds, params, mode, counts, key):
+    """Phase 6's GCN 602-256-41 at Reddit's shape on 'cuda' (dropout 0.5)
+    warmed (utils/prewarm.py ``warm_trainer``) against the build cache in
+    use, and its unwarmed twin: the enumerated kernel instances equal the
+    launched ones (K1, the masked K1, K2 and K4, each at its F and slice
+    width), the params and Adam state are bit-equal after the warm, and
+    the next step's objective is the twin's bit for bit.  The warm and
+    both steps are counted (the counts zeroed just before, read just
+    after)."""
+    from roc_tpu_torch.utils.prewarm import warm_trainer
+    tr = _trainer(ds, "cuda", 0.5, params, mode)
+    twin = _trainer(ds, "cuda", 0.5, params, mode)
+    before = {k: v.detach().clone() for k, v in tr.params.items()}
+    st = tr.opt_state
+    mv = [{k: v.clone() for k, v in d.items()} for d in (st.m, st.v)]
+    counts.zero()
+    t0 = time.perf_counter()
+    rep = warm_trainer(tr, name=f"gcn_{mode}")
+    warm_s = time.perf_counter() - t0
+    st2 = tr.opt_state
+    state_equal = (
+        all(torch.equal(before[k], v) for k, v in tr.params.items())
+        and all(torch.equal(mv[0][k], st2.m[k]) and
+                torch.equal(mv[1][k], st2.v[k]) for k in st2.m)
+        and (st2.step, st2.beta1_t, st2.beta2_t) ==
+        (st.step, st.beta1_t, st.beta2_t))
+    lr = TRAIN["learning_rate"]
+    t0 = time.perf_counter()
+    a = tr.step(lr)
+    torch.cuda.synchronize()
+    step_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    b = twin.step(lr)
+    torch.cuda.synchronize()
+    twin_s = time.perf_counter() - t0
+    launches = counts.read(key)
+    rec = {"mode": mode, "warm_s": warm_s, "failed": rep["failed"],
+           "slots": [{k: r[k] for k in ("slot", "run_s", "library_s",
+                                         "cold", "instances", "launched",
+                                         "instances_match")}
+                     for r in rep["slots"]],
+           "instances_match": rep["instances_match"],
+           "state_bit_equal": state_equal, "objective": float(a),
+           "twin_objective": float(b),
+           "objective_bit_equal": bool(torch.equal(a, b)),
+           "first_step_after_warm_s": step_s,
+           "twin_first_step_s": twin_s, "launches": launches}
+    want = {"indegree_norm", "indegree_norm_masked", "scale_act",
+            "ell_aggregate"}
+    got = {i.split("[")[0] for r in rep["slots"] for i in r["launched"]}
+    if rep["failed"] or not rep["instances_match"] or got != want:
+        raise AssertionError(f"warm {mode}: {rec['slots']}")
+    if not state_equal:
+        raise AssertionError(f"warm {mode}: the params or the Adam state "
+                             f"moved")
+    if not rec["objective_bit_equal"]:
+        raise AssertionError(f"warm {mode}: the next objective {float(a)} "
+                             f"!= the twin's {float(b)}")
+    del tr, twin
+    torch.cuda.empty_cache()
+    return rec
+
+
+def prewarm_child(data_dir, out_path):
+    """Phase 20 in a fresh process on card 0, in fresh temporary build
+    caches: (a) ``python -m roc_tpu_torch.prewarm --config all`` cold
+    (exactly one library build, its seconds), (b) again, all warm with no
+    new file and no build, each process timed, each rig's enumerated instances equal
+    to its launched ones; (c) each kernel's first and second launch in
+    this process; (d) ``warm_trainer`` on the GCN at Reddit's shape in
+    fp32 and 'mixed' (:func:`_warm_gcn`); (e) a truncated library in a
+    third cache is rebuilt (cold) and K1-K4 hold their plain versions as
+    in phase 3.  Writes the record and the counts."""
+    import torch
+    from roc_tpu_torch.kernels import _build
+    from roc_tpu_torch.ops.dense import set_fp32_matmul_precision
+    from roc_tpu_torch.utils.compile_cache import enable_compile_cache
+    torch.cuda.set_device(0)
+    set_fp32_matmul_precision()
+    t_start = time.perf_counter()
+    rec = {}
+    counts = Launches(torch)
+    root = tempfile.mkdtemp(prefix="chip_smoke_prewarm_")
+    try:
+        rec["first_launch"] = _first_launches(torch)
+        log({"phase": "prewarm_first_launch", **rec["first_launch"]})
+        cache = os.path.join(root, "cache")
+        rec["cold"] = _prewarm_cli(cache)
+        rec["warm"] = _prewarm_cli(cache, "--no-state")
+        for tag in ("cold", "warm"):
+            r = rec[tag]
+            log({"phase": f"prewarm_{tag}",
+                 **{k: v for k, v in r.items() if k != "lines"},
+                 "lines": [{k: x.get(k) for k in (
+                     "config", "programs", "library_cold", "compile_cold",
+                     "compile_warm_hits", "failed", "prewarm_s",
+                     "library_s", "instances_match", "skipped")}
+                     for x in r["lines"]], "card": card_line()})
+        lib = os.path.basename(_build.library_path())
+        c, w = rec["cold"], rec["warm"]
+        if c["library_builds"] != 1 or lib not in c["new_files"] or \
+                c["failed"]:
+            raise AssertionError(f"prewarm cold: not one build: {c}")
+        if w["library_builds"] or w["cold"] or w["new_files"] or \
+                w["failed"] or w["warm"] != c["cold"] + c["warm"]:
+            raise AssertionError(f"prewarm warm: {w}")
+        if not (c["instances_match"] and w["instances_match"]):
+            raise AssertionError("prewarm: a rig's launched kernel "
+                                 "instances differ from its enumerated")
+        # (d) the GCN at Reddit's shape, warmed against this cache
+        enable_compile_cache(cache)
+        _build.reset()
+        ds = _map_dataset(data_dir, LAYERS[-1])
+        params = _gcn_params(torch)
+        rec["gcn"] = {}
+        for mode, key in TELEMETRY_MODES:
+            rec["gcn"][mode] = r = _warm_gcn(torch, ds, params, mode,
+                                             counts, key)
+            log({"phase": "prewarm_gcn", **r, "card": card_line()})
+        # (e) a truncated library in a third cache: rebuilt, cold
+        bad = os.path.join(root, "cache3")
+        os.makedirs(bad)
+        src = _build.library_path()
+        with open(src, "rb") as f:
+            head = f.read(4096)
+        enable_compile_cache(bad)
+        with open(_build.library_path(), "wb") as f:
+            f.write(head)
+        _build.reset()
+        _build.rebuilt = False
+        t0 = time.perf_counter()
+        _build.library()
+        rebuild_s = time.perf_counter() - t0
+        if not _build.rebuilt or \
+                os.path.getsize(_build.library_path()) <= len(head):
+            raise AssertionError("the truncated library was not rebuilt")
+        rec["rebuild"] = {"seconds": rebuild_s,
+                          "bytes": os.path.getsize(_build.library_path()),
+                          "truncated_bytes": len(head),
+                          "ragged": ragged_checks(torch,
+                                                  torch.device("cuda"))}
+        log({"phase": "prewarm_rebuild", **rec["rebuild"],
+             "card": card_line()})
+    finally:
+        import shutil
+        shutil.rmtree(root, ignore_errors=True)
+    rec["seconds"] = time.perf_counter() - t_start
+    with open(out_path, "w") as f:
+        json.dump({"record": rec, "counted": counts.counted}, f)
+
+
+def start_prewarm_child(tmp):
+    """:func:`prewarm_child` pre-started on the Reddit shape under
+    ``tmp``/reddit, writing ``tmp``/prewarm.json."""
+    data = os.path.join(tmp, "reddit")
+    out = os.path.join(tmp, "prewarm.json")
+    return _Child(f"prewarm_child({data!r}, {out!r})", 600,
+                  "phase 20 (prewarm)")
 
 
 def save_fleet_params(tmp, akx_params, gcn_params):
@@ -6172,6 +6460,112 @@ ATTN_RACE_ROUTES = ("attn_flat8", "ell", "cuda")
 ATTN_RACE_STEPS = 3
 
 
+FIRST_GATHER_V = 4_000
+FIRST_GATHER_LAYERS = [64, 8]
+
+
+def first_gather(out_path=None):
+    """Where a fresh sharded fleet's first gathered request goes (not in
+    the default run): an SGC 64-8 (k = 2) on a 4,000-node graph exported
+    with 2 shards; (a) the two shards in this process, wired ``gather_fn
+    -> read_rows``, shard 0 warmed (``Predictor.warm``) and queried
+    through ``Server``: each size's first and second request; (b) a
+    2-replica sharded router with ``ROC_TPU_EVENTS``: each size's first
+    and second request and the replicas' microbatch spans of the first
+    8-row one; (c) a fresh thread's first and second staging copy
+    (``index_copy_``).  Prints one JSON line, written to ``out_path``
+    too."""
+    import threading
+
+    import torch
+    from roc_tpu_torch.core.graph import synthetic_dataset
+    from roc_tpu_torch.models.sgc import build_sgc
+    from roc_tpu_torch.serve.export import (build_predictor,
+                                            export_predictor,
+                                            load_predictor)
+    from roc_tpu_torch.serve.router import Router
+    from roc_tpu_torch.serve.server import Server
+    from roc_tpu_torch.train.trainer import TrainConfig
+    torch.cuda.set_device(0)
+    ds = synthetic_dataset(FIRST_GATHER_V, 8, in_dim=FIRST_GATHER_LAYERS[0],
+                           num_classes=FIRST_GATHER_LAYERS[-1], seed=SEED)
+    pred = build_predictor(build_sgc(FIRST_GATHER_LAYERS, k=2), ds,
+                           TrainConfig(verbose=False, aggr_impl="segment",
+                                       symmetric=True))
+    out = {"card": card_line()}
+
+    def sizes(call):
+        rng = np.random.RandomState(SEED + 70)
+        got = {}
+        for rep in ("first", "second"):
+            for n in REQUEST_SIZES:
+                ids = rng.randint(0, FIRST_GATHER_V, size=n)
+                ids[0] = 0
+                t0 = time.perf_counter()
+                rid = call(ids)
+                got.setdefault(n, {})[rep] = (time.perf_counter() - t0) * 1e3
+                got[n].setdefault("rids", []).append(rid)
+        return got
+    with tempfile.TemporaryDirectory() as root:
+        art = os.path.join(root, "art")
+        export_predictor(pred, art, shards=2,
+                         cache_dir=os.path.join(root, "cache"))
+        a = load_predictor(art, shard=0)
+        b = load_predictor(art, shard=1)
+        a.gather_fn = lambda ids, v: b.read_rows(ids, v)
+        a.warm()
+        with Server(a, max_wait_ms=0.2, name="first_gather") as srv:
+            def via_server(ids):
+                srv.submit(ids).result(timeout=60)
+            out["in_process"] = sizes(via_server)
+        ev = os.path.join(root, "ev.jsonl")
+        env = dict(os.environ, ROC_TPU_EVENTS=ev,
+                   PYTHONPATH=os.path.dirname(os.path.abspath(__file__)))
+        with Router(art, n_replicas=2, sharded=True, env=env,
+                    replica_args=FLEET_ARGS) as r:
+            def via_router(ids):
+                fut = r.submit(ids)
+                fut.result(timeout=60)
+                return fut.rid
+            out["router"] = sizes(via_router)
+        rid8 = out["router"][8]["rids"][0]
+        spans = []
+        with open(ev) as f:
+            for line in f:
+                e = json.loads(line)
+                for name, _, ms, args in e.get("spans") or ():
+                    if rid8 in (args or {}).get("rids", ()):
+                        spans.append({"proc": e.get("proc"), "ms": ms})
+                if e.get("kind") == "hedge" and e.get("rid") == rid8:
+                    out["first_8_hedged"] = True
+        out["first_8_replica_batches_ms"] = spans
+        for by in (out["in_process"], out["router"]):
+            for v in by.values():
+                v.pop("rids")
+    copies = []
+
+    def stage():
+        ms = []
+        for _ in range(2):
+            x = torch.from_numpy(np.random.rand(7, 64).astype(np.float32))
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            y = torch.zeros(8, 64, device="cuda")
+            y.index_copy_(0, torch.arange(7, device="cuda"), x.cuda())
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t0) * 1e3)
+        copies.append(ms)
+    th = threading.Thread(target=stage)
+    th.start()
+    th.join()
+    out["fresh_thread_index_copy_ms"] = copies[0]
+    log({"phase": "first_gather", **out})
+    if out_path:
+        with open(out_path, "w") as f:
+            json.dump(out, f)
+    return out
+
+
 def attention_race(out_path=None):
     """GAT 100-256-47 (1 head) at the products shape on each of
     ATTN_RACE_ROUTES in fp32 and 'mixed', ATTN_RACE_STEPS steps each from
@@ -6610,7 +7004,7 @@ def _main(torch, root, prep, t_start) -> int:
         raise AssertionError(f"the dataset prep exited {prep.returncode}")
     log({"phase": "schedule", "deep": DEEP, "together": [] if DEEP else [
         ["serve_precomputed", "layouts"], ["memory", "dist_ring"],
-        ["dist_mesh", "routes"]], "alone": ["fleet"]})
+        ["dist_mesh", "routes", "prewarm"]], "alone": ["fleet"]})
     memory_pre = start_memory_child(root, LAYERS[-1])
     ring_pre = start_ring_child(root, LAYERS[-1])
 
@@ -6645,6 +7039,7 @@ def _main(torch, root, prep, t_start) -> int:
     refs_path = os.path.join(root, "mesh_refs.json")
     mesh_pre = start_mesh_child(root, LAYERS[-1], refs_path)
     routes_pre = start_routes_child(root, LAYERS[-1])
+    prewarm_pre = start_prewarm_child(root)
     sys.stdout.flush()
     t16 = time.perf_counter()
     _run_together([memory_pre, ring_pre])
@@ -6694,12 +7089,28 @@ def _main(torch, root, prep, t_start) -> int:
     fleet_pre = start_fleet_child(root)
     sys.stdout.flush()
     t17 = time.perf_counter()
-    _run_together([mesh_pre, routes_pre])
+    _run_together([mesh_pre, routes_pre, prewarm_pre])
     s17 = time.perf_counter() - t17
     mesh = read("mesh")
     add_counted(mesh)
     routes = read("routes")
     add_counted(routes)
+    prewarm = read("prewarm")
+    add_counted(prewarm)
+    prec = prewarm["record"]
+    log({"phase": "prewarm_summary", "seconds": prec["seconds"],
+         "cold_library_s": prec["cold"]["library_s"],
+         "cold_process_s": prec["cold"]["wall_s"],
+         "warm_process_s": prec["warm"]["wall_s"],
+         "warm_new_files": prec["warm"]["new_files"],
+         "gcn_warm_s": {m: r["warm_s"] for m, r in prec["gcn"].items()},
+         "gcn_instances": {m: sorted({i for x in r["slots"]
+                                      for i in x["launched"]})
+                           for m, r in prec["gcn"].items()},
+         "rebuild_s": prec["rebuild"]["seconds"],
+         "first_launch_ms": {k: v["first_ms"] for k, v in
+                             prec["first_launch"].items()},
+         "card": card})
     erec = routes["record"]
     log({"phase": "routes_summary", "seconds": erec["seconds"],
          "step_ms": {k: v["step_ms"] for k, v in erec["edge"].items()},
@@ -6738,6 +7149,8 @@ def _main(torch, root, prep, t_start) -> int:
          "router_median_ms": {k: frec[k]["router_median_ms"]
                               for k in ("akx_fp32", "akx_int8",
                                         "table")},
+         "router_first_ms": {k: frec[k]["first_ms"]
+                             for k in ("akx_fp32", "akx_int8", "table")},
          "server_median_ms": {k: frec[k]["server_median_ms"]
                               for k in ("akx_fp32", "akx_int8",
                                         "table")},
@@ -6810,6 +7223,13 @@ if __name__ == "__main__":
             print("chip_smoke: no CUDA device", file=sys.stderr)
             sys.exit(1)
         attention_race(sys.argv[2] if len(sys.argv) > 2 else None)
+        sys.exit(0)
+    if sys.argv[1:2] == ["--first-gather"]:
+        import torch
+        if not torch.cuda.is_available():
+            print("chip_smoke: no CUDA device", file=sys.stderr)
+            sys.exit(1)
+        first_gather(sys.argv[2] if len(sys.argv) > 2 else None)
         sys.exit(0)
     if "--deep" in sys.argv[1:]:
         os.environ["CHIP_SMOKE_DEEP"] = "1"

@@ -7,23 +7,39 @@ message`` line per finding, then a summary.
 
 Usage:
     python -m roc_tpu_torch.analysis [--strict]          # every level
+    python -m roc_tpu_torch.analysis --no-trace          # host levels only
     python -m roc_tpu_torch.analysis --select stdout-print   # one rule
     python -m roc_tpu_torch.analysis --select concurrency    # a level
     python -m roc_tpu_torch.analysis --select protocol
+    python -m roc_tpu_torch.analysis --select programspace   # trace levels
+    python -m roc_tpu_torch.analysis --select collectives
+    python -m roc_tpu_torch.analysis --device-kind "NVIDIA H100 80GB HBM3"
     python -m roc_tpu_torch.analysis --update-baseline   # shrink ratchet
     python -m roc_tpu_torch.analysis --json              # one JSON object
 
+The trace levels (analysis/driver.py: the program space, the collectives,
+the partition's balance) build the port on the CPU rig, as the JAX
+package's run on its CPU rig: the lint is a gate before any card time,
+and its program counts are the CPU rig's.  ``--device-kind`` names a
+card whose routes and kernel instances the program space lists (the
+H100's row, say); on the card the enumeration of a live run is
+``python -m roc_tpu_torch.prewarm``'s.
+
 ``--json`` prints one JSON object on stdout: the findings, the baseline
-split and the concurrency and protocol surfaces (which
-``python -m roc_tpu_torch.report --concurrency/--protocol FILE``
-renders).
+split, the program spaces (``program_space``: per rig its programs,
+slots, kernel instances, keys and budget) and the concurrency and
+protocol surfaces (which ``python -m roc_tpu_torch.report
+--concurrency/--protocol/--programspace FILE`` renders).
 
 The baseline (``roc_tpu_torch/analysis/lint_baseline.json``) is
 ratchet-only: ``--update-baseline`` rewrites it as the intersection of
-its entries and the findings that still fire — it can only shrink.  New
-findings are fixed at the source or accepted with an explanatory
-``# roc-lint: ok=<rule>`` pragma, never absorbed.  ``--strict`` also
-fails on stale baseline entries, forcing the shrink to be committed.
+its entries and the findings that still fire, and each rig's
+``program_budget`` as the smaller of its bound and its measured count —
+it can only shrink.  New findings are fixed at the source or accepted
+with an explanatory ``# roc-lint: ok=<rule>`` pragma, never absorbed.
+``--strict`` also fails on stale baseline entries and on budget debt (a
+bound above its measurement, a measured rig with no bound, a bound for a
+rig that no longer exists), forcing the shrink to be committed.
 """
 
 from __future__ import annotations
@@ -49,15 +65,17 @@ def _default_root() -> str:
 def main(argv: Optional[List[str]] = None) -> int:
     p = argparse.ArgumentParser(
         prog="python -m roc_tpu_torch.analysis",
-        description="roc-lint over the port: AST, concurrency and "
-                    "protocol levels, ratcheted via " + BASELINE)
+        description="roc-lint over the port: AST, concurrency, protocol, "
+                    "program-space and collective levels, ratcheted via "
+                    + BASELINE)
     p.add_argument("--root", default=None,
                    help="repo root to lint (default: cwd when it has a "
                         "roc_tpu_torch/ tree, else this checkout)")
     p.add_argument("--select", default=None,
                    help="comma-separated rule names (default: all); "
-                        "'concurrency' and 'protocol' expand to every "
-                        "rule of that level")
+                        "'concurrency', 'protocol', 'programspace' and "
+                        "'collectives' expand to every rule of that "
+                        "level")
     p.add_argument("--baseline", default=None,
                    help="baseline path (default: <root>/" + BASELINE + ")")
     p.add_argument("--update-baseline", action="store_true",
@@ -71,10 +89,22 @@ def main(argv: Optional[List[str]] = None) -> int:
     p.add_argument("--json", action="store_true",
                    help="machine-readable output: one JSON object on "
                         "stdout")
+    p.add_argument("--no-trace", action="store_true",
+                   help="skip the trace levels (the program space, the "
+                        "collectives, the partition's balance): the host "
+                        "levels alone, no torch")
+    p.add_argument("--device-kind", default=None,
+                   help="list the program space's kernel instances for "
+                        "this card (torch.cuda.get_device_name, e.g. "
+                        "'NVIDIA H100 80GB HBM3'; its row of core/ell.py "
+                        "CARD_ROWS resolves 'auto'); default: the CPU "
+                        "rig's, none")
     args = p.parse_args(argv)
 
-    from .driver import GROUPS, all_rule_names, analyze
-    from .findings import load_baseline, shrink_baseline, split_findings
+    from .driver import GROUPS, all_rule_names, analyze, is_trace_rule
+    from .findings import (load_baseline, load_program_budget,
+                           shrink_baseline, shrink_program_budget,
+                           split_findings)
 
     if args.list_rules:
         for name in all_rule_names():
@@ -89,23 +119,61 @@ def main(argv: Optional[List[str]] = None) -> int:
             print(f"unknown rule(s): {', '.join(bad)}; see --list-rules")
             return 2
 
+    trace = not args.no_trace
     root = args.root or _default_root()
     baseline_path = args.baseline or os.path.join(root, BASELINE)
     extras: dict = {}
-    findings = analyze(root, select=select, extras=extras)
+    findings = analyze(root, select=select, extras=extras, trace=trace,
+                       program_budget=load_program_budget(baseline_path),
+                       device_kind=args.device_kind)
+    reports = extras.get("programspace", [])
     # stale-entry accounting and the shrink are scoped to the rules that
-    # ran: a --select run must not declare other rules' entries gone
+    # ran: a --select or --no-trace run must not declare other rules'
+    # entries gone
     active = set(select) if select else set(all_rule_names())
+    if not trace:
+        active = {r for r in active if not is_trace_rule(r)}
+    ps_ran = trace and (select is None or "compile-explosion" in active
+                        or "cache-key-drift" in active)
+    rig_names: set = set()
+    if ps_ran:
+        from .programspace import rig_configs
+        rig_names = set(rig_configs())
+
+    def orphans() -> List[str]:
+        # bounds of rigs that no longer exist (not merely unhosted here)
+        # would disarm the tripwire silently
+        if not ps_ran:
+            return []
+        return sorted(set(load_program_budget(baseline_path)) - rig_names)
+
     baseline = load_baseline(baseline_path)
     dropped = 0
     if args.update_baseline:
-        # shrink first, then split against the file as this run leaves it
+        # shrink first (the findings and the budget), then split against
+        # the file as this run leaves it
         kept = shrink_baseline(baseline_path, findings,
                                active_rules=active)
         dropped = len(baseline) - len(kept)
+        if ps_ran:
+            budget = shrink_program_budget(
+                baseline_path, {r["config"]: r["programs"]
+                                for r in reports}, known=rig_names)
+            for rep in reports:
+                rep["budget"] = budget.get(rep["config"])
+                if rep["budget"] is not None:
+                    rep["delta"] = rep["programs"] - rep["budget"]
         baseline = load_baseline(baseline_path)
     new, old, stale = split_findings(findings, baseline,
                                      active_rules=active)
+    # budget slack: a measurement below its bound must be committed, or a
+    # later growth hides in the slack; a measured rig with no bound is the
+    # limiting case (the tripwire is disarmed)
+    slack = [r for r in reports
+             if r.get("delta") is not None and r["delta"] < 0]
+    unbounded = [r for r in reports if r.get("budget") is None]
+    budget_stale = orphans()
+    debt = bool(stale or slack or unbounded or budget_stale)
 
     if args.json:
         payload = {
@@ -116,33 +184,65 @@ def main(argv: Optional[List[str]] = None) -> int:
                  "detail": f.detail}
                 for f in new + old],
             "stale": sorted(stale),
+            "budget_stale": budget_stale,
+            "program_space": reports,
+            "collectives": extras.get("collectives"),
             "concurrency_surface": extras.get("concurrency"),
             "protocol_surface": extras.get("protocol"),
             "summary": {"new": len(new), "baselined": len(old),
-                        "stale": len(stale)},
+                        "stale": len(stale), "budget_slack": len(slack),
+                        "budget_stale": len(budget_stale),
+                        "budget_unbounded": len(unbounded)},
         }
         print(json.dumps(payload, indent=2))
-        return 1 if new or (stale and args.strict) else 0
+        return 1 if new or (debt and args.strict) else 0
 
     for f in new:
         print(f.render())
     for f in old:
         print(f"{f.render()}  [baselined]")
+    for rep in reports:
+        b, delta = rep.get("budget"), rep.get("delta")
+        d_txt = ("no baseline — run --update-baseline" if b is None
+                 else f"baseline {b}, delta {delta:+d}")
+        print(f"program budget {rep['config']}: {rep['programs']} "
+              f"programs, {len(rep['instances'])} kernel instances "
+              f"({d_txt})")
+    verb = "FAIL" if args.strict else "note"
     if args.update_baseline:
         print(f"baseline: kept {len(baseline)}, dropped {dropped} stale "
               f"entr{'y' if dropped == 1 else 'ies'} ({baseline_path})")
-    elif stale:
-        verb = "FAIL" if args.strict else "note"
-        print(f"{verb}: {len(stale)} stale baseline entr"
-              f"{'y' if len(stale) == 1 else 'ies'} no longer fire(s) — "
-              f"run --update-baseline to ratchet down:")
-        for fp in sorted(stale):
-            print(f"  {fp}")
+    else:
+        if stale:
+            print(f"{verb}: {len(stale)} stale baseline entr"
+                  f"{'y' if len(stale) == 1 else 'ies'} no longer "
+                  f"fire(s) — run --update-baseline to ratchet down:")
+            for fp in sorted(stale):
+                print(f"  {fp}")
+        if slack:
+            print(f"{verb}: {len(slack)} program budget(s) above the "
+                  f"measured count — run --update-baseline to ratchet "
+                  f"down:")
+            for rep in slack:
+                print(f"  {rep['config']}: {rep['programs']} measured < "
+                      f"{rep['budget']} baselined")
+        if budget_stale:
+            print(f"{verb}: {len(budget_stale)} program budget entr"
+                  f"{'y' if len(budget_stale) == 1 else 'ies'} for unknown "
+                  f"rig config(s) — run --update-baseline to drop:")
+            for cfg in budget_stale:
+                print(f"  {cfg}")
+        if unbounded and args.strict:
+            print(f"FAIL: {len(unbounded)} measured config(s) have no "
+                  f"program_budget bound — run --update-baseline to "
+                  f"initialize:")
+            for rep in unbounded:
+                print(f"  {rep['config']}: {rep['programs']} measured")
     print(f"roc-lint: {len(new)} new, {len(old)} baselined, "
           f"{len(stale)} stale")
     if new:
         return 1
-    if stale and args.strict:
+    if debt and args.strict:
         return 1
     return 0
 

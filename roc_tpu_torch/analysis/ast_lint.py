@@ -114,7 +114,9 @@ class StdoutPrintRule(AstRule):
                    # the timeline merger's summary line
                    PKG + "obs/timeline.py",
                    # the serve export CLI's one JSON report line
-                   PKG + "serve/export.py"}
+                   PKG + "serve/export.py",
+                   # the prewarm CLI's JSON line a config
+                   PKG + "prewarm.py"}
 
     def select(self, relpath: str) -> bool:
         return relpath not in self.ALLOW_FILES

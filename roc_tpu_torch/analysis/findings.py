@@ -54,20 +54,56 @@ def dedupe(findings: Iterable[Finding]) -> List[Finding]:
     return out
 
 
+def _load_raw(path: str) -> Dict[str, Any]:
+    if not os.path.exists(path):
+        return {}
+    with open(path) as f:
+        return json.load(f)
+
+
 def load_baseline(path: str) -> Set[str]:
     """Fingerprint set from a baseline file; a missing file is an empty
     baseline (the ratchet starts at zero)."""
-    if not os.path.exists(path):
-        return set()
-    with open(path) as f:
-        return set(json.load(f).get("findings", []))
+    return set(_load_raw(path).get("findings", []))
 
 
-def save_baseline(path: str, fingerprints: Iterable[str]) -> None:
-    data = {"version": 1, "findings": sorted(set(fingerprints))}
+def load_program_budget(path: str) -> Dict[str, int]:
+    """The compile-explosion bounds, ``{rig config: programs}``
+    (``program_budget`` in the baseline file): shrink-only like the
+    findings; a missing file or section is no bound yet."""
+    return {str(k): int(v) for k, v in
+            _load_raw(path).get("program_budget", {}).items()}
+
+
+def save_baseline(path: str, fingerprints: Iterable[str],
+                  program_budget: Optional[Dict[str, int]] = None) -> None:
+    """Write the baseline; ``program_budget`` None keeps the file's."""
+    budget = (load_program_budget(path) if program_budget is None
+              else program_budget)
+    data: Dict[str, Any] = {"version": 1,
+                            "findings": sorted(set(fingerprints))}
+    if budget:
+        data["program_budget"] = {k: int(budget[k]) for k in sorted(budget)}
     with open(path, "w") as f:
         json.dump(data, f, indent=2)
         f.write("\n")
+
+
+def shrink_program_budget(path: str, counts: Dict[str, int],
+                          known: Optional[Set[str]] = None
+                          ) -> Dict[str, int]:
+    """Ratchet-only budget update: each config measured this run gets
+    ``min(stored, measured)`` (a bound can start and shrink, never grow);
+    configs not measured keep theirs; with ``known`` (every rig name)
+    the bounds of rigs that no longer exist are dropped.  Returns the
+    budget written."""
+    budget = load_program_budget(path)
+    if known is not None:
+        budget = {k: v for k, v in budget.items() if k in known}
+    for cfg, n in counts.items():
+        budget[cfg] = min(budget.get(cfg, int(n)), int(n))
+    save_baseline(path, load_baseline(path), program_budget=budget)
+    return budget
 
 
 def _rule_of(fingerprint: str) -> str:

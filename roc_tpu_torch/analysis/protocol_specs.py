@@ -128,11 +128,15 @@ WIRE_CHANNELS: List[Dict[str, Any]] = [
                 # version skew, and the epoch gathers pin against;
                 # "table_bytes" rides along so the capacity scenario
                 # can assert the per-replica byte budget from the
-                # fleet view (sliced loads advertise O(V/N) bytes)
+                # fleet view (sliced loads advertise O(V/N) bytes);
+                # "warm": the port's replica runs every bucket once
+                # before ready (Predictor.warm) and reports it here, a
+                # field of the port alone (the JAX replica loads against
+                # its warm compile cache and reports nothing)
                 "required": ("kind", "replica", "pid", "num_nodes",
                              "num_classes", "buckets", "backend",
                              "shard", "quant", "table_version"),
-                "optional": ("table_bytes",),
+                "optional": ("table_bytes", "warm"),
                 "sent": True,
             },
             "hb": {
@@ -164,6 +168,10 @@ WIRE_CHANNELS: List[Dict[str, Any]] = [
         },
     },
 ]
+
+# the optional fields the port's wire adds to the JAX package's, by
+# (channel, kind): the replica's warm report on ready
+PORT_OPTIONAL = {("replica->router", "ready"): ("warm",)}
 
 # -------------------------------------------------- transition sites
 #

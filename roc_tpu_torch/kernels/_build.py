@@ -8,6 +8,14 @@ name that carries a hash of the sources and flags, so an edited source
 is rebuilt and an unchanged one is loaded as it is.  Nothing is built
 when the package is imported: :func:`library` builds at first use.
 
+The build directory is settable (:func:`set_build_dir`; the compile
+cache, utils/compile_cache.py, points it at a directory shared by every
+process).  A library file that exists but fails to load, or lacks an
+entry point (a truncated or half-copied file), is rebuilt in place and
+loaded again; a failure then raises: a kernel is never replaced by its
+plain version.  The first load in a process holds a lock file in the
+build directory, so processes that start together build once.
+
 Each C entry point takes device pointers and the CUDA stream as
 ``void*``, launches on that stream, does not synchronise, and returns
 ``cudaGetLastError()``; :func:`check` turns a nonzero code into an
@@ -18,7 +26,14 @@ launch in the wrapper's ``launches`` and ``launches_by_dtype`` and its
 arithmetic (:func:`kernel_ops`) in the wrapper's ``ops`` and the
 process's :func:`ops_launched`: the first step's FLOP count
 (obs/compile_watch.py) adds it to what ``FlopCounterMode`` sees, since
-a ``ctypes`` launch is no aten op.  While the port's trace records
+a ``ctypes`` launch is no aten op.  It also records the launch's kernel instance,
+``name[f32|bf16]@F/slice_cols`` (:func:`instance_name`), in a
+per-process tally (:func:`instances_launched`): what a step launched, for
+its program key (obs/compile_watch.py ``program_key_of``).  The plain
+versions, on the CPU, record the instance they stand for apart
+(:func:`instances_planned`), so a test on the CPU can hold the
+program-space enumeration (analysis/programspace.py) to a route's calls.
+While the port's trace records
 (utils/profiling.py ``trace``, which sets :data:`trace_ranges`), a
 wrapper runs its launches inside :func:`named`, so the trace names each
 launch by its wrapper (K1 and K2 run one device kernel,
@@ -43,7 +58,8 @@ import torch
 
 _HERE = os.path.dirname(os.path.abspath(__file__))
 CSRC = os.path.join(_HERE, "csrc")
-BUILD_DIR = os.path.join(_HERE, "build")
+DEFAULT_BUILD_DIR = os.path.join(_HERE, "build")
+BUILD_DIR = DEFAULT_BUILD_DIR
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -83,6 +99,32 @@ _lib: Optional[ctypes.CDLL] = None
 _entries: Dict[Tuple[str, torch.dtype], Callable[..., int]] = {}
 build_log: List[str] = []
 build_seconds: Optional[float] = None
+# set when this process found a library file that did not load and
+# rebuilt it
+rebuilt = False
+
+
+def set_build_dir(path: Optional[str] = None) -> str:
+    """Build and load the library in ``path`` from now on (None: the
+    default, ``kernels/build/``).  A library this process loaded already
+    stays loaded; :func:`reset` drops it.  Returns the directory."""
+    global BUILD_DIR
+    BUILD_DIR = os.path.abspath(path) if path else DEFAULT_BUILD_DIR
+    return BUILD_DIR
+
+
+def reset() -> None:
+    """Forget the loaded library and its entry points: the next
+    :func:`library` loads (or builds) again from :data:`BUILD_DIR`."""
+    global _lib
+    with _lock:
+        _lib = None
+        _entries.clear()
+
+
+def library_path() -> str:
+    """Where :func:`library` looks for this checkout's library."""
+    return os.path.join(BUILD_DIR, f"libroc_kernels_{_digest(sources())}.so")
 
 
 def sources() -> List[str]:
@@ -141,9 +183,68 @@ def _build(srcs: List[str], target: str) -> None:
         os.replace(lib_tmp, target)
 
 
+def _elf_complete(path: str) -> bool:
+    """Whether the ELF64 file at ``path`` holds every byte its headers
+    name (its program segments and its section header table).  A
+    truncated library is refused here, before ``dlopen``: mapping one can
+    kill the process (SIGBUS on the pages past its end) instead of
+    raising."""
+    import struct
+    size = os.path.getsize(path)
+    with open(path, "rb") as f:
+        head = f.read(64)
+        if len(head) < 64 or head[:4] != b"\x7fELF" or head[4] != 2:
+            return False
+        (phoff, shoff, _, _, phentsize, phnum, shentsize,
+         shnum) = struct.unpack_from("<QQIHHHHH", head, 32)[:8]
+        if shoff + shentsize * shnum > size or \
+                phoff + phentsize * phnum > size:
+            return False
+        f.seek(phoff)
+        for _ in range(phnum):
+            ph = f.read(phentsize)
+            if len(ph) < 56:
+                return False
+            p_offset, _, _, p_filesz = struct.unpack_from("<QQQQ", ph, 8)
+            if p_offset + p_filesz > size:
+                return False
+    return True
+
+
+def _load(target: str) -> ctypes.CDLL:
+    if not _elf_complete(target):
+        raise OSError(f"{target}: not a complete ELF shared object")
+    lib = ctypes.CDLL(target)
+    for name, argtypes in SIGNATURES.items():
+        fn = getattr(lib, name)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+    lib.roc_error_string.argtypes = (ctypes.c_int,)
+    lib.roc_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+@contextlib.contextmanager
+def _file_lock(path: str):
+    """An exclusive ``flock`` on ``path`` (created if need be): processes
+    that load together build one at a time, and the second finds the
+    first's library."""
+    import fcntl
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    fd = os.open(path, os.O_CREAT | os.O_RDWR, 0o644)
+    try:
+        fcntl.flock(fd, fcntl.LOCK_EX)
+        yield
+    finally:
+        fcntl.flock(fd, fcntl.LOCK_UN)
+        os.close(fd)
+
+
 def library() -> ctypes.CDLL:
-    """The loaded kernel library, built first if its sources changed."""
-    global _lib, build_seconds
+    """The loaded kernel library, built first if its sources changed or
+    the file there does not load (then rebuilt, once; a second failure
+    raises)."""
+    global _lib, build_seconds, rebuilt
     with _lock:
         if _lib is not None:
             return _lib
@@ -153,18 +254,27 @@ def library() -> ctypes.CDLL:
         digest = _digest(srcs)
         target = os.path.join(BUILD_DIR, f"libroc_kernels_{digest}.so")
         t0 = time.perf_counter()
-        if not os.path.exists(target):
-            # the build is what the other holders wait for
-            # roc-lint: ok=blocking-under-lock
-            _build(srcs, target)
+        # the build is what the other holders (and processes) wait for
+        # roc-lint: ok=blocking-under-lock
+        with _file_lock(os.path.join(BUILD_DIR, ".lock")):
+            lib = None
+            if os.path.exists(target):
+                try:
+                    lib = _load(target)
+                except (OSError, AttributeError) as e:
+                    from ..obs.events import emit
+                    # one event line, once a process
+                    # roc-lint: ok=blocking-under-lock
+                    emit("compile", f"kernel library {target} does not "
+                         f"load ({type(e).__name__}: {e}); rebuilding it",
+                         rebuild=True, path=target, error=str(e)[:200])
+                    rebuilt = True
+            if lib is None:
+                # the build is what the other holders wait for
+                # roc-lint: ok=blocking-under-lock
+                _build(srcs, target)
+                lib = _load(target)
         build_seconds = time.perf_counter() - t0
-        lib = ctypes.CDLL(target)
-        for name, argtypes in SIGNATURES.items():
-            fn = getattr(lib, name)
-            fn.argtypes = argtypes
-            fn.restype = ctypes.c_int
-        lib.roc_error_string.argtypes = (ctypes.c_int,)
-        lib.roc_error_string.restype = ctypes.c_char_p
         _lib = lib
         return lib
 
@@ -236,21 +346,80 @@ def ops_launched() -> int:
 def zero_launches(*wrappers) -> None:
     """Set each wrapper's launch counts to 0: ``launches`` (all dtypes),
     ``launches_by_dtype`` (``{'f32': n, 'bf16': n}``) and ``ops`` (the
-    launches' :func:`kernel_ops`).  :func:`ops_launched` is not reset."""
+    launches' :func:`kernel_ops`).  :func:`ops_launched` and the
+    instance tallies are not reset."""
     for fn in wrappers:
         fn.launches = 0
         fn.launches_by_dtype = {s: 0 for s in DTYPE_SUFFIX.values()}
         fn.ops = 0
 
 
-def launched(wrapper, dtype: torch.dtype, ops: int) -> None:
+def instance_name(kernel: str, dtype: Optional[torch.dtype] = None,
+                  F: int = 0, slice_cols: int = 0) -> str:
+    """One kernel instance: ``name[f32|bf16]@F/slice_cols`` for the sums
+    (K3, K4), ``name[f32|bf16]@F`` for the row scalings (K1, its masked
+    form, K2), ``name`` for a kernel without features (K3's row-pointer
+    pre-pass)."""
+    if dtype is None:
+        return kernel
+    tail = f"/{int(slice_cols)}" if kernel in SUM_KERNELS else ""
+    return f"{kernel}[{DTYPE_SUFFIX[dtype]}]@{int(F)}{tail}"
+
+
+# kernel instance -> launches in this process (never reset: a reader
+# takes the difference around the work it observes), and the plain
+# versions' stand-ins on the CPU
+_instances: Dict[str, int] = {}
+_planned: Dict[str, int] = {}
+
+
+def instances_launched() -> Dict[str, int]:
+    """``{instance: launches}`` of every kernel launched in this process
+    so far (:func:`instance_name`)."""
+    return dict(_instances)
+
+
+def instances_planned() -> Dict[str, int]:
+    """``{instance: calls}`` the plain versions took in this process in
+    the kernels' place (a tensor on the CPU)."""
+    return dict(_planned)
+
+
+def instances_since(before: Dict[str, int],
+                    now: Optional[Dict[str, int]] = None) -> List[str]:
+    """The instances whose count grew since ``before``, sorted."""
+    now = _instances if now is None else now
+    return sorted(k for k, n in now.items() if n > before.get(k, 0))
+
+
+def note_plain(kernel: str, dtype: Optional[torch.dtype] = None,
+               F: int = 0, slice_cols: int = 0) -> None:
+    """Record that a plain version ran where the card would launch
+    ``kernel`` (:func:`instances_planned`); counts no launch."""
+    key = instance_name(kernel, dtype if dtype in DTYPE_SUFFIX else None,
+                        F, slice_cols)
+    _planned[key] = _planned.get(key, 0) + 1
+
+
+def launched(wrapper, dtype: torch.dtype, ops: int, F: int = 0,
+             slice_cols: int = 0, kernel: Optional[str] = None) -> None:
     """Count one kernel launch of ``wrapper`` on features of ``dtype``
-    doing ``ops`` operations (:func:`kernel_ops`)."""
+    doing ``ops`` operations (:func:`kernel_ops`), and its instance
+    ``kernel`` (default: the wrapper's name) at ``F`` columns and
+    ``slice_cols`` in :func:`instances_launched`."""
     global _ops_launched
     wrapper.launches += 1
     wrapper.launches_by_dtype[DTYPE_SUFFIX[dtype]] += 1
     wrapper.ops += ops
     _ops_launched += ops
+    key = instance_name(kernel or wrapper.__name__, dtype, F, slice_cols)
+    _instances[key] = _instances.get(key, 0) + 1
+
+
+def launched_featureless(kernel: str) -> None:
+    """Record one launch of a kernel without features (K3's row-pointer
+    pre-pass) in :func:`instances_launched`."""
+    _instances[kernel] = _instances.get(kernel, 0) + 1
 
 
 _NOT_TRACED = contextlib.nullcontext()

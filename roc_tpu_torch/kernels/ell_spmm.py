@@ -107,6 +107,7 @@ def ell_aggregate(feats: torch.Tensor, ell_idx: Sequence[torch.Tensor],
     S = slicing.resolve("ell_aggregate", slice_cols,
                         default_slice_cols(feats.shape[1], feats.dtype))
     if feats.device.type == "cpu":
+        _build.note_plain("ell_aggregate", feats.dtype, feats.shape[1], S)
         return ell_aggregate_plain(feats, ell_idx, ell_row_id, num_rows)
     for t in (*ell_idx, *ell_row_id):
         if t.dtype != torch.int32 or not t.is_contiguous():
@@ -127,7 +128,7 @@ def ell_aggregate(feats: torch.Tensor, ell_idx: Sequence[torch.Tensor],
                 out.data_ptr(), rows, width, R, num_rows, F, S, stream))
             _build.launched(ell_aggregate, feats.dtype, _build.kernel_ops(
                 "ell_aggregate", rows,
-                rows * width if edges is None else edges[b], F))
+                rows * width if edges is None else edges[b], F), F, S)
     return out
 
 

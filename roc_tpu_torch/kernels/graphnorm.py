@@ -92,6 +92,8 @@ def indegree_norm(x: torch.Tensor, in_degree: torch.Tensor,
                          f"{tuple(relu_out.shape)} {relu_out.dtype} on "
                          f"{relu_out.device}")
     if x.device.type == "cpu":
+        _build.note_plain("indegree_norm" if relu_out is None
+                          else "indegree_norm_masked", x.dtype, x.shape[1])
         return indegree_norm_plain(x, in_degree, relu_out)
     if relu_out is None:
         fn = _check_cuda("indegree_norm", x, in_degree)
@@ -106,7 +108,9 @@ def indegree_norm(x: torch.Tensor, in_degree: torch.Tensor,
             *inputs, out.data_ptr(), x.shape[0], x.shape[1],
             _build.stream_ptr(x.device)))
     _build.launched(indegree_norm, x.dtype, _build.kernel_ops(
-        "indegree_norm", x.shape[0], 0, x.shape[1]))
+        "indegree_norm", x.shape[0], 0, x.shape[1]), x.shape[1],
+        kernel="indegree_norm" if relu_out is None
+        else "indegree_norm_masked")
     if relu_out is not None:
         indegree_norm.masked_launches += 1
     return out
@@ -130,6 +134,7 @@ def scale_act(x: torch.Tensor, scale: torch.Tensor,
         raise ValueError(f"unknown act {act!r}; expected 'none'|'relu'")
     _check_rows(x, scale, "scale_act")
     if x.device.type == "cpu":
+        _build.note_plain("scale_act", x.dtype, x.shape[1])
         return scale_act_plain(x, scale, act)
     fn = _check_cuda("scale_act", x, floats=(scale,))
     out = torch.empty_like(x)
@@ -138,7 +143,7 @@ def scale_act(x: torch.Tensor, scale: torch.Tensor,
             x.data_ptr(), scale.data_ptr(), out.data_ptr(), x.shape[0],
             x.shape[1], int(act == "relu"), _build.stream_ptr(x.device)))
     _build.launched(scale_act, x.dtype, _build.kernel_ops(
-        "scale_act", x.shape[0], 0, x.shape[1]))
+        "scale_act", x.shape[0], 0, x.shape[1]), x.shape[1])
     return out
 
 

@@ -137,6 +137,7 @@ def csr_row_ptr(edge_dst: torch.Tensor, num_rows: int) -> torch.Tensor:
         edge_dst.data_ptr(), row_ptr.data_ptr(), edge_dst.shape[0],
         num_rows, _build.stream_ptr(edge_dst.device)))
     csr_row_ptr.launches += 1
+    _build.launched_featureless("csr_row_ptr")
     return row_ptr
 
 
@@ -176,6 +177,9 @@ def csr_spmm(feats: torch.Tensor, edge_src: torch.Tensor,
     S = slicing.resolve("csr_spmm", slice_cols,
                         default_slice_cols(feats.shape[1], feats.dtype))
     if feats.device.type == "cpu":
+        if row_ptr is None:
+            _build.note_plain("csr_row_ptr")
+        _build.note_plain("csr_spmm", feats.dtype, feats.shape[1], S)
         if edge_dst is None:
             edge_dst = dst_from_row_ptr(row_ptr, edge_src.shape[0])
         return csr_spmm_plain(feats, edge_src, edge_dst, num_rows)
@@ -197,7 +201,7 @@ def csr_spmm(feats: torch.Tensor, edge_src: torch.Tensor,
             out.data_ptr(), R, num_rows, F, S,
             _build.stream_ptr(feats.device)))
     _build.launched(csr_spmm, feats.dtype, _build.kernel_ops(
-        "csr_spmm", num_rows, edge_src.shape[0], F))
+        "csr_spmm", num_rows, edge_src.shape[0], F), F, S)
     return out
 
 

@@ -12,7 +12,8 @@ loaded by its path alone.
 
 At first use :func:`available` builds both sources with ``g++`` into one
 library in ``native/build/`` (listed in ``.gitignore``) under a name that
-carries a hash of the sources and flags, so an edited source is rebuilt; the build
+carries a hash of the sources and flags, so an edited source is rebuilt
+(:func:`set_build_dir` moves the directory); the build
 writes a temporary file and renames it, so processes that build at once
 never load a half-written library.  A library whose ABI version differs
 from :data:`ABI_VERSION` is refused.  When no library can be built or
@@ -39,7 +40,8 @@ import numpy as np
 _HERE = os.path.dirname(os.path.abspath(__file__))
 SOURCES = (os.path.join(_HERE, "rocplan.cc"),
            os.path.join(_HERE, "rocload.cc"))
-BUILD_DIR = os.path.join(_HERE, "build")
+DEFAULT_BUILD_DIR = os.path.join(_HERE, "build")
+BUILD_DIR = DEFAULT_BUILD_DIR
 CXX_FLAGS = ("-O3", "-fPIC", "-std=c++17", "-Wall", "-Wextra", "-shared")
 ABI_VERSION = 2
 # the loaders' error codes (rocload.cc): -1 open, -2 read, -3 format,
@@ -50,6 +52,16 @@ _lock = threading.Lock()
 _lib: Optional[ctypes.CDLL] = None
 _tried = False
 calls: Dict[str, int] = {}
+
+
+def set_build_dir(path: Optional[str] = None) -> str:
+    """Build and load the library in ``path`` from now on (None: the
+    default, ``native/build/``; the compile cache, utils/compile_cache.py,
+    sets it).  A library this process loaded already stays loaded.
+    Returns the directory."""
+    global BUILD_DIR
+    BUILD_DIR = os.path.abspath(path) if path else DEFAULT_BUILD_DIR
+    return BUILD_DIR
 
 
 def _i64p(a: np.ndarray):

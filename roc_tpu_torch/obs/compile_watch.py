@@ -23,6 +23,15 @@ event (the JAX package's category) with:
   ``modeled_bytes``), ``model_delta_bytes`` and ``model_actual_ratio``,
   with the JAX package's warning when the model undershoots the peak.
 
+- ``program_key`` (:func:`program_key_of`) and ``instances``: the step
+  slot, the kernel instances its first call launched (kernels/_build.py
+  ``instances_launched``: ``name[dtype]@F/slice_cols``), the signatures
+  of the tensors it reads and the positions it rewrites, the JAX
+  package's ``slot|leaf sigs|donate=`` with the instances in the place
+  of XLA's program.  The program-space enumeration
+  (analysis/programspace.py) derives the same key without running the
+  step, so the two can be held to each other.
+
 After its first call the observer adds nothing to the step.  Only the
 observation may degrade: a counter or a read that fails, or a FLOP
 formula that fails on an op (the op's output is returned all the same,
@@ -34,7 +43,7 @@ step runs as it would; the step's own errors propagate.
 from __future__ import annotations
 
 import time
-from typing import Any, Callable, Dict, Optional
+from typing import Any, Callable, Dict, Iterable, List, Optional, Tuple
 
 from .events import emit
 
@@ -66,6 +75,78 @@ def peak_flops_per_s(device_kind: Optional[str] = None
         if key in kind:
             return val
     return None
+
+
+def leaf_struct(x) -> Tuple[str, Tuple[int, ...], str]:
+    """``(dtype, dims, spec)`` of one argument leaf: a tensor's dtype by
+    the JAX package's name (``float32``, ``bfloat16``, ``int32``), its
+    dims and ``'-'`` (a tensor is on one device; the JAX package's
+    sharding spec has no counterpart).  Anything with ``shape`` and
+    ``dtype`` (a stand-in for a tensor not built) renders alike; other
+    values ``('py', (), repr(x))``.  The one extraction behind
+    :func:`program_key_of` and the cache-key-drift rule's dims
+    (analysis/programspace.py)."""
+    shape = getattr(x, "shape", None)
+    dtype = getattr(x, "dtype", None)
+    if shape is None or dtype is None:
+        return ("py", (), repr(x))
+    name = str(dtype)
+    if name.startswith("torch."):
+        name = name[len("torch."):]
+    return (name, tuple(int(d) for d in shape), "-")
+
+
+def tree_leaves(tree) -> List[Any]:
+    """The tensors of ``tree`` in the JAX package's flattening order:
+    dicts by sorted key, sequences in order, a dataclass (a graph
+    context) by its fields; host values (ints, floats, callables) are no
+    program argument and are skipped."""
+    import dataclasses
+
+    import numpy as np
+    out: List[Any] = []
+
+    def walk(v):
+        if v is None:
+            return
+        if isinstance(v, dict):
+            for k in sorted(v):
+                walk(v[k])
+        elif isinstance(v, (list, tuple)):
+            for e in v:
+                walk(e)
+        elif dataclasses.is_dataclass(v) and not isinstance(v, type):
+            for f in dataclasses.fields(v):
+                walk(getattr(v, f.name))
+        elif hasattr(v, "shape") and hasattr(v, "dtype") and \
+                not isinstance(v, (np.ndarray, np.generic)):
+            out.append(v)
+    walk(tree)
+    return out
+
+
+def _leaf_sig(x) -> str:
+    """``dtype[d0,d1,...]@spec`` rendering of :func:`leaf_struct`."""
+    dtype, dims, spec = leaf_struct(x)
+    if dtype == "py":
+        return f"py:{spec}"
+    return f"{dtype}[{','.join(str(d) for d in dims)}]@{spec}"
+
+
+def program_key_of(name: str, instances: Iterable[str], args,
+                   donate_argnums: Tuple[int, ...] = ()) -> str:
+    """THE program identity of a step slot:
+    ``slot|kernel instances|leaf sigs|donate=...``, the instances sorted
+    and comma-joined.  Computed by :class:`ObservedStep` at a slot's
+    first call (from the instances it launched) and by the program-space
+    enumeration (from the instances the route launches on the named
+    card), so static and live can be compared.  ``donate_argnums``: the
+    argument positions the step rewrites in place (the params and the
+    optimiser state of a train step)."""
+    sig = ";".join(_leaf_sig(v) for v in tree_leaves(args))
+    inst = ",".join(sorted(set(instances)))
+    don = ",".join(str(int(i)) for i in donate_argnums)
+    return f"{name}|{inst}|{sig}|donate={don}"
 
 
 def _bmm_flop(a_shape, b_shape, *_, out_shape=None, **kwargs) -> int:
@@ -136,7 +217,9 @@ class ObservedStep:
     """A trainer step slot (``train_step``, ``eval_step``) with
     first-step telemetry: calls ``fn`` and, on the first call only,
     counts and times it (module docstring); the event's fields stay in
-    :attr:`cost`.  ``device``: the step's device (its allocator's peak
+    :attr:`cost`.  ``args_of()`` gives the tensors the step reads and
+    ``donate`` the positions among them it rewrites: with them the
+    event carries the slot's ``program_key``.  ``device``: the step's device (its allocator's peak
     and its barrier).  ``modeled_bytes``: the memory plan's estimate for
     the step; when the measured peak exceeds it past both gates the
     event warns unconditionally."""
@@ -149,9 +232,14 @@ class ObservedStep:
 
     def __init__(self, fn: Callable, *, name: str, device=None,
                  modeled_bytes: Optional[int] = None,
-                 verbose: bool = False):
+                 verbose: bool = False,
+                 args_of: Optional[Callable[[], Any]] = None,
+                 donate: Tuple[int, ...] = ()):
         import torch
         self.fn = fn
+        # the tensors the step reads, for its program key (None: no key)
+        self.args_of = args_of
+        self.donate = tuple(donate)
         self.name = name
         self.device = torch.device(device) if device is not None else None
         self.modeled_bytes = modeled_bytes
@@ -169,6 +257,7 @@ class ObservedStep:
             counter = _counter()
             self._sync()
             ops0 = _build.ops_launched()
+            inst0 = _build.instances_launched()
             t0 = time.perf_counter()
             counter.__enter__()
         except Exception as e:  # noqa: BLE001 - degrade, not die
@@ -185,7 +274,8 @@ class ObservedStep:
             if counter.error is not None:
                 raise counter.error
             self._emit(first_s, counter.get_total_flops(),
-                       _build.ops_launched() - ops0)
+                       _build.ops_launched() - ops0,
+                       _build.instances_since(inst0))
         except Exception as e:  # noqa: BLE001 - degrade, not die
             self._degrade(e)
         return out
@@ -198,7 +288,8 @@ class ObservedStep:
             import torch
             torch.cuda.synchronize(self.device)
 
-    def _emit(self, first_s: float, counted: int, kernels: int) -> None:
+    def _emit(self, first_s: float, counted: int, kernels: int,
+              instances: List[str]) -> None:
         peak = None
         if self._is_cuda():
             import torch
@@ -212,7 +303,11 @@ class ObservedStep:
             "bytes_accessed": None,
             "peak_bytes": peak,
             "modeled_bytes": self.modeled_bytes,
+            "instances": instances,
         }
+        if self.args_of is not None:
+            fields["program_key"] = program_key_of(
+                self.name, instances, self.args_of(), self.donate)
         undershoot = False
         if peak is not None and self.modeled_bytes:
             fields["model_delta_bytes"] = int(peak - self.modeled_bytes)

@@ -56,6 +56,7 @@ its gather path).
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import os
 import tempfile
@@ -187,6 +188,40 @@ class _AllGather(torch.autograd.Function):
         return ctx.comm.reduce_scatter(g), None
 
 
+# the collective lint's recorder (analysis/collective_lint.py): while a
+# list is set (:func:`record_collectives`), every Collectives call of this
+# process appends one record to it
+_recording: Optional[List[Dict[str, Any]]] = None
+
+
+@contextlib.contextmanager
+def record_collectives():
+    """Record every :class:`Collectives` call of this process inside the
+    block, in order: ``kind`` ('all_gather', 'reduce_scatter',
+    'all_reduce', 'broadcast', 'ring_shift'), ``op`` (the reduction),
+    ``group`` (the group's name: 'world', 'parts', 'model'), ``members``
+    (its global ranks), ``rank`` and ``size`` in it, the operand's
+    ``shape`` and ``dtype``, and for a ring shift its peers ``to`` and
+    ``frm`` and its ``shift`` (group ranks).  Yields the list."""
+    global _recording
+    prev, _recording = _recording, []
+    try:
+        yield _recording
+    finally:
+        _recording = prev
+
+
+def world_rank() -> int:
+    """This process's rank in the default process group."""
+    return dist.get_rank()
+
+
+def new_group(ranks: Sequence[int]):
+    """A process group of ``ranks`` (global ranks); every rank of the
+    default group calls it, members or not."""
+    return dist.new_group(list(ranks))
+
+
 class Collectives:
     """This rank's collectives over a ``torch.distributed`` process group
     (``group``; None is the default group), in PyTorch's idiom where the
@@ -203,19 +238,36 @@ class Collectives:
     world size 1 as at any other, with no elision, so a one-rank run
     times them."""
 
-    def __init__(self, group=None):
+    def __init__(self, group=None, name: str = "world"):
         if not dist.is_initialized():
             raise RuntimeError("torch.distributed is not initialised: call "
                                "torch.distributed.init_process_group first")
         self.group = group
+        # the mesh axis the group is (the collective lint's vocabulary):
+        # 'parts', 'model', or 'world' for the whole default group
+        self.name = name
         self.rank = dist.get_rank(group)
         self.world_size = dist.get_world_size(group)
         self.backend = str(dist.get_backend(group))
+
+    def _note(self, kind: str, x: torch.Tensor, **extra: Any) -> None:
+        """One record for :func:`record_collectives`, when it records."""
+        if _recording is None:
+            return
+        members = (list(range(dist.get_world_size())) if self.group is None
+                   else list(dist.get_process_group_ranks(self.group)))
+        _recording.append({"kind": kind, "group": self.name,
+                           "members": members, "rank": self.rank,
+                           "size": self.world_size,
+                           "shape": list(x.shape),
+                           "dtype": str(x.dtype).replace("torch.", ""),
+                           **extra})
 
     def all_gather(self, x: torch.Tensor) -> torch.Tensor:
         """``[n, ...]`` from every rank -> ``[world_size * n, ...]``, rank
         order."""
         x = x.contiguous()
+        self._note("all_gather", x)
         out = x.new_empty((self.world_size * x.shape[0],) + x.shape[1:])
         _all_gather_single(out, x, group=self.group)
         return out
@@ -230,6 +282,7 @@ class Collectives:
         of it ``[n, ...]`` on each rank (the transpose of
         :meth:`all_gather`)."""
         x = x.contiguous()
+        self._note("reduce_scatter", x, op="sum")
         out = x.new_empty((x.shape[0] // self.world_size,) + x.shape[1:])
         dist.reduce_scatter_tensor(out, x, op=dist.ReduceOp.SUM,
                                    group=self.group)
@@ -237,6 +290,7 @@ class Collectives:
 
     def all_reduce(self, x: torch.Tensor, op: str = "sum") -> torch.Tensor:
         """Sum (or ``op='max'``) over the ranks, in place; returns ``x``."""
+        self._note("all_reduce", x, op="max" if op == "max" else "sum")
         dist.all_reduce(x, op=dist.ReduceOp.MAX if op == "max"
                         else dist.ReduceOp.SUM, group=self.group)
         return x
@@ -280,6 +334,8 @@ class Collectives:
         to, frm = self._peer((self.rank + shift) % n), \
             self._peer((self.rank - shift) % n)
         x = x.contiguous()
+        self._note("ring_shift", x, to=(self.rank + shift) % n,
+                   frm=(self.rank - shift) % n, shift=int(shift) % n)
         up = None
         if self.backend == "gloo" and x.is_cuda:
             up = x.device
@@ -296,6 +352,7 @@ class Collectives:
     def broadcast(self, x: torch.Tensor) -> torch.Tensor:
         """The group's rank 0's ``x`` on every rank, in place; returns
         ``x``."""
+        self._note("broadcast", x)
         dist.broadcast(x, group=self.group, group_src=0)
         return x
 
@@ -702,7 +759,9 @@ class DistributedTrainer(Trainer):
                  plan: Optional[PartitionPlan] = None):
         from . import RankMesh
         _, M = resolve_mesh(config, num_parts=num_parts)
-        self.world_comm = Collectives(group)
+        # on the 1-D mesh the whole group is the parts axis
+        self.world_comm = Collectives(group,
+                                      name="parts" if M == 1 else "world")
         self.global_rank = self.world_comm.rank
         if self.world_comm.world_size != num_parts * M:
             raise ValueError(
@@ -726,8 +785,8 @@ class DistributedTrainer(Trainer):
             self._ckpt_group = dist.new_group(backend="gloo")
             m = self.mesh.model_index(self.global_rank)
             part = self.mesh.part_of(self.global_rank)
-            self.comm = Collectives(parts_groups[m])
-            self.model_comm = Collectives(model_groups[part])
+            self.comm = Collectives(parts_groups[m], name="parts")
+            self.model_comm = Collectives(model_groups[part], name="model")
         else:
             self.comm = self.world_comm
             self.model_comm = None

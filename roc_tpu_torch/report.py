@@ -177,6 +177,18 @@ def summarize(events: List[Dict[str, Any]],
           ["step", "first_step", "flops", "kernel_flops", "bytes", "peak",
            "modeled", "actual/model"], rows, out)
 
+    # prewarm: one summary event per warmed config (utils/prewarm.py); a
+    # repeat run is all warm, and cold on an unchanged config means the
+    # build cache lost the library
+    pre = [e for e in events if e.get("cat") == "compile"
+           and e.get("summary") and "prewarm" in e]
+    _rows("compile cache (prewarm warm-vs-cold)",
+          ["config", "programs", "warm_hits", "cold", "failed", "total"],
+          [[str(e.get("prewarm")), str(e.get("programs")),
+            str(e.get("compile_warm_hits")), str(e.get("compile_cold")),
+            str(e.get("failed", 0)),
+            f"{float(e.get('prewarm_s', 0)):.1f}s"] for e in pre], out)
+
     # phase spans: the trainer emits a final spans summary; fall back to
     # the per-eval epoch events / metrics records
     span_events = [e for e in events
@@ -256,6 +268,22 @@ def summarize(events: List[Dict[str, Any]],
           and ("rebalance" in e or "gain" in e)]
     _rows("cost model (rebalance decisions)", ["message"],
           [[str(e.get("msg", ""))[:110]] for e in cm], out)
+
+    # program space: the enumeration's report per rig config
+    # (analysis/programspace.py, cat=programspace) against the baselined
+    # bound; the port models no compile time ("-"; a JAX event's model
+    # shows)
+    _rows("program space (compile budget)",
+          ["config", "programs", "observed", "modeled_compile", "budget",
+           "delta"],
+          [[str(e.get("config")), str(e.get("programs")),
+            str(e.get("observed_programs", "?")),
+            (f"{float(e['modeled_compile_ms']) / 1e3:.1f}s"
+             if e.get("modeled_compile_ms") is not None else "-"),
+            "?" if e.get("budget") is None else str(e["budget"]),
+            "?" if e.get("delta") is None else f"{e['delta']:+d}"]
+           for e in events if e.get("cat") == "programspace"
+           and "programs" in e], out)
 
     # resilience: injected drill faults, recovery retries, corrupt-
     # checkpoint fallbacks, preemptions, elastic restores

@@ -18,14 +18,24 @@ export.py``): ``python -m roc_tpu_torch.export``.
   the manifest's ``shards`` block; ``load_predictor(shard=k)`` loads one
   slice, which serves the global ids through the cross-shard gather
   (serve/predictor.py, serve/router.py).
+- The manifest records the serve programs' keys (``program_keys``,
+  serve/predictor.py ``Predictor.program_keys``: a bucket's slot, the
+  kernel instances it launches and its tensors; a sharded export also
+  the shard view's, ``shards.program_keys``), marked
+  ``program_keys_by: roc_tpu_torch``, and the ``prewarm`` block: the
+  export runs every bucket once against the build cache
+  (``Predictor.warm``; ``--cache-dir``) and, unless
+  ``--no-verify-warm``, a second time, which must be all warm (no file
+  appeared in the cache).
 - :func:`load_predictor` rebuilds a predictor from an artifact written
-  by this package or by the JAX package.  The JAX manifest's
-  compile-cache fields (``program_keys``, ``prewarm``) have no meaning
-  for eager PyTorch and are ignored; its route names map to the port's
-  (``pallas`` -> ``cuda``, ``pallas_csr`` -> ``cuda_csr``), and a
+  by this package or by the JAX package.  It refuses an artifact of this
+  package whose program keys differ from the rebuilt predictor's (the
+  replica would serve programs the export never ran).  A JAX artifact's
+  keys are XLA's and are not compared; its route names map to the
+  port's (``pallas`` -> ``cuda``, ``pallas_csr`` -> ``cuda_csr``), and a
   full-backend artifact on a layout the port lacks raises
-  ``NotImplementedError``.  This package writes no program keys, so the
-  JAX loader refuses its artifacts.
+  ``NotImplementedError``.  The JAX loader refuses this package's
+  artifacts (its keys are not XLA's).
 
 Every entry point runs on the card unless the caller passes a device.
 """
@@ -53,6 +63,9 @@ from .propagation import (PropagationCache, logits_table_cache,
 
 MANIFEST_NAME = "serve_manifest.json"
 MANIFEST_VERSION = 1
+# the manifest's mark of program keys this package wrote (a JAX
+# artifact's are XLA's)
+KEYS_BY = "roc_tpu_torch"
 
 SHARD_FILE = "propagation_shard{k}.npz"
 
@@ -241,18 +254,44 @@ def load_shard_slice(artifact_dir: str, k: int,
                           rows=np.asarray(z["rows"], dtype=np.float32))
 
 
-def _shard_block(pred: Predictor, out_dir: str,
-                 shards: int) -> Dict[str, Any]:
+def _shard_view_predictor(pred: Predictor, sl: ShardSlice) -> Predictor:
+    """A predictor of slice ``sl`` over ``pred``'s model and params: every
+    shard of a fleet has one table layout, so one shard view's programs
+    are every shard's."""
+    return Predictor(pred.model, pred.config, pred.master_params,
+                     "precomputed", pred.buckets, cache=None,
+                     head_model=pred.head_model, flavor=pred.flavor,
+                     num_classes=pred.num_classes, quant=pred.quant,
+                     device=pred.device, shard=sl)
+
+
+def _prewarm_block(warm: Dict[str, Any]) -> Dict[str, Any]:
+    return {k: warm.get(k) for k in ("programs", "compile_warm_hits",
+                                     "compile_cold", "failed", "prewarm_s",
+                                     "cache_unavailable")}
+
+
+def _shard_block(pred: Predictor, out_dir: str, shards: int,
+                 cache_dir: Optional[str] = None) -> Dict[str, Any]:
     """Write ``pred``'s table slices; returns the manifest's ``shards``
-    block (the plan, the shared layout, the files, and the bytes a
-    replica holds beside the full table's)."""
+    block (the plan, the shared layout, the files, the bytes a replica
+    holds beside the full table's, and the shard view's program keys
+    and warm report)."""
     from .quant import table_bytes
     slices = make_shard_slices(pred.cache, shards, pred.buckets, pred.quant)
     files = [os.path.basename(_write_shard_slice(out_dir, k, sl,
                                                  pred.quant))
              for k, sl in enumerate(slices)]
+    spred = _shard_view_predictor(pred, slices[0])
+    swarm = spred.warm(cache_dir=cache_dir, name="serve_export_shard")
+    if swarm.get("failed"):
+        raise RuntimeError(
+            f"sharded export: {swarm['failed']} shard-view program(s) "
+            f"failed to run — see the compile events")
     F = int(pred.cache.table.shape[1])
     return {"n": int(shards),
+            "program_keys": spred.program_keys(),
+            "prewarm": _prewarm_block(swarm),
             "plan": [[int(sl.lo), int(sl.hi)] for sl in slices],
             "rows_padded": int(slices[0].rows_padded),
             "halo": int(slices[0].halo),
@@ -322,7 +361,8 @@ def export_predictor(pred: Predictor, out_dir: str,
                      dataset_meta: Optional[Dict[str, Any]] = None,
                      drift_argmax_min: Optional[float] = None,
                      drift_dlogit_max: Optional[float] = None,
-                     shards: int = 0) -> Dict[str, Any]:
+                     shards: int = 0, cache_dir: Optional[str] = None,
+                     verify_warm: bool = True) -> Dict[str, Any]:
     """Persist ``pred`` as a serving artifact in ``out_dir``; returns
     the manifest.  ``shards`` > 0 also writes that many table slices
     (precomputed backend only).  A quantized predictor first runs the drift gate
@@ -330,7 +370,11 @@ def export_predictor(pred: Predictor, out_dir: str,
     reference on a held-out sample, thresholds from serve/quant.py
     unless given) and raises ``QuantDriftError`` before any file is
     written; the predictor then serves with the params' quantization
-    round trip, the values a cold load reconstructs."""
+    round trip, the values a cold load reconstructs.  Then every bucket
+    runs once against the build cache ``cache_dir``
+    (``Predictor.warm``), and with ``verify_warm`` a second time, which
+    must find nothing to build; a bucket that fails raises before the
+    manifest is written."""
     from ..utils.checkpoint import params_signature
     from .quant import QuantSpec
     host_params = _host_params(pred.master_params)
@@ -372,7 +416,8 @@ def export_predictor(pred: Predictor, out_dir: str,
     if pred.cache is not None:
         pred.cache.save(os.path.join(out_dir, "propagation.npz"),
                         quant=pred.quant)
-    shard_block = _shard_block(pred, out_dir, shards) if shards else None
+    shard_block = (_shard_block(pred, out_dir, shards, cache_dir)
+                   if shards else None)
     cfg = pred.config
     block = _config_block(cfg)
     meta = dict(dataset_meta or {})
@@ -392,16 +437,40 @@ def export_predictor(pred: Predictor, out_dir: str,
         "num_nodes": pred.num_nodes,
         "quant": qblock,
         "shards": shard_block,
+        "program_keys": pred.program_keys(),
+        "program_keys_by": KEYS_BY,
         "created": time.strftime("%Y-%m-%dT%H:%M:%S%z"),
     }
+    warm = pred.warm(cache_dir=cache_dir, name="serve_export")
+    manifest["prewarm"] = _prewarm_block(warm)
+    if warm.get("failed"):
+        raise RuntimeError(
+            f"serve export: {warm['failed']} program(s) failed to run — "
+            f"the artifact would fail at first query; see the compile "
+            f"events")
+    if verify_warm and not warm.get("cache_unavailable"):
+        check = pred.warm(cache_dir=cache_dir, name="serve_verify")
+        manifest["prewarm"]["verified_warm_hits"] = \
+            check.get("compile_warm_hits")
+        if check.get("compile_warm_hits") != check.get("programs"):
+            raise RuntimeError(
+                f"serve export warm check FAILED: "
+                f"{check.get('compile_warm_hits')} of "
+                f"{check.get('programs')} programs warm on the second pass "
+                f"— the build cache did not keep what the first pass "
+                f"built")
     path = os.path.join(out_dir, MANIFEST_NAME)
     tmp = path + ".tmp"
     with open(tmp, "w") as f:
         json.dump(manifest, f, indent=1, sort_keys=True)
     os.replace(tmp, path)
     emit("serve", f"artifact exported to {out_dir}: {pred.backend}"
-         + (f"/{pred.flavor}" if pred.flavor else ""),
-         kind="export", path=out_dir, backend=pred.backend)
+         + (f"/{pred.flavor}" if pred.flavor else "")
+         + f", {len(manifest['program_keys'])} programs "
+         f"({manifest['prewarm']['compile_warm_hits']} warm/"
+         f"{manifest['prewarm']['compile_cold']} cold)",
+         kind="export", path=out_dir, backend=pred.backend,
+         programs=len(manifest["program_keys"]))
     return manifest
 
 
@@ -514,11 +583,25 @@ def load_predictor(artifact_dir: str, dataset=None, device=None,
                 f"V={want_v}/E={want_e} — full-graph serving on another "
                 f"graph than the export's would be silently wrong")
         gctx = _graph_context(model, dataset, config, device)
-    return Predictor(model, config, params, backend, manifest["buckets"],
+    pred = Predictor(model, config, params, backend, manifest["buckets"],
                      cache=cache, head_model=head_model, flavor=flavor,
                      dataset=dataset if backend == "full" else None,
                      gctx=gctx, num_classes=manifest.get("num_classes"),
                      quant=qmode, device=device, shard=slice_)
+    if manifest.get("program_keys_by") == KEYS_BY:
+        # a sliced load is held to the export's shard view (every shard
+        # has its layout), a whole one to the export's keys
+        want = (manifest["shards"].get("program_keys")
+                if shard is not None else manifest.get("program_keys"))
+        live = pred.program_keys()
+        if sorted(want or []) != live:
+            raise ValueError(
+                f"{artifact_dir}: the rebuilt predictor's program keys "
+                f"differ from the manifest's ({len(want or [])} vs "
+                f"{len(live)}; first difference: "
+                f"{sorted(set(want or []) ^ set(live))[:1]}) — re-export "
+                f"it on this card and package")
+    return pred
 
 
 # ----------------------------------------------------------------- CLI
@@ -582,11 +665,13 @@ def parse_args(argv: Optional[List[str]] = None):
                          "then loads ONE slice (load_predictor(shard=k)) "
                          "at O(V/N)+halo table bytes")
     ap.add_argument("--cache-dir", default=None,
-                    help="the JAX package's compile-cache directory; "
-                         "accepted and ignored")
+                    help="the build cache the export warms every bucket "
+                         "against (utils/compile_cache.py; default: "
+                         "$ROC_TPU_TORCH_CACHE_DIR or "
+                         "~/.cache/roc_tpu_torch/kernels)")
     ap.add_argument("--no-verify-warm", action="store_true",
-                    help="the JAX package's warm-hit check; accepted and "
-                         "ignored")
+                    help="skip the second warm pass, which must find "
+                         "every bucket warm (nothing left to build)")
     ap.add_argument("--cpu", action="store_true",
                     help="export on the CPU (default: the card)")
     ap.add_argument("--events", default=None)
@@ -604,10 +689,12 @@ def main(argv: Optional[List[str]] = None) -> int:
     if args.shards < 0:
         print("error: --shards must be >= 0", file=sys.stderr)
         return 2
-    if args.cache_dir is not None or args.no_verify_warm:
-        print("note: --cache-dir and --no-verify-warm drive the JAX "
-              "package's compile cache, which eager PyTorch has no use "
-              "for; ignored", file=sys.stderr)
+    # the build cache, enabled before anything builds, as the JAX export
+    # warms its compile cache (a directory that cannot be created makes
+    # the warm report it unavailable)
+    from ..utils.compile_cache import default_dir, enable_compile_cache
+    cache_dir = args.cache_dir or default_dir()
+    enable_compile_cache(cache_dir)
     layers = [int(x) for x in args.layers.split("-")]
     if len(layers) < 2:
         print("error: -layers needs at least in-dim and classes",
@@ -666,7 +753,9 @@ def main(argv: Optional[List[str]] = None) -> int:
     manifest = export_predictor(pred, args.out, dataset_meta=meta,
                                 drift_argmax_min=args.drift_argmax_min,
                                 drift_dlogit_max=args.drift_dlogit_max,
-                                shards=args.shards)
+                                shards=args.shards,
+                                cache_dir=cache_dir,
+                                verify_warm=not args.no_verify_warm)
     sb = manifest["shards"]
     print(json.dumps({"artifact": args.out, "backend": manifest["backend"],
                       "flavor": manifest["flavor"],

@@ -41,7 +41,7 @@ from __future__ import annotations
 
 import threading
 import time
-from typing import Any, NamedTuple, Optional, Sequence, Tuple
+from typing import Any, Dict, List, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -265,6 +265,96 @@ class Predictor:
         if pub.qmode == "off":
             return int(pub.table.numel() * pub.table.element_size())
         return int(_tb(tuple(int(d) for d in pub.table.shape), pub.qmode))
+
+    # ------------------------------------------- the program space
+
+    _QSUFFIX = {"off": "", "int8": "_q8", "fp8": "_qf8"}
+
+    def _slot(self, bucket: int, mode: str = "off") -> str:
+        """A bucket's program slot, the JAX package's names:
+        ``serve_precomputed_<flavor>[_q8|_qf8]:<bucket>`` or
+        ``serve_full:<bucket>``."""
+        tag = (f"precomputed_{self.flavor}"
+               if self.backend == "precomputed" else "full")
+        return f"serve_{tag}{self._QSUFFIX[mode]}:{bucket}"
+
+    def _args_for(self, ids, pub: Optional[TableVersion] = None) -> tuple:
+        """The tensors one dispatch reads, in the JAX package's order:
+        ``(params, table, [scale,] ids, graph context)``."""
+        pub = self._published if pub is None else pub
+        if pub.qmode != "off":
+            return (self.params, pub.table, pub.scale, ids, self.gctx)
+        return (self.params, pub.table, ids, self.gctx)
+
+    def _instances(self, device_kind: Optional[str]) -> Tuple[str, ...]:
+        """The kernel instances one dispatch launches on ``device_kind``:
+        the full backend's eval forward on its route; the precomputed
+        backend's dense head launches none of the port's kernels."""
+        from ..analysis.programspace import kernel_instances
+        if self.backend == "precomputed":
+            if self.head_model is None:
+                return ()
+            model, route = self.head_model, "segment"
+        else:
+            model, route = self.model, self.gctx.aggr_impl
+        return kernel_instances(model, route, "gather", self.compute,
+                                False, device_kind)
+
+    def serve_candidates(self, device_kind: Optional[str] = None
+                         ) -> List[Any]:
+        """The serve programs, one a bucket, as program-space candidates
+        (analysis/programspace.py ``Candidate``): each bucket's dispatch
+        on the pad rows is its ``run`` (on a shard with one staged
+        foreign row, the gathered microbatch's path).  ``observed=False``: a bucket is
+        a request shape, exempt from the drift rule; it counts in the
+        budget.  ``device_kind``: whose kernel instances (default: this
+        predictor's device's)."""
+        from ..analysis.programspace import Candidate
+        from ..train.trainer import card_kind
+        if device_kind is None:
+            device_kind = card_kind(self.device)
+        inst = self._instances(device_kind)
+        cands: List[Any] = []
+        for b in self.buckets:
+            ids = torch.full((b,), self.pad_id, dtype=torch.int64,
+                             device=self.device)
+            cands.append(Candidate(
+                slot=self._slot(b, self.quant), args=self._args_for(ids),
+                donate=(), observed=False, instances=inst,
+                run=(lambda i=ids: self.query_device(
+                    i, staged=self._warm_staged()))))
+        return cands
+
+    def _warm_staged(self) -> Optional[_Staged]:
+        """On a shard, one staged foreign row (zeros, over the first pad
+        slot, whose answer is dropped), so a warm dispatch runs the
+        staging a gathered microbatch runs; None unsharded."""
+        if self.shard is None:
+            return None
+        pub = self._published
+        pos = torch.zeros(1, dtype=torch.int64, device=self.device)
+        vals = pub.table.new_zeros((1, pub.table.shape[1]))
+        scales = None if pub.scale is None else pub.scale.new_ones(1)
+        return _Staged(pos, vals, scales)
+
+    def warm(self, cache_dir: Optional[str] = None,
+             name: str = "serve") -> Dict[str, Any]:
+        """Run every bucket's dispatch once, the kernel library built
+        first if it is absent (utils/prewarm.py ``warm_candidates``), so
+        the first request of each bucket finds its kernels loaded: a
+        replica does this before ``ready``, an export to check its
+        artifact.  ``cache_dir``: the build cache
+        (utils/compile_cache.py; None: the build directory in use)."""
+        from ..utils.prewarm import cache_dir_for, warm_candidates
+        d = cache_dir_for(cache_dir)
+        return warm_candidates(self.serve_candidates(), d, config=name,
+                               device=self.device)
+
+    def program_keys(self) -> List[str]:
+        """The serve programs' keys (obs/compile_watch.py
+        ``program_key_of``), sorted: what an export records and a load
+        of this package's artifact is held to."""
+        return sorted(c.key for c in self.serve_candidates())
 
     # --------------------------------------------------------- queries
 

@@ -420,6 +420,10 @@ def main(argv: Optional[List[str]] = None) -> int:
     # the lane aligns on the wall clock they share (a sync stamped at this
     # replica's start is no barrier with the router's, and the timeline
     # merger would pin the two different instants together)
+    # every bucket once before ready (serve/predictor.py Predictor.warm):
+    # the first request finds its kernels built and loaded
+    with Heartbeat(f"replica{args.replica} warming its buckets"):
+        warm = pred.warm(name=f"replica{args.replica}")
     server = Server(pred, max_wait_ms=args.max_wait_ms,
                     name=f"replica{args.replica}",
                     max_queue=(DEFAULT_MAX_QUEUE if args.max_queue is None
@@ -430,7 +434,12 @@ def main(argv: Optional[List[str]] = None) -> int:
                "buckets": list(pred.buckets), "backend": pred.backend,
                "shard": shard, "quant": pred.quant,
                "table_version": int(pred.published().version),
-               "table_bytes": table_bytes})
+               "table_bytes": table_bytes,
+               "warm": {**{k: warm.get(k) for k in (
+                   "programs", "compile_warm_hits", "compile_cold",
+                   "failed", "prewarm_s")},
+                   "run_s": {r["slot"]: r["run_s"]
+                             for r in warm["slots"]}}})
     serve_loop(server, wire, args.replica,
                drain_timeout_s=args.drain_timeout)
     return 0

@@ -244,6 +244,18 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
     ap.add_argument("--cpu", action="store_true",
                     help="run on the CPU (the kernel route then runs the "
                          "kernels' plain versions)")
+    ap.add_argument("--no-compile-cache", action="store_true",
+                    help="leave the build cache off (utils/compile_cache."
+                         "py; default on: the kernel library and the native "
+                         "planners build once into $ROC_TPU_TORCH_CACHE_DIR "
+                         "or ~/.cache/roc_tpu_torch/kernels, and later runs "
+                         "load them); off, they build in the checkout")
+    ap.add_argument("--cache-min-secs", type=float, default=None,
+                    help="the JAX CLI's compile-cache write threshold; the "
+                         "port keeps its one kernel library whatever its "
+                         "build time, so the value is recorded in the run "
+                         "manifest (TrainConfig.cache_min_compile_secs) and "
+                         "changes nothing")
     ap.add_argument("--checkpoint", type=str, default=None,
                     help="save params + Adam state here after training "
                          "(a v3 checkpoint directory); with --recovery, "
@@ -367,6 +379,9 @@ def main(argv: Optional[List[str]] = None) -> int:
     except RuntimeError as e:
         print(f"error: {e} (or --cpu)", file=sys.stderr)
         return 2
+    if not args.no_compile_cache:
+        from ..utils.compile_cache import enable_compile_cache
+        enable_compile_cache(min_compile_secs=args.cache_min_secs)
     rank = 0
     if ranks > 1:
         import torch
@@ -473,7 +488,8 @@ def _train(args, layers, model, device, rank, ranks) -> int:
         features=args.features, remat=args.remat, prefetch=args.prefetch,
         halo=args.halo, partition=args.partition, rebalance=args.rebalance,
         mesh=args.mesh, head_chunk=args.head_chunk,
-        metrics_path=args.metrics)
+        metrics_path=args.metrics,
+        cache_min_compile_secs=args.cache_min_secs)
     if args.recovery or args.preempt_grace is not None:
         preempt.install(args.preempt_grace if args.preempt_grace is not None
                         else preempt.DEFAULT_GRACE_S)

@@ -138,6 +138,10 @@ class TrainConfig:
       directory, with the loop's phases as named ranges (None: off).
     metrics_path: the eval records appended here as JSONL (None: kept in
       memory only, ``Trainer.metrics_log``).
+    cache_min_compile_secs: the JAX package's write threshold of its
+      persistent compile cache, recorded in the run manifest.  The port
+      keeps its one kernel library whatever its build time
+      (utils/compile_cache.py), so nothing reads it.
     """
     learning_rate: float = 0.01
     weight_decay: float = 0.05
@@ -177,6 +181,7 @@ class TrainConfig:
     head_chunk: Any = "auto"
     profile_dir: Optional[str] = None
     metrics_path: Optional[str] = None
+    cache_min_compile_secs: Optional[float] = None
 
 
 # the TrainConfig fields that shape the layouts' tables
@@ -567,7 +572,8 @@ def resolve_attention_impl(model: Model, config: TrainConfig,
 
 
 def resolve_config(model: Model, dataset: Optional[Dataset],
-                   config: TrainConfig, device=None, num_parts: int = 1
+                   config: TrainConfig, device=None, num_parts: int = 1,
+                   device_kind: Optional[str] = None
                    ) -> Tuple[Model, TrainConfig]:
     """THE resolve pass, in the JAX package's order: the fuse rewrite
     (:func:`resolve_fuse`), 'auto' (:func:`resolve_auto_impl_early`, by
@@ -579,7 +585,11 @@ def resolve_config(model: Model, dataset: Optional[Dataset],
     whatever the config asks (no rank to rotate to).  ``Trainer`` and
     ``serve/export.build_predictor`` both run it, so a predictor serves
     the model and route a trainer would train.  Idempotent: a resolved
-    pair comes back unchanged.  Returns ``(model, config)``."""
+    pair comes back unchanged.  ``device_kind`` names the card whose
+    rows the routes follow in place of ``device``'s (the program-space
+    enumeration's, analysis/programspace.py).  Returns ``(model,
+    config)``."""
+    kind = device_kind if device_kind is not None else card_kind(device)
     from ..models.builder import HALOS
     if config.halo not in HALOS:
         raise ValueError(f"unknown halo {config.halo!r}; expected one of "
@@ -591,7 +601,7 @@ def resolve_config(model: Model, dataset: Optional[Dataset],
                 if num_parts > 1 and dataset is not None else None)
     config = resolve_auto_impl_early(
         model, config, dataset.graph if dataset is not None else None,
-        device_kind=card_kind(device), out_rows=out_rows)
+        device_kind=kind, out_rows=out_rows)
     if config.memory == "auto":
         if dataset is None:
             raise ValueError("memory='auto' needs the dataset")
@@ -601,7 +611,7 @@ def resolve_config(model: Model, dataset: Optional[Dataset],
         raise ValueError(f"unknown memory {config.memory!r}; expected "
                          "'auto' or 'manual'")
     return model, resolve_attention_impl(model, config, dataset,
-                                         device_kind=card_kind(device))
+                                         device_kind=kind)
 
 
 def resolve_symmetric(dataset, symmetric: Optional[bool]) -> bool:
@@ -750,6 +760,11 @@ def graph_context(g, aggr_impl: str = "cuda", symmetric: bool = True,
         **tables)
 
 
+# the argument positions of each step slot (Trainer.step_args) that the
+# step rewrites in place: the train step's params and Adam moments
+STEP_DONATE = {"train_step": (0, 1), "eval_step": ()}
+
+
 class Trainer:
     """Owns the parameters, the optimizer state and the step.
 
@@ -858,10 +873,13 @@ class Trainer:
         self._train_step = ObservedStep(
             lambda lr: me.step(lr), name="train_step",
             device=self.device, modeled_bytes=self.modeled_bytes,
-            verbose=config.verbose)
-        self._eval_step = ObservedStep(lambda: me.evaluate(),
-                                       name="eval_step", device=self.device,
-                                       verbose=config.verbose)
+            verbose=config.verbose,
+            args_of=lambda: me.step_args("train_step"),
+            donate=STEP_DONATE["train_step"])
+        self._eval_step = ObservedStep(
+            lambda: me.evaluate(), name="eval_step", device=self.device,
+            verbose=config.verbose,
+            args_of=lambda: me.step_args("eval_step"))
         # annotate: the loop's phases as named ranges in the trace of
         # profile_dir
         self.timer = EpochTimer(annotate=bool(config.profile_dir))
@@ -872,6 +890,23 @@ class Trainer:
     def _num_parts(self) -> int:
         """The partitions of this run: 1 on one device."""
         return 1
+
+    def step_args(self, slot: str) -> tuple:
+        """The tensors step slot ``slot`` ('train_step', 'eval_step')
+        reads, for its program key (obs/compile_watch.py
+        ``program_key_of``): the params, on a train step the Adam moments,
+        the features (``feats_host`` under ``features='host'``), the
+        labels, the mask and the graph context's tables.  The positions
+        :data:`STEP_DONATE` names are the ones the step rewrites."""
+        feats = self.feats if self.feats is not None else self.feats_host
+        rows = (feats, self.labels, self.mask, self.gctx)
+        if slot == "train_step":
+            st = self.opt_state
+            return (self.params, (st.m, st.v)) + rows
+        if slot == "eval_step":
+            return (self.params,) + rows
+        raise ValueError(f"unknown step slot {slot!r}; expected "
+                         f"{sorted(STEP_DONATE)}")
 
     def _emit_manifest(self, dataset, **extra: Any) -> None:
         """The run manifest (obs/manifest.py) of the resolved config and

@@ -464,16 +464,27 @@ def test_modelcheck_reports_equal_the_jax_packages():
 
 def test_wire_spec_is_the_jax_packages():
     """The port speaks the JAX package's wire: every channel's kinds and
-    fields equal, the files the same but for the package prefix; the
-    transition sites and model invariants equal."""
+    fields equal but for the optional fields the port declares its own
+    (``PORT_OPTIONAL``: the replica's warm report on ready), the files
+    the same but for the package prefix; the transition sites and model
+    invariants equal."""
     def swap(path):
         return path.replace(PKG + "/", "roc_tpu/", 1)
+
+    def jax_view(chan):
+        kinds = {}
+        for kind, spec in chan["kinds"].items():
+            own = specs.PORT_OPTIONAL.get((chan["name"], kind), ())
+            kinds[kind] = dict(spec, optional=tuple(
+                f for f in spec["optional"] if f not in own))
+        return kinds
+    assert specs.PORT_OPTIONAL == {("replica->router", "ready"): ("warm",)}
     assert len(specs.WIRE_CHANNELS) == len(jspecs.WIRE_CHANNELS)
     for t, j in zip(specs.WIRE_CHANNELS, jspecs.WIRE_CHANNELS):
         assert t["name"] == j["name"]
         assert (swap(t["sender"]), swap(t["receiver"])) == \
             (j["sender"], j["receiver"])
-        assert t["kinds"] == j["kinds"]
+        assert jax_view(t) == j["kinds"]
     for tt, jt in ((specs.LIFECYCLE_SITES, jspecs.LIFECYCLE_SITES),
                    (specs.COMMIT_SITES, jspecs.COMMIT_SITES)):
         assert {swap(k): v for k, v in tt.items()} == jt
@@ -494,14 +505,20 @@ def tree_payload():
 
 
 def test_tree_is_clean_and_the_baseline_empty(tree_payload):
+    """Every level, the trace levels too, finds nothing on the tree; the
+    baseline holds no finding, and its program budget is the CPU rig's
+    measured count of every hosted rig (no slack)."""
     rc, payload = tree_payload
     assert rc == 0
     assert payload["findings"] == [] and payload["stale"] == []
     assert load_baseline(os.path.join(
         _REPO, PKG, "analysis", "lint_baseline.json")) == set()
+    budget = {r["config"]: r["programs"] for r in payload["program_space"]}
+    assert all(r["delta"] == 0 for r in payload["program_space"])
     with open(os.path.join(_REPO, PKG, "analysis",
                            "lint_baseline.json")) as f:
-        assert json.load(f) == {"version": 1, "findings": []}
+        assert json.load(f) == {"version": 1, "findings": [],
+                                "program_budget": budget}
 
 
 def test_tree_surfaces_document_the_ports_threads(tree_payload):
@@ -544,12 +561,14 @@ def test_analysis_modules_import_no_torch():
 
 
 def test_cli_strict_exits_zero_on_the_tree():
-    """The gate: ``python -m roc_tpu_torch.analysis --strict`` exits 0 in a
-    fresh process in under 30 s."""
+    """The gate: ``python -m roc_tpu_torch.analysis --strict`` over the
+    host levels exits 0 in a fresh process in under 30 s.  The trace
+    levels (``--no-trace`` leaves them out) spawn their ranks; the tree
+    passes them in ``tree_payload``."""
     t0 = time.perf_counter()
     r = subprocess.run([sys.executable, "-m", "roc_tpu_torch.analysis",
-                        "--strict"], cwd=_REPO, capture_output=True,
-                       text=True, timeout=120)
+                        "--strict", "--no-trace"], cwd=_REPO,
+                       capture_output=True, text=True, timeout=120)
     took = time.perf_counter() - t0
     assert r.returncode == 0, r.stdout + r.stderr
     assert "roc-lint: 0 new, 0 baselined, 0 stale" in r.stdout

@@ -1078,3 +1078,46 @@ def test_observed_first_step_on_the_card(dev):
     bare = make()
     run_epoch_loop(bare, None, bare.step, bare.evaluate)
     assert torch.equal(torch.stack(tr.losses), torch.stack(bare.losses))
+
+
+@pytest.mark.parametrize("impl,mode", [("cuda", "float32"),
+                                       ("cuda", "mixed"),
+                                       ("cuda_csr", "float32")])
+def test_warm_trainer_twin_and_launched_instances(dev, tmp_path, impl,
+                                                  mode):
+    """utils/prewarm.py on the card: the enumerated kernel instances of
+    each step slot equal the ones its warm run launched (K1, the masked
+    K1, K2 and K4 or K3 at each F and slice width); the parameters and
+    Adam state are bit-equal after the warm, and the next steps'
+    objectives equal an unwarmed twin's bit for bit; the first live
+    step's program key is the enumerated one."""
+    from roc_tpu_torch.analysis.programspace import candidate_programs
+    from roc_tpu_torch.models.gcn import build_gcn
+    from roc_tpu_torch.train.trainer import (TrainConfig, Trainer,
+                                             resolve_dtypes)
+    from roc_tpu_torch.utils.prewarm import warm_trainer
+    ds = synthetic_dataset(2_000, 12, in_dim=32, num_classes=5, seed=0)
+    dt, cdt = resolve_dtypes(mode)
+
+    def make():
+        return Trainer(build_gcn([32, 16, 5], dropout_rate=0.5), ds,
+                       TrainConfig(aggr_impl=impl, symmetric=True,
+                                   verbose=False, dtype=dt,
+                                   compute_dtype=cdt, eval_every=2),
+                       device=dev)
+    tr, twin = make(), make()
+    before = {k: v.detach().clone() for k, v in tr.params.items()}
+    m = {k: v.clone() for k, v in tr.opt_state.m.items()}
+    rep = warm_trainer(tr)
+    assert rep["failed"] == 0 and rep["instances_match"], rep["slots"]
+    sfx = "bf16" if mode == "mixed" else "f32"
+    train = rep["slots"][0]
+    assert f"indegree_norm_masked[{sfx}]@16" in train["launched"]
+    assert all(torch.equal(before[k], v) for k, v in tr.params.items())
+    assert all(torch.equal(m[k], v) for k, v in tr.opt_state.m.items())
+    tr.train(2)
+    twin.train(2)
+    assert torch.equal(torch.stack(tr.losses), torch.stack(twin.losses))
+    keys = {c.slot: c.key for c in candidate_programs(twin)}
+    assert twin._train_step.cost["program_key"] == keys["train_step"]
+    assert twin._eval_step.cost["program_key"] == keys["eval_step"]

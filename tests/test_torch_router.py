@@ -31,6 +31,7 @@ import numpy as np
 import pytest
 
 from roc_tpu.analysis.protocol_specs import WIRE_CHANNELS
+from roc_tpu_torch.analysis.protocol_specs import PORT_OPTIONAL
 from roc_tpu_torch.core.graph import synthetic_dataset
 from roc_tpu_torch.models import model_builders
 from roc_tpu_torch.obs.events import get_bus
@@ -216,16 +217,15 @@ def test_router_failover_replica_sigkill(artifacts, events):
 def test_router_hedges_stalled_replica(artifacts, events):
     """replica_stall: replica 0 wedges a dispatch for an hour; the hedge
     answers from replica 1, and close() still ends the wedged process.
-    One request warms each replica first (replica 0's microbatch 1), and
-    the hedge keys on the median round trip: on a loaded host the cold
-    first round trips would otherwise set a p95 past the deadline."""
+    The replicas run every bucket before ready (Predictor.warm), so the
+    drill sends no warm-up request of its own, as the JAX package's
+    does; the hedge keys on the median round trip, which a loaded host's
+    slow first round trips do not move past the deadline."""
     art, _, _, ref = artifacts["akx"]
     scale = float(np.abs(ref).max())
     t0 = time.monotonic()
     with _router(art, "replica_stall:2:0", hedge_min_ms=150.0,
                  hedge_pct=0.5) as router:
-        for p in [router.submit([0]) for _ in range(2)]:
-            p.result(timeout=60)
         futs = []
         for i in range(40):
             futs.append((i, router.submit([i])))
@@ -369,14 +369,16 @@ def test_server_stats_keys_spans_and_rids(artifacts, events):
 def _check_line(channel, raw):
     """One wire line against its channel's declaration: a JSON object of
     a declared kind, its required fields present, no field outside
-    required and optional."""
+    required and optional (and the port's own optional fields,
+    ``PORT_OPTIONAL``: the replica's warm report on ready)."""
     msg = json.loads(raw)
     kinds = channel["kinds"]
     assert msg.get("kind") in kinds, (channel["name"], raw[:200])
     spec = kinds[msg["kind"]]
     keys = set(msg)
     missing = set(spec["required"]) - keys
-    extra = keys - set(spec["required"]) - set(spec["optional"])
+    extra = keys - set(spec["required"]) - set(spec["optional"]) - set(
+        PORT_OPTIONAL.get((channel["name"], msg["kind"]), ()))
     assert not missing and not extra, (channel["name"], msg["kind"],
                                        missing, extra)
     return msg["kind"]
@@ -437,3 +439,8 @@ def test_wire_lines_match_the_declared_protocol(artifacts, monkeypatch):
     errors = [json.loads(ln) for ln in read
               if '"ok": false' in ln]
     assert errors and all(m["retryable"] for m in errors)
+    # each replica ran every bucket before ready, none failed
+    readies = [json.loads(ln) for ln in read if '"kind": "ready"' in ln]
+    assert readies and all(
+        m["warm"]["programs"] == len(m["buckets"])
+        and m["warm"]["failed"] == 0 for m in readies)
