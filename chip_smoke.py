@@ -9,8 +9,8 @@ directory that every later phase maps; phase 12 runs meanwhile, right
 after the ragged checks.  Each phase child (12, 14-19) and the kill
 drill's children are started one phase ahead and wait for their turn
 (:class:`_Child`), so a process's start overlaps the phase before.
-Phases 13 and 14 and 15 and 16 share the card two at a time, 17, 19
-and 20 three (:func:`_run_together`; no gate of theirs reads a time), and 18,
+Phases 13 and 14 and 15 and 16 share the card two at a time, 17, 19,
+20 and 21 four (:func:`_run_together`; no gate of theirs reads a time), and 18,
 whose drills key on measured latency, runs alone, last.  ``--deep``
 runs them one after another (their times then stand alone) and adds
 the timed work that gates nothing (:data:`DEEP`); the default run
@@ -239,7 +239,10 @@ Phases (any failure exits nonzero):
    saving a checkpoint after 2 steps with two writers (the manifest lists
    2 shard files), restored into a fresh 2x2 trainer (its next step the
    uninterrupted run's, bit for bit) and into 1-D trainers of two parts
-   (the saved weights).  Its wall time printed.  Ranks sharing one card
+   (the saved weights); each 2x2 rank's live replication ledger (role,
+   shape, split, bytes; analysis/sharding_lint.py ``rank_ledgers``)
+   beside the modeled ledger of the same shape (``dist_mesh_ledger``).
+   Its wall time printed.  Ranks sharing one card
    over gloo: a layout check, not a speed number.
 18. the replica fleet (``fleet``, a child like 14, replicas on card 0):
    the SGC 602-41 at Reddit's shape on 'akx' (phase 13's trained
@@ -314,6 +317,23 @@ Phases (any failure exits nonzero):
    rebuilt (cold, never the plain versions) and K1-K4 then held to
    their plain versions as in phase 3.
 
+21. lint (``lint``, a child like 20, beside 17, 19 and 20): the GCN
+   602-256-41 at Reddit's shape from phase 5's weights, dropout 0, on
+   'cuda' in fp32 and 'mixed' and on 'cuda_csr' in 'mixed': one train
+   step and one eval step (its device work, ``eval_sums``) recorded by
+   analysis/step_trace.py through the program-space candidates'
+   ``run``, between two unrecorded train steps (every objective bit for
+   bit the same); the recording's kernel entries equal the instances
+   launched around it (the backward's from the autograd thread
+   included) and the enumerated ones (K1, the masked K1, K2 and K4 on
+   'cuda', K3 and its pre-pass on 'cuda_csr'); the jaxpr and HLO rules at
+   the card's V * F, every finding printed and each held to the port's
+   baseline; ``torch.cuda.set_sync_debug_mode('warn')`` over each
+   recorded step warns as often as ``jaxpr-host-callback`` finds syncs,
+   and over the whole ``evaluate`` (its metric fetch) too; printed, not
+   gated: the recorded bytes beside the memory model's, and the step's
+   wall time recorded and not.  Counted.
+
 ``python3 chip_smoke.py --first-gather [out.json]`` (:func:`first_gather`,
 not in the default run) takes a small sharded fleet's first requests
 apart: in process through ``Server``, through a router, the replicas'
@@ -328,13 +348,14 @@ Prints one JSON line per phase, the kernel table line
 ``{"kernels": [...]}`` (one row per kernel and dtype, e.g.
 ``ell_aggregate[bf16]``, K1's masked form as ``indegree_norm_masked``;
 launches counted over the serve, train, dist, recovery, zoo, precompute,
-layouts, memory, ring, mesh, fleet, routes and prewarm slices of that dtype; the F = 128 checks as each
+layouts, memory, ring, mesh, fleet, routes, prewarm and lint slices of that dtype; the F = 128 checks as each
 row's ``zoo_shapes``, the F = 602 ones as ``akx_shapes`` (K1, K2 and K4
 at the SGC's raw width), K3's walk check as ``walk_shapes`` and its ring
 hops as ``ring_shapes``), the card line, and as the last line
 ``{"ok": true, "device": {...}}``.  Imports no JAX.
 """
 
+import collections
 import contextlib
 import dataclasses
 import functools
@@ -4454,6 +4475,15 @@ def mesh_2x2_job(prefix, num_classes, refs, ckdir):
         if tag == "gather_float32":
             kept["final"] = {k: v.detach().clone() for k, v in full.items()}
             kept["losses"] = losses
+            # the rank's live replication ledger beside the modeled one
+            # of the same (parts, model) shape (analysis/sharding_lint.py)
+            from roc_tpu_torch.analysis.sharding_lint import rank_ledgers
+            live, modeled = rank_ledgers(tr)
+            out["ledger"] = {
+                k: [{f: e[f] for f in ("role", "shape", "dtype", "split",
+                                       "bytes", "per_device_bytes")}
+                    for e in rows] for k, rows in (("live", live),
+                                                   ("modeled", modeled))}
         out["runs"][tag] = rec
         del tr, full
     # the two-writer checkpoint, restored into a fresh 2x2 trainer (one
@@ -4563,7 +4593,12 @@ def mesh_child(data_dir, tmp, num_classes, refs, out_path):
     if len(rec["manifest_shards"]) != 2:
         raise AssertionError(f"2x2 manifest: {rec['manifest_shards']}")
     log({"phase": "dist_mesh_2x2", "seconds": rec["m2x2_s"],
-         "manifest_shards": rec["manifest_shards"], "ranks": rec["m2x2"]})
+         "manifest_shards": rec["manifest_shards"],
+         "ranks": [{k: v for k, v in r.items() if k != "ledger"}
+                   for r in rec["m2x2"]]})
+    for r in rec["m2x2"]:
+        log({"phase": "dist_mesh_ledger", "rank": r["rank"],
+             "live": r["ledger"]["live"], "modeled": r["ledger"]["modeled"]})
     rec["seconds"] = time.perf_counter() - t0
     with open(out_path, "w") as f:
         json.dump({"record": rec, "counted": counted}, f)
@@ -5705,6 +5740,185 @@ def start_prewarm_child(tmp):
     out = os.path.join(tmp, "prewarm.json")
     return _Child(f"prewarm_child({data!r}, {out!r})", 600,
                   "phase 20 (prewarm)")
+
+
+# phase 21's recorded steps: the route and dtype mode of each
+LINT_RUNS = (("cuda", "float32"), ("cuda", "mixed"), ("cuda_csr", "mixed"))
+
+
+def _sync_warnings(torch, fn):
+    """``fn()`` under ``torch.cuda.set_sync_debug_mode('warn')``,
+    synchronised after: its result and the messages of the
+    synchronizing-operation warnings it raised."""
+    import warnings
+    with warnings.catch_warnings(record=True) as got:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            out = fn()
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    return out, [str(w.message)[:200] for w in got
+                 if "called a synchronizing" in str(w.message)]
+
+
+def _lint_run(torch, ds, params, impl, mode, counts, baseline):
+    """One of phase 21's runs: the GCN 602-256-41 at Reddit's shape on
+    ``impl`` in ``mode``, dropout 0: one train step and one eval step
+    (``eval_sums``, its device work) recorded (analysis/step_trace.py)
+    through the program-space candidates' ``run``, which restores the
+    trainer after each, then the same train step unrecorded (its
+    objective bit-equal to the recorded one's).  The recording's kernel
+    entries equal the launches around it, instance by instance and
+    count by count, the backward's from the autograd thread included,
+    and its instances the enumerated ones (analysis/programspace.py
+    ``step_instances``); the jaxpr and HLO rules run at the
+    card's V * F, every finding printed and held to the port's baseline;
+    the sync warnings of ``set_sync_debug_mode('warn')`` over each
+    recorded step equal the syncs ``jaxpr-host-callback`` finds, and over
+    the whole ``evaluate`` (its host fetch) too.  Counted."""
+    from roc_tpu_torch.analysis.hlo_lint import (check_bytes_model,
+                                                 check_large_copy)
+    from roc_tpu_torch.analysis.jaxpr_lint import (StepUnit,
+                                                   run_jaxpr_lint,
+                                                   sync_entries)
+    from roc_tpu_torch.analysis.programspace import (candidate_programs,
+                                                     step_instances)
+    from roc_tpu_torch.analysis.step_trace import record
+    from roc_tpu_torch.kernels import _build
+    from roc_tpu_torch.train.trainer import card_kind
+    key = F32 if mode == "float32" else BF16
+    tr = _trainer(ds, impl, 0.0, params, mode)
+    cands = {c.slot: c for c in candidate_programs(tr)}
+    counts.zero()
+    traces, syncs, walls, sync_msgs = {}, {}, {}, {}
+
+    def rec(slot):
+        def go(fn):
+            before = _build.instances_launched()
+            t0 = time.perf_counter()
+            t, msgs = _sync_warnings(torch, lambda: record(
+                fn, args_of=lambda: tr.step_args(slot)))
+            syncs[slot] = len(msgs)
+            if msgs:
+                sync_msgs[slot] = msgs
+            walls[f"{slot}_recorded_ms"] = (time.perf_counter() - t0) * 1e3
+            # every launch around the call, per instance, repeats kept:
+            # the recording must hold each (the backward's, on the
+            # autograd thread, share the forward's names)
+            now = _build.instances_launched()
+            t.launched = {k: n - before.get(k, 0) for k, n in now.items()
+                          if n > before.get(k, 0)}
+            traces[slot] = t
+            return t.result
+        return go
+
+    def plain(fn):
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        walls["train_step_plain_ms"] = (time.perf_counter() - t0) * 1e3
+        return out
+    # unrecorded, recorded, unrecorded: the first pays the kernels' and
+    # the allocator's first use, the last is the plain step timed beside
+    # the recorded one
+    first = cands["train_step"].run(record=plain)
+    for slot in ("train_step", "eval_step"):
+        cands[slot].run(record=rec(slot))
+    loss = cands["train_step"].run(record=plain)
+    # the witness: the whole eval, its host fetch of the metrics included
+    witness = {}
+    got, msgs = _sync_warnings(torch, lambda: record(tr.evaluate))
+    witness["warnings"], witness["messages"] = len(msgs), msgs
+    V, F = ds.graph.num_nodes, LAYERS[0]
+    ctx = dict(compute_dtype="bfloat16" if mode == "mixed" else "float32",
+               num_nodes=V, vf_elems=V * F, halo="gather",
+               donate_min_bytes=max(v.numel() * v.element_size()
+                                    for v in tr.params.values()))
+    units = [StepUnit("train_step", traces["train_step"], donate=(0, 1),
+                      **ctx),
+             StepUnit("eval_step", traces["eval_step"], **ctx)]
+    witness["syncs"] = len(sync_entries(StepUnit("evaluate", got, **ctx)))
+    t = traces["train_step"]
+    findings = (run_jaxpr_lint(units)
+                + check_large_copy("hlo:train_step", t, V * F)
+                + check_bytes_model("hlo:train_step", t.bytes_total,
+                                    tr.modeled_bytes))
+    enumerated = sorted(step_instances(tr, "train_step", card_kind(tr.device)))
+    rec_ = {
+        "impl": impl, "mode": mode, "walls_ms": walls,
+        "objective_bit_equal": bool(torch.equal(t.result, loss)
+                                    and torch.equal(first, loss)),
+        "objective": float(loss),
+        "entries": {s: len(x.entries) for s, x in traces.items()},
+        "kernels": {s: x.kernels() for s, x in traces.items()},
+        "launched": {s: x.launched for s, x in traces.items()},
+        "enumerated": enumerated,
+        "kernel_threads": sorted({e.thread for e in t.entries if e.kernel}),
+        "recorded_bytes": t.bytes_total, "modeled_bytes": tr.modeled_bytes,
+        "bytes_ratio": t.bytes_total / tr.modeled_bytes,
+        "sync_warnings": syncs, "sync_messages": sync_msgs,
+        "syncs_found": {u.name: len(sync_entries(u)) for u in units},
+        "witness": witness,
+        "findings": [f.render() for f in findings],
+        "unbaselined": [f.fingerprint for f in findings
+                        if f.fingerprint not in baseline],
+        "launches": counts.read(key)}
+    want = {"indegree_norm", "indegree_norm_masked", "scale_act"} | (
+        {"ell_aggregate"} if impl == "cuda" else {"csr_spmm", "csr_row_ptr"})
+    ok = (rec_["objective_bit_equal"]
+          and all(collections.Counter(x.kernel_entries()) == x.launched
+                  for x in traces.values())
+          and t.kernels() == enumerated
+          and {k.split("[")[0] for k in t.kernels()} == want
+          and all(syncs[u.name] == rec_["syncs_found"][u.name]
+                  for u in units)
+          and witness["warnings"] == witness["syncs"]
+          and not rec_["unbaselined"])
+    if not ok:
+        raise AssertionError(f"lint {impl}/{mode}: {rec_}")
+    del tr, cands, traces
+    torch.cuda.empty_cache()
+    return rec_
+
+
+def lint_child(data_dir, out_path):
+    """Phase 21 in a fresh process on card 0 (beside 17, 19 and 20): the
+    recorded-step lint of the GCN 602-256-41 at Reddit's shape from phase
+    5's weights (:func:`_lint_run` for each of :data:`LINT_RUNS`).  Writes
+    the record and the counts."""
+    import torch
+    from roc_tpu_torch.analysis.findings import load_baseline
+    from roc_tpu_torch.ops.dense import set_fp32_matmul_precision
+    torch.cuda.set_device(0)
+    set_fp32_matmul_precision()
+    t_start = time.perf_counter()
+    here = os.path.dirname(os.path.abspath(__file__))
+    baseline = load_baseline(os.path.join(
+        here, "roc_tpu_torch", "analysis", "lint_baseline.json"))
+    counts = Launches(torch)
+    ds = _map_dataset(data_dir, LAYERS[-1])
+    params = _gcn_params(torch)
+    # the recorder's first use in a process, outside the timings
+    from roc_tpu_torch.analysis.step_trace import record
+    record(lambda: torch.ones(1, device="cuda") + 1)
+    rec = {"runs": []}
+    for impl, mode in LINT_RUNS:
+        r = _lint_run(torch, ds, params, impl, mode, counts, baseline)
+        rec["runs"].append(r)
+        log({"phase": "lint", **r, "card": card_line()})
+    rec["seconds"] = time.perf_counter() - t_start
+    with open(out_path, "w") as f:
+        json.dump({"record": rec, "counted": counts.counted}, f)
+
+
+def start_lint_child(tmp):
+    """:func:`lint_child` pre-started on the Reddit shape under
+    ``tmp``/reddit, writing ``tmp``/lint.json."""
+    data = os.path.join(tmp, "reddit")
+    out = os.path.join(tmp, "lint.json")
+    return _Child(f"lint_child({data!r}, {out!r})", 600, "phase 21 (lint)")
 
 
 def save_fleet_params(tmp, akx_params, gcn_params):
@@ -7004,7 +7218,7 @@ def _main(torch, root, prep, t_start) -> int:
         raise AssertionError(f"the dataset prep exited {prep.returncode}")
     log({"phase": "schedule", "deep": DEEP, "together": [] if DEEP else [
         ["serve_precomputed", "layouts"], ["memory", "dist_ring"],
-        ["dist_mesh", "routes", "prewarm"]], "alone": ["fleet"]})
+        ["dist_mesh", "routes", "prewarm", "lint"]], "alone": ["fleet"]})
     memory_pre = start_memory_child(root, LAYERS[-1])
     ring_pre = start_ring_child(root, LAYERS[-1])
 
@@ -7040,6 +7254,7 @@ def _main(torch, root, prep, t_start) -> int:
     mesh_pre = start_mesh_child(root, LAYERS[-1], refs_path)
     routes_pre = start_routes_child(root, LAYERS[-1])
     prewarm_pre = start_prewarm_child(root)
+    lint_pre = start_lint_child(root)
     sys.stdout.flush()
     t16 = time.perf_counter()
     _run_together([memory_pre, ring_pre])
@@ -7089,7 +7304,7 @@ def _main(torch, root, prep, t_start) -> int:
     fleet_pre = start_fleet_child(root)
     sys.stdout.flush()
     t17 = time.perf_counter()
-    _run_together([mesh_pre, routes_pre, prewarm_pre])
+    _run_together([mesh_pre, routes_pre, prewarm_pre, lint_pre])
     s17 = time.perf_counter() - t17
     mesh = read("mesh")
     add_counted(mesh)
@@ -7098,6 +7313,13 @@ def _main(torch, root, prep, t_start) -> int:
     prewarm = read("prewarm")
     add_counted(prewarm)
     prec = prewarm["record"]
+    lint = read("lint")
+    add_counted(lint)
+    log({"phase": "lint_summary", "seconds": lint["record"]["seconds"],
+         "runs": [{k: r[k] for k in (
+             "impl", "mode", "walls_ms", "recorded_bytes", "modeled_bytes",
+             "bytes_ratio", "findings", "kernel_threads", "sync_warnings",
+             "witness")} for r in lint["record"]["runs"]], "card": card})
     log({"phase": "prewarm_summary", "seconds": prec["seconds"],
          "cold_library_s": prec["cold"]["library_s"],
          "cold_process_s": prec["cold"]["wall_s"],

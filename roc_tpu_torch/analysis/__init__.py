@@ -1,7 +1,6 @@
-"""roc-lint for the port (``roc_tpu/analysis``): the host-side levels of
-the JAX package's static analysis, over ``roc_tpu_torch/`` and
-``chip_smoke.py``.  Every level is pure AST or a pure state machine and
-imports no torch:
+"""roc-lint for the port (``roc_tpu/analysis``): the JAX package's static
+analysis over ``roc_tpu_torch/`` and ``chip_smoke.py``.  The host-side
+levels are pure AST or a pure state machine and import no torch:
 
 - :mod:`ast_lint` — source rules over the tree (stdout discipline, host
   syncs and host→device copies in hot paths, steps that bypass the
@@ -17,8 +16,13 @@ imports no torch:
   :mod:`modelcheck`'s bounded exhaustive exploration of the request
   lifecycle, the checkpoint two-phase commit and the table swap.
 
-The JAX package's trace levels (jaxprs, HLO, the program space,
-collectives, sharding) read programs the port does not have.
+The trace levels (analysis/driver.py) build the port on the CPU rig and
+import torch lazily: the program space (:mod:`programspace`), the
+collectives (:mod:`collective_lint`), the recorded steps' jaxpr and HLO
+rules (:mod:`step_trace` records a step's aten ops, each kernel one
+opaque entry, in the jaxpr's place; :mod:`jaxpr_lint`, :mod:`hlo_lint`)
+and the sharding audit (:mod:`sharding_lint`: the replication ledger,
+its budget and the live 2x2 mesh).
 
 :mod:`driver` runs the levels; ``python -m roc_tpu_torch.analysis`` is
 the CLI, ratcheted by ``roc_tpu_torch/analysis/lint_baseline.json``.

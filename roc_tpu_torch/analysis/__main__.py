@@ -13,29 +13,34 @@ Usage:
     python -m roc_tpu_torch.analysis --select protocol
     python -m roc_tpu_torch.analysis --select programspace   # trace levels
     python -m roc_tpu_torch.analysis --select collectives
+    python -m roc_tpu_torch.analysis --select sharding
+    python -m roc_tpu_torch.analysis --select jaxpr-f32-upcast,hlo-large-copy
     python -m roc_tpu_torch.analysis --device-kind "NVIDIA H100 80GB HBM3"
     python -m roc_tpu_torch.analysis --update-baseline   # shrink ratchet
     python -m roc_tpu_torch.analysis --json              # one JSON object
 
 The trace levels (analysis/driver.py: the program space, the collectives,
-the partition's balance) build the port on the CPU rig, as the JAX
-package's run on its CPU rig: the lint is a gate before any card time,
-and its program counts are the CPU rig's.  ``--device-kind`` names a
+the partition's balance, the recorded steps' jaxpr and HLO rules, the
+sharding audit) build the port on the CPU rig, as the JAX package's run
+on its CPU rig: the lint is a gate before any card time, and its program
+counts and ledgers are the CPU rig's.  ``--device-kind`` names a
 card whose routes and kernel instances the program space lists (the
 H100's row, say); on the card the enumeration of a live run is
 ``python -m roc_tpu_torch.prewarm``'s.
 
 ``--json`` prints one JSON object on stdout: the findings, the baseline
 split, the program spaces (``program_space``: per rig its programs,
-slots, kernel instances, keys and budget) and the concurrency and
-protocol surfaces (which ``python -m roc_tpu_torch.report
---concurrency/--protocol/--programspace FILE`` renders).
+slots, kernel instances, keys and budget), the sharding reports
+(``sharding``: per rig its replication ledger, budget and mesh shapes,
+and the live 2x2 mesh's sites) and the concurrency and protocol surfaces
+(which ``python -m roc_tpu_torch.report --concurrency/--protocol/
+--sharding FILE`` renders).
 
 The baseline (``roc_tpu_torch/analysis/lint_baseline.json``) is
 ratchet-only: ``--update-baseline`` rewrites it as the intersection of
 its entries and the findings that still fire, and each rig's
-``program_budget`` as the smaller of its bound and its measured count —
-it can only shrink.  New findings are fixed at the source or accepted
+``program_budget`` and ``replication_budget`` as the smaller of its bound
+and its measurement — it can only shrink.  New findings are fixed at the source or accepted
 with an explanatory ``# roc-lint: ok=<rule>`` pragma, never absorbed.
 ``--strict`` also fails on stale baseline entries and on budget debt (a
 bound above its measurement, a measured rig with no bound, a bound for a
@@ -66,16 +71,16 @@ def main(argv: Optional[List[str]] = None) -> int:
     p = argparse.ArgumentParser(
         prog="python -m roc_tpu_torch.analysis",
         description="roc-lint over the port: AST, concurrency, protocol, "
-                    "program-space and collective levels, ratcheted via "
-                    + BASELINE)
+                    "program-space, collective, jaxpr, HLO and sharding "
+                    "levels, ratcheted via " + BASELINE)
     p.add_argument("--root", default=None,
                    help="repo root to lint (default: cwd when it has a "
                         "roc_tpu_torch/ tree, else this checkout)")
     p.add_argument("--select", default=None,
                    help="comma-separated rule names (default: all); "
-                        "'concurrency', 'protocol', 'programspace' and "
-                        "'collectives' expand to every rule of that "
-                        "level")
+                        "'concurrency', 'protocol', 'programspace', "
+                        "'collectives' and 'sharding' expand to every "
+                        "rule of that level")
     p.add_argument("--baseline", default=None,
                    help="baseline path (default: <root>/" + BASELINE + ")")
     p.add_argument("--update-baseline", action="store_true",
@@ -91,8 +96,10 @@ def main(argv: Optional[List[str]] = None) -> int:
                         "stdout")
     p.add_argument("--no-trace", action="store_true",
                    help="skip the trace levels (the program space, the "
-                        "collectives, the partition's balance): the host "
-                        "levels alone, no torch")
+                        "collectives, the partition's balance, the "
+                        "recorded steps' jaxpr and HLO rules, the "
+                        "sharding audit): the host levels alone, no "
+                        "torch")
     p.add_argument("--device-kind", default=None,
                    help="list the program space's kernel instances for "
                         "this card (torch.cuda.get_device_name, e.g. "
@@ -102,9 +109,8 @@ def main(argv: Optional[List[str]] = None) -> int:
     args = p.parse_args(argv)
 
     from .driver import GROUPS, all_rule_names, analyze, is_trace_rule
-    from .findings import (load_baseline, load_program_budget,
-                           shrink_baseline, shrink_program_budget,
-                           split_findings)
+    from .findings import (BUDGET_SECTIONS, load_baseline, load_budget,
+                           shrink_baseline, shrink_budget, split_findings)
 
     if args.list_rules:
         for name in all_rule_names():
@@ -124,28 +130,41 @@ def main(argv: Optional[List[str]] = None) -> int:
     baseline_path = args.baseline or os.path.join(root, BASELINE)
     extras: dict = {}
     findings = analyze(root, select=select, extras=extras, trace=trace,
-                       program_budget=load_program_budget(baseline_path),
-                       device_kind=args.device_kind)
+                       program_budget=load_budget(baseline_path,
+                                                  "program_budget"),
+                       device_kind=args.device_kind,
+                       replication_budget=load_budget(
+                           baseline_path, "replication_budget"))
     reports = extras.get("programspace", [])
+    sharding = extras.get("sharding", [])
     # stale-entry accounting and the shrink are scoped to the rules that
     # ran: a --select or --no-trace run must not declare other rules'
     # entries gone
     active = set(select) if select else set(all_rule_names())
     if not trace:
         active = {r for r in active if not is_trace_rule(r)}
-    ps_ran = trace and (select is None or "compile-explosion" in active
-                        or "cache-key-drift" in active)
+    # each budget section: the reports that measure it, the measured
+    # field, and the rules whose run measures it
+    measured = {
+        "program_budget": (reports, "programs",
+                           {"compile-explosion", "cache-key-drift"}),
+        "replication_budget": (sharding, "replicated_bytes",
+                               {"replication-budget"}),
+    }
+    ran = [name for name in BUDGET_SECTIONS
+           if trace and (select is None or measured[name][2] & active)]
     rig_names: set = set()
-    if ps_ran:
+    if ran:
         from .programspace import rig_configs
         rig_names = set(rig_configs())
 
     def orphans() -> List[str]:
         # bounds of rigs that no longer exist (not merely unhosted here)
         # would disarm the tripwire silently
-        if not ps_ran:
-            return []
-        return sorted(set(load_program_budget(baseline_path)) - rig_names)
+        out = set()
+        for name in ran:
+            out |= set(load_budget(baseline_path, name)) - rig_names
+        return sorted(out)
 
     baseline = load_baseline(baseline_path)
     dropped = 0
@@ -155,23 +174,25 @@ def main(argv: Optional[List[str]] = None) -> int:
         kept = shrink_baseline(baseline_path, findings,
                                active_rules=active)
         dropped = len(baseline) - len(kept)
-        if ps_ran:
-            budget = shrink_program_budget(
-                baseline_path, {r["config"]: r["programs"]
-                                for r in reports}, known=rig_names)
-            for rep in reports:
+        for name in ran:
+            reps, field, _ = measured[name]
+            budget = shrink_budget(
+                baseline_path, name, {r["config"]: r[field] for r in reps},
+                known=rig_names)
+            for rep in reps:
                 rep["budget"] = budget.get(rep["config"])
                 if rep["budget"] is not None:
-                    rep["delta"] = rep["programs"] - rep["budget"]
+                    rep["delta"] = rep[field] - rep["budget"]
         baseline = load_baseline(baseline_path)
     new, old, stale = split_findings(findings, baseline,
                                      active_rules=active)
     # budget slack: a measurement below its bound must be committed, or a
     # later growth hides in the slack; a measured rig with no bound is the
     # limiting case (the tripwire is disarmed)
-    slack = [r for r in reports
+    budgeted = reports + sharding
+    slack = [r for r in budgeted
              if r.get("delta") is not None and r["delta"] < 0]
-    unbounded = [r for r in reports if r.get("budget") is None]
+    unbounded = [r for r in budgeted if r.get("budget") is None]
     budget_stale = orphans()
     debt = bool(stale or slack or unbounded or budget_stale)
 
@@ -186,6 +207,7 @@ def main(argv: Optional[List[str]] = None) -> int:
             "stale": sorted(stale),
             "budget_stale": budget_stale,
             "program_space": reports,
+            "sharding": sharding,
             "collectives": extras.get("collectives"),
             "concurrency_surface": extras.get("concurrency"),
             "protocol_surface": extras.get("protocol"),
@@ -208,6 +230,12 @@ def main(argv: Optional[List[str]] = None) -> int:
         print(f"program budget {rep['config']}: {rep['programs']} "
               f"programs, {len(rep['instances'])} kernel instances "
               f"({d_txt})")
+    for rep in sharding:
+        b, delta = rep.get("budget"), rep.get("delta")
+        d_txt = ("no baseline — run --update-baseline" if b is None
+                 else f"baseline {b}, delta {delta:+d}")
+        print(f"replication budget {rep['config']}: "
+              f"{rep['replicated_bytes']} replicated B/step ({d_txt})")
     verb = "FAIL" if args.strict else "note"
     if args.update_baseline:
         print(f"baseline: kept {len(baseline)}, dropped {dropped} stale "
@@ -220,24 +248,26 @@ def main(argv: Optional[List[str]] = None) -> int:
             for fp in sorted(stale):
                 print(f"  {fp}")
         if slack:
-            print(f"{verb}: {len(slack)} program budget(s) above the "
-                  f"measured count — run --update-baseline to ratchet "
+            print(f"{verb}: {len(slack)} budget(s) above the "
+                  f"measurement — run --update-baseline to ratchet "
                   f"down:")
             for rep in slack:
-                print(f"  {rep['config']}: {rep['programs']} measured < "
+                got = rep.get("programs", rep.get("replicated_bytes"))
+                print(f"  {rep['config']}: {got} measured < "
                       f"{rep['budget']} baselined")
         if budget_stale:
-            print(f"{verb}: {len(budget_stale)} program budget entr"
+            print(f"{verb}: {len(budget_stale)} budget entr"
                   f"{'y' if len(budget_stale) == 1 else 'ies'} for unknown "
                   f"rig config(s) — run --update-baseline to drop:")
             for cfg in budget_stale:
                 print(f"  {cfg}")
         if unbounded and args.strict:
             print(f"FAIL: {len(unbounded)} measured config(s) have no "
-                  f"program_budget bound — run --update-baseline to "
-                  f"initialize:")
+                  f"program_budget or replication_budget bound — run "
+                  f"--update-baseline to initialize:")
             for rep in unbounded:
-                print(f"  {rep['config']}: {rep['programs']} measured")
+                got = rep.get("programs", rep.get("replicated_bytes"))
+                print(f"  {rep['config']}: {got} measured")
     print(f"roc-lint: {len(new)} new, {len(old)} baselined, "
           f"{len(stale)} stale")
     if new:

@@ -276,7 +276,8 @@ def check_ring_halo(unit: str, pg, rt) -> List[Finding]:
 
 # the runs the trace records on TRACE_RANKS CPU ranks: (unit, parts,
 # config fields); the GCN at the rig's widths on the kernel route (its
-# plain versions on the CPU)
+# plain versions on the CPU), fp32 weights and bf16 compute (the JAX
+# package's lint configuration)
 TRACE_RANKS = 4
 TRACE_RUNS = (
     ("dist_gather_p4", 4, {"halo": "gather"}),
@@ -294,7 +295,8 @@ def _axes(parts: int, fields: Dict[str, Any]) -> Dict[str, int]:
 
 
 def trace_rank_job(rigs: Sequence[str] = (), runs: Sequence[str] = (),
-                   device_kind: Optional[str] = None) -> Dict[str, Any]:
+                   device_kind: Optional[str] = None,
+                   recorded: Sequence[str] = ()) -> Dict[str, Any]:
     """One rank of the trace stage (analysis/driver.py runs
     :data:`TRACE_RANKS` of them on the CPU over gloo): the program spaces
     of the partitioned rigs ``rigs`` (on the rig's first ranks; the
@@ -302,17 +304,26 @@ def trace_rank_job(rigs: Sequence[str] = (), runs: Sequence[str] = (),
     one train step and one eval step of each run of :data:`TRACE_RUNS`
     named in ``runs``, and the edge counts of the 1-D gather run's split
     (the partition-imbalance rule's).  The rigs' instances are those of
-    ``device_kind`` (None: the CPU's)."""
+    ``device_kind`` (None: the CPU's).  Of each run named in
+    ``recorded`` the two steps are recorded too (analysis/step_trace.py;
+    the eval step's device work, ``eval_sums``): the 1-D gather run's
+    recordings are returned under ``traces`` (the jaxpr lint's
+    distributed units), the 2x2 mesh's read on the rank under
+    ``sharding`` (analysis/sharding_lint.py ``rank_sharding``)."""
     from ..models.gcn import build_gcn
     from ..parallel.distributed import (DistributedTrainer, new_group,
                                         record_collectives, world_rank)
-    from ..train.trainer import TrainConfig
+    from ..train.trainer import TrainConfig, resolve_dtypes
     from .programspace import (_C, _F, _H, build_rig_dataset,
                                build_rig_trainer, rig_configs,
                                rig_required_devices, space_of)
+    from .sharding_lint import LIVE_RUN, rank_sharding
+    from .step_trace import record
     rank = world_rank()
     ds = build_rig_dataset()
-    out: Dict[str, Any] = {"rank": rank, "spaces": {}, "collectives": {}}
+    f32, bf16 = resolve_dtypes("mixed")
+    out: Dict[str, Any] = {"rank": rank, "spaces": {}, "collectives": {},
+                           "traces": {}, "sharding": {}}
     for name in rigs:
         spec = rig_configs()[name]
         members = list(range(rig_required_devices(spec)))
@@ -331,14 +342,28 @@ def trace_rank_job(rigs: Sequence[str] = (), runs: Sequence[str] = (),
         if unit not in runs:
             continue
         cfg = TrainConfig(verbose=False, symmetric=True, aggr_impl="cuda",
-                          dropout_rate=0.5, **fields)
+                          dropout_rate=0.5, dtype=f32, compute_dtype=bf16,
+                          **fields)
         tr = DistributedTrainer(build_gcn([_F, _H, _C], dropout_rate=0.5),
                                 ds, parts, cfg, device="cpu")
         with record_collectives() as rec:
-            tr.step(cfg.learning_rate)
-            tr.evaluate()
+            if unit in recorded:
+                traces = {
+                    "train_step": record(
+                        tr.step, cfg.learning_rate,
+                        args_of=lambda: tr.step_args("train_step")),
+                    "eval_step": record(tr.eval_sums)}
+            else:
+                tr.step(cfg.learning_rate)
+                tr.eval_sums()
         out["collectives"][unit] = {"calls": list(rec),
                                     "axes": _axes(parts, fields)}
+        if unit in recorded and unit == LIVE_RUN:
+            out["sharding"][unit] = rank_sharding(tr, traces)
+        elif unit in recorded:
+            for t in traces.values():
+                t.result = None     # sent to the parent: shapes only
+            out["traces"][unit] = traces
         if unit == "dist_gather_p4":
             out["real_edges"] = [int(e) for e in tr.plan.real_edges]
     return out

@@ -67,42 +67,54 @@ def load_baseline(path: str) -> Set[str]:
     return set(_load_raw(path).get("findings", []))
 
 
-def load_program_budget(path: str) -> Dict[str, int]:
-    """The compile-explosion bounds, ``{rig config: programs}``
-    (``program_budget`` in the baseline file): shrink-only like the
-    findings; a missing file or section is no bound yet."""
+# the ratcheted numeric sections of the baseline file, each a
+# ``{config: bound}`` map with one shrink-only rule: a bound can start
+# (an absent key) and shrink, never grow.  ``program_budget``: the
+# compile-explosion program counts; ``replication_budget``: the sharding
+# audit's replicated bytes per step (analysis/sharding_lint.py).
+BUDGET_SECTIONS = ("program_budget", "replication_budget")
+
+
+def load_budget(path: str, section: str) -> Dict[str, int]:
+    """One budget section (:data:`BUDGET_SECTIONS`) of the baseline file;
+    a missing file or section is no bound yet."""
     return {str(k): int(v) for k, v in
-            _load_raw(path).get("program_budget", {}).items()}
+            _load_raw(path).get(section, {}).items()}
 
 
 def save_baseline(path: str, fingerprints: Iterable[str],
-                  program_budget: Optional[Dict[str, int]] = None) -> None:
-    """Write the baseline; ``program_budget`` None keeps the file's."""
-    budget = (load_program_budget(path) if program_budget is None
-              else program_budget)
+                  budgets: Optional[Dict[str, Dict[str, int]]] = None
+                  ) -> None:
+    """Write the baseline; a budget section not passed in ``budgets``
+    keeps the file's."""
+    sections = dict(budgets or {})
+    for name in BUDGET_SECTIONS:
+        if name not in sections:
+            sections[name] = load_budget(path, name)
     data: Dict[str, Any] = {"version": 1,
                             "findings": sorted(set(fingerprints))}
-    if budget:
-        data["program_budget"] = {k: int(budget[k]) for k in sorted(budget)}
+    for name in BUDGET_SECTIONS:
+        if sections.get(name):
+            data[name] = {k: int(sections[name][k])
+                          for k in sorted(sections[name])}
     with open(path, "w") as f:
         json.dump(data, f, indent=2)
         f.write("\n")
 
 
-def shrink_program_budget(path: str, counts: Dict[str, int],
-                          known: Optional[Set[str]] = None
-                          ) -> Dict[str, int]:
-    """Ratchet-only budget update: each config measured this run gets
-    ``min(stored, measured)`` (a bound can start and shrink, never grow);
-    configs not measured keep theirs; with ``known`` (every rig name)
-    the bounds of rigs that no longer exist are dropped.  Returns the
-    budget written."""
-    budget = load_program_budget(path)
+def shrink_budget(path: str, section: str, counts: Dict[str, int],
+                  known: Optional[Set[str]] = None) -> Dict[str, int]:
+    """Ratchet-only update of one budget section: each config measured
+    this run gets ``min(stored, measured)`` (a bound can start and
+    shrink, never grow); configs not measured keep theirs; with
+    ``known`` (every rig name) the bounds of rigs that no longer exist
+    are dropped.  Returns the section written."""
+    budget = load_budget(path, section)
     if known is not None:
         budget = {k: v for k, v in budget.items() if k in known}
     for cfg, n in counts.items():
         budget[cfg] = min(budget.get(cfg, int(n)), int(n))
-    save_baseline(path, load_baseline(path), program_budget=budget)
+    save_baseline(path, load_baseline(path), budgets={section: budget})
     return budget
 
 

@@ -365,16 +365,22 @@ class Candidate:
     it rewrites (``donate``), the kernel instances it launches
     (``instances``, :func:`kernel_instances`) and ``run``, which runs the
     step once at its real shapes and leaves the trainer as it was
-    (utils/prewarm.py drives it).  One extraction, two consumers: the
-    keys here and the warmer, so the enumerated set and the warmed set
-    cannot drift."""
+    (utils/prewarm.py drives it; a trainer's takes ``record=``, which
+    runs the step's device work, utils/prewarm.py
+    ``run_step_restoring``).  ``roles``: a label per argument for the
+    sharding ledger (analysis/sharding_lint.py: 'params', 'opt_state',
+    'data', 'tables', 'stream', 'other'; the JAX package's).  One
+    extraction, three consumers: the keys here, the warmer and the
+    ledger, so the enumerated, the warmed and the audited sets cannot
+    drift."""
 
     slot: str
     args: tuple
     donate: Tuple[int, ...] = ()
     observed: bool = True
     instances: Tuple[str, ...] = ()
-    run: Optional[Callable[[], Any]] = None
+    run: Optional[Callable[..., Any]] = None
+    roles: Tuple[str, ...] = ()
 
     @property
     def key(self) -> str:
@@ -397,11 +403,15 @@ def candidate_programs(tr, device_kind: Optional[str] = None
     from ..train.trainer import STEP_DONATE
     from ..utils.prewarm import run_step_restoring
     cands = []
-    for slot in ("train_step", "eval_step"):
+    rows = ("data", "data", "data", "tables")
+    for slot, roles in (("train_step", ("params", "opt_state") + rows),
+                        ("eval_step", ("params",) + rows)):
         cands.append(Candidate(
             slot=slot, args=tr.step_args(slot), donate=STEP_DONATE[slot],
             instances=step_instances(tr, slot, device_kind),
-            run=(lambda s=slot: run_step_restoring(tr, s))))
+            run=(lambda record=None, s=slot:
+                 run_step_restoring(tr, s, record)),
+            roles=roles))
     return cands
 
 

@@ -422,6 +422,85 @@ def launched_featureless(kernel: str) -> None:
     _instances[kernel] = _instances.get(kernel, 0) + 1
 
 
+# set by the step recorder (analysis/_dispatch.py) while it records: a
+# kernel region's end hands it the region (analysis/step_trace.py)
+region_sink = None
+_tls = threading.local()
+
+
+def in_region() -> bool:
+    """Whether this thread runs inside a :func:`kernel_region`."""
+    return getattr(_tls, "depth", 0) > 0
+
+
+class KernelRegion:
+    """One call of a kernel wrapper (:func:`kernel_region`).  It owns the
+    call's tally: :meth:`launch` counts each launch (:func:`launched`,
+    or :func:`launched_featureless` for a kernel without features); a
+    call whose first input lies on the CPU counts, at its end, one call
+    of the plain version (:func:`note_plain`).  While the step recorder
+    records, the region's end hands it one entry: the instance, the
+    region's inputs, the ``out`` the wrapper sets (a tensor, or
+    ``(shape, dtype, device)`` for an output its plain version does not
+    build) and the launches (1 for a plain call).  A region left by an
+    exception counts no plain call and records nothing."""
+
+    __slots__ = ("wrapper", "kernel", "inputs", "dtype", "F", "slice_cols",
+                 "out", "launches")
+
+    def __init__(self, wrapper, kernel, inputs, dtype, F, slice_cols):
+        self.wrapper, self.kernel, self.inputs = wrapper, kernel, inputs
+        self.dtype = dtype if dtype in DTYPE_SUFFIX else None
+        self.F, self.slice_cols = F, slice_cols
+        self.out = None
+        self.launches = 0
+
+    def launch(self, ops: int = 0) -> None:
+        """Count one launch of the region's kernel doing ``ops``
+        operations (:func:`kernel_ops`)."""
+        if self.dtype is None:
+            self.wrapper.launches += 1
+            launched_featureless(self.kernel)
+        else:
+            launched(self.wrapper, self.dtype, ops, self.F,
+                     self.slice_cols, kernel=self.kernel)
+        self.launches += 1
+
+    def __enter__(self):
+        _tls.depth = getattr(_tls, "depth", 0) + 1
+        return self
+
+    def __exit__(self, kind, *exc):
+        _tls.depth -= 1
+        if kind is None:
+            n = self.launches
+            if self.inputs[0].device.type == "cpu":
+                note_plain(self.kernel, self.dtype, self.F, self.slice_cols)
+                n = 1
+            sink = region_sink
+            if sink is not None:
+                sink(instance_name(self.kernel, self.dtype, self.F,
+                                   self.slice_cols), self.inputs, self.out,
+                     n)
+        self.inputs = self.out = None
+        return False
+
+
+def kernel_region(wrapper, inputs, dtype: Optional[torch.dtype] = None,
+                  F: int = 0, slice_cols: int = 0,
+                  kernel: Optional[str] = None) -> KernelRegion:
+    """The region of one call of kernel ``kernel`` (default: the
+    wrapper's name), entered by its wrapper around both its plain
+    version and its launch: the one place the wrapper names its
+    instance (:func:`instance_name` of ``kernel``, ``dtype``, ``F``,
+    ``slice_cols``).  ``inputs``: the tensors the call reads, its
+    features (or, for a kernel without features, its index array)
+    first.  While the step recorder records (analysis/step_trace.py),
+    what runs inside is one opaque entry."""
+    return KernelRegion(wrapper, kernel or wrapper.__name__, inputs, dtype,
+                        F, slice_cols)
+
+
 _NOT_TRACED = contextlib.nullcontext()
 # set by utils/profiling.py ``trace`` while it records; other profiler
 # sessions (a kernel's device time summed by name) get no ranges, whose

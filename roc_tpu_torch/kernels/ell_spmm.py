@@ -106,29 +106,32 @@ def ell_aggregate(feats: torch.Tensor, ell_idx: Sequence[torch.Tensor],
     _check(feats, ell_idx, ell_row_id)
     S = slicing.resolve("ell_aggregate", slice_cols,
                         default_slice_cols(feats.shape[1], feats.dtype))
-    if feats.device.type == "cpu":
-        _build.note_plain("ell_aggregate", feats.dtype, feats.shape[1], S)
-        return ell_aggregate_plain(feats, ell_idx, ell_row_id, num_rows)
-    for t in (*ell_idx, *ell_row_id):
-        if t.dtype != torch.int32 or not t.is_contiguous():
-            raise TypeError("ell_aggregate: tables must be contiguous "
-                            "int32")
-    if not feats.is_contiguous():
-        raise TypeError("ell_aggregate: the CUDA kernel takes contiguous "
-                        "feats")
-    fn = _build.entry("ell_aggregate", feats.dtype)
-    R, F = feats.shape
-    out = feats.new_zeros((num_rows, F))
-    stream = _build.stream_ptr(feats.device)
-    with _build.named("ell_aggregate"):
-        for b, (idx, rid) in enumerate(zip(ell_idx, ell_row_id)):
-            rows, width = idx.shape
-            _build.check("ell_aggregate", fn(
-                feats.data_ptr(), idx.data_ptr(), rid.data_ptr(),
-                out.data_ptr(), rows, width, R, num_rows, F, S, stream))
-            _build.launched(ell_aggregate, feats.dtype, _build.kernel_ops(
-                "ell_aggregate", rows,
-                rows * width if edges is None else edges[b], F), F, S)
+    with _build.kernel_region(ell_aggregate, (feats, ell_idx, ell_row_id),
+                              feats.dtype, feats.shape[1], S) as region:
+        if feats.device.type == "cpu":
+            region.out = out = ell_aggregate_plain(feats, ell_idx,
+                                                   ell_row_id, num_rows)
+            return out
+        for t in (*ell_idx, *ell_row_id):
+            if t.dtype != torch.int32 or not t.is_contiguous():
+                raise TypeError("ell_aggregate: tables must be contiguous "
+                                "int32")
+        if not feats.is_contiguous():
+            raise TypeError("ell_aggregate: the CUDA kernel takes "
+                            "contiguous feats")
+        fn = _build.entry("ell_aggregate", feats.dtype)
+        R, F = feats.shape
+        region.out = out = feats.new_zeros((num_rows, F))
+        stream = _build.stream_ptr(feats.device)
+        with _build.named("ell_aggregate"):
+            for b, (idx, rid) in enumerate(zip(ell_idx, ell_row_id)):
+                rows, width = idx.shape
+                _build.check("ell_aggregate", fn(
+                    feats.data_ptr(), idx.data_ptr(), rid.data_ptr(),
+                    out.data_ptr(), rows, width, R, num_rows, F, S, stream))
+                region.launch(_build.kernel_ops(
+                    "ell_aggregate", rows,
+                    rows * width if edges is None else edges[b], F))
     return out
 
 

@@ -91,26 +91,27 @@ def indegree_norm(x: torch.Tensor, in_degree: torch.Tensor,
                          f"{tuple(x.shape)} {x.dtype} on {x.device}; got "
                          f"{tuple(relu_out.shape)} {relu_out.dtype} on "
                          f"{relu_out.device}")
-    if x.device.type == "cpu":
-        _build.note_plain("indegree_norm" if relu_out is None
-                          else "indegree_norm_masked", x.dtype, x.shape[1])
-        return indegree_norm_plain(x, in_degree, relu_out)
-    if relu_out is None:
-        fn = _check_cuda("indegree_norm", x, in_degree)
-        inputs = (x.data_ptr(), in_degree.data_ptr())
-    else:
-        fn = _check_cuda("indegree_norm_masked", x, in_degree,
-                         same=(relu_out,))
-        inputs = (x.data_ptr(), relu_out.data_ptr(), in_degree.data_ptr())
-    out = torch.empty_like(x)
-    with _build.named("indegree_norm"):
-        _build.check("indegree_norm", fn(
-            *inputs, out.data_ptr(), x.shape[0], x.shape[1],
-            _build.stream_ptr(x.device)))
-    _build.launched(indegree_norm, x.dtype, _build.kernel_ops(
-        "indegree_norm", x.shape[0], 0, x.shape[1]), x.shape[1],
-        kernel="indegree_norm" if relu_out is None
-        else "indegree_norm_masked")
+    kernel = ("indegree_norm" if relu_out is None
+              else "indegree_norm_masked")
+    with _build.kernel_region(indegree_norm, (x, in_degree, relu_out),
+                              x.dtype, x.shape[1], kernel=kernel) as region:
+        if x.device.type == "cpu":
+            region.out = out = indegree_norm_plain(x, in_degree, relu_out)
+            return out
+        if relu_out is None:
+            fn = _check_cuda(kernel, x, in_degree)
+            inputs = (x.data_ptr(), in_degree.data_ptr())
+        else:
+            fn = _check_cuda(kernel, x, in_degree, same=(relu_out,))
+            inputs = (x.data_ptr(), relu_out.data_ptr(),
+                      in_degree.data_ptr())
+        region.out = out = torch.empty_like(x)
+        with _build.named("indegree_norm"):
+            _build.check("indegree_norm", fn(
+                *inputs, out.data_ptr(), x.shape[0], x.shape[1],
+                _build.stream_ptr(x.device)))
+        region.launch(_build.kernel_ops("indegree_norm", x.shape[0], 0,
+                                        x.shape[1]))
     if relu_out is not None:
         indegree_norm.masked_launches += 1
     return out
@@ -133,17 +134,20 @@ def scale_act(x: torch.Tensor, scale: torch.Tensor,
     if act not in ACTS:
         raise ValueError(f"unknown act {act!r}; expected 'none'|'relu'")
     _check_rows(x, scale, "scale_act")
-    if x.device.type == "cpu":
-        _build.note_plain("scale_act", x.dtype, x.shape[1])
-        return scale_act_plain(x, scale, act)
-    fn = _check_cuda("scale_act", x, floats=(scale,))
-    out = torch.empty_like(x)
-    with _build.named("scale_act"):
-        _build.check("scale_act", fn(
-            x.data_ptr(), scale.data_ptr(), out.data_ptr(), x.shape[0],
-            x.shape[1], int(act == "relu"), _build.stream_ptr(x.device)))
-    _build.launched(scale_act, x.dtype, _build.kernel_ops(
-        "scale_act", x.shape[0], 0, x.shape[1]), x.shape[1])
+    with _build.kernel_region(scale_act, (x, scale), x.dtype,
+                              x.shape[1]) as region:
+        if x.device.type == "cpu":
+            region.out = out = scale_act_plain(x, scale, act)
+            return out
+        fn = _check_cuda("scale_act", x, floats=(scale,))
+        region.out = out = torch.empty_like(x)
+        with _build.named("scale_act"):
+            _build.check("scale_act", fn(
+                x.data_ptr(), scale.data_ptr(), out.data_ptr(), x.shape[0],
+                x.shape[1], int(act == "relu"),
+                _build.stream_ptr(x.device)))
+        region.launch(_build.kernel_ops("scale_act", x.shape[0], 0,
+                                        x.shape[1]))
     return out
 
 

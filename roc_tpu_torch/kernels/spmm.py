@@ -127,17 +127,19 @@ def csr_row_ptr(edge_dst: torch.Tensor, num_rows: int) -> torch.Tensor:
     if edge_dst.dim() != 1:
         raise ValueError(f"csr_row_ptr: edge_dst must be [E], got "
                          f"{tuple(edge_dst.shape)}")
-    if edge_dst.device.type == "cpu":
-        return csr_row_ptr_plain(edge_dst, num_rows)
-    if edge_dst.dtype != torch.int32 or not edge_dst.is_contiguous():
-        raise TypeError("csr_row_ptr: edge_dst must be contiguous int32")
-    row_ptr = torch.empty(num_rows + 1, dtype=torch.int64,
-                          device=edge_dst.device)
-    _build.check("csr_row_ptr", _build.library().roc_csr_row_ptr(
-        edge_dst.data_ptr(), row_ptr.data_ptr(), edge_dst.shape[0],
-        num_rows, _build.stream_ptr(edge_dst.device)))
-    csr_row_ptr.launches += 1
-    _build.launched_featureless("csr_row_ptr")
+    with _build.kernel_region(csr_row_ptr, (edge_dst,)) as region:
+        if edge_dst.device.type == "cpu":
+            region.out = row_ptr = csr_row_ptr_plain(edge_dst, num_rows)
+            return row_ptr
+        if edge_dst.dtype != torch.int32 or not edge_dst.is_contiguous():
+            raise TypeError("csr_row_ptr: edge_dst must be contiguous "
+                            "int32")
+        region.out = row_ptr = torch.empty(num_rows + 1, dtype=torch.int64,
+                                           device=edge_dst.device)
+        _build.check("csr_row_ptr", _build.library().roc_csr_row_ptr(
+            edge_dst.data_ptr(), row_ptr.data_ptr(), edge_dst.shape[0],
+            num_rows, _build.stream_ptr(edge_dst.device)))
+        region.launch()
     return row_ptr
 
 
@@ -178,11 +180,18 @@ def csr_spmm(feats: torch.Tensor, edge_src: torch.Tensor,
                         default_slice_cols(feats.shape[1], feats.dtype))
     if feats.device.type == "cpu":
         if row_ptr is None:
-            _build.note_plain("csr_row_ptr")
-        _build.note_plain("csr_spmm", feats.dtype, feats.shape[1], S)
-        if edge_dst is None:
-            edge_dst = dst_from_row_ptr(row_ptr, edge_src.shape[0])
-        return csr_spmm_plain(feats, edge_src, edge_dst, num_rows)
+            # the pre-pass the card runs, tallied and recorded as its
+            # call (its plain version is not needed here)
+            with _build.kernel_region(csr_row_ptr, (edge_dst,)) as region:
+                region.out = ((num_rows + 1,), torch.int64, "cpu")
+        with _build.kernel_region(csr_spmm, (feats, edge_src, edge_dst,
+                                             row_ptr), feats.dtype,
+                                  feats.shape[1], S) as region:
+            if edge_dst is None:
+                edge_dst = dst_from_row_ptr(row_ptr, edge_src.shape[0])
+            region.out = out = csr_spmm_plain(feats, edge_src, edge_dst,
+                                              num_rows)
+        return out
     for t in (edge_src, edge_dst if edge_dst is not None else edge_src):
         if t.dtype != torch.int32 or not t.is_contiguous():
             raise TypeError("csr_spmm: edge arrays must be contiguous int32")
@@ -194,14 +203,17 @@ def csr_spmm(feats: torch.Tensor, edge_src: torch.Tensor,
         row_ptr = csr_row_ptr(edge_dst, num_rows)
     elif row_ptr.dtype != torch.int64 or not row_ptr.is_contiguous():
         raise TypeError("csr_spmm: row_ptr must be contiguous int64")
-    out = torch.empty((num_rows, F), dtype=feats.dtype, device=feats.device)
-    with _build.named("csr_spmm"):
-        _build.check("csr_spmm", fn(
-            feats.data_ptr(), edge_src.data_ptr(), row_ptr.data_ptr(),
-            out.data_ptr(), R, num_rows, F, S,
-            _build.stream_ptr(feats.device)))
-    _build.launched(csr_spmm, feats.dtype, _build.kernel_ops(
-        "csr_spmm", num_rows, edge_src.shape[0], F), F, S)
+    with _build.kernel_region(csr_spmm, (feats, edge_src, row_ptr),
+                              feats.dtype, F, S) as region:
+        region.out = out = torch.empty((num_rows, F), dtype=feats.dtype,
+                                       device=feats.device)
+        with _build.named("csr_spmm"):
+            _build.check("csr_spmm", fn(
+                feats.data_ptr(), edge_src.data_ptr(), row_ptr.data_ptr(),
+                out.data_ptr(), R, num_rows, F, S,
+                _build.stream_ptr(feats.device)))
+        region.launch(_build.kernel_ops("csr_spmm", num_rows,
+                                        edge_src.shape[0], F))
     return out
 
 

@@ -31,13 +31,17 @@ the SLO transitions of the event files.  ``--concurrency FILE`` and
 (``python -m roc_tpu_torch.analysis --json``): the thread model and the
 wire vocabulary, model-check verdicts and transition sites; without them
 the same tables come from the ``concurrency_surface``/``protocol_surface``
-events of an audited run's stream.  The JAX report's ``--sharding`` and
-program-space views read XLA programs the port does not have, and are
-not ported.
+events of an audited run's stream.  ``--sharding [FILE]`` renders the
+sharding audit (the replication ledger, its budget and the
+mesh-portability report) from such a payload or from ``sharding``
+events; without FILE it runs the level live.  The JAX report's
+program-space view reads XLA programs the port does not have, and is not
+ported.
 
 A reader: it works on the artifacts of a dead run and imports neither
-torch nor anything of its package, so it runs anywhere as a plain
-script too: ``python roc_tpu_torch/report.py ev.jsonl``.
+torch nor anything of its package (but for the live ``--sharding``), so
+it runs anywhere as a plain script too: ``python
+roc_tpu_torch/report.py ev.jsonl``.
 """
 
 from __future__ import annotations
@@ -362,6 +366,111 @@ def summarize_concurrency(surface: Dict[str, Any], out=None) -> int:
     return 0
 
 
+def summarize_sharding(reports: List[Dict[str, Any]], out=None) -> int:
+    """Render the sharding audit's records (the JAX report's view): per
+    rig the replication-budget line, the memory model's bytes per rank
+    at every (parts, model) shape, the live 2x2 mesh's sites with their
+    bytes per rank, and the top of the replication ledger.  Input: the
+    ``sharding`` list of ``python -m roc_tpu_torch.analysis --select
+    sharding --json``, or the ``sharding`` events of a run's stream."""
+    out = out if out is not None else sys.stdout
+    for rep in reports:
+        cfg = rep.get("config", "?")
+        b = rep.get("budget")
+        d = rep.get("delta")
+        shape = rep.get("canonical_shape") or ["?", "?"]
+        print(f"\n== sharding {cfg} (parts={rep.get('parts')}) ==",
+              file=out)
+        print(f"  replicated/step on {shape[0]}x{shape[1]}: "
+              f"{_fmt_bytes(rep.get('replicated_bytes'))}  (budget "
+              + ("unset — run --update-baseline" if b is None
+                 else f"{_fmt_bytes(b)}, delta {d:+d} B") + ")",
+              file=out)
+        rows = []
+        for m in rep.get("mesh_shapes") or []:
+            reps_ = sorted({a for c in (m.get("components") or {}).values()
+                            for a in c.get("replicated", [])})
+            rows.append([f"{m.get('parts')}x{m.get('model')}",
+                         _fmt_bytes(m.get("per_device_bytes")),
+                         ",".join(reps_) or "-"])
+        _rows(f"{cfg}: modeled per-device memory by (parts x model)",
+              ["mesh", "per_device", "replicated components"], rows, out)
+        rows = []
+        for s in rep.get("sites") or []:
+            per = s.get("per_device_bytes") or {}
+            rows.append([
+                str(s.get("op")), str(s.get("kind")),
+                f"{s.get('dtype')}{s.get('shape')}",
+                "/".join(s.get("lost") or []), str(s.get("slot") or "-"),
+                str(s.get("layer"))]
+                + [_fmt_bytes(per.get(k)) for k in ("1x8", "2x4", "4x2")])
+        _rows(f"{cfg}: full-width sites (the live 2x2 mesh's ranks)",
+              ["op", "kind", "tensor", "lost", "slot", "layer", "dev@1x8",
+               "dev@2x4", "dev@4x2"], rows, out)
+        rows = []
+        for e in (rep.get("ledger") or [])[:10]:
+            rows.append([
+                str(e.get("role")), f"{e.get('dtype')}{e.get('shape')}",
+                _fmt_bytes(e.get("bytes")),
+                ",".join(e.get("split") or []) or "-",
+                ",".join(e.get("replicated") or []) or "-",
+                _fmt_bytes(e.get("per_device_bytes"))])
+        _rows(f"{cfg}: replication ledger (top 10, {shape[0]}x{shape[1]})",
+              ["role", "tensor", "bytes", "split", "replicated",
+               "per_device"], rows, out)
+    return 0
+
+
+def _load_sharding(path: str) -> Optional[List[Dict[str, Any]]]:
+    """The sharding records at ``path``: an analysis ``--json`` payload
+    (its ``sharding`` list, or a bare list), or an event stream (its
+    ``sharding`` events); None after printing the error."""
+    try:
+        with open(path) as f:
+            text = f.read()
+    except OSError as e:
+        print(f"error: cannot read {path}: {e}", file=sys.stderr)
+        return None
+    try:
+        payload = json.loads(text)
+    except ValueError:
+        payload = None
+    if isinstance(payload, dict):
+        got = payload.get("sharding", [])
+        return got if isinstance(got, list) else []
+    if isinstance(payload, list):
+        return payload
+    recs = []
+    for line in text.splitlines():
+        try:
+            rec = json.loads(line)
+        except ValueError:
+            continue
+        if isinstance(rec, dict) and rec.get("cat") == "sharding":
+            recs.append(rec)
+    return recs
+
+
+def _live_sharding() -> List[Dict[str, Any]]:
+    """The sharding level run live on the CPU rig (the one mode of this
+    report that imports the port, and torch): its records, budgets from
+    the checkout's baseline."""
+    import os
+    here = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    if here not in sys.path:
+        sys.path.insert(0, here)
+    from roc_tpu_torch.analysis.driver import build_trace_findings
+    from roc_tpu_torch.analysis.findings import load_budget
+    from roc_tpu_torch.analysis.sharding_lint import SHARDING_RULES
+    extras: Dict[str, Any] = {}
+    build_trace_findings(
+        select=list(SHARDING_RULES), extras=extras,
+        replication_budget=load_budget(os.path.join(
+            here, "roc_tpu_torch", "analysis", "lint_baseline.json"),
+            "replication_budget"))
+    return extras.get("sharding", [])
+
+
 def summarize_protocol(surface: Dict[str, Any], out=None) -> int:
     """Render the protocol audit: the per-channel wire vocabulary (kind,
     field contract, send/handle sites, drift status), each dispatcher's
@@ -592,7 +701,22 @@ def main(argv: Optional[List[str]] = None) -> int:
                          "roc_tpu_torch.report --slo snap.json`).  "
                          "Without SNAPSHOT, with event files: only the "
                          "dated SLO transitions")
+    ap.add_argument("--sharding", nargs="?", const="__live__",
+                    default=None, metavar="FILE",
+                    help="render the sharding audit: the replication "
+                         "ledger, the budget and the mesh-portability "
+                         "report.  FILE: a `python -m roc_tpu_torch."
+                         "analysis --select sharding --json` payload or "
+                         "an event stream with its `sharding` events; "
+                         "without FILE the level runs live on the CPU "
+                         "rig (the one mode that imports torch)")
     args = ap.parse_args(argv)
+    if args.sharding is not None:
+        reports = (_live_sharding() if args.sharding == "__live__"
+                   else _load_sharding(args.sharding))
+        if reports is None:
+            return 2
+        return summarize_sharding(reports)
     if args.slo is not None:
         if args.slo != "__events__":
             try:

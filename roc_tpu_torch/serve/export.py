@@ -53,8 +53,8 @@ import numpy as np
 import torch
 
 from ..obs.events import emit
-from ..train.trainer import (LAYOUT_FIELDS, layout_options,
-                             make_graph_context,
+from ..train.trainer import (LAYOUT_FIELDS, initial_params,
+                             layout_options, make_graph_context,
                              resolve_config, resolve_device,
                              resolve_symmetric)
 from .predictor import SERVE_BUCKETS, Predictor, ShardSlice
@@ -140,8 +140,7 @@ def build_predictor(model, dataset, config, params=None,
     config = dataclasses.replace(
         config, symmetric=resolve_symmetric(dataset, config.symmetric))
     if params is None:
-        gen = torch.Generator(device=device).manual_seed(config.seed)
-        params = model.init_params(gen, dtype=config.dtype, device=device)
+        params = initial_params(model, config, device)
     backend, flavor = resolve_backend(model, backend)
     head_model = gctx = None
     if backend == "precomputed":

@@ -315,12 +315,17 @@ class Predictor:
             device_kind = card_kind(self.device)
         inst = self._instances(device_kind)
         cands: List[Any] = []
+        # the JAX package's roles: the table (and its scales) are the
+        # swapped data planes, the ids a request's
+        roles = (("params", "data", "data", "other", "tables")
+                 if self.quant != "off"
+                 else ("params", "data", "other", "tables"))
         for b in self.buckets:
             ids = torch.full((b,), self.pad_id, dtype=torch.int64,
                              device=self.device)
             cands.append(Candidate(
                 slot=self._slot(b, self.quant), args=self._args_for(ids),
-                donate=(), observed=False, instances=inst,
+                donate=(), observed=False, instances=inst, roles=roles,
                 run=(lambda i=ids: self.query_device(
                     i, staged=self._warm_staged()))))
         return cands

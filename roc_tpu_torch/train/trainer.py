@@ -341,6 +341,14 @@ def _dtype_bytes(dtype: torch.dtype) -> int:
     return torch.empty((), dtype=dtype).element_size()
 
 
+def initial_params(model: Model, config: TrainConfig,
+                   device="cpu") -> Dict[str, torch.Tensor]:
+    """The Glorot weights a :class:`Trainer` of ``config`` starts from
+    (drawn from a generator seeded with ``config.seed``)."""
+    gen = torch.Generator(device=device).manual_seed(config.seed)
+    return model.init_params(gen, dtype=config.dtype, device=device)
+
+
 def modeled_step_bytes(model: Model, dataset: Dataset, config: TrainConfig,
                        num_parts: int = 1) -> int:
     """The memory model's peak estimate for the resolved ``config``
@@ -1067,16 +1075,9 @@ class Trainer:
         with self._span("head_forward"):
             w0 = self.params[hp].detach().to(self.compute)
             y = self._head.forward(w0, self.feats_host, seed, True)
+        names = [k for k in self.params if k != hp]
         with self._span("tail_grad"):
-            y.requires_grad_(True)
-            names = [k for k in self.params if k != hp]
-            loss, _ = self._tail_model.loss_fn(
-                cast_floats(self.params, self.compute), y, self.labels,
-                self.mask, self.gctx, generator=self.generator, train=True,
-                remat=remat_policy(self.config))
-            *gs, gy = torch.autograd.grad(
-                loss, [self.params[k] for k in names] + [y],
-                allow_unused=True)
+            loss, gs, gy = self._tail_grad(y, names)
         with self._span("head_wgrad"):
             gw = self._head.wgrad(self.feats_host, gy, seed, True).to(
                 self.params[hp].dtype)
@@ -1086,6 +1087,20 @@ class Trainer:
                  else torch.zeros_like(self.params[k]) for k in self.params]
         *grads, loss = self._reduce([*grads, loss.detach()])
         return loss, dict(zip(self.params, grads))
+
+    def _tail_grad(self, y: torch.Tensor, names: List[str]):
+        """The streamed step's device-resident tail: the tail's objective
+        at the projected activations ``y`` (the tail's dropout draws from
+        ``generator``) and its gradients with respect to the weights
+        ``names`` and ``y``, as ``(loss, [grads], dy)``."""
+        y.requires_grad_(True)
+        loss, _ = self._tail_model.loss_fn(
+            cast_floats(self.params, self.compute), y, self.labels,
+            self.mask, self.gctx, generator=self.generator, train=True,
+            remat=remat_policy(self.config))
+        *gs, gy = torch.autograd.grad(
+            loss, [self.params[k] for k in names] + [y], allow_unused=True)
+        return loss, gs, gy
 
     def step(self, lr: float) -> torch.Tensor:
         """One training step at learning rate ``lr``: forward, backward,
@@ -1208,15 +1223,20 @@ class Trainer:
             raise ValueError(f"node ids out of range [0, {V})")
         return logits.index_select(0, ids.to(logits.device))
 
-    def evaluate(self) -> Dict[str, float]:
-        """The reference's inference pass: the metric sums, summed by
-        :meth:`_reduce`, as :func:`summarize_metrics` gives them, fetched
-        in one device sync."""
+    def eval_sums(self) -> Dict[str, torch.Tensor]:
+        """The eval step's device work: the metric sums of the
+        inference-mode logits, summed by :meth:`_reduce`, as 0-d tensors
+        on the device (the JAX package's jitted eval program; its
+        caller fetches the result)."""
         m = perf_metrics(self._logits(), self.labels, self.mask)
         keys = list(m)
-        return summarize_metrics(dict(zip(keys,
-                                          self._reduce([m[k]
-                                                        for k in keys]))))
+        return dict(zip(keys, self._reduce([m[k] for k in keys])))
+
+    def evaluate(self) -> Dict[str, float]:
+        """The reference's inference pass: :meth:`eval_sums` as
+        :func:`summarize_metrics` gives them, fetched in one device
+        sync."""
+        return summarize_metrics(self.eval_sums())
 
 
 def run_epoch_loop(tr: Trainer, epochs: Optional[int], do_step,

@@ -138,7 +138,7 @@ def _sync(device) -> None:
         torch.cuda.synchronize(device)
 
 
-def run_step_restoring(tr, slot: str) -> None:
+def run_step_restoring(tr, slot: str, record=None) -> Any:
     """Run ``tr``'s step slot once ('train_step' through ``Trainer.step``
     at the config's learning rate, 'eval_step' through
     ``Trainer.evaluate``), synchronised, and put back what a train step
@@ -146,12 +146,15 @@ def run_step_restoring(tr, slot: str) -> None:
     stay the same tensors), the Adam counters, the dropout generator's
     state, the epoch, the objective list and the streamed head's span
     and staging records.  On a partitioned trainer every rank calls it
-    together (the step's collectives)."""
+    together (the step's collectives).  ``record``: a callable that runs
+    the slot's device work for it (analysis/step_trace.py ``record``:
+    ``Trainer.step``, or ``Trainer.eval_sums`` without the eval's host
+    fetch); returns what it returned."""
     import torch
     if slot == "eval_step":
-        tr.evaluate()
+        got = tr.evaluate() if record is None else record(tr.eval_sums)
         tr.sync()
-        return
+        return got
     if slot != "train_step":
         raise ValueError(f"unknown step slot {slot!r}")
     st = tr.opt_state
@@ -162,8 +165,10 @@ def run_step_restoring(tr, slot: str) -> None:
     gen = tr.generator.get_state().clone()
     epoch, n_losses = tr.epoch, len(tr.losses)
     spans = {k: list(v) for k, v in tr.spans_ms.items()}
+    lr = float(tr.config.learning_rate)
     try:
-        tr.step(float(tr.config.learning_rate))
+        got = (tr.step(lr) if record is None
+               else record(lambda: tr.step(lr)))
         tr.sync()
     finally:
         with torch.no_grad():
@@ -181,6 +186,7 @@ def run_step_restoring(tr, slot: str) -> None:
         if head is not None:
             # the warm step's staging figures are no step's
             head.pool.take_stats()
+    return got
 
 
 def warm_candidates(cands, cache_dir: Optional[str],

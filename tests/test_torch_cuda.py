@@ -1121,3 +1121,64 @@ def test_warm_trainer_twin_and_launched_instances(dev, tmp_path, impl,
     keys = {c.slot: c.key for c in candidate_programs(twin)}
     assert twin._train_step.cost["program_key"] == keys["train_step"]
     assert twin._eval_step.cost["program_key"] == keys["eval_step"]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_kernel_regions_record_one_entry_each_on_the_card(dev, dtype):
+    """Each kernel wrapper's launch recorded (analysis/step_trace.py) as
+    exactly one entry named by its instance, none of its own ops (the
+    output's allocation included), the output the plain version's; K3
+    without row ranges records its pre-pass first."""
+    from roc_tpu_torch.analysis.step_trace import record
+    from roc_tpu_torch.core.partition import padded_edge_list
+    from roc_tpu_torch.kernels import _build
+    from roc_tpu_torch.kernels.ell_spmm import default_slice_cols
+    from roc_tpu_torch.kernels.spmm import csr_spmm, csr_spmm_plain
+    g = _graph(1003, 6, 11)
+    t = ell_from_graph(g.row_ptr, g.col_idx, g.num_nodes)
+    idx = tuple(torch.from_numpy(a[0]).to(dev) for a in t.idx)
+    rid = tuple(torch.from_numpy(a[0]).to(dev) for a in t.row_id)
+    deg = torch.from_numpy(g.in_degree).to(dev)
+    esrc, edst = (torch.from_numpy(a).to(dev)
+                  for a in padded_edge_list(g, multiple=512))
+    n, F = g.num_nodes, 41
+    x = torch.randn(n, F, device=dev).to(dtype)
+    y = torch.randn(n, F, device=dev).to(dtype)
+    s = torch.rand(n, device=dev)
+    S4 = slicing.resolve("ell_aggregate", None,
+                         default_slice_cols(F, dtype))
+    cases = [
+        ([_build.instance_name("indegree_norm", dtype, F)],
+         lambda: indegree_norm(x, deg),
+         lambda: indegree_norm_plain(x, deg)),
+        ([_build.instance_name("indegree_norm_masked", dtype, F)],
+         lambda: indegree_norm(x, deg, relu_out=y),
+         lambda: indegree_norm_plain(x, deg, relu_out=y)),
+        ([_build.instance_name("scale_act", dtype, F)],
+         lambda: scale_act(x, s, "relu"),
+         lambda: scale_act_plain(x, s, "relu")),
+        ([_build.instance_name("ell_aggregate", dtype, F, S4)],
+         lambda: ell_aggregate(x, idx, rid, n),
+         lambda: ell_aggregate_plain(x, idx, rid, n)),
+        (["csr_row_ptr", None],
+         lambda: csr_spmm(x, esrc, edst, n),
+         lambda: csr_spmm_plain(x, esrc, edst, n)),
+    ]
+    for names, fn, plain in cases:
+        trace = record(fn)
+        torch.cuda.synchronize()
+        ops = [e.op for e in trace.entries]
+        if names[-1] is None:
+            names = names[:-1] + [e.op[len("kernel:"):] for e in
+                                  trace.entries[1:]]
+            assert names[1].startswith("csr_spmm[")
+        assert ops == [f"kernel:{k}" for k in names], ops
+        got, want = trace.result, plain()
+        if not names[-1].startswith(("ell_", "csr_")):
+            assert _same_bits(got, want)
+        elif dtype == torch.float32:
+            scale = float(want.abs().max())
+            torch.testing.assert_close(got, want, rtol=1e-5,
+                                       atol=1e-5 * scale)
+        else:
+            _check_bf16_sum(got, got, want)
