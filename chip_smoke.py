@@ -334,6 +334,21 @@ Phases (any failure exits nonzero):
    gated: the recorded bytes beside the memory model's, and the step's
    wall time recorded and not.  Counted.
 
+22. sentinel (``sentinel``, in phase 19's child right after its
+   telemetry runs; no GPU work of its own): one round file per dtype in
+   the bench headline shape, whose ``value`` is that dtype's
+   telemetry-off steady ``epoch_ms`` on this card, and ``python -m
+   roc_tpu_torch.sentinel --json --metrics <the on-run's metrics.jsonl>
+   --dtype <mode>`` over them: exit 0, ``step_time_ms`` ok under the
+   small-sample rule, ``n`` the rounds of that dtype alone, ``current``'s
+   ``step_ms`` the on-run record's ``epoch_ms`` and its ``compile_s`` the
+   record's ``first_step_ms`` / 1e3 (the card's first step, the kernels'
+   first launches included); over a history of one round per dtype at
+   half its ``epoch_ms`` (a 2x regression by construction): exit 1,
+   ``regressed == ["step_time_ms"]``; the plain script
+   ``roc_tpu_torch/obs/sentinel.py`` with torch blocked gives the same
+   payloads; ``bench_verdict`` in process is ok.
+
 ``python3 chip_smoke.py --first-gather [out.json]`` (:func:`first_gather`,
 not in the default run) takes a small sharded fleet's first requests
 apart: in process through ``Server``, through a router, the replicas'
@@ -4989,10 +5004,14 @@ def _drill_sigkill(art, ref, scale, events, ev_path=None):
           and e.get("kind") == "failover" and e.get("replica") == 1]
     rec = {"ok": ok, "timeouts": timeouts, "alive": alive,
            "failover_events": len(fo), "n_failover": stats["n_failover"],
-           # the requests this fleet requeued and then answered
+           # the requests this fleet requeued and then answered, in
+           # submission order (a rid is ``<pid hex>-<sequence>``): the
+           # first was in flight on replica 1 when it died, a later one
+           # may have been sent to it after
            "requeued_rids": sorted({r for e in fo
                                     for r in e.get("rids") or []}
-                                   & answered)}
+                                   & answered,
+                                   key=lambda r: int(r.rsplit("-", 1)[1]))}
     if (ok + timeouts != 60 or not ok or alive != [True, False] or not fo
             or not stats["n_failover"]):
         raise AssertionError(f"drill replica_sigkill: {rec}")
@@ -5236,10 +5255,11 @@ def fleet_traces(router_ev, akx_ev, kill_ev, seam_rids, size_rids,
     lanes, each replica span inside the router span to within the skew
     (at least the stamps' 1 ms) — the seam batch sent once more after
     the latency runs (``seam_rids['warm']``; the trace of the first,
-    cold one, ``seam_rids['seam']``, is printed); on a requeued request
-    of the SIGKILL
-    fleet the failover marker naming replica 1, the dead replica's fault
-    marker and a span on the survivor, inside the router span.  Prints
+    cold one, ``seam_rids['seam']``, is printed); on the first requeued
+    request of the SIGKILL fleet (in submission order: one in flight
+    when replica 1 died) the failover marker naming replica 1, the dead
+    replica's fault marker and a span on the survivor, inside the router
+    span.  Prints
     per request size the medians of the router span, the replica span
     (the longer of a split request's two) and the gap between them."""
     from roc_tpu_torch.obs.timeline import load_jsonl, request_trace
@@ -6624,10 +6644,103 @@ def telemetry(torch, ds, params, counts, root):
     return out
 
 
+# the plain sentinel script run with torch blocked from import
+_NO_TORCH = ("import sys, runpy; sys.modules['torch'] = None; "
+             "sys.argv = sys.argv[1:]; "
+             "runpy.run_path(sys.argv[0], run_name='__main__')")
+
+
+def _sentinel_cli(argv, plain=False):
+    """``python -m roc_tpu_torch.sentinel --json argv`` (``plain``: the
+    module as a plain script, torch blocked): its exit code and
+    payload."""
+    here = os.path.dirname(os.path.abspath(__file__))
+    cmd = ([sys.executable, "-c", _NO_TORCH,
+            os.path.join(here, "roc_tpu_torch", "obs", "sentinel.py")]
+           if plain else [sys.executable, "-m", "roc_tpu_torch.sentinel"])
+    r = subprocess.run(cmd + ["--json"] + argv, cwd=here,
+                       capture_output=True, text=True, timeout=60)
+    lines = r.stdout.strip().splitlines()
+    if r.returncode not in (0, 1) or not lines:
+        raise AssertionError(f"sentinel {argv} (plain={plain}): exit "
+                             f"{r.returncode}\n{r.stdout}{r.stderr[-2000:]}")
+    return r.returncode, json.loads(lines[-1])
+
+
+def sentinel_check(telem, root):
+    """Phase 22: the regression sentinel over :func:`telemetry`'s runs
+    (their files under ``root``).  Per dtype mode, a round in the bench
+    headline shape at the telemetry-off steady ``epoch_ms`` (history
+    ``ok``), and one at half of it in a second directory (history
+    ``regress``: the on-run is then a 2x regression by construction);
+    the sentinel CLI on the on-run's metrics file against each, as
+    ``-m`` and as the plain script with torch blocked, and
+    ``bench_verdict`` in process.  Raises on any gate."""
+    from roc_tpu_torch.obs import sentinel as sen
+    t0 = time.perf_counter()
+    dirs = {h: os.path.join(root, f"sentinel_{h}") for h in ("ok",
+                                                             "regress")}
+    for i, (mode, _) in enumerate(TELEMETRY_MODES):
+        off_ms = float(np.median(telem[mode]["epoch_ms_off"]))
+        for h, d in dirs.items():
+            os.makedirs(d, exist_ok=True)
+            with open(os.path.join(d, f"BENCH_torch_r{i + 1:02d}_{mode}"
+                                      f".json"), "w") as f:
+                json.dump({"metric": "epoch_ms",
+                           "value": off_ms if h == "ok" else off_ms / 2,
+                           "unit": "ms", "dtype": mode, "stage": "full"}, f)
+    out = {}
+    for mode, _ in TELEMETRY_MODES:
+        metrics = os.path.join(root, f"{mode}_on_metrics.jsonl")
+        with open(metrics) as f:
+            (m,) = [json.loads(ln) for ln in f if ln.strip()]
+        if m["epoch_ms"] != telem[mode]["record"]["epoch_ms"]:
+            raise AssertionError(f"sentinel {mode}: the metrics file's "
+                                 f"record {m} is not the run's "
+                                 f"{telem[mode]['record']}")
+        want = {"step_ms": round(m["epoch_ms"], 3),
+                "compile_s": round(m["first_step_ms"] / 1e3, 3)}
+        rec = {"record": {k: m[k] for k in ("epoch_ms", "first_step_ms")},
+               "off_epoch_ms": float(np.median(
+                   telem[mode]["epoch_ms_off"]))}
+        for h, d in dirs.items():
+            argv = ["--metrics", metrics, "--dtype", mode, "--bench-glob",
+                    os.path.join(d, sen.BENCH_GLOB)]
+            rc, pay = _sentinel_cli(argv)
+            rc_plain, pay_plain = _sentinel_cli(argv, plain=True)
+            step = pay["checks"]["step_time_ms"]
+            rec[h] = {"exit": rc, "regressed": pay["regressed"],
+                      "current": {k: pay["current"][k] for k in want},
+                      **{k: step.get(k) for k in (
+                          "verdict", "median", "bound", "n", "rule")},
+                      "rounds": pay["history_rounds"],
+                      "plain_equal": rc_plain == rc and pay_plain == pay}
+            good = (rc == 0 and not pay["regressed"]
+                    and step["verdict"] == "ok") if h == "ok" else (
+                rc == 1 and pay["regressed"] == ["step_time_ms"])
+            if not good or step.get("n") != 1 or \
+                    step.get("rule") != "small_sample_1.5x" or \
+                    len(pay["history_rounds"]) != len(TELEMETRY_MODES) or \
+                    rec[h]["current"] != want or not rec[h]["plain_equal"]:
+                raise AssertionError(f"sentinel {mode}/{h}: want "
+                                     f"{want}, {rec}\n{pay}")
+        rec["bench_verdict"] = sen.bench_verdict(
+            m["epoch_ms"], dtype=mode, bench_dir=dirs["ok"], stage="full")
+        if rec["bench_verdict"].get("verdict") != "ok" or \
+                rec["bench_verdict"].get("n_history") != 1:
+            raise AssertionError(f"sentinel {mode}: bench_verdict "
+                                 f"{rec['bench_verdict']}")
+        out[mode] = rec
+    out["seconds"] = time.perf_counter() - t0
+    log({"phase": "sentinel", **out, "card": card_line()})
+    return out
+
+
 def routes_child(data_dir, products_dir, num_classes, out_path):
     """Phase 19 in a fresh process on card 0 (the datasets saved
     under ``data_dir`` and ``products_dir``): :func:`edge_routes`,
-    :func:`telemetry`, :func:`cli_flags`, :func:`ell_max_products`; writes
+    :func:`telemetry` and phase 22's :func:`sentinel_check` on its runs,
+    :func:`cli_flags`, :func:`ell_max_products`; writes
     the record and the counts to ``out_path``.  This process opens no
     profiler session before the telemetry phase's trace (the profiler
     loses records after ~60 sessions in one process)."""
@@ -6644,6 +6757,7 @@ def routes_child(data_dir, products_dir, num_classes, out_path):
     rec = {"edge": edge_routes(torch, ds, params, counts)}
     with tempfile.TemporaryDirectory() as tmp:
         rec["telemetry"] = telemetry(torch, ds, params, counts, tmp)
+        rec["sentinel"] = sentinel_check(rec["telemetry"], tmp)
     del ds
     with tempfile.TemporaryDirectory() as tmp:
         rec["cli"] = cli_flags(torch, tmp, counts)
@@ -7341,6 +7455,7 @@ def _main(torch, root, prep, t_start) -> int:
                          for k, v in erec["edge"].items()},
          "cli_max_abs_err": erec["cli"]["max_abs_err"],
          "telemetry_s": erec["telemetry"]["seconds"],
+         "sentinel_s": erec["sentinel"]["seconds"],
          "telemetry": {m: {k: erec["telemetry"][m][k] for k in (
              "flops", "flops_kernels", "flops_rel_err", "peak_bytes",
              "modeled_bytes", "model_actual_ratio", "bit_equal")}

@@ -111,8 +111,9 @@ class StdoutPrintRule(AstRule):
            "roc_tpu_torch.obs.events.emit (or file=sys.stderr for "
            "pre-bus error paths)")
     ALLOW_FILES = {PKG + "report.py", PKG + "analysis/__main__.py",
-                   # the timeline merger's summary line
-                   PKG + "obs/timeline.py",
+                   # the timeline merger's summary line and the
+                   # sentinel's verdict
+                   PKG + "obs/timeline.py", PKG + "obs/sentinel.py",
                    # the serve export CLI's one JSON report line
                    PKG + "serve/export.py",
                    # the prewarm CLI's JSON line a config

@@ -76,6 +76,31 @@ class Graph:
         return np.repeat(np.arange(self.num_nodes, dtype=np.int32),
                          self.in_degree)
 
+    def has_all_self_edges(self) -> bool:
+        """True iff every row holds its own id."""
+        if (self.in_degree == 0).any():
+            return False
+        dst = self.edge_dst()
+        out = np.zeros(self.num_nodes, dtype=bool)
+        out[dst[self.col_idx == dst]] = True
+        return bool(out.all())
+
+    def is_symmetric(self) -> bool:
+        """True iff the adjacency equals its transpose: the backward's
+        reuse of the forward CSR (``scattergather_kernel.cu:160-170``)
+        is right only then."""
+        return check_symmetric(self)
+
+    def transpose(self) -> "Graph":
+        """The graph with every edge reversed, rows sorted by the old
+        source and each row's edges in the old destination order."""
+        dst = self.edge_dst()
+        order = np.argsort(self.col_idx, kind="stable")
+        counts = np.bincount(self.col_idx, minlength=self.num_nodes)
+        row_ptr = np.zeros(self.num_nodes + 1, dtype=np.int64)
+        np.cumsum(counts, out=row_ptr[1:])
+        return Graph(row_ptr=row_ptr, col_idx=dst[order])
+
 
 def check_symmetric(graph: Graph) -> bool:
     """Exact symmetry check via sorted edge-list comparison."""

@@ -20,8 +20,9 @@ rank when a process group is up, else 0, unless
 :func:`set_clock_identity` pinned it.  The bus keeps a bounded ring of
 recent records; :func:`dump_flight_record` writes it to a dated
 ``flightrecord_*.json`` on fatal paths (fault sites about to SIGKILL,
-preemption, stall deadlines), so a dead process's last events survive
-without a JSONL sink.
+preemption, stall deadlines, and an unhandled exception once
+:func:`install_excepthook` ran, as the CLI's does), so a dead process's
+last events survive without a JSONL sink.
 
 Thread-safe: the heartbeat and the async saver emit from their own
 threads.
@@ -307,3 +308,25 @@ def dump_flight_record(reason: str,
     except OSError:
         pass
     return path
+
+
+_EXCEPTHOOK_INSTALLED = False
+
+
+def install_excepthook() -> None:
+    """Chain a flight-record dump onto ``sys.excepthook`` so an unhandled
+    exception leaves the last events behind.  Idempotent; the previous
+    hook always runs; ``KeyboardInterrupt`` and ``SystemExit`` dump
+    nothing."""
+    global _EXCEPTHOOK_INSTALLED
+    if _EXCEPTHOOK_INSTALLED:
+        return
+    _EXCEPTHOOK_INSTALLED = True
+    prev = sys.excepthook
+
+    def hook(exc_type, exc, tb):
+        if not issubclass(exc_type, (KeyboardInterrupt, SystemExit)):
+            dump_flight_record(f"unhandled {exc_type.__name__}")
+        prev(exc_type, exc, tb)
+
+    sys.excepthook = hook

@@ -1,5 +1,5 @@
-"""Dense ops: linear (whole or in row blocks), activations, dropout
-(``roc_tpu/ops/dense.py``).
+"""Dense ops: linear (whole or in row blocks), activations, dropout and
+the element-wise add and multiply (``roc_tpu/ops/dense.py``).
 
 - Activations: none, relu, sigmoid and elu (alpha 1, as ``jax.nn.elu``;
   both take slope 1 at 0 in the backward, the negative branch's).
@@ -74,6 +74,14 @@ def linear_chunked(x: torch.Tensor, w: torch.Tensor,
 
 def activation(x: torch.Tensor, mode: str) -> torch.Tensor:
     return _ACTIVATIONS[mode](x)
+
+
+def element_add(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    return a + b
+
+
+def element_mul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    return a * b
 
 
 def dropout(x: torch.Tensor, rate: float,

@@ -307,6 +307,10 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
 
 def main(argv: Optional[List[str]] = None) -> int:
     args = parse_args(argv)
+    from ..obs.events import install_excepthook
+    # an unhandled exception dumps the bus's last events (a flight
+    # record) before the traceback
+    install_excepthook()
     layers = [int(x) for x in args.layers.split("-")]
     if len(layers) < 2:
         print("error: -layers needs at least in-dim and classes",

@@ -112,3 +112,48 @@ def test_inv_sqrt_degree_bit_equal():
     np.testing.assert_array_equal(inv_sqrt_degree_np(deg), want)
     got = inv_sqrt_degree(torch.from_numpy(deg)).numpy()
     np.testing.assert_array_equal(got, want)
+
+
+def _helper_graph(case, pkg):
+    if case == "random_csr":
+        return pkg.random_csr(300, 2400, seed=5)
+    if case == "zipf_csr":
+        return pkg.zipf_csr(300, 2400, seed=6)
+    if case == "self_edges":
+        return pkg.add_self_edges(pkg.random_csr(300, 2400, seed=7))
+    # symmetric, every row with its self edge
+    rng = np.random.RandomState(8)
+    g = pkg.from_edge_list(rng.randint(0, 300, size=1200),
+                           rng.randint(0, 300, size=1200), 300,
+                           symmetrize=True)
+    return pkg.add_self_edges(g)
+
+
+@pytest.mark.parametrize("case", ["random_csr", "zipf_csr", "self_edges",
+                                  "symmetric_self_edges"])
+def test_graph_helpers_and_element_ops_bit_equal(case):
+    """``Graph.has_all_self_edges``, ``is_symmetric`` and ``transpose``,
+    and ``ops/dense.py element_add``/``element_mul``, against the JAX
+    package's on the same graph and arrays, bit for bit."""
+    from roc_tpu.ops import dense as jdense
+    from roc_tpu_torch.ops import dense as tdense
+    a, b = _helper_graph(case, jgraph), _helper_graph(case, tgraph)
+    _same_graph(a, b)
+    assert a.has_all_self_edges() == b.has_all_self_edges()
+    assert a.is_symmetric() == b.is_symmetric()
+    want_self = case in ("self_edges", "symmetric_self_edges")
+    assert b.has_all_self_edges() == want_self
+    assert b.is_symmetric() == (case == "symmetric_self_edges")
+    ta, tb = a.transpose(), b.transpose()
+    _same_graph(ta, tb)
+    _same_graph(ta.transpose(), tb.transpose())
+    assert tb.is_symmetric() == b.is_symmetric()
+    rng = np.random.RandomState(9)
+    x = rng.randn(b.num_nodes, 7).astype(np.float32)
+    y = rng.randn(b.num_nodes, 7).astype(np.float32)
+    for jf, tf in ((jdense.element_add, tdense.element_add),
+                   (jdense.element_mul, tdense.element_mul)):
+        want = np.asarray(jf(x, y))
+        got = tf(torch.from_numpy(x), torch.from_numpy(y)).numpy()
+        assert got.dtype == want.dtype
+        np.testing.assert_array_equal(got, want)
