@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port (roc_tpu_torch) on one NVIDIA card.
 
-    python3 chip_smoke.py [--deep]
+    python3 chip_smoke.py [--deep [--old DIR]]
+    python3 chip_smoke.py --gather-race [out.json] [--old DIR]
 
 The Reddit and products shapes are built on the host by a process of
 their own (:func:`prep_datasets`) and saved as .npy in a temporary
@@ -44,6 +45,11 @@ Phases (any failure exits nonzero):
    the SGC's raw width too: K1, K2 and K4 at F = 602 in fp32 (the
    kernel table's ``akx_shapes``: the SGC on 'cuda' with features on the
    card runs them there; the host tier's walk runs K3, phase 15);
+   with --deep the gather races (:func:`gather_races`, also alone as
+   ``--gather-race``): the gather's ceiling (K4 over sequential, random
+   and L1-window ids) and K3 and K4 at every shape of PERF.md's kernel
+   table at every slice width, with ``--old DIR`` against the kernels
+   of the checkout DIR in turns;
 4. slice (serve): requests through Server on the kernel route, each of
    1, 8, 64 and 512 rows 20 times one after another (per size the
    median, p90, max, every time and its dispatch ms) and four together,
@@ -419,6 +425,9 @@ F32, BF16 = "f32", "bf16"
 # the block-dense race.  Every path, check and counted run stays in the
 # default run, which must end well inside a 1,200 s limit.
 DEEP = os.environ.get("CHIP_SMOKE_DEEP") == "1"
+# ``--old DIR``: with ``--deep``, the gather races (:func:`gather_races`)
+# also time the kernels of the checkout DIR (an earlier commit) in turns
+OTHER_TREE = None
 
 
 # the process's start, for the elapsed seconds of each phase line
@@ -853,6 +862,395 @@ def race(torch, dev, gctx, num_edges, esrc, edst, dtype):
         del x
     torch.cuda.synchronize()
     return records
+
+
+# The gather races (``--gather-race``, and with ``--deep`` after phase
+# 3): the ceiling's one-bucket tables are CEILING_WIDTH ids wide, and its
+# window pattern draws ids from the first CEILING_WINDOW_ROWS rows (128 KB
+# of fp32 rows at F = 256, what one SM's L1 holds)
+CEILING_WIDTH = 512
+CEILING_WINDOW_ROWS = 128
+# each timed reading of a race covers about this many ms of calls
+RACE_READING_MS = 100.0
+
+
+def _turns(torch, fns, n=None):
+    """Times each callable of ``fns`` (a dict) in turns, forward then
+    reversed, ``n`` calls a reading (None: enough for ~RACE_READING_MS
+    each, from one warm call of the first): ``{key: [ms, ms]}``."""
+    if n is None:
+        one = time_ms(torch, next(iter(fns.values())), 1)
+        n = max(2, min(50, int(RACE_READING_MS / max(one, 1e-3))))
+    out = {k: [] for k in fns}
+    for k in (*fns, *reversed(list(fns))):
+        out[k].append(time_ms(torch, fns[k], n))
+    return out
+
+
+def other_gathers(root):
+    """K3 and K4 as another checkout ``root`` (a ``git archive`` of an
+    earlier commit) builds them: every ``csrc/*.cu`` of ``root`` compiled
+    by nvcc with this tree's flags into a library of its own under
+    ``root``, called through the same C entry points, and its wrappers'
+    default slice widths read by a Python process in ``root`` (its
+    package, not this one).  Returns ``{"ell": fn(x, idx, rid, V, S),
+    "csr": fn(x, src, row_ptr, V, S), "default": fn(kernel, dtype,
+    F)}``.  Its launches count nowhere."""
+    import glob
+
+    import torch
+    from roc_tpu_torch.kernels import _build
+    root = os.path.abspath(root)
+    srcs = sorted(glob.glob(os.path.join(root, "roc_tpu_torch", "kernels",
+                                         "csrc", "*.cu")))
+    target = os.path.join(root, "libroc_kernels_other.so")
+    _build._build(srcs, target)
+    lib = _build._load(target)
+    code = ("import json, torch\n"
+            "from roc_tpu_torch.kernels import ell_spmm, spmm\n"
+            "print(json.dumps({f'{k}/{d}/{F}': m.default_slice_cols("
+            "F, getattr(torch, d)) for k, m in (('ell_aggregate', "
+            "ell_spmm), ('csr_spmm', spmm)) for d in ('float32', "
+            "'bfloat16') for F in (41, 128, 256, 602)}))")
+    res = subprocess.run([sys.executable, "-c", code], cwd=root,
+                         env=dict(os.environ, PYTHONPATH=root),
+                         capture_output=True, text=True, timeout=300,
+                         check=True)
+    defaults = json.loads(res.stdout.strip().splitlines()[-1])
+
+    def sfx(x):
+        return _build.DTYPE_SUFFIX[x.dtype]
+
+    def ell(x, idx, rid, num_rows, S):
+        fn = getattr(lib, f"roc_ell_aggregate_{sfx(x)}")
+        out = x.new_zeros((num_rows, x.shape[1]))
+        st = _build.stream_ptr(x.device)
+        for i, r in zip(idx, rid):
+            code = fn(x.data_ptr(), i.data_ptr(), r.data_ptr(),
+                      out.data_ptr(), i.shape[0], i.shape[1], x.shape[0],
+                      num_rows, x.shape[1], S, st)
+            if code:
+                raise RuntimeError(f"the other K4: CUDA error {code}")
+        return out
+
+    def csr(x, src, row_ptr, num_rows, S):
+        fn = getattr(lib, f"roc_csr_spmm_{sfx(x)}")
+        out = torch.empty((num_rows, x.shape[1]), dtype=x.dtype,
+                          device=x.device)
+        code = fn(x.data_ptr(), src.data_ptr(), row_ptr.data_ptr(),
+                  out.data_ptr(), x.shape[0], num_rows, x.shape[1], S,
+                  _build.stream_ptr(x.device))
+        if code:
+            raise RuntimeError(f"the other K3: CUDA error {code}")
+        return out
+
+    def default(kernel, dtype, F):
+        return defaults[f"{kernel}/{str(dtype).split('.')[-1]}/{F}"]
+    return {"ell": ell, "csr": csr, "default": default, "root": root}
+
+
+def gather_ceiling(torch, other=None, F=256, S=32):
+    """What K4 gathers at, by where its rows come from: K4 at F = 256
+    fp32, slice S, over V rows of one synthetic bucket of CEILING_WIDTH
+    ids, with three id patterns: ``sequential`` (row r's ids r * width +
+    j mod V, consecutive: the rows sweep V in order, width times over,
+    and one slice of them, V * S * 4 bytes, is what L2 holds, so after
+    the first sweep they come from L2 too: not an HBM stream), ``random``
+    (uniform over all V: Reddit's case, the slice's rows from L2) and
+    ``window`` (uniform over the first CEILING_WINDOW_ROWS rows, which L1
+    holds).  Each pattern's rate is E * F * 4 / ms (E = V * width); this
+    tree's wrapper and, given ``other``
+    (:func:`other_gathers`), the other tree's kernel are timed in turns.
+    Each result's first 4,096 rows are held to the plain version.  Gates
+    nothing: timed work."""
+    from roc_tpu_torch.kernels import ell_spmm
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(SEED + 5)
+    W = CEILING_WIDTH
+    E = V * W
+    x = torch.randn((V, F), generator=gen, device=dev)
+    rid = torch.arange(V, device=dev, dtype=torch.int32)
+    pats = {
+        "sequential": (torch.arange(E, device=dev) % V).to(torch.int32)
+        .view(V, W),
+        "random": torch.randint(0, V, (V, W), generator=gen, device=dev,
+                                dtype=torch.int32),
+        "window": torch.randint(0, CEILING_WINDOW_ROWS, (V, W),
+                                generator=gen, device=dev,
+                                dtype=torch.int32)}
+    sides = {"this": lambda i: ell_spmm.ell_aggregate(x, (i,), (rid,), V,
+                                                      slice_cols=S)}
+    if other is not None:
+        sides["other"] = lambda i: other["ell"](x, (i,), (rid,), V, S)
+    fns = {}
+    k = min(4096, V)
+    for side, fn in sides.items():
+        for pat, idx in pats.items():
+            want = ell_spmm.ell_aggregate_plain(x, (idx[:k],), (rid[:k],),
+                                                k)
+            ok, err = sum_check(torch, fn(idx)[:k], want)
+            if not ok:
+                raise AssertionError(f"ceiling {side} {pat}: {err}")
+            fns[f"{side}/{pat}"] = functools.partial(fn, idx)
+    readings = _turns(torch, fns)
+    rec = {"phase": "gather_ceiling", "F": F, "slice_cols": S, "V": V,
+           "width": W, "edges": E, "gathered_gb": E * F * 4 / 1e9,
+           "card": card_line(), "runs": {}}
+    for k, r in readings.items():
+        ms = sum(r) / len(r)
+        rec["runs"][k] = {"ms": ms, "readings": r,
+                          "gather_tb_s": E * F * 4 / ms / 1e9}
+    log(rec)
+    del pats, x
+    torch.cuda.empty_cache()
+    return rec
+
+
+def _race_case(torch, label, kernel, x, new, old, want, lib, nbytes, nops,
+               gathered, default):
+    """One shape of :func:`gather_races`: this tree's kernel at every
+    slice width (``new(S)``; keys ``new/S``) and, where ``old`` is given
+    (``(fn(S), its default S)``), the other tree's at every width (keys
+    ``old/S``), each held to ``want`` (:func:`sum_check`) and launched
+    twice for equal bits, then timed in turns; ``lib`` (or None) is the
+    library call, timed once; ``default`` is the key of the wrappers'
+    default instance.  Prints and returns the record: per instance its
+    ms, spread and gather rate (``gathered`` bytes over ms), the fastest
+    of each tree, the ties (gap no more than either's spread), this
+    tree's default against the other's."""
+    from roc_tpu_torch.kernels import slicing
+    fns = {}
+    errs = {}
+    cands = [(f"new/{S}", functools.partial(new, S))
+             for S in slicing.SLICE_COLS]
+    if old is not None:
+        cands = [(f"old/{S}", functools.partial(old[0], S))
+                 for S in slicing.SLICE_COLS] + cands
+    for key, fn in cands:
+        got = fn()
+        ok, err = sum_check(torch, got, want)
+        if not (ok and torch.equal(got, fn())):
+            raise AssertionError(f"{label} {key}: max_abs_err {err}, or "
+                                 "two launches differ")
+        errs[key] = err
+        fns[key] = fn
+        del got
+    readings = _turns(torch, fns)
+    b, by = bound_ms(nbytes, nops)
+    try:
+        lib_ms = time_ms(torch, lib, 3) if lib is not None else None
+    except RuntimeError:     # no such call for this dtype here
+        lib_ms = None
+    rec = {"phase": "gather_race", "case": label, "kernel": kernel,
+           "dtype": str(x.dtype), "shape": list(x.shape),
+           "gathered_gb": gathered / 1e9, "bound_ms": b, "bound_by": by,
+           "library_ms": lib_ms, "default": default, "instances": {}}
+    for k, r in readings.items():
+        ms = sum(r) / len(r)
+        rec["instances"][k] = {"ms": ms, "spread": abs(r[0] - r[1]),
+                               "gather_tb_s": gathered / ms / 1e9,
+                               "max_abs_err": errs[k]}
+    inst = rec["instances"]
+    new_keys = [k for k in inst if k.startswith("new/")]
+    fastest = min(new_keys, key=lambda k: inst[k]["ms"])
+    rec["fastest"] = fastest
+    rec["ties"] = [k for k in new_keys if inst[k]["ms"] - inst[fastest]["ms"]
+                   <= max(inst[k]["spread"], inst[fastest]["spread"])]
+    d = inst[default]
+    if old is not None:
+        rec["old_default"] = f"old/{old[1]}"
+        rec["old_fastest"] = min((k for k in inst if k.startswith("old/")),
+                                 key=lambda k: inst[k]["ms"])
+        o = inst[rec["old_default"]]
+        rec["old_over_default"] = o["ms"] / d["ms"]
+        rec["old_faster"] = (d["ms"] - o["ms"]
+                             > max(d["spread"], o["spread"]))
+    log(rec)
+    return rec
+
+
+def gather_races(torch, ds, gctx, other=None):
+    """K3 and K4 at every shape of PERF.md's kernel table, each at every
+    slice width, and with ``other`` (:func:`other_gathers`) against the
+    other tree's kernels at every width, in turns (:func:`_race_case`):
+    the ceiling (:func:`gather_ceiling`); Reddit's shape (``ds``, ``gctx``
+    its ELL tables) at F = 256 and 41 and K4 at F = 602, in fp32 and
+    bf16; the arxiv shape at F = 128; K3 at the
+    blocked walk's first chunk (F = 602); K3 at the ring's first hop of
+    part 0 of 2 (F = 256 and 41, both dtypes).  K3's main pass is timed
+    over precomputed row ranges (the pre-pass is the same on both
+    sides).  Gates nothing but the results: timed work."""
+    from roc_tpu_torch.core.graph import synthetic_dataset
+    from roc_tpu_torch.core.partition import (padded_edge_list,
+                                              partition_col,
+                                              partition_plan)
+    from roc_tpu_torch.core.streaming import BLOCK_ROWS, build_tile_plans
+    from roc_tpu_torch.kernels import ell_spmm, spmm
+    from roc_tpu_torch.kernels._build import kernel_ops
+    from roc_tpu_torch.parallel.ring import RING_MULTIPLE, ring_part_tables
+    from roc_tpu_torch.train.trainer import make_graph_context
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(SEED + 7)
+    recs = [gather_ceiling(torch, other)]
+
+    def ell_cases(tag, g, ctx, widths, dtypes):
+        idx, rid = ctx.ell_idx, ctx.ell_row_id
+        Vg, E = g.num_nodes, g.num_edges
+        ids = 4 * sum(int(a.numel()) for a in (*idx, *rid))
+        for dtype in dtypes:
+            adj = torch.sparse_csr_tensor(
+                torch.from_numpy(g.row_ptr).to(dev),
+                torch.from_numpy(g.col_idx.astype(np.int64)).to(dev),
+                torch.ones(E, device=dev, dtype=dtype), size=(Vg, Vg),
+                check_invariants=False)
+            es = 2 if dtype == torch.bfloat16 else 4
+            for F in widths:
+                x = torch.randn((Vg, F), generator=gen, device=dev).to(dtype)
+                old = None if other is None else (
+                    functools.partial(other["ell"], x, idx, rid, Vg),
+                    other["default"]("ell_aggregate", dtype, F))
+                recs.append(_race_case(
+                    torch, f"{tag}/F={F}", "ell_aggregate", x,
+                    lambda S, x=x: ell_spmm.ell_aggregate(
+                        x, idx, rid, Vg, slice_cols=S), old,
+                    ell_spmm.ell_aggregate_plain(x, idx, rid, Vg),
+                    lambda x=x: torch.sparse.mm(adj, x),
+                    2 * es * Vg * F + ids, kernel_ops("ell_aggregate", Vg,
+                                                      E, F),
+                    E * F * es,
+                    f"new/{ell_spmm.default_slice_cols(F, dtype)}"))
+                del x
+            del adj
+            torch.cuda.empty_cache()
+
+    def csr_case(tag, x, src, row_ptr, num_rows, chunk, n_real, nbytes,
+                 adj, want):
+        F = x.shape[1]
+        old = None if other is None else (
+            functools.partial(other["csr"], x, src, row_ptr, num_rows),
+            other["default"]("csr_spmm", x.dtype, F))
+        es = x.element_size()
+        recs.append(_race_case(
+            torch, f"{tag}/F={F}", "csr_spmm", x,
+            lambda S: spmm.csr_spmm(x, src, None, num_rows, chunk=chunk,
+                                    slice_cols=S, row_ptr=row_ptr),
+            old, want, (lambda: torch.sparse.mm(adj, x)) if adj is not None
+            else None, nbytes, kernel_ops("csr_spmm", num_rows, n_real, F),
+            n_real * F * es,
+            f"new/{spmm.default_slice_cols(F, x.dtype)}"))
+
+    def csr_cases(tag, g, widths, dtypes):
+        Vg, E = g.num_nodes, g.num_edges
+        esrc, edst = (torch.from_numpy(a).to(dev)
+                      for a in padded_edge_list(g, multiple=512))
+        rp = spmm.csr_row_ptr(edst, Vg)
+        for dtype in dtypes:
+            adj = torch.sparse_csr_tensor(
+                torch.from_numpy(g.row_ptr).to(dev),
+                torch.from_numpy(g.col_idx.astype(np.int64)).to(dev),
+                torch.ones(E, device=dev, dtype=dtype), size=(Vg, Vg),
+                check_invariants=False)
+            es = 2 if dtype == torch.bfloat16 else 4
+            for F in widths:
+                x = torch.randn((Vg, F), generator=gen, device=dev).to(dtype)
+                csr_case(tag, x, esrc, rp, Vg, 512, E,
+                         2 * es * Vg * F + 8 * int(esrc.numel()), adj,
+                         spmm.csr_spmm_plain(x, esrc, edst, Vg))
+                del x
+            del adj
+            torch.cuda.empty_cache()
+        del esrc, edst, rp
+
+    both = (torch.float32, torch.bfloat16)
+    g = ds.graph
+    ell_cases("reddit", g, gctx, (256, 41), both)
+    ell_cases("reddit", g, gctx, (LAYERS[0],), both)
+    csr_cases("reddit", g, (256, 41), both)
+    # the arxiv shape, the zoo's input width
+    za = synthetic_dataset(ZOO_V, ZOO_DEGREE, in_dim=ZOO_LAYERS[0],
+                           num_classes=ZOO_LAYERS[-1], seed=SEED,
+                           name="arxiv_shape")
+    zctx = make_graph_context(za, "cuda", symmetric=True)
+    ell_cases("arxiv", za.graph, zctx, (ZOO_LAYERS[0],), both)
+    del zctx
+    csr_cases("arxiv", za.graph, (ZOO_LAYERS[0],), both)
+    del za
+    # the blocked walk's first chunk (walk_k3_check's shape)
+    t = build_tile_plans(g, BLOCK_ROWS)[0][0]
+    src, dst, _, rows = next(iter(t.dev_chunks(WALK_EDGE_CHUNK, dev,
+                                               cache=False)))
+    block = torch.from_numpy(np.ascontiguousarray(
+        ds.features[t.src_lo:t.src_lo + t.src_rows], dtype=np.float32)
+    ).to(dev)
+    real = src != t.src_rows
+    n_real = int(real.sum())
+    rp = spmm.csr_row_ptr(dst, rows)
+    adj = torch.sparse_csr_tensor(
+        torch.searchsorted(dst[real].contiguous(), torch.arange(
+            rows + 1, device=dev, dtype=torch.int32)),
+        src[real].long(), torch.ones(n_real, device=dev),
+        size=(rows, t.src_rows), check_invariants=False)
+    n_src = int(torch.unique(src[real]).numel())
+    csr_case("walk", block, src, rp, rows, 1, n_real,
+             4 * (n_src + rows) * LAYERS[0] + 8 * int(src.numel()), adj,
+             spmm.csr_spmm_plain(block, src, dst, rows))
+    del block, src, dst, adj, rp
+    # the ring's first hop: part 0 of 2, pair 0
+    plan = partition_plan(g.row_ptr, 2)
+    tabs = ring_part_tables(plan, 0, partition_col(
+        plan, lambda a, b: g.col_idx[a:b], 0))
+    pn = plan.part_nodes
+    n = int(tabs["real"][0])
+    src = torch.from_numpy(tabs["src"][0]).to(dev)
+    rp = torch.from_numpy(tabs["row_ptr"][0]).to(dev)
+    dst = spmm.dst_from_row_ptr(rp, src.numel())
+    for dtype in both:
+        adj = torch.sparse_csr_tensor(rp, src[:n].long(), torch.ones(
+            n, device=dev, dtype=dtype), size=(pn, pn),
+            check_invariants=False)
+        es = 2 if dtype == torch.bfloat16 else 4
+        for F in (256, 41):
+            x = torch.randn((pn, F), generator=gen, device=dev).to(dtype)
+            csr_case("ring_hop", x, src, rp, pn, RING_MULTIPLE, n,
+                     2 * pn * F * es + n * 4 + (pn + 1) * 8, adj,
+                     spmm.csr_spmm_plain(x, src, dst, pn))
+            del x
+        del adj
+    del src, rp, dst
+    torch.cuda.empty_cache()
+    return recs
+
+
+def gather_race_main(out_path=None, other=None):
+    """:func:`gather_races` alone on card 0, on the Reddit shape built
+    here: ``python3 chip_smoke.py --gather-race [out.json] [--old
+    DIR]``, DIR a checkout of another commit whose kernels race this
+    tree's in turns.  Prints each kernel instance's registers, shared
+    memory and spills (``ptxas``) first."""
+    import torch
+    from roc_tpu_torch.kernels import _build
+    from roc_tpu_torch.ops.dense import set_fp32_matmul_precision
+    from roc_tpu_torch.train.trainer import make_graph_context
+    torch.cuda.set_device(0)
+    set_fp32_matmul_precision()
+    _build.library()
+    print(card_line(), flush=True)
+    log({"phase": "build", "seconds": _build.build_seconds,
+         "ptxas": [ln.strip() for entry in _build.build_log
+                   for ln in entry.splitlines() if "registers" in ln
+                   or "spill" in ln or "Compiling entry" in ln]})
+    old = other_gathers(other) if other else None
+    t0 = time.perf_counter()
+    ds = reddit_dataset()
+    gctx = make_graph_context(ds, "cuda", symmetric=True)
+    log({"phase": "gather_race_data", "seconds": time.perf_counter() - t0,
+         "E": ds.graph.num_edges})
+    recs = gather_races(torch, ds, gctx, old)
+    if out_path:
+        with open(out_path, "w") as f:
+            json.dump(recs, f)
+    print(card_line(), flush=True)
+    return recs
 
 
 REQUEST_SIZES = (1, 8, 64, 512)
@@ -7157,6 +7555,11 @@ def _main(torch, root, prep, t_start) -> int:
         torch.cuda.empty_cache()
     del esrc, edst
     torch.cuda.empty_cache()
+    if DEEP:
+        # the gather's ceiling and every kernel table shape, and with
+        # --old DIR the other tree's K3 and K4 in turns
+        gather_races(torch, ds, gctx,
+                     other_gathers(OTHER_TREE) if OTHER_TREE else None)
 
     # every main path below is driven with the counts zeroed just before
     # and read just after (Launches)
@@ -7568,7 +7971,21 @@ if __name__ == "__main__":
             sys.exit(1)
         first_gather(sys.argv[2] if len(sys.argv) > 2 else None)
         sys.exit(0)
+    if sys.argv[1:2] == ["--gather-race"]:
+        import torch
+        if not torch.cuda.is_available():
+            print("chip_smoke: no CUDA device", file=sys.stderr)
+            sys.exit(1)
+        rest = sys.argv[2:]
+        other = None
+        if "--old" in rest:
+            other = rest[rest.index("--old") + 1]
+            del rest[rest.index("--old"):rest.index("--old") + 2]
+        gather_race_main(rest[0] if rest else None, other)
+        sys.exit(0)
     if "--deep" in sys.argv[1:]:
         os.environ["CHIP_SMOKE_DEEP"] = "1"
         DEEP = True
+    if "--old" in sys.argv[1:]:
+        OTHER_TREE = sys.argv[sys.argv.index("--old") + 1]
     sys.exit(main())

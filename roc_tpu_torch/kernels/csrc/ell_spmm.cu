@@ -13,20 +13,30 @@
 // output row: no [rows, F] bucket output to concatenate and permute
 // afterwards.
 //
-// Bound on the H100: the bytes of gathered rows and where they come from
-// (see row_gather.cuh). The unsliced warp-per-row schedule gathers at F =
-// 256 mostly from HBM (~3.8 TB/s of gathered bytes, 29.5 ms in fp32).
+// Bound on the H100 (80GB HBM3, 700 W): the rate of its gathers, E * F *
+// sizeof(E) bytes a call, every segment from L2 at least.  Measured
+// (chip_smoke.py --gather-race, gather_ceiling: this kernel at F = 256
+// fp32, slice 32, one bucket of 512 ids a row): 7.8 TB/s with random and
+// with sequential ids alike, 13.8-14.5 with ids in 128 rows that L1
+// holds: the L2-to-SM rate bounds it, 20-30x above the time of moving
+// each input byte once.  The unsliced warp-per-row schedule gathers at F
+// = 256 mostly from HBM (~3.8 TB/s of gathered bytes, 29.5 ms in fp32).
 // Design: the column-sliced, slice-major gather-sum of row_gather.cuh, one
 // warp per (bucket row, slice), the slice on blockIdx.y so that all blocks
 // of one slice run before the next and its V * S * sizeof(E) bytes of feats
-// stay in L2; the fp32 gathers then come from L2 at ~7.8 TB/s (14.6 ms).
-// HBM carries feats once per bucket launch, out once, and the bucket's ids
-// once per slice (ceil(F / S) passes). Lane groups fill the warp on narrow
-// slices and combine in a fixed tree: no atomics, the same bits on every
-// launch. The slice width S is a template parameter, one instance each for
-// 16, 32, 64, 128 and 0 (unsliced, which stays the faster one at F = 41);
-// the wrapper picks it per F and dtype from a race on the card
-// (kernels/ell_spmm.py).
+// stay in L2; the fp32 gathers then come from L2 at the ceiling (~7.7
+// TB/s, 14.9 ms).  Rows move in the widest unit their starts allow
+// (row_gather.cuh unit_bytes): at F = 602, the SGC's hop, fp32 rows of
+// 8-byte units take 44.1 ms at slice 32 (68.7 in one-element units) and
+// bf16 rows of 4-byte units 22.6 ms unsliced (65.3).  HBM carries feats
+// once per bucket launch, out once, and the bucket's ids once per slice
+// (ceil(F / S) passes). Lane groups fill the warp on narrow slices and
+// combine in a fixed tree: no atomics, the same bits on every launch. The
+// slice width S is a template parameter, one instance each for 16, 32, 64,
+// 128 and 0 (unsliced, which stays the faster one at F <= 64 and over
+// units narrower than 8 bytes), and the unit another; the wrapper picks
+// the width per F and dtype from a race on the card (kernels/ell_spmm.py),
+// the launch the unit from the addresses.
 // The TPU kernel's 8-row DMA groups and SMEM index staging answer the
 // TPU's (8, 128) HBM tiling and scalar-core DMA issue; neither exists here.
 
@@ -36,7 +46,7 @@ using roc_gather::kWarpsPerBlock;
 
 namespace {
 
-template <typename E, int S, bool VEC>
+template <typename E, int S, int B>
 __global__ void __launch_bounds__(kWarpsPerBlock * 32)
     ell_bucket_sum(const E* __restrict__ feats, const int* __restrict__ idx,
                    const int* __restrict__ row_id, E* __restrict__ out,
@@ -46,7 +56,7 @@ __global__ void __launch_bounds__(kWarpsPerBlock * 32)
   if (r >= rows) return;  // uniform across the warp
   const int dst = row_id[r];
   if (dst < 0 || dst >= num_rows) return;
-  roc_gather::warp_gather_sum<E, S, VEC>(feats, idx + (long long)r * width,
+  roc_gather::warp_gather_sum<E, S, B>(feats, idx + (long long)r * width,
                                          width, dummy, F,
                                          out + (long long)dst * F, lane);
 }
@@ -57,12 +67,13 @@ void launch(const E* feats, const int* idx, const int* row_id, E* out,
             cudaStream_t stream) {
   const dim3 grid((unsigned)((rows + kWarpsPerBlock - 1) / kWarpsPerBlock),
                   roc_gather::num_slices(S, F));
-  if (roc_gather::use_vec(feats, out, F))
-    ell_bucket_sum<E, S, true><<<grid, kWarpsPerBlock * 32, 0, stream>>>(
-        feats, idx, row_id, out, rows, width, dummy, num_rows, F);
-  else
-    ell_bucket_sum<E, S, false><<<grid, kWarpsPerBlock * 32, 0, stream>>>(
-        feats, idx, row_id, out, rows, width, dummy, num_rows, F);
+  const int unit = roc_gather::unit_bytes(feats, out, F);
+  roc_gather::with_unit<E>(unit, [&](auto B) {
+    ell_bucket_sum<E, S, decltype(B)::value>
+        <<<grid, kWarpsPerBlock * 32, 0, stream>>>(
+            feats, idx, row_id, out, rows, width, dummy,
+            num_rows, F);
+  });
 }
 
 template <typename E>

@@ -3,12 +3,19 @@
 // csr_spmm_pallas) and K4 (ell_spmm.cu, rows of a degree bucket; replaces
 // roc_tpu/kernels/ell_spmm.py ell_aggregate_pallas).
 //
-// What bounds it on the H100 (80GB HBM3, 700 W): the bytes of gathered rows
-// and where they come from. At F = 256 one call gathers E * F * 4 = 114.4 GB
-// (E = 111.7 M edges) out of a 238 MB feats, 4.8x the 50 MB L2. A warp per
-// row walking all of F (the unsliced schedule) gathers at ~3.8 TB/s, the
-// 3.35 TB/s memory rate plus what L2 happens to hold: most gathered lines
-// come from HBM. Making the gathers hit L2 is what helps.
+// What bounds it on the H100 (80GB HBM3, 700 W): the rate at which it
+// gathers row segments, E * F * sizeof(E) bytes a call (114.4 GB at F =
+// 256 in fp32, E = 111.7 M edges, out of a 238 MB feats, 4.8x the 50 MB
+// L2).  The ceiling, measured (chip_smoke.py --gather-race,
+// gather_ceiling: K4 at F = 256 fp32, slice 32, one bucket of 512 ids a
+// row over V = 232,965 rows): 7.8 TB/s with ids uniform over V and the
+// same with sequential ids (whose 29.8 MB slice L2 holds too, so neither
+// reads HBM for most segments), 13.8-14.5 TB/s when the ids fall in 128
+// rows that L1 holds.  So the L2-to-SM rate bounds it, not the rate of
+// issuing loads; the bound that counts each input byte once is 20-30x
+// out of reach for a gather of random rows.  The sliced instances over
+// rows of 16-byte units gather at that ceiling (7.5-7.9 TB/s at F = 256
+// in fp32 and bf16, and at the ring hop).
 //
 // Design: column slices, walked slice-major.  The kernels split F into
 // slices of S columns (S = 16, 32, 64, 128) and put the slice on
@@ -29,21 +36,36 @@
 //
 // One warp sums one (row, slice), in chunks of t <= 32 units, each in
 // G = 32 / t lane groups of t lanes: group g takes the neighbours j with
-// j % G == g, so one load instruction serves G neighbours.  A unit is 16
-// bytes where F fills whole units and both arrays are 16-byte aligned (a
-// float4, or 8 bf16 unpacked into 8 fp32 accumulators), else one element
-// (S = 32 in fp32: 8 lanes cover a segment, 4 neighbours per instruction).
-// F = 41 in bf16 (82-byte rows, 2-byte aligned) takes the element path.
-// Each lane issues kUnroll loads before it adds them.  The ids are loaded
-// 32 at a time, one per lane, with a streaming hint (__ldcs), and
-// broadcast by __shfl_sync; the sums are stored with __stcs: neither
-// evicts the feature slice from L2.
+// j % G == g, so one load instruction serves G neighbours.  A unit is the
+// widest of 16, 8 and 4 bytes on which every row of both arrays starts
+// (unit_bytes: the lowest set bit of F * sizeof(E) and of the two
+// addresses), else one element: fp32 rows of 2,408 bytes (F = 602) move
+// as 8-byte units, bf16 rows of 1,204 as 4-byte ones, and F = 41 (164
+// bytes in fp32, 82 in bf16) one element a lane.  Units narrower than 16
+// bytes are what closes most of the unaligned widths' gap: at F = 602 the
+// 8-byte units took K3's walk chunk from 0.66 to 0.41 ms and K4 from 68.7
+// to 44.1 ms (fp32) and from 65.3 to 22.6 ms (bf16), on the H100 above.
+// Two designs that move such rows as aligned 16-byte units lost to it:
+// realigning them in registers (each lane's next unit by __shfl_down_sync,
+// a funnel shift at the row's own offset; 3.15 TB/s at F = 41 against the
+// element path's 5.4, 2.8 at F = 602 unsliced) and copying them into
+// shared memory by asynchronous bulk copies, an mbarrier a stage (1.3-5.0
+// TB/s across the kernel table's shapes, 3.4 on the ceiling's bucket:
+// the SM's rate of issuing copies and adds; its best, 0.547 ms at the
+// walk's chunk, is slower than the 8-byte units').  Each lane issues kUnroll
+// loads before it adds them.  The ids are loaded 32 at a time, one per
+// lane, with a streaming hint (__ldcs), and broadcast by __shfl_sync; the
+// sums are stored with __stcs: neither evicts the feature slice from L2.
 //
 // S = 0 is the unsliced instance, the warp-per-row schedule (lanes
 // stride over all of F, a neighbour's row in back-to-back loads).  It
-// stays the choice where feats fits L2 anyway: at F = 41 (38 MB, rows of
-// 164 unaligned bytes) it beats every sliced instance, and a lane-grouped
-// tail for columns 32-40 was slower than its mostly idle second load.
+// stays the choice where feats fits L2 anyway (F <= 64: at F = 41 it
+// beats every sliced instance, and a lane-grouped tail for columns 32-40
+// was slower than its mostly idle second load) and for rows of units
+// narrower than 8 bytes (at F = 602, one-element fp32 units: 45.2 ms
+// unsliced against 68.7-84.0 sliced; 4-byte bf16 units: 22.6 against
+// 35.7-56.6).  Over 8-byte units it loses (88.0 ms at F = 602: its
+// 128-column tile of V rows, 119 MB, is more than L2 holds).
 //
 // Deterministic: a lane adds its neighbours in a fixed order, and the lane
 // groups combine in a fixed tree (group g takes group g + off for off =
@@ -70,19 +92,21 @@ constexpr int kVec = 2;     // accumulators per lane, unsliced
 constexpr int kUnroll = 4;  // loads a lane issues before it adds them, sliced
 constexpr unsigned kFull = 0xffffffffu;
 
-// eight fp32 accumulators: the sum of one 16-byte unit of bf16
-struct Float8 {
-  float v[8];
+// N fp32 accumulators: the sum of one unit of 2N bf16 bytes
+template <int N>
+struct Floats {
+  float v[N];
 };
 
 // A unit of the gather: Raw is what one lane loads (and stores), Acc its
 // fp32 sum.  add() adds a loaded unit, combine() a lane's sum to another's,
 // store() / store_cs() write a sum (the latter with the streaming hint).
-template <typename E, bool VEC>
+// B is the unit's bytes: 16, 8, 4, or one element (sizeof(E)).
+template <typename E, int B>
 struct Unit;
 
 template <>
-struct Unit<float, false> {
+struct Unit<float, 4> {
   using Raw = float;
   using Acc = float;
   static constexpr int kCols = 1;
@@ -103,8 +127,38 @@ struct Unit<float, false> {
   }
 };
 
+// fp32, 8 bytes: 2 columns
 template <>
-struct Unit<float, true> {
+struct Unit<float, 8> {
+  using Raw = float2;
+  using Acc = float2;
+  static constexpr int kCols = 2;
+  static __device__ __forceinline__ Raw zero_raw() {
+    return make_float2(0.f, 0.f);
+  }
+  static __device__ __forceinline__ Acc zero() { return zero_raw(); }
+  static __device__ __forceinline__ void add(Acc& a, const Raw b) {
+    a.x += b.x;
+    a.y += b.y;
+  }
+  static __device__ __forceinline__ void combine(Acc& a, const Acc b) {
+    add(a, b);
+  }
+  static __device__ __forceinline__ Acc shfl_down(const Acc a, int d) {
+    return make_float2(__shfl_down_sync(kFull, a.x, d),
+                       __shfl_down_sync(kFull, a.y, d));
+  }
+  static __device__ __forceinline__ void store(Raw* p, const Acc a) {
+    *p = a;
+  }
+  static __device__ __forceinline__ void store_cs(Raw* p, const Acc a) {
+    __stcs(p, a);
+  }
+};
+
+// fp32, 16 bytes: 4 columns
+template <>
+struct Unit<float, 16> {
   using Raw = float4;
   using Acc = float4;
   static constexpr int kCols = 4;
@@ -137,7 +191,7 @@ struct Unit<float, true> {
 
 // bf16, one element: the raw 16 bits, widened exactly to fp32
 template <>
-struct Unit<__nv_bfloat16, false> {
+struct Unit<__nv_bfloat16, 2> {
   using Raw = unsigned short;
   using Acc = float;
   static constexpr int kCols = 1;
@@ -160,11 +214,79 @@ struct Unit<__nv_bfloat16, false> {
   }
 };
 
-// bf16, 16 bytes: 8 columns, element k in the k/2-th word (low half first)
+// bf16, 4 and 8 bytes: 2 and 4 columns, element k in the k/2-th word (low
+// half first)
 template <>
-struct Unit<__nv_bfloat16, true> {
+struct Unit<__nv_bfloat16, 4> {
+  using Raw = unsigned;
+  using Acc = Floats<2>;
+  static constexpr int kCols = 2;
+  static __device__ __forceinline__ Raw zero_raw() { return 0u; }
+  static __device__ __forceinline__ Acc zero() { return Acc{{0.f, 0.f}}; }
+  static __device__ __forceinline__ void add(Acc& a, const Raw b) {
+    a.v[0] += roc_bf16::lo(b);
+    a.v[1] += roc_bf16::hi(b);
+  }
+  static __device__ __forceinline__ void combine(Acc& a, const Acc b) {
+    a.v[0] += b.v[0];
+    a.v[1] += b.v[1];
+  }
+  static __device__ __forceinline__ Acc shfl_down(const Acc a, int d) {
+    return Acc{{__shfl_down_sync(kFull, a.v[0], d),
+                __shfl_down_sync(kFull, a.v[1], d)}};
+  }
+  static __device__ __forceinline__ void store(Raw* p, const Acc a) {
+    *p = roc_bf16::pack2(a.v[0], a.v[1]);
+  }
+  static __device__ __forceinline__ void store_cs(Raw* p, const Acc a) {
+    __stcs(p, roc_bf16::pack2(a.v[0], a.v[1]));
+  }
+};
+
+template <>
+struct Unit<__nv_bfloat16, 8> {
+  using Raw = uint2;
+  using Acc = Floats<4>;
+  static constexpr int kCols = 4;
+  static __device__ __forceinline__ Raw zero_raw() {
+    return make_uint2(0u, 0u);
+  }
+  static __device__ __forceinline__ Acc zero() {
+    return Acc{{0.f, 0.f, 0.f, 0.f}};
+  }
+  static __device__ __forceinline__ void add(Acc& a, const Raw b) {
+    a.v[0] += roc_bf16::lo(b.x);
+    a.v[1] += roc_bf16::hi(b.x);
+    a.v[2] += roc_bf16::lo(b.y);
+    a.v[3] += roc_bf16::hi(b.y);
+  }
+  static __device__ __forceinline__ void combine(Acc& a, const Acc b) {
+#pragma unroll
+    for (int k = 0; k < 4; ++k) a.v[k] += b.v[k];
+  }
+  static __device__ __forceinline__ Acc shfl_down(const Acc a, int d) {
+    Acc o;
+#pragma unroll
+    for (int k = 0; k < 4; ++k) o.v[k] = __shfl_down_sync(kFull, a.v[k], d);
+    return o;
+  }
+  static __device__ __forceinline__ Raw pack(const Acc a) {
+    return make_uint2(roc_bf16::pack2(a.v[0], a.v[1]),
+                      roc_bf16::pack2(a.v[2], a.v[3]));
+  }
+  static __device__ __forceinline__ void store(Raw* p, const Acc a) {
+    *p = pack(a);
+  }
+  static __device__ __forceinline__ void store_cs(Raw* p, const Acc a) {
+    __stcs(p, pack(a));
+  }
+};
+
+// bf16, 16 bytes: 8 columns
+template <>
+struct Unit<__nv_bfloat16, 16> {
   using Raw = uint4;
-  using Acc = Float8;
+  using Acc = Floats<8>;
   static constexpr int kCols = 8;
   static __device__ __forceinline__ Raw zero_raw() {
     return make_uint4(0u, 0u, 0u, 0u);
@@ -209,13 +331,29 @@ struct Unit<__nv_bfloat16, true> {
   }
 };
 
-// Whether the 16-byte unit path may run: F fills whole units and both row
-// arrays are 16-byte aligned (then every row start, and every slice
-// start, is too).
+// The widest unit, 16, 8 or 4 bytes or one element, on which every row of
+// both arrays starts: the lowest set bit of the row bytes and the two
+// addresses, at most 16 (then every slice start, a multiple of 16 bytes
+// into its row, is on a unit too).
 template <typename E>
-inline bool use_vec(const E* feats, const E* out, int F) {
-  return F % Unit<E, true>::kCols == 0 && ((uintptr_t)feats % 16) == 0 &&
-         ((uintptr_t)out % 16) == 0;
+inline int unit_bytes(const E* feats, const E* out, int F) {
+  const uintptr_t a = (uintptr_t)feats | (uintptr_t)out |
+                      (uintptr_t)F * sizeof(E) | (uintptr_t)16;
+  return (int)(a & (~a + 1));
+}
+
+// Calls f(std::integral_constant<int, B>()) for the unit bytes B of
+// unit_bytes().
+template <typename E, typename Fn>
+void with_unit(int B, Fn&& f) {
+  switch (B) {
+    case 16: f(std::integral_constant<int, 16>()); break;
+    case 8: f(std::integral_constant<int, 8>()); break;
+    case 4: f(std::integral_constant<int, 4>()); break;
+    default:
+      if constexpr (sizeof(E) == 2) f(std::integral_constant<int, 2>());
+      break;
+  }
 }
 
 // The slice widths the kernels are instantiated for (0: unsliced).
@@ -245,12 +383,12 @@ inline unsigned num_slices(int S, int F) {
 // issued back to back, and F = 256 fits one pass (wider F loops over
 // column tiles).  All 32 lanes of the warp call it together (n is uniform
 // across the warp).
-template <typename E, bool VEC>
+template <typename E, int B>
 __device__ __forceinline__ void warp_row_sum(const E* __restrict__ feats,
                                              const int* __restrict__ ids,
                                              int n, int dummy, int F,
                                              E* __restrict__ orow, int lane) {
-  using U = Unit<E, VEC>;
+  using U = Unit<E, B>;
   using Raw = typename U::Raw;
   constexpr int kTile = kVec * 32 * U::kCols;
   for (int c0 = 0; c0 < F; c0 += kTile) {
@@ -286,15 +424,15 @@ __device__ __forceinline__ void warp_row_sum(const E* __restrict__ feats,
 // slice is walked in chunks of t <= 32 units, each in G = 32 / t lane
 // groups of t lanes: group g sums the neighbours j with j % G == g,
 // kUnroll of its neighbours' loads issued before it adds them, and the
-// groups combine in a fixed tree.  All 32 lanes call it together; VEC
-// requires c0 and W to be multiples of the unit's columns.
-template <typename E, bool VEC>
+// groups combine in a fixed tree.  All 32 lanes call it together; c0 and
+// W are multiples of the unit's columns.
+template <typename E, int B>
 __device__ __forceinline__ void warp_slice_sum(const E* __restrict__ feats,
                                                const int* __restrict__ ids,
                                                int n, int dummy, int F, int c0,
                                                int W, E* __restrict__ orow,
                                                int lane) {
-  using U = Unit<E, VEC>;
+  using U = Unit<E, B>;
   using Raw = typename U::Raw;
   constexpr int kC = U::kCols;
   const Raw* __restrict__ src = reinterpret_cast<const Raw*>(feats + c0);
@@ -337,17 +475,17 @@ __device__ __forceinline__ void warp_slice_sum(const E* __restrict__ feats,
 }
 
 // The gather-sum of one (row, slice) for the instance of slice width S.
-template <typename E, int S, bool VEC>
+template <typename E, int S, int B>
 __device__ __forceinline__ void warp_gather_sum(const E* __restrict__ feats,
                                                 const int* __restrict__ ids,
                                                 int n, int dummy, int F,
                                                 E* __restrict__ orow,
                                                 int lane) {
   if constexpr (S == 0) {
-    warp_row_sum<E, VEC>(feats, ids, n, dummy, F, orow, lane);
+    warp_row_sum<E, B>(feats, ids, n, dummy, F, orow, lane);
   } else {
     const int c0 = (int)blockIdx.y * S;
-    warp_slice_sum<E, VEC>(feats, ids, n, dummy, F, c0, min(S, F - c0), orow,
+    warp_slice_sum<E, B>(feats, ids, n, dummy, F, c0, min(S, F - c0), orow,
                            lane);
   }
 }

@@ -21,23 +21,32 @@
 //   slice) sums the edge range [row_ptr[v], row_ptr[v + 1]) with the
 //   shared gather-sum of row_gather.cuh.
 //
-// Bound on the H100: the bytes of gathered rows and where they come from
-// (see row_gather.cuh). A warp per row walking all of F (the unsliced
-// instance) gathers at F = 256 mostly from HBM (~3.7 TB/s of gathered
-// bytes, 31 ms in fp32). The main pass is column-sliced and slice-major
-// (the slice on blockIdx.y, so all row blocks of one slice run before the
-// next and its V * S * sizeof(E) bytes of feats stay in L2); the fp32
-// gathers then come from L2 at ~8 TB/s (14.3 ms). HBM carries feats once,
-// out once, and edge_src and row_ptr once per slice (ceil(F / S) passes,
-// the price of slicing). Without the pre-pass every slice would repeat two
-// binary searches per row over the whole edge list. Lane groups fill the
-// warp on narrow slices and combine in a fixed tree: no atomics, so a
-// row's sum is the same bits on every launch. The slice width is a
-// template parameter, one instance each for 16, 32, 64, 128 and 0
-// (unsliced: a warp per row walking all of F over the pre-pass's ranges,
-// which stays the faster one at F = 41); the wrapper picks it per F and
-// dtype from a race on the card (kernels/spmm.py). A warp per row still
-// serialises a hub row's edges; balancing hub rows is later work.
+// Bound on the H100 (80GB HBM3, 700 W): the rate of its gathers, E * F *
+// sizeof(E) bytes a call, every segment from L2 at least.  The L2-to-SM
+// rate measured for these gathers is ~7.8 TB/s (chip_smoke.py
+// --gather-race, row_gather.cuh), 20-30x above the time of moving each
+// input byte once.  A warp per row walking all of F (the unsliced
+// instance) gathers at F = 256 mostly from HBM (~3.7 TB/s, 31 ms in fp32).
+// The main pass is column-sliced and slice-major (the slice on
+// blockIdx.y, so all row blocks of one slice run before the next and its
+// V * S * sizeof(E) bytes of feats stay in L2); the fp32 gathers then come
+// from L2 at the ceiling (7.8-8.0 TB/s, 14.3-14.5 ms). Rows move in the
+// widest unit their starts allow (row_gather.cuh unit_bytes): at the
+// blocked walk's chunk (F = 602 fp32, 2,408-byte rows on 8-byte units,
+// 7,732 output rows) slice 64 in 8-byte units takes 0.41 ms, against
+// 0.66 in one-element units and torch.sparse.mm's 0.55. HBM carries feats
+// once, out once, and edge_src and row_ptr once per slice (ceil(F / S)
+// passes, the price of slicing). Without the pre-pass every slice would
+// repeat two binary searches per row over the whole edge list. Lane
+// groups fill the warp on narrow slices and combine in a fixed tree: no
+// atomics, so a row's sum is the same bits on every launch. The slice
+// width is a template parameter, one instance each for 16, 32, 64, 128
+// and 0 (unsliced: a warp per row walking all of F over the pre-pass's
+// ranges, which stays the faster one at F <= 64 and over units narrower
+// than 8 bytes), and the unit another; the wrapper picks the width per F
+// and dtype from a race on the card (kernels/spmm.py), the launch the
+// unit from the addresses. A warp per row still serialises a hub row's
+// edges; balancing hub rows is later work.
 
 #include "row_gather.cuh"
 
@@ -69,7 +78,7 @@ __global__ void __launch_bounds__(kRowPtrThreads)
   row_ptr[v] = lower_bound(dst, 0, num_edges, (int)v);
 }
 
-template <typename E, int S, bool VEC>
+template <typename E, int S, int B>
 __global__ void __launch_bounds__(kWarpsPerBlock * 32)
     csr_row_sum(const E* __restrict__ feats, const int* __restrict__ src,
                 const long long* __restrict__ row_ptr, E* __restrict__ out,
@@ -79,7 +88,7 @@ __global__ void __launch_bounds__(kWarpsPerBlock * 32)
   if (v >= num_rows) return;  // uniform across the warp
   const long long lo = row_ptr[v];
   const long long hi = row_ptr[v + 1];
-  roc_gather::warp_gather_sum<E, S, VEC>(feats, src + lo, (int)(hi - lo),
+  roc_gather::warp_gather_sum<E, S, B>(feats, src + lo, (int)(hi - lo),
                                          dummy, F, out + (long long)v * F,
                                          lane);
 }
@@ -89,12 +98,12 @@ void launch(const E* feats, const int* src, const long long* row_ptr, E* out,
             int dummy, int num_rows, int F, cudaStream_t stream) {
   const dim3 grid((unsigned)((num_rows + kWarpsPerBlock - 1) / kWarpsPerBlock),
                   roc_gather::num_slices(S, F));
-  if (roc_gather::use_vec(feats, out, F))
-    csr_row_sum<E, S, true><<<grid, kWarpsPerBlock * 32, 0, stream>>>(
-        feats, src, row_ptr, out, dummy, num_rows, F);
-  else
-    csr_row_sum<E, S, false><<<grid, kWarpsPerBlock * 32, 0, stream>>>(
-        feats, src, row_ptr, out, dummy, num_rows, F);
+  const int unit = roc_gather::unit_bytes(feats, out, F);
+  roc_gather::with_unit<E>(unit, [&](auto B) {
+    csr_row_sum<E, S, decltype(B)::value>
+        <<<grid, kWarpsPerBlock * 32, 0, stream>>>(
+            feats, src, row_ptr, out, dummy, num_rows, F);
+  });
 }
 
 template <typename E>

@@ -61,13 +61,15 @@ _WIDE = {torch.float32: 32, torch.bfloat16: 64}
 
 def default_slice_cols(F: int, dtype: torch.dtype = torch.float32) -> int:
     """K4's slice width for F columns of ``dtype`` (slicing.py):
-    unsliced up to ``slicing.NARROW_F``, the dtype's F = 256 winner
-    above.  In fp32 the race in chip_smoke.py (PERF.md) puts 32 and 64
+    unsliced up to ``slicing.NARROW_F`` and for rows that are not whole
+    8-byte units, the dtype's F = 256 winner above.  In fp32 the race in
+    chip_smoke.py (PERF.md) puts 32 and 64
     level at F = 256, both 2x the unsliced schedule, except that 64,
     whose slice (V * 256 bytes) is larger than the 50 MB L2, sometimes
     runs ~8 % slower; 32 does not.  In bf16 the race's winner is 64,
     the bytes of fp32's 32, tied with 128 (PERF.md)."""
-    return slicing.default_slice_cols(F, wide=_WIDE.get(dtype, 32))
+    return slicing.default_slice_cols(F, wide=_WIDE.get(dtype, 32),
+                                      itemsize=dtype.itemsize)
 
 
 def ell_aggregate_plain(feats: torch.Tensor,

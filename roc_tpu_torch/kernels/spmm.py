@@ -83,12 +83,14 @@ _WIDE = {torch.float32: 64, torch.bfloat16: 128}
 
 
 def default_slice_cols(F: int, dtype: torch.dtype = torch.float32) -> int:
-    """K3's slice width for F columns of ``dtype`` (slicing.py):
-    unsliced up to ``slicing.NARROW_F``, the dtype's F = 256 winner
-    above: in fp32 64, the fastest instance of the race in chip_smoke.py
-    at F = 256 (PERF.md), 2x the unsliced schedule; in bf16 128, the
-    bytes of fp32's 64 and the bf16 race's winner (PERF.md)."""
-    return slicing.default_slice_cols(F, wide=_WIDE.get(dtype, 64))
+    """K3's slice width for F columns of ``dtype`` (slicing.py): unsliced
+    up to ``slicing.NARROW_F`` and for rows that are not whole 8-byte
+    units, the dtype's F = 256 winner above: in fp32 64, the fastest
+    instance of the race in chip_smoke.py at F = 256 (PERF.md), 2x the
+    unsliced schedule; in bf16 128, the bytes of fp32's 64 and the bf16
+    race's winner (PERF.md)."""
+    return slicing.default_slice_cols(F, wide=_WIDE.get(dtype, 64),
+                                      itemsize=dtype.itemsize)
 
 
 def dst_from_row_ptr(row_ptr: torch.Tensor, num_edges: int

@@ -260,26 +260,74 @@ def test_csr_spmm_every_slice_width(dev, sliced_graph, F, S):
     _check_sliced(got, again, csr_spmm_plain(x, src, dst, V), x, g)
 
 
-@pytest.mark.parametrize("S", SLICE_COLS)
-def test_unaligned_feats_take_the_scalar_path(dev, sliced_graph, S):
-    """A feats view that starts 4 bytes off a 16-byte boundary at F = 256
-    runs the float (not float4) path of both kernels, and agrees."""
+# widths whose rows are not whole 16-byte units (and 4 and 256, whose
+# are): in fp32 rows of 8 bytes a unit (2, 6, 602) and of one element (1,
+# 3, 41, 47), in bf16 of 4 bytes (2, 6, 602) and of one element (odd F)
+UNALIGNED_FS = (1, 2, 3, 4, 6, 41, 47, 256, 602)
+
+
+@pytest.fixture(scope="module")
+def hub_graph():
+    """A ragged graph on the host whose row 1 has degree 4,500 (a hub
+    past 4,096 ids, several chunks of a block's id window), row 2 degree
+    0: ELL tables (padding ids in every bucket) and the edge list padded
+    to 512 (padding edges on the last row)."""
+    from roc_tpu_torch.core.partition import padded_edge_list
+    rng = np.random.RandomState(13)
+    V = 2003
+    src = np.concatenate([rng.randint(0, V, V * 6), rng.randint(0, V, 4500)])
+    dst = np.concatenate([rng.randint(0, V, V * 6), np.full(4500, 1)])
+    keep = dst != 2
+    g = from_edge_list(src[keep], dst[keep], V)
+    t = ell_from_graph(g.row_ptr, g.col_idx, V)
+    assert g.row_ptr[2] - g.row_ptr[1] >= 4096
+    return g, t, padded_edge_list(g, multiple=512)
+
+
+def _neighbour_sums(dev, graph, x, S):
+    """K4 and K3 at slice width S on ``x``: per kernel its result, a
+    second launch's and the plain version's."""
     from roc_tpu_torch.kernels.spmm import csr_spmm, csr_spmm_plain
-    g, t, edges = sliced_graph
-    V, F = g.num_nodes, 256
-    base = torch.from_numpy(np.random.RandomState(5).randn(V * F + 1)
-                            .astype(np.float32)).to(dev)
-    x = base[1:].view(V, F)
-    assert x.data_ptr() % 16 and x.is_contiguous()
+    g, t, edges = graph
+    V = g.num_nodes
     idx = tuple(torch.from_numpy(a[0]).to(dev) for a in t.idx)
     rid = tuple(torch.from_numpy(a[0]).to(dev) for a in t.row_id)
-    _check_sliced(ell_aggregate(x, idx, rid, V, slice_cols=S),
-                  ell_aggregate(x, idx, rid, V, slice_cols=S),
-                  ell_aggregate_plain(x, idx, rid, V), x, g)
     src, dst = (torch.from_numpy(a).to(dev) for a in edges)
-    _check_sliced(csr_spmm(x, src, dst, V, slice_cols=S),
-                  csr_spmm(x, src, dst, V, slice_cols=S),
-                  csr_spmm_plain(x, src, dst, V), x, g)
+    kw = dict(slice_cols=S)
+    return [(ell_aggregate(x, idx, rid, V, **kw),
+             ell_aggregate(x, idx, rid, V, **kw),
+             ell_aggregate_plain(x, idx, rid, V)),
+            (csr_spmm(x, src, dst, V, **kw), csr_spmm(x, src, dst, V, **kw),
+             csr_spmm_plain(x, src, dst, V))]
+
+
+def _unaligned(dev, V, F, dtype, seed, shift):
+    """A [V, F] view ``shift`` elements into a flat tensor: with shift 1
+    its base one element off a 16-byte unit (for odd F the rows 1: of a
+    [V + 1, F] tensor), with shift 0 on one; either way, for F not a
+    multiple of 16 bytes, each row at its own offset from a unit."""
+    flat = torch.from_numpy(np.random.RandomState(seed).randn(V * F + 1)
+                            .astype(np.float32)).to(dev, dtype)
+    x = flat[shift:shift + V * F].view(V, F)
+    assert bool(x.data_ptr() % 16) == bool(shift) and x.is_contiguous()
+    return x
+
+
+@pytest.mark.parametrize("S", SLICE_COLS)
+@pytest.mark.parametrize("shift", [0, 1])
+@pytest.mark.parametrize("F", UNALIGNED_FS)
+def test_unaligned_feats_take_the_scalar_path(dev, hub_graph, F, S, shift):
+    """fp32 rows that start off a 16-byte unit (a misaligned base, or F
+    not a multiple of 4) in K3 and K4 at every slice width, gathered in
+    the widest unit every row start allows (8 bytes where F is even and
+    the base on 8 bytes, else one element: the test's name).  Each agrees
+    with its plain version (rtol 1e-5, atol 1e-5 * max|row|), gives the
+    same bits on a second launch, 0 on the degree-0 row, and the
+    degree-4,500 hub row matches a float64 sum."""
+    g = hub_graph[0]
+    x = _unaligned(dev, g.num_nodes, F, torch.float32, F, shift)
+    for got, again, want in _neighbour_sums(dev, hub_graph, x, S):
+        _check_sliced(got, again, want, x, g)
 
 
 def test_csr_row_ptr_prepass(dev, sliced_graph):
@@ -310,7 +358,7 @@ def test_default_slice_width_runs_on_the_card(dev, sliced_graph):
     idx = tuple(torch.from_numpy(a[0]).to(dev) for a in t.idx)
     rid = tuple(torch.from_numpy(a[0]).to(dev) for a in t.row_id)
     src, dst = (torch.from_numpy(a).to(dev) for a in edges)
-    for F in (41, 256):
+    for F in (41, 256, 602):
         x = torch.randn((V, F), device=dev)
         assert torch.equal(
             ell_aggregate(x, idx, rid, V),
@@ -479,25 +527,22 @@ def test_bf16_neighbour_sums_every_slice_width(dev, sliced_graph, F, S):
 
 
 @pytest.mark.parametrize("S", SLICE_COLS)
-def test_bf16_unaligned_feats_take_the_element_path(dev, sliced_graph, S):
-    """A bf16 feats view 2 bytes off a 16-byte boundary at F = 256 runs
-    the element (not 16-byte) path of K3 and K4, and agrees."""
-    from roc_tpu_torch.kernels.spmm import csr_spmm, csr_spmm_plain
-    g, t, edges = sliced_graph
-    V, F = g.num_nodes, 256
-    base = torch.from_numpy(np.random.RandomState(6).randn(V * F + 1)
-                            .astype(np.float32)).to(dev, torch.bfloat16)
-    x = base[1:].view(V, F)
-    assert x.data_ptr() % 16 and x.is_contiguous()
-    idx = tuple(torch.from_numpy(a[0]).to(dev) for a in t.idx)
-    rid = tuple(torch.from_numpy(a[0]).to(dev) for a in t.row_id)
-    src, dst = (torch.from_numpy(a).to(dev) for a in edges)
-    _check_bf16_sum(ell_aggregate(x, idx, rid, V, slice_cols=S),
-                    ell_aggregate(x, idx, rid, V, slice_cols=S),
-                    ell_aggregate_plain(x, idx, rid, V))
-    _check_bf16_sum(csr_spmm(x, src, dst, V, slice_cols=S),
-                    csr_spmm(x, src, dst, V, slice_cols=S),
-                    csr_spmm_plain(x, src, dst, V))
+@pytest.mark.parametrize("shift", [0, 1])
+@pytest.mark.parametrize("F", UNALIGNED_FS)
+def test_bf16_unaligned_feats_take_the_element_path(dev, hub_graph, F, S,
+                                                    shift):
+    """bf16 rows that start off a 16-byte unit (a base 2 bytes off, or F
+    not a multiple of 8: 82-byte rows at F = 41) in K3 and K4 at every
+    slice width, gathered in the widest unit every row start allows (4
+    bytes where F is even and the base on 4 bytes, else one element: the
+    test's name).  Each is within one bf16 ulp of the row's magnitude of
+    its plain version, the same bits on a second launch, 0 on the
+    degree-0 row."""
+    g = hub_graph[0]
+    x = _unaligned(dev, g.num_nodes, F, torch.bfloat16, F + 7, shift)
+    for got, again, want in _neighbour_sums(dev, hub_graph, x, S):
+        _check_bf16_sum(got, again, want)
+        assert not got[2].any()
 
 
 def test_kernels_refuse_other_float_types(dev, sliced_graph):

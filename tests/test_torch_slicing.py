@@ -48,24 +48,27 @@ def _sum_tol(want):
 @pytest.mark.parametrize("F", [1, 41, 64, 65, 256, 602])
 def test_default_slice_cols_is_the_race_choice(name, wide, F):
     """Each kernel's default is a compiled width: unsliced (the F = 41
-    winner) up to NARROW_F columns, the kernel's F = 256 winner above."""
+    winner) up to NARROW_F columns and for fp32 rows that are not whole
+    8-byte units (odd F: 65), the kernel's F = 256 winner above (also at
+    F = 602, rows of 8-byte units)."""
     got = WRAPPERS[name].default_slice_cols(F)
     assert got in slicing.SLICE_COLS
-    assert got == (0 if F <= slicing.NARROW_F else wide)
+    assert got == (0 if F <= slicing.NARROW_F or F % 2 else wide)
     assert got == slicing.default_slice_cols(F, wide)
 
 
 @pytest.mark.parametrize("name,wide", [("ell_aggregate", 64),
                                        ("csr_spmm", 128)])
-@pytest.mark.parametrize("F", [41, 64, 65, 256])
+@pytest.mark.parametrize("F", [41, 64, 65, 256, 260, 602])
 def test_bf16_default_slice_cols_is_the_bf16_race_choice(name, wide, F):
     """In bf16 a slice of S columns holds the bytes of an fp32 slice of
     S / 2: the bf16 race's winners at F = 256 are 64 (K4) and 128 (K3),
-    unsliced up to NARROW_F as in fp32; fp32 keeps its own."""
+    unsliced up to NARROW_F and for rows that are not whole 8-byte units
+    (F not a multiple of 4: 65, 602) as in fp32; fp32 keeps its own."""
     mod = WRAPPERS[name]
     got = mod.default_slice_cols(F, torch.bfloat16)
     assert got in slicing.SLICE_COLS
-    assert got == (0 if F <= slicing.NARROW_F else wide)
+    assert got == (0 if F <= slicing.NARROW_F or F % 4 else wide)
     assert mod.default_slice_cols(F, torch.float32) == \
         mod.default_slice_cols(F)
 
@@ -137,6 +140,46 @@ def test_csr_spmm_every_width_matches_pallas(S):
                         torch.from_numpy(ed), V, chunk=64, slice_cols=S)
     np.testing.assert_allclose(got.numpy(), want, **_sum_tol(want))
     assert not got[2].any()
+
+
+def _wrapper_call(name, x, V, seed=0, **kw):
+    """``name``'s wrapper on ``x`` over the ragged graph of seed
+    ``seed`` (K4 on its ELL tables, K3 on its edge list padded to 64)."""
+    src, dst, _ = _edges(V, seed=seed)
+    g = from_edge_list(src, dst, V)
+    if name == "ell_aggregate":
+        t = ell_from_graph(g.row_ptr, g.col_idx, V)
+        return ell_spmm.ell_aggregate(
+            x, tuple(torch.from_numpy(a[0]) for a in t.idx),
+            tuple(torch.from_numpy(a[0]) for a in t.row_id), V, **kw)
+    es, ed = (torch.from_numpy(a) for a in padded_edge_list(g, 64))
+    return spmm.csr_spmm(x, es, ed, V, chunk=64, **kw)
+
+
+@pytest.mark.parametrize("F,dtype,code", [
+    (66, torch.float32, {"csr_spmm": 64, "ell_aggregate": 32}),
+    (67, torch.float32, {"csr_spmm": 0, "ell_aggregate": 0}),
+    (41, torch.float32, {"csr_spmm": 0, "ell_aggregate": 0}),
+    (66, torch.bfloat16, {"csr_spmm": 0, "ell_aggregate": 0}),
+    (68, torch.bfloat16, {"csr_spmm": 128, "ell_aggregate": 64})])
+@pytest.mark.parametrize("name", sorted(WRAPPERS))
+def test_call_records_its_default_instance(name, F, dtype, code):
+    """A call without slice_cols stands for the default instance of its
+    shape, whatever its row count (the plain version records it on the
+    CPU, as the kernel would launch it on the card): unsliced for rows
+    that are not whole 8-byte units, the kernel's wide width else."""
+    from roc_tpu_torch.kernels import _build
+    S = code[name]
+    assert WRAPPERS[name].default_slice_cols(F, dtype) == S
+    sfx = _build.DTYPE_SUFFIX[dtype]
+    for V in (300, 20):
+        before = _build.instances_planned()
+        _wrapper_call(name, torch.ones(V, F, dtype=dtype), V)
+        got = _build.instances_since(before, _build.instances_planned())
+        want = [f"{name}[{sfx}]@{F}/{S}"]
+        if name == "csr_spmm":
+            want.insert(0, "csr_row_ptr")
+        assert got == want, got
 
 
 @pytest.mark.parametrize("multiple", [1, 64, 512])
