@@ -7,8 +7,10 @@
 The Reddit and products shapes are built on the host by a process of
 their own (:func:`prep_datasets`) and saved as .npy in a temporary
 directory that every later phase maps; phase 12 runs meanwhile, right
-after the ragged checks.  Each phase child (12, 14-19) and the kill
-drill's children are started one phase ahead and wait for their turn
+after the ragged checks, with phase 23's host work (the converter's
+runs) in this process beside it and its card work after it.  Each
+phase child (12, 14-19) and the kill drill's children are started one
+phase ahead and wait for their turn
 (:class:`_Child`), so a process's start overlaps the phase before.
 Phases 13 and 14 and 15 and 16 share the card two at a time, 17, 19,
 20 and 21 four (:func:`_run_together`; no gate of theirs reads a time), and 18,
@@ -355,6 +357,27 @@ Phases (any failure exits nonzero):
    ``roc_tpu_torch/obs/sentinel.py`` with torch blocked gives the same
    payloads; ``bench_verdict`` in process is ok.
 
+23. data (``data``, in this process): beside phase 12's child, the
+   host's part: the port's converter run as a user runs it, ``python -m
+   roc_tpu_torch.convert_dataset``, on cora-synth and karate, each
+   written file's sha256 equal to :data:`CONVERTED_SHA256` (the JAX
+   script's bytes); then, once the prep has written it, a DGL-layout
+   pair at Reddit's shape written from the prep's dataset, one direction
+   of each edge with every seventh repeated and no self edge, converted
+   with ``--no-csv``: the loaded graph equal to the prep's (the
+   converter symmetrises, dedupes and adds the self edges back), the
+   features, labels and mask to the dataset's; the converter's wall and
+   peak RSS.  After the child has ended, so that no time of either
+   shares the card: the port's CLI in this process on the card,
+   each run with the counts zeroed just before and read just after:
+   BASELINE.md config 1 (:data:`CONFIG1`, the 2-layer GCN 1433-16-7,
+   scripts/cora_run.sh's flags) in fp32 and in 'mixed', each to test
+   and val accuracy >= 85 %, and the karate club (:data:`KARATE`) to
+   test accuracy >= 80 %; each with ``--impl auto`` resolved to
+   'cuda', the manifest's platform 'gpu', K4, K1, the masked K1 and K2
+   launched in the mode's dtype and no plain version standing in; the
+   accuracies, steady ``epoch_ms`` and wall printed beside the card.
+
 ``python3 chip_smoke.py --first-gather [out.json]`` (:func:`first_gather`,
 not in the default run) takes a small sharded fleet's first requests
 apart: in process through ``Server``, through a router, the replicas'
@@ -368,8 +391,9 @@ the products shape on 'attn_flat8', 'ell' and 'cuda', fp32 and 'mixed',
 Prints one JSON line per phase, the kernel table line
 ``{"kernels": [...]}`` (one row per kernel and dtype, e.g.
 ``ell_aggregate[bf16]``, K1's masked form as ``indegree_norm_masked``;
-launches counted over the serve, train, dist, recovery, zoo, precompute,
-layouts, memory, ring, mesh, fleet, routes, prewarm and lint slices of that dtype; the F = 128 checks as each
+launches counted over the serve, train, dist, recovery, zoo, data,
+precompute, layouts, memory, ring, mesh, fleet, routes, prewarm and lint
+slices of that dtype; the F = 128 checks as each
 row's ``zoo_shapes``, the F = 602 ones as ``akx_shapes`` (K1, K2 and K4
 at the SGC's raw width), K3's walk check as ``walk_shapes`` and its ring
 hops as ``ring_shapes``), the card line, and as the last line
@@ -382,6 +406,7 @@ import dataclasses
 import functools
 import json
 import os
+import re
 import signal
 import subprocess
 import sys
@@ -417,6 +442,47 @@ KERNELS = {
 }
 # the launch counters' dtype keys (kernels/_build.py DTYPE_SUFFIX)
 F32, BF16 = "f32", "bf16"
+# The sha256 of each file ``python -m roc_tpu_torch.convert_dataset
+# --dataset NAME --out PREFIX`` writes for the two datasets made without
+# raw files.  The JAX package's scripts/convert_dataset.py writes these
+# bytes (tests/test_torch_convert_dataset.py holds the constants to its
+# output), so the data phase holds this machine's conversion to it.
+CONVERTED_SHA256 = {
+    "cora-synth": {
+        ".add_self_edge.lux":
+            "216e442a1b78ae173df63aacba087af62fb1d3d0cba99d875a6034756e545636",
+        ".feats.bin":
+            "ae6127b087a92c7cd4148580b4db3aab458d4516694817f718594accdc62008d",
+        ".feats.csv":
+            "cf1dea3682317e6c6bc70ca18d962a4eee6f6d6e9ef8f0ce0e938d66162b9263",
+        ".label":
+            "fd7b79c121b00da7a39fd5e7c5b592fa90d7b98d1166b7119e89d60b8d96177f",
+        ".mask":
+            "7f220936f303e5cfab122359dfde60bf46f8068d6c24284eaeb4b45035c2715d"},
+    "karate": {
+        ".add_self_edge.lux":
+            "83ca75734ad228c5ce9836051b77ccd3ae7971060d5ec410386468efd5807cf4",
+        ".feats.bin":
+            "460a2e8dd4dbfef121cf8d2865bea7289ccbaaff1be560f8b011ba3dc4d32e7f",
+        ".feats.csv":
+            "b413ced7fd6820ec7baa06155fdc16e84c89c265f29824f4c3a822b0d770314c",
+        ".label":
+            "de3400591c6600bf6a2228d5b8f113bc4e5fc55bebafad98a892b6ad045eee9f",
+        ".mask":
+            "b18ef5706071915a4b140a416d466a7ba959d2dfcb471d2073ceff83acae5364"}}
+# BASELINE.md config 1, the 2-layer GCN 1433-16-7 on Cora with
+# scripts/cora_run.sh's flags, and its floor on test and val accuracy
+# (%), the JAX gate's (tests/test_dataset_convert.py
+# test_cora_accuracy_gate)
+CONFIG1 = ["-layers", "1433-16-7", "-lr", "0.01", "-decay", "5e-4",
+           "-dropout", "0.5", "-e", "200", "--eval-every", "50"]
+CONFIG1_FLOOR = 85.0
+# the karate club from its two labelled leaders, and its floor on test
+# accuracy (%; tests/test_dataset_convert.py
+# test_karate_real_data_cli_convergence_gate)
+KARATE = ["-layers", "34-16-2", "-lr", "0.02", "-decay", "5e-4",
+          "-dropout", "0.0", "-e", "150", "--eval-every", "150"]
+KARATE_FLOOR = 80.0
 # The timed work that gates nothing runs only with ``--deep`` (the
 # children read it from CHIP_SMOKE_DEEP): the slice-width races' timings
 # (phase 3, K3 at the walk's shape), the step profiles past phase 7's,
@@ -7351,6 +7417,284 @@ def attention_race(out_path=None):
     return out
 
 
+CONVERTED_SUFFIXES = (".add_self_edge.lux", ".feats.bin", ".feats.csv",
+                      ".label", ".mask")
+
+
+def _sha256(path, chunk=1 << 24):
+    import hashlib
+    h = hashlib.sha256()
+    with open(path, "rb") as f:
+        for block in iter(lambda: f.read(chunk), b""):
+            h.update(block)
+    return h.hexdigest()
+
+
+def convert_cli(dataset, out, raw_dir=None, no_csv=False, timeout=900):
+    """``python -m roc_tpu_torch.convert_dataset`` in a process of its
+    own, as a user runs it.  Returns its wall seconds, its peak resident
+    set (GB; its ``/proc/<pid>/statm`` read every 50 ms: ``ru_maxrss``
+    would carry this process's size, which a child inherits) and its
+    printed lines; raises on a nonzero exit or a run past ``timeout``
+    seconds."""
+    here = os.path.dirname(os.path.abspath(__file__))
+    cmd = [sys.executable, "-m", "roc_tpu_torch.convert_dataset",
+           "--dataset", dataset, "--out", out]
+    cmd += ["--raw-dir", raw_dir] if raw_dir else []
+    cmd += ["--no-csv"] if no_csv else []
+    env = dict(os.environ, PYTHONPATH=here + os.pathsep
+               + os.environ.get("PYTHONPATH", ""))
+    page, rss = os.sysconf("SC_PAGE_SIZE"), 0
+    with tempfile.TemporaryFile("w+") as log_f:
+        t0 = time.perf_counter()
+        proc = subprocess.Popen(cmd, cwd=here, env=env, stdout=log_f,
+                                stderr=subprocess.STDOUT, text=True)
+        statm = f"/proc/{proc.pid}/statm"
+        while proc.poll() is None:
+            try:
+                with open(statm) as f:
+                    rss = max(rss, int(f.read().split()[1]) * page)
+            except (OSError, IndexError, ValueError):
+                pass    # the process ended between the poll and the read
+            if time.perf_counter() - t0 > timeout:
+                proc.kill()
+                proc.wait()
+                raise AssertionError(f"{' '.join(cmd)}: still ran after "
+                                     f"{timeout} s")
+            time.sleep(0.05)
+        wall = time.perf_counter() - t0
+        log_f.seek(0)
+        lines = log_f.read().splitlines()
+    if proc.returncode != 0:
+        raise AssertionError(f"{' '.join(cmd)}: exit {proc.returncode}:\n"
+                             + "\n".join(lines[-20:]))
+    return {"wall_s": wall, "rss_peak_gb": rss / 1e9, "printed": lines}
+
+
+def convert_pinned(root):
+    """cora-synth and karate through :func:`convert_cli` (default flags)
+    under ``root``, each written file's sha256 held to
+    :data:`CONVERTED_SHA256`.  Returns ``{name: (prefix, record)}``."""
+    out = {}
+    for name in ("cora-synth", "karate"):
+        prefix = os.path.join(root, name, name)
+        rec = convert_cli(name, prefix)
+        got = {s: _sha256(prefix + s) for s in CONVERTED_SUFFIXES}
+        rec["sha256_equal"] = got == CONVERTED_SHA256[name]
+        if not rec["sha256_equal"]:
+            raise AssertionError(f"{name}: the converted files' sha256 "
+                                 f"{got} are not the JAX script's "
+                                 f"{CONVERTED_SHA256[name]}")
+        out[name] = (prefix, rec)
+    return out
+
+
+_ACCURACY = re.compile(r"val_accuracy: ([0-9.]+)%.*test_accuracy: "
+                       r"([0-9.]+)%")
+
+
+# the kernels of the GCN's path on 'cuda': K1, its masked form in the
+# relu backward, K2 and K4
+CUDA_ROUTE_KERNELS = ("indegree_norm", "indegree_norm_masked", "scale_act",
+                      "ell_aggregate")
+
+
+def cli_gate(torch, counts, prefix, flags, mode, floor, root, tag,
+             gate_val=True):
+    """The port's CLI (``train/cli.py main``) in this process on the card:
+    ``-file prefix`` with ``flags``, ``--dtype mode`` and the event and
+    metrics files, with the launch counts zeroed just before and read
+    just after.  Holds: exit 0, test accuracy (and with ``gate_val`` val
+    accuracy) >= ``floor`` (%) on the last ``[INFER]`` line, the
+    ``resolve`` event of ``--impl auto`` naming 'cuda', the manifest's
+    platform 'gpu', every kernel of :data:`CUDA_ROUTE_KERNELS` launched
+    in the mode's dtype, and no plain version standing in for a kernel
+    (kernels/_build.py ``instances_planned``)."""
+    import io
+    from roc_tpu_torch.kernels import _build
+    from roc_tpu_torch.obs import events
+    from roc_tpu_torch.train import cli
+    key = F32 if mode == "float32" else BF16
+    ev, met = (os.path.join(root, f"{tag}_{mode}.{x}.jsonl")
+               for x in ("events", "metrics"))
+    planned = _build.instances_planned()
+    buf = io.StringIO()
+    counts.zero()
+    t0 = time.perf_counter()
+    hook = sys.excepthook
+    try:
+        with contextlib.redirect_stdout(buf):
+            rc = cli.main(["-file", prefix] + flags + [
+                "--dtype", mode, "--events", ev, "--metrics", met])
+    finally:
+        # the CLI's event sinks and its flight-record hook end with it
+        events.configure()
+        sys.excepthook = hook
+    wall = time.perf_counter() - t0
+    launches = counts.read(key)
+    lines = [ln for ln in buf.getvalue().splitlines()
+             if ln.startswith("[INFER]")]
+    with open(ev) as f:
+        recs = [json.loads(ln) for ln in f]
+    with open(met) as f:
+        epoch_ms = [json.loads(ln)["epoch_ms"] for ln in f]
+    resolved = [r["resolved"] for r in recs if r["cat"] == "resolve"
+                and r.get("requested") == "auto"]
+    platform = [r["platform"] for r in recs if r["cat"] == "manifest"]
+    val, test = (float(x) for x in _ACCURACY.search(lines[-1]).groups()) \
+        if lines else (None, None)
+    rec = {"mode": mode, "rc": rc, "val_acc": val, "test_acc": test,
+           "infer": lines, "resolved": resolved, "platform": platform,
+           "epoch_ms": epoch_ms,
+           "steady_epoch_ms": float(np.median(epoch_ms[1:] or epoch_ms)),
+           "wall_s": wall, "launches": launches,
+           "plain_calls": {k: n - planned.get(k, 0) for k, n in
+                           _build.instances_planned().items()
+                           if n != planned.get(k, 0)}}
+    if rc != 0 or test is None or test < floor or (gate_val
+                                                   and val < floor):
+        raise AssertionError(f"{tag} {mode}: below the {floor} % floor "
+                             f"or failed: {rec}")
+    if resolved != ["cuda"] or platform != ["gpu"] or rec["plain_calls"]:
+        raise AssertionError(f"{tag} {mode}: not on the card's 'cuda' "
+                             f"route alone: {rec}")
+    if not all((launches[k] if k == "indegree_norm_masked"
+                else launches[k][key]) for k in CUDA_ROUTE_KERNELS):
+        raise AssertionError(f"{tag} {mode}: a kernel of the path never "
+                             f"ran: {launches}")
+    return rec
+
+
+def reddit_pair(root, ds):
+    """A DGL-layout pair at Reddit's shape from ``ds``, whose graph is
+    symmetric with every self edge: ``reddit_data.npz`` (feature, label,
+    node_types from the mask, whose codes are DGL's) and
+    ``reddit_graph.npz``, a COO adjacency of one direction of each edge
+    (source below destination), no self edge, every seventh edge given
+    twice and the repeats after the rest, so that the converter's
+    symmetrising, dedupe, sort and self-edge insertion all have work.
+    Converted by :func:`convert_cli` with ``--no-csv``.  Holds the
+    loaded graph to ``ds``'s edges as numpy orders them here, not
+    through the converter's functions: the same row pointers, and each
+    row its other neighbours ascending, then its self edge (the JAX
+    script's order for a self edge it adds); the features, labels and
+    mask to ``ds``'s.  Returns the write, convert and check seconds, the
+    converter's peak RSS and the sizes."""
+    import scipy.sparse as sp
+    from roc_tpu_torch.core.graph import load_dataset
+    raw = os.path.join(root, "reddit_raw")
+    os.makedirs(raw)
+    g = ds.graph
+    V = g.num_nodes
+    row_ptr = np.asarray(g.row_ptr)
+    t0 = time.perf_counter()
+    np.savez(os.path.join(raw, "reddit_data.npz"),
+             feature=np.asarray(ds.features),
+             label=np.asarray(ds.labels, dtype=np.int64),
+             node_types=np.asarray(ds.mask, dtype=np.int64))
+    dst = np.repeat(np.arange(V, dtype=np.int32), np.diff(row_ptr))
+    src = np.asarray(g.col_idx, dtype=np.int32)
+    one = src < dst
+    dst, src = dst[one], src[one]
+    del one
+    n_one = int(dst.size)
+    dst = np.concatenate([dst, dst[::7]])
+    src = np.concatenate([src, src[::7]])
+    raw_edges, repeats = int(dst.size), int(dst.size) - n_one
+    sp.save_npz(os.path.join(raw, "reddit_graph.npz"),
+                sp.coo_matrix((np.ones(dst.size, dtype=np.float32),
+                               (dst, src)), shape=(V, V)),
+                compressed=False)
+    del dst, src
+    write_s = time.perf_counter() - t0
+    prefix = os.path.join(root, "reddit_conv", "reddit")
+    rec = convert_cli("reddit", prefix, raw_dir=raw, no_csv=True)
+    t0 = time.perf_counter()
+    got = load_dataset(prefix, ds.in_dim, ds.num_classes)
+
+    def order_keys(gr):
+        # dst * (V + 1) + src, the self edge's src taken as V: ascending
+        # within a row puts the self edge last
+        d = np.repeat(np.arange(V, dtype=np.int64),
+                      np.diff(np.asarray(gr.row_ptr)))
+        c = np.asarray(gr.col_idx, dtype=np.int64)
+        return d * (V + 1) + np.where(c == d, V, c)
+    got_keys = order_keys(got.graph)
+    # ds's rows are ascending but for a self edge in place; timsort
+    # ("stable") sorts such runs in about one pass
+    want_keys = np.sort(order_keys(g), kind="stable")
+    same = {
+        "graph": bool(np.array_equal(got.graph.row_ptr, row_ptr)
+                      and np.array_equal(got_keys, want_keys)),
+        "features": bool(np.array_equal(got.features, ds.features)),
+        "labels": bool(np.array_equal(got.labels, ds.labels)),
+        "mask": bool(np.array_equal(got.mask, ds.mask))}
+    del got_keys, want_keys
+    check_s = time.perf_counter() - t0
+    out = {"V": got.graph.num_nodes, "E": got.graph.num_edges,
+           "raw_edges": raw_edges, "raw_repeats": repeats,
+           "in_dim": got.in_dim, "classes": got.num_classes,
+           "raw_bytes": sum(os.path.getsize(os.path.join(raw, f))
+                            for f in os.listdir(raw)),
+           "write_raw_s": write_s, "convert_s": rec["wall_s"],
+           "convert_rss_peak_gb": rec["rss_peak_gb"], "check_s": check_s,
+           "same": same, "printed": rec["printed"]}
+    del got
+    if not all(same.values()):
+        raise AssertionError(f"the converted Reddit pair differs: {out}")
+    return out
+
+
+def data_host(root, reddit):
+    """Phase 23's host part: the port's converter run as a user runs it
+    on cora-synth and karate (:func:`convert_pinned`), then
+    :func:`reddit_pair` on ``reddit()``, the Reddit shape.  Logs one
+    phase line per conversion; returns ``(record, {name: prefix})``."""
+    t0 = time.perf_counter()
+    droot = os.path.join(root, "data")
+    os.makedirs(droot)
+    conv = convert_pinned(droot)
+    for name, (_, r) in conv.items():
+        log({"phase": "data_convert", "dataset": name, **r})
+    rec = {"convert": {k: r for k, (_, r) in conv.items()}}
+    rec["reddit_pair"] = reddit_pair(droot, reddit())
+    log({"phase": "data_reddit_pair", "card": card_line(),
+         **rec["reddit_pair"]})
+    rec["host_s"] = time.perf_counter() - t0
+    return rec, {k: p for k, (p, _) in conv.items()}
+
+
+def data_gates(torch, root, prefixes):
+    """Phase 23's card part: the datasets :func:`data_host` converted
+    (``prefixes``) through the port's CLI on the card, each run with its
+    own launch counts: config 1 (:data:`CONFIG1`) in fp32 and in
+    'mixed', each to test and val accuracy >= :data:`CONFIG1_FLOOR` on
+    'cuda' with K4, K1, the masked K1 and K2 launched (:func:`cli_gate`),
+    and the karate gate (:data:`KARATE`, test accuracy >=
+    :data:`KARATE_FLOOR`) in fp32.  Logs one phase line per run and
+    returns ``({run: record}, counts, seconds)``."""
+    t0 = time.perf_counter()
+    card = card_line()
+    counts = Launches(torch)
+    runs = {}
+    # karate's val split is its two members beside the leaders: the
+    # JAX gate holds test accuracy alone
+    for tag, name, flags, floor, modes in (
+            ("config1", "cora-synth", CONFIG1, CONFIG1_FLOOR,
+             ("float32", "mixed")),
+            ("karate", "karate", KARATE, KARATE_FLOOR, ("float32",))):
+        for mode in modes:
+            r = cli_gate(torch, counts, prefixes[name], flags, mode, floor,
+                         root, tag, gate_val=tag == "config1")
+            runs[f"{tag}/{mode}"] = r
+            log({"phase": "data_gate", "run": tag, "card": card,
+                 **{k: r[k] for k in (
+                     "mode", "val_acc", "test_acc", "steady_epoch_ms",
+                     "epoch_ms", "wall_s", "resolved", "launches")},
+                 "infer": r["infer"][-1]})
+    return runs, counts, time.perf_counter() - t0
+
+
 class Launches:
     """The kernel wrappers' launch counts: :meth:`zero` sets them to 0,
     :meth:`read` returns them and adds them to ``counted[dtype][kernel]``,
@@ -7419,15 +7763,6 @@ def start_zoo_child(tmp):
     """:func:`zoo_child` pre-started, writing ``tmp``/zoo.json."""
     out = os.path.join(tmp, "zoo.json")
     return _Child(f"zoo_child({out!r})", 600, "phase 12 (zoo)")
-
-
-def run_zoo_child(tmp, pre=None):
-    """:func:`zoo_child` in a fresh Python process, its phase lines on
-    this process's output; returns what it wrote, and raises if it
-    failed."""
-    (pre or start_zoo_child(tmp)).run()
-    with open(os.path.join(tmp, "zoo.json")) as f:
-        return json.load(f)
 
 
 def main() -> int:
@@ -7499,10 +7834,30 @@ def _main(torch, root, prep, t_start) -> int:
     # check, training runs (each with the counts zeroed just before and
     # read just after, added to the table's) and, with --deep, step
     # profiles
+    # 23. the data phase: beside the zoo child only its host work (the
+    # port's converter on cora-synth and karate, then, once the prep has
+    # it, the Reddit shape as a DGL pair); config 1 and the karate gate
+    # through the port's CLI on the card once the child has ended, so
+    # that neither reads a time on a shared card
     if DEEP:
         _await_prep(prep, products)
     sys.stdout.flush()
-    zoo = run_zoo_child(root, zoo_pre)
+    t12 = time.perf_counter()
+    data, data_prefixes = _run_together([zoo_pre], lambda: data_host(
+        root, lambda: (_await_prep(prep, reddit),
+                       _map_dataset(reddit, LAYERS[-1]))[1]))
+    t_zoo = time.perf_counter() - t12
+    data["runs"], data_counts, gates_s = data_gates(
+        torch, os.path.join(root, "data"), data_prefixes)
+    with open(os.path.join(root, "zoo.json")) as f:
+        zoo = json.load(f)
+    log({"phase": "data_summary", "host_s": data["host_s"],
+         "zoo_and_host_s": t_zoo, "gates_s": gates_s, "card": card,
+         **{k: {x: r[x] for x in (
+             "val_acc", "test_acc", "steady_epoch_ms", "wall_s")}
+            for k, r in data["runs"].items()},
+         "reddit_pair": {k: data["reddit_pair"][k] for k in (
+             "write_raw_s", "convert_s", "convert_rss_peak_gb", "check_s")}})
     zrec = zoo["record"]
     log({"phase": "zoo_summary", "V": zrec["V"], "E": zrec["E"],
          "seconds": zrec["seconds"], "peak_mem_gb": zrec["peak_mem_gb"],
@@ -7566,10 +7921,12 @@ def _main(torch, root, prep, t_start) -> int:
     counts = Launches(torch)
     zero_counts, read_counts, counted = counts.zero, counts.read, \
         counts.counted
-    # phase 12's counted runs and its F = 128 rows join the table
+    # phase 12's and the data phase's counted runs and the zoo's F = 128
+    # rows join the table
     for key in (F32, BF16):
         for name in KERNELS:
-            counted[key][name] += zoo["counted"][key][name]
+            counted[key][name] += zoo["counted"][key][name] + \
+                data_counts.counted[key][name]
             entries[key][name]["zoo_shapes"] = zoo["zoo_shapes"][key][name]
 
     # 4. serve slice: the serving path, fp32; the first 8-row and 64-row

@@ -117,7 +117,10 @@ class StdoutPrintRule(AstRule):
                    # the serve export CLI's one JSON report line
                    PKG + "serve/export.py",
                    # the prewarm CLI's JSON line a config
-                   PKG + "prewarm.py"}
+                   PKG + "prewarm.py",
+                   # the dataset converter's summary and training hint,
+                   # the JAX script's lines
+                   PKG + "convert_dataset.py"}
 
     def select(self, relpath: str) -> bool:
         return relpath not in self.ALLOW_FILES

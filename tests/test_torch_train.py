@@ -536,15 +536,18 @@ def test_cli_prints_reference_infer_lines(capsys):
 
 
 def test_karate_gate_through_the_port_cli(tmp_path, capsys):
-    """The real karate club through the product path: the JAX package's
-    converter writes the reference layout, the port's CLI trains on it
-    and must recover the club's split at >= 80% test accuracy."""
+    """The real karate club through the product path: the port's
+    converter (python -m roc_tpu_torch.convert_dataset) writes the
+    reference layout, the port's CLI trains on it and must recover the
+    club's split at >= 80% test accuracy."""
     from roc_tpu_torch.train import cli
     out = str(tmp_path / "d" / "karate")
     r = subprocess.run(
-        [sys.executable, os.path.join(_REPO, "scripts", "convert_dataset.py"),
+        [sys.executable, "-m", "roc_tpu_torch.convert_dataset",
          "--dataset", "karate", "--out", out],
-        capture_output=True, text=True, timeout=300)
+        capture_output=True, text=True, timeout=300, cwd=str(tmp_path),
+        env=dict(os.environ, PYTHONPATH=os.pathsep.join(
+            [_REPO, os.environ.get("PYTHONPATH", "")])))
     assert r.returncode == 0, r.stderr
     assert cli.main(["--cpu", "-file", out, "-layers", "34-16-2", "-lr",
                      "0.02", "-decay", "5e-4", "-dropout", "0.0", "-e",
